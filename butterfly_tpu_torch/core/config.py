@@ -1,0 +1,398 @@
+"""Configuration dataclasses for models, meshes, and the runtime.
+
+A copy of butterfly_tpu/core/config.py (stdlib dataclasses only), so the
+port shares the JAX package's configuration field for field without
+importing it. Plain frozen dataclasses: hashable, serializable, no
+global state. The field comments describe the JAX package's paths; the
+port refuses the configurations it does not carry yet
+(engine/serving.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters for a transformer LM.
+
+    One config class covers the three model families (GPT-2, Llama-3,
+    Mixtral) — the family is selected by `arch` and the MoE fields.
+    """
+
+    arch: str = "llama"  # "gpt2" | "llama" | "mixtral"
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32  # < num_heads => grouped-query attention
+    head_dim: int = 128
+    intermediate_size: int = 11008
+    max_seq_len: int = 8192
+
+    # normalization / activations
+    norm_eps: float = 1e-5
+    use_bias: bool = False            # gpt2: True
+    tie_embeddings: bool = False      # gpt2: True
+    act: str = "silu"                 # gpt2: "gelu_new"; llama/mixtral: "silu"
+
+    # positional encoding
+    pos_embedding: str = "rope"       # "rope" | "learned"
+    rope_theta: float = 500000.0
+
+    # MoE (mixtral)
+    num_experts: int = 0              # 0 => dense FFN
+    num_experts_per_tok: int = 2
+    moe_impl: str = "dense"           # "dense" | "ep" (GShard dispatch)
+    moe_capacity_factor: float = 2.0  # per-expert slots multiplier (ep)
+
+    # numerics
+    dtype: str = "bfloat16"           # activation/weight compute dtype
+    param_dtype: str = "float32"      # master param dtype
+
+    # attention implementation: "dense" = XLA einsum attend over the cache;
+    # "flash" = Pallas blockwise kernel — fresh prefills attend the
+    # freshly-projected K/V, warm multi-token steps (chunk continuations,
+    # prefix-cache resumes) fold the cached context in as a count-masked
+    # prefix segment (ops/flash_attention.py warm-prefix prefill); the
+    # engines swap it in for exactly those steps.
+    attn_impl: str = "dense"
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Presets (BASELINE.json configs[0..3] model families)
+# ---------------------------------------------------------------------------
+
+def gpt2_124m() -> ModelConfig:
+    return ModelConfig(
+        arch="gpt2", vocab_size=50257, hidden_size=768, num_layers=12,
+        num_heads=12, num_kv_heads=12, head_dim=64, intermediate_size=3072,
+        max_seq_len=1024, norm_eps=1e-5, use_bias=True, tie_embeddings=True,
+        act="gelu_new", pos_embedding="learned",
+    )
+
+
+def llama3_8b() -> ModelConfig:
+    return ModelConfig(
+        arch="llama", vocab_size=128256, hidden_size=4096, num_layers=32,
+        num_heads=32, num_kv_heads=8, head_dim=128, intermediate_size=14336,
+        max_seq_len=8192, rope_theta=500000.0,
+    )
+
+
+def llama3_70b() -> ModelConfig:
+    return ModelConfig(
+        arch="llama", vocab_size=128256, hidden_size=8192, num_layers=80,
+        num_heads=64, num_kv_heads=8, head_dim=128, intermediate_size=28672,
+        max_seq_len=8192, rope_theta=500000.0,
+    )
+
+
+def mixtral_8x7b() -> ModelConfig:
+    return ModelConfig(
+        arch="mixtral", vocab_size=32000, hidden_size=4096, num_layers=32,
+        num_heads=32, num_kv_heads=8, head_dim=128, intermediate_size=14336,
+        max_seq_len=32768, rope_theta=1000000.0,
+        num_experts=8, num_experts_per_tok=2,
+    )
+
+
+def tiny(arch: str = "llama", **kw) -> ModelConfig:
+    """Small config for tests: runs in <1s on CPU, exercises every code path."""
+    base = dict(
+        # 258 = ByteTokenizer vocab (bytes + BOS/EOS) so the CLI demo works.
+        vocab_size=258, hidden_size=64, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=16, intermediate_size=128, max_seq_len=128,
+    )
+    if arch == "gpt2":
+        base.update(num_kv_heads=4, use_bias=True, tie_embeddings=True,
+                    act="gelu_new", pos_embedding="learned")
+    if arch == "mixtral":
+        base.update(num_experts=4, num_experts_per_tok=2)
+    base.update(kw)
+    return ModelConfig(arch=arch, **base)
+
+
+PRESETS = {
+    "gpt2-124m": gpt2_124m,
+    "llama3-8b": llama3_8b,
+    "llama3-70b": llama3_70b,
+    "mixtral-8x7b": mixtral_8x7b,
+}
+
+
+# ---------------------------------------------------------------------------
+# Mesh / parallelism config
+# ---------------------------------------------------------------------------
+
+#: Canonical mesh axis names, outermost-first. Collectives over `tensor`
+#: (innermost) ride the fastest ICI links; `data` (outermost) may span DCN.
+MESH_AXES: Tuple[str, ...] = ("data", "stage", "expert", "seq", "tensor")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Sizes of the parallelism axes; the product must equal device count.
+
+    data   : data parallel (replicated params, sharded batch)
+    stage  : pipeline parallel (layer groups, ppermute handoff)
+    expert : MoE expert parallel (all_to_all token routing)
+    seq    : sequence/context parallel (ring attention / Ulysses)
+    tensor : tensor parallel (Megatron row/column sharding, psum)
+    """
+
+    data: int = 1
+    stage: int = 1
+    expert: int = 1
+    seq: int = 1
+    tensor: int = 1
+
+    @property
+    def axis_sizes(self) -> Tuple[int, ...]:
+        return (self.data, self.stage, self.expert, self.seq, self.tensor)
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.axis_sizes:
+            n *= s
+        return n
+
+    def replace(self, **kw) -> "MeshConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    """Serving/engine runtime knobs (BASELINE.json configs[4] surface)."""
+
+    max_batch_size: int = 8
+    max_seq_len: int = 2048
+    prefill_chunk: int = 512          # max prefill tokens per scheduler tick;
+                                      # long prompts continue across ticks.
+                                      # NB: chunks pad to the engine's
+                                      # 16-token bucket floor — values < 16
+                                      # add compute without cutting latency
+    prefill_max_batch: int = 8        # max waiting requests gang-admitted
+                                      # into ONE batched [B, Tbucket]
+                                      # prefill dispatch per scheduler
+                                      # tick (sched/scheduler.py group
+                                      # admission). B is bucketed to the
+                                      # next power of two (clamped here)
+                                      # so at most log2(this)+1 batch
+                                      # shapes ever compile per T bucket
+    mixed_dispatch: bool = True       # fused mixed dispatch: each tick's
+                                      # jitted block carries BOTH phases —
+                                      # decode/spec slots advance tokens
+                                      # while freshly admitted slots chew
+                                      # budget-bounded prefill chunks in
+                                      # the same scan (per-slot phase
+                                      # masks + chunk cursors riding the
+                                      # carry), retiring admission-cause
+                                      # drain barriers as a class. False
+                                      # = the alternating prefill/decode
+                                      # path, the parity reference.
+                                      # Continuous scheduler only; falls
+                                      # back to alternating for stateful
+                                      # (model) draft sources
+    prefill_inline_budget: int = 32   # mixed dispatch: max prefill
+                                      # tokens chewed per scan STEP
+                                      # across all prefilling slots —
+                                      # the ITL-tail knob. Each
+                                      # prefilling slot consumes a
+                                      # C-token chunk per step; this
+                                      # bounds how many slots may be in
+                                      # prefill phase concurrently
+                                      # (budget // C), trading admission
+                                      # throughput against decode-slot
+                                      # step latency
+    seq_parallel_threshold: int = 0   # long-prompt admission lane: a
+                                      # waiting prompt LONGER than this
+                                      # routes its prefill through
+                                      # chunked seq-parallel dispatches
+                                      # (ring attention over the mesh's
+                                      # seq axis, engine.sp_prefill_chunk)
+                                      # whose K/V lands in the ordinary
+                                      # page pool — prefix-registry-
+                                      # visible, evictable, exportable —
+                                      # then decodes as a normal paged
+                                      # slot. 0 = off (every prompt
+                                      # takes the single-device chunk
+                                      # path). Needs a mesh with seq > 1
+                                      # and stage == 1; ignored (with a
+                                      # warning) otherwise
+    seq_parallel_chunk: int = 0       # tokens per seq-parallel prefill
+                                      # dispatch (rounded up to a
+                                      # multiple of the seq degree N).
+                                      # 0 = auto: N * prefill_chunk —
+                                      # each shard chews a prefill_chunk
+                                      # worth of work per dispatch
+    page_size: int = 16               # paged-KV tokens per block
+    num_pages: int = 0                # 0 => derive from max_batch/max_seq
+    scheduler: str = "continuous"     # "continuous" (chunked-prefill/decode
+                                      # interleave) | "static" (drain batches)
+    max_queue: int = 256
+    decode_steps_per_tick: int = 1    # fused decode block width: the
+                                      # scheduler runs this many decode
+                                      # iterations per tick() inside ONE
+                                      # jitted scan (one dispatch + one
+                                      # stacked drain per tick)
+    inflight_blocks: int = 2          # decode blocks kept IN FLIGHT on
+                                      # the device: block t+1 chains on
+                                      # block t's device-resident carry
+                                      # before t is drained, so host
+                                      # scheduling overlaps device
+                                      # compute (dispatch-ahead). 1 =
+                                      # the synchronous drain-every-tick
+                                      # loop; membership changes force a
+                                      # drain barrier regardless
+    prefix_caching: bool = False      # content-hash KV page reuse across
+                                      # requests (cache/prefix.py): shared
+                                      # prompt prefixes skip prefill entirely
+    prefill_flash_warm: bool = True   # warm-prefix flash prefill: the
+                                      # serving engine's WARM prefill
+                                      # program (chunk continuations,
+                                      # prefix-cache resumes) compiles
+                                      # with the flash kernel attending
+                                      # cached prefix + fresh chunk,
+                                      # instead of the dense O(T*S)
+                                      # gather fallback; also lets a
+                                      # prefill gang mix fresh and warm
+                                      # members in one dispatch (the
+                                      # all-or-nothing freshness
+                                      # downgrade is gone). Only
+                                      # engages where kernels do
+                                      # (use_kernels, i.e. TPU by
+                                      # default); False = dense warm
+                                      # prefill, the parity reference
+    kv_quant: str = "none"            # "int8" stores the contiguous KV
+                                      # cache as int8 codes + per-vector
+                                      # scales: half the HBM bytes in the
+                                      # bandwidth-bound decode loop
+    kv_write_combine: bool = True     # serving-path write-combined KV
+                                      # decode window: fused decode/spec
+                                      # blocks stage fresh K/V in a small
+                                      # per-slot window riding the scan
+                                      # carry (the page pool is READ-ONLY
+                                      # inside the block) and the window
+                                      # flushes with ONE pool scatter per
+                                      # drain instead of one per token —
+                                      # the serving twin of decode_window
+                                      # below. Greedy outputs are
+                                      # byte-identical either way (the
+                                      # window stores the pool's exact
+                                      # representation); False = the
+                                      # per-token write_paged_layer path.
+                                      # Ignored (per-token writes) under
+                                      # pipeline (stage>1) serving
+    host_kv_tier_mb: float = 0.0      # host-RAM KV tier capacity in MB
+                                      # (cache/hosttier.py): > 0 turns
+                                      # prefix-cache eviction into
+                                      # evict-to-host — recycled pages
+                                      # park their bytes in host DRAM
+                                      # keyed by chain digest and revive
+                                      # on the next prefix hit instead
+                                      # of re-prefilling. Requires
+                                      # prefix_caching; 0 = off (drop
+                                      # on evict, the pre-tier behavior)
+    host_kv_tier_dir: Optional[str] = None
+                                      # optional disk-spill directory
+                                      # for the host tier: pages LRU'd
+                                      # out of the RAM budget demote to
+                                      # one .npz each instead of being
+                                      # dropped, and promote back on
+                                      # access. None = RAM only
+    decode_window: int = 0            # fused-generate write combining:
+                                      # decode this many tokens into a
+                                      # small window, flush to the cache
+                                      # in one write. 1 = per-step
+                                      # writes; 0 = auto (16 with an
+                                      # int8 cache — measured best on
+                                      # v5e — else 1)
+    speculative_gamma: int = 0        # serving-path speculative
+                                      # decoding: draft this many
+                                      # tokens per slot per round and
+                                      # verify ALL slots in one batched
+                                      # (gamma+1)-token forward, with
+                                      # accept/rollback computed on
+                                      # device inside the fused spec
+                                      # block (engine._spec_scan).
+                                      # Sampling-safe: temperature /
+                                      # top-k / top-p requests get the
+                                      # exact rejection-sampling
+                                      # correction. 0 = off
+    speculative_ngram: int = 2        # lookup ngram for the drafts
+    draft_model: str = "ngram"        # draft source for the spec block
+                                      # (engine.serving.DRAFT_SOURCES):
+                                      # "ngram" = model-free prompt
+                                      # lookup over the device-side
+                                      # token history (free, but earns
+                                      # ~0 on non-repetitive traffic);
+                                      # "model" = a real on-device
+                                      # draft model (models/draft.py)
+                                      # whose per-round γ-step forward
+                                      # runs INSIDE the jitted spec
+                                      # scan, over its own
+                                      # rollback-exact KV cache riding
+                                      # the block carry. Custom sources
+                                      # plug in via
+                                      # register_draft_source
+    draft_layers: int = 0             # "model" source, derivation: use
+                                      # the first draft_layers layers
+                                      # of the TARGET checkpoint as the
+                                      # draft (embed/final-norm/unembed
+                                      # shared by reference — zero
+                                      # extra HBM for them; resident on
+                                      # the same chip). 0 = auto
+                                      # (num_layers/4, floored at 1).
+                                      # Ignored when draft_ckpt is set
+    draft_ckpt: Optional[str] = None  # "model" source, loading: an
+                                      # independent HF-format draft
+                                      # checkpoint (narrow config, SAME
+                                      # vocabulary — validated) loaded
+                                      # through the existing ckpt
+                                      # machinery instead of deriving
+                                      # by truncation
+    spec_tree_width: int = 0          # token-TREE speculation
+                                      # (SpecInfer-style): branch this
+                                      # many sibling candidates from the
+                                      # draft's per-position q at every
+                                      # expansion depth and verify the
+                                      # whole tree in ONE forward per
+                                      # round via a tree-attention mask
+                                      # (engine._spec_tree_scan). The
+                                      # recursive-residual rejection
+                                      # walk keeps the output
+                                      # distribution exactly the
+                                      # target's. Requires a draft
+                                      # source with tree_draft (the
+                                      # "model" source). 0/1 = linear
+                                      # γ-chain speculation (the
+                                      # speculative_gamma path)
+    spec_tree_nodes: int = 0          # total node budget N of the token
+                                      # tree, INCLUDING the root chain
+                                      # token ((N-1) must be divisible
+                                      # by spec_tree_width — full
+                                      # sibling fans only). 0 = auto:
+                                      # γ+1 nodes, so tree-vs-linear
+                                      # comparisons at the same gamma
+                                      # hold verify FLOPs equal
+    top_k: int = 0                    # serving-wide sampling filters
+    top_p: float = 1.0
+    port: int = 8000
+
+    def replace(self, **kw) -> "RuntimeConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,492 @@
+"""Slot-based serving engine over the paged KV cache, in PyTorch.
+
+The device half of the serving stack (host half: sched/scheduler.py), the
+counterpart of butterfly_tpu/engine/serving.py on its default path:
+mixed dispatch with the write-combined KV window. Each scheduler tick
+dispatches ONE mixed block (`mixed_block_async`): k chained steps in
+which decode-phase slots advance one token while prefill-phase slots
+chew a C-token chunk of their prompt, phase being a pure function of the
+per-slot chunk cursor (`cursor < plen`). The JAX package's jitted
+`lax.scan` over the k steps becomes a Python loop over eagerly launched
+device work; nothing in a block synchronizes with the host, so the
+scheduler can dispatch block t+1 before it drains block t.
+
+Decode steps (C == 1) attend through the hand-written paged-attention
+kernel on CUDA (`use_kernels`, on by default there); prefill lanes take
+the dense gather + attend path, as on the TPU.
+
+Configurations whose device half is not ported yet raise
+NotImplementedError at construction, naming the ROADMAP.md item, so no
+request runs silently on a path the JAX package would run differently.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from butterfly_tpu_torch.cache.paged import (
+    KVWindow, PagedKVCache, flush_paged_window, init_kv_window,
+    init_paged_cache, paged_forward, paged_forward_window)
+from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
+from butterfly_tpu_torch.core.device import resolve_device
+from butterfly_tpu_torch.engine.engine import cast_params
+from butterfly_tpu_torch.engine.sampling import _filter_logits
+from butterfly_tpu_torch.models.common import Model
+
+#: where each refused configuration waits (ROADMAP.md, PyTorch/CUDA port)
+_ROADMAP = "ROADMAP.md, PyTorch/CUDA port queue"
+
+
+def bucket_len(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
+    """Next power-of-two bucket >= n (floor lo), clamped to hi; n > hi
+    is a caller bug and raises."""
+    if hi is not None and n > hi:
+        raise ValueError(f"{n} tokens exceed the cache's {hi}-token "
+                         f"capacity")
+    b = lo
+    while b < n:
+        b *= 2
+    if hi is not None and b > hi:
+        b = hi
+    return b
+
+
+def bucket_batch(n: int, hi: int) -> int:
+    """Next power-of-two batch bucket >= n, clamped to hi (n > hi
+    returns n exactly)."""
+    if n >= hi:
+        return n
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, hi)
+
+
+def sample_batched(logits: torch.Tensor, generator: Optional[torch.Generator],
+                   temps: torch.Tensor, top_k: int,
+                   top_p: float) -> torch.Tensor:
+    """Per-slot-temperature sampling: temp 0 rows are greedy. [S,V]->[S].
+
+    Sampled rows draw by Gumbel-max over the filtered, temperature-scaled
+    logits (the categorical jax.random.categorical draws) with uniforms
+    from `generator`, which must live on the logits' device. No host
+    sync."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    temps = temps.to(logits.device, torch.float32)
+    safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))[:, None]
+    scaled = _filter_logits(logits / safe_t, top_k, top_p)
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    drawn = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1) \
+        .to(torch.int32)
+    return torch.where(temps > 0, drawn, greedy)
+
+
+def _is_quantized_tree(params) -> bool:
+    if isinstance(params, dict):
+        if "q8" in params and "s" in params:
+            return True
+        return any(_is_quantized_tree(v) for v in params.values())
+    return False
+
+
+def _refuse_unported(cfg: ModelConfig, rt: RuntimeConfig, mesh,
+                     params) -> None:
+    """Raise for every configuration whose device half is not ported."""
+    def no(what: str, item: str) -> None:
+        raise NotImplementedError(f"{what} is not ported yet ({_ROADMAP}: "
+                                  f"{item})")
+    alternating = "generate + the alternating serving path"
+    if not rt.mixed_dispatch:
+        no("mixed_dispatch=False (the alternating prefill/decode path)",
+           alternating)
+    if rt.scheduler != "continuous":
+        no(f"scheduler={rt.scheduler!r} (drains through the alternating "
+           "path)", alternating)
+    if cfg.attn_impl != "dense":
+        no(f"attn_impl={cfg.attn_impl!r} (the flash prefill kernels)",
+           alternating)
+    if rt.speculative_gamma > 0:
+        no("speculative serving (speculative_gamma > 0)", "speculation")
+    if rt.prefix_caching:
+        no("prefix caching", "prefix caching, host KV tier and fleet")
+    if (rt.host_kv_tier_mb or 0) > 0:
+        no("the host KV tier (host_kv_tier_mb > 0)",
+           "prefix caching, host KV tier and fleet")
+    if rt.seq_parallel_threshold > 0:
+        no("the seq-parallel prefill lane (seq_parallel_threshold > 0)",
+           "multi-device serving and the ring kernel")
+    if mesh is not None:
+        no("a device mesh (tensor/data/stage/seq parallel serving)",
+           "multi-device serving and the ring kernel")
+    if cfg.is_moe:
+        no("MoE models", "Mixtral / expert parallelism")
+    if _is_quantized_tree(params):
+        no("int8 weights (--quant int8)", "int8 weights")
+
+
+def _to_device(params, device: torch.device):
+    if isinstance(params, dict):
+        return {k: _to_device(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
+class ServingEngine:
+    """Device-side half of the serving stack (host half: sched/)."""
+
+    def __init__(self, model: Model, params,
+                 runtime: Optional[RuntimeConfig] = None, mesh=None,
+                 use_kernels: Optional[bool] = None, device=None):
+        self.model = model
+        self.cfg = model.cfg
+        self.runtime = runtime or RuntimeConfig()
+        _refuse_unported(self.cfg, self.runtime, mesh, params)
+        self.device = resolve_device(
+            device if device is not None else getattr(model, "device", None))
+        # Optional obs.trace.Tracer (the scheduler shares its own)
+        self.tracer = None
+        self.mesh = None
+        self.params = _to_device(cast_params(params, self.cfg), self.device)
+        if use_kernels is None:
+            # the hand-written kernels need the card; the CPU runs the
+            # plain versions (ops/*: the wrapper picks by tensor device)
+            use_kernels = self.device.type == "cuda"
+        self._use_kernels = bool(use_kernels)
+        self.cache = init_paged_cache(self.cfg, self.runtime,
+                                      device=self.device)
+        # Host-side block-table mirror (the host is the only writer): the
+        # whole int32 table transfers ONCE per dispatch that needs it.
+        self._host_table = np.full(tuple(self.cache.page_table.shape),
+                                   self.cache.null_page, np.int32)
+        self._table_dirty = False
+        # Write-combined KV window (kv_write_combine): mixed blocks stage
+        # fresh K/V in an engine-held window, the pool stays read-only
+        # inside a block, and a drain flushes the window into the pool.
+        self._window_mode = bool(self.runtime.kv_write_combine)
+        self._kv_window: Optional[KVWindow] = None
+        self._win_len = None       # [S] staged count; None = seed zeros
+        self._win_dirty = False    # staged entries not yet flushed
+        self._win_hwm = 0          # host upper bound on staged entries
+
+    # -- host <-> device ----------------------------------------------------
+
+    def _h2d(self, a, dtype: torch.dtype) -> torch.Tensor:
+        """A host array (or a tensor) as a tensor on the engine's device.
+        Host data is copied (the caller may reuse its buffer); on CUDA it
+        goes through pinned memory with a non-blocking copy, so a
+        dispatch never waits for the device to drain."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, dtype)
+        t = torch.as_tensor(np.asarray(a)).to(dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    def record_event(self):
+        """A CUDA event recorded after everything dispatched so far (the
+        scheduler's non-blocking completion probe); None on the CPU,
+        where device work has already completed when it returns."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    # -- properties the scheduler reads ------------------------------------
+
+    @property
+    def num_slots(self) -> int:
+        return self.runtime.max_batch_size
+
+    @property
+    def warm_prefill_flash(self) -> bool:
+        return False
+
+    @property
+    def prefill_gang_split_fresh(self) -> bool:
+        return not bool(self.runtime.prefill_flash_warm)
+
+    @property
+    def supports_seq_parallel(self) -> bool:
+        return False
+
+    @property
+    def sp_degree(self) -> int:
+        return 1
+
+    @property
+    def spec_tree_mode(self) -> bool:
+        return False
+
+    @property
+    def spec_tree_geometry(self) -> Tuple[int, int]:
+        return 0, 0
+
+    @property
+    def spec_emit_width(self) -> int:
+        return self.runtime.speculative_gamma + 1
+
+    @property
+    def mixed_dispatch_ready(self) -> bool:
+        return bool(self.runtime.mixed_dispatch)
+
+    @property
+    def mixed_fallback_reason(self) -> Optional[str]:
+        return None
+
+    @property
+    def runtime_top_k(self) -> int:
+        return self.runtime.top_k
+
+    @property
+    def runtime_top_p(self) -> float:
+        return self.runtime.top_p
+
+    # -- block table --------------------------------------------------------
+
+    def set_table_row(self, slot: int, pages) -> None:
+        """Host allocator -> block table (host mirror; synced lazily)."""
+        row = np.full((self._host_table.shape[1],), self.cache.null_page,
+                      np.int32)
+        row[:len(pages)] = pages
+        self._host_table[slot] = row
+        self._table_dirty = True
+
+    def reset_slot(self, slot: int) -> None:
+        self._host_table[slot] = self.cache.null_page
+        self._table_dirty = True
+        lengths = self.cache.lengths.clone()
+        lengths[slot] = 0
+        self.cache = self.cache._replace(lengths=lengths)
+
+    def _sync_table(self) -> None:
+        """Push pending host-side block-table edits to the device."""
+        if not self._table_dirty:
+            return
+        self.cache = self.cache._replace(
+            page_table=self._h2d(self._host_table, torch.int32))
+        self._table_dirty = False
+        if self.tracer is not None:
+            self.tracer.event(None, "engine.table_sync")
+
+    # -- write-combined KV window (kv_write_combine) -------------------------
+
+    def _ensure_window(self, need: int) -> None:
+        """Make the window able to accept `need` more staged tokens per
+        slot: flush when the worst-case staged count would overflow,
+        (re)allocate when the capacity itself is short. Sized to
+        inflight_blocks x need."""
+        width = self._kv_window.width if self._kv_window is not None else 0
+        if self._win_hwm + need > width:
+            if self._win_dirty:
+                self.flush_kv_window()
+            if width < need:
+                width = max(1, self.runtime.inflight_blocks) * need
+                self._kv_window = init_kv_window(self.cache, width)
+                self._win_len = None
+        if self._win_len is None:
+            self._win_len = torch.zeros((self.num_slots,), dtype=torch.int32,
+                                        device=self.device)
+
+    def flush_kv_window(self):
+        """Flush every staged window entry into the page pool (one scatter
+        per pool tensor, in place, ordered after every staging block).
+        Returns the device-resident flushed-token count, or None if
+        nothing was staged."""
+        if not self._win_dirty:
+            return None
+        cache, wlen, flushed = flush_paged_window(self.cache, self._kv_window,
+                                                  self._win_len)
+        self.cache, self._win_len = cache, wlen
+        self._win_dirty = False
+        self._win_hwm = 0
+        return flushed
+
+    def drop_kv_window(self) -> None:
+        """Discard staged-but-unflushed window state without touching the
+        device (the scheduler's wedge path)."""
+        self._win_dirty = False
+        self._win_hwm = 0
+        self._win_len = None
+
+    # -- the mixed block ------------------------------------------------------
+
+    def mixed_block_async(self, tokens, cursor, pbuf, plen,
+                          active: np.ndarray, temps: np.ndarray,
+                          stops: np.ndarray, budgets, seed: int,
+                          k: int, C: int):
+        """Dispatch ONE k-step MIXED block, no host sync: decode slots
+        advance a token per step while prefill-phase slots chew a C-token
+        chunk of their `pbuf` row per step (_mixed_scan[_win]).
+
+        `cursor` [S] is the device chunk-cursor carry (rebind from the
+        result); `pbuf` [S, Hb] the prompt rows; `plen` [S] each slot's
+        prompt length (prefill phase while cursor < plen). `seed` seeds
+        this block's generator (the counterpart of the JAX block key).
+        Returns (block [k, S], valid [k, S], final [S], cursor)."""
+        self._sync_table()
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        args = (self._h2d(tokens, torch.int32), self._h2d(cursor, torch.int32))
+        rest = (self._h2d(pbuf, torch.int32), self._h2d(plen, torch.int32),
+                self._h2d(active, torch.bool),
+                self._h2d(temps, torch.float32),
+                self._h2d(stops, torch.int32),
+                self._h2d(budgets, torch.int32),
+                self.runtime_top_k, self.runtime_top_p, gen)
+        if self._window_mode:
+            self._ensure_window(k * C)
+            block, valid, final, cursor, cache, window, wlen = \
+                _mixed_scan_win(self.cfg, k, C, self.params, *args,
+                                self.cache, self._kv_window, self._win_len,
+                                *rest, use_kernel=self._use_kernels)
+            self.cache, self._kv_window, self._win_len = cache, window, wlen
+            self._win_dirty = True
+            self._win_hwm += k * C
+            return block, valid, final, cursor
+        block, valid, final, cursor, cache = _mixed_scan(
+            self.cfg, k, C, self.params, *args, self.cache, *rest,
+            use_kernel=self._use_kernels)
+        self.cache = cache
+        return block, valid, final, cursor
+
+    # -- page import / export ------------------------------------------------
+
+    def read_pages(self, pids):
+        """Page contents on the host: (k [L, n, Kv, page, H], v, k_scales,
+        v_scales) as CPU tensors — scales [L, n, Kv*page] iff the pool is
+        int8, else None. Synchronous."""
+        if self._win_dirty:
+            self.flush_kv_window()
+        idx = torch.as_tensor(list(pids), dtype=torch.long,
+                              device=self.device)
+        c = self.cache
+        k, v = c.k_pages[:, idx].cpu(), c.v_pages[:, idx].cpu()
+        ks = vs = None
+        if c.quantized:
+            ks, vs = c.k_scale_pages[:, idx].cpu(), \
+                c.v_scale_pages[:, idx].cpu()
+        return k, v, ks, vs
+
+    def write_pages(self, pids, k, v, k_scales=None, v_scales=None) -> None:
+        """Land page contents (the read_pages layout) at page ids pids."""
+        idx = torch.as_tensor(list(pids), dtype=torch.long,
+                              device=self.device)
+        c = self.cache
+        c.k_pages[:, idx] = torch.as_tensor(k).to(self.device, c.k_pages.dtype)
+        c.v_pages[:, idx] = torch.as_tensor(v).to(self.device, c.v_pages.dtype)
+        if c.quantized:
+            c.k_scale_pages[:, idx] = torch.as_tensor(k_scales).to(
+                self.device, torch.float32)
+            c.v_scale_pages[:, idx] = torch.as_tensor(v_scales).to(
+                self.device, torch.float32)
+
+    def draft_prefill(self, slots, rows, lens) -> None:
+        """No draft model without speculation (refused at construction)."""
+
+
+def _mixed_step_io(is_pf, cur, cursor, pbuf, C: int):
+    """The [S, C] token chunk of one mixed step: a prefill lane's next C
+    prompt tokens, a decode lane's chain token broadcast across C."""
+    S, Hb = pbuf.shape
+    ccol = torch.arange(C, device=pbuf.device)[None, :]
+    idx = (cursor.long()[:, None] + ccol).clamp(0, Hb - 1)
+    pchunk = torch.gather(pbuf, 1, idx)
+    return torch.where(is_pf[:, None], pchunk, cur[:, None].expand(S, C))
+
+
+def _mixed_emit(logits, is_pf, count, cursor, plen, live, cur, rem, stops,
+                has_stop, gen, temps, top_k: int, top_p: float, C: int):
+    """Sampling + emission + liveness algebra shared by both mixed scans
+    (the JAX scans' step tail, token for token)."""
+    completing = is_pf & (cursor + count >= plen)
+    sidx = torch.where(is_pf, (count - 1).clamp(0, C - 1),
+                       torch.zeros_like(count))
+    V = logits.shape[-1]
+    lg = torch.gather(logits, 1, sidx.long()[:, None, None].expand(
+        -1, 1, V))[:, 0, :]
+    nxt = sample_batched(lg, gen, temps, top_k, top_p)
+    emit = live & (completing | ~is_pf)
+    nxt = torch.where(emit, nxt, cur)
+    one = torch.ones_like(count)
+    adv = torch.where(live, torch.where(is_pf, count, one),
+                      torch.zeros_like(count))
+    cursor = torch.where(live & is_pf, cursor + count, cursor)
+    rem = torch.where(emit, rem - 1, rem)
+    ok = (rem > 0) & torch.where(has_stop, nxt != stops,
+                                 torch.ones_like(has_stop))
+    live = live & torch.where(emit, ok, torch.ones_like(ok))
+    return nxt, emit, adv, cursor, rem, live
+
+
+def _mixed_live0(tokens, cursor, plen, active, stops, budgets):
+    has_stop = stops >= 0
+    is_pf0 = cursor < plen
+    # prefill-phase slots skip the chain-token stop check: their incoming
+    # token is prompt filler, not an emission
+    live = active & (budgets > 0) & torch.where(
+        has_stop & ~is_pf0, tokens != stops, torch.ones_like(has_stop))
+    return has_stop, live
+
+
+def _mixed_scan(cfg: ModelConfig, k: int, C: int, params, tokens, cursor,
+                cache: PagedKVCache, pbuf, plen, active, temps, stops,
+                budgets, top_k: int, top_p: float, gen,
+                use_kernel: bool = False):
+    """k chained MIXED steps, window off: K/V writes go straight into the
+    pool (write-then-attend) and lengths advance by each lane's real
+    count (a prefill chunk's length, 1 for a decode step, 0 dead), which
+    rolls back the filler past it. With no prefill lane and C == 1 this
+    is exactly a decode block. Returns (block [k, S], valid [k, S],
+    final [S], cursor, cache)."""
+    has_stop, live = _mixed_live0(tokens, cursor, plen, active, stops,
+                                  budgets)
+    cur, rem = tokens, budgets
+    toks_out, emits = [], []
+    for _ in range(k):
+        is_pf = cursor < plen
+        count = torch.where(is_pf, (plen - cursor).clamp(0, C),
+                            torch.zeros_like(cursor))
+        toks = _mixed_step_io(is_pf, cur, cursor, pbuf, C)
+        base_len = cache.lengths
+        logits, cache = paged_forward(params, cfg, toks, cache, active=live,
+                                      use_kernel=use_kernel)
+        cur, emit, adv, cursor, rem, live = _mixed_emit(
+            logits, is_pf, count, cursor, plen, live, cur, rem, stops,
+            has_stop, gen, temps, top_k, top_p, C)
+        cache = cache._replace(lengths=(base_len + adv).to(torch.int32))
+        toks_out.append(cur)
+        emits.append(emit)
+    return (torch.stack(toks_out), torch.stack(emits), cur, cursor, cache)
+
+
+def _mixed_scan_win(cfg: ModelConfig, k: int, C: int, params, tokens,
+                    cursor, cache: PagedKVCache, window: KVWindow, win_len,
+                    pbuf, plen, active, temps, stops, budgets, top_k: int,
+                    top_p: float, gen, use_kernel: bool = False):
+    """Write-combined twin of _mixed_scan: each step stages its C-wide
+    chunk at the slot's win_len (the pool stays read-only) and win_len
+    advances by the REAL count only, so filler and dead-step repeats sit
+    past it, never attended or flushed. Returns (block [k, S], valid
+    [k, S], final [S], cursor, cache, window, win_len)."""
+    has_stop, live = _mixed_live0(tokens, cursor, plen, active, stops,
+                                  budgets)
+    cur, rem, wlen = tokens, budgets, win_len
+    toks_out, emits = [], []
+    for _ in range(k):
+        is_pf = cursor < plen
+        count = torch.where(is_pf, (plen - cursor).clamp(0, C),
+                            torch.zeros_like(cursor))
+        toks = _mixed_step_io(is_pf, cur, cursor, pbuf, C)
+        logits, window = paged_forward_window(params, cfg, toks, cache,
+                                              window, wlen, active=live,
+                                              use_kernel=use_kernel)
+        cur, emit, adv, cursor, rem, live = _mixed_emit(
+            logits, is_pf, count, cursor, plen, live, cur, rem, stops,
+            has_stop, gen, temps, top_k, top_p, C)
+        wlen = (wlen + adv).to(torch.int32)
+        toks_out.append(cur)
+        emits.append(emit)
+    return (torch.stack(toks_out), torch.stack(emits), cur, cursor, cache,
+            window, wlen)

@@ -1,0 +1,142 @@
+"""Prometheus-format metrics for the serving endpoint.
+
+Reports the serving metrics of record directly (tokens/sec, TTFT
+percentiles, queue depth, KV-page occupancy).
+
+Two layers feed /metrics:
+
+* the legacy flat dict from ``Scheduler.metrics()`` (gauges + the
+  window-percentile snapshot keys), rendered here;
+* the typed instrument registry (obs/registry.py) — counters and
+  fixed-bucket histograms (``ttft_seconds``, ``itl_req_mean_seconds``,
+  ``queue_wait_seconds``, ...) with real ``_bucket``/``_sum``/``_count``
+  exposition. When both layers carry the same name the registry wins
+  (it has the authoritative TYPE and atomic reads).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+
+PREFIX = "butterfly"
+
+# NB : with pipelined decode dispatch,
+# tokens surface in per-tick stacked-drain BURSTS, so the raw-gap ITL
+# percentiles bimodalize (p50 identically 0.0 between burst-mates at
+# decode_steps_per_tick > 1) and ttft_* includes up to one extra tick
+# of drain delay. The degenerate bare itl_p50/itl_p95 keys were DROPPED
+# (r05 published itl_p50: 0.0 as a headline number); the raw-gap values
+# survive only under the explicit *_tick_burst suffix. The ITL metrics
+# of record are itl_req_mean_* (per-request mean gap) and the
+# butterfly_ttft_seconds / butterfly_itl_req_mean_seconds histograms.
+HELP = {
+    "requests_total": "Requests submitted",
+    "requests_finished": "Requests completed",
+    "tokens_generated_total": "Tokens generated across all requests",
+    "preemptions_total": "Recompute preemptions under page pressure",
+    "queue_depth": "Requests waiting for a slot",
+    "active_requests": "Requests currently decoding",
+    "kv_pages_free": "Free KV-cache pages",
+    "kv_pages_total": "Total usable KV-cache pages",
+    "ttft_p50": "p50 time-to-first-token (seconds; stamped at the "
+                "stacked drain, so includes up to one tick of burst "
+                "delay — see ttft_seconds histogram)",
+    "ttft_p95": "p95 time-to-first-token (seconds; stamped at the "
+                "stacked drain — see ttft_seconds histogram)",
+    "itl_p50_tick_burst": "p50 raw inter-token gap (seconds; PER-TICK-"
+                          "BURST semantics under pipelined dispatch — "
+                          "identically 0.0 between burst-mates; prefer "
+                          "itl_req_mean_p50)",
+    "itl_p95_tick_burst": "p95 raw inter-token gap (seconds; PER-TICK-"
+                          "BURST semantics under pipelined dispatch — "
+                          "prefer itl_req_mean_p95)",
+    "itl_max_tick_burst": "max raw inter-token gap in the recent window "
+                          "(seconds; per-tick-burst semantics)",
+    "itl_req_mean_p50": "p50 over finished requests of each request's "
+                        "MEAN inter-token gap (seconds) — the "
+                        "effective streaming rate a client experiences",
+    "itl_req_mean_p95": "p95 over finished requests of each request's "
+                        "MEAN inter-token gap (seconds)",
+    "tokens_per_sec": "Decode throughput over the last window",
+    "uptime_seconds": "Server uptime",
+    "prefix_cache_hit_tokens": "Prompt tokens served from the prefix cache",
+    "prefix_cache_lookup_tokens": "Prompt tokens looked up in the prefix cache",
+    "tick_host_frac": "Fraction of tick wall time spent in host "
+                      "sections (1 - tick_device_frac): the "
+                      "host-bound-vs-device-bound autoscale signal "
+                      "(tick anatomy)",
+    "tick_device_frac": "Fraction of tick wall time blocked on the "
+                        "stacked device fetch",
+    "tick_phase_dominant_p95": "p95 seconds of the largest tick phase "
+                               "over the timeline-ring window — which "
+                               "host term dominates (see "
+                               "/debug/ticks and tools/tick_report.py)",
+}
+
+COUNTERS = {"requests_total", "requests_finished", "tokens_generated_total",
+            "preemptions_total", "prefix_cache_hit_tokens",
+            "prefix_cache_lookup_tokens"}
+
+
+class ThroughputWindow:
+    """Sliding-window tokens/sec estimate, host-side, O(1) amortized."""
+
+    def __init__(self, window_s: float = 10.0):
+        import threading
+        from collections import deque
+        self.window_s = window_s
+        self._events = deque()  # (t, ntokens)
+        # record() runs on the scheduler thread, rate() on HTTP handlers
+        self._lock = threading.Lock()
+
+    def _prune(self, now: float) -> None:
+        cutoff = now - self.window_s
+        while self._events and self._events[0][0] < cutoff:
+            self._events.popleft()
+
+    def record(self, ntokens: int) -> None:
+        now = time.monotonic()
+        with self._lock:
+            self._events.append((now, ntokens))
+            self._prune(now)
+
+    def rate(self) -> float:
+        now = time.monotonic()
+        with self._lock:
+            self._prune(now)
+            if not self._events:
+                return 0.0
+            span = max(now - self._events[0][0], 1e-6)
+            return sum(n for _, n in self._events) / span
+
+
+def render_prometheus(values: Dict[str, float],
+                      registry: Optional[object] = None) -> str:
+    """Dict (+ optional MetricsRegistry) -> prometheus exposition text.
+
+    Registry instruments render with full histogram series; dict keys
+    that collide with a registry instrument name are skipped so the
+    output never emits a metric name twice (the text format forbids it).
+    """
+    skip = set(registry.names()) if registry is not None else ()
+    lines = []
+    for name, val in sorted(values.items()):
+        if name in skip:
+            continue
+        full = f"{PREFIX}_{name}"
+        if isinstance(val, str):
+            # String-valued annotations (e.g. spec_mixed_fallback_reason)
+            # ride along as comments: the exposition format has no string
+            # samples, and parsers ignore non-HELP/TYPE comment lines.
+            lines.append(f"# {full}: {val}")
+            continue
+        if name in HELP:
+            lines.append(f"# HELP {full} {HELP[name]}")
+            kind = "counter" if name in COUNTERS else "gauge"
+            lines.append(f"# TYPE {full} {kind}")
+        lines.append(f"{full} {float(val):g}")
+    text = "\n".join(lines) + "\n" if lines else ""
+    if registry is not None:
+        text += registry.render()
+    return text

@@ -1,0 +1,503 @@
+"""Typed metrics registry: Counter / Gauge / Histogram instruments.
+
+Replaces the scheduler's ad-hoc ``Dict[str, float]`` with real
+instruments so /metrics can expose *distributions* — fixed-bucket
+Prometheus histograms with ``_bucket``/``_sum``/``_count`` series —
+instead of deque-percentile snapshots whose semantics silently shift
+with the emission pattern (ADVICE.md round 5: deferred emission skews
+the raw itl_p50/p95 keys).
+
+Threading contract: ONE writer thread (the scheduler loop owns every
+inc()/observe(); the server's tick loop is the only thread that ticks),
+any number of reader threads (HTTP /metrics handlers). Counters and
+gauges are plain float slots — a read may be one update stale, never
+torn (CPython). Histograms take a small lock so a scrape never sees
+``_sum``/``_count`` disagree with the bucket totals; observe() runs
+per-request/per-tick, not per-token, so the lock is off the hot path.
+
+stdlib-only: importable without torch (tools/trace_report.py and the
+format tests run without a backend).
+"""
+from __future__ import annotations
+
+import re
+import threading
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+_NAME_OK = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_NAME_BAD_CHARS = re.compile(r"[^a-zA-Z0-9_:]")
+
+# Fixed bucket ladders. Latency buckets span sub-ms host work up to a
+# minute of queueing; token/batch ladders are powers of two matching the
+# prefill bucketing (engine.serving.bucket_len) and slot counts.
+LATENCY_BUCKETS: Tuple[float, ...] = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+BATCH_BUCKETS: Tuple[float, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+TOKEN_BUCKETS: Tuple[float, ...] = (
+    16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+
+
+def sanitize_name(name: str) -> str:
+    """Coerce to a legal Prometheus metric name ([a-zA-Z_:][a-zA-Z0-9_:]*)."""
+    name = _NAME_BAD_CHARS.sub("_", str(name))
+    if not name or not _NAME_OK.match(name):
+        name = "_" + name
+    return name
+
+
+def _fmt(v: float) -> str:
+    """Prometheus float formatting ('+Inf' never reaches here)."""
+    return f"{float(v):g}"
+
+
+class Counter:
+    """Monotonic counter. Single-writer; inc() only goes up."""
+
+    __slots__ = ("name", "help", "_value")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"counter {self.name} cannot decrease")
+        self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    @staticmethod
+    def rate(prev: float, curr: float, dt: float) -> float:
+        """Per-second rate between two snapshots of a monotonic
+        counter, CLAMPED at 0.0: a restarted process re-exposes the
+        counter from zero, and a negative "rate" across that reset is
+        an artifact, not a signal (the SignalRecorder's delta path —
+        obs/timeseries.py — leans on this clamp)."""
+        if dt <= 0.0:
+            return 0.0
+        return max(0.0, (curr - prev) / dt)
+
+    def render(self, prefix: str) -> List[str]:
+        full = f"{prefix}_{self.name}" if prefix else self.name
+        out = []
+        if self.help:
+            out.append(f"# HELP {full} {self.help}")
+        out.append(f"# TYPE {full} counter")
+        out.append(f"{full} {_fmt(self._value)}")
+        return out
+
+
+class Gauge:
+    """Settable instantaneous value."""
+
+    __slots__ = ("name", "help", "_value")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        self._value = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self._value -= n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def render(self, prefix: str) -> List[str]:
+        full = f"{prefix}_{self.name}" if prefix else self.name
+        out = []
+        if self.help:
+            out.append(f"# HELP {full} {self.help}")
+        out.append(f"# TYPE {full} gauge")
+        out.append(f"{full} {_fmt(self._value)}")
+        return out
+
+
+class Histogram:
+    """Fixed-bucket histogram with Prometheus exposition semantics.
+
+    ``_bucket{le="x"}`` series are CUMULATIVE and end with ``le="+Inf"``
+    == ``_count``; ``_sum`` is the total of observed values. Buckets are
+    fixed at construction — no dynamic rebucketing, so a long-lived
+    server's series never change shape under a dashboard.
+    """
+
+    __slots__ = ("name", "help", "buckets", "_counts", "_sum", "_count",
+                 "_lock")
+
+    def __init__(self, name: str, help: str = "",
+                 buckets: Sequence[float] = LATENCY_BUCKETS):
+        if not buckets:
+            raise ValueError("histogram needs at least one bucket bound")
+        bs = [float(b) for b in buckets]
+        if bs != sorted(bs) or len(set(bs)) != len(bs):
+            raise ValueError(f"bucket bounds must be strictly increasing: "
+                             f"{buckets}")
+        self.name = name
+        self.help = help
+        self.buckets = tuple(bs)
+        # per-bucket (non-cumulative) counts; the +Inf overflow is last
+        self._counts = [0] * (len(bs) + 1)
+        self._sum = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        # linear scan: the ladders are ~10-16 entries and observe() runs
+        # per-request / per-tick — bisect would be noise
+        i = 0
+        for i, b in enumerate(self.buckets):
+            if v <= b:
+                break
+        else:
+            i = len(self.buckets)
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+            self._count += 1
+
+    def snapshot(self) -> Tuple[List[int], float, int]:
+        """(cumulative bucket counts incl. +Inf, sum, count) — atomic."""
+        with self._lock:
+            counts = list(self._counts)
+            s, c = self._sum, self._count
+        cum, running = [], 0
+        for n in counts:
+            running += n
+            cum.append(running)
+        return cum, s, c
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def render(self, prefix: str) -> List[str]:
+        full = f"{prefix}_{self.name}" if prefix else self.name
+        cum, s, c = self.snapshot()
+        out = []
+        if self.help:
+            out.append(f"# HELP {full} {self.help}")
+        out.append(f"# TYPE {full} histogram")
+        for bound, n in zip(self.buckets, cum):
+            out.append(f'{full}_bucket{{le="{_fmt(bound)}"}} {n}')
+        out.append(f'{full}_bucket{{le="+Inf"}} {cum[-1]}')
+        out.append(f"{full}_sum {_fmt(s)}")
+        out.append(f"{full}_count {c}")
+        return out
+
+
+def _escape_label(v: str) -> str:
+    """Prometheus label-value escaping: backslash, quote, newline."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+class LabeledFamily:
+    """A family of Counter/Gauge children keyed by label values.
+
+    ``labels(...)`` get-or-creates the child for one label-value tuple;
+    the child is a plain Counter/Gauge (same single-writer contract), and
+    the family renders HELP/TYPE once followed by every child as a
+    ``name{label="value",...}`` series. Children are never retired — the
+    router's label sets (replica id x outcome) are small and fixed, so a
+    long-lived process can't leak series without leaking replicas.
+    """
+
+    __slots__ = ("cls", "name", "help", "labelnames", "_children", "_lock")
+
+    def __init__(self, cls, name: str, help: str,
+                 labelnames: Sequence[str]):
+        self.cls = cls
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        if not self.labelnames:
+            raise ValueError(f"family {name} needs at least one label")
+        self._children: Dict[Tuple[str, ...], object] = {}
+        self._lock = threading.Lock()
+
+    def labels(self, *values):
+        vals = tuple(str(v) for v in values)
+        if len(vals) != len(self.labelnames):
+            raise ValueError(
+                f"{self.name} expects labels {self.labelnames}, "
+                f"got {len(vals)} values")
+        with self._lock:
+            child = self._children.get(vals)
+            if child is None:
+                child = self.cls(self.name)
+                self._children[vals] = child
+            return child
+
+    def render(self, prefix: str) -> List[str]:
+        full = f"{prefix}_{self.name}" if prefix else self.name
+        with self._lock:
+            items = sorted(self._children.items())
+        out = []
+        if self.help:
+            out.append(f"# HELP {full} {self.help}")
+        kind = "counter" if self.cls is Counter else "gauge"
+        out.append(f"# TYPE {full} {kind}")
+        for vals, child in items:
+            lbl = ",".join(f'{n}="{_escape_label(v)}"'
+                           for n, v in zip(self.labelnames, vals))
+            out.append(f"{full}{{{lbl}}} {_fmt(child.value)}")
+        return out
+
+
+class MetricsRegistry:
+    """Named instrument registry with idempotent get-or-create.
+
+    ``counter``/``gauge``/``histogram`` return the existing instrument
+    when the (sanitized) name is already registered — callers in
+    different layers can share an instrument by name without plumbing
+    object references through the stack.
+    """
+
+    def __init__(self, prefix: str = "butterfly"):
+        self.prefix = prefix
+        self._instruments: Dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def _get_or_create(self, cls, name: str, help: str, **kw):
+        name = sanitize_name(name)
+        with self._lock:
+            inst = self._instruments.get(name)
+            if inst is None:
+                inst = cls(name, help, **kw)
+                self._instruments[name] = inst
+            elif not isinstance(inst, cls):
+                raise ValueError(
+                    f"metric {name!r} already registered as "
+                    f"{type(inst).__name__}, not {cls.__name__}")
+            return inst
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get_or_create(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get_or_create(Gauge, name, help)
+
+    def histogram(self, name: str, help: str = "",
+                  buckets: Sequence[float] = LATENCY_BUCKETS) -> Histogram:
+        return self._get_or_create(Histogram, name, help, buckets=buckets)
+
+    def _family(self, cls, name: str, help: str,
+                labelnames: Sequence[str]) -> LabeledFamily:
+        name = sanitize_name(name)
+        with self._lock:
+            inst = self._instruments.get(name)
+            if inst is None:
+                inst = LabeledFamily(cls, name, help, labelnames)
+                self._instruments[name] = inst
+            elif not (isinstance(inst, LabeledFamily) and inst.cls is cls
+                      and inst.labelnames == tuple(labelnames)):
+                raise ValueError(
+                    f"metric {name!r} already registered with a different "
+                    f"type or label set")
+            return inst
+
+    def counter_family(self, name: str, help: str = "",
+                       labelnames: Sequence[str] = ()) -> LabeledFamily:
+        return self._family(Counter, name, help, labelnames)
+
+    def gauge_family(self, name: str, help: str = "",
+                     labelnames: Sequence[str] = ()) -> LabeledFamily:
+        return self._family(Gauge, name, help, labelnames)
+
+    def names(self) -> Iterable[str]:
+        with self._lock:
+            return set(self._instruments)
+
+    def get(self, name: str):
+        return self._instruments.get(sanitize_name(name))
+
+    def value_dict(self) -> Dict[str, float]:
+        """Counter/gauge values as a flat dict (the legacy metrics()
+        shape; histograms are exposition-only and skipped)."""
+        with self._lock:
+            insts = list(self._instruments.values())
+        return {i.name: i.value for i in insts
+                if isinstance(i, (Counter, Gauge))}
+
+    def snapshot(self) -> Dict[str, float]:
+        """Cheap name -> value snapshot for periodic sampling (the
+        SignalRecorder's per-interval read): plain counters/gauges as
+        their value, labeled families as the SUM over their children
+        (the per-label split stays on the exposition surface — a rate
+        series wants the total). Float reads only; no rendering."""
+        with self._lock:
+            insts = list(self._instruments.values())
+        out: Dict[str, float] = {}
+        for i in insts:
+            if isinstance(i, (Counter, Gauge)):
+                out[i.name] = i.value
+            elif isinstance(i, LabeledFamily):
+                with i._lock:
+                    out[i.name] = sum(
+                        c.value for c in i._children.values())
+        return out
+
+    def render(self) -> str:
+        """Prometheus exposition text for every instrument."""
+        with self._lock:
+            insts = sorted(self._instruments.items())
+        lines: List[str] = []
+        for _, inst in insts:
+            lines.extend(inst.render(self.prefix))
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+# -- exposition parsing + fleet aggregation ----------------------------------
+#
+# The fleet control plane scrapes each replica's /metrics text and
+# re-exports a rollup (GET /fleet/metrics): counters sum exactly, and
+# because every replica's histograms use the SAME fixed bucket ladders
+# (above), summing the cumulative per-le bucket series is an EXACT
+# re-bucketing — no interpolation, no resolution loss. Gauges do not
+# aggregate meaningfully by summation (uptime, queue depth snapshots),
+# so the rollup drops them; the control plane re-exposes the autoscale
+# gauges per replica with a {replica=...} label instead.
+
+_SAMPLE_RE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})?\s+(\S+)$')
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def _unescape_label(v: str) -> str:
+    return (v.replace("\\n", "\n").replace('\\"', '"')
+            .replace("\\\\", "\\"))
+
+
+def parse_exposition(text: str) -> Dict[str, Dict]:
+    """Parse Prometheus text into families.
+
+    Returns ``{family_name: {"type": kind, "help": str, "samples":
+    {(series_name, labels): value}}}`` where ``labels`` is a sorted
+    tuple of (label, value) pairs. The ``_bucket``/``_sum``/``_count``
+    series of a ``# TYPE name histogram`` family fold under the family
+    name. Unparseable lines are skipped (scrapes must never fail on a
+    foreign exporter's extension).
+    """
+    families: Dict[str, Dict] = {}
+    types: Dict[str, str] = {}
+
+    def fam(name: str) -> Dict:
+        f = families.get(name)
+        if f is None:
+            f = families[name] = {"type": types.get(name, "untyped"),
+                                  "help": "", "samples": {}}
+        return f
+
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) >= 4 and parts[1] == "TYPE":
+                types[parts[2]] = parts[3].strip()
+                fam(parts[2])["type"] = parts[3].strip()
+            elif len(parts) >= 4 and parts[1] == "HELP":
+                fam(parts[2])["help"] = parts[3]
+            continue
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            continue
+        series, raw_labels, raw_val = m.groups()
+        try:
+            value = float(raw_val)
+        except ValueError:
+            continue
+        name = series
+        for suffix in ("_bucket", "_sum", "_count"):
+            base = series[:-len(suffix)] if series.endswith(suffix) else None
+            if base and types.get(base) == "histogram":
+                name = base
+                break
+        labels = tuple(sorted(
+            (k, _unescape_label(v))
+            for k, v in _LABEL_RE.findall(raw_labels or "")))
+        fam(name)["samples"][(series, labels)] = value
+    return families
+
+
+def _bucket_ladder(family: Dict) -> frozenset:
+    """The set of `le` bounds a parsed histogram family exposes."""
+    return frozenset(
+        dict(labels).get("le") for series, labels in family["samples"]
+        if series.endswith("_bucket"))
+
+
+def sum_expositions(parsed: Sequence[Dict[str, Dict]]) -> Dict[str, Dict]:
+    """Merge parsed expositions from N processes into one rollup.
+
+    Counter samples sum per (series, labels); histogram families sum
+    their cumulative bucket/_sum/_count series — exact when every
+    process exposes the same ladder, and a family whose ladders
+    DISAGREE across processes is dropped entirely (a partial sum would
+    render a histogram whose +Inf != _count). Gauge and untyped
+    families are dropped (see module comment).
+    """
+    out: Dict[str, Dict] = {}
+    dropped: set = set()
+    for p in parsed:
+        for name, family in p.items():
+            kind = family["type"]
+            if kind not in ("counter", "histogram") or name in dropped:
+                continue
+            agg = out.get(name)
+            if agg is None:
+                agg = out[name] = {"type": kind, "help": family["help"],
+                                   "samples": {}}
+            if kind == "histogram" and agg["samples"] and \
+                    _bucket_ladder(agg) != _bucket_ladder(family):
+                del out[name]
+                dropped.add(name)
+                continue
+            for key, v in family["samples"].items():
+                agg["samples"][key] = agg["samples"].get(key, 0.0) + v
+    return out
+
+
+def render_parsed(families: Dict[str, Dict],
+                  rename=None) -> List[str]:
+    """Parsed/aggregated families back to exposition lines. `rename`
+    maps a family name to its exported name (the fleet rollup namespaces
+    `butterfly_*` as `butterfly_fleet_*`); series suffixes and labels
+    are preserved."""
+    lines: List[str] = []
+    for name in sorted(families):
+        family = families[name]
+        new = rename(name) if rename is not None else name
+        if family["help"]:
+            lines.append(f"# HELP {new} {family['help']}")
+        lines.append(f"# TYPE {new} {family['type']}")
+        for (series, labels), v in sorted(family["samples"].items()):
+            s = new + series[len(name):]
+            if labels:
+                lbl = ",".join(f'{k}="{_escape_label(v2)}"'
+                               for k, v2 in labels)
+                s += "{" + lbl + "}"
+            # bucket/count series render as integers when whole
+            lines.append(f"{s} {_fmt(v)}")
+        # histogram series order: render() above sorts _bucket lines by
+        # the stringified le bound — fine for consumers that key on the
+        # le label (Prometheus does), and stable across scrapes
+    return lines

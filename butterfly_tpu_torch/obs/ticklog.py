@@ -1,0 +1,295 @@
+"""Tick anatomy: the per-tick timeline ring and the anomaly
+flight recorder.
+
+Two bounded, always-cheap instruments the scheduler feeds:
+
+* ``TickLog`` — a ring of per-tick records: tick sequence number, wall
+  time, per-phase host-section durations (the ``TICK_PHASES``
+  vocabulary shared with docs/serving.md's tick-pipeline section),
+  the stacked-fetch device wait, in-flight depth, barrier causes,
+  batch occupancy and page headroom. One dict append per tick under an
+  uncontended lock — the software answer to "where does the tick's
+  host time go" that a TPU profile then confirms. Served raw at
+  ``GET /debug/ticks`` and rendered by ``tools/tick_report.py``.
+
+* ``FlightRecorder`` — a bounded ring of recent structured serving
+  events (admission, preempt, shed, deadline 504, breaker transition,
+  window flush, drain barrier, wedge) plus trigger predicates over
+  per-tick signal snapshots. When a trigger fires (SLO burn rate over
+  threshold, preemption storm, deadline-expiry burst, wedge latch) the
+  recorder freezes the ring into a JSON post-mortem artifact —
+  in-memory always, on disk when ``dump_dir`` is set — so the events
+  LEADING UP to an anomaly survive the anomaly. Recording is
+  deterministic: every event is kept (no sampling), bounded only by
+  ``capacity``; the ``seed`` field rides the artifact so seeded soaks
+  (fleet/chaos.py) can correlate artifacts with their fault plans.
+
+stdlib-only: importable without torch (tools/tick_report.py consumes the
+dumped JSON with no backend, like trace_report.py).
+"""
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+#: The tick-phase vocabulary — one name per structural host section of
+#: Scheduler.tick() (docs/serving.md cross-links these to the pipeline
+#: steps). "other" is the measured residual (page prealloc, trace
+#: appends), kept explicit so per-tick phase sums reconcile with tick
+#: wall time instead of silently under-counting.
+TICK_PHASES = ("expire", "drain_oldest", "drain_barrier", "admit",
+               "assemble", "dispatch", "mixed", "spec_emit", "flush",
+               "other")
+
+#: Closed label set for drain_barriers_total{cause=...} — the
+#: membership-change classes that force a FULL drain barrier.
+BARRIER_CAUSES = ("admission", "finish", "page_pressure", "cancel",
+                  "spec", "idle", "expired", "flush")
+
+
+def percentile(values: List[float], q: float) -> float:
+    """Nearest-rank percentile over a small list (stdlib; matches
+    numpy's 'lower' interpolation closely enough for p50/p95 reports —
+    the ticklog window is <= capacity entries)."""
+    if not values:
+        return 0.0
+    s = sorted(values)
+    idx = min(len(s) - 1, max(0, int(round(q / 100.0 * (len(s) - 1)))))
+    return float(s[idx])
+
+
+class TickLog:
+    """Bounded per-tick timeline ring. One writer (the scheduler
+    thread), any number of readers (HTTP handlers) — record/dump take a
+    tiny internal lock, never the serving lock, so a wedged scheduler
+    can still be inspected."""
+
+    def __init__(self, capacity: int = 512):
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        self._ring: deque = deque(maxlen=capacity)
+        self._seq = 0
+
+    def record(self, wall_s: float, phases: Dict[str, float], *,
+               fetch_s: float = 0.0, inflight: int = 0,
+               barrier_causes=(), batch: int = 0, waiting: int = 0,
+               pages_free: int = 0, generated: int = 0,
+               spec: bool = False) -> None:
+        """Append one tick record (hot path: one dict build + one
+        locked append per TICK, never per token). `phases` is copied —
+        callers may reuse/zero their accumulator dict."""
+        entry = {
+            "seq": self._seq,
+            "t_wall": time.time(),
+            "wall_s": wall_s,
+            "phases": dict(phases),
+            "fetch_s": fetch_s,
+            "inflight": inflight,
+            "barrier_causes": list(barrier_causes),
+            "batch": batch,
+            "waiting": waiting,
+            "pages_free": pages_free,
+            "generated": generated,
+            "spec": spec,
+        }
+        with self._lock:
+            self._ring.append(entry)
+            self._seq += 1
+
+    def dump(self, n: Optional[int] = None,
+             since: Optional[int] = None) -> Dict[str, Any]:
+        """JSON-ready snapshot: the GET /debug/ticks body and what
+        tools/tick_report.py consumes. `since` pages by sequence
+        number (ticks with seq >= since; a since older than the ring's
+        tail returns what survived the wrap) — the incremental contract
+        tick_report --follow polls on, applied before the `n` limit."""
+        with self._lock:
+            ticks = list(self._ring)
+            seq = self._seq
+        if since is not None:
+            ticks = [t for t in ticks if t["seq"] >= since]
+        if n is not None and n >= 0:
+            ticks = ticks[-n:] if n else []
+        return {"capacity": self.capacity, "next_seq": seq,
+                "phases": list(TICK_PHASES), "ticks": ticks}
+
+    def phase_percentiles(self) -> Dict[str, Dict[str, float]]:
+        """Per-phase p50/p95 seconds over the ring window, plus the
+        combined "drain" pseudo-phase (drain_oldest + drain_barrier per
+        tick — the key bench.py reports)."""
+        with self._lock:
+            ticks = list(self._ring)
+        if not ticks:
+            return {}
+        series: Dict[str, List[float]] = {}
+        for t in ticks:
+            ph = t["phases"]
+            for name, v in ph.items():
+                series.setdefault(name, []).append(v)
+            series.setdefault("drain", []).append(
+                ph.get("drain_oldest", 0.0) + ph.get("drain_barrier", 0.0))
+        return {name: {"p50": percentile(vals, 50),
+                       "p95": percentile(vals, 95)}
+                for name, vals in series.items()}
+
+
+#: flight-recorder artifact schema version (pinned by the chaos-soak
+#: schema validation test)
+FLIGHTREC_SCHEMA = "butterfly-flightrec-v1"
+
+
+class FlightRecorder:
+    """Bounded ring of structured serving events + anomaly triggers.
+
+    ``note(kind, **attrs)`` appends one event (any thread; tiny lock).
+    ``poll(signals)`` runs once per scheduler tick with a cheap signal
+    snapshot and fires a dump when a trigger predicate crosses:
+
+    * ``slo_burn_rate >= slo_burn_threshold`` — the error budget is
+      burning (needs declared SLOs upstream to be nonzero);
+    * preemption storm — ``preemptions_total`` grew by >=
+      ``preempt_storm`` within ``window_s``;
+    * deadline-expiry burst — ``deadline_expired_total`` grew by >=
+      ``expiry_burst`` within ``window_s``;
+    * wedge latch — the server calls ``trigger("wedge")`` directly from
+      its heartbeat-failure hook (no polling: the tick loop may be the
+      thing that died).
+
+    A fired trigger freezes the ring into a JSON artifact (kept
+    in-memory in ``dumps``, written to ``dump_dir`` when set) and then
+    holds off for ``cooldown_s`` — one anomaly produces one artifact,
+    not one per tick while the signal stays bad.
+    """
+
+    def __init__(self, capacity: int = 512, *, dump_dir: Optional[str] = None,
+                 max_dumps: int = 4, slo_burn_threshold: float = 0.5,
+                 preempt_storm: int = 8, expiry_burst: int = 4,
+                 window_s: float = 10.0, cooldown_s: float = 30.0,
+                 seed: int = 0):
+        self.capacity = capacity
+        self.dump_dir = dump_dir
+        self.slo_burn_threshold = slo_burn_threshold
+        self.preempt_storm = preempt_storm
+        self.expiry_burst = expiry_burst
+        self.window_s = window_s
+        self.cooldown_s = cooldown_s
+        self.seed = seed
+        self._lock = threading.Lock()
+        self._ring: deque = deque(maxlen=capacity)
+        self._seq = 0
+        self.dumps: deque = deque(maxlen=max_dumps)
+        self.triggers_fired: Dict[str, int] = {}
+        self._last_trigger_t = -1e18
+        # (t_mono, value) samples for the burst detectors: the newest
+        # sample OLDER than window_s is the baseline (the counter's
+        # value as of the window start). Seeded with (now, 0.0) —
+        # counters start at zero, so growth before the first poll
+        # still counts toward the first window's burst.
+        now = time.monotonic()
+        self._preempt_win: deque = deque([(now, 0.0)])
+        self._expiry_win: deque = deque([(now, 0.0)])
+
+    # -- event ring ----------------------------------------------------------
+
+    def note(self, kind: str, **attrs) -> None:
+        """Append one structured event. Cheap enough for per-admission/
+        per-barrier call sites; callers hold no other lock."""
+        ev = {"seq": self._seq, "t_wall": time.time(),
+              "t_mono": time.monotonic(), "kind": kind}
+        if attrs:
+            ev.update(attrs)
+        with self._lock:
+            self._ring.append(ev)
+            self._seq += 1
+
+    # -- triggers ------------------------------------------------------------
+
+    def _burst(self, win: deque, now: float, value: float,
+               threshold: int) -> bool:
+        win.append((now, value))
+        # prune to the window, but always retain the NEWEST sample
+        # older than it: that is the counter's value at the window
+        # start, the honest baseline (dropping it would make the first
+        # in-window sample the baseline and under-count the burst)
+        while len(win) >= 2 and win[1][0] < now - self.window_s:
+            win.popleft()
+        return value - win[0][1] >= threshold
+
+    def poll(self, signals: Dict[str, float]) -> Optional[Dict[str, Any]]:
+        """Per-tick trigger evaluation (a few float compares; no
+        allocation on the no-trigger path beyond the window deques).
+        Returns the dumped artifact when a trigger fired, else None."""
+        now = time.monotonic()
+        reason = None
+        burn = signals.get("slo_burn_rate", 0.0)
+        if burn >= self.slo_burn_threshold and burn > 0.0:
+            reason = "slo_burn"
+        if self._burst(self._preempt_win, now,
+                       signals.get("preemptions_total", 0.0),
+                       self.preempt_storm):
+            reason = reason or "preempt_storm"
+        if self._burst(self._expiry_win, now,
+                       signals.get("deadline_expired_total", 0.0),
+                       self.expiry_burst):
+            reason = reason or "expiry_burst"
+        if reason is None:
+            return None
+        if now - self._last_trigger_t < self.cooldown_s:
+            return None  # cooldown: one artifact per anomaly
+        return self.trigger(reason, signals)
+
+    def trigger(self, reason: str,
+                signals: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
+        """Freeze the ring into a post-mortem artifact NOW (also the
+        direct entry point for the wedge latch). Always returns the
+        artifact; writes it to dump_dir when configured."""
+        self._last_trigger_t = time.monotonic()
+        with self._lock:
+            events = list(self._ring)
+            seq = self._seq
+        counts: Dict[str, int] = {}
+        for ev in events:
+            counts[ev["kind"]] = counts.get(ev["kind"], 0) + 1
+        artifact: Dict[str, Any] = {
+            "schema": FLIGHTREC_SCHEMA,
+            "reason": reason,
+            "seed": self.seed,
+            "t_wall": time.time(),
+            "t_mono": time.monotonic(),
+            "next_seq": seq,
+            "signals": dict(signals or {}),
+            "event_counts": counts,
+            "events": events,
+        }
+        self.triggers_fired[reason] = self.triggers_fired.get(reason, 0) + 1
+        if self.dump_dir:
+            try:
+                import os
+                os.makedirs(self.dump_dir, exist_ok=True)
+                path = os.path.join(
+                    self.dump_dir, f"flightrec-{seq}-{reason}.json")
+                with open(path, "w") as f:
+                    json.dump(artifact, f)
+                artifact["path"] = path
+            except OSError as e:  # disk trouble must not wedge serving
+                artifact["path_error"] = f"{type(e).__name__}: {e}"
+        self.dumps.append(artifact)
+        return artifact
+
+    # -- read side -----------------------------------------------------------
+
+    def dump(self, n: Optional[int] = None) -> Dict[str, Any]:
+        """JSON-ready snapshot: the GET /debug/flightrecorder body
+        (current ring + the retained trigger artifacts)."""
+        with self._lock:
+            events = list(self._ring)
+            seq = self._seq
+        if n is not None and n >= 0:
+            events = events[-n:] if n else []
+        return {"enabled": True, "capacity": self.capacity,
+                "next_seq": seq, "seed": self.seed,
+                "triggers_fired": dict(self.triggers_fired),
+                "events": events, "dumps": list(self.dumps)}

@@ -1,0 +1,283 @@
+"""Per-request tracing: structured span events in a bounded ring.
+
+Every request admitted to the scheduler gets a timeline of structured
+events (submit, admit, prefill chunks, first token, preemption, finish)
+plus a global ring of scheduler-tick and engine-dispatch events — the
+per-request "where did the time go" view that aggregate percentiles
+can't answer (Orca's per-iteration scheduling and vLLM's production
+stack both lean on exactly this to debug tail latency; PAPERS.md).
+
+Overhead contract: when tracing is off the scheduler holds ``trace =
+None`` and every call site is a single attribute-is-None check — no
+event objects, no locks, no timestamps. When on, an event is one
+``time.monotonic()`` call plus an append to a bounded deque under an
+uncontended lock (the scheduler thread is the only writer; HTTP readers
+copy under the same lock).
+
+Memory is bounded twice: at most ``max_requests`` per-request timelines
+are retained (oldest evicted whole), and each timeline holds at most
+``max_events_per_request`` events (a pathological 100k-token generation
+cannot grow one timeline without bound). The global ring is a deque
+with ``maxlen``.
+
+stdlib-only: importable without torch (tools/trace_report.py runs on a
+dumped trace with no backend).
+"""
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Any, Dict, List, Optional
+
+
+class Tracer:
+    """Bounded in-memory trace store. One writer, many readers."""
+
+    def __init__(self, max_requests: int = 256,
+                 max_events_per_request: int = 512,
+                 max_global_events: int = 4096):
+        self.max_requests = max_requests
+        self.max_events_per_request = max_events_per_request
+        self._lock = threading.Lock()
+        # rid -> {"id", "request_id", "events": deque, "done": bool}
+        self._requests: "OrderedDict[int, Dict[str, Any]]" = OrderedDict()
+        self._global: deque = deque(maxlen=max_global_events)
+        # anchor: monotonic timestamps in events convert to wall clock
+        # via (t - t0_monotonic) + t0_wall when a report wants dates
+        self.t0_monotonic = time.monotonic()
+        self.t0_wall = time.time()
+
+    # -- write side (scheduler / engine thread) -----------------------------
+
+    def begin_request(self, rid: int,
+                      request_id: Optional[str] = None, **attrs) -> None:
+        """Open a timeline for request `rid` (the scheduler's req.id).
+        `request_id` is the client-supplied passthrough id
+        (X-Request-Id / body "request_id"), kept verbatim so client-side
+        logs join against server traces."""
+        rec = {"id": rid, "request_id": request_id, "done": False,
+               "events": deque(maxlen=self.max_events_per_request)}
+        with self._lock:
+            # re-begin (same rid) replaces: ids are unique per scheduler
+            self._requests[rid] = rec
+            self._requests.move_to_end(rid)
+            while len(self._requests) > self.max_requests:
+                self._requests.popitem(last=False)
+        self.event(rid, "submit", **attrs)
+
+    def event(self, rid: Optional[int], name: str, **attrs) -> None:
+        """Record one span event. rid=None -> the global ring (scheduler
+        ticks, engine dispatches — events not owned by one request)."""
+        ev = {"t": time.monotonic(), "name": name}
+        if attrs:
+            ev.update(attrs)
+        with self._lock:
+            if rid is None:
+                self._global.append(ev)
+                return
+            rec = self._requests.get(rid)
+            if rec is None:
+                return  # evicted (or never begun): drop, never grow
+            rec["events"].append(ev)
+            if name == "finish":
+                rec["done"] = True
+
+    # -- read side (HTTP handlers / dump) -----------------------------------
+
+    def timeline(self, rid: int) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            rec = self._requests.get(rid)
+            if rec is None:
+                return None
+            return {"id": rec["id"], "request_id": rec["request_id"],
+                    "done": rec["done"], "events": list(rec["events"])}
+
+    def timelines(self, n: Optional[int] = None,
+                  request_id: Optional[str] = None) -> List[Dict[str, Any]]:
+        """Most recent `n` request timelines, oldest first. `request_id`
+        filters to timelines carrying that client id — the cross-replica
+        join key: a fleet control plane asks each replica for exactly the
+        timelines of ONE distributed request."""
+        with self._lock:
+            recs = [{"id": r["id"], "request_id": r["request_id"],
+                     "done": r["done"], "events": list(r["events"])}
+                    for r in self._requests.values()
+                    if request_id is None or r["request_id"] == request_id]
+        if n is not None and n >= 0:
+            recs = recs[-n:] if n else []  # [-0:] would be the whole list
+        return recs
+
+    def find_by_request_id(self, request_id: str) -> Optional[Dict[str, Any]]:
+        """Newest timeline tagged with `request_id` (newest wins: a
+        retried client id maps to its latest attempt)."""
+        recs = self.timelines(request_id=request_id)
+        return recs[-1] if recs else None
+
+    def global_events(self, n: Optional[int] = None) -> List[Dict[str, Any]]:
+        with self._lock:
+            evs = list(self._global)
+        if n is not None and n >= 0:
+            evs = evs[-n:] if n else []  # [-0:] would be the whole list
+        return evs
+
+    def dump(self, n_requests: Optional[int] = None,
+             n_global: Optional[int] = None,
+             request_id: Optional[str] = None) -> Dict[str, Any]:
+        """JSON-ready snapshot: what /debug/requests returns and what
+        tools/trace_report.py consumes. The `t0_wall`/`t0_monotonic`
+        anchors let offline tools place every monotonic event timestamp
+        on wall-clock time (and a fleet merge place several processes'
+        events on ONE clock)."""
+        return {
+            "t0_monotonic": self.t0_monotonic,
+            "t0_wall": self.t0_wall,
+            "requests": self.timelines(n_requests, request_id=request_id),
+            "global_events": self.global_events(n_global),
+        }
+
+    def dump_json(self, path: str, **kw) -> None:
+        with open(path, "w") as f:
+            json.dump(self.dump(**kw), f)
+
+
+def summarize_timeline(rec: Dict[str, Any]) -> Dict[str, Any]:
+    """Phase durations from one request's event list.
+
+    Returns queue_wait_s (submit->admit), prefill_s (admit->prefill
+    done), ttft_s (submit->first token), decode_s (first token->finish),
+    total_s, plus token/preemption counts pulled off the events. Missing
+    phases (aborted early, events evicted) come back as None — report
+    code prints '-' rather than inventing zeros.
+    """
+    by_name: Dict[str, Dict[str, Any]] = {}
+    preempts = 0
+    chunks = 0
+    for ev in rec.get("events", ()):
+        name = ev.get("name")
+        if name == "preempt":
+            preempts += 1
+        if name == "prefill_chunk":
+            chunks += 1
+        # keep the FIRST submit/admit/first_token and the LAST finish
+        if name == "finish" or name not in by_name:
+            by_name[name] = ev
+
+    def t(name):
+        ev = by_name.get(name)
+        return ev["t"] if ev else None
+
+    def delta(a, b):
+        ta, tb = t(a), t(b)
+        return (tb - ta) if ta is not None and tb is not None else None
+
+    finish = by_name.get("finish", {})
+    return {
+        "id": rec.get("id"),
+        "request_id": rec.get("request_id"),
+        "state": finish.get("state",
+                            "done" if rec.get("done") else "live"),
+        "queue_wait_s": delta("submit", "admit"),
+        "prefill_s": delta("admit", "prefill_done"),
+        "ttft_s": delta("submit", "first_token"),
+        "decode_s": delta("first_token", "finish"),
+        "total_s": delta("submit", "finish"),
+        "tokens": finish.get("tokens"),
+        "prefill_chunks": chunks,
+        "preemptions": preempts,
+        "events": len(rec.get("events", ())),
+    }
+
+
+# -- fleet trace merging ------------------------------------------------------
+#
+# A disaggregated request crosses processes: the control plane runs the
+# legs (classify, prefill_leg, kv_export, kv_import, decode_leg), each
+# replica records its own per-request timeline. All timestamps are
+# per-process time.monotonic(); each tracer's t0_wall/t0_monotonic
+# anchors convert them to that PROCESS's wall clock, and a per-replica
+# clock offset (estimated from the health-probe RTT midpoint,
+# router/pool.py) places them on the control plane's clock:
+#
+#     t_cp_wall = t0_wall + (t - t0_monotonic) - offset_s
+#
+# where offset_s = replica_wall - control_wall at probe time. On one
+# host the offsets are ~0; across hosts they absorb NTP skew down to
+# half the probe RTT. Everything here is pure-dict stdlib so
+# tools/trace_report.py renders a dumped merged trace with no backend.
+
+def events_to_wall(events: List[Dict[str, Any]], t0_wall: float,
+                   t0_monotonic: float,
+                   offset_s: float = 0.0) -> List[Dict[str, Any]]:
+    """Copy `events`, adding `t_wall` (control-plane wall clock)."""
+    out = []
+    for ev in events:
+        ev2 = dict(ev)
+        ev2["t_wall"] = t0_wall + (ev["t"] - t0_monotonic) - offset_s
+        out.append(ev2)
+    return out
+
+
+def merge_fleet_trace(request_id: str, control: Dict[str, Any],
+                      replicas: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """Assemble one request's cross-replica waterfall.
+
+    `control`: {"timeline": <Tracer timeline>, "t0_wall": ...,
+    "t0_monotonic": ...} — the control plane's own span record.
+    `replicas`: {rid: {"dump": <the /debug/requests?request_id= body,
+    or None if unreachable>, "offset_s": float|None, "error": str}}.
+
+    Returns the /fleet/trace body: `merged` (every event from every
+    source on the control plane's wall clock, time-sorted, each tagged
+    `source`), `legs` (control-plane spans with durations, waterfall
+    order), and `sources` (per-source event counts; a missing replica
+    degrades to control-plane spans only, with its error recorded).
+    """
+    cp_events = events_to_wall(control["timeline"].get("events", ()),
+                               control["t0_wall"], control["t0_monotonic"])
+    merged = [{**ev, "source": "control"} for ev in cp_events]
+    sources: Dict[str, Dict[str, Any]] = {
+        "control": {"events": len(cp_events), "offset_s": 0.0}}
+    for rid, info in replicas.items():
+        dump = info.get("dump")
+        if not dump or not dump.get("requests"):
+            sources[rid] = {"events": 0, "missing": True,
+                            "offset_s": info.get("offset_s"),
+                            "error": info.get("error",
+                                              "no timeline for request")}
+            continue
+        offset = info.get("offset_s") or 0.0
+        n = 0
+        for rec in dump["requests"]:
+            evs = events_to_wall(rec.get("events", ()),
+                                 dump.get("t0_wall", 0.0),
+                                 dump.get("t0_monotonic", 0.0), offset)
+            merged.extend({**ev, "source": rid,
+                           "replica_req": rec.get("id")} for ev in evs)
+            n += len(evs)
+        sources[rid] = {"events": n, "offset_s": offset,
+                        "estimated_offset": info.get("offset_s") is not None}
+    merged.sort(key=lambda ev: ev["t_wall"])
+    # control-plane leg spans: events carrying dur_s were recorded at
+    # leg END, so the span is [t_wall - dur_s, t_wall]
+    legs = [{"name": ev["name"], "replica": ev.get("replica"),
+             "start_wall": ev["t_wall"] - float(ev["dur_s"]),
+             "end_wall": ev["t_wall"], "dur_s": float(ev["dur_s"]),
+             **({"status": ev["status"]} if "status" in ev else {})}
+            for ev in cp_events if "dur_s" in ev]
+    legs.sort(key=lambda leg: leg["start_wall"])
+    finish = next((ev for ev in reversed(cp_events)
+                   if ev["name"] == "finish"), {})
+    return {
+        "request_id": request_id,
+        "t0_wall": merged[0]["t_wall"] if merged else None,
+        "total_s": finish.get("total_s"),
+        "legs_total_s": sum(leg["dur_s"] for leg in legs),
+        "legs": legs,
+        "merged": merged,
+        "sources": sources,
+        "slo": {k: finish[k] for k in
+                ("slo_ttft_ok", "slo_itl_ok", "ttft_s", "itl_mean_s")
+                if k in finish} or None,
+    }

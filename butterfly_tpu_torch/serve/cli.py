@@ -1,0 +1,153 @@
+"""`butterfly serve` on the PyTorch/CUDA port.
+
+    python -m butterfly_tpu_torch.serve.cli serve --model llama3-8b --port 8000
+    python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu
+
+The `serve` subcommand keeps the JAX CLI's flags (butterfly_tpu/serve/
+cli.py) and adds --device (default cuda). Flags whose path the port does
+not carry yet are accepted and refused with NotImplementedError naming
+the ROADMAP.md item. Without --ckpt, weights are random (demo mode).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _positive_int(v):
+    n = int(v)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
+    return n
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="butterfly",
+                                description="Butterfly inference CLI "
+                                            "(PyTorch/CUDA port)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    s = sub.add_parser("serve", help="HTTP serving with continuous batching")
+    s.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the engine runs (default cuda; without a "
+                        "card, pass cpu explicitly)")
+    s.add_argument("--model", default="tiny",
+                   help="preset name (gpt2-124m, llama3-8b, llama3-70b, "
+                        "mixtral-8x7b) or 'tiny'")
+    s.add_argument("--ckpt", default=None, help="checkpoint path")
+    s.add_argument("--tokenizer", default=None)
+    s.add_argument("--dtype", default=None, help="override compute dtype")
+    for flag in ("--tensor-parallel", "--stage-parallel",
+                 "--expert-parallel", "--data-parallel", "--seq-parallel"):
+        s.add_argument(flag, type=int, default=1)
+    s.add_argument("--seq-impl", choices=["ring", "ulysses"], default="ring")
+    s.add_argument("--max-seq", type=int, default=2048)
+    s.add_argument("--dcn-axes", default="data")
+    s.add_argument("--quant", choices=["none", "int8"], default="none",
+                   help="weight-only quantization (not ported yet)")
+    s.add_argument("--kv-quant", choices=["none", "int8"], default="none",
+                   help="KV-cache quantization (int8 halves the cache "
+                        "bytes the decode kernel reads)")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--max-batch", type=int, default=8)
+    s.add_argument("--page-size", type=int, default=16)
+    s.add_argument("--top-k", type=int, default=0,
+                   help="serving-wide top-k sampling filter")
+    s.add_argument("--top-p", type=float, default=1.0)
+    s.add_argument("--max-queue", type=int, default=256)
+    s.add_argument("--no-trace", action="store_true",
+                   help="disable per-request tracing (GET /debug/requests)")
+    s.add_argument("--role", choices=["prefill", "decode", "both"],
+                   default="both",
+                   help="fleet placement role advertised on /health")
+    s.add_argument("--prefix-caching", action="store_true",
+                   help="prefix caching (not ported yet)")
+    s.add_argument("--host-tier-mb", type=float, default=0.0,
+                   help="host-RAM KV tier (not ported yet)")
+    s.add_argument("--host-tier-dir", default=None, metavar="DIR")
+    s.add_argument("--speculate", type=int, default=0, metavar="GAMMA",
+                   help="speculative serving (not ported yet)")
+    s.add_argument("--draft-source", default="ngram")
+    s.add_argument("--draft-layers", type=int, default=0)
+    s.add_argument("--draft-ckpt", default=None)
+    s.add_argument("--spec-tree", type=int, default=0, metavar="WIDTH")
+    s.add_argument("--spec-tree-nodes", type=int, default=0, metavar="N")
+    s.add_argument("--decode-steps-per-tick", type=_positive_int, default=1,
+                   help="fused block width: decode iterations per "
+                        "scheduler tick, drained in ONE stacked fetch")
+    s.add_argument("--prefill-max-batch", type=_positive_int, default=8)
+    s.add_argument("--seq-parallel-threshold", type=int, default=0,
+                   help="seq-parallel prefill lane (not ported yet)")
+    s.add_argument("--seq-parallel-chunk", type=int, default=0)
+    s.add_argument("--slo-ttft-ms", type=float, default=None,
+                   help="declared time-to-first-token objective (ms)")
+    s.add_argument("--slo-itl-ms", type=float, default=None,
+                   help="declared mean inter-token-latency objective (ms)")
+    s.add_argument("--profiler-port", type=int, default=0,
+                   help="profiler server (not ported yet; 0 = off)")
+    s.add_argument("--flightrec-dir", default=None, metavar="DIR",
+                   help="write flight-recorder post-mortems here")
+    s.add_argument("--inflight-blocks", type=_positive_int, default=2,
+                   help="blocks kept in flight on the device "
+                        "(dispatch-ahead)")
+    s.add_argument("--timeseries-interval", type=float, default=1.0,
+                   metavar="SECONDS",
+                   help="GET /debug/timeseries sampling interval; 0 = off")
+    return p
+
+
+def resolve_model(args):
+    from butterfly_tpu_torch.core.config import PRESETS, tiny
+    from butterfly_tpu_torch.models.common import Model
+    if args.model == "tiny":
+        cfg = tiny("llama", dtype="float32", param_dtype="float32")
+    else:
+        cfg = PRESETS[args.model]()
+    if args.dtype:
+        cfg = cfg.replace(dtype=args.dtype)
+    return Model(cfg, device=getattr(args, "device", None))
+
+
+def load_params(model, args):
+    """Random-init weights on the model's device (checkpoints wait for
+    their slice). The tree is drawn straight into the COMPUTE dtype:
+    init_params draws float32 and rounds into the leaf type, so this is
+    bit-identical to drawing in the float32 master dtype and casting —
+    without ever holding the float32 copy (32 GB for Llama-3-8B)."""
+    if args.ckpt:
+        raise NotImplementedError(
+            "--ckpt is not ported yet (ROADMAP.md, PyTorch/CUDA port "
+            "queue: checkpoints)")
+    from butterfly_tpu_torch.models.common import init_params
+    import torch
+    cfg = model.cfg.replace(param_dtype=model.cfg.dtype)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(0)  # demo mode: identical random weights every run
+    return init_params(cfg, gen, model.device)
+
+
+def build_mesh(args):
+    """None when every parallelism flag is 1; a mesh is not ported yet."""
+    n = 1
+    for flag in ("tensor_parallel", "stage_parallel", "expert_parallel",
+                 "data_parallel", "seq_parallel"):
+        n *= getattr(args, flag, 1)
+    if n == 1:
+        return None
+    raise NotImplementedError(
+        "multi-device serving is not ported yet (ROADMAP.md, PyTorch/CUDA "
+        "port queue: multi-device serving and the ring kernel)")
+
+
+def cmd_serve(args) -> int:
+    from butterfly_tpu_torch.serve.server import run_server
+    return run_server(args)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return {"serve": cmd_serve}[args.cmd](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
