@@ -18,8 +18,11 @@ the pool and the window IN PLACE (write_paged_layer, stage_window_layer,
 flush_paged_window each say so): device work is ordered on one stream,
 so an in-place write lands after every earlier dispatch that reads it.
 Decode steps (T == 1) with use_kernel attend through the paged-attention
-kernel (ops/paged_attention.py); everything else gathers the pool into a
-dense view and runs models.common.attend.
+kernel (ops/paged_attention.py). Multi-token prefill chunks under
+cfg.attn_impl == "flash" attend through the flash kernels
+(ops/flash_attention.py): a fresh chunk over its own K/V, a warm chunk
+over the gathered pool view as its cached prefix. Everything else gathers
+the pool into a dense view and runs models.common.attend.
 """
 from __future__ import annotations
 
@@ -30,8 +33,10 @@ import torch
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
 from butterfly_tpu_torch.models.common import (
-    _cast_float, attend, attn_output, embed_tokens, ffn_block, final_logits,
-    layer_params, make_mask, pre_norm, qkv_proj, quantize_kv, torch_dtype)
+    _cast_layer, _dequant_mirror, _take_rows, attend, attn_output,
+    embed_tokens, ffn_block, final_logits, layer_params, make_mask, pre_norm,
+    qkv_proj, quantize_kv, torch_dtype)
+from butterfly_tpu_torch.ops.flash_attention import flash_attention
 from butterfly_tpu_torch.ops.paged_attention import paged_attention
 
 
@@ -337,7 +342,7 @@ def flush_paged_window(cache: PagedKVCache, window: KVWindow, win_len):
 
 def paged_layer_body(x, lp, kp, vp, *, cfg: ModelConfig, page_table,
                      positions, mask, cos, sin, active, use_kernel: bool,
-                     ksp=None, vsp=None, win=None):
+                     fresh: bool = False, ksp=None, vsp=None, win=None):
     """One transformer layer against one layer's page pool slice.
 
     x: [B,T,D]; kp/vp: [P,Kv,page,H]; ksp/vsp: [P,Kv*page] iff int8.
@@ -347,14 +352,21 @@ def paged_layer_body(x, lp, kp, vp, *, cfg: ModelConfig, page_table,
     window slices and (x, wk, wv[, wks, wvs]) returns.
 
     use_kernel and T == 1 (a decode step): attention runs the paged
-    kernel (window segment folded in when windowed); otherwise the pool
+    kernel (window segment folded in when windowed). cfg.attn_impl ==
+    "flash" and T > 1: a `fresh` chunk (every start 0, nothing live
+    before) runs the fresh flash kernel over its own K/V (identical for
+    int8 pools: the chunk is attended as projected); a warm chunk, window
+    off, runs the warm kernel with the gathered pool view as its prefix,
+    count-masked at prefix_len = start (0 for inactive rows), so the
+    chunk's own just-written copy, null-page garbage and padding rows
+    never contribute — int8 pools hand the chunk in quantized and back
+    (the values the dense path reads from the pool). Otherwise the pool
     is gathered into a dense view (window inserted) for attend().
     """
     T = x.shape[1]
     quant = ksp is not None
     compute = torch_dtype(cfg.dtype)
-    lp = {k: {n: _cast_float(a, compute) for n, a in v.items()}
-          for k, v in lp.items()}
+    lp = _cast_layer(lp, compute)
     start = positions[:, 0]
 
     h = pre_norm(x, lp["ln1"], cfg)
@@ -383,6 +395,22 @@ def paged_layer_body(x, lp, kp, vp, *, cfg: ModelConfig, page_table,
             lens = torch.where(active, start + 1, zero).to(torch.int32)
             out = paged_attention(q1, kp, vp, page_table, lens, ksp, vsp)
         out = out[:, None]
+    elif cfg.attn_impl == "flash" and T > 1 and fresh:
+        out = flash_attention(q, k, v, causal=True)
+    elif cfg.attn_impl == "flash" and T > 1 and win is None:
+        plen = torch.where(active, start, zero).to(torch.int32)
+        if quant:
+            ck, k_s = gather_paged_layer_q(kp, ksp, page_table)
+            cv, v_s = gather_paged_layer_q(vp, vsp, page_table)
+            out = flash_attention(q, _dequant_mirror(k), _dequant_mirror(v),
+                                  causal=True, prefix_k=ck, prefix_v=cv,
+                                  prefix_len=plen, prefix_k_scale=k_s,
+                                  prefix_v_scale=v_s)
+        else:
+            out = flash_attention(q, k, v, causal=True,
+                                  prefix_k=gather_paged_layer(kp, page_table),
+                                  prefix_v=gather_paged_layer(vp, page_table),
+                                  prefix_len=plen)
     elif quant:
         ck, k_s = gather_paged_layer_q(kp, ksp, page_table)
         cv, v_s = gather_paged_layer_q(vp, vsp, page_table)
@@ -406,12 +434,14 @@ def paged_layer_body(x, lp, kp, vp, *, cfg: ModelConfig, page_table,
 
 def paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
                   positions=None, active=None, use_kernel: bool = False,
-                  last_index=None):
-    """Forward over [B,T] tokens against the paged cache (B == slots),
-    writing K/V into the pool in place. `active` [B] bool masks slots
-    with no live request (their lengths stay, their writes go to the null
-    page). last_index [B] runs the LM head on that row only ([B,1,V]).
-    Returns (logits [B,T,V] f32, cache with advanced lengths)."""
+                  fresh: bool = False, last_index=None):
+    """Forward over [B,T] tokens against the paged cache (one row per
+    table row), writing K/V into the pool in place. `active` [B] bool
+    masks rows with no live request (their lengths stay, their writes go
+    to the null page). `fresh`: every row starts at position 0 with
+    nothing live before (paged_layer_body's fresh flash branch).
+    last_index [B] runs the LM head on that row only ([B,1,V]). Returns
+    (logits [B,T,V] f32, cache with advanced lengths)."""
     B, T = tokens.shape
     dev = tokens.device
     quant = cache.quantized
@@ -427,13 +457,12 @@ def paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
             x, layer_params(params, i), cache.k_pages[i], cache.v_pages[i],
             cfg=cfg, page_table=cache.page_table, positions=positions,
             mask=mask, cos=cos, sin=sin, active=active,
-            use_kernel=use_kernel,
+            use_kernel=use_kernel, fresh=fresh,
             ksp=cache.k_scale_pages[i] if quant else None,
             vsp=cache.v_scale_pages[i] if quant else None)
         x = out[0]
     if last_index is not None:
-        x = torch.gather(x, 1, last_index.long()[:, None, None].expand(
-            B, 1, x.shape[-1]))
+        x = _take_rows(x, last_index)
     logits = final_logits(params, cfg, x)
     new_len = torch.where(active, cache.lengths + T, cache.lengths)
     return logits, cache._replace(lengths=new_len.to(torch.int32))

@@ -1,18 +1,27 @@
 """Slot-based serving engine over the paged KV cache, in PyTorch.
 
 The device half of the serving stack (host half: sched/scheduler.py), the
-counterpart of butterfly_tpu/engine/serving.py on its default path:
-mixed dispatch with the write-combined KV window. Each scheduler tick
-dispatches ONE mixed block (`mixed_block_async`): k chained steps in
-which decode-phase slots advance one token while prefill-phase slots
-chew a C-token chunk of their prompt, phase being a pure function of the
-per-slot chunk cursor (`cursor < plen`). The JAX package's jitted
-`lax.scan` over the k steps becomes a Python loop over eagerly launched
-device work; nothing in a block synchronizes with the host, so the
-scheduler can dispatch block t+1 before it drains block t.
+counterpart of butterfly_tpu/engine/serving.py. Two dispatch paths:
+
+* mixed dispatch (the default): each scheduler tick dispatches ONE mixed
+  block (`mixed_block_async`): k chained steps in which decode-phase
+  slots advance one token while prefill-phase slots chew a C-token chunk
+  of their prompt, phase being a pure function of the per-slot chunk
+  cursor (`cursor < plen`);
+* the alternating path (mixed_dispatch=False, scheduler="static"):
+  gang prefills (`prefill_batch`, one [B, Tbucket] dispatch per bucket)
+  between fused decode blocks (`decode_block_async`).
+
+The JAX package's jitted `lax.scan` over a block's steps becomes a Python
+loop over eagerly launched device work; nothing in a block synchronizes
+with the host, so the scheduler can dispatch block t+1 before it drains
+block t.
 
 Decode steps (C == 1) attend through the hand-written paged-attention
-kernel on CUDA (`use_kernels`, on by default there); prefill lanes take
+kernel on CUDA (`use_kernels`, on by default there). With kernels on, the
+alternating path's prefills attend through the flash kernels: a fresh
+gang through the fresh kernel, a chunk continuation through the warm
+kernel (prefill_flash_warm, the default). Mixed blocks' prefill lanes take
 the dense gather + attend path, as on the TPU.
 
 Configurations whose device half is not ported yet raise
@@ -31,12 +40,10 @@ from butterfly_tpu_torch.cache.paged import (
     init_paged_cache, paged_forward, paged_forward_window)
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
-from butterfly_tpu_torch.engine.engine import cast_params
-from butterfly_tpu_torch.engine.sampling import _filter_logits
+from butterfly_tpu_torch.engine.engine import (
+    cast_params, is_quantized_tree, not_ported, to_device)
+from butterfly_tpu_torch.engine.sampling import _filter_logits, gumbel_argmax
 from butterfly_tpu_torch.models.common import Model
-
-#: where each refused configuration waits (ROADMAP.md, PyTorch/CUDA port)
-_ROADMAP = "ROADMAP.md, PyTorch/CUDA port queue"
 
 
 def bucket_len(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
@@ -76,37 +83,16 @@ def sample_batched(logits: torch.Tensor, generator: Optional[torch.Generator],
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     temps = temps.to(logits.device, torch.float32)
     safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))[:, None]
-    scaled = _filter_logits(logits / safe_t, top_k, top_p)
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
-    drawn = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1) \
-        .to(torch.int32)
+    drawn = gumbel_argmax(_filter_logits(logits / safe_t, top_k, top_p),
+                          generator)
     return torch.where(temps > 0, drawn, greedy)
-
-
-def _is_quantized_tree(params) -> bool:
-    if isinstance(params, dict):
-        if "q8" in params and "s" in params:
-            return True
-        return any(_is_quantized_tree(v) for v in params.values())
-    return False
 
 
 def _refuse_unported(cfg: ModelConfig, rt: RuntimeConfig, mesh,
                      params) -> None:
     """Raise for every configuration whose device half is not ported."""
     def no(what: str, item: str) -> None:
-        raise NotImplementedError(f"{what} is not ported yet ({_ROADMAP}: "
-                                  f"{item})")
-    alternating = "generate + the alternating serving path"
-    if not rt.mixed_dispatch:
-        no("mixed_dispatch=False (the alternating prefill/decode path)",
-           alternating)
-    if rt.scheduler != "continuous":
-        no(f"scheduler={rt.scheduler!r} (drains through the alternating "
-           "path)", alternating)
-    if cfg.attn_impl != "dense":
-        no(f"attn_impl={cfg.attn_impl!r} (the flash prefill kernels)",
-           alternating)
+        raise not_ported(what, item)
     if rt.speculative_gamma > 0:
         no("speculative serving (speculative_gamma > 0)", "speculation")
     if rt.prefix_caching:
@@ -122,14 +108,8 @@ def _refuse_unported(cfg: ModelConfig, rt: RuntimeConfig, mesh,
            "multi-device serving and the ring kernel")
     if cfg.is_moe:
         no("MoE models", "Mixtral / expert parallelism")
-    if _is_quantized_tree(params):
+    if is_quantized_tree(params):
         no("int8 weights (--quant int8)", "int8 weights")
-
-
-def _to_device(params, device: torch.device):
-    if isinstance(params, dict):
-        return {k: _to_device(v, device) for k, v in params.items()}
-    return params.to(device)
 
 
 class ServingEngine:
@@ -147,12 +127,20 @@ class ServingEngine:
         # Optional obs.trace.Tracer (the scheduler shares its own)
         self.tracer = None
         self.mesh = None
-        self.params = _to_device(cast_params(params, self.cfg), self.device)
+        self.params = to_device(cast_params(params, self.cfg), self.device)
         if use_kernels is None:
             # the hand-written kernels need the card; the CPU runs the
             # plain versions (ops/*: the wrapper picks by tensor device)
             use_kernels = self.device.type == "cuda"
         self._use_kernels = bool(use_kernels)
+        # Two prefill programs: fresh (every start 0: flash over the chunk
+        # alone) and warm (chunk continuation). With prefill_flash_warm
+        # the warm one takes the flash kernel too (cached prefix + fresh
+        # chunk), else the dense gather (the parity reference).
+        self._prefill_cfg = self.cfg.replace(attn_impl="flash") \
+            if self._use_kernels else self.cfg
+        self._warm_cfg = self._prefill_cfg \
+            if self.runtime.prefill_flash_warm else self.cfg
         self.cache = init_paged_cache(self.cfg, self.runtime,
                                       device=self.device)
         # Host-side block-table mirror (the host is the only writer): the
@@ -201,7 +189,10 @@ class ServingEngine:
 
     @property
     def warm_prefill_flash(self) -> bool:
-        return False
+        """True when the warm prefill attends through the flash kernel
+        (cached prefix + fresh chunk) rather than the dense gather —
+        kernels on AND runtime.prefill_flash_warm."""
+        return self._use_kernels and bool(self.runtime.prefill_flash_warm)
 
     @property
     def prefill_gang_split_fresh(self) -> bool:
@@ -310,6 +301,146 @@ class ServingEngine:
         self._win_hwm = 0
         self._win_len = None
 
+    # -- the alternating path: gang prefills ---------------------------------
+
+    def prefill_slot(self, slot: int, prompt: list) -> torch.Tensor:
+        """Run one request's whole prompt; returns last-token logits [V]."""
+        return self.prefill_chunk(slot, prompt, 0)
+
+    def prefill_chunk(self, slot: int, tokens: list,
+                      start: int) -> torch.Tensor:
+        """Run one chunk of one request's prompt; returns the chunk's
+        last-token logits [V] (prefill_batch with B = 1)."""
+        return self.prefill_batch([slot], [tokens], [start])[0]
+
+    def prefill_batch(self, slots: list, chunks: list,
+                      starts: list) -> torch.Tensor:
+        """Run one prompt chunk for EACH of B requests as ONE [B, Tbucket]
+        dispatch; returns last-position logits [B, V] on the device (row
+        i is member i's next-token distribution).
+
+        Member i's chunk occupies absolute positions starts[i] ..
+        starts[i] + len(chunks[i]) - 1 of its slot's pages; rows are
+        length-masked individually, so members with different chunk
+        lengths share a dispatch. B pads to the next power-of-two bucket
+        (clamped at runtime.prefill_max_batch); padding rows carry one
+        token (last_index 0) and a null-page table row, so their writes
+        land on the null page and their logits are dropped. An all-fresh
+        gang (every start 0) runs the fresh program; any warm member
+        routes the gang through the warm program, where fresh members
+        ride with prefix_len 0."""
+        B = len(slots)
+        T = bucket_len(max(len(c) for c in chunks), hi=self.cache.max_seq)
+        Bb = bucket_batch(B, max(1, min(self.runtime.prefill_max_batch,
+                                        self.num_slots)))
+        buf = np.zeros((Bb, T), np.int32)
+        lens = np.ones((Bb,), np.int32)
+        sts = np.zeros((Bb,), np.int32)
+        rows = np.full((Bb, self.cache.page_table.shape[1]),
+                       self.cache.null_page, np.int32)
+        for i, (slot, toks, start) in enumerate(zip(slots, chunks, starts)):
+            buf[i, :len(toks)] = toks
+            lens[i] = len(toks)
+            sts[i] = start
+            # the host mirror is authoritative (the host is the only
+            # writer): no device gather of the slot's table row
+            rows[i] = self._host_table[slot]
+        # a prefill writes the pool at each slot's FLUSHED length, so
+        # staged window entries must land first
+        if self._win_dirty:
+            self.flush_kv_window()
+        fresh = all(s == 0 for s in starts)
+        if self.tracer is not None:
+            self.tracer.event(None, "engine.prefill_dispatch",
+                              slots=list(slots), batch=B, batch_bucket=Bb,
+                              tokens=int(sum(len(c) for c in chunks)),
+                              bucket=T, fresh=fresh)
+        self._sync_table()
+        logits = _prefill_slot(
+            self._prefill_cfg if fresh else self._warm_cfg, fresh,
+            self.params, self._h2d(buf, torch.int32), self.cache,
+            self._h2d(rows, torch.int32), self._h2d(lens, torch.int32),
+            self._h2d(sts, torch.int32))
+        lengths = self.cache.lengths.clone()
+        lengths[torch.as_tensor(slots, dtype=torch.long,
+                                device=self.device)] = \
+            self._h2d(sts[:B] + lens[:B], torch.int32)
+        self.cache = self.cache._replace(lengths=lengths)
+        return logits[:B]
+
+    # -- the alternating path: decode ------------------------------------------
+
+    def _block_generator(self, seed: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return gen
+
+    def decode_active(self, tokens, active: np.ndarray, temps: np.ndarray,
+                      seed: int) -> Tuple[np.ndarray, torch.Tensor]:
+        """One decode step for every slot; returns (next tokens [S] on
+        the host, logits [S, V])."""
+        nxt, logits = self.decode_active_async(tokens, active, temps, seed)
+        return nxt.cpu().numpy(), logits
+
+    def decode_active_async(self, tokens, active: np.ndarray,
+                            temps: np.ndarray, seed: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dispatch one decode step WITHOUT a host sync; returns the
+        device next-token vector [S] (feed it back as `tokens` to chain
+        steps on the device) and the logits [S, V]. `seed` seeds the
+        step's generator."""
+        # the single-step path writes the pool per token: staged window
+        # entries land first so lengths and pool state line up
+        if self._win_dirty:
+            self.flush_kv_window()
+        self._sync_table()
+        nxt, logits, self.cache = _decode_all(
+            self.cfg, self.params, self._h2d(tokens, torch.int32),
+            self.cache, self._h2d(active, torch.bool),
+            self._h2d(temps, torch.float32), self.runtime_top_k,
+            self.runtime_top_p, self._block_generator(seed),
+            use_kernel=self._use_kernels)
+        return nxt, logits
+
+    def decode_block_async(self, tokens, active: np.ndarray,
+                           temps: np.ndarray, stops: np.ndarray,
+                           budgets: np.ndarray, seed: int,
+                           k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dispatch ONE fused k-step decode block, no host sync.
+
+        `stops` [S] holds each slot's stop id (-1 = none) and `budgets`
+        [S] its remaining-token allowance; a slot that emits its stop or
+        spends its budget mid-block goes dead ON THE DEVICE (lengths stop
+        advancing, writes land on the null page). `seed` seeds the
+        block's generator. Returns (block [k, S], final [S]) on the
+        device: the stacked step tokens for the scheduler's drain and the
+        final token vector to chain the next dispatch.
+
+        kv_write_combine: the block stages its K/V into the engine-held
+        window (the pool stays read-only) and the scheduler's next drain
+        flushes it. Token outputs are identical either way."""
+        self._sync_table()
+        args = (self._h2d(active, torch.bool),
+                self._h2d(temps, torch.float32),
+                self._h2d(stops, torch.int32),
+                self._h2d(budgets, torch.int32),
+                self.runtime_top_k, self.runtime_top_p,
+                self._block_generator(seed))
+        tok = self._h2d(tokens, torch.int32)
+        if self._window_mode:
+            self._ensure_window(k)
+            block, final, window, wlen = _decode_scan_win(
+                self.cfg, k, self.params, tok, self.cache, self._kv_window,
+                self._win_len, *args, use_kernel=self._use_kernels)
+            self._kv_window, self._win_len = window, wlen
+            self._win_dirty = True
+            self._win_hwm += k
+            return block, final
+        block, final, self.cache = _decode_scan(
+            self.cfg, k, self.params, tok, self.cache, *args,
+            use_kernel=self._use_kernels)
+        return block, final
+
     # -- the mixed block ------------------------------------------------------
 
     def mixed_block_async(self, tokens, cursor, pbuf, plen,
@@ -326,8 +457,7 @@ class ServingEngine:
         this block's generator (the counterpart of the JAX block key).
         Returns (block [k, S], valid [k, S], final [S], cursor)."""
         self._sync_table()
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
+        gen = self._block_generator(seed)
         args = (self._h2d(tokens, torch.int32), self._h2d(cursor, torch.int32))
         rest = (self._h2d(pbuf, torch.int32), self._h2d(plen, torch.int32),
                 self._h2d(active, torch.bool),
@@ -384,6 +514,92 @@ class ServingEngine:
 
     def draft_prefill(self, slots, rows, lens) -> None:
         """No draft model without speculation (refused at construction)."""
+
+
+def _prefill_slot(cfg: ModelConfig, fresh: bool, params, tokens,
+                  cache: PagedKVCache, table_rows, true_len, start):
+    """[B,T] prompt chunks against B slots' table rows, the pool written
+    in place. `start` [B] is each chunk's first absolute position;
+    `fresh` means every start is 0 and the members' pages hold nothing
+    live (the fresh flash branch). Returns last-token logits [B, V]."""
+    B, T = tokens.shape
+    cache1 = cache._replace(
+        page_table=table_rows,
+        lengths=torch.zeros((B,), dtype=torch.int32, device=tokens.device))
+    positions = start.long()[:, None] \
+        + torch.arange(T, device=tokens.device)[None, :]
+    logits, _ = paged_forward(params, cfg, tokens, cache1, positions,
+                              fresh=fresh, last_index=true_len - 1)
+    return logits[:, 0, :]
+
+
+def _decode_all(cfg: ModelConfig, params, tokens, cache: PagedKVCache,
+                active, temps, top_k: int, top_p: float, gen,
+                use_kernel: bool = False):
+    logits, cache = paged_forward(params, cfg, tokens[:, None], cache,
+                                  active=active, use_kernel=use_kernel)
+    last = logits[:, -1, :]
+    return sample_batched(last, gen, temps, top_k, top_p), last, cache
+
+
+def _decode_live0(tokens, active, stops, budgets):
+    """Liveness at block start: inactive, out of budget, or holding the
+    stop id as its chain token (an undrained first token can be EOS)
+    starts dead."""
+    has_stop = stops >= 0
+    live = active & (budgets > 0) & torch.where(
+        has_stop, tokens != stops, torch.ones_like(has_stop))
+    return has_stop, live
+
+
+def _decode_tail(nxt, cur, live, rem, stops, has_stop):
+    """A decode step's liveness algebra: dead slots freeze their token,
+    live ones spend budget and die on their stop id or an empty budget."""
+    nxt = torch.where(live, nxt, cur)
+    rem = torch.where(live, rem - 1, rem)
+    live = live & (rem > 0) & torch.where(has_stop, nxt != stops,
+                                          torch.ones_like(has_stop))
+    return nxt, live, rem
+
+
+def _decode_scan(cfg: ModelConfig, k: int, params, tokens,
+                 cache: PagedKVCache, active, temps, stops, budgets,
+                 top_k: int, top_p: float, gen, use_kernel: bool = False):
+    """k chained decode steps for every slot, window off: each live
+    step writes its K/V into the pool and advances its length; dead
+    steps write to the null page and advance nothing. Returns (block
+    [k, S], final [S], cache)."""
+    has_stop, live = _decode_live0(tokens, active, stops, budgets)
+    cur, rem, out = tokens, budgets, []
+    for _ in range(k):
+        logits, cache = paged_forward(params, cfg, cur[:, None], cache,
+                                      active=live, use_kernel=use_kernel)
+        nxt = sample_batched(logits[:, -1, :], gen, temps, top_k, top_p)
+        cur, live, rem = _decode_tail(nxt, cur, live, rem, stops, has_stop)
+        out.append(cur)
+    return torch.stack(out), cur, cache
+
+
+def _decode_scan_win(cfg: ModelConfig, k: int, params, tokens,
+                     cache: PagedKVCache, window: KVWindow, win_len, active,
+                     temps, stops, budgets, top_k: int, top_p: float, gen,
+                     use_kernel: bool = False):
+    """Write-combined twin of _decode_scan: the pool is read-only, each
+    live step stages its K/V into the window at win_len, which advances
+    with the slot's liveness exactly as lengths do window-off. Returns
+    (block [k, S], final [S], window, win_len)."""
+    has_stop, live = _decode_live0(tokens, active, stops, budgets)
+    cur, rem, wlen, out = tokens, budgets, win_len, []
+    for _ in range(k):
+        logits, window = paged_forward_window(params, cfg, cur[:, None],
+                                              cache, window, wlen,
+                                              active=live,
+                                              use_kernel=use_kernel)
+        nxt = sample_batched(logits[:, -1, :], gen, temps, top_k, top_p)
+        wlen = torch.where(live, wlen + 1, wlen).to(torch.int32)
+        cur, live, rem = _decode_tail(nxt, cur, live, rem, stops, has_stop)
+        out.append(cur)
+    return torch.stack(out), cur, window, wlen
 
 
 def _mixed_step_io(is_pf, cur, cursor, pbuf, C: int):

@@ -1,9 +1,18 @@
-"""Transformer layer math shared by the paged serving path, in PyTorch.
+"""Transformer layer math shared by every forward, in PyTorch.
 
-The counterpart of butterfly_tpu/models/common.py, restricted to what the
-paged serving forward runs. Params are the JAX package's nested dict in
-its exact key names and stacked [L, ...] layout, holding torch tensors;
-a forward loops over layers with `params["layers"][...][i]`, a view.
+The counterpart of butterfly_tpu/models/common.py: the layer math of the
+paged serving forward, plus the contiguous KV cache and the forwards
+`generate` runs (prefill through the flash kernels, the single-token
+decode step with its deferred cache write, and the write-combined decode
+window). Params are the JAX package's nested dict in its exact key names
+and stacked [L, ...] layout, holding torch tensors; a forward loops over
+layers with `params["layers"][...][i]`, a view.
+
+Where the JAX package rebuilds a cache array with dynamic_update_slice,
+the port writes the cache tensors IN PLACE and returns them. The write
+start clamps as dynamic_update_slice clamps it (start = min(start, S - T),
+`_clamp_start`), so a write that would run past the buffer's end lands
+where the JAX package lands it.
 
 Numerics follow the JAX functions: norms and softmax in float32, masked
 scores at the finite -1e30, int8 K/V codes that are never dequantized
@@ -13,13 +22,14 @@ codes come out byte-identical to the JAX package's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.core.device import resolve_device
+from butterfly_tpu_torch.ops.flash_attention import flash_attention
 
 Params = Dict[str, Any]
 
@@ -41,6 +51,52 @@ def torch_dtype(name) -> torch.dtype:
 def _cast_float(a: torch.Tensor, dtype) -> torch.Tensor:
     """Cast to the compute dtype, leaving integer (e.g. int8) leaves alone."""
     return a.to(dtype) if a.is_floating_point() else a
+
+
+class KVCache(NamedTuple):
+    """Contiguous KV cache: [num_layers, batch, max_seq, num_kv_heads,
+    head_dim]; `length[b]` = tokens already written for sequence b.
+
+    int8 mode (init_cache(quant="int8")): k/v hold int8 codes in
+    [L, B, Kv, S, H] order and k_scale/v_scale [L, B, Kv, S] one f32 scale
+    per stored vector, the JAX package's layout."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor  # [B] int32
+    k_scale: Optional[torch.Tensor] = None  # [L, B, Kv, S] f32 iff int8
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def max_seq(self) -> int:
+        return self.k.shape[3] if self.quantized else self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               quant: str = "none", device=None) -> KVCache:
+    """A zeroed cache on `device` (None = CUDA)."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(dtype or cfg.dtype)
+    length = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if quant == "int8":
+        qshape = (cfg.num_layers, batch, cfg.num_kv_heads, max_seq,
+                  cfg.head_dim)
+        return KVCache(
+            k=torch.zeros(qshape, dtype=torch.int8, device=dev),
+            v=torch.zeros(qshape, dtype=torch.int8, device=dev),
+            length=length,
+            k_scale=torch.zeros(qshape[:-1], dtype=torch.float32, device=dev),
+            v_scale=torch.zeros(qshape[:-1], dtype=torch.float32, device=dev))
+    if quant != "none":
+        raise ValueError(f"unknown kv quant {quant!r}")
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev),
+                   length=length)
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -280,6 +336,385 @@ def layer_params(params: Params, i: int) -> Params:
             return {k: take(v) for k, v in node.items()}
         return node[i]
     return take(params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# Contiguous cache writes
+# ---------------------------------------------------------------------------
+
+def _clamp_start(start: torch.Tensor, S: int, T: int) -> torch.Tensor:
+    """lax.dynamic_update_slice's start for a T-long update of an S-long
+    axis: clamped into [0, S - T] so the update fits. [B] long."""
+    return start.long().clamp(0, max(S - T, 0))
+
+
+def _run_index(start: torch.Tensor, S: int, T: int):
+    """(rows [B, T], positions [B, T]) of each row's clamped T-long run."""
+    B = start.shape[0]
+    pos = _clamp_start(start, S, T)[:, None] \
+        + torch.arange(T, device=start.device)[None, :]
+    rows = torch.arange(B, device=start.device)[:, None].expand(B, T)
+    return rows, pos
+
+
+def update_cache_layer(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, start: torch.Tensor):
+    """Write k/v [B,T,Kv,H] into one layer's cache [B,S,Kv,H] at per-row
+    offsets `start` [B], IN PLACE (clamped like dynamic_update_slice).
+    Returns (ck, cv)."""
+    rows, pos = _run_index(start, ck.shape[1], k.shape[1])
+    ck[rows, pos] = k.to(ck.dtype)
+    cv[rows, pos] = v.to(cv.dtype)
+    return ck, cv
+
+
+def update_cache_layer_q(ck, cv, k_s, v_s, k, v, start):
+    """int8 twin of update_cache_layer: quantize, then write codes into
+    ck/cv [B,Kv,S,H] and scales into k_s/v_s [B,Kv,S], IN PLACE. k/v
+    arrive as [B,T,Kv,H]. Returns (ck, cv, k_s, v_s)."""
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    rows, pos = _run_index(start, ck.shape[2], k.shape[1])
+    # advanced indices at dims 0 and 2 (a slice between) put the index
+    # dims first: the indexed view is [B, T, Kv, H], k's own layout
+    ck[rows, :, pos] = kq
+    cv[rows, :, pos] = vq
+    k_s[rows, :, pos] = ks
+    v_s[rows, :, pos] = vs
+    return ck, cv, k_s, v_s
+
+
+# ---------------------------------------------------------------------------
+# Contiguous-cache layers and forwards
+# ---------------------------------------------------------------------------
+
+def _dequant_mirror(x: torch.Tensor) -> torch.Tensor:
+    """x quantized to int8 and back, in x's dtype: the values an int8
+    cache hands back for x."""
+    xq, xs = quantize_kv(x)
+    return (xq.float() * xs[..., None]).to(x.dtype)
+
+
+def attention_block(x, p: Params, cfg: ModelConfig, ck, cv, positions, mask,
+                    cos, sin, fresh: bool = False, k_s=None, v_s=None):
+    """One attention sublayer with contiguous-cache update.
+
+    x: [B,T,D]; ck/cv: one layer's cache [B,S,Kv,H] (int8: codes
+    [B,Kv,S,H] + scales k_s/v_s [B,Kv,S]), written in place; positions
+    [B,T]; mask [B,T,S]. Under cfg.attn_impl == "flash" multi-token calls
+    take the flash kernels: `fresh` (positions start at 0, nothing live
+    before) attends the just-projected K/V alone; a warm call attends the
+    cache as a prefix count-masked at each row's start plus the causal
+    chunk (int8 caches mirror the chunk's written representation, so the
+    operands equal what the dense path reads back). Otherwise dense
+    attend over the written cache.
+
+    Returns (out, ck, cv), (out, ck, cv, k_s, v_s) with an int8 cache, or
+    with ck None (fresh only: NO-CACHE mode, nothing written) (out, k, v)
+    with the raw projected K/V for the caller to write.
+    """
+    q, k, v = qkv_proj(x, p, cfg, cos, sin)
+    flash = cfg.attn_impl == "flash" and x.shape[1] > 1
+    if ck is None:
+        if not fresh:
+            raise ValueError("no-cache attention_block is fresh-prefill only")
+        out = flash_attention(q, k, v, causal=True) if flash \
+            else attend(q, k, v, mask, cfg)
+        return attn_output(out, p, cfg), k, v
+    start = positions[:, 0]
+    if k_s is not None:
+        ck, cv, k_s, v_s = update_cache_layer_q(ck, cv, k_s, v_s, k, v, start)
+    else:
+        ck, cv = update_cache_layer(ck, cv, k, v, start)
+    if flash and fresh:
+        out = flash_attention(q, k, v, causal=True)
+    elif flash:
+        kf, vf = k, v
+        if k_s is not None:
+            kf, vf = _dequant_mirror(k), _dequant_mirror(v)
+        out = flash_attention(q, kf, vf, causal=True, prefix_k=ck,
+                              prefix_v=cv,
+                              prefix_len=start.to(torch.int32).contiguous(),
+                              prefix_k_scale=k_s, prefix_v_scale=v_s)
+    else:
+        out = attend(q, ck, cv, mask, cfg, k_s, v_s)
+    if k_s is not None:
+        return attn_output(out, p, cfg), ck, cv, k_s, v_s
+    return attn_output(out, p, cfg), ck, cv
+
+
+def transformer_layer(x, lp: Params, cfg: ModelConfig, ck, cv, positions,
+                      mask, cos, sin, fresh: bool = False, k_s=None,
+                      v_s=None):
+    """Pre-norm residual block: x + attn(norm(x)); x + ffn(norm(x)).
+    Returns (x, *rest) with attention_block's rest."""
+    h = pre_norm(x, lp["ln1"], cfg)
+    attn_out, *rest = attention_block(h, lp["attn"], cfg, ck, cv, positions,
+                                      mask, cos, sin, fresh, k_s, v_s)
+    x = x + attn_out
+    x = x + ffn_block(pre_norm(x, lp["ln2"], cfg), lp, cfg)
+    return (x, *rest)
+
+
+def _cast_layer(lp: Params, dtype) -> Params:
+    return {k: _cast_layer(v, dtype) if isinstance(v, dict)
+            else _cast_float(v, dtype) for k, v in lp.items()}
+
+
+def scan_layers(params: Params, cfg: ModelConfig, x, k, v, positions, mask,
+                cos, sin, fresh: bool = False, k_s=None, v_s=None):
+    """transformer_layer over every layer (the JAX lax.scan as a Python
+    loop), each against its slice of the stacked [L, ...] cache, written
+    in place. Returns (x, k, v[, k_s, v_s])."""
+    compute = torch_dtype(cfg.dtype)
+    quant = k_s is not None
+    for i in range(cfg.num_layers):
+        lp = _cast_layer(layer_params(params, i), compute)
+        x = transformer_layer(x, lp, cfg, k[i], v[i], positions, mask, cos,
+                              sin, fresh, k_s[i] if quant else None,
+                              v_s[i] if quant else None)[0]
+    return (x, k, v, k_s, v_s) if quant else (x, k, v)
+
+
+def _take_rows(x: torch.Tensor, last_index) -> torch.Tensor:
+    """x [B,T,D] -> [B,1,D] at each row's last_index (take_along_axis)."""
+    return torch.gather(x, 1, last_index.long()[:, None, None].expand(
+        x.shape[0], 1, x.shape[-1]))
+
+
+def _fresh_prefill_forward(params: Params, cfg: ModelConfig, tokens,
+                           cache: KVCache, positions, last_index):
+    """Fresh-prefill fast path: attention runs over each layer's freshly
+    projected K/V (no-cache attention_block), and the layer's K/V (in the
+    cache's representation) lands at positions 0..T-1 of its cache slice.
+    Padded rows' K/V land too, at positions no causal query reaches
+    before decode overwrites them."""
+    B, T = tokens.shape
+    quant = cache.quantized
+    compute = torch_dtype(cfg.dtype)
+    x, cos, sin = embed_tokens(params, cfg, tokens, positions)
+    mask = make_mask(positions, T)  # causal over the chunk itself
+    for i in range(cfg.num_layers):
+        lp = _cast_layer(layer_params(params, i), compute)
+        x, k, v = transformer_layer(x, lp, cfg, None, None, positions, mask,
+                                    cos, sin, fresh=True)
+        if quant:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            cache.k[i, :, :, :T] = kq.permute(0, 2, 1, 3)
+            cache.v[i, :, :, :T] = vq.permute(0, 2, 1, 3)
+            cache.k_scale[i, :, :, :T] = ks.permute(0, 2, 1)
+            cache.v_scale[i, :, :, :T] = vs.permute(0, 2, 1)
+        else:
+            cache.k[i, :, :T] = k.to(cache.k.dtype)
+            cache.v[i, :, :T] = v.to(cache.v.dtype)
+    if last_index is not None:
+        x = _take_rows(x, last_index)
+    logits = final_logits(params, cfg, x)
+    return logits, cache._replace(length=(cache.length + T).to(torch.int32))
+
+
+def decode_attend(q, k_new, v_new, ck, cv, start, cfg: ModelConfig,
+                  k_s=None, v_s=None, wk=None, wv=None, wk_s=None,
+                  wv_s=None):
+    """One-token attention over (old cache, positions < start) + (the
+    window's staged steps) + (the token itself), which equals causal
+    attention after writing the token, so the caller writes every layer's
+    K/V once after the layer loop (_decode_forward).
+
+    q [B,1,Nq,H]; k_new/v_new [B,1,Kv,H]; ck/cv [B,S,Kv,H] (int8: codes
+    [B,Kv,S,H] + scales k_s/v_s [B,Kv,S]); start [B] flushed length. The
+    window wk/wv [W,B,Kv,H] (+ scales [W,B,Kv]) holds the previous
+    unflushed steps in the cache's representation, every entry live, at
+    positions start..start+W-1. Scores in f32, softmax in f32."""
+    B, _, Nq, H = q.shape
+    quant = k_s is not None
+    S = ck.shape[2] if quant else ck.shape[1]
+    Kv = k_new.shape[2]
+    G = Nq // Kv
+    compute = q.dtype
+    qg = q.reshape(B, Kv, G, H)
+    qf = qg.float()
+    scale = 1.0 / torch.sqrt(torch.tensor(H, dtype=torch.float32))
+    k_eq = "bksh" if quant else "bskh"
+    s_c = torch.einsum(f"bkgh,{k_eq}->bkgs", qf,
+                       _cast_float(ck, compute).float())
+    if quant:
+        s_c = s_c * k_s[:, :, None, :]
+    s_c = s_c * scale
+    older = torch.arange(S, device=q.device)[None, :] < start[:, None]
+    s_c = torch.where(older[:, None, None, :], s_c,
+                      torch.full_like(s_c, -1e30))
+    parts = [s_c]
+    if wk is not None:
+        s_w = torch.einsum("bkgh,cbkh->bkgc", qf,
+                           _cast_float(wk, compute).float())
+        if quant:
+            s_w = s_w * wk_s.permute(1, 2, 0)[:, :, None, :]
+        parts.append(s_w * scale)
+    s_self = (qf * k_new.reshape(B, Kv, 1, H).float()).sum(
+        dim=-1, keepdim=True) * scale
+    parts.append(s_self)
+    p = torch.softmax(torch.cat(parts, dim=-1), dim=-1)
+    p_c = p[..., :S]
+    if quant:
+        p_c = p_c * v_s[:, :, None, :]
+    out = torch.einsum(f"bkgs,{k_eq}->bkgh", p_c.to(compute),
+                       cv.to(compute))
+    if wk is not None:
+        p_w = p[..., S:-1]
+        if quant:
+            p_w = p_w * wv_s.permute(1, 2, 0)[:, :, None, :]
+        out = out + torch.einsum("bkgc,cbkh->bkgh", p_w.to(compute),
+                                 wv.to(compute))
+    out = out + p[..., -1:].to(v_new.dtype) * v_new.reshape(B, Kv, 1, H)
+    return out.reshape(B, 1, Nq, H)
+
+
+def _decode_layer_body(x, lp: Params, cfg: ModelConfig, cache: KVCache, i,
+                       cos, sin, start, wk_i=None, wv_i=None, wks_i=None,
+                       wvs_i=None):
+    """One decode layer against layer i's slice of the cache (+ this
+    layer's window entries). Returns (x, k_new, v_new), k/v [B,1,Kv,H]."""
+    lp = _cast_layer(lp, torch_dtype(cfg.dtype))
+    k_s = v_s = None
+    if cache.quantized:
+        k_s, v_s = cache.k_scale[i], cache.v_scale[i]
+    h = pre_norm(x, lp["ln1"], cfg)
+    q, k, v = qkv_proj(h, lp["attn"], cfg, cos, sin)
+    out = decode_attend(q, k, v, cache.k[i], cache.v[i], start, cfg, k_s,
+                        v_s, wk_i, wv_i, wks_i, wvs_i)
+    x = x + attn_output(out, lp["attn"], cfg)
+    x = x + ffn_block(pre_norm(x, lp["ln2"], cfg), lp, cfg)
+    return x, k, v
+
+
+def _decode_forward(params: Params, cfg: ModelConfig, tokens,
+                    cache: KVCache, positions):
+    """Single-token decode step with ONE cache write for all layers after
+    the layer loop (the cache is read-only inside it). Every row's length
+    advances by 1. Returns (logits [B,1,V], cache)."""
+    B = tokens.shape[0]
+    x, cos, sin = embed_tokens(params, cfg, tokens, positions)
+    start = positions[:, 0]
+    quant = cache.quantized
+    new = []
+    for i in range(cfg.num_layers):
+        x, k, v = _decode_layer_body(x, layer_params(params, i), cfg, cache,
+                                     i, cos, sin, start)
+        if quant:
+            kq, ksc = quantize_kv(k[:, 0])
+            vq, vsc = quantize_kv(v[:, 0])
+            new.append((kq, vq, ksc, vsc))
+        else:
+            new.append((k[:, 0].to(cache.k.dtype), v[:, 0].to(cache.v.dtype)))
+    logits = final_logits(params, cfg, x)
+    stacked = [torch.stack(c) for c in zip(*new)]  # [L, B, Kv(, H)]
+    rows, pos = _run_index(start, cache.max_seq, 1)
+    rows, pos = rows[:, 0], pos[:, 0]
+    if quant:
+        # advanced dims 1 and 3 (a slice between) go first: [B, L, Kv, H]
+        cache.k[:, rows, :, pos] = stacked[0].transpose(0, 1)
+        cache.v[:, rows, :, pos] = stacked[1].transpose(0, 1)
+        cache.k_scale[:, rows, :, pos] = stacked[2].transpose(0, 1)
+        cache.v_scale[:, rows, :, pos] = stacked[3].transpose(0, 1)
+    else:
+        cache.k[:, rows, pos] = stacked[0]
+        cache.v[:, rows, pos] = stacked[1]
+    return logits, cache._replace(length=(cache.length + 1).to(torch.int32))
+
+
+def decode_step_win(params: Params, cfg: ModelConfig, tokens,
+                    cache: KVCache, prev: list, wstep: int):
+    """One decode step against (cache + prior window steps + self), no
+    cache write. tokens [B,1] sit at position cache.length + wstep; `prev`
+    holds this flush group's steps 0..wstep-1 as returned by this
+    function. Returns (logits, new_kv): this token's per-layer K/V
+    stacked [L,B,Kv,H] — float (k, v) or int8 (kq, vq, k_scale [L,B,Kv],
+    v_scale) in the cache's representation."""
+    quant = cache.quantized
+    positions = (cache.length + wstep)[:, None]
+    x, cos, sin = embed_tokens(params, cfg, tokens, positions)
+    start = cache.length
+    win = tuple(torch.stack(c, dim=1) for c in zip(*prev)) if prev else ()
+    new = []
+    for i in range(cfg.num_layers):
+        w = [t[i] for t in win]   # [W,B,Kv,H] (+ [W,B,Kv] scales)
+        x, k, v = _decode_layer_body(
+            x, layer_params(params, i), cfg, cache, i, cos, sin, start,
+            *(w + [None] * (4 - len(w))))
+        if quant:
+            kq, ksc = quantize_kv(k[:, 0])
+            vq, vsc = quantize_kv(v[:, 0])
+            new.append((kq, vq, ksc, vsc))
+        else:
+            new.append((k[:, 0].to(cache.k.dtype), v[:, 0].to(cache.v.dtype)))
+    return final_logits(params, cfg, x), \
+        tuple(torch.stack(c) for c in zip(*new))
+
+
+def flush_window(cache: KVCache, steps: list,
+                 uniform: bool = False) -> KVCache:
+    """Write a whole flush group (C = len(steps) tokens per row, each a
+    decode_step_win new_kv) into the cache at each row's flushed length,
+    IN PLACE, in one write per cache tensor; lengths advance by C.
+
+    `uniform` asserts every row's flushed length is equal: the write then
+    starts at row 0's length for every row (the JAX package's one
+    scalar-offset update), still read on the device."""
+    start = cache.length
+    C = len(steps)
+    S = cache.max_seq
+    B = start.shape[0]
+    if uniform:
+        start = start[:1].expand(B)
+    rows, pos = _run_index(start, S, C)       # [B, C]
+    if cache.quantized:
+        kq = torch.stack([s[0] for s in steps], dim=3)   # [L,B,Kv,C,H]
+        vq = torch.stack([s[1] for s in steps], dim=3)
+        ksc = torch.stack([s[2] for s in steps], dim=3)  # [L,B,Kv,C]
+        vsc = torch.stack([s[3] for s in steps], dim=3)
+        # advanced dims 1 and 3 (a slice between) go first: [B,C,L,Kv(,H)]
+        cache.k[:, rows, :, pos] = kq.permute(1, 3, 0, 2, 4)
+        cache.v[:, rows, :, pos] = vq.permute(1, 3, 0, 2, 4)
+        cache.k_scale[:, rows, :, pos] = ksc.permute(1, 3, 0, 2)
+        cache.v_scale[:, rows, :, pos] = vsc.permute(1, 3, 0, 2)
+    else:
+        ks = torch.stack([s[0] for s in steps], dim=2)   # [L,B,C,Kv,H]
+        vs = torch.stack([s[1] for s in steps], dim=2)
+        cache.k[:, rows, pos] = ks
+        cache.v[:, rows, pos] = vs
+    return cache._replace(length=(cache.length + C).to(torch.int32))
+
+
+def forward(params: Params, cfg: ModelConfig, tokens, cache: KVCache,
+            positions=None, fresh: bool = False, last_index=None):
+    """Run the model over `tokens` [B,T], reading and writing `cache`.
+
+    positions defaults to cache.length[:,None] + arange(T) (append).
+    `fresh`: nothing live precedes these tokens and positions start at 0
+    (recycled buffers may hold stale bytes: masking, not zeroing, keeps
+    them out); only then may the fresh flash kernel run. Single-token
+    warm calls take the decode fast path (_decode_forward). last_index
+    [B] runs the LM head on that row only ([B,1,V]). Returns (logits
+    [B,T,V] float32, cache with length + T)."""
+    B, T = tokens.shape
+    if positions is None:
+        positions = cache.length.long()[:, None] \
+            + torch.arange(T, device=tokens.device)[None, :]
+    if T == 1 and not fresh:
+        return _decode_forward(params, cfg, tokens, cache, positions)
+    if fresh and T > 1:
+        return _fresh_prefill_forward(params, cfg, tokens, cache, positions,
+                                      last_index)
+    x, cos, sin = embed_tokens(params, cfg, tokens, positions)
+    mask = make_mask(positions, cache.max_seq)
+    x = scan_layers(params, cfg, x, cache.k, cache.v, positions, mask, cos,
+                    sin, fresh, cache.k_scale, cache.v_scale)[0]
+    if last_index is not None:
+        x = _take_rows(x, last_index)
+    logits = final_logits(params, cfg, x)
+    return logits, cache._replace(length=(cache.length + T).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

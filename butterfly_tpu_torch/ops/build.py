@@ -4,8 +4,8 @@ Each kernel source under ops/csrc/ compiles with nvcc for sm_90a into its
 own shared library, loaded with ctypes. Libraries land in
 <repo>/build/butterfly_tpu_torch/ (git-ignored), named by a hash of the
 source and the flags, so an edited source never loads a stale library.
-The build runs at first use, one nvcc per missing library. Nothing here
-runs at import time.
+The build runs at first use, one nvcc per missing library; `build_all`
+starts one nvcc per source at once. Nothing here runs at import time.
 
     python -m butterfly_tpu_torch.ops.build      # build every kernel
 """
@@ -25,6 +25,7 @@ _HERE = Path(__file__).resolve().parent
 #: kernel name -> its CUDA source, relative to this directory
 KERNEL_SOURCES: Dict[str, str] = {
     "paged_attention": "csrc/paged_attention.cu",
+    "flash_attention": "csrc/flash_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -54,36 +55,63 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Optional[float]:
-    """Compile the kernel's library if it is missing. Returns the seconds
-    nvcc took, or None when the library was already built; raises with
-    nvcc's output if the build fails."""
+def _start(name: str):
+    """Start nvcc for the kernel's library if it is missing. Returns
+    (process, temp path, start time), or None when already built."""
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.monotonic()
-    p = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                        str(_HERE / KERNEL_SOURCES[name])],
-                       capture_output=True, text=True)
+    proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                             str(_HERE / KERNEL_SOURCES[name])],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, tmp, time.monotonic()
+
+
+def _finish(name: str, started) -> float:
+    """Wait for a started nvcc; install the library atomically. Returns
+    the seconds it took; raises with nvcc's output if it failed."""
+    proc, tmp, t0 = started
+    stdout, stderr = proc.communicate()
     secs = time.monotonic() - t0
-    if p.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} (rc {p.returncode}):\n"
-                           f"{p.stdout}\n{p.stderr}")
-    os.replace(tmp, out)  # atomic: a reader never sees a partial .so
-    build_log[name] = (secs, p.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):"
+                           f"\n{stdout}\n{stderr}")
+    os.replace(tmp, library_path(name))  # a reader never sees a partial .so
+    build_log[name] = (secs, stderr)
     return secs
 
 
+def build(name: str) -> Optional[float]:
+    """Compile the kernel's library if it is missing. Returns the seconds
+    nvcc took, or None when the library was already built; raises with
+    nvcc's output if the build fails."""
+    started = _start(name)
+    return None if started is None else _finish(name, started)
+
+
 def build_all() -> Dict[str, float]:
-    """Build every missing library, one source after another. Returns
-    {name: seconds} for the ones built here."""
-    times = {}
-    for name in KERNEL_SOURCES:
-        secs = build(name)
-        if secs is not None:
-            times[name] = secs
+    """Build every missing library, one nvcc per source, all started
+    together. Returns {name: seconds} for the ones built here; raises
+    (after every nvcc has ended) if any build failed."""
+    started = {}
+    try:
+        for name in KERNEL_SOURCES:
+            st = _start(name)
+            if st is not None:
+                started[name] = st
+    finally:
+        times, errors = {}, []
+        for name, st in started.items():
+            try:
+                times[name] = _finish(name, st)
+            except RuntimeError as e:
+                errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
     return times
 
 

@@ -285,7 +285,7 @@ class Scheduler:
         self._rng.manual_seed(seed)
         self._next_tokens = np.zeros((engine.num_slots,), np.int32)
         # In-flight fused blocks, tagged tuples in dispatch order:
-        #   ("decode", final [S] carry, block [k, S], k, snapshot, t)
+        #   ("decode", completion event, block [k, S], k, snapshot, t)
         #   ("spec",   hist_len [S],   (toks [R, S, C], valid
         #              [R, S, C]), R rounds, snapshot, t)
         #   ("mixed",  final [S], (block [k, S], valid [k, S]), k,
@@ -1752,8 +1752,10 @@ class Scheduler:
         block, final = self.engine.decode_block_async(
             cur, active, temps, stops, budgets, sub, k)
         self._next_dev = final
-        self._inflight.append(("decode", final, block, k, snapshot,
-                               time.monotonic()))
+        # slot 1: the completion event _device_ready probes (the chain
+        # carry lives in _next_dev)
+        self._inflight.append(("decode", self.engine.record_event(), block,
+                               k, snapshot, time.monotonic()))
         self._note_bubble()
         return True
 

@@ -1,17 +1,20 @@
-"""`butterfly serve` on the PyTorch/CUDA port.
+"""`butterfly generate` and `butterfly serve` on the PyTorch/CUDA port.
 
+    python -m butterfly_tpu_torch.serve.cli generate --model llama3-8b --prompt "hello" --max-new 32
+    python -m butterfly_tpu_torch.serve.cli generate --model tiny --device cpu
     python -m butterfly_tpu_torch.serve.cli serve --model llama3-8b --port 8000
     python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu
 
-The `serve` subcommand keeps the JAX CLI's flags (butterfly_tpu/serve/
-cli.py) and adds --device (default cuda). Flags whose path the port does
-not carry yet are accepted and refused with NotImplementedError naming
-the ROADMAP.md item. Without --ckpt, weights are random (demo mode).
+Both subcommands keep the JAX CLI's flags (butterfly_tpu/serve/cli.py) and
+add --device (default cuda). Flags whose path the port does not carry yet
+are accepted and refused with NotImplementedError naming the ROADMAP.md
+item. Without --ckpt, weights are random (demo mode).
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 
 def _positive_int(v):
@@ -26,27 +29,47 @@ def build_parser() -> argparse.ArgumentParser:
                                 description="Butterfly inference CLI "
                                             "(PyTorch/CUDA port)")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="where the engine runs (default cuda; without "
+                             "a card, pass cpu explicitly)")
+        sp.add_argument("--model", default="tiny",
+                        help="preset name (gpt2-124m, llama3-8b, "
+                             "llama3-70b, mixtral-8x7b) or 'tiny'")
+        sp.add_argument("--ckpt", default=None, help="checkpoint path")
+        sp.add_argument("--tokenizer", default=None)
+        sp.add_argument("--dtype", default=None,
+                        help="override compute dtype")
+        for flag in ("--tensor-parallel", "--stage-parallel",
+                     "--expert-parallel", "--data-parallel",
+                     "--seq-parallel"):
+            sp.add_argument(flag, type=int, default=1)
+        sp.add_argument("--seq-impl", choices=["ring", "ulysses"],
+                        default="ring")
+        sp.add_argument("--max-seq", type=int, default=2048)
+        sp.add_argument("--dcn-axes", default="data")
+        sp.add_argument("--quant", choices=["none", "int8"], default="none",
+                        help="weight-only quantization (not ported yet)")
+        sp.add_argument("--kv-quant", choices=["none", "int8"],
+                        default="none",
+                        help="KV-cache quantization (int8 halves the cache "
+                             "bytes the decode loop reads)")
+
+    g = sub.add_parser("generate", help="one-shot text generation")
+    common(g)
+    g.add_argument("--prompt", default="Hello")
+    g.add_argument("--max-new", type=int, default=64)
+    g.add_argument("--temperature", type=float, default=0.0)
+    g.add_argument("--top-k", type=int, default=0)
+    g.add_argument("--top-p", type=float, default=1.0)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--speculate", type=int, default=0, metavar="GAMMA",
+                   help="prompt-lookup speculative decoding (not ported "
+                        "yet)")
+
     s = sub.add_parser("serve", help="HTTP serving with continuous batching")
-    s.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the engine runs (default cuda; without a "
-                        "card, pass cpu explicitly)")
-    s.add_argument("--model", default="tiny",
-                   help="preset name (gpt2-124m, llama3-8b, llama3-70b, "
-                        "mixtral-8x7b) or 'tiny'")
-    s.add_argument("--ckpt", default=None, help="checkpoint path")
-    s.add_argument("--tokenizer", default=None)
-    s.add_argument("--dtype", default=None, help="override compute dtype")
-    for flag in ("--tensor-parallel", "--stage-parallel",
-                 "--expert-parallel", "--data-parallel", "--seq-parallel"):
-        s.add_argument(flag, type=int, default=1)
-    s.add_argument("--seq-impl", choices=["ring", "ulysses"], default="ring")
-    s.add_argument("--max-seq", type=int, default=2048)
-    s.add_argument("--dcn-axes", default="data")
-    s.add_argument("--quant", choices=["none", "int8"], default="none",
-                   help="weight-only quantization (not ported yet)")
-    s.add_argument("--kv-quant", choices=["none", "int8"], default="none",
-                   help="KV-cache quantization (int8 halves the cache "
-                        "bytes the decode kernel reads)")
+    common(s)
     s.add_argument("--port", type=int, default=8000)
     s.add_argument("--host", default="0.0.0.0")
     s.add_argument("--max-batch", type=int, default=8)
@@ -139,6 +162,47 @@ def build_mesh(args):
         "port queue: multi-device serving and the ring kernel)")
 
 
+def cmd_generate(args) -> int:
+    """One-shot generation: the text on stdout, then the token count and
+    rate on stderr, as the JAX CLI prints them."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine, not_ported
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.utils.tokenizer import load_tokenizer
+
+    if args.speculate > 0:
+        raise not_ported("generate --speculate", "speculation")
+    if args.quant != "none":
+        raise not_ported("--quant int8 weights", "int8 weights")
+    model = resolve_model(args)
+    tok = load_tokenizer(args.tokenizer or args.ckpt)
+    mesh = build_mesh(args)
+    engine = InferenceEngine(
+        model, load_params(model, args),
+        runtime=RuntimeConfig(max_seq_len=args.max_seq,
+                              kv_quant=args.kv_quant),
+        mesh=mesh)
+    vocab = model.cfg.vocab_size
+    stop = tok.eos_id if tok.eos_id is not None and tok.eos_id < vocab else -1
+    sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                        top_p=args.top_p, max_new_tokens=args.max_new,
+                        stop_token=stop)
+    ids = tok.encode(args.prompt)
+    bad = [i for i in ids if i >= vocab]
+    if bad:
+        print(f"error: tokenizer produced ids {bad[:5]} outside the model's "
+              f"vocab ({vocab}); pass a matching --tokenizer", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    res = engine.generate([ids], sp, seed=args.seed)
+    dt = time.perf_counter() - t0
+    n = int(res.lengths[0])
+    print(tok.decode(res.tokens[0, :n].tolist()))
+    print(f"[butterfly] {n} tokens in {dt:.2f}s "
+          f"({n / dt:.1f} tok/s incl. compile)", file=sys.stderr)
+    return 0
+
+
 def cmd_serve(args) -> int:
     from butterfly_tpu_torch.serve.server import run_server
     return run_server(args)
@@ -146,7 +210,7 @@ def cmd_serve(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return {"serve": cmd_serve}[args.cmd](args)
+    return {"generate": cmd_generate, "serve": cmd_serve}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -5,40 +5,75 @@
 Phases, all run every time, each printing labelled lines; any failure
 raises and the script exits non-zero:
 
-1. device  the card's name and power limit (nvidia-smi); every number
-           below belongs to this card.
-2. build   compiles every CUDA kernel of the serving path from the
-           sources in this checkout (one nvcc per source).
-3. kernel  the paged-attention kernel against its plain PyTorch version
-           at Llama-3-8B main-path shapes (S=8, Nq=32, Kv=8, H=128,
-           page=16, max_pages=128, ragged lengths incl. 0/1/17/2048):
-           bf16 pool without and with the window (W=2, W=64), int8 pool
-           with the window, f32 pool. Tolerances: max abs error bf16
-           2e-2, f32 1e-4 (TF32 off); per slot, max abs error over the
-           slot's max |output| bf16 1e-2, f32 1e-4, so a long slot's small
-           outputs are held too; a slot with nothing to attend must give
-           exactly 0.
-           Times: kernel (CUDA events, median, L2 flushed before each
-           launch as a decode step finds it), plain version, the bound
-           (bytes moved / the card's memory bandwidth, or operations /
-           peak, whichever is larger), and scaled_dot_product_attention
-           over the pre-gathered dense K/V as a yardstick that excludes
-           the page walk.
-4. serve   `butterfly serve` machinery (serve/server.build_serving) on
-           full-width, full-depth Llama-3-8B with random bf16 weights
-           and the CLI's serve defaults, in a thread on 127.0.0.1; 8
-           concurrent greedy /generate requests (prompts of 16-1200
-           bytes, 32-64 new tokens) so prefill lanes and decode steps
-           share ticks. Kernel launch counts are zeroed just before and
-           read just after; the paged kernel must have launched, a
-           multiple of 32 times (one launch per layer per decode step).
-5. parity  on the same engine, one decode step through all layers with
-           equal carries, bf16: each layer's kernel output against the
-           plain version on the same inputs (2e-2 absolute), and the
-           step's logits with the kernel against the same step with the
-           plain version (0.5 absolute).
-6. profile where one decode step's time goes: host wall vs device busy
-           time (torch.profiler) and the top kernels by device time.
+1. device    the card's name and power limit (nvidia-smi); every number
+             below belongs to this card.
+2. build     compiles every CUDA kernel from the sources in this checkout,
+             one nvcc per source, all started together; prints ptxas'
+             register and spill lines.
+3. kernel    the paged-attention kernel against its plain PyTorch version
+             at Llama-3-8B main-path shapes (S=8, Nq=32, Kv=8, H=128,
+             page=16, max_pages=128, ragged lengths incl. 0/1/17/2048):
+             bf16 pool without and with the window (W=2, W=64), int8 pool
+             with the window, f32 pool. Tolerances: max abs error bf16
+             2e-2, f32 1e-4 (TF32 off); per slot, max abs error over the
+             slot's max |output| bf16 1e-2, f32 1e-4, so a long slot's small
+             outputs are held too; a slot with nothing to attend must give
+             exactly 0.
+             Times: kernel (CUDA events, median, L2 flushed before each
+             launch as a decode step finds it), plain version, the bound
+             (bytes moved / the card's memory bandwidth, or operations /
+             peak, whichever is larger), and scaled_dot_product_attention
+             over the pre-gathered dense K/V as a yardstick that excludes
+             the page walk.
+4. flash     the two flash kernels against their plain version at
+             Llama-3-8B shapes (Nq=32, Kv=8, H=128): fresh B=4, T=1024 bf16
+             causal, ragged T=1000, non-causal, f32 T=256; warm B=4, T=512
+             over a 2048-row prefix with prefix_len 0/17/512/1536 (rows
+             past it hold large garbage), bf16 float prefix and int8
+             prefix, f32 float prefix at T=256. bf16 runs the tensor-core
+             kernel, f32 the CUDA-core one. Tolerances: bf16 2e-2
+             absolute; per (batch row, 64-row query tile, head), max
+             error over max |ref| 1e-2; and every element within
+             2**-7 * (|ref| + sum_j p_j |v_j| / l), the output's rounding
+             on both sides plus that of probabilities rounded to bf16.
+             f32 1e-4 absolute and per tile.
+             Times as above; the yardstick is scaled_dot_product_attention
+             (is_causal, enable_gqa) for the fresh kernel and, for the warm
+             one, the same call over [live prefix ‖ chunk] with an explicit
+             mask and K/V concatenated beforehand.
+5. serve     `butterfly serve` machinery (serve/server.build_serving) on
+             full-width, full-depth Llama-3-8B with random bf16 weights
+             and the CLI's serve defaults (mixed dispatch), in a thread on
+             127.0.0.1; 8 concurrent greedy /generate requests (prompts of
+             16-1200 bytes, 32-64 new tokens) so prefill lanes and decode
+             steps share ticks. Kernel launch counts are zeroed just before
+             and read just after; the paged kernel must have launched, a
+             multiple of 32 times (one launch per layer per decode step).
+             These weights are built once; every later engine shares them.
+6. parity    on the same engine, one decode step through all layers with
+             equal carries, bf16: each layer's kernel output against the
+             plain version on the same inputs (2e-2 absolute), and the
+             step's logits with the kernel against the same step with the
+             plain version (0.5 absolute).
+7. profile   where one decode step's time goes: host wall vs device busy
+             time (torch.profiler) and the top kernels by device time.
+8. generate  InferenceEngine.generate on the same model: four greedy
+             prompts of 16-1000 bytes, 32 new tokens, fused, then the same
+             stepped (tokens must be equal), then int8 KV (the
+             write-combined window loop), then one call of the CLI's
+             `generate`. The fresh flash kernel must launch 32 times per
+             prefill call, the warm one never. Tokens/s and prefill time.
+9. alternate the alternating serving path: ServingEngine(mixed_dispatch=
+             False) + Scheduler, 8 concurrent greedy requests with prompts
+             up to 1200 bytes, so 512-token chunks continue warm. The
+             fresh, warm and paged kernels must each launch, a multiple
+             of 32 times. Tokens/s and TTFT (a smoke run, not a benchmark).
+10. flashpar on that engine, one fresh 512-token prefill and one warm
+             chunk after it through all 32 layers: every layer's flash
+             output against the plain version on the same inputs, each
+             element within the flash phase's bound (one bf16 ulp scaled
+             to the output), and each pass's last-token logits against
+             the all-plain pass (0.5 absolute).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
@@ -266,7 +301,209 @@ def phase_kernel(torch, card):
     return results
 
 
-# -- phase 4: the serving path ------------------------------------------------
+# -- phase 4: the flash kernels against their plain version -----------------
+
+_SP = 2048                       # prefix rows of the warm cases
+_PLEN = [0, 17, 512, 1536]       # live prefix rows per batch row
+_BQ = 64                         # query rows per kernel block
+# (name, B, T, causal, dtype name, prefix: None | "float" | "int8",
+#  abs tol, per-(row, query tile, head) rel tol): a bf16 output rounds to
+# within one ulp, at most 2**-7 of its magnitude, hence 1e-2 of a block's
+# max. bf16 takes the tensor-core kernel (flash_mma_kernel), f32 the
+# CUDA-core one (flash_kernel).
+FLASH_CASES = [
+    ("fresh_bf16", 4, 1024, True, "bfloat16", None, 2e-2, 1e-2),
+    ("fresh_bf16_T1000", 4, 1000, True, "bfloat16", None, 2e-2, 1e-2),
+    ("fresh_bf16_noncausal", 4, 1024, False, "bfloat16", None, 2e-2, 1e-2),
+    ("fresh_f32", 4, 256, True, "float32", None, 1e-4, 1e-4),
+    ("warm_bf16", 4, 512, True, "bfloat16", "float", 2e-2, 1e-2),
+    ("warm_int8", 4, 512, True, "bfloat16", "int8", 2e-2, 1e-2),
+    ("warm_f32", 4, 256, True, "float32", "float", 1e-4, 1e-4),
+]
+
+
+def _tile_rel_err(torch, diff, ref):
+    """Max error over max |ref| per (batch row, tile of _BQ query rows,
+    head): the block one kernel block computes, so a fault confined to
+    late query tiles (whose outputs are small) is held to their scale."""
+    F = torch.nn.functional
+    B, T, Nq, H = ref.shape
+    pad = -T % _BQ
+    d = F.pad(diff, (0, 0, 0, 0, 0, pad)).reshape(B, -1, _BQ, Nq, H)
+    r = F.pad(ref.float().abs(), (0, 0, 0, 0, 0, pad)) \
+        .reshape(B, -1, _BQ, Nq, H)
+    return (d.amax(dim=(2, 4)) / r.amax(dim=(2, 4)).clamp_min(1e-30)) \
+        .max().item()
+
+
+def _abs_v(args, kw):
+    """The same flash call with |v| (and |prefix_v|): its plain output is
+    sum_j p_j |v_j| / l for every output element."""
+    args = list(args)
+    args[2] = args[2].abs()
+    kw = dict(kw)
+    if kw.get("prefix_v") is not None:
+        kw["prefix_v"] = kw["prefix_v"].abs()
+    return args, kw
+
+
+def _flash_bound_ratio(torch, flash_attention_ref, args, kw, diff, ref):
+    """Max over elements of |kernel - plain| / bound, for a bf16 output;
+    the kernel is right where this is <= 1. The bound is
+    2**-7 * (|ref| + sum_j p_j |v_j| / l): both sides round the output to
+    bf16 once (2**-8 of |x| each), and a kernel that rounds the
+    probabilities to bf16 before P.V moves the output by at most 2**-8 of
+    sum_j p_j |v_j| / l (taken twice, for slack). f32 summation order adds
+    ~2**-20 of the same. It scales with each element, so it holds an
+    output of magnitude 5 (ulp 0.03) and one of 0.01 alike."""
+    a, k = _abs_v(args, kw)
+    absv = flash_attention_ref(*a, **k).float()
+    bound = 2.0 ** -7 * (ref.float().abs() + absv)
+    return (diff / bound.clamp_min(1e-30)).max().item()
+
+
+def _flash_inputs(torch, B, T, dt, prefix, gen):
+    """q/k/v (+ the warm prefix, with large garbage past each row's
+    prefix_len) on the card, and the args/kwargs of flash_attention."""
+    Nq, Kv, H = 32, 8, 128
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+    q, k, v = randn(B, T, Nq, H), randn(B, T, Kv, H), randn(B, T, Kv, H)
+    kw = {}
+    if prefix == "float":
+        pk, pv = randn(B, _SP, Kv, H), randn(B, _SP, Kv, H)
+        for b, n in enumerate(_PLEN):
+            pk[b, n:] = 30.0
+            pv[b, n:] = -30.0
+        kw = dict(prefix_k=pk, prefix_v=pv)
+    elif prefix == "int8":
+        shape = (B, Kv, _SP, H)
+        pk = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        pv = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        ks = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
+        vs = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
+        for b, n in enumerate(_PLEN):
+            ks[b, :, n:] = 1.0
+            vs[b, :, n:] = 1.0
+        kw = dict(prefix_k=pk, prefix_v=pv, prefix_k_scale=ks,
+                  prefix_v_scale=vs)
+    if prefix is not None:
+        kw["prefix_len"] = torch.tensor(_PLEN, dtype=torch.int32, device=dev)
+    return q, k, v, kw
+
+
+def _flash_bytes_ops(q, k, causal, kw):
+    """Bytes the function must move (q, k, v and the output once, plus the
+    LIVE prefix rows and their scales) and the operations it does (q.k and
+    p.v over the live (query, key) pairs, a multiply-add each)."""
+    B, T, Nq, H = q.shape
+    Kv = k.shape[2]
+    el = q.element_size()
+    nbytes = 2 * q.numel() * el + 2 * k.numel() * el
+    pairs = T * (T + 1) // 2 if causal else T * T
+    ops = 4 * B * Nq * H * pairs
+    if kw:
+        live = sum(_PLEN)
+        quant = "prefix_k_scale" in kw
+        nbytes += 2 * live * Kv * H * (1 if quant else el) + 4 * B
+        if quant:
+            nbytes += 2 * live * Kv * 4
+        ops += 4 * Nq * H * T * live
+    return nbytes, ops
+
+
+def _flash_yardstick(torch, q, k, v, causal, kw):
+    """One scaled_dot_product_attention call computing the same function:
+    over the chunk alone, or over [live prefix ‖ chunk] with an explicit
+    mask (K/V concatenated, the int8 prefix dequantized, beforehand)."""
+    F = torch.nn.functional
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    if not kw:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    pk, pv = kw["prefix_k"], kw["prefix_v"]
+    if "prefix_k_scale" in kw:
+        pk = (pk.float() * kw["prefix_k_scale"][..., None]).to(q.dtype)
+        pv = (pv.float() * kw["prefix_v_scale"][..., None]).to(q.dtype)
+    else:
+        pk, pv = pk.transpose(1, 2), pv.transpose(1, 2)
+    B, T = q.shape[:2]
+    Sp = pk.shape[2]
+    kc = torch.cat([pk, kt], dim=2).contiguous()
+    vc = torch.cat([pv, vt], dim=2).contiguous()
+    live_p = torch.arange(Sp, device=q.device)[None] < kw["prefix_len"][:, None]
+    tri = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    mask = torch.cat([live_p[:, None, :].expand(B, T, Sp),
+                      tri[None].expand(B, T, T)], dim=2)[:, None]
+    return lambda: F.scaled_dot_product_attention(
+        qt, kc, vc, attn_mask=mask, enable_gqa=True)
+
+
+def phase_flash_kernel(torch, card):
+    from butterfly_tpu_torch.ops.flash_attention import (flash_attention,
+                                                         flash_attention_ref)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    bw = bandwidth(card)
+    results = {}
+    for name, B, T, causal, dts, prefix, tol, rel_tol in FLASH_CASES:
+        dt = getattr(torch, dts)
+        q, k, v, kw = _flash_inputs(torch, B, T, dt, prefix, gen)
+        out = flash_attention(q, k, v, causal, **kw)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, causal, **kw)
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        assert torch.isfinite(out.float()).all(), f"{name}: non-finite"
+        assert err <= tol, f"{name}: max abs err {err} > {tol}"
+        # per (batch row, query tile, head) against its own scale: a
+        # dropped or repeated key tile near prefix_len or the diagonal
+        # moves a few blocks only
+        rel = _tile_rel_err(torch, diff, ref)
+        assert rel <= rel_tol, f"{name}: per-tile rel err {rel} > {rel_tol}"
+        checks = dict(max_tile_rel_err=f"{rel:.3g}", rel_tol=rel_tol)
+        if dt == torch.bfloat16:
+            ratio = _flash_bound_ratio(torch, flash_attention_ref,
+                                       (q, k, v, causal), kw, diff, ref)
+            assert ratio <= 1.0, f"{name}: element error {ratio} x bound"
+            checks["max_err_over_elem_bound"] = f"{ratio:.3g}"
+        entry = "launches_warm" if kw else "launches_fresh"
+        n0 = getattr(flash_attention, entry)
+        k_ms = _time_ms(torch, lambda: flash_attention(q, k, v, causal, **kw),
+                        flush)
+        assert getattr(flash_attention, entry) > n0
+        p_ms = _time_ms(torch, lambda: flash_attention_ref(q, k, v, causal,
+                                                           **kw),
+                        flush, reps=3)
+        l_ms = _time_ms(torch, _flash_yardstick(torch, q, k, v, causal, kw),
+                        flush)
+        nbytes, ops = _flash_bytes_ops(q, k, causal, kw)
+        t_bytes = nbytes / bw * 1e3
+        t_ops = ops / _PEAK[dts] * 1e3
+        bound = max(t_bytes, t_ops)
+        results[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=bound,
+                             bound_by="bytes" if t_bytes >= t_ops
+                             else "operations",
+                             library_ms=l_ms)
+        log("flash", case=name, card=card.replace(" ", "_"),
+            max_abs_err=f"{err:.3g}", tol=tol, **checks,
+            kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+            bytes=nbytes, ops=ops, bound_ms=f"{bound:.4f}",
+            bound_by=results[name]["bound_by"],
+            library_ms=f"{l_ms:.4f}(sdpa)")
+        del q, k, v, kw, out, ref, diff
+    return results
+
+
+# -- phase 5: the serving path ------------------------------------------------
 
 def _post(url, obj, timeout=600):
     req = urllib.request.Request(
@@ -353,10 +590,10 @@ def phase_serve(torch):
         max_memory_allocated_GiB=
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         note="smoke run, not a benchmark")
-    return engine, launches
+    return engine, launches, tok
 
 
-# -- phase 5: the kernel inside the model, against the plain version --------
+# -- phase 6: the kernel inside the model, against the plain version --------
 
 LAYER_TOL = 2e-2   # bf16 tolerance of the kernel phase, absolute
 LOGITS_TOL = 0.5   # ~2x the largest kernel-vs-plain gap seen on an H100
@@ -444,7 +681,7 @@ def phase_parity(torch, engine):
         f"kernel vs plain logits differ by {d_plain} > {LOGITS_TOL}"
 
 
-# -- phase 6: where a decode step's time goes --------------------------------
+# -- phase 7: where a decode step's time goes --------------------------------
 
 def phase_profile(torch, engine, steps=5):
     """Decode steps of the real engine path (mixed_block_async, k=1,
@@ -506,6 +743,210 @@ def phase_profile(torch, engine, steps=5):
             calls_per_step=e.count // steps)
 
 
+# -- phase 8: butterfly generate ---------------------------------------------
+
+_TEXT = "The quick brown fox jumps over the lazy dog. " * 30
+
+
+def _check_tokens(res, B, n, vocab, what):
+    assert res.tokens.shape == (B, n), f"{what}: shape {res.tokens.shape}"
+    assert ((res.tokens >= 0) & (res.tokens < vocab)).all(), what
+    assert (res.lengths == n).all(), f"{what}: lengths {res.lengths}"
+
+
+def phase_generate(torch, model, params, tok):
+    """InferenceEngine.generate on the serve phase's weights, then the
+    CLI's generate on them. Returns the fresh kernel's launches."""
+    import contextlib
+    import io
+
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine, pad_prompts
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.ops.flash_attention import flash_attention
+    from butterfly_tpu_torch.serve import cli
+    cfg = model.cfg
+    L = cfg.num_layers
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    prompts = [tok.encode(_TEXT[:n]) for n in (16, 200, 600, 1000)]
+    B, new = len(prompts), 32
+    sp = SamplingParams(max_new_tokens=new)
+    total, outs = 0, {}
+    for name, kvq, fused in (("bf16_fused", "none", True),
+                             ("bf16_stepped", "none", False),
+                             ("int8_window", "int8", True)):
+        eng = InferenceEngine(model, params, RuntimeConfig(kv_quant=kvq))
+        flash_attention.launches_fresh = flash_attention.launches_warm = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, sp, fused=fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fresh = flash_attention.launches_fresh
+        assert n_fresh == L, f"{name}: {n_fresh} fresh launches for 1 prefill"
+        assert flash_attention.launches_warm == 0, name
+        _check_tokens(res, B, new, cfg.vocab_size, name)
+        outs[name] = res.tokens
+        # the prefill alone, timed on its own cache
+        toks, lens = pad_prompts(prompts)
+        cache = eng.new_cache(B, 2048)
+        tt = torch.as_tensor(toks, device="cuda")
+        tl = torch.as_tensor(lens, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = eng.prefill(tt, tl, cache)
+        torch.cuda.synchronize()
+        pf_ms = (time.perf_counter() - t0) * 1e3
+        assert torch.isfinite(logits).all(), f"{name}: prefill logits"
+        assert flash_attention.launches_fresh == 2 * L, name
+        total += n_fresh  # the timing prefill above is not the main path
+        log("generate", run=name, card=card, batch=B,
+            prompt_tokens=",".join(str(len(p)) for p in prompts),
+            new_tokens=new,
+            decode_window=eng._decode_window, wall_s=f"{wall:.3f}",
+            tokens_per_s=f"{B * new / wall:.2f}", prefill_ms=f"{pf_ms:.1f}",
+            fresh_launches=n_fresh, note="smoke run, not a benchmark")
+        del eng, cache, logits
+    assert (outs["bf16_fused"] == outs["bf16_stepped"]).all(), \
+        "fused and stepped greedy tokens differ"
+    # the CLI's generate, handed the weights built once
+    saved = cli.load_params
+    cli.load_params = lambda model, args: params
+    out, err = io.StringIO(), io.StringIO()
+    flash_attention.launches_fresh = 0
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["generate", "--model", "llama3-8b", "--device",
+                           "cuda", "--prompt", _TEXT[:300], "--max-new",
+                           str(new)])
+    finally:
+        cli.load_params = saved
+    assert rc == 0, f"cli generate rc {rc}: {err.getvalue()}"
+    assert flash_attention.launches_fresh == L
+    total += flash_attention.launches_fresh
+    assert err.getvalue().startswith("[butterfly] ")
+    log("generate", run="cli", rc=rc, text_chars=len(out.getvalue()),
+        stderr=err.getvalue().strip().replace(" ", "_"))
+    torch.cuda.empty_cache()
+    return total
+
+
+# -- phase 9: the alternating serving path ----------------------------------
+
+def phase_alternating(torch, model, params, tok):
+    """ServingEngine(mixed_dispatch=False) + Scheduler, 8 concurrent
+    greedy requests. Returns (engine, {kernel: launches})."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.ops.flash_attention import flash_attention
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    cfg = model.cfg
+    L = cfg.num_layers
+    rt = RuntimeConfig(max_batch_size=8, max_seq_len=2048, page_size=16,
+                       mixed_dispatch=False)
+    engine = ServingEngine(model, params, rt)
+    sched = Scheduler(engine)
+    sizes = [16, 64, 200, 400, 600, 800, 1000, 1200]
+    news = [32, 40, 48, 56, 64, 32, 40, 64]
+    flash_attention.launches_fresh = flash_attention.launches_warm = 0
+    paged_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [sched.submit(tok.encode(_TEXT[:n]), max_new_tokens=m)
+            for n, m in zip(sizes, news)]
+    sched.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = {"fresh": flash_attention.launches_fresh,
+              "warm": flash_attention.launches_warm,
+              "paged": paged_attention.launches}
+    for r, m in zip(reqs, news):
+        assert r.state == "finished" and len(r.output) == m, \
+            f"request {r.id}: {r.state}, {len(r.output)} tokens"
+        assert all(0 <= t < cfg.vocab_size for t in r.output)
+    for kname, n in counts.items():
+        assert n > 0, f"the {kname} kernel never launched on this path"
+        assert n % L == 0, f"{kname}: {n} launches, not a multiple of {L}"
+    ttfts = sorted(r.ttft for r in reqs)
+    gen_tokens = sum(len(r.output) for r in reqs)
+    log("alternate", card=torch.cuda.get_device_name(0).replace(" ", "_"),
+        mixed_dispatch=rt.mixed_dispatch,
+        prefill_chunk=rt.prefill_chunk, requests=len(reqs),
+        generated_tokens=gen_tokens, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{gen_tokens / wall:.2f}",
+        ttft_p50_s=f"{statistics.median(ttfts):.4f}",
+        ttft_max_s=f"{ttfts[-1]:.4f}",
+        fresh_launches=counts["fresh"], warm_launches=counts["warm"],
+        paged_launches=counts["paged"],
+        barriers=json.dumps(sched.barrier_causes()).replace(" ", ""),
+        note="smoke run, not a benchmark")
+    return engine, counts
+
+
+# -- phase 10: the flash kernels inside the model ------------------------------
+
+def phase_flash_parity(torch, engine):
+    """One fresh 512-token prefill and one 388-token warm chunk after it
+    on slot 0 of the alternating engine, bf16, through all layers: each
+    layer's flash output against the plain version on the same inputs,
+    element by element within the bound of `_flash_bound_ratio` (one bf16
+    ulp scaled to the output: an absolute LAYER_TOL would fail a right
+    kernel on any output of magnitude >= 4, whose ulp is 0.031), and each
+    pass's last-token logits against the same pass with the plain version
+    at every layer (LOGITS_TOL)."""
+    import butterfly_tpu_torch.cache.paged as paged_mod
+    from butterfly_tpu_torch.ops.flash_attention import (flash_attention,
+                                                         flash_attention_ref)
+    L = engine.cfg.num_layers
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    toks = torch.randint(0, engine.cfg.vocab_size, (900,),
+                         generator=gen).tolist()
+    engine.set_table_row(0, list(range(64)))
+    errs, mags, ratios = [], [], []
+
+    def checked(*args, **kw):
+        out = flash_attention(*args, **kw)
+        ref = flash_attention_ref(*args, **kw)
+        diff = (out.float() - ref.float()).abs()
+        errs.append(diff.max().item())
+        mags.append(ref.float().abs().max().item())
+        ratios.append(_flash_bound_ratio(torch, flash_attention_ref, args,
+                                         kw, diff, ref))
+        return out
+
+    def run(attn):
+        paged_mod.flash_attention = attn
+        try:
+            fresh = engine.prefill_batch([0], [toks[:512]], [0])
+            warm = engine.prefill_batch([0], [toks[512:]], [512])
+        finally:
+            paged_mod.flash_attention = flash_attention
+        torch.cuda.synchronize()
+        return fresh.float(), warm.float()
+
+    kern = run(checked)
+    plain = run(flash_attention_ref)
+    assert len(errs) == 2 * L, errs
+    gaps = []
+    for a, b in zip(kern, plain):
+        assert torch.isfinite(a).all() and torch.isfinite(b).all()
+        gaps.append((a - b).abs().max().item())
+    log("flashpar", layers=L, fresh_max_layer_abs_err=f"{max(errs[:L]):.3g}",
+        warm_max_layer_abs_err=f"{max(errs[L:]):.3g}",
+        fresh_max_err_over_elem_bound=f"{max(ratios[:L]):.3g}",
+        warm_max_err_over_elem_bound=f"{max(ratios[L:]):.3g}",
+        max_abs_attn_out=f"{max(mags):.4g}",
+        max_abs_logit=f"{plain[1].abs().max().item():.4g}",
+        logits_fresh_kernel_vs_plain=f"{gaps[0]:.4g}",
+        logits_warm_kernel_vs_plain=f"{gaps[1]:.4g}", logits_tol=LOGITS_TOL)
+    assert max(ratios) <= 1.0, \
+        f"flash vs plain in-model: {max(ratios)} x the element bound"
+    assert max(gaps) <= LOGITS_TOL, \
+        f"flash vs plain logits differ by {max(gaps)} > {LOGITS_TOL}"
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -532,24 +973,57 @@ def main() -> int:
     log("build", seconds=f"{time.monotonic() - t0:.1f}",
         built=",".join(built) or "cached")
     for k, (secs, err) in build.build_log.items():
+        log("build", source=k, nvcc_s=f"{secs:.1f}")
+        # one line per distinct ptxas report, with how many kernel
+        # instantiations gave it
+        seen = {}
         for line in err.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {k}: {line.strip()}", flush=True)
+            if "registers" in line or "spill" in line or "smem" in line:
+                text = line.split(":", 1)[-1].strip()
+                seen[text] = seen.get(text, 0) + 1
+        for text, n in seen.items():
+            print(f"[build] {k}: {text} (x{n})", flush=True)
 
     kres = phase_kernel(torch, name)
-    engine, launches = phase_serve(torch)
+    fres = phase_flash_kernel(torch, name)
+    engine, serve_launches, tok = phase_serve(torch)
     phase_parity(torch, engine)
     phase_profile(torch, engine)
-    main_case = kres["bf16_w64"]
-    entry = {"name": "paged_attention", "route": "cuda",
-             "source": "butterfly_tpu_torch/ops/csrc/paged_attention.cu",
-             "replaces": "butterfly_tpu/ops/paged_attention.py:65",
-             "launches": launches,
-             "max_abs_err": max((r["max_abs_err"] for k, r in kres.items()
-                                 if k.startswith(("bf16", "int8"))))}
-    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
-        entry[key] = main_case[key]
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    model, params = engine.model, engine.params
+    # the serve engine's pool and window go; its weights stay shared
+    engine.cache = engine._kv_window = None
+    del engine
+    torch.cuda.empty_cache()
+    gen_fresh = phase_generate(torch, model, params, tok)
+    alt_engine, alt = phase_alternating(torch, model, params, tok)
+    phase_flash_parity(torch, alt_engine)
+
+    def entry(kname, source, replaces, launches, cases, main_case):
+        e = {"name": kname, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max(r["max_abs_err"] for k, r in cases.items()
+                                if not k.startswith("f32")
+                                and not k.endswith("f32"))}
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            e[key] = cases[main_case][key]
+        return e
+
+    flash_src = "butterfly_tpu_torch/ops/csrc/flash_attention.cu"
+    fresh_cases = {k: r for k, r in fres.items() if k.startswith("fresh")}
+    warm_cases = {k: r for k, r in fres.items() if k.startswith("warm")}
+    kernels = [
+        entry("paged_attention",
+              "butterfly_tpu_torch/ops/csrc/paged_attention.cu",
+              "butterfly_tpu/ops/paged_attention.py:65",
+              serve_launches + alt["paged"], kres, "bf16_w64"),
+        entry("flash_attention_fresh", flash_src,
+              "butterfly_tpu/ops/flash_attention.py:66",
+              gen_fresh + alt["fresh"], fresh_cases, "fresh_bf16"),
+        entry("flash_attention_warm", flash_src,
+              "butterfly_tpu/ops/flash_attention.py:97",
+              alt["warm"], warm_cases, "warm_bf16"),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     assert paged_attention.launches > 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,7 @@
 """PyTorch port: the serving engine and the scheduler against the JAX
 package on tiny llama, float32 (greedy: token for token), plus sampling
-held by its distribution and the configurations the port refuses.
+held by its distribution and the configurations the port refuses. The
+alternating path is held in tests/test_torch_alternating.py.
 
 Greedy parity is exact: both sides take argmax over logits that agree
 to ~1e-6 on a float32 model, so the first token that differs would need
@@ -203,8 +204,6 @@ def test_sample_batched_greedy_rows_and_seeding():
 # -- configurations the port refuses -------------------------------------------
 
 REFUSED = {
-    "alternating": dict(mixed_dispatch=False),
-    "static_scheduler": dict(scheduler="static"),
     "speculation": dict(speculative_gamma=2),
     "prefix_caching": dict(prefix_caching=True),
     "host_kv_tier": dict(host_kv_tier_mb=1.0),
@@ -212,8 +211,7 @@ REFUSED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED) + ["mesh", "moe", "int8",
-                                                     "flash"])
+@pytest.mark.parametrize("name", sorted(REFUSED) + ["mesh", "moe", "int8"])
 def test_unported_configurations_refused(name):
     cfg, params, mesh, rt = TCFG, trees()[1], None, _rt(tconfig)
     if name in REFUSED:
@@ -222,8 +220,6 @@ def test_unported_configurations_refused(name):
         mesh = object()
     elif name == "moe":
         cfg = tconfig.tiny("mixtral", dtype="float32")
-    elif name == "flash":
-        cfg = TCFG.replace(attn_impl="flash")
     elif name == "int8":
         params = dict(params, lm_head={"q8": params["lm_head"],
                                        "s": params["lm_head"][:1]})
