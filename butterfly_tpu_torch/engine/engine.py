@@ -8,6 +8,12 @@ test stay on the device, tokens come back in one copy at the end). The
 JAX package's jitted lax.scan becomes a Python loop of eagerly launched
 device work.
 
+Under a seq mesh (core/mesh.py) `generate_long` runs the long-context
+path of parallel/sequence.py: a sequence-parallel prefill through the ring
+kernel (or Ulysses) that leaves the prompt's K/V sharded where it was
+computed, then decode steps that merge per-shard partial attention. Every
+other program runs on the mesh's first device.
+
 Batch shapes are rectangular: prompts are right-padded; pad keys sit at
 positions the causal mask never reaches before decode overwrites them.
 Random draws come from ONE torch.Generator seeded from `seed` (the JAX
@@ -15,19 +21,22 @@ key splits); greedy output equals the JAX package's token for token.
 """
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
+from butterfly_tpu_torch.core.mesh import require_seq_mesh, seq_degree
 from butterfly_tpu_torch.engine.sampling import SamplingParams, sample
 from butterfly_tpu_torch.models.common import (
     KVCache, Model, decode_step_win, flush_window, forward, init_cache,
     torch_dtype)
+from butterfly_tpu_torch.parallel.sequence import (
+    replicate_params, sp_decode_step, sp_forward)
 
 #: where each refused configuration waits (ROADMAP.md, PyTorch/CUDA port)
 ROADMAP = "ROADMAP.md, PyTorch/CUDA port queue"
@@ -54,6 +63,24 @@ def is_quantized_tree(params) -> bool:
     return False
 
 
+def mesh_device(mesh, device, model) -> torch.device:
+    """The engine's device: the mesh's first device under a (seq-only)
+    mesh, where every program that is not seq-parallel runs; else
+    `device`, else the model's. A `device` that disagrees with the mesh
+    raises."""
+    if mesh is None:
+        return resolve_device(
+            device if device is not None else getattr(model, "device", None))
+    require_seq_mesh(mesh)
+    first = resolve_device(mesh.seq_devices()[0])
+    if device is not None:
+        want = torch.device(device)
+        if want.type != first.type or want.index not in (None, first.index):
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device ({first})")
+    return first
+
+
 def to_device(params, device: torch.device):
     """The weight tree with every leaf on `device` (no copy when there)."""
     if isinstance(params, dict):
@@ -62,8 +89,10 @@ def to_device(params, device: torch.device):
 
 
 class InferenceEngine:
-    """Single-device inference over a weight tree on `device` (None =
-    the model's device, CUDA unless the caller asks for the CPU)."""
+    """Inference over a weight tree on `device` (None = the model's
+    device, CUDA unless the caller asks for the CPU), or over a seq-only
+    `mesh` (core/mesh.py): then on the mesh's first device, with one copy
+    of the weights per distinct mesh device for `generate_long`."""
 
     def __init__(self, model: Model, params,
                  runtime: Optional[RuntimeConfig] = None, mesh=None,
@@ -71,22 +100,21 @@ class InferenceEngine:
         self.model = model
         self.cfg = model.cfg
         self.runtime = runtime or RuntimeConfig()
-        if mesh is not None:
-            raise not_ported("a device mesh (tensor/data/stage/seq parallel "
-                             "generation)",
-                             "multi-device serving and the ring kernel")
         if self.cfg.is_moe:
             raise not_ported("MoE models", "Mixtral / expert parallelism")
         if is_quantized_tree(params):
             raise not_ported("int8 weights (--quant int8)", "int8 weights")
-        self.mesh = None
-        self.device = resolve_device(
-            device if device is not None else getattr(model, "device", None))
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device, model)
         # (B, max_seq) -> reusable cache buffers from the previous call;
         # bounded (FIFO) so varying shapes can't pin unbounded memory
         self._cache_pool: "OrderedDict" = OrderedDict()
         self._cache_pool_cap = 2
         self.params = to_device(cast_params(params, self.cfg), self.device)
+        # the weights on every other distinct mesh device (shards that
+        # share a card share its tensors: no second copy)
+        self._replicas = None if mesh is None else \
+            replicate_params(self.params, mesh.seq_devices())
         if use_flash_prefill is None:
             # the hand-written kernels need the card; the CPU runs their
             # plain versions (the wrapper picks by tensor device)
@@ -186,10 +214,82 @@ class InferenceEngine:
         return GenerateResult(tokens=out[:n_real], lengths=lens[:n_real],
                               prompt_lengths=np.asarray(true_lens)[:n_real])
 
-    def generate_long(self, *args, **kwargs) -> GenerateResult:
-        """Long-context generation over a `seq` mesh (ring kernel)."""
-        raise not_ported("generate_long (seq-parallel generation)",
-                         "multi-device serving and the ring kernel")
+    def generate_long(self, prompt: Sequence[int],
+                      sp: Optional[SamplingParams] = None,
+                      seed: int = 0, impl: str = "ring") -> GenerateResult:
+        """Long-context generation over the mesh's `seq` axis: a
+        sequence-parallel prefill (sp_forward, ring attention or Ulysses)
+        leaves the prompt's K/V sharded over `seq` where it was computed;
+        decode steps (sp_decode_step) merge per-shard partial attention,
+        so the long prefix is never regathered. One sequence; the prompt
+        is right-padded to a multiple of the seq size and the pad K/V is
+        masked out of every decode step. kv_quant="int8" rides through:
+        the sharded prefix and the replicated suffix hold codes + scales.
+
+        Decode dispatches run ahead of the host, up to
+        runtime.inflight_blocks deep, chained on the device token; tokens
+        dispatched past a stop are discarded. Random draws come from one
+        torch.Generator seeded from `seed`.
+
+        CLI surface: `butterfly generate --seq-parallel N`."""
+        sp = sp or SamplingParams()
+        N = seq_degree(self.mesh)
+        if N <= 1:
+            raise ValueError(
+                "generate_long needs a mesh with a seq axis > 1 "
+                "(CLI: --seq-parallel N)")
+        ids = list(prompt)
+        true_len = len(ids)
+        total = true_len + sp.max_new_tokens
+        if total > self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt ({true_len}) + max_new_tokens "
+                f"({sp.max_new_tokens}) = {total} exceeds the model's "
+                f"max_seq_len ({self.cfg.max_seq_len})")
+        pad = -(-true_len // N) * N
+        tokens = np.zeros((1, pad), np.int32)
+        tokens[0, :true_len] = np.asarray(ids, np.int32)
+        dev = self.device
+        kvq = self.runtime.kv_quant
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        logits, prefix = sp_forward(self._replicas, self.cfg,
+                                    torch.as_tensor(tokens).to(dev),
+                                    self.mesh, impl=impl, kv_quant=kvq)
+        shard, row = divmod(true_len - 1, pad // N)
+        cur = sample(logits[shard][:, row, :].to(dev), gen, sp)
+        del logits
+        plen = torch.full((1,), true_len, dtype=torch.int32, device=dev)
+        # replicated suffix cache sized for the whole decode run (in the
+        # prefix's representation)
+        suffix = init_cache(self.cfg, 1, sp.max_new_tokens, quant=kvq,
+                            device=dev)
+        depth = max(1, self.runtime.inflight_blocks)
+        pending = deque([cur])
+        out: List[int] = []
+        n_disp = 0  # decode steps dispatched so far
+        while pending:
+            while len(pending) <= depth and n_disp < sp.max_new_tokens - 1:
+                # positions depend only on the dispatch count, so
+                # dispatching runs ahead of the stop-token check
+                positions = torch.full((1, 1), true_len + n_disp,
+                                       dtype=torch.int32, device=dev)
+                logits, suffix = sp_decode_step(
+                    self._replicas, self.cfg, cur[:, None], positions,
+                    prefix, suffix, self.mesh, prefix_len=plen)
+                cur = sample(logits, gen, sp)
+                pending.append(cur)
+                n_disp += 1
+            tok = int(pending.popleft()[0])
+            out.append(tok)
+            if sp.stop_token >= 0 and tok == sp.stop_token:
+                break  # in-flight steps past the stop are discarded
+        toks = np.asarray(out, np.int32)[None]
+        lens = _stop_lengths(toks, sp.stop_token)
+        return GenerateResult(tokens=_mask_after_stop(toks, lens,
+                                                      sp.stop_token),
+                              lengths=lens,
+                              prompt_lengths=np.asarray([true_len]))
 
     def generate_speculative(self, *args, **kwargs):
         """Prompt-lookup speculative generation."""

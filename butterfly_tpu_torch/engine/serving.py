@@ -17,6 +17,13 @@ loop over eagerly launched device work; nothing in a block synchronizes
 with the host, so the scheduler can dispatch block t+1 before it drains
 block t.
 
+Under a seq-only mesh (core/mesh.py) a third dispatch serves the
+scheduler's long-prompt lane (`sp_prefill_chunk`): one chunk of a long
+prompt sharded over `seq`, its fresh K/V attended through the ring
+kernel, landing in the ordinary page pool; the slot then decodes like any
+other. Every other program, and the pool, live on the mesh's first
+device.
+
 Decode steps (C == 1) attend through the hand-written paged-attention
 kernel on CUDA (`use_kernels`, on by default there). With kernels on, the
 alternating path's prefills attend through the flash kernels: a fresh
@@ -39,11 +46,13 @@ from butterfly_tpu_torch.cache.paged import (
     KVWindow, PagedKVCache, flush_paged_window, init_kv_window,
     init_paged_cache, paged_forward, paged_forward_window)
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
-from butterfly_tpu_torch.core.device import resolve_device
+from butterfly_tpu_torch.core.mesh import seq_degree
 from butterfly_tpu_torch.engine.engine import (
-    cast_params, is_quantized_tree, not_ported, to_device)
+    cast_params, is_quantized_tree, mesh_device, not_ported, to_device)
 from butterfly_tpu_torch.engine.sampling import _filter_logits, gumbel_argmax
 from butterfly_tpu_torch.models.common import Model
+from butterfly_tpu_torch.parallel.sequence import (
+    replicate_params, sp_chunk_body)
 
 
 def bucket_len(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
@@ -88,9 +97,10 @@ def sample_batched(logits: torch.Tensor, generator: Optional[torch.Generator],
     return torch.where(temps > 0, drawn, greedy)
 
 
-def _refuse_unported(cfg: ModelConfig, rt: RuntimeConfig, mesh,
+def _refuse_unported(cfg: ModelConfig, rt: RuntimeConfig,
                      params) -> None:
-    """Raise for every configuration whose device half is not ported."""
+    """Raise for every configuration whose device half is not ported (a
+    mesh with an axis other than seq raises in mesh_device)."""
     def no(what: str, item: str) -> None:
         raise not_ported(what, item)
     if rt.speculative_gamma > 0:
@@ -100,12 +110,6 @@ def _refuse_unported(cfg: ModelConfig, rt: RuntimeConfig, mesh,
     if (rt.host_kv_tier_mb or 0) > 0:
         no("the host KV tier (host_kv_tier_mb > 0)",
            "prefix caching, host KV tier and fleet")
-    if rt.seq_parallel_threshold > 0:
-        no("the seq-parallel prefill lane (seq_parallel_threshold > 0)",
-           "multi-device serving and the ring kernel")
-    if mesh is not None:
-        no("a device mesh (tensor/data/stage/seq parallel serving)",
-           "multi-device serving and the ring kernel")
     if cfg.is_moe:
         no("MoE models", "Mixtral / expert parallelism")
     if is_quantized_tree(params):
@@ -121,13 +125,16 @@ class ServingEngine:
         self.model = model
         self.cfg = model.cfg
         self.runtime = runtime or RuntimeConfig()
-        _refuse_unported(self.cfg, self.runtime, mesh, params)
-        self.device = resolve_device(
-            device if device is not None else getattr(model, "device", None))
+        _refuse_unported(self.cfg, self.runtime, params)
+        self.device = mesh_device(mesh, device, model)
         # Optional obs.trace.Tracer (the scheduler shares its own)
         self.tracer = None
-        self.mesh = None
+        self.mesh = mesh
         self.params = to_device(cast_params(params, self.cfg), self.device)
+        # the weights on every other distinct mesh device, for the
+        # seq-parallel lane (shards that share a card share its tensors)
+        self._replicas = None if mesh is None else \
+            replicate_params(self.params, mesh.seq_devices())
         if use_kernels is None:
             # the hand-written kernels need the card; the CPU runs the
             # plain versions (ops/*: the wrapper picks by tensor device)
@@ -200,11 +207,14 @@ class ServingEngine:
 
     @property
     def supports_seq_parallel(self) -> bool:
-        return False
+        """Can long prompts route through the seq-parallel prefill lane?
+        Needs a mesh with a seq axis > 1 (every other axis is 1)."""
+        return self.sp_degree > 1
 
     @property
     def sp_degree(self) -> int:
-        return 1
+        """Size of the seq mesh axis (1 without a mesh)."""
+        return seq_degree(self.mesh)
 
     @property
     def spec_tree_mode(self) -> bool:
@@ -367,6 +377,43 @@ class ServingEngine:
             self._h2d(sts[:B] + lens[:B], torch.int32)
         self.cache = self.cache._replace(lengths=lengths)
         return logits[:B]
+
+    # -- the seq-parallel long-prompt lane ------------------------------------
+
+    def sp_prefill_chunk(self, slot: int, tokens: list,
+                         start: int) -> torch.Tensor:
+        """Run one seq-parallel chunk of one LONG prompt; returns the
+        chunk's last-token logits [V] on the device.
+
+        The scheduler's long-prompt lane (seq_parallel_threshold) calls
+        this instead of prefill_chunk: the chunk is sharded over the seq
+        axis (each shard computes C/N tokens of qkv + ring attention),
+        the slot's flushed pool prefix is attended through the same
+        flash-stats merge, and the chunk's K/V lands in the slot's pages
+        (one all-layer scatter per pool tensor), so decode proceeds as
+        for any paged slot."""
+        N = self.sp_degree
+        C = bucket_len(len(tokens), hi=self.cache.max_seq)
+        C = -(-C // N) * N                  # the seq size must divide C
+        buf = np.zeros((1, C), np.int32)
+        buf[0, :len(tokens)] = tokens
+        # the chunk reads the pool at the slot's FLUSHED length, so staged
+        # window entries land first
+        if self._win_dirty:
+            self.flush_kv_window()
+        self._sync_table()
+        if self.tracer is not None:
+            self.tracer.event(None, "engine.sp_prefill_dispatch",
+                              slot=slot, tokens=len(tokens), bucket=C,
+                              start=start, degree=N)
+        logits = _sp_chunk(self.cfg, self._replicas, self.mesh,
+                           self._h2d(buf, torch.int32), self.cache,
+                           self._host_table[slot], self._h2d, start,
+                           len(tokens))
+        lengths = self.cache.lengths.clone()
+        lengths[slot] = start + len(tokens)
+        self.cache = self.cache._replace(lengths=lengths)
+        return logits
 
     # -- the alternating path: decode ------------------------------------------
 
@@ -531,6 +578,66 @@ def _prefill_slot(cfg: ModelConfig, fresh: bool, params, tokens,
     logits, _ = paged_forward(params, cfg, tokens, cache1, positions,
                               fresh=fresh, last_index=true_len - 1)
     return logits[:, 0, :]
+
+
+def _sp_chunk(cfg: ModelConfig, replicas, mesh, tokens,
+              cache: PagedKVCache, row: np.ndarray, h2d, start: int,
+              clen: int) -> torch.Tensor:
+    """One seq-parallel chunk against one slot's table row (host array):
+    gather the slot's flushed prefix for every layer (the pages holding
+    positions < start; one page when there are none), run the chunk
+    through sp_chunk_body, then scatter its K/V into the pool IN PLACE
+    with one all-layer write per pool tensor, pad rows (>= clen) routed to
+    the null page. Returns the chunk's last real token's logits [V]."""
+    L, Pp, Kv, pg, H = cache.k_pages.shape
+    mp = row.shape[0]
+    S_full = mp * pg
+    n_live = max(1, -(-start // pg))
+    live = h2d(row[:n_live], torch.long)
+    S = n_live * pg
+    if cache.quantized:   # codes [L, 1, Kv, S, H], scales [L, 1, Kv, S]
+        prefix = tuple(p[:, live].transpose(1, 2).reshape(L, 1, Kv, S, H)
+                       for p in (cache.k_pages, cache.v_pages)) + tuple(
+            sc[:, live].reshape(L, n_live, Kv, pg).transpose(1, 2)
+            .reshape(L, 1, Kv, S)
+            for sc in (cache.k_scale_pages, cache.v_scale_pages))
+    else:                 # [L, 1, S, Kv, H]
+        prefix = tuple(p[:, live].transpose(2, 3).reshape(L, 1, S, Kv, H)
+                       for p in (cache.k_pages, cache.v_pages))
+    logits, kv = sp_chunk_body(replicas, cfg, tokens, start, prefix, mesh)
+    del prefix
+    dev = cache.k_pages.device
+    C = tokens.shape[1]
+    Cl = C // len(logits)
+    ar = torch.arange(C, device=dev)
+    pos = start + ar
+    row_t = h2d(row, torch.long)
+    page_idx = row_t[(pos // pg).clamp(0, mp - 1)]
+    page_idx = torch.where((ar < clen) & (pos < S_full), page_idx,
+                           torch.full_like(page_idx, cache.null_page))
+    off = pos % pg
+    # advanced indices at dims 1 and 3 (a slice between) put the index
+    # dim first: the indexed view is [C, L, Kv, H]
+    if cache.quantized:
+        ck, cv, cks, cvs = (torch.cat([p[j].to(dev) for p in kv], dim=3)
+                            for j in range(4))      # [L,1,Kv,C(,H)]
+        cache.k_pages[:, page_idx, :, off] = ck[:, 0].permute(2, 0, 1, 3)
+        cache.v_pages[:, page_idx, :, off] = cv[:, 0].permute(2, 0, 1, 3)
+        # the flat scale dim is kv-major: col = kv * page + offset
+        cols = torch.arange(Kv, device=dev)[None, :] * pg + off[:, None]
+        cache.k_scale_pages[:, page_idx[:, None], cols] = \
+            cks[:, 0].permute(0, 2, 1)                  # [L, C, Kv]
+        cache.v_scale_pages[:, page_idx[:, None], cols] = \
+            cvs[:, 0].permute(0, 2, 1)
+    else:
+        ck, cv = (torch.cat([p[j].to(dev) for p in kv], dim=2)
+                  for j in range(2))                  # [L,1,C,Kv,H]
+        cache.k_pages[:, page_idx, :, off] = \
+            ck[:, 0].transpose(0, 1).to(cache.k_pages.dtype)
+        cache.v_pages[:, page_idx, :, off] = \
+            cv[:, 0].transpose(0, 1).to(cache.v_pages.dtype)
+    shard, r = divmod(clen - 1, Cl)
+    return logits[shard][0, r].to(dev)
 
 
 def _decode_all(cfg: ModelConfig, params, tokens, cache: PagedKVCache,

@@ -3,7 +3,8 @@
 Each kernel source under ops/csrc/ compiles with nvcc for sm_90a into its
 own shared library, loaded with ctypes. Libraries land in
 <repo>/build/butterfly_tpu_torch/ (git-ignored), named by a hash of the
-source and the flags, so an edited source never loads a stale library.
+source, the shared headers (csrc/*.cuh) and the flags, so an edited source
+or header never loads a stale library.
 The build runs at first use, one nvcc per missing library; `build_all`
 starts one nvcc per source at once. Nothing here runs at import time.
 
@@ -26,6 +27,7 @@ _HERE = Path(__file__).resolve().parent
 KERNEL_SOURCES: Dict[str, str] = {
     "paged_attention": "csrc/paged_attention.cu",
     "flash_attention": "csrc/flash_attention.cu",
+    "ring_attention": "csrc/ring_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -51,6 +53,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = _HERE / KERNEL_SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

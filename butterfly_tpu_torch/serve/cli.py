@@ -2,13 +2,17 @@
 
     python -m butterfly_tpu_torch.serve.cli generate --model llama3-8b --prompt "hello" --max-new 32
     python -m butterfly_tpu_torch.serve.cli generate --model tiny --device cpu
+    python -m butterfly_tpu_torch.serve.cli generate --model tiny --device cpu --seq-parallel 2
     python -m butterfly_tpu_torch.serve.cli serve --model llama3-8b --port 8000
     python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu
+    python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu --seq-parallel 2 --seq-parallel-threshold 256
 
 Both subcommands keep the JAX CLI's flags (butterfly_tpu/serve/cli.py) and
-add --device (default cuda). Flags whose path the port does not carry yet
-are accepted and refused with NotImplementedError naming the ROADMAP.md
-item. Without --ckpt, weights are random (demo mode).
+add --device (default cuda). `--seq-parallel N` builds a seq mesh of N
+shards: on cuda:0..N-1 with --device cuda (N cards needed), on the CPU with
+--device cpu. Flags whose path the port does not carry yet are accepted
+and refused with NotImplementedError naming the ROADMAP.md item. Without
+--ckpt, weights are random (demo mode).
 """
 from __future__ import annotations
 
@@ -42,11 +46,16 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--dtype", default=None,
                         help="override compute dtype")
         for flag in ("--tensor-parallel", "--stage-parallel",
-                     "--expert-parallel", "--data-parallel",
-                     "--seq-parallel"):
-            sp.add_argument(flag, type=int, default=1)
+                     "--expert-parallel", "--data-parallel"):
+            sp.add_argument(flag, type=int, default=1,
+                            help="(not ported yet)")
+        sp.add_argument("--seq-parallel", type=int, default=1,
+                        help="shard long prompts over N devices (ring "
+                             "attention / Ulysses); --device cuda needs N "
+                             "cards")
         sp.add_argument("--seq-impl", choices=["ring", "ulysses"],
-                        default="ring")
+                        default="ring",
+                        help="attention across the seq shards (generate)")
         sp.add_argument("--max-seq", type=int, default=2048)
         sp.add_argument("--dcn-axes", default="data")
         sp.add_argument("--quant", choices=["none", "int8"], default="none",
@@ -100,8 +109,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "scheduler tick, drained in ONE stacked fetch")
     s.add_argument("--prefill-max-batch", type=_positive_int, default=8)
     s.add_argument("--seq-parallel-threshold", type=int, default=0,
-                   help="seq-parallel prefill lane (not ported yet)")
-    s.add_argument("--seq-parallel-chunk", type=int, default=0)
+                   help="prompts longer than this many tokens prefill "
+                        "through the seq-parallel lane (needs "
+                        "--seq-parallel N > 1); 0 = off")
+    s.add_argument("--seq-parallel-chunk", type=int, default=0,
+                   help="tokens per seq-parallel prefill dispatch (0 = "
+                        "N x the prefill chunk)")
     s.add_argument("--slo-ttft-ms", type=float, default=None,
                    help="declared time-to-first-token objective (ms)")
     s.add_argument("--slo-itl-ms", type=float, default=None,
@@ -150,16 +163,36 @@ def load_params(model, args):
 
 
 def build_mesh(args):
-    """None when every parallelism flag is 1; a mesh is not ported yet."""
-    n = 1
-    for flag in ("tensor_parallel", "stage_parallel", "expert_parallel",
-                 "data_parallel", "seq_parallel"):
-        n *= getattr(args, flag, 1)
+    """Mesh from the CLI parallelism flags; None when all are 1.
+
+    --device cuda takes cards cuda:0..n-1 and refuses n larger than the
+    visible count; --device cpu takes n shards on the CPU. Only the seq
+    axis is ported: the other flags > 1 raise NotImplementedError
+    (core/mesh.py)."""
+    import torch
+
+    from butterfly_tpu_torch.core.config import MeshConfig
+    from butterfly_tpu_torch.core.mesh import make_mesh
+
+    tp = getattr(args, "tensor_parallel", 1)
+    pp = getattr(args, "stage_parallel", 1)
+    ep = getattr(args, "expert_parallel", 1)
+    dp = getattr(args, "data_parallel", 1)
+    sq = getattr(args, "seq_parallel", 1)
+    n = tp * pp * ep * dp * sq
     if n == 1:
         return None
-    raise NotImplementedError(
-        "multi-device serving is not ported yet (ROADMAP.md, PyTorch/CUDA "
-        "port queue: multi-device serving and the ring kernel)")
+    cfg = MeshConfig(data=dp, stage=pp, expert=ep, seq=sq, tensor=tp)
+    if getattr(args, "device", "cuda") == "cpu":
+        return make_mesh(cfg, ["cpu"] * n)
+    ndev = torch.cuda.device_count()
+    if n > ndev:
+        raise SystemExit(
+            f"error: --tensor-parallel {tp} x --stage-parallel {pp} x "
+            f"--expert-parallel {ep} x --data-parallel {dp} x "
+            f"--seq-parallel {sq} = {n} devices, "
+            f"but only {ndev} are available")
+    return make_mesh(cfg, [f"cuda:{i}" for i in range(n)])
 
 
 def cmd_generate(args) -> int:
@@ -170,6 +203,11 @@ def cmd_generate(args) -> int:
     from butterfly_tpu_torch.engine.sampling import SamplingParams
     from butterfly_tpu_torch.utils.tokenizer import load_tokenizer
 
+    if args.seq_parallel > 1 and args.speculate > 0:
+        print("error: --speculate does not compose with --seq-parallel "
+              "(the long-context path has no warm multi-token verify)",
+              file=sys.stderr)
+        return 2
     if args.speculate > 0:
         raise not_ported("generate --speculate", "speculation")
     if args.quant != "none":
@@ -194,6 +232,18 @@ def cmd_generate(args) -> int:
               f"vocab ({vocab}); pass a matching --tokenizer", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
+    if args.seq_parallel > 1:
+        # the long-context path: sp_forward prefill + sp_decode_step loop
+        # (engine.generate_long); --kv-quant int8 composes
+        res = engine.generate_long(ids, sp, seed=args.seed,
+                                   impl=args.seq_impl)
+        dt = time.perf_counter() - t0
+        n = int(res.lengths[0])
+        print(tok.decode(res.tokens[0, :n].tolist()))
+        print(f"[butterfly] {n} tokens in {dt:.2f}s over "
+              f"{args.seq_parallel}-way sequence parallelism",
+              file=sys.stderr)
+        return 0
     res = engine.generate([ids], sp, seed=args.seed)
     dt = time.perf_counter() - t0
     n = int(res.lengths[0])
@@ -204,6 +254,12 @@ def cmd_generate(args) -> int:
 
 
 def cmd_serve(args) -> int:
+    if getattr(args, "seq_parallel_threshold", 0) > 0 \
+            and args.seq_parallel <= 1:
+        print("error: --seq-parallel-threshold needs a seq axis — pass "
+              "--seq-parallel N (> 1) to shard long prompts over N "
+              "devices", file=sys.stderr)
+        return 2
     from butterfly_tpu_torch.serve.server import run_server
     return run_server(args)
 

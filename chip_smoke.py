@@ -41,7 +41,21 @@ raises and the script exits non-zero:
              (is_causal, enable_gqa) for the fresh kernel and, for the warm
              one, the same call over [live prefix ‖ chunk] with an explicit
              mask and K/V concatenated beforehand.
-5. serve     `butterfly serve` machinery (serve/server.build_serving) on
+5. ring      the ring-attention kernel's partial stats (m, l, acc) against
+             its plain version at Llama-3-8B shapes (Nq=32, Kv=8, H=128),
+             bf16 on the tensor cores: the diagonal ring block of a
+             4096-token prompt on 2 shards (T=S=2048), an earlier block
+             (every key live), a later block (every key masked: exactly
+             m=-1e30, l=0, acc=0), a ragged block with INVALID_POS keys
+             over large garbage, int8 codes + scales, one decode token
+             against 2048 keys; f32 on the CUDA cores at T=256.
+             Tolerances: m 1e-3 absolute, l 2**-7 relative, the finalised
+             acc/l per element within the flash phase's bound and per
+             64-row tile 1e-2; f32 1e-4. Times as above; the yardstick is
+             scaled_dot_product_attention with the boolean position mask
+             (enable_gqa), which returns the normalised output, not the
+             stats.
+6. serve     `butterfly serve` machinery (serve/server.build_serving) on
              full-width, full-depth Llama-3-8B with random bf16 weights
              and the CLI's serve defaults (mixed dispatch), in a thread on
              127.0.0.1; 8 concurrent greedy /generate requests (prompts of
@@ -50,30 +64,48 @@ raises and the script exits non-zero:
              and read just after; the paged kernel must have launched, a
              multiple of 32 times (one launch per layer per decode step).
              These weights are built once; every later engine shares them.
-6. parity    on the same engine, one decode step through all layers with
+7. parity    on the same engine, one decode step through all layers with
              equal carries, bf16: each layer's kernel output against the
              plain version on the same inputs (2e-2 absolute), and the
              step's logits with the kernel against the same step with the
              plain version (0.5 absolute).
-7. profile   where one decode step's time goes: host wall vs device busy
+8. profile   where one decode step's time goes: host wall vs device busy
              time (torch.profiler) and the top kernels by device time.
-8. generate  InferenceEngine.generate on the same model: four greedy
+9. generate  InferenceEngine.generate on the same model: four greedy
              prompts of 16-1000 bytes, 32 new tokens, fused, then the same
              stepped (tokens must be equal), then int8 KV (the
              write-combined window loop), then one call of the CLI's
              `generate`. The fresh flash kernel must launch 32 times per
              prefill call, the warm one never. Tokens/s and prefill time.
-9. alternate the alternating serving path: ServingEngine(mixed_dispatch=
+10. alternate the alternating serving path: ServingEngine(mixed_dispatch=
              False) + Scheduler, 8 concurrent greedy requests with prompts
              up to 1200 bytes, so 512-token chunks continue warm. The
              fresh, warm and paged kernels must each launch, a multiple
              of 32 times. Tokens/s and TTFT (a smoke run, not a benchmark).
-10. flashpar on that engine, one fresh 512-token prefill and one warm
+11. flashpar on that engine, one fresh 512-token prefill and one warm
              chunk after it through all 32 layers: every layer's flash
              output against the plain version on the same inputs, each
              element within the flash phase's bound (one bf16 ulp scaled
              to the output), and each pass's last-token logits against
              the all-plain pass (0.5 absolute).
+12. longgen  InferenceEngine.generate_long over a seq = 2 mesh (one shard
+             per card with two cards, else both on cuda:0; printed) on the
+             shared weights: a 4096-token prompt, 32 greedy new tokens,
+             ring with bf16 KV, ring with int8 KV, Ulysses. The ring
+             kernel's launches must be exact (N*N per layer for the
+             prefill, N + 1 per layer per decode step); the prefill's
+             last-position logits within 0.5 of the dense flash prefill
+             (int8: of the same prefill with the plain ring version).
+             Tokens/s and the prefill time.
+13. ringpar  one sp_forward of that prompt: every ring block's kernel stats,
+             finalised, against the plain version on the same inputs
+             within the ring phase's element bound; the logits against the
+             all-plain pass within 0.5.
+14. longserve ServingEngine(seq = 2, seq_parallel_threshold=1024,
+             max_seq_len=4096) + Scheduler, mixed dispatch: 2 long prompts
+             (3000 and 4000 bytes) and 4 short ones, greedy. The lane must
+             prefill tokens; ring and paged launches multiples of 32; every
+             request finishes. Tokens/s and TTFT.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
@@ -503,7 +535,171 @@ def phase_flash_kernel(torch, card):
     return results
 
 
-# -- phase 5: the serving path ------------------------------------------------
+# -- phase 5: the ring kernel against its plain version ---------------------
+
+_INVALID = 2**31 - 1
+# (name, T, S, q positions start, k positions start, dtype name, int8 K/V,
+#  ragged): Llama-3-8B heads (Nq=32, Kv=8, H=128), one batch row. diag is
+# the diagonal ring block of a 4096-token prompt over 2 shards (each
+# shard's own chunk), earlier a block every query sees whole, later a
+# block every query must ignore, decode one token against a shard.
+RING_CASES = [
+    ("diag_bf16", 2048, 2048, 0, 0, "bfloat16", False, False),
+    ("earlier_bf16", 2048, 2048, 2048, 0, "bfloat16", False, False),
+    ("later_bf16", 2048, 2048, 0, 2048, "bfloat16", False, False),
+    ("ragged_bf16", 1000, 2000, 1000, 0, "bfloat16", False, True),
+    ("int8", 2048, 2048, 0, 0, "bfloat16", True, False),
+    ("decode_T1", 1, 2048, 3000, 0, "bfloat16", False, False),
+    ("f32_T256", 256, 256, 0, 0, "float32", False, False),
+]
+
+
+def _ring_inputs(torch, T, S, q0, k0, dt, quant, ragged, gen):
+    Nq, Kv, H = 32, 8, 128
+    dev = "cuda"
+    q = torch.randn((1, T, Nq, H), generator=gen, device=dev).to(dt)
+    if quant:
+        k = torch.randint(-127, 128, (1, Kv, S, H), generator=gen,
+                          device=dev, dtype=torch.int8)
+        v = torch.randint(-127, 128, (1, Kv, S, H), generator=gen,
+                          device=dev, dtype=torch.int8)
+        ks = torch.rand((1, Kv, S), generator=gen, device=dev) * 0.02
+        vs = torch.rand((1, Kv, S), generator=gen, device=dev) * 0.02
+    else:
+        k = torch.randn((1, S, Kv, H), generator=gen, device=dev).to(dt)
+        v = torch.randn((1, S, Kv, H), generator=gen, device=dev).to(dt)
+        ks = vs = None
+    qp = torch.arange(q0, q0 + T, device=dev, dtype=torch.int32)[None]
+    kp = torch.arange(k0, k0 + S, device=dev, dtype=torch.int32)[None]
+    if ragged:
+        # the unwritten tail and scattered holes carry INVALID_POS, and
+        # their K/V rows hold large garbage that must never be attended
+        bad = torch.rand((1, S), generator=gen, device=dev) < 0.1
+        bad[:, 1900:] = True
+        kp = torch.where(bad, torch.full_like(kp, _INVALID), kp)
+        k[bad] = 30.0
+        v[bad] = -30.0
+    return (q, k, v, qp, kp, ks, vs)
+
+
+def _ring_bytes_ops(args):
+    """Bytes the block must move for THIS data (q once if any pair is
+    live, the K/V rows (+ scales) some query attends, positions, the
+    outputs once) and its operations (q.k and p.v on the live pairs)."""
+    q, k, v, qp, kp, ks, vs = args
+    _, T, Nq, H = q.shape
+    quant = ks is not None
+    Kv = k.shape[1] if quant else k.shape[2]
+    live = kp[0][None, :] <= qp[0][:, None]               # [T, S]
+    pairs = int(live.sum().item())
+    keys = int(live.any(dim=0).sum().item())
+    el = 1 if quant else k.element_size()
+    nbytes = (qp.numel() + kp.numel()) * 4 + Nq * T * (H + 2) * 4
+    if pairs:
+        nbytes += q.numel() * q.element_size() \
+            + 2 * keys * Kv * (H * el + (4 if quant else 0))
+    return nbytes, 4 * Nq * H * pairs
+
+
+def _ring_sdpa(torch, args):
+    """One scaled_dot_product_attention call with the same boolean
+    position mask (enable_gqa): the normalised output, not the stats."""
+    F = torch.nn.functional
+    q, k, v, qp, kp, ks, vs = args
+    if ks is not None:      # int8 codes are already [B, Kv, S, H]
+        k = (k.float() * ks[..., None]).to(q.dtype)
+        v = (v.float() * vs[..., None]).to(q.dtype)
+    else:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = k.contiguous(), v.contiguous()
+    mask = (kp[0][None, :] <= qp[0][:, None])[None, None]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def _ring_check(torch, ra, args, stats, ref, bf16):
+    """Hold the kernel's stats to the plain version's: (m err, l rel err,
+    finalised output abs err, its element-bound ratio (bf16) or abs err
+    (f32), tile rel err)."""
+    m, l, acc = stats
+    m_r, l_r, acc_r = ref
+    masked = l_r == 0
+    # a row with nothing live: exactly m = -1e30, l = 0, acc = 0
+    assert (m[masked] == ra.NEG_INF).all() and (l[masked] == 0).all() \
+        and (acc[masked] == 0).all(), "masked rows not exact"
+    assert torch.isfinite(m).all() and torch.isfinite(l).all() \
+        and torch.isfinite(acc).all(), "non-finite stats"
+    m_err = (m - m_r).abs().max().item()
+    l_rel = ((l - l_r).abs() / l_r.clamp_min(1e-30)).max().item()
+    out = ra.finalize_stats(stats, torch.float32)
+    out_r = ra.finalize_stats(ref, torch.float32)
+    diff = (out - out_r).abs()
+    if bf16:
+        q, k, v, qp, kp, ks, vs = args
+        absv = ra.finalize_stats(ra.ring_block_stats_ref(
+            q, k, v.abs(), qp, kp, ks, vs), torch.float32)
+        bound = 2.0 ** -7 * (out_r.abs() + absv)
+        elem = (diff / bound.clamp_min(1e-30)).max().item()
+    else:
+        elem = diff.max().item()
+    tile = _tile_rel_err(torch, diff, out_r) if out_r.abs().max() > 0 \
+        else 0.0
+    return m_err, l_rel, diff.max().item(), elem, tile
+
+
+def phase_ring(torch, card):
+    from butterfly_tpu_torch.ops import ring_attention as ra
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    bw = bandwidth(card)
+    results = {}
+    for name, T, S, q0, k0, dts, quant, ragged in RING_CASES:
+        dt = getattr(torch, dts)
+        bf16 = dt == torch.bfloat16
+        args = _ring_inputs(torch, T, S, q0, k0, dt, quant, ragged, gen)
+        stats = ra.ring_block_stats(*args)
+        torch.cuda.synchronize()
+        ref = ra.ring_block_stats_ref(*args)
+        m_err, l_rel, out_err, elem, tile = _ring_check(
+            torch, ra, args, stats, ref, bf16)
+        tol = dict(m=1e-3, l=2.0 ** -7, elem=1.0, tile=1e-2) if bf16 else \
+            dict(m=1e-4, l=1e-4, elem=1e-4, tile=1e-4)
+        assert m_err <= tol["m"], f"{name}: m err {m_err}"
+        assert l_rel <= tol["l"], f"{name}: l rel err {l_rel}"
+        assert elem <= tol["elem"], f"{name}: output err {elem}"
+        assert tile <= tol["tile"], f"{name}: tile rel err {tile}"
+        n0 = ra.launches
+        k_ms = _time_ms(torch, lambda: ra.ring_block_stats(*args), flush)
+        assert ra.launches > n0
+        p_ms = _time_ms(torch, lambda: ra.ring_block_stats_ref(*args), flush,
+                        reps=3)
+        l_ms = None
+        if name != "later_bf16":  # SDPA has no answer for an all-masked row
+            l_ms = _time_ms(torch, _ring_sdpa(torch, args), flush)
+        nbytes, ops = _ring_bytes_ops(args)
+        t_bytes = nbytes / bw * 1e3
+        t_ops = ops / _PEAK[dts] * 1e3
+        bound = max(t_bytes, t_ops)
+        results[name] = dict(max_abs_err=out_err, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=bound,
+                             bound_by="bytes" if t_bytes >= t_ops
+                             else "operations", library_ms=l_ms)
+        log("ring", case=name, card=card.replace(" ", "_"), T=T, S=S,
+            m_abs_err=f"{m_err:.3g}", l_rel_err=f"{l_rel:.3g}",
+            out_abs_err=f"{out_err:.3g}",
+            **({"max_err_over_elem_bound": f"{elem:.3g}"} if bf16 else {}),
+            max_tile_rel_err=f"{tile:.3g}", kernel_ms=f"{k_ms:.4f}",
+            plain_ms=f"{p_ms:.4f}", bytes=nbytes, ops=ops,
+            bound_ms=f"{bound:.4f}", bound_by=results[name]["bound_by"],
+            library_ms="none" if l_ms is None
+            else f"{l_ms:.4f}(sdpa,normalised output)")
+        del args, stats, ref
+    return results
+
+
+# -- phase 6: the serving path ------------------------------------------------
 
 def _post(url, obj, timeout=600):
     req = urllib.request.Request(
@@ -534,9 +730,14 @@ def phase_serve(torch):
         mixed_dispatch=rt.mixed_dispatch,
         kv_write_combine=rt.kv_write_combine,
         setup_s=f"{time.monotonic() - t0:.1f}")
+    class Server(ThreadingHTTPServer):
+        # the serve entrypoint's backlog (serve/server.py:serve_forever):
+        # the default of 5 can reset some of 8 simultaneous connections
+        request_queue_size = 128
+
     state = ServerState(sched, tok)
     state.thread.start()
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    httpd = Server(("127.0.0.1", 0), make_handler(state))
     srv = threading.Thread(target=httpd.serve_forever, daemon=True)
     srv.start()
     url = f"http://127.0.0.1:{httpd.server_port}"
@@ -947,6 +1148,234 @@ def phase_flash_parity(torch, engine):
         f"flash vs plain logits differ by {max(gaps)} > {LOGITS_TOL}"
 
 
+# -- phases 12-14: the seq-parallel long-context path -------------------------
+
+_LONG = (_TEXT * 4)[:4095]   # 4096 tokens with BOS: 2 x 2048 on seq = 2
+
+
+def _seq_mesh(torch):
+    """seq = 2: one shard per card where there are two, else both shards
+    on cuda:0. Returns (mesh, placement)."""
+    from butterfly_tpu_torch.core.config import MeshConfig
+    from butterfly_tpu_torch.core.mesh import make_mesh
+    devs = ["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2 \
+        else ["cuda:0", "cuda:0"]
+    return make_mesh(MeshConfig(seq=2), devs), "+".join(devs)
+
+
+def _profile_prefill(torch, run):
+    """Where one long prefill's time goes: host wall against device busy
+    time (torch.profiler), split into the ring kernel, the GEMMs and the
+    rest, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ka = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    busy = sum(dev_ms(e) for e in ka)
+    ring = sum(dev_ms(e) for e in ka if "ring" in e.key)
+    gemm = sum(dev_ms(e) for e in ka if "nvjet" in e.key or "gemm" in e.key
+               or "cutlass" in e.key)
+    log("longgen", profile="prefill", wall_ms=f"{wall:.1f}",
+        device_busy_ms=f"{busy:.1f}",
+        idle_share=f"{1 - busy / wall:.3f}" if busy else "not measured",
+        ring_ms=f"{ring:.1f}", gemm_ms=f"{gemm:.1f}",
+        other_ms=f"{busy - ring - gemm:.1f}")
+    for e in sorted(ka, key=dev_ms, reverse=True)[:6]:
+        log("longgen", kernel=e.key[:60].replace(" ", "_"),
+            ms=f"{dev_ms(e):.2f}", calls=e.count)
+
+
+def phase_longgen(torch, model, params, tok):
+    """InferenceEngine.generate_long over seq = 2, 32 greedy new tokens:
+    ring with bf16 KV, ring with int8 KV, Ulysses. The ring kernel's
+    launches must be exact: the prefill runs N*N = 4 blocks per layer,
+    each decode step N = 2 prefix blocks (one per shard) plus ONE suffix
+    block per layer (the replicated suffix runs once, on the first
+    device). The prefill's last-position logits are held to the dense
+    prefill (the flash kernel) within LOGITS_TOL; the int8 run, whose
+    attention reads quantized K/V, to the same prefill with the plain ring
+    version. Returns the ring kernel's launches."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.ops import ring_attention as ra
+    from butterfly_tpu_torch.parallel.sequence import sp_forward
+    cfg = model.cfg
+    L, N, new = cfg.num_layers, 2, 32
+    mesh, where = _seq_mesh(torch)
+    ids = tok.encode(_LONG)
+    tokens = torch.tensor([ids], dtype=torch.int32, device="cuda")
+    # the dense reference: one fresh prefill through the flash kernel
+    dense = InferenceEngine(model, params)
+    lens = torch.tensor([len(ids)], dtype=torch.int32, device="cuda")
+    ref, _ = dense.prefill(tokens, lens, dense.new_cache(1, len(ids)))
+    ref = ref[0].float()
+    del dense
+    torch.cuda.empty_cache()
+    total = 0
+    for name, kvq, impl in (("ring_bf16", "none", "ring"),
+                            ("ring_int8", "int8", "ring"),
+                            ("ulysses_bf16", "none", "ulysses")):
+        eng = InferenceEngine(model, params,
+                              RuntimeConfig(kv_quant=kvq, max_seq_len=4096),
+                              mesh=mesh)
+        sp = SamplingParams(max_new_tokens=new)
+        ra.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.generate_long(ids, sp, impl=impl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = ra.launches
+        want = (L * N * N if impl == "ring" else 0) + (new - 1) * L * (N + 1)
+        assert n == want, f"{name}: {n} ring launches, want {want}"
+        _check_tokens(res, 1, new, cfg.vocab_size, name)
+        total += n
+        # the prefill alone, timed, and its last-position logits
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, prefix = sp_forward(eng._replicas, cfg, tokens, mesh,
+                                    impl=impl, kv_quant=kvq)
+        torch.cuda.synchronize()
+        pf_ms = (time.perf_counter() - t0) * 1e3
+        last = logits[-1][0, -1].float().to("cuda:0")
+        del logits, prefix
+        if name == "ring_bf16":
+            _profile_prefill(torch, lambda: sp_forward(
+                eng._replicas, cfg, tokens, mesh, impl=impl, kv_quant=kvq))
+        if kvq == "int8":
+            plain, _ = sp_forward(eng._replicas, cfg, tokens, mesh,
+                                  impl=impl, kv_quant=kvq, kernel=False)
+            against, gap = "plain_ring", (last - plain[-1][0, -1].float()
+                                          .to("cuda:0")).abs().max().item()
+            del plain
+        else:
+            against, gap = "dense_flash", (last - ref).abs().max().item()
+        assert torch.isfinite(last).all(), f"{name}: prefill logits"
+        assert gap <= LOGITS_TOL, f"{name}: prefill logits differ by {gap}"
+        log("longgen", run=name, card=torch.cuda.get_device_name(0)
+            .replace(" ", "_"), shards=where, prompt_tokens=len(ids),
+            new_tokens=new, wall_s=f"{wall:.3f}",
+            tokens_per_s=f"{new / wall:.2f}", prefill_ms=f"{pf_ms:.1f}",
+            ring_launches=n, logits_vs=against, logits_gap=f"{gap:.4g}",
+            logits_tol=LOGITS_TOL, note="smoke run, not a benchmark")
+        del eng
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_ring_parity(torch, model, params, tok):
+    """One sp_forward of the long prompt (ring, bf16 KV) through all 32
+    layers: every ring block's kernel stats, finalised, against the plain
+    version on the same inputs within the ring phase's element bound
+    (masked rows exact), and the logits against the all-plain pass."""
+    import butterfly_tpu_torch.parallel.sequence as seq_mod
+    from butterfly_tpu_torch.ops import ring_attention as ra
+    from butterfly_tpu_torch.parallel.sequence import (replicate_params,
+                                                       sp_forward)
+    cfg = model.cfg
+    mesh, where = _seq_mesh(torch)
+    reps = replicate_params(params, mesh.seq_devices())
+    ids = tok.encode(_LONG)
+    tokens = torch.tensor([ids], dtype=torch.int32, device="cuda")
+    ratios, errs = [], []
+
+    def checked(*args, kernel=None):
+        stats = ra.ring_block_stats(*args)
+        ref = ra.ring_block_stats_ref(*args)
+        _, _, out_err, elem, _ = _ring_check(torch, ra, args, stats, ref,
+                                             True)
+        errs.append(out_err)
+        ratios.append(elem)
+        return stats
+
+    seq_mod.block_stats = checked
+    try:
+        kern, _ = sp_forward(reps, cfg, tokens, mesh)
+    finally:
+        seq_mod.block_stats = ra.block_stats
+    plain, _ = sp_forward(reps, cfg, tokens, mesh, kernel=False)
+    torch.cuda.synchronize()
+    assert len(ratios) == cfg.num_layers * 4, len(ratios)
+    gaps = [(a.float().to("cuda:0") - b.float().to("cuda:0")).abs().max()
+            .item() for a, b in zip(kern, plain)]
+    log("ringpar", shards=where, layers=cfg.num_layers, blocks=len(ratios),
+        max_block_abs_err=f"{max(errs):.3g}",
+        max_err_over_elem_bound=f"{max(ratios):.3g}",
+        logits_kernel_vs_plain=f"{max(gaps):.4g}", logits_tol=LOGITS_TOL)
+    assert max(ratios) <= 1.0, f"ring vs plain in-model: {max(ratios)} x bound"
+    assert max(gaps) <= LOGITS_TOL, f"ring logits differ by {max(gaps)}"
+    del kern, plain, reps
+    torch.cuda.empty_cache()
+
+
+def phase_longserve(torch, model, params, tok):
+    """ServingEngine over seq = 2 with the long-prompt lane
+    (seq_parallel_threshold 1024, max_seq_len 4096) + Scheduler, mixed
+    dispatch: 2 long prompts (3000 and 4000 bytes) and 4 short ones, all
+    greedy. Every lane chunk launches the ring kernel N = 2 times per layer
+    over the slot's pool prefix plus N*N = 4 for the ring over the chunk,
+    so ring and paged launches are multiples of 32. Returns the ring and
+    paged kernels' launches."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.ops import ring_attention as ra
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    cfg = model.cfg
+    L = cfg.num_layers
+    mesh, where = _seq_mesh(torch)
+    rt = RuntimeConfig(max_batch_size=8, max_seq_len=4096, page_size=16,
+                       seq_parallel_threshold=1024)
+    engine = ServingEngine(model, params, rt, mesh=mesh)
+    sched = Scheduler(engine)
+    sizes = [3000, 16, 200, 4000, 600, 1000]
+    news = [32, 40, 48, 32, 56, 64]
+    ra.launches = paged_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [sched.submit(tok.encode(_LONG[:n]), max_new_tokens=m)
+            for n, m in zip(sizes, news)]
+    sched.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n_ring, n_paged = ra.launches, paged_attention.launches
+    for r, m in zip(reqs, news):
+        assert r.state == "finished" and len(r.output) == m, \
+            f"request {r.id}: {r.state}, {len(r.output)} tokens"
+        assert all(0 <= t < cfg.vocab_size for t in r.output)
+    sp_tokens = sched.metrics()["seq_parallel_prefill_tokens_total"]
+    assert sp_tokens > 0, "no prompt went through the seq-parallel lane"
+    for kname, n in (("ring", n_ring), ("paged", n_paged)):
+        assert n > 0, f"the {kname} kernel never launched on this path"
+        assert n % L == 0, f"{kname}: {n} launches, not a multiple of {L}"
+    ttfts = sorted(r.ttft for r in reqs)
+    gen_tokens = sum(len(r.output) for r in reqs)
+    log("longserve", card=torch.cuda.get_device_name(0).replace(" ", "_"),
+        shards=where, threshold=rt.seq_parallel_threshold,
+        prompt_bytes=",".join(map(str, sizes)), requests=len(reqs),
+        generated_tokens=gen_tokens, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{gen_tokens / wall:.2f}",
+        ttft_p50_s=f"{statistics.median(ttfts):.4f}",
+        ttft_max_s=f"{ttfts[-1]:.4f}", sp_prefill_tokens=int(sp_tokens),
+        ring_launches=n_ring, paged_launches=n_paged,
+        note="smoke run, not a benchmark")
+    engine.cache = engine._kv_window = None
+    del engine, sched
+    torch.cuda.empty_cache()
+    return n_ring, n_paged
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -986,6 +1415,7 @@ def main() -> int:
 
     kres = phase_kernel(torch, name)
     fres = phase_flash_kernel(torch, name)
+    rres = phase_ring(torch, name)
     engine, serve_launches, tok = phase_serve(torch)
     phase_parity(torch, engine)
     phase_profile(torch, engine)
@@ -997,6 +1427,13 @@ def main() -> int:
     gen_fresh = phase_generate(torch, model, params, tok)
     alt_engine, alt = phase_alternating(torch, model, params, tok)
     phase_flash_parity(torch, alt_engine)
+    alt_engine.cache = alt_engine._kv_window = None
+    del alt_engine
+    torch.cuda.empty_cache()
+    long_ring = phase_longgen(torch, model, params, tok)
+    phase_ring_parity(torch, model, params, tok)
+    serve_ring, long_paged = phase_longserve(torch, model, params, tok)
+    long_ring += serve_ring
 
     def entry(kname, source, replaces, launches, cases, main_case):
         e = {"name": kname, "route": "cuda", "source": source,
@@ -1015,13 +1452,18 @@ def main() -> int:
         entry("paged_attention",
               "butterfly_tpu_torch/ops/csrc/paged_attention.cu",
               "butterfly_tpu/ops/paged_attention.py:65",
-              serve_launches + alt["paged"], kres, "bf16_w64"),
+              serve_launches + alt["paged"] + long_paged, kres,
+              "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
               gen_fresh + alt["fresh"], fresh_cases, "fresh_bf16"),
         entry("flash_attention_warm", flash_src,
               "butterfly_tpu/ops/flash_attention.py:97",
               alt["warm"], warm_cases, "warm_bf16"),
+        entry("ring_attention",
+              "butterfly_tpu_torch/ops/csrc/ring_attention.cu",
+              "butterfly_tpu/ops/ring_attention.py:158", long_ring, rres,
+              "diag_bf16"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     assert paged_attention.launches > 0

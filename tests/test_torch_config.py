@@ -46,6 +46,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     bad = []
     files = _port_files()
     assert len(files) > 10
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"butterfly_tpu_torch/core/mesh.py",
+            "butterfly_tpu_torch/parallel/sequence.py",
+            "butterfly_tpu_torch/ops/ring_attention.py"} <= names
     for f in files:
         tree = ast.parse(f.read_text(), filename=str(f))
         for node in ast.walk(tree):

@@ -23,6 +23,7 @@ from butterfly_tpu.engine.sampling import SamplingParams as JSP
 from butterfly_tpu.engine.sampling import _filter_logits as jax_filter
 from butterfly_tpu.models import common as J
 from butterfly_tpu_torch.core import config as tconfig
+from butterfly_tpu_torch.core.mesh import Mesh
 from butterfly_tpu_torch.engine.engine import InferenceEngine
 from butterfly_tpu_torch.engine.sampling import SamplingParams, sample
 from butterfly_tpu_torch.models import common as T
@@ -263,13 +264,17 @@ def test_engine_refuses_what_is_not_ported():
     eng = InferenceEngine(T.Model(tconfig.tiny("llama", **F32),
                                   device="cpu"), trees()[1])
     assert eng.device.type == "cpu" and eng._prefill_cfg.attn_impl == "dense"
-    for fn, item in ((eng.generate_long, "ring kernel"),
-                     (eng.generate_speculative, "speculation")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn([1, 2, 3])
+    with pytest.raises(NotImplementedError, match="speculation"):
+        eng.generate_speculative([1, 2, 3])
+    # generate_long is ported: without a seq axis it refuses as JAX does
+    with pytest.raises(ValueError, match="seq axis"):
+        eng.generate_long([1, 2, 3])
+    # a mesh axis other than seq is not ported
+    devs = np.empty(2, dtype=object)
+    devs[:] = [torch.device("cpu")] * 2
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         InferenceEngine(T.Model(tconfig.tiny("llama", **F32), device="cpu"),
-                        trees()[1], mesh=object())
+                        trees()[1], mesh=Mesh(devs.reshape(2, 1, 1, 1, 1)))
 
 
 # -- sampling held by its distribution ----------------------------------------------
@@ -311,8 +316,9 @@ def test_cli_generate_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [(["--speculate", "2"], "speculation"),
-                                        (["--seq-parallel", "2"],
-                                         "ring kernel")],
+                                        (["--seq-parallel", "2",
+                                          "--tensor-parallel", "2"],
+                                         "tensor parallelism")],
                          ids=["speculate", "seq_parallel"])
 def test_cli_generate_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):

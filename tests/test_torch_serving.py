@@ -22,6 +22,7 @@ from butterfly_tpu.engine.serving import ServingEngine as JEngine
 from butterfly_tpu.models.common import Model as JModel
 from butterfly_tpu.sched.scheduler import Scheduler as JScheduler
 from butterfly_tpu_torch.core import config as tconfig
+from butterfly_tpu_torch.core.mesh import Mesh
 from butterfly_tpu_torch.engine.serving import ServingEngine, sample_batched
 from butterfly_tpu_torch.models.bridge import params_from_numpy
 from butterfly_tpu_torch.models.common import Model
@@ -207,8 +208,17 @@ REFUSED = {
     "speculation": dict(speculative_gamma=2),
     "prefix_caching": dict(prefix_caching=True),
     "host_kv_tier": dict(host_kv_tier_mb=1.0),
+    # the seq-parallel lane is ported; over a seq x tensor mesh it is not
     "seq_parallel": dict(seq_parallel_threshold=16),
 }
+
+
+def _cpu_mesh(*shape):
+    """A mesh of `cpu` devices in MESH_AXES order, built without
+    make_mesh (which refuses the unported axes itself)."""
+    devs = np.empty(int(np.prod(shape)), dtype=object)
+    devs[:] = [torch.device("cpu")] * devs.size
+    return Mesh(devs.reshape(shape))
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED) + ["mesh", "moe", "int8"])
@@ -216,8 +226,10 @@ def test_unported_configurations_refused(name):
     cfg, params, mesh, rt = TCFG, trees()[1], None, _rt(tconfig)
     if name in REFUSED:
         rt = _rt(tconfig, **REFUSED[name])
+        if name == "seq_parallel":
+            mesh = _cpu_mesh(1, 1, 1, 2, 2)
     elif name == "mesh":
-        mesh = object()
+        mesh = _cpu_mesh(2, 1, 1, 1, 1)
     elif name == "moe":
         cfg = tconfig.tiny("mixtral", dtype="float32")
     elif name == "int8":
