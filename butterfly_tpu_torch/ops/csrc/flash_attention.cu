@@ -24,8 +24,13 @@
 //   sequential reduction axis becomes a loop inside the block over tiles
 //   of BK = 64 key columns, with the online-softmax state (running max m,
 //   denominator l, accumulator) in registers.
-// * bf16 / f16 at head dims up to 128 (the main path: Llama-3-8B H = 128,
-//   GPT-2 H = 64) run on the tensor cores: 4 warps of 16 query rows each,
+// * fresh bf16 / f16 at the main path's head dims (Llama-3-8B H = 128,
+//   GPT-2 H = 64) run on Hopper's warpgroup MMA: 128-row blocks of two
+//   warpgroups, wgmma for Q.K^T and P.V, K/V tiles streamed through a
+//   cp.async ring, a kv group's query heads in adjacent blocks, causal
+//   tiles heaviest first (flash_fresh_wg_kernel in flash_wgmma.cuh).
+// * warm bf16 / f16 at head dims up to 128, and fresh at H = 16 / 32, run
+//   on the tensor cores through mma.sync: 4 warps of 16 query rows each,
 //   Q.K^T and P.V as mma.sync m16n8k16 with f32 accumulation, the score
 //   fragments reused in registers as P.V's A operand. The TPU kernel
 //   keeps the probabilities in f32 for P.V; here they enter P.V rounded
@@ -51,12 +56,14 @@
 //   past a segment's limit load as zeros, so garbage past prefix_len
 //   never reaches a product.
 // The tile machinery (loads, fold_tile, fold_tile_mma) lives in
-// flash_tiles.cuh, shared with the ring-attention kernel.
-// Not yet done (a later change): wgmma on 64-row warpgroup tiles, TMA /
-// cp.async pipelining of the K/V tiles, one block per kv head serving its
-// query group, reading the pool's pages through the block table.
+// flash_tiles.cuh, shared with the ring-attention kernel; the wgmma
+// kernel has its own header and shares none of it but the small helpers.
+// Not yet done (a later change): the warm kernel on wgmma, reading the
+// pool's pages through the block table; TMA and a producer warp for the
+// fresh kernel.
 
 #include "flash_tiles.cuh"
+#include "flash_wgmma.cuh"
 
 #include <type_traits>
 
@@ -245,12 +252,29 @@ int launch_mma(const Args& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int H>
+int launch_wg(const Args& a, int B, cudaStream_t s) {
+  const wg::FreshArgs f{a.q, a.k, a.v, a.out, a.T, a.Nq, a.Kv, a.causal,
+                        (a.T + wg::BQ - 1) / wg::BQ};
+  return wg::launch_fresh_wg<T, H>(f, B, s);
+}
+
 // f32 takes the CUDA-core kernel at every head dim; bf16 and f16 take the
-// tensor-core kernel up to H = 128 (at H = 256 its accumulators alone
-// would need 128 registers a thread) and the CUDA-core one above.
+// wgmma kernel for fresh chunks at H = 64 and 128, the mma.sync kernel
+// otherwise up to H = 128 (at H = 256 its accumulators alone would need
+// 128 registers a thread) and the CUDA-core one above.
 template <typename T, typename PT, bool WARM, bool QUANT>
 int launch_h(const Args& a, int B, int H, cudaStream_t s) {
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (!WARM && !std::is_same<T, float>::value) {
+    switch (H) {
+      case 16: return launch_mma<T, PT, 16, WARM, QUANT>(a, B, s);
+      case 32: return launch_mma<T, PT, 32, WARM, QUANT>(a, B, s);
+      case 64: return launch_wg<T, 64>(a, B, s);
+      case 128: return launch_wg<T, 128>(a, B, s);
+      case 256: return launch<T, PT, 256, WARM, QUANT>(a, B, s);
+      default: return -1;
+    }
+  } else if constexpr (std::is_same<T, float>::value) {
     switch (H) {
       case 16: return launch<T, PT, 16, WARM, QUANT>(a, B, s);
       case 32: return launch<T, PT, 32, WARM, QUANT>(a, B, s);

@@ -28,6 +28,20 @@ import torch
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 NEG_INF = -1e30
+#: query rows per block of the fresh kernel's wgmma path (bf16 / f16 at
+#: head dims 64 and 128): two warpgroups of 64 rows
+FRESH_BQ = 128
+
+
+def fresh_block_order(B: int, T: int, Nq: int, causal: bool):
+    """(batch row, query tile, query head) of each block of the fresh
+    wgmma kernel, in launch order (blockIdx.x), as the kernel decodes it
+    (csrc/flash_wgmma.cuh): query heads fastest, so the G heads of one kv
+    head are adjacent blocks and share K/V tiles through L2; with `causal`
+    the query tiles run last to first, the heaviest (most keys) first."""
+    ntiles = -(-T // FRESH_BQ)
+    return [(b, ntiles - 1 - ti if causal else ti, n)
+            for b in range(B) for ti in range(ntiles) for n in range(Nq)]
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,8 +4,17 @@ The counterpart of butterfly_tpu/ops/paged_attention.py (same signature,
 same layouts). On CUDA tensors `paged_attention` launches the hand-written
 sm_90a kernel in csrc/paged_attention.cu (built at first use, see
 ops/build.py) or raises; on CPU tensors it computes the plain PyTorch
-version, `paged_attention_ref`. `paged_attention.launches` counts kernel
-launches, so a run can show that its main path went through the kernel.
+version, `paged_attention_ref`. `paged_attention.launches` counts wrapper calls
+that launched the kernel (one per call, though a call launches the split
+kernel and the merge kernel), so a run can show that its main path went
+through it.
+
+The kernel splits each slot's key axis across blocks (flash-decoding):
+`split_plan` fixes the split size and count from the table's width alone,
+`split_columns` says which keys a split folds, and
+`paged_attention_split_ref` is the plain version of that decomposition —
+one partial (m, l, acc) per split, merged in split order — which the tests
+and chip_smoke.py hold against the others.
 """
 from __future__ import annotations
 
@@ -16,6 +25,34 @@ import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
+#: tokens of the paged run one kernel block folds (a whole number of pages)
+SPLIT_TOKENS = 256
+NEG_INF = -1e30
+
+
+def split_plan(page: int, max_pages: int, window: bool):
+    """The kernel's grid along the key axis, from static sizes only (never
+    from `lengths`, which live on the card): (split_pages, n_page_splits,
+    n_split). Split i < n_page_splits covers pages [i * split_pages,
+    (i + 1) * split_pages) of a slot's table row; with a window, split
+    n_page_splits covers the window's W rows."""
+    split_pages = max(1, SPLIT_TOKENS // page)
+    n_page_splits = max(1, -(-max_pages // split_pages))
+    return split_pages, n_page_splits, n_page_splits + int(window)
+
+
+def split_columns(i: int, plan, page: int, max_pages: int):
+    """Columns [c0, c1) that split i folds, in a slot's [paged run ‖
+    window] key axis (the layout of `_dense_kv`). Only the live ones count
+    (position < lengths[s], window row < win_count[s]): a split with none
+    is the empty split, whose partial is exactly m = -1e30, l = 0,
+    acc = 0 — the kernel's block writes it without reading K/V."""
+    split_pages, n_page_splits, _ = plan
+    run = max_pages * page
+    if i == n_page_splits:
+        return run, None                   # the window's rows, to the end
+    c0 = i * split_pages * page
+    return c0, min(c0 + split_pages * page, run)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -41,9 +78,31 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     scales [P, Kv*page]; page_table [S, max_pages]; lengths [S]; window
     [S, Kv, W, H] (+ scales [S, Kv, W]) with win_count [S]."""
     S, Nq, H = q.shape
+    Kv = k_pages.shape[1]
+    k, v, valid = _dense_kv(q, k_pages, v_pages, page_table, lengths,
+                            k_scale_pages, v_scale_pages, win_k, win_v,
+                            win_count, win_k_scale, win_v_scale)
+    qf = q.float().reshape(S, Kv, Nq // Kv, H)
+    scores = torch.einsum("skgh,skth->skgt", qf, k) \
+        * torch.rsqrt(torch.tensor(float(H)))
+    mask = valid[:, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(scores - m), torch.zeros_like(scores))
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("skgt,skth->skgh", p, v) / den
+    return out.reshape(S, Nq, H).to(q.dtype)
+
+
+def _dense_kv(q, k_pages, v_pages, page_table, lengths, k_scale_pages,
+              v_scale_pages, win_k, win_v, win_count, win_k_scale,
+              win_v_scale):
+    """Every slot's pages gathered (dequantized) into one f32 [S, Kv,
+    max_pages*page (+ W), H] key/value run with the window appended, and
+    the [S, max_pages*page (+ W)] liveness of each column."""
+    S, Nq, H = q.shape
     _, Kv, page, _ = k_pages.shape
     mp = page_table.shape[1]
-    G = Nq // Kv
     tbl = page_table.long()
 
     def gather(pages, scales):
@@ -68,16 +127,59 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
         wvalid = torch.arange(W, device=q.device)[None, :] \
             < win_count.long()[:, None]
         valid = torch.cat([valid, wvalid], dim=1)
-    qf = q.float().reshape(S, Kv, G, H)
+    return k, v, valid
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, page_table: torch.Tensor,
+                              lengths: torch.Tensor,
+                              k_scale_pages: Optional[torch.Tensor] = None,
+                              v_scale_pages: Optional[torch.Tensor] = None,
+                              win_k: Optional[torch.Tensor] = None,
+                              win_v: Optional[torch.Tensor] = None,
+                              win_count: Optional[torch.Tensor] = None,
+                              win_k_scale: Optional[torch.Tensor] = None,
+                              win_v_scale: Optional[torch.Tensor] = None,
+                              return_partials: bool = False):
+    """Plain PyTorch version of the kernel's decomposition (same arguments
+    as `paged_attention`): for each split of `split_plan`, the partial
+    (m, l, acc) over the live keys of its `split_columns` — m the max
+    score (-1e30 when nothing is live), l the sum of exp(score - m), acc
+    the sum of exp(score - m) v, all f32 — then the partials merged in
+    split order: M = max m_i, out = sum acc_i e^(m_i - M) /
+    max(sum l_i e^(m_i - M), 1e-30). With `return_partials` also returns
+    (m, l, acc) stacked on a split axis: [S, Kv, n_split, G (, H)]."""
+    S, Nq, H = q.shape
+    _, Kv, page, _ = k_pages.shape
+    mp = page_table.shape[1]
+    window = win_k is not None
+    plan = split_plan(page, mp, window)
+    k, v, valid = _dense_kv(q, k_pages, v_pages, page_table, lengths,
+                            k_scale_pages, v_scale_pages, win_k, win_v,
+                            win_count, win_k_scale, win_v_scale)
+    qf = q.float().reshape(S, Kv, Nq // Kv, H)
     scores = torch.einsum("skgh,skth->skgt", qf, k) \
         * torch.rsqrt(torch.tensor(float(H)))
-    mask = valid[:, None, None, :]
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(scores - m), torch.zeros_like(scores))
-    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("skgt,skth->skgh", p, v) / den
-    return out.reshape(S, Nq, H).to(q.dtype)
+    ms, ls, accs = [], [], []
+    for i in range(plan[2]):
+        c0, c1 = split_columns(i, plan, page, mp)
+        cols = torch.zeros(k.shape[2], dtype=torch.bool, device=q.device)
+        cols[c0:c1] = True
+        live = (cols[None, :] & valid)[:, None, None, :]
+        sc = torch.where(live, scores, torch.full_like(scores, NEG_INF))
+        m = sc.amax(dim=-1)                                  # [S, Kv, G]
+        p = torch.where(live, torch.exp(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("skgt,skth->skgh", p, v))
+    m, l, acc = (torch.stack(x, dim=2) for x in (ms, ls, accs))
+    M = m.amax(dim=2, keepdim=True)
+    f = torch.exp(m - M)
+    den = (l * f).sum(dim=2).clamp_min(1e-30)
+    out = (acc * f[..., None]).sum(dim=2) / den[..., None]
+    out = out.reshape(S, Nq, H).to(q.dtype)
+    return (out, (m, l, acc)) if return_partials else out
 
 
 def _kernel_fn():
@@ -86,8 +188,8 @@ def _kernel_fn():
     fn = load("paged_attention").bt_paged_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 13
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 14
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     return fn
 
 
@@ -119,7 +221,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     win_count[s] - 1. Returns [slots, Nq, H] in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the sm_90a
-    kernel (counted in `paged_attention.launches`) or raise.
+    kernel (counted in `paged_attention.launches`) or raise. The launch
+    reads nothing back from the card: its grid comes from `split_plan`.
     """
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table, lengths,
@@ -177,6 +280,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if S == 0:
         return out
+    mp = page_table.shape[1]
+    plan = split_plan(page, mp, window)
+    # the partials (m, l, acc) of every split: written before they are read
+    ws = torch.empty(S * Kv * plan[2] * (Nq // Kv) * (H + 2),
+                     dtype=torch.float32, device=q.device)
     fn = _kernel_fn()
 
     def ptr(t):
@@ -188,8 +296,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             ptr(win_k) if window else None, ptr(win_v) if window else None,
             ptr(win_k_scale) if window else None,
             ptr(win_v_scale) if window else None,
-            ptr(win_count) if window else None, ptr(out),
-            S, Nq, Kv, H, page, page_table.shape[1], W,
+            ptr(win_count) if window else None, ptr(out), ptr(ws),
+            S, Nq, Kv, H, page, mp, W, *plan,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "

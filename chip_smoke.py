@@ -9,16 +9,19 @@ raises and the script exits non-zero:
              below belongs to this card.
 2. build     compiles every CUDA kernel from the sources in this checkout,
              one nvcc per source, all started together; prints ptxas'
-             register and spill lines.
-3. kernel    the paged-attention kernel against its plain PyTorch version
-             at Llama-3-8B main-path shapes (S=8, Nq=32, Kv=8, H=128,
-             page=16, max_pages=128, ragged lengths incl. 0/1/17/2048):
-             bf16 pool without and with the window (W=2, W=64), int8 pool
-             with the window, f32 pool. Tolerances: max abs error bf16
-             2e-2, f32 1e-4 (TF32 off); per slot, max abs error over the
-             slot's max |output| bf16 1e-2, f32 1e-4, so a long slot's small
-             outputs are held too; a slot with nothing to attend must give
-             exactly 0.
+             registers, spills and static shared memory for every kernel
+             instantiation, by name.
+3. kernel    the paged-attention kernel (split-KV + merge) against its
+             plain PyTorch version and the plain version of its split
+             decomposition at Llama-3-8B main-path shapes (S=8, Nq=32, Kv=8,
+             H=128, page=16, max_pages=128, ragged lengths incl.
+             0/1/17/2048): bf16 pool without and with the window (W=2,
+             W=64), all 8 slots at 2048 tokens, int8 pool with the window,
+             f32 pool. Tolerances: max abs error bf16 2e-2, f32 1e-4 (TF32
+             off); per slot, max abs error over the slot's max |output|
+             bf16 1e-2, f32 1e-4, so a long slot's small outputs are held
+             too; a slot with nothing to attend must give exactly 0; a
+             second launch must give the same bits (no atomics).
              Times: kernel (CUDA events, median, L2 flushed before each
              launch as a decode step finds it), plain version, the bound
              (bytes moved / the card's memory bandwidth, or operations /
@@ -27,7 +30,8 @@ raises and the script exits non-zero:
              the page walk.
 4. flash     the two flash kernels against their plain version at
              Llama-3-8B shapes (Nq=32, Kv=8, H=128): fresh B=4, T=1024 bf16
-             causal, ragged T=1000, non-causal, f32 T=256; warm B=4, T=512
+             causal, ragged T=1000, non-causal, GPT-2 heads (Nq=Kv=12,
+             H=64), f32 T=256; warm B=4, T=512
              over a 2048-row prefix with prefix_len 0/17/512/1536 (rows
              past it hold large garbage), bf16 float prefix and int8
              prefix, f32 float prefix at T=256. bf16 runs the tensor-core
@@ -36,7 +40,9 @@ raises and the script exits non-zero:
              error over max |ref| 1e-2; and every element within
              2**-7 * (|ref| + sum_j p_j |v_j| / l), the output's rounding
              on both sides plus that of probabilities rounded to bf16.
-             f32 1e-4 absolute and per tile.
+             f32 1e-4 absolute and per tile. Fresh bf16 at H = 64 and 128
+             runs the wgmma kernel. A second launch must give the same
+             bits.
              Times as above; the yardstick is scaled_dot_product_attention
              (is_causal, enable_gqa) for the fresh kernel and, for the warm
              one, the same call over [live prefix ‖ chunk] with an explicit
@@ -70,7 +76,8 @@ raises and the script exits non-zero:
              step's logits with the kernel against the same step with the
              plain version (0.5 absolute).
 8. profile   where one decode step's time goes: host wall vs device busy
-             time (torch.profiler) and the top kernels by device time.
+             time (torch.profiler), the paged kernels' share (split +
+             merge) and the top kernels by device time.
 9. generate  InferenceEngine.generate on the same model: four greedy
              prompts of 16-1000 bytes, 32 new tokens, fused, then the same
              stepped (tokens must be equal), then int8 KV (the
@@ -230,7 +237,7 @@ def _time_ms(torch, fn, flush, reps=25):
     return statistics.median(times)
 
 
-def _sdpa_yardstick(torch, args, win, lengths, wc):
+def _sdpa_yardstick(torch, args, win):
     """scaled_dot_product_attention over the pre-gathered dense K/V (the
     page walk excluded): one call computing the same attention."""
     F = torch.nn.functional
@@ -267,8 +274,8 @@ def _sdpa_yardstick(torch, args, win, lengths, wc):
 
 
 def phase_kernel(torch, card):
-    from butterfly_tpu_torch.ops.paged_attention import (paged_attention,
-                                                         paged_attention_ref)
+    from butterfly_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_ref, paged_attention_split_ref)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     S, Nq, Kv, H, page, mp = 8, 32, 8, 128, 16, 128
@@ -280,23 +287,32 @@ def phase_kernel(torch, card):
     # (name, q dtype, int8 pool, window width, abs tol, per-slot rel tol):
     # a bf16 output rounds to within one ulp, at most 2**-7 of its
     # magnitude, so per slot 1e-2 of the slot's max |output|
-    cases = [("bf16", torch.bfloat16, False, 0, 2e-2, 1e-2),
-             ("bf16_w2", torch.bfloat16, False, 2, 2e-2, 1e-2),
-             ("bf16_w64", torch.bfloat16, False, 64, 2e-2, 1e-2),
-             ("int8_w64", torch.bfloat16, True, 64, 2e-2, 1e-2),
-             ("f32", torch.float32, False, 0, 1e-4, 1e-4),
-             ("f32_w2", torch.float32, False, 2, 1e-4, 1e-4)]
+    # (name, q dtype, int8 pool, window width, abs tol, per-slot rel tol,
+    # slot lengths)
+    cases = [("bf16", torch.bfloat16, False, 0, 2e-2, 1e-2, lengths),
+             ("bf16_w2", torch.bfloat16, False, 2, 2e-2, 1e-2, lengths),
+             ("bf16_w64", torch.bfloat16, False, 64, 2e-2, 1e-2, lengths),
+             ("bf16_all_long", torch.bfloat16, False, 0, 2e-2, 1e-2,
+              [2048] * S),
+             ("int8_w64", torch.bfloat16, True, 64, 2e-2, 1e-2, lengths),
+             ("f32", torch.float32, False, 0, 1e-4, 1e-4, lengths),
+             ("f32_w2", torch.float32, False, 2, 1e-4, 1e-4, lengths)]
     results = {}
-    for name, dt, quant, W, tol, rel_tol in cases:
+    for name, dt, quant, W, tol, rel_tol, lens in cases:
         args, win, wc = _kernel_case(torch, paged_attention, S, Nq, Kv, H,
-                                     page, mp, lengths, dt, quant, W, gen)
+                                     page, mp, lens, dt, quant, W, gen)
         out = paged_attention(*args, **win)
+        again = paged_attention(*args, **win)
         torch.cuda.synchronize()
+        assert torch.equal(out, again), f"{name}: two launches differ"
         ref = paged_attention_ref(*args, **win)
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
+        split_err = (out.float() - paged_attention_split_ref(*args, **win)
+                     .float()).abs().max().item()
         assert torch.isfinite(out.float()).all(), f"{name}: non-finite"
         assert err <= tol, f"{name}: max abs err {err} > {tol}"
+        assert split_err <= tol, f"{name}: vs split plain {split_err}"
         # every slot but the empty slot 0, against its own output scale:
         # a page dropped or repeated in a long slot moves its small
         # outputs by far less than the short slots' absolute error
@@ -306,15 +322,16 @@ def phase_kernel(torch, card):
         assert rel <= rel_tol, \
             f"{name}: per-slot rel err {slot_rel.tolist()} > {rel_tol}"
         # slot 0 attends nothing (lengths 0, win_count 0): exactly zero
-        assert (out[0] == 0).all().item(), f"{name}: empty slot not zero"
+        if lens[0] == 0:
+            assert (out[0] == 0).all().item(), f"{name}: empty slot not zero"
         n0 = paged_attention.launches
         k_ms = _time_ms(torch, lambda: paged_attention(*args, **win), flush)
         assert paged_attention.launches > n0
         p_ms = _time_ms(torch, lambda: paged_attention_ref(*args, **win),
                         flush, reps=5)
-        lib = _sdpa_yardstick(torch, args, win, lengths, wc)
+        lib = _sdpa_yardstick(torch, args, win)
         l_ms = _time_ms(torch, lib, flush)
-        nbytes, ops = _bytes_ops(args, win, lengths, wc, Nq, Kv, H, page,
+        nbytes, ops = _bytes_ops(args, win, lens, wc, Nq, Kv, H, page,
                                  quant)
         t_bytes = nbytes / bw * 1e3
         t_ops = ops / _PEAK[str(dt).replace("torch.", "")] * 1e3
@@ -325,11 +342,13 @@ def phase_kernel(torch, card):
                              else "operations",
                              library_ms=l_ms, bytes=nbytes, tol=tol)
         log("kernel", case=name, max_abs_err=f"{err:.3g}", tol=tol,
+            vs_split_plain=f"{split_err:.3g}",
             max_slot_rel_err=f"{rel:.3g}", rel_tol=rel_tol,
             kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
             bytes=nbytes, bound_ms=f"{bound:.4f}",
             library_ms=f"{l_ms:.4f}(sdpa,excludes the page walk)",
-            empty_slot="exact 0")
+            empty_slot="exact 0" if lens[0] == 0 else "none",
+            relaunch="same bits")
     return results
 
 
@@ -347,6 +366,7 @@ FLASH_CASES = [
     ("fresh_bf16", 4, 1024, True, "bfloat16", None, 2e-2, 1e-2),
     ("fresh_bf16_T1000", 4, 1000, True, "bfloat16", None, 2e-2, 1e-2),
     ("fresh_bf16_noncausal", 4, 1024, False, "bfloat16", None, 2e-2, 1e-2),
+    ("fresh_bf16_h64", 4, 1024, True, "bfloat16", None, 2e-2, 1e-2),
     ("fresh_f32", 4, 256, True, "float32", None, 1e-4, 1e-4),
     ("warm_bf16", 4, 512, True, "bfloat16", "float", 2e-2, 1e-2),
     ("warm_int8", 4, 512, True, "bfloat16", "int8", 2e-2, 1e-2),
@@ -394,10 +414,14 @@ def _flash_bound_ratio(torch, flash_attention_ref, args, kw, diff, ref):
     return (diff / bound.clamp_min(1e-30)).max().item()
 
 
-def _flash_inputs(torch, B, T, dt, prefix, gen):
+# (Nq, Kv, H) by case: Llama-3-8B's heads unless named here (GPT-2's)
+_FLASH_HEADS = {"fresh_bf16_h64": (12, 12, 64)}
+
+
+def _flash_inputs(torch, name, B, T, dt, prefix, gen):
     """q/k/v (+ the warm prefix, with large garbage past each row's
     prefix_len) on the card, and the args/kwargs of flash_attention."""
-    Nq, Kv, H = 32, 8, 128
+    Nq, Kv, H = _FLASH_HEADS.get(name, (32, 8, 128))
     dev = "cuda"
 
     def randn(*shape):
@@ -487,9 +511,11 @@ def phase_flash_kernel(torch, card):
     results = {}
     for name, B, T, causal, dts, prefix, tol, rel_tol in FLASH_CASES:
         dt = getattr(torch, dts)
-        q, k, v, kw = _flash_inputs(torch, B, T, dt, prefix, gen)
+        q, k, v, kw = _flash_inputs(torch, name, B, T, dt, prefix, gen)
         out = flash_attention(q, k, v, causal, **kw)
+        again = flash_attention(q, k, v, causal, **kw)
         torch.cuda.synchronize()
+        assert torch.equal(out, again), f"{name}: two launches differ"
         ref = flash_attention_ref(q, k, v, causal, **kw)
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
@@ -526,6 +552,7 @@ def phase_flash_kernel(torch, card):
                              else "operations",
                              library_ms=l_ms)
         log("flash", case=name, card=card.replace(" ", "_"),
+            heads="x".join(map(str, (q.shape[2], k.shape[2], q.shape[3]))),
             max_abs_err=f"{err:.3g}", tol=tol, **checks,
             kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
             bytes=nbytes, ops=ops, bound_ms=f"{bound:.4f}",
@@ -934,9 +961,16 @@ def phase_profile(torch, engine, steps=5):
         / steps / 1e3
     top = sorted((e for e in ka if e.device_type.name == "CUDA"),
                  key=dev_us, reverse=True)[:8]
+    paged = [e for e in ka if e.device_type.name == "CUDA"
+             and "paged_" in e.key and "kernel" in e.key]
+    paged_ms = sum(dev_us(e) for e in paged) / steps / 1e3
     log("profile", decode_step_ms=f"{step_ms:.3f}",
         traced_step_ms=f"{wall:.3f}", device_busy_ms=f"{busy:.3f}",
         idle_share=f"{1 - busy / wall:.3f}" if busy else "not measured",
+        paged_ms_per_step=f"{paged_ms:.4f}",
+        paged_share_of_busy=f"{paged_ms / busy:.3f}" if busy
+        else "not measured",
+        paged_calls_per_step="+".join(str(e.count // steps) for e in paged),
         lengths=",".join(map(str, lengths)))
     for e in top:
         log("profile", kernel=e.key[:60].replace(" ", "_"),
@@ -1376,6 +1410,52 @@ def phase_longserve(torch, model, params, tok):
     return n_ring, n_paged
 
 
+def _demangle(names):
+    """Kernel names as C++ would print them (c++filt, when the toolkit's
+    machine has it), with the namespaces and type spellings shortened."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+    except OSError:
+        out = []
+    if len(out) != len(names):
+        return names
+    short = {"(anonymous namespace)::": "", "bt::wg::": "", "bt::": "",
+             "__nv_bfloat16": "bf16", "__half": "f16", "signed char": "i8",
+             "(bool)1": "1", "(bool)0": "0", " ": ""}
+    res = []
+    for n in out:
+        n = n.removeprefix("void ")
+        for a, b in short.items():
+            n = n.replace(a, b)
+        res.append(n.split("(")[0] if "(" in n else n)
+    return res
+
+
+def _ptxas_kernels(err):
+    """(kernel, registers, spill bytes, static smem bytes) for every entry
+    function in ptxas' -v report."""
+    rows, name, spill = [], None, "0"
+    for line in err.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], "0"
+        elif "spill stores" in line and name:
+            spill = line.split("bytes spill stores")[0].split(",")[-1] \
+                .strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            smem = "0"
+            for part in line.split(","):
+                if "smem" in part:
+                    smem = part.strip().split()[0]
+            rows.append([name, regs, spill, smem])
+            name = None
+    for row, dem in zip(rows, _demangle([r[0] for r in rows])):
+        row[0] = dem
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1403,15 +1483,9 @@ def main() -> int:
         built=",".join(built) or "cached")
     for k, (secs, err) in build.build_log.items():
         log("build", source=k, nvcc_s=f"{secs:.1f}")
-        # one line per distinct ptxas report, with how many kernel
-        # instantiations gave it
-        seen = {}
-        for line in err.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                text = line.split(":", 1)[-1].strip()
-                seen[text] = seen.get(text, 0) + 1
-        for text, n in seen.items():
-            print(f"[build] {k}: {text} (x{n})", flush=True)
+        for kern, regs, spill, smem in _ptxas_kernels(err):
+            print(f"[build] {k}: {kern}: {regs} registers, spill {spill}, "
+                  f"static smem {smem} bytes", flush=True)
 
     kres = phase_kernel(torch, name)
     fres = phase_flash_kernel(torch, name)

@@ -9,8 +9,10 @@ import torch
 
 from butterfly_tpu.models.common import quantize_kv as jax_quantize
 from butterfly_tpu.ops.flash_attention import flash_attention as jax_fa
-from butterfly_tpu_torch.ops.flash_attention import (flash_attention,
-                                                     flash_attention_ref)
+from butterfly_tpu_torch.ops.flash_attention import (FRESH_BQ,
+                                                     flash_attention,
+                                                     flash_attention_ref,
+                                                     fresh_block_order)
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False  # full f32 matmuls
@@ -146,3 +148,71 @@ def test_bf16_output_keeps_q_dtype():
     assert out.dtype == torch.bfloat16
     ref32 = flash_attention_ref(q.float(), k.float(), v.float())
     assert (out.float() - ref32).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("B,T,Nq,Kv,causal", [(4, 1024, 32, 8, True),
+                                               (2, 1000, 12, 12, False),
+                                               (1, 1, 4, 2, True),
+                                               (3, 129, 8, 2, True)])
+def test_fresh_block_order(B, T, Nq, Kv, causal):
+    """The fresh wgmma kernel's launch order: every (batch row, query
+    tile, head) once; a kv group's heads in adjacent blocks; causal query
+    tiles from the heaviest (last) down."""
+    order = fresh_block_order(B, T, Nq, causal)
+    ntiles = -(-T // FRESH_BQ)
+    assert sorted(order) == [(b, i, n) for b in range(B)
+                             for i in range(ntiles) for n in range(Nq)]
+    G = Nq // Kv
+    for i in range(0, len(order), G):   # each run of G blocks: one kv head
+        group = order[i:i + G]
+        assert len({(b, t, n // G) for b, t, n in group}) == 1
+    tiles = [t for b, t, n in order if b == 0 and n == 0]
+    assert tiles == (sorted(tiles, reverse=True) if causal else sorted(tiles))
+    if causal:   # work per block (live keys) never rises along the launch
+        work = [min(T, (t + 1) * FRESH_BQ) for b, t, n in order if b == 0]
+        assert work == sorted(work, reverse=True)
+
+
+# (B, T, Nq, Kv, H, causal, dtype): bf16 / f16 at H = 64 and 128 take the
+# wgmma kernel, H = 32 the mma.sync one, f32 the CUDA-core one
+CARD_FRESH = [
+    (2, 1024, 32, 8, 128, True, torch.bfloat16),
+    (2, 1000, 32, 8, 128, True, torch.bfloat16),
+    (2, 512, 32, 8, 128, False, torch.bfloat16),
+    (2, 700, 12, 12, 64, True, torch.bfloat16),
+    (1, 300, 12, 12, 64, False, torch.float16),
+    (2, 257, 8, 2, 128, True, torch.float16),
+    (3, 1, 8, 2, 128, True, torch.bfloat16),
+    (2, 100, 8, 2, 32, True, torch.bfloat16),
+    (2, 130, 8, 2, 64, True, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Nq,Kv,H,causal,dt", CARD_FRESH)
+def test_fresh_kernel_matches_plain_on_the_card(B, T, Nq, Kv, H, causal, dt):
+    """The fresh sm_90a kernel against its plain version: bf16 / f16
+    outputs within 2e-2 and each element within 2^-7 (|ref| + sum p|v|/l)
+    (the output rounded on both sides, P rounded to bf16 for P.V); f32 at
+    1e-4. The same bits on a second launch; one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (torch.from_numpy(a).cuda().to(dt)
+               for a in _qkv(T + H, B, T, Nq, Kv, H))
+    n0 = flash_attention.launches_fresh
+    out = flash_attention(q, k, v, causal)
+    again = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_fresh == n0 + 2
+    assert torch.equal(out, again)
+    ref = flash_attention_ref(q, k, v, causal).float()
+    diff = (out.float() - ref).abs()
+    assert torch.isfinite(out.float()).all()
+    if dt == torch.float32:
+        assert diff.max().item() <= 1e-4
+        return
+    assert diff.max().item() <= 2e-2
+    absv = flash_attention_ref(q, k, v.abs(), causal).float()
+    bound = 2.0 ** -7 * (ref.abs() + absv)
+    assert (diff <= bound).all(), (diff / bound).max().item()
