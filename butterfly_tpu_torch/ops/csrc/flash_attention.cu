@@ -19,25 +19,29 @@
 // work for 4 KB read.
 //
 // Design, for the card rather than carried over from the Pallas grid:
-// * one thread block per (tile of BQ = 64 query rows, query head, batch
-//   row); query head n reads kv head n / (Nq / Kv). The Pallas grid's
+// * bf16 / f16 at the main path's head dims (Llama-3-8B H = 128, GPT-2
+//   H = 64) run on Hopper's warpgroup MMA, fresh and warm alike: 128-row
+//   blocks of two warpgroups, wgmma for Q.K^T and P.V, K/V tiles streamed
+//   through a cp.async ring, a kv group's query heads in adjacent blocks,
+//   the heaviest blocks first. The fresh kernel is
+//   flash_fresh_wg_kernel (flash_wgmma.cuh); the warm one,
+//   flash_warm_wg_kernel (flash_warm_wgmma.cuh), walks the live prefix
+//   tiles (only the one holding prefix_len[b] masked, none past it) and
+//   then the causal chunk in one online softmax, its blocks ranked by
+//   prefix_len on the card. Both share wgmma_common.cuh's primitives and
+//   nothing else.
+// * bf16 / f16 at H = 16 / 32 run on the tensor cores through mma.sync:
+//   one thread block per (tile of BQ = 64 query rows, query head, batch
+//   row), 4 warps of 16 query rows each, Q.K^T and P.V as mma.sync
+//   m16n8k16 with f32 accumulation, the score fragments reused in
+//   registers as P.V's A operand (flash_mma_kernel). The Pallas grid's
 //   sequential reduction axis becomes a loop inside the block over tiles
-//   of BK = 64 key columns, with the online-softmax state (running max m,
-//   denominator l, accumulator) in registers.
-// * fresh bf16 / f16 at the main path's head dims (Llama-3-8B H = 128,
-//   GPT-2 H = 64) run on Hopper's warpgroup MMA: 128-row blocks of two
-//   warpgroups, wgmma for Q.K^T and P.V, K/V tiles streamed through a
-//   cp.async ring, a kv group's query heads in adjacent blocks, causal
-//   tiles heaviest first (flash_fresh_wg_kernel in flash_wgmma.cuh).
-// * warm bf16 / f16 at head dims up to 128, and fresh at H = 16 / 32, run
-//   on the tensor cores through mma.sync: 4 warps of 16 query rows each,
-//   Q.K^T and P.V as mma.sync m16n8k16 with f32 accumulation, the score
-//   fragments reused in registers as P.V's A operand. The TPU kernel
-//   keeps the probabilities in f32 for P.V; here they enter P.V rounded
-//   to q's dtype (bf16: relative error <= 2^-8), while the denominator
-//   sums the f32 values. That moves an output by at most 2^-8 of
-//   sum_j p_j |v_j| / l, which chip_smoke.py holds every element to.
-//   See flash_mma_kernel.
+//   of BK = 64 key columns, with the online-softmax state in registers.
+// * Every tensor-core route rounds the probabilities to q's dtype for P.V
+//   (the TPU kernel keeps them in f32; bf16: relative error <= 2^-8),
+//   while the denominator sums the f32 values. That moves an output by at
+//   most 2^-8 of sum_j p_j |v_j| / l, which chip_smoke.py holds every
+//   element to.
 // * f32, and H = 256, run on the CUDA cores in f32 (flash_kernel): 256
 //   threads as a 16 x 16 grid, thread (ty, tx) owning query rows ty + 16i
 //   (i < 4), score columns tx + 16j (j < 4) of each 64 x 64 score tile
@@ -55,14 +59,15 @@
 //   probability is exactly 0, the output is acc / max(l, 1e-30). Key rows
 //   past a segment's limit load as zeros, so garbage past prefix_len
 //   never reaches a product.
-// The tile machinery (loads, fold_tile, fold_tile_mma) lives in
-// flash_tiles.cuh, shared with the ring-attention kernel; the wgmma
-// kernel has its own header and shares none of it but the small helpers.
-// Not yet done (a later change): the warm kernel on wgmma, reading the
-// pool's pages through the block table; TMA and a producer warp for the
-// fresh kernel.
+// The mma.sync and CUDA-core tile machinery (loads, fold_tile_mma,
+// fold_tile) lives in flash_tiles.cuh; the ring kernel's f32 route shares
+// fold_tile.
+// Not yet done (a later change): the warm kernel reading the pool's pages
+// through the block table in place of the gathered view; TMA and a
+// producer warp for the wgmma kernels.
 
 #include "flash_tiles.cuh"
+#include "flash_warm_wgmma.cuh"
 #include "flash_wgmma.cuh"
 
 #include <type_traits>
@@ -211,8 +216,8 @@ __global__ void __launch_bounds__(NT_MMA) flash_mma_kernel(Args a) {
     }
     for (int c0 = 0; c0 < plen; c0 += BK)
       fold_tile_mma<T, H, PT, QUANT>(qa, ks, vs, ksc, vsc, pkb, pvb, a.pss,
-                                     c0, plen, ksg, vsg, false, row0,
-                                     nullptr, nullptr, scale, st);
+                                     c0, plen, ksg, vsg, false, row0, scale,
+                                     st);
   }
   const bool causal = WARM || a.causal != 0;
   const int kend = causal ? min(a.T, q0 + BQ) : a.T;
@@ -221,8 +226,8 @@ __global__ void __launch_bounds__(NT_MMA) flash_mma_kernel(Args a) {
   const T* vb = static_cast<const T*>(a.v) + koff * H;
   for (int c0 = 0; c0 < kend; c0 += BK)
     fold_tile_mma<T, H, T, false>(qa, ks, vs, ksc, vsc, kb, vb, kstride, c0,
-                                  a.T, nullptr, nullptr, causal, row0,
-                                  nullptr, nullptr, scale, st);
+                                  a.T, nullptr, nullptr, causal, row0, scale,
+                                  st);
 
   T* ob = static_cast<T*>(a.out) +
           (static_cast<long long>(b) * a.T * a.Nq + n) * H;
@@ -259,22 +264,21 @@ int launch_wg(const Args& a, int B, cudaStream_t s) {
   return wg::launch_fresh_wg<T, H>(f, B, s);
 }
 
+template <typename T, typename PT, int H>
+int launch_warm_wg(const Args& a, int B, cudaStream_t s) {
+  const wg::WarmArgs w{a.q, a.k, a.v, a.out, a.pk, a.pv, a.pks, a.pvs,
+                       a.plen, a.psb, a.pss, a.psh, B, a.T, a.Nq, a.Kv,
+                       a.Sp, (a.T + wg::BQ - 1) / wg::BQ};
+  return wg::launch_warm_wg<T, PT, H>(w, s);
+}
+
 // f32 takes the CUDA-core kernel at every head dim; bf16 and f16 take the
-// wgmma kernel for fresh chunks at H = 64 and 128, the mma.sync kernel
-// otherwise up to H = 128 (at H = 256 its accumulators alone would need
-// 128 registers a thread) and the CUDA-core one above.
+// wgmma kernels (fresh or warm) at H = 64 and 128, the mma.sync kernel at
+// H = 16 and 32, and the CUDA-core one at H = 256 (where mma.sync's
+// accumulators alone would need 128 registers a thread).
 template <typename T, typename PT, bool WARM, bool QUANT>
 int launch_h(const Args& a, int B, int H, cudaStream_t s) {
-  if constexpr (!WARM && !std::is_same<T, float>::value) {
-    switch (H) {
-      case 16: return launch_mma<T, PT, 16, WARM, QUANT>(a, B, s);
-      case 32: return launch_mma<T, PT, 32, WARM, QUANT>(a, B, s);
-      case 64: return launch_wg<T, 64>(a, B, s);
-      case 128: return launch_wg<T, 128>(a, B, s);
-      case 256: return launch<T, PT, 256, WARM, QUANT>(a, B, s);
-      default: return -1;
-    }
-  } else if constexpr (std::is_same<T, float>::value) {
+  if constexpr (std::is_same<T, float>::value) {
     switch (H) {
       case 16: return launch<T, PT, 16, WARM, QUANT>(a, B, s);
       case 32: return launch<T, PT, 32, WARM, QUANT>(a, B, s);
@@ -287,8 +291,12 @@ int launch_h(const Args& a, int B, int H, cudaStream_t s) {
     switch (H) {
       case 16: return launch_mma<T, PT, 16, WARM, QUANT>(a, B, s);
       case 32: return launch_mma<T, PT, 32, WARM, QUANT>(a, B, s);
-      case 64: return launch_mma<T, PT, 64, WARM, QUANT>(a, B, s);
-      case 128: return launch_mma<T, PT, 128, WARM, QUANT>(a, B, s);
+      case 64:
+        if constexpr (WARM) return launch_warm_wg<T, PT, 64>(a, B, s);
+        else return launch_wg<T, 64>(a, B, s);
+      case 128:
+        if constexpr (WARM) return launch_warm_wg<T, PT, 128>(a, B, s);
+        else return launch_wg<T, 128>(a, B, s);
       case 256: return launch<T, PT, 256, WARM, QUANT>(a, B, s);
       default: return -1;
     }

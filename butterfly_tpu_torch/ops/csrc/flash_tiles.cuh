@@ -1,6 +1,7 @@
-// Online-softmax tile machinery shared by the flash kernels
-// (flash_attention.cu) and the ring-attention block kernel
-// (ring_attention.cu), for Hopper (sm_90a).
+// Online-softmax tile machinery of the flash kernels' mma.sync and
+// CUDA-core routes (flash_attention.cu) and of the ring-attention
+// kernel's f32 route (ring_attention.cu), for Hopper (sm_90a); the
+// helpers (pack2, mma16816, allow_smem, ...) serve every kernel.
 //
 // A thread block owns BQ = 64 query rows of one query head and folds key
 // tiles of BK = 64 columns into its (running max m, denominator l,
@@ -11,15 +12,15 @@
 //   mma.sync m16n8k16 for Q.K^T and P.V, the score fragments reused in
 //   registers as P.V's A operand; P enters P.V rounded to the input type,
 //   the denominator sums the f32 values).
-// Which (row, column) pairs are live follows one of two rules, chosen at
-// compile time by POS: the flash kernels' index rule (key c0 + cl lives
-// iff it lies below the tile's `limit` and, when causal, at or before its
-// query row) or the ring kernel's position rule (kp[cl] <= qp[row], the
-// positions staged in shared memory; invalid keys carry INT32_MAX, which
-// no real query position reaches). The index rule is written out, not
-// wrapped in a functor: nvcc compiled the functor's version of the
-// tensor-core fold with more registers, and the fresh flash kernel ran
-// slower on an H100.
+// Which (row, column) pairs are live follows the flash kernels' index
+// rule (key c0 + cl lives iff it lies below the tile's `limit` and, when
+// causal, at or before its query row); fold_tile also takes the ring
+// kernel's position rule, chosen at compile time by POS (kp[cl] <=
+// qp[row], the positions staged in shared memory; invalid keys carry
+// INT32_MAX, which no real query position reaches). The index rule is
+// written out, not wrapped in a functor: nvcc compiled the functor's
+// version of the tensor-core fold with more registers, and the fresh
+// flash kernel ran slower on an H100.
 // Masking contract of every caller: a masked score is the finite -1e30, a
 // masked probability exactly 0; key rows at or past the tile's `limit`
 // load as zeros, so garbage past it never reaches a product. int8 K/V
@@ -357,15 +358,14 @@ __device__ __forceinline__ void load_q_frags(const uint16_t* qs,
 }
 
 // Fold one tile of BK key columns into the warp's state (see fold_tile
-// for the arguments); qa holds the warp's Q fragments, row0 is the
-// warp's first query row: absolute for the index rule, within the block
-// (an index into qp) for the position rule.
-template <typename T, int H, typename KT, bool QUANT, bool POS = false>
+// for the arguments; the index rule only); qa holds the warp's Q
+// fragments, row0 is the warp's first query row.
+template <typename T, int H, typename KT, bool QUANT>
 __device__ __forceinline__ void fold_tile_mma(
     const uint32_t (&qa)[H / 16][4], uint16_t* ks, uint16_t* vs, float* ksc,
     float* vsc, const KT* kb, const KT* vb, long long rstride, int c0,
     int limit, const float* ksg, const float* vsg, bool causal, int row0,
-    const int* qp, const int* kp, float scale, MmaState<H>& st) {
+    float scale, MmaState<H>& st) {
   constexpr int LDH = H + 8;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -406,10 +406,7 @@ __device__ __forceinline__ void fold_tile_mma(
       for (int e = 0; e < 2; ++e) {
         const int cl = j * 8 + t * 2 + e;
         const int c = c0 + cl;
-        if constexpr (POS)
-          ok[j][e] = kp[cl] <= qp[row];
-        else
-          ok[j][e] = c < limit && (!causal || c <= row);
+        ok[j][e] = c < limit && (!causal || c <= row);
         float x = s[j][2 * h + e];
         if constexpr (QUANT) x *= ksc[cl];  // K scale, then rsqrt(H)
         x = ok[j][e] ? x * scale : NEG;

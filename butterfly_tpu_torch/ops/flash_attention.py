@@ -28,8 +28,8 @@ import torch
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 NEG_INF = -1e30
-#: query rows per block of the fresh kernel's wgmma path (bf16 / f16 at
-#: head dims 64 and 128): two warpgroups of 64 rows
+#: query rows per block of the wgmma kernels, fresh and warm (bf16 / f16
+#: at head dims 64 and 128): two warpgroups of 64 rows
 FRESH_BQ = 128
 
 
@@ -42,6 +42,22 @@ def fresh_block_order(B: int, T: int, Nq: int, causal: bool):
     ntiles = -(-T // FRESH_BQ)
     return [(b, ntiles - 1 - ti if causal else ti, n)
             for b in range(B) for ti in range(ntiles) for n in range(Nq)]
+
+
+def warm_block_order(prefix_len, T: int, Nq: int, Sp: int):
+    """(batch row, query tile, query head) of each block of the warm
+    wgmma kernel, in launch order (blockIdx.x), as the kernel decodes it
+    (csrc/flash_warm_wgmma.cuh): batch rows by prefix_len clamped to
+    [0, Sp], longest first (ties by row), since a block's work grows with
+    its row's live prefix; within a row the query tiles last to first (the
+    causal chunk's heaviest first); query heads fastest, so a kv group's
+    heads are adjacent blocks. The kernel ranks the lengths on the card;
+    `prefix_len` here is any sequence of ints."""
+    plen = [min(max(int(p), 0), Sp) for p in prefix_len]
+    rows = sorted(range(len(plen)), key=lambda b: (-plen[b], b))
+    ntiles = -(-T // FRESH_BQ)
+    return [(b, ntiles - 1 - ti, n)
+            for b in rows for ti in range(ntiles) for n in range(Nq)]
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,7 +180,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the sm_90a
     kernel (counted in `flash_attention.launches_fresh` or
-    `.launches_warm`) or raise.
+    `.launches_warm`) or raise. bf16 / f16 at head dims 64 and 128 take
+    the wgmma kernels (the warm one's launch order is `warm_block_order`,
+    decided on the card from prefix_len), other head dims mma.sync, f32
+    the CUDA cores.
     """
     warm = prefix_k is not None
     if warm and not causal:

@@ -19,11 +19,17 @@ invalid keys (padding, past the live prefix, unwritten suffix slots) to
 row with no live key gets m = NEG_INF (the finite -1e30), l = 0, acc = 0,
 so every merge needs no isinf/NaN guard.
 
-On CUDA tensors `ring_block_stats` launches the hand-written sm_90a kernel
-in csrc/ring_attention.cu (built at first use, see ops/build.py) or
-raises; on CPU tensors it computes the plain version,
-`ring_block_stats_ref`. The module-level `launches` counts kernel
-launches (set it to 0 before a run to count that run's).
+On CUDA tensors `ring_block_stats` launches one of the hand-written sm_90a
+kernels in csrc/ring_attention.cu (built at first use, see ops/build.py)
+or raises; on CPU tensors it computes the plain version,
+`ring_block_stats_ref`. Routes on the card: a decode step (T = 1) splits
+the keys over blocks (flash-decoding: `ring_split_plan` sizes the split
+from the static S alone, a second kernel merges the partials in split
+order; `ring_block_stats_split_ref` is the plain version of that
+decomposition); T > 1 in bf16 runs the warpgroup-MMA kernel, in f32 the
+CUDA-core one. The module-level `launches` counts wrapper calls that
+launched a kernel, `launches_decode` those of them that took the T = 1
+route (set both to 0 before a run to count that run's).
 """
 from __future__ import annotations
 
@@ -38,9 +44,22 @@ INVALID_POS = 2**31 - 1
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 _HEAD_DIMS = (64, 128)
+#: keys one block of the T = 1 kernel folds
+SPLIT_KEYS = 256
 
-#: kernel launches since the last reset (a plain int)
+#: wrapper calls that launched a kernel since the last reset (plain ints);
+#: `launches_decode` counts the T = 1 (split) route's share
 launches = 0
+launches_decode = 0
+
+
+def ring_split_plan(S: int):
+    """The T = 1 kernel's grid along the keys, from the static S alone
+    (never from the positions, which live on the card): (keys per split,
+    number of splits). Split i folds keys [i * split, min(S, (i + 1) *
+    split)); with one split the kernel writes the stats itself, with more
+    a merge kernel combines them."""
+    return SPLIT_KEYS, max(1, -(-S // SPLIT_KEYS))
 
 
 # -- the stats algebra ----------------------------------------------------------
@@ -113,18 +132,67 @@ def ring_block_stats_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc.reshape(B, Nq, T, H))
 
 
+def ring_block_stats_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, q_pos: torch.Tensor,
+                               k_pos: torch.Tensor,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None,
+                               return_partials: bool = False):
+    """Plain PyTorch version of the T = 1 kernel's decomposition (the
+    arguments of `ring_block_stats_ref`, any T): for each split of
+    `ring_split_plan(S)` the partial stats of its keys
+    (`ring_block_stats_ref` on the slice: a split with nothing live is
+    exactly m = -1e30, l = 0, acc = 0), then the partials merged in split
+    order: M = max m_i, l = sum l_i e^(m_i - M), acc = sum acc_i
+    e^(m_i - M), m = M. Unnormalised, as the ring contract wants. With
+    `return_partials` also returns the partials stacked on a leading split
+    axis."""
+    quant = k_scale is not None
+    S = k.shape[2] if quant else k.shape[1]
+    split, n_split = ring_split_plan(S)
+    parts = []
+    for i in range(n_split):
+        sl = slice(i * split, min(S, (i + 1) * split))
+        if quant:
+            parts.append(ring_block_stats_ref(
+                q, k[:, :, sl], v[:, :, sl], q_pos, k_pos[:, sl],
+                k_scale[:, :, sl], v_scale[:, :, sl]))
+        else:
+            parts.append(ring_block_stats_ref(q, k[:, sl], v[:, sl], q_pos,
+                                              k_pos[:, sl]))
+    M = parts[0][0]
+    for m_i, _, _ in parts[1:]:
+        M = torch.maximum(M, m_i)
+    l = acc = None
+    for m_i, l_i, acc_i in parts:
+        f = torch.exp(m_i - M)
+        l_f, acc_f = l_i * f, acc_i * f[..., None]
+        l = l_f if l is None else l + l_f
+        acc = acc_f if acc is None else acc + acc_f
+    stats = (M, l, acc)
+    if return_partials:
+        return stats, tuple(torch.stack(x) for x in zip(*parts))
+    return stats
+
+
 # -- the kernel -----------------------------------------------------------------
 
-def _kernel_fn():
-    """The C entry point of the built library (built at first use)."""
+def _kernel_fns():
+    """The C entry points of the built library (built at first use):
+    (bt_ring_stats, bt_ring_decode)."""
     from butterfly_tpu_torch.ops.build import load
-    fn = load("ring_attention").bt_ring_stats
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                       + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
-                       + [ctypes.c_void_p])
-    return fn
+    lib = load("ring_attention")
+    stats, decode = lib.bt_ring_stats, lib.bt_ring_decode
+    if stats.argtypes is None:
+        stats.restype = ctypes.c_int
+        stats.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                          + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
+                          + [ctypes.c_void_p])
+        decode.restype = ctypes.c_int
+        decode.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
+                           + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+                           + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return stats, decode
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -139,14 +207,16 @@ def ring_block_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Partial flash stats of one K/V block: the contract of
     `ring_block_stats_ref`, whose shapes it takes.
 
-    CPU tensors take the plain version. CUDA tensors launch the sm_90a
-    kernel (counted in `launches`) or raise: q in bf16 (tensor cores; P
-    enters P.V rounded to bf16) or f32 (CUDA cores), head_dim 64 or 128;
-    float k/v in q's dtype with any strides whose last dim is contiguous
-    and the others multiples of 8 elements; int8 codes likewise, with f32
-    scales. Nothing is padded: keys past S simply do not exist, and the
-    kernel treats a tile's missing keys as INVALID_POS."""
-    global launches
+    CPU tensors take the plain version. CUDA tensors launch an sm_90a
+    kernel (counted in `launches`; T = 1 also in `launches_decode`) or
+    raise: q in bf16 (tensor cores; P enters P.V rounded to bf16) or f32
+    (CUDA cores), head_dim 64 or 128; float k/v in q's dtype with any
+    strides whose last dim is contiguous and the others multiples of 16
+    bytes; int8 codes likewise, with f32 scales. Nothing is padded: keys
+    past S simply do not exist, and the kernel treats them as INVALID_POS.
+    T = 1 takes the split kernel, sized by `ring_split_plan` from S alone
+    (no value is read back from the card)."""
+    global launches, launches_decode
     if q.device.type == "cpu":
         return ring_block_stats_ref(q, k, v, q_pos, k_pos, k_scale, v_scale)
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
@@ -172,9 +242,10 @@ def ring_block_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(v.shape == k.shape and v.stride() == k.stride(),
            "k and v must share shape and strides")
     _check(Kv > 0 and Nq % Kv == 0, f"Nq={Nq} not a multiple of Kv={Kv}")
-    _check(sd == 1 and sb % 8 == 0 and ss % 8 == 0 and sh % 8 == 0,
+    el = 16 // k.element_size()   # elements in 16 bytes
+    _check(sd == 1 and sb % el == 0 and ss % el == 0 and sh % el == 0,
            "k/v need a contiguous last dim and strides that are multiples "
-           "of 8 elements")
+           "of 16 bytes")
     _check(q_pos.shape == (B, T) and k_pos.shape == (B, S),
            "q_pos must be [B, T] and k_pos [B, S]")
     q = q.contiguous()
@@ -198,23 +269,33 @@ def ring_block_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.empty((B, Nq, T, H), dtype=f32, device=q.device)
     if B == 0 or T == 0:
         return m, l, acc
-    fn = _kernel_fn()
+    stats_fn, decode_fn = _kernel_fns()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    head = (_DTYPE_CODE[q.dtype], int(quant), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), ptr(ks), ptr(vs), qp.data_ptr(), kp.data_ptr(),
+            m.data_ptr(), l.data_ptr(), acc.data_ptr())
     # the launch goes to the current device: make it q's (a mesh may put
     # shards on several cards)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_DTYPE_CODE[q.dtype], int(quant), q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs), qp.data_ptr(),
-                kp.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-                B, T, S, Nq, Kv, H, sb, ss, sh, stream)
+        if T == 1:
+            split, n_split = ring_split_plan(S)
+            ws = None
+            if n_split > 1:   # partials: acc, then m and l
+                ws = torch.empty(B * Nq * n_split * (H + 2), dtype=f32,
+                                 device=q.device)
+            rc = decode_fn(*head, ptr(ws), B, S, Nq, Kv, H, sb, ss, sh,
+                           split, n_split, stream)
+        else:
+            rc = stats_fn(*head, B, T, S, Nq, Kv, H, sb, ss, sh, stream)
     if rc != 0:
         raise RuntimeError(f"ring_block_stats kernel launch failed "
                            f"(code {rc})")
     launches += 1
+    launches_decode += T == 1
     return m, l, acc
 
 

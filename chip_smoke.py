@@ -23,7 +23,8 @@ raises and the script exits non-zero:
              too; a slot with nothing to attend must give exactly 0; a
              second launch must give the same bits (no atomics).
              Times: kernel (CUDA events, median, L2 flushed before each
-             launch as a decode step finds it), plain version, the bound
+             launch as a decode step finds it, the device kept busy while
+             the host enqueues, see _time_ms), plain version, the bound
              (bytes moved / the card's memory bandwidth, or operations /
              peak, whichever is larger), and scaled_dot_product_attention
              over the pre-gathered dense K/V as a yardstick that excludes
@@ -40,27 +41,30 @@ raises and the script exits non-zero:
              error over max |ref| 1e-2; and every element within
              2**-7 * (|ref| + sum_j p_j |v_j| / l), the output's rounding
              on both sides plus that of probabilities rounded to bf16.
-             f32 1e-4 absolute and per tile. Fresh bf16 at H = 64 and 128
-             runs the wgmma kernel. A second launch must give the same
-             bits.
+             f32 1e-4 absolute and per tile. bf16 at H = 64 and 128 runs
+             the wgmma kernels, fresh and warm. A second launch must give
+             the same bits.
              Times as above; the yardstick is scaled_dot_product_attention
              (is_causal, enable_gqa) for the fresh kernel and, for the warm
              one, the same call over [live prefix ‖ chunk] with an explicit
              mask and K/V concatenated beforehand.
-5. ring      the ring-attention kernel's partial stats (m, l, acc) against
-             its plain version at Llama-3-8B shapes (Nq=32, Kv=8, H=128),
-             bf16 on the tensor cores: the diagonal ring block of a
-             4096-token prompt on 2 shards (T=S=2048), an earlier block
-             (every key live), a later block (every key masked: exactly
-             m=-1e30, l=0, acc=0), a ragged block with INVALID_POS keys
-             over large garbage, int8 codes + scales, one decode token
-             against 2048 keys; f32 on the CUDA cores at T=256.
-             Tolerances: m 1e-3 absolute, l 2**-7 relative, the finalised
-             acc/l per element within the flash phase's bound and per
-             64-row tile 1e-2; f32 1e-4. Times as above; the yardstick is
-             scaled_dot_product_attention with the boolean position mask
-             (enable_gqa), which returns the normalised output, not the
-             stats.
+5. ring      the ring-attention kernels' partial stats (m, l, acc) against
+             their plain version at Llama-3-8B shapes (Nq=32, Kv=8,
+             H=128), bf16 on the tensor cores (T > 1 on the wgmma kernel):
+             the diagonal ring block of a 4096-token prompt on 2 shards
+             (T=S=2048), an earlier block (every key live), a later block
+             (every key masked: exactly m=-1e30, l=0, acc=0), a ragged
+             block with INVALID_POS keys over large garbage, int8 codes +
+             scales; one decode token against 2048 keys (the T = 1 split
+             kernel): bf16, int8, f32, and 4 batch rows at different
+             positions (the split plain version too); f32 on the CUDA
+             cores at T=256. Tolerances: m 1e-3 absolute, l 2**-7
+             relative, the finalised acc/l per element within the flash
+             phase's bound and per 64-row tile 1e-2; f32 1e-4. A second
+             launch must give the same bits. Times as above; the
+             yardstick is scaled_dot_product_attention with the boolean
+             position mask (enable_gqa), which returns the normalised
+             output, not the stats.
 6. serve     `butterfly serve` machinery (serve/server.build_serving) on
              full-width, full-depth Llama-3-8B with random bf16 weights
              and the CLI's serve defaults (mixed dispatch), in a thread on
@@ -99,11 +103,13 @@ raises and the script exits non-zero:
              per card with two cards, else both on cuda:0; printed) on the
              shared weights: a 4096-token prompt, 32 greedy new tokens,
              ring with bf16 KV, ring with int8 KV, Ulysses. The ring
-             kernel's launches must be exact (N*N per layer for the
-             prefill, N + 1 per layer per decode step); the prefill's
-             last-position logits within 0.5 of the dense flash prefill
-             (int8: of the same prefill with the plain ring version).
-             Tokens/s and the prefill time.
+             kernel's launches must be exact per route (N*N per layer for
+             the prefill, on the wgmma kernel; N + 1 per layer per decode
+             step, on the T = 1 split kernel); the prefill's last-position
+             logits within 0.5 of the dense flash prefill (int8: of the
+             same prefill with the plain ring version). Tokens/s and the
+             prefill time; under the profiler, the long prefill's ring
+             share and the decode steps' ring time per token.
 13. ringpar  one sp_forward of that prompt: every ring block's kernel stats,
              finalised, against the plain version on the same inputs
              within the ring phase's element bound; the logits against the
@@ -111,8 +117,9 @@ raises and the script exits non-zero:
 14. longserve ServingEngine(seq = 2, seq_parallel_threshold=1024,
              max_seq_len=4096) + Scheduler, mixed dispatch: 2 long prompts
              (3000 and 4000 bytes) and 4 short ones, greedy. The lane must
-             prefill tokens; ring and paged launches multiples of 32; every
-             request finishes. Tokens/s and TTFT.
+             prefill tokens; ring (all T > 1: the wgmma kernel) and paged
+             launches multiples of 32; every request finishes. Tokens/s
+             and TTFT.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
@@ -222,11 +229,17 @@ def _bytes_ops(args, win, lengths, wc, Nq, Kv, H, page, quant):
 
 
 def _time_ms(torch, fn, flush, reps=25):
+    """Median device time of one call of `fn`, in ms: CUDA events around
+    each call, the L2 flushed before it (a decode step or a prefill finds
+    its operands cold), and the device kept busy by a spin while the host
+    enqueues the call, so the wrapper's host time is not counted (for a
+    kernel of tens of microseconds it can exceed the flush)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()  # evict L2: a decode step finds this layer's pages cold
+        torch.cuda._sleep(1_000_000)  # ~0.5 ms: the host enqueues meanwhile
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -463,7 +476,7 @@ def _flash_bytes_ops(q, k, causal, kw):
     pairs = T * (T + 1) // 2 if causal else T * T
     ops = 4 * B * Nq * H * pairs
     if kw:
-        live = sum(_PLEN)
+        live = int(kw["prefix_len"].sum().item())
         quant = "prefix_k_scale" in kw
         nbytes += 2 * live * Kv * H * (1 if quant else el) + 4 * B
         if quant:
@@ -565,43 +578,52 @@ def phase_flash_kernel(torch, card):
 # -- phase 5: the ring kernel against its plain version ---------------------
 
 _INVALID = 2**31 - 1
-# (name, T, S, q positions start, k positions start, dtype name, int8 K/V,
-#  ragged): Llama-3-8B heads (Nq=32, Kv=8, H=128), one batch row. diag is
-# the diagonal ring block of a 4096-token prompt over 2 shards (each
-# shard's own chunk), earlier a block every query sees whole, later a
-# block every query must ignore, decode one token against a shard.
+# (name, B, T, S, query start (one per batch row, or one for all), k
+#  positions start, dtype name, int8 K/V, ragged): Llama-3-8B heads
+# (Nq=32, Kv=8, H=128). diag is the diagonal ring block of a 4096-token
+# prompt over 2 shards (each shard's own chunk), earlier a block every
+# query sees whole, later a block every query must ignore, decode one
+# token against a shard (the T = 1 split kernel; B4: four rows at four
+# positions, one of which sees only the first split).
 RING_CASES = [
-    ("diag_bf16", 2048, 2048, 0, 0, "bfloat16", False, False),
-    ("earlier_bf16", 2048, 2048, 2048, 0, "bfloat16", False, False),
-    ("later_bf16", 2048, 2048, 0, 2048, "bfloat16", False, False),
-    ("ragged_bf16", 1000, 2000, 1000, 0, "bfloat16", False, True),
-    ("int8", 2048, 2048, 0, 0, "bfloat16", True, False),
-    ("decode_T1", 1, 2048, 3000, 0, "bfloat16", False, False),
-    ("f32_T256", 256, 256, 0, 0, "float32", False, False),
+    ("diag_bf16", 1, 2048, 2048, 0, 0, "bfloat16", False, False),
+    ("earlier_bf16", 1, 2048, 2048, 2048, 0, "bfloat16", False, False),
+    ("later_bf16", 1, 2048, 2048, 0, 2048, "bfloat16", False, False),
+    ("ragged_bf16", 1, 1000, 2000, 1000, 0, "bfloat16", False, True),
+    ("int8", 1, 2048, 2048, 0, 0, "bfloat16", True, False),
+    ("decode_T1", 1, 1, 2048, 3000, 0, "bfloat16", False, False),
+    ("decode_T1_int8", 1, 1, 2048, 3000, 0, "bfloat16", True, False),
+    ("decode_T1_f32", 1, 1, 2048, 3000, 0, "float32", False, False),
+    ("decode_T1_B4", 4, 1, 2048, [3000, 1000, 100, 2047], 0, "bfloat16",
+     False, False),
+    ("f32_T256", 1, 256, 256, 0, 0, "float32", False, False),
 ]
 
 
-def _ring_inputs(torch, T, S, q0, k0, dt, quant, ragged, gen):
+def _ring_inputs(torch, B, T, S, q0, k0, dt, quant, ragged, gen):
     Nq, Kv, H = 32, 8, 128
     dev = "cuda"
-    q = torch.randn((1, T, Nq, H), generator=gen, device=dev).to(dt)
+    q = torch.randn((B, T, Nq, H), generator=gen, device=dev).to(dt)
     if quant:
-        k = torch.randint(-127, 128, (1, Kv, S, H), generator=gen,
+        k = torch.randint(-127, 128, (B, Kv, S, H), generator=gen,
                           device=dev, dtype=torch.int8)
-        v = torch.randint(-127, 128, (1, Kv, S, H), generator=gen,
+        v = torch.randint(-127, 128, (B, Kv, S, H), generator=gen,
                           device=dev, dtype=torch.int8)
-        ks = torch.rand((1, Kv, S), generator=gen, device=dev) * 0.02
-        vs = torch.rand((1, Kv, S), generator=gen, device=dev) * 0.02
+        ks = torch.rand((B, Kv, S), generator=gen, device=dev) * 0.02
+        vs = torch.rand((B, Kv, S), generator=gen, device=dev) * 0.02
     else:
-        k = torch.randn((1, S, Kv, H), generator=gen, device=dev).to(dt)
-        v = torch.randn((1, S, Kv, H), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, S, Kv, H), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, S, Kv, H), generator=gen, device=dev).to(dt)
         ks = vs = None
-    qp = torch.arange(q0, q0 + T, device=dev, dtype=torch.int32)[None]
-    kp = torch.arange(k0, k0 + S, device=dev, dtype=torch.int32)[None]
+    starts = q0 if isinstance(q0, list) else [q0] * B
+    qp = torch.stack([torch.arange(a, a + T, device=dev, dtype=torch.int32)
+                      for a in starts])
+    kp = torch.arange(k0, k0 + S, device=dev,
+                      dtype=torch.int32)[None].repeat(B, 1)
     if ragged:
         # the unwritten tail and scattered holes carry INVALID_POS, and
         # their K/V rows hold large garbage that must never be attended
-        bad = torch.rand((1, S), generator=gen, device=dev) < 0.1
+        bad = torch.rand((B, S), generator=gen, device=dev) < 0.1
         bad[:, 1900:] = True
         kp = torch.where(bad, torch.full_like(kp, _INVALID), kp)
         k[bad] = 30.0
@@ -614,14 +636,14 @@ def _ring_bytes_ops(args):
     live, the K/V rows (+ scales) some query attends, positions, the
     outputs once) and its operations (q.k and p.v on the live pairs)."""
     q, k, v, qp, kp, ks, vs = args
-    _, T, Nq, H = q.shape
+    B, T, Nq, H = q.shape
     quant = ks is not None
     Kv = k.shape[1] if quant else k.shape[2]
-    live = kp[0][None, :] <= qp[0][:, None]               # [T, S]
+    live = kp[:, None, :] <= qp[:, :, None]               # [B, T, S]
     pairs = int(live.sum().item())
-    keys = int(live.any(dim=0).sum().item())
+    keys = int(live.any(dim=1).sum().item())
     el = 1 if quant else k.element_size()
-    nbytes = (qp.numel() + kp.numel()) * 4 + Nq * T * (H + 2) * 4
+    nbytes = (qp.numel() + kp.numel()) * 4 + B * Nq * T * (H + 2) * 4
     if pairs:
         nbytes += q.numel() * q.element_size() \
             + 2 * keys * Kv * (H * el + (4 if quant else 0))
@@ -640,7 +662,7 @@ def _ring_sdpa(torch, args):
         k, v = k.transpose(1, 2), v.transpose(1, 2)
     qt = q.transpose(1, 2).contiguous()
     kt, vt = k.contiguous(), v.contiguous()
-    mask = (kp[0][None, :] <= qp[0][:, None])[None, None]
+    mask = (kp[:, None, :] <= qp[:, :, None])[:, None]
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
 
@@ -682,21 +704,28 @@ def phase_ring(torch, card):
     gen.manual_seed(4)
     bw = bandwidth(card)
     results = {}
-    for name, T, S, q0, k0, dts, quant, ragged in RING_CASES:
+    for name, B, T, S, q0, k0, dts, quant, ragged in RING_CASES:
         dt = getattr(torch, dts)
         bf16 = dt == torch.bfloat16
-        args = _ring_inputs(torch, T, S, q0, k0, dt, quant, ragged, gen)
+        args = _ring_inputs(torch, B, T, S, q0, k0, dt, quant, ragged, gen)
         stats = ra.ring_block_stats(*args)
+        again = ra.ring_block_stats(*args)
         torch.cuda.synchronize()
-        ref = ra.ring_block_stats_ref(*args)
-        m_err, l_rel, out_err, elem, tile = _ring_check(
-            torch, ra, args, stats, ref, bf16)
+        assert all(torch.equal(a, b) for a, b in zip(stats, again)), \
+            f"{name}: two launches differ"
         tol = dict(m=1e-3, l=2.0 ** -7, elem=1.0, tile=1e-2) if bf16 else \
             dict(m=1e-4, l=1e-4, elem=1e-4, tile=1e-4)
+        refs = [ra.ring_block_stats_ref(*args)]
+        if T == 1:   # the split kernel's own decomposition, in plain form
+            refs.append(ra.ring_block_stats_split_ref(*args))
+        # the worst of each error against either plain version
+        m_err, l_rel, out_err, elem, tile = map(max, zip(*(
+            _ring_check(torch, ra, args, stats, ref, bf16) for ref in refs)))
         assert m_err <= tol["m"], f"{name}: m err {m_err}"
         assert l_rel <= tol["l"], f"{name}: l rel err {l_rel}"
         assert elem <= tol["elem"], f"{name}: output err {elem}"
         assert tile <= tol["tile"], f"{name}: tile rel err {tile}"
+        ref = refs[0]
         n0 = ra.launches
         k_ms = _time_ms(torch, lambda: ra.ring_block_stats(*args), flush)
         assert ra.launches > n0
@@ -713,7 +742,8 @@ def phase_ring(torch, card):
                              bound_ms=bound,
                              bound_by="bytes" if t_bytes >= t_ops
                              else "operations", library_ms=l_ms)
-        log("ring", case=name, card=card.replace(" ", "_"), T=T, S=S,
+        log("ring", case=name, card=card.replace(" ", "_"), B=B, T=T, S=S,
+            route="split" if T == 1 else ("wgmma" if bf16 else "cuda_cores"),
             m_abs_err=f"{m_err:.3g}", l_rel_err=f"{l_rel:.3g}",
             out_abs_err=f"{out_err:.3g}",
             **({"max_err_over_elem_bound": f"{elem:.3g}"} if bf16 else {}),
@@ -721,8 +751,9 @@ def phase_ring(torch, card):
             plain_ms=f"{p_ms:.4f}", bytes=nbytes, ops=ops,
             bound_ms=f"{bound:.4f}", bound_by=results[name]["bound_by"],
             library_ms="none" if l_ms is None
-            else f"{l_ms:.4f}(sdpa,normalised output)")
-        del args, stats, ref
+            else f"{l_ms:.4f}(sdpa,normalised output)",
+            relaunch="same bits")
+        del args, stats, again, refs, ref
     return results
 
 
@@ -1197,12 +1228,13 @@ def _seq_mesh(torch):
     return make_mesh(MeshConfig(seq=2), devs), "+".join(devs)
 
 
-def _profile_prefill(torch, run):
-    """Where one long prefill's time goes: host wall against device busy
-    time (torch.profiler), split into the ring kernel, the GEMMs and the
-    rest, and the top kernels."""
+def _profile(torch, run, warm_up=True):
+    """Run `run` once to warm up (unless it ran already), then once under
+    torch.profiler: (host wall ms, device kernel averages, device ms of
+    one average)."""
     from torch.profiler import ProfilerActivity, profile
-    run()
+    if warm_up:
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1215,6 +1247,14 @@ def _profile_prefill(torch, run):
     def dev_ms(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    return wall, ka, dev_ms
+
+
+def _profile_prefill(torch, run):
+    """Where one long prefill's time goes: host wall against device busy
+    time (torch.profiler), split into the ring kernel, the GEMMs and the
+    rest, and the top kernels."""
+    wall, ka, dev_ms = _profile(torch, run)
     busy = sum(dev_ms(e) for e in ka)
     ring = sum(dev_ms(e) for e in ka if "ring" in e.key)
     gemm = sum(dev_ms(e) for e in ka if "nvjet" in e.key or "gemm" in e.key
@@ -1222,11 +1262,55 @@ def _profile_prefill(torch, run):
     log("longgen", profile="prefill", wall_ms=f"{wall:.1f}",
         device_busy_ms=f"{busy:.1f}",
         idle_share=f"{1 - busy / wall:.3f}" if busy else "not measured",
-        ring_ms=f"{ring:.1f}", gemm_ms=f"{gemm:.1f}",
-        other_ms=f"{busy - ring - gemm:.1f}")
+        ring_ms=f"{ring:.1f}",
+        ring_share=f"{ring / busy:.3f}" if busy else "not measured",
+        gemm_ms=f"{gemm:.1f}", other_ms=f"{busy - ring - gemm:.1f}")
     for e in sorted(ka, key=dev_ms, reverse=True)[:6]:
         log("longgen", kernel=e.key[:60].replace(" ", "_"),
             ms=f"{dev_ms(e):.2f}", calls=e.count)
+
+
+def _decode_wrapper_host_ms(torch, run):
+    """Host time of each T = 1 ring wrapper call (checks, the workspace
+    allocation, the split and merge launches) over one `run`, unprofiled:
+    the decode loop is host-bound, so this is what a call costs it.
+    Returns (median ms, calls)."""
+    from butterfly_tpu_torch.ops import ring_attention as ra
+    orig, host = ra.ring_block_stats, []
+
+    def timed(q, *args, **kw):
+        t0 = time.perf_counter()
+        out = orig(q, *args, **kw)
+        if q.shape[1] == 1:
+            host.append((time.perf_counter() - t0) * 1e3)
+        return out
+    ra.ring_block_stats = timed
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        ra.ring_block_stats = orig
+    return statistics.median(host), len(host)
+
+
+def _profile_decode(torch, run, steps):
+    """One whole generate_long under the profiler: the decode steps' ring
+    time (the T = 1 split and merge kernels) per generated token beside
+    the device's busy time, and the T = 1 wrapper's host time per call
+    from a run without the profiler."""
+    host_ms, host_calls = _decode_wrapper_host_ms(torch, run)
+    wall, ka, dev_ms = _profile(torch, run, warm_up=False)
+    busy = sum(dev_ms(e) for e in ka)
+    dec = [e for e in ka if "ring_decode" in e.key or "ring_merge" in e.key]
+    ring_dec = sum(dev_ms(e) for e in dec)
+    log("longgen", profile="generate_long", wall_ms=f"{wall:.1f}",
+        device_busy_ms=f"{busy:.1f}",
+        idle_share=f"{1 - busy / wall:.3f}" if busy else "not measured",
+        decode_steps=steps, decode_ring_ms=f"{ring_dec:.2f}",
+        decode_ring_ms_per_token=f"{ring_dec / steps:.3f}",
+        decode_ring_calls=sum(e.count for e in dec),
+        decode_ring_host_ms_per_call=f"{host_ms:.4f}",
+        decode_ring_host_calls=host_calls)
 
 
 def phase_longgen(torch, model, params, tok):
@@ -1264,15 +1348,20 @@ def phase_longgen(torch, model, params, tok):
                               RuntimeConfig(kv_quant=kvq, max_seq_len=4096),
                               mesh=mesh)
         sp = SamplingParams(max_new_tokens=new)
-        ra.launches = 0
+        ra.launches = ra.launches_decode = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = eng.generate_long(ids, sp, impl=impl)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = ra.launches
-        want = (L * N * N if impl == "ring" else 0) + (new - 1) * L * (N + 1)
+        n, n_dec = ra.launches, ra.launches_decode
+        # decode steps on the T = 1 split kernel, the ring prefill on the
+        # wgmma kernel (bf16 and int8 K/V alike)
+        want_dec = (new - 1) * L * (N + 1)
+        want = (L * N * N if impl == "ring" else 0) + want_dec
         assert n == want, f"{name}: {n} ring launches, want {want}"
+        assert n_dec == want_dec, \
+            f"{name}: {n_dec} T = 1 ring launches, want {want_dec}"
         _check_tokens(res, 1, new, cfg.vocab_size, name)
         total += n
         # the prefill alone, timed, and its last-position logits
@@ -1287,6 +1376,9 @@ def phase_longgen(torch, model, params, tok):
         if name == "ring_bf16":
             _profile_prefill(torch, lambda: sp_forward(
                 eng._replicas, cfg, tokens, mesh, impl=impl, kv_quant=kvq))
+            _profile_decode(torch, lambda: eng.generate_long(ids, sp,
+                                                             impl=impl),
+                            new - 1)
         if kvq == "int8":
             plain, _ = sp_forward(eng._replicas, cfg, tokens, mesh,
                                   impl=impl, kv_quant=kvq, kernel=False)
@@ -1301,7 +1393,9 @@ def phase_longgen(torch, model, params, tok):
             .replace(" ", "_"), shards=where, prompt_tokens=len(ids),
             new_tokens=new, wall_s=f"{wall:.3f}",
             tokens_per_s=f"{new / wall:.2f}", prefill_ms=f"{pf_ms:.1f}",
-            ring_launches=n, logits_vs=against, logits_gap=f"{gap:.4g}",
+            ring_launches=n, ring_wgmma_launches=n - n_dec,
+            ring_split_launches=n_dec, logits_vs=against,
+            logits_gap=f"{gap:.4g}",
             logits_tol=LOGITS_TOL, note="smoke run, not a benchmark")
         del eng
         torch.cuda.empty_cache()
@@ -1375,7 +1469,7 @@ def phase_longserve(torch, model, params, tok):
     sched = Scheduler(engine)
     sizes = [3000, 16, 200, 4000, 600, 1000]
     news = [32, 40, 48, 32, 56, 64]
-    ra.launches = paged_attention.launches = 0
+    ra.launches = ra.launches_decode = paged_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
     reqs = [sched.submit(tok.encode(_LONG[:n]), max_new_tokens=m)
@@ -1384,6 +1478,8 @@ def phase_longserve(torch, model, params, tok):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     n_ring, n_paged = ra.launches, paged_attention.launches
+    n_wg = n_ring - ra.launches_decode   # chunks: T > 1, the wgmma kernel
+    assert n_wg > 0, "the lane never launched the wgmma ring kernel"
     for r, m in zip(reqs, news):
         assert r.state == "finished" and len(r.output) == m, \
             f"request {r.id}: {r.state}, {len(r.output)} tokens"
@@ -1402,8 +1498,8 @@ def phase_longserve(torch, model, params, tok):
         tokens_per_s=f"{gen_tokens / wall:.2f}",
         ttft_p50_s=f"{statistics.median(ttfts):.4f}",
         ttft_max_s=f"{ttfts[-1]:.4f}", sp_prefill_tokens=int(sp_tokens),
-        ring_launches=n_ring, paged_launches=n_paged,
-        note="smoke run, not a benchmark")
+        ring_launches=n_ring, ring_wgmma_launches=n_wg,
+        paged_launches=n_paged, note="smoke run, not a benchmark")
     engine.cache = engine._kv_window = None
     del engine, sched
     torch.cuda.empty_cache()

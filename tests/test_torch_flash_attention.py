@@ -12,7 +12,8 @@ from butterfly_tpu.ops.flash_attention import flash_attention as jax_fa
 from butterfly_tpu_torch.ops.flash_attention import (FRESH_BQ,
                                                      flash_attention,
                                                      flash_attention_ref,
-                                                     fresh_block_order)
+                                                     fresh_block_order,
+                                                     warm_block_order)
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False  # full f32 matmuls
@@ -214,5 +215,106 @@ def test_fresh_kernel_matches_plain_on_the_card(B, T, Nq, Kv, H, causal, dt):
         return
     assert diff.max().item() <= 2e-2
     absv = flash_attention_ref(q, k, v.abs(), causal).float()
+    bound = 2.0 ** -7 * (ref.abs() + absv)
+    assert (diff <= bound).all(), (diff / bound).max().item()
+
+
+@pytest.mark.parametrize("plen,T,Nq,Sp", [([0, 17, 512, 1536], 512, 32, 2048),
+                                         ([5, 5, 0, 5], 200, 4, 64),
+                                         ([-3, 900, 40], 129, 2, 512),
+                                         ([7], 1, 3, 8)])
+def test_warm_block_order(plen, T, Nq, Sp):
+    """The warm wgmma kernel's launch order against a brute-force ranking:
+    every (batch row, query tile, head) once; rows by prefix_len clamped
+    to [0, Sp], longest first, ties by row; each row's tiles last to
+    first; a kv group's heads adjacent."""
+    order = warm_block_order(plen, T, Nq, Sp)
+    ntiles = -(-T // FRESH_BQ)
+    B = len(plen)
+    assert sorted(order) == [(b, i, n) for b in range(B)
+                             for i in range(ntiles) for n in range(Nq)]
+    clamped = [min(max(p, 0), Sp) for p in plen]
+    rank = [sum(clamped[o] > clamped[b] or (clamped[o] == clamped[b]
+                                            and o < b) for o in range(B))
+            for b in range(B)]
+    per_row = ntiles * Nq
+    for i, (b, t, n) in enumerate(order):
+        assert rank[b] == i // per_row
+        assert t == ntiles - 1 - (i % per_row) // Nq and n == i % Nq
+
+
+def _warm_card(B, T, Nq, Kv, H, Sp, plen, dt, prefix, seed):
+    """Card inputs of a warm call: q/k/v, and a prefix as a strided view
+    of a larger pool (float) or int8 codes + scales, with large garbage
+    past each row's prefix_len."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+    q, k, v = randn(B, T, Nq, H), randn(B, T, Kv, H), randn(B, T, Kv, H)
+    kw = {"prefix_len": torch.tensor(plen, dtype=torch.int32, device=dev)}
+    if prefix == "float":
+        # a view with strides of its own: every other kv head of a wider
+        # pool, rows padded, as a gathered pool view can be
+        pool_k, pool_v = randn(B, Sp + 8, 2 * Kv, H), randn(B, Sp + 8, 2 * Kv,
+                                                            H)
+        pk, pv = pool_k[:, :Sp, ::2], pool_v[:, :Sp, ::2]
+        for b, n in enumerate(plen):
+            pk[b, max(n, 0):] = 30.0
+            pv[b, max(n, 0):] = -30.0
+        kw.update(prefix_k=pk, prefix_v=pv)
+    else:
+        shape = (B, Kv, Sp, H)
+        pk, pv = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
+                  for _ in range(2))
+        for b, n in enumerate(plen):
+            ks[b, :, max(n, 0):] = 1.0
+            vs[b, :, max(n, 0):] = 1.0
+        kw.update(prefix_k=pk, prefix_v=pv, prefix_k_scale=ks,
+                  prefix_v_scale=vs)
+    return q, k, v, kw
+
+
+# (B, T, Nq, Kv, H, Sp, prefix_len, dtype, prefix): bf16 / f16 at H = 64
+# and 128 take the wgmma kernel: Llama-3-8B's heads over a ragged prefix
+# (incl. 0 and the whole prefix), int8 codes, GPT-2's heads, f16, a
+# prefix of 0 everywhere, T not a multiple of the 128-row block
+CARD_WARM = [
+    (4, 512, 32, 8, 128, 2048, [0, 17, 512, 1536], torch.bfloat16, "float"),
+    (3, 300, 32, 8, 128, 700, [700, 0, 63], torch.bfloat16, "int8"),
+    (2, 200, 12, 12, 64, 300, [65, 300], torch.bfloat16, "float"),
+    (2, 129, 8, 2, 128, 256, [1, 255], torch.float16, "float"),
+    (2, 64, 8, 2, 64, 128, [0, 0], torch.bfloat16, "int8"),
+    (1, 1, 8, 2, 128, 100, [99], torch.bfloat16, "float"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Nq,Kv,H,Sp,plen,dt,prefix", CARD_WARM)
+def test_warm_kernel_matches_plain_on_the_card(B, T, Nq, Kv, H, Sp, plen, dt,
+                                               prefix):
+    """The warm wgmma kernel against its plain version, each element
+    within 2^-7 (|ref| + sum p|v| / l) and 2e-2 overall; garbage past
+    prefix_len never reaches the output; the same bits on a relaunch; one
+    launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, kw = _warm_card(B, T, Nq, Kv, H, Sp, plen, dt, prefix, T + Sp)
+    n0 = flash_attention.launches_warm
+    out = flash_attention(q, k, v, True, **kw)
+    again = flash_attention(q, k, v, True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_warm == n0 + 2
+    assert torch.equal(out, again)
+    ref = flash_attention_ref(q, k, v, True, **kw).float()
+    diff = (out.float() - ref).abs()
+    assert torch.isfinite(out.float()).all()
+    assert diff.max().item() <= 2e-2
+    kw_abs = dict(kw, prefix_v=kw["prefix_v"].abs())
+    absv = flash_attention_ref(q, k, v.abs(), True, **kw_abs).float()
     bound = 2.0 ** -7 * (ref.abs() + absv)
     assert (diff <= bound).all(), (diff / bound).max().item()
