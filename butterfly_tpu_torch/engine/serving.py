@@ -105,11 +105,6 @@ def _refuse_unported(cfg: ModelConfig, rt: RuntimeConfig,
         raise not_ported(what, item)
     if rt.speculative_gamma > 0:
         no("speculative serving (speculative_gamma > 0)", "speculation")
-    if rt.prefix_caching:
-        no("prefix caching", "prefix caching, host KV tier and fleet")
-    if (rt.host_kv_tier_mb or 0) > 0:
-        no("the host KV tier (host_kv_tier_mb > 0)",
-           "prefix caching, host KV tier and fleet")
     if cfg.is_moe:
         no("MoE models", "Mixtral / expert parallelism")
     if is_quantized_tree(params):

@@ -802,7 +802,9 @@ class Model(torch.nn.Module):
     """Handle bundling a config with the device it runs on.
 
     The weights stay a plain dict of tensors (the JAX tree's keys and
-    layout) that the serving engine holds; `init` fills one."""
+    layout) that the serving engine holds; `init` fills one. Calling the
+    handle runs the module-level `forward`, as the JAX handle's
+    `__call__` does."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -811,3 +813,11 @@ class Model(torch.nn.Module):
 
     def init(self, generator: Optional[torch.Generator] = None) -> Params:
         return init_params(self.cfg, generator, self.device)
+
+    def init_cache(self, batch: int, max_seq: int, dtype=None) -> KVCache:
+        return init_cache(self.cfg, batch, max_seq, dtype,
+                          device=self.device)
+
+    def forward(self, params: Params, tokens, cache: KVCache,
+                positions=None):
+        return forward(params, self.cfg, tokens, cache, positions)

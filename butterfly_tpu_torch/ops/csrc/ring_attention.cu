@@ -29,7 +29,8 @@
 // write its outputs, and a decode step (T = 1) to read the shard's K/V:
 // both are bound by BYTES.
 //
-// Three routes, by shape and type:
+// Routes, by shape and type (head dims 16, 32, 64, 128, 256; f32, bf16,
+// f16; float or int8 K/V):
 // * T = 1 (every generate_long decode step, prefix shards and suffix):
 //   split over the keys (flash-decoding). Grid (n_split, Kv * NG, B):
 //   split i folds keys [i * split, (i + 1) * split) for up to HG = 8
@@ -37,20 +38,21 @@
 //   2048-key shard spreads over n_split blocks per kv head instead of one
 //   block per query head with 63 of its 64 rows idle. The plan comes from
 //   the static S alone (ops/ring_attention.py:ring_split_plan); nothing
-//   is read on the host. bf16 runs ring_decode_tc_kernel: 4 warps, each
-//   streaming its own 16-key chunks through a 3-stage warp-private
-//   cp.async ring, Q.K^T and P.V on mma.sync m16n8k16 with the keys on M
-//   and the group's heads on N (K by ldmatrix, P turned into the B
-//   operand by movmatrix.trans, V^T by ldmatrix.trans), as the paged
-//   decode kernel does; f32 runs ring_decode_cc_kernel on the CUDA cores
+//   is read on the host. bf16 / f16 at H = 64 / 128 run
+//   ring_decode_tc_kernel: 4 warps, each streaming its own 16-key chunks
+//   through a 3-stage warp-private cp.async ring, Q.K^T and P.V on
+//   mma.sync m16n8k16 with the keys on M and the group's heads on N (K by
+//   ldmatrix, P turned into the B operand by movmatrix.trans, V^T by
+//   ldmatrix.trans), as the paged decode kernel does; f32, and bf16 / f16
+//   at H = 16 / 32 / 256, run ring_decode_cc_kernel on the CUDA cores
 //   under the same grid. A split whose keys are all masked writes the
 //   exact empty partial. Partials go to an f32 workspace and
 //   ring_merge_kernel merges each row's in split order into the raw
 //   (m, l, acc) (no normalisation: the ring contract is unnormalised
 //   stats); with one split the split kernel writes them itself.
-// * T > 1, bf16 at H = 64 / 128 (the prefill ring blocks and the serving
-//   lane's chunks): ring_wg_kernel on Hopper's warpgroup MMA, with the
-//   primitives of wgmma_common.cuh and a body of its own: 128-row blocks
+// * T > 1, bf16 / f16 at H = 64 / 128 (the prefill ring blocks and the
+//   serving lane's chunks): ring_wg_kernel on Hopper's warpgroup MMA, with
+//   the primitives of wgmma_common.cuh and a body of its own: 128-row blocks
 //   of two warpgroups, wgmma m64n64k16 for Q.K^T from 128-byte-swizzled
 //   shared memory, P from registers for P.V with V read through the
 //   transpose bit, a 2-stage cp.async K/V ring, base-2 softmax with the
@@ -62,15 +64,17 @@
 //   nothing), a warpgroup skips a tile that none of its rows sees, and
 //   masks apply only on tiles where some pair is masked (positions cross,
 //   or some key is invalid or past S); everywhere else the softmax runs
-//   unmasked. int8 codes arrive raw by cp.async and are widened to bf16
-//   into the swizzled tile before the MMA.
-// * T > 1 in f32: ring_kernel on the CUDA cores (flash_tiles.cuh's
-//   fold_tile with the position rule, 64-row blocks).
+//   unmasked. int8 codes arrive raw by cp.async and are widened to q's
+//   type into the swizzled tile before the MMA.
+// * T > 1 in f32, and bf16 / f16 at H = 16 / 32 / 256: ring_kernel on the
+//   CUDA cores in f32 (flash_tiles.cuh's fold_tile with the position
+//   rule, 64-row blocks; 16-bit queries and keys widen on the way in and
+//   nothing is rounded before the stats), as the fresh flash kernel
+//   serves those head dims.
 // Float K/V [B, S, Kv, H] and int8 codes [B, Kv, S, H] are both read
 // through (batch, key, head) element strides; int8 scales fold as on the
 // TPU: the K scale multiplies the score, the V scale the probability
-// after it entered l. Head dims 64 and 128 (GPT-2, Llama); any other
-// raises in the wrapper.
+// after it entered l. Any other head dim or type raises in the wrapper.
 
 #include "flash_tiles.cuh"
 #include "wgmma_common.cuh"
@@ -81,6 +85,15 @@
 namespace {
 
 using namespace bt;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
 
 struct RingArgs {
   const void* q;      // [B, T, Nq, H] contiguous
@@ -156,8 +169,9 @@ __device__ __forceinline__ Block<KT> block_of(const RingArgs& a, int b,
   return blk;
 }
 
-// T > 1 in f32, on the CUDA cores.
-template <typename KT, int H, bool QUANT>
+// T > 1 on the CUDA cores: q of type QT (f32, or bf16 / f16 widened as it
+// is staged), K/V of type KT (QT, or int8 codes).
+template <typename QT, typename KT, int H, bool QUANT>
 __global__ void __launch_bounds__(NT) ring_kernel(RingArgs a) {
   constexpr int LD = H + 4;
   constexpr int NJ = H / 16;
@@ -172,8 +186,8 @@ __global__ void __launch_bounds__(NT) ring_kernel(RingArgs a) {
   const int kv = n / (a.Nq / a.Kv);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long qstride = static_cast<long long>(a.Nq) * H;
-  const float* qb = static_cast<const float*>(a.q) +
-                    (static_cast<long long>(b) * a.T * a.Nq + n) * H;
+  const QT* qb = static_cast<const QT*>(a.q) +
+                 (static_cast<long long>(b) * a.T * a.Nq + n) * H;
   load_rows<H, BQ>(qs, qb, qstride, q0, a.T);
   const int qmax = stage_qpos(a, b, q0, qps, &qmax_s);
 
@@ -205,12 +219,12 @@ __global__ void __launch_bounds__(NT) ring_kernel(RingArgs a) {
   }
 }
 
-template <typename KT, int H, bool QUANT>
+template <typename QT, typename KT, int H, bool QUANT>
 int launch(const RingArgs& a, int B, cudaStream_t stream) {
   constexpr int LD = H + 4;
   const size_t bytes =
       (static_cast<size_t>(BQ + BK) * LD + BQ * LDP + 2 * BK) * sizeof(float);
-  auto kern = ring_kernel<KT, H, QUANT>;
+  auto kern = ring_kernel<QT, KT, H, QUANT>;
   const int e = allow_smem(kern, bytes);
   if (e != 0) return e;
   const dim3 grid((a.T + BQ - 1) / BQ, a.Nq, B);
@@ -328,9 +342,9 @@ struct DecSmem {
   static constexpr int WARP = DSTAGES * STAGE + WIDE;
 };
 
-// widen 16 int8 codes to 16 bf16 (two 16-byte stores)
+// widen 16 int8 codes to 16 T (bf16 or f16; two 16-byte stores)
+template <typename T>
 __device__ __forceinline__ void widen16(uint16_t* dst, const int8_t* src) {
-  using T = __nv_bfloat16;
   const uint4 u = *reinterpret_cast<const uint4*>(src);
   const int8_t* c = reinterpret_cast<const int8_t*>(&u);
   uint4 lo, hi;
@@ -346,11 +360,11 @@ __device__ __forceinline__ void widen16(uint16_t* dst, const int8_t* src) {
   reinterpret_cast<uint4*>(dst)[1] = hi;
 }
 
-// bf16 queries on the tensor cores. Fragment layouts are the PTX ISA's
-// for m16n8k16 (lane g = lane / 4, t = lane % 4).
-template <typename KT, int H>
+// bf16 / f16 queries (T) on the tensor cores, K/V of type T or int8 codes
+// (KT). Fragment layouts are the PTX ISA's for m16n8k16 (lane g =
+// lane / 4, t = lane % 4).
+template <typename T, typename KT, int H>
 __global__ void __launch_bounds__(DW * 32) ring_decode_tc_kernel(RingArgs a) {
-  using T = __nv_bfloat16;
   using L = DecSmem<KT, H>;
   constexpr bool QUANT = L::QUANT;
   constexpr int PR = H * static_cast<int>(sizeof(KT)) / 16;  // 16 B / row
@@ -434,7 +448,7 @@ __global__ void __launch_bounds__(DW * 32) ring_decode_tc_kernel(RingArgs a) {
           reinterpret_cast<uint16_t*>(wbase + DSTAGES * L::STAGE);
       for (int e = lane; e < 2 * DCH * (H / 16); e += 32) {
         const int r = e / (H / 16), c = (e - r * (H / 16)) * 16;
-        widen16(wide + r * (H + 8) + c,
+        widen16<T>(wide + r * (H + 8) + c,
                 reinterpret_cast<const int8_t*>(st + r * L::ROW) + c);
       }
       __syncwarp();
@@ -540,14 +554,15 @@ __global__ void __launch_bounds__(DW * 32) ring_decode_tc_kernel(RingArgs a) {
   write_split<H>(a, d, wm, wl, wacc);
 }
 
-// f32 queries on the CUDA cores, under the same grid: each warp folds
-// every DW-th key of the split into the block's HG heads, a lane holding
-// H / 32 elements of each head's query and accumulator, dots reduced
+// Queries of type QT (f32, bf16, f16) on the CUDA cores in f32, under the
+// same grid: each warp folds every DW-th key of the split into the block's
+// HG heads, a lane holding VPL consecutive elements of each head's query
+// and accumulator (at H = 16 the upper 16 lanes hold none), dots reduced
 // across the warp. A masked key is skipped whole (warp-uniform).
-template <typename KT, int H>
+template <typename QT, typename KT, int H>
 __global__ void __launch_bounds__(DW * 32) ring_decode_cc_kernel(RingArgs a) {
   constexpr bool QUANT = sizeof(KT) == 1;
-  constexpr int VPL = H / 32;  // elements per lane
+  constexpr int VPL = (H + 31) / 32;  // elements per lane
   extern __shared__ uint4 smem_dec[];
   const DecBlock d = dec_block(a);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -558,11 +573,12 @@ __global__ void __launch_bounds__(DW * 32) ring_decode_cc_kernel(RingArgs a) {
   float qv[HG][VPL], acc[HG][VPL], m[HG], l[HG];
 #pragma unroll
   for (int gg = 0; gg < HG; ++gg) {
-    const float* qr = static_cast<const float*>(a.q) +
-                      (static_cast<long long>(d.b) * a.Nq + d.h0 + gg) * H;
+    const QT* qr = static_cast<const QT*>(a.q) +
+                   (static_cast<long long>(d.b) * a.Nq + d.h0 + gg) * H;
 #pragma unroll
     for (int e = 0; e < VPL; ++e) {
-      qv[gg][e] = gg < d.nh ? qr[lane * VPL + e] : 0.f;
+      qv[gg][e] = gg < d.nh && lane * VPL + e < H ? to_f(qr[lane * VPL + e])
+                                                  : 0.f;
       acc[gg][e] = 0.f;
     }
     m[gg] = NEG;
@@ -575,8 +591,9 @@ __global__ void __launch_bounds__(DW * 32) ring_decode_cc_kernel(RingArgs a) {
     float kf[VPL], vf[VPL];
 #pragma unroll
     for (int e = 0; e < VPL; ++e) {
-      kf[e] = static_cast<float>(kr[e]);
-      vf[e] = static_cast<float>(vr[e]);
+      const bool in = lane * VPL + e < H;
+      kf[e] = in ? to_f(kr[e]) : 0.f;
+      vf[e] = in ? to_f(vr[e]) : 0.f;
     }
     const float ksc = QUANT ? blk.ksg[c] : 1.f;
     const float vsc = QUANT ? blk.vsg[c] : 1.f;
@@ -611,7 +628,8 @@ __global__ void __launch_bounds__(DW * 32) ring_decode_cc_kernel(RingArgs a) {
     }
 #pragma unroll
     for (int e = 0; e < VPL; ++e)
-      wacc[(warp * HG + gg) * H + lane * VPL + e] = acc[gg][e];
+      if (lane * VPL + e < H)
+        wacc[(warp * HG + gg) * H + lane * VPL + e] = acc[gg][e];
   }
   __syncthreads();
   write_split<H>(a, d, wm, wl, wacc);
@@ -646,17 +664,18 @@ __global__ void __launch_bounds__(128) ring_merge_kernel(RingArgs a) {
   }
 }
 
-template <typename KT, int H, bool F32>
+// CC: the CUDA-core kernel, else the tensor-core one (QT bf16 / f16)
+template <typename QT, typename KT, int H, bool CC>
 int launch_decode(const RingArgs& a, int B, cudaStream_t stream) {
   const int G = a.Nq / a.Kv;
   const dim3 grid(a.n_split, a.Kv * ((G + HG - 1) / HG), B);
   const size_t merge_bytes = (2 * DW * HG + DW * HG * H) * sizeof(float);
-  if constexpr (F32) {
-    auto kern = ring_decode_cc_kernel<KT, H>;
+  if constexpr (CC) {
+    auto kern = ring_decode_cc_kernel<QT, KT, H>;
     kern<<<grid, DW * 32, merge_bytes, stream>>>(a);
   } else {
     const size_t bytes = static_cast<size_t>(DW) * DecSmem<KT, H>::WARP;
-    auto kern = ring_decode_tc_kernel<KT, H>;
+    auto kern = ring_decode_tc_kernel<QT, KT, H>;
     const int e = allow_smem(kern, bytes);
     if (e != 0) return e;
     kern<<<grid, DW * 32, bytes, stream>>>(a);
@@ -668,7 +687,7 @@ int launch_decode(const RingArgs& a, int B, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// T > 1, bf16: the warpgroup-MMA block kernel
+// T > 1, bf16 / f16: the warpgroup-MMA block kernel
 // ---------------------------------------------------------------------------
 
 // Shared memory of ring_wg_kernel beyond the 1024-byte alignment pad: the
@@ -689,14 +708,13 @@ struct WgSmem {
 
 // Two blocks per SM, as the fresh wgmma kernel: at H = 128 that caps a
 // thread at 128 registers (80 bytes spill; one block would take 143).
-template <typename KT, int H>
+template <typename T, typename KT, int H>
 __global__ void __launch_bounds__(wg::NTHREADS, 2) ring_wg_kernel(RingArgs a) {
   using namespace wg;
   constexpr int BQ = wg::BQ;  // not flash_tiles.cuh's 64-row bt::BQ
-  using T = __nv_bfloat16;
   using L = WgSmem<KT, H>;
   constexpr bool QUANT = L::QUANT;
-  constexpr int C16 = H / 8;   // 16-byte chunks per row (bf16)
+  constexpr int C16 = H / 8;   // 16-byte chunks per row (bf16 / f16)
   constexpr int R16 = H / 16;  // 16-byte chunks per row (int8)
   constexpr int NS = BKW / 2;  // score accumulators per thread
   extern __shared__ __align__(128) uint8_t wg_smem[];
@@ -963,12 +981,12 @@ __global__ void __launch_bounds__(wg::NTHREADS, 2) ring_wg_kernel(RingArgs a) {
   }
 }
 
-template <typename KT, int H>
+template <typename T, typename KT, int H>
 int launch_wg(const RingArgs& a, int B, cudaStream_t stream) {
   const int nk = (a.S + wg::BKW - 1) / wg::BKW;
   const size_t bytes = WgSmem<KT, H>::bytes(nk);
   if (bytes > 227 * 1024) return -2;  // S too long for the tile table
-  auto kern = ring_wg_kernel<KT, H>;
+  auto kern = ring_wg_kernel<T, KT, H>;
   const int e = allow_smem(kern, bytes);
   if (e != 0) return e;
   const int ntiles = (a.T + wg::BQ - 1) / wg::BQ;
@@ -976,40 +994,64 @@ int launch_wg(const RingArgs& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the tensor-core kernels take bf16 / f16 at these head dims
+template <int H>
+constexpr bool kTensorCores = H == 64 || H == 128;
+
+template <typename T, int H>
+int launch_t(bool quant, const RingArgs& a, int B, cudaStream_t s) {
+  if constexpr (kTensorCores<H>)
+    return quant ? launch_wg<T, int8_t, H>(a, B, s)
+                 : launch_wg<T, T, H>(a, B, s);
+  else
+    return quant ? launch<T, int8_t, H, true>(a, B, s)
+                 : launch<T, T, H, false>(a, B, s);
+}
+
 template <int H>
 int launch_h(int dtype, bool quant, const RingArgs& a, int B,
              cudaStream_t s) {
-  if (dtype == 0)
-    return quant ? launch<int8_t, H, true>(a, B, s)
-                 : launch<float, H, false>(a, B, s);
-  if (dtype == 2)
-    return quant ? launch_wg<int8_t, H>(a, B, s)
-                 : launch_wg<__nv_bfloat16, H>(a, B, s);
-  return -1;
+  switch (dtype) {
+    case 0:
+      return quant ? launch<float, int8_t, H, true>(a, B, s)
+                   : launch<float, float, H, false>(a, B, s);
+    case 1: return launch_t<__half, H>(quant, a, B, s);
+    case 2: return launch_t<__nv_bfloat16, H>(quant, a, B, s);
+    default: return -1;
+  }
+}
+
+template <typename T, int H>
+int launch_decode_t(bool quant, const RingArgs& a, int B, cudaStream_t s) {
+  constexpr bool CC = !kTensorCores<H>;
+  return quant ? launch_decode<T, int8_t, H, CC>(a, B, s)
+               : launch_decode<T, T, H, CC>(a, B, s);
 }
 
 template <int H>
 int launch_decode_h(int dtype, bool quant, const RingArgs& a, int B,
                     cudaStream_t s) {
-  if (dtype == 0)
-    return quant ? launch_decode<int8_t, H, true>(a, B, s)
-                 : launch_decode<float, H, true>(a, B, s);
-  if (dtype == 2)
-    return quant ? launch_decode<int8_t, H, false>(a, B, s)
-                 : launch_decode<__nv_bfloat16, H, false>(a, B, s);
-  return -1;
+  switch (dtype) {
+    case 0:
+      return quant ? launch_decode<float, int8_t, H, true>(a, B, s)
+                   : launch_decode<float, float, H, true>(a, B, s);
+    case 1: return launch_decode_t<__half, H>(quant, a, B, s);
+    case 2: return launch_decode_t<__nv_bfloat16, H>(quant, a, B, s);
+    default: return -1;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 2 = bfloat16 (tensor cores), for q and
-// float k/v; quant != 0: k/v are int8 codes with f32 scales ks/vs
-// [B, Kv, S] (contiguous). q [B, T, Nq, H], qpos [B, T], kpos [B, S], m/l
-// [B, Nq, T] and acc [B, Nq, T, H] contiguous; k/v rows (b, c, kv) at
-// element offsets b*ksb + c*kss + kv*ksh with a contiguous last dim (for
-// int8, strides multiples of 16 bytes). Returns 0 on success, -1 for an
-// unsupported dtype or head_dim, -2 when S is too long for the wgmma
-// kernel's tile table, else the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16, for q and float k/v;
+// quant != 0: k/v are int8 codes with f32 scales ks/vs [B, Kv, S]
+// (contiguous). Head dims 16, 32, 64, 128, 256. q [B, T, Nq, H], qpos
+// [B, T], kpos [B, S], m/l [B, Nq, T] and acc [B, Nq, T, H] contiguous;
+// k/v rows (b, c, kv) at element offsets b*ksb + c*kss + kv*ksh with a
+// contiguous last dim (for int8, strides multiples of 16 bytes). Returns
+// 0 on success, -1 for an unsupported dtype or head_dim, -2 when S is too
+// long for the wgmma kernel's tile table, else the cudaError_t of the
+// launch.
 extern "C" int bt_ring_stats(int dtype, int quant, const void* q,
                              const void* k, const void* v, const float* ks,
                              const float* vs, const int* qpos,
@@ -1021,8 +1063,11 @@ extern "C" int bt_ring_stats(int dtype, int quant, const void* q,
                    ksb, kss, ksh, T, S, Nq, Kv, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (H) {
+    case 16: return launch_h<16>(dtype, quant != 0, a, B, s);
+    case 32: return launch_h<32>(dtype, quant != 0, a, B, s);
     case 64: return launch_h<64>(dtype, quant != 0, a, B, s);
     case 128: return launch_h<128>(dtype, quant != 0, a, B, s);
+    case 256: return launch_h<256>(dtype, quant != 0, a, B, s);
     default: return -1;
   }
 }
@@ -1043,8 +1088,11 @@ extern "C" int bt_ring_decode(int dtype, int quant, const void* q,
                    ksb, kss, ksh, 1, S, Nq, Kv, split, n_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (H) {
+    case 16: return launch_decode_h<16>(dtype, quant != 0, a, B, s);
+    case 32: return launch_decode_h<32>(dtype, quant != 0, a, B, s);
     case 64: return launch_decode_h<64>(dtype, quant != 0, a, B, s);
     case 128: return launch_decode_h<128>(dtype, quant != 0, a, B, s);
+    case 256: return launch_decode_h<256>(dtype, quant != 0, a, B, s);
     default: return -1;
   }
 }

@@ -26,10 +26,12 @@ or raises; on CPU tensors it computes the plain version,
 the keys over blocks (flash-decoding: `ring_split_plan` sizes the split
 from the static S alone, a second kernel merges the partials in split
 order; `ring_block_stats_split_ref` is the plain version of that
-decomposition); T > 1 in bf16 runs the warpgroup-MMA kernel, in f32 the
-CUDA-core one. The module-level `launches` counts wrapper calls that
-launched a kernel, `launches_decode` those of them that took the T = 1
-route (set both to 0 before a run to count that run's).
+decomposition); T > 1 in bf16 / f16 at head dims 64 and 128 runs the
+warpgroup-MMA kernel, everything else the CUDA-core one (`ring_route`
+says which kernel a call takes). The module-level `launches` counts
+wrapper calls that launched a kernel, `launches_decode` those of them
+that took the T = 1 route (set both to 0 before a run to count that
+run's).
 """
 from __future__ import annotations
 
@@ -42,8 +44,12 @@ import torch
 #: every real query position.
 INVALID_POS = 2**31 - 1
 NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+#: the head dims the kernels take (the paged and flash kernels' set)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
+#: bf16 / f16 run on the tensor cores at these head dims, else on the
+#: CUDA cores in f32
+_TC_HEAD_DIMS = (64, 128)
 #: keys one block of the T = 1 kernel folds
 SPLIT_KEYS = 256
 
@@ -51,6 +57,21 @@ SPLIT_KEYS = 256
 #: `launches_decode` counts the T = 1 (split) route's share
 launches = 0
 launches_decode = 0
+
+
+def ring_route(T: int, H: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of `ring_block_stats` launches for T query
+    rows at head dim H with q in `dtype`: "split_tc" / "split_cc" (T = 1,
+    the split kernel on the tensor / CUDA cores), "wgmma" or "cuda_cores"
+    (T > 1). Raises ValueError for a head dim or dtype no kernel takes
+    (there is no plain fallback on the card). Reads no tensor."""
+    _check(dtype in _DTYPE_CODE, f"q dtype {dtype} unsupported "
+           f"(float32, float16 or bfloat16)")
+    _check(H in _HEAD_DIMS, f"head_dim {H} not in {_HEAD_DIMS}")
+    tc = dtype != torch.float32 and H in _TC_HEAD_DIMS
+    if T == 1:
+        return "split_tc" if tc else "split_cc"
+    return "wgmma" if tc else "cuda_cores"
 
 
 def ring_split_plan(S: int):
@@ -209,11 +230,13 @@ def ring_block_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take the plain version. CUDA tensors launch an sm_90a
     kernel (counted in `launches`; T = 1 also in `launches_decode`) or
-    raise: q in bf16 (tensor cores; P enters P.V rounded to bf16) or f32
-    (CUDA cores), head_dim 64 or 128; float k/v in q's dtype with any
-    strides whose last dim is contiguous and the others multiples of 16
-    bytes; int8 codes likewise, with f32 scales. Nothing is padded: keys
-    past S simply do not exist, and the kernel treats them as INVALID_POS.
+    raise: q in f32, bf16 or f16 at head_dim 16, 32, 64, 128 or 256
+    (`ring_route`: bf16 / f16 at 64 and 128 on the tensor cores, where P
+    enters P.V rounded to q's dtype; else the CUDA cores in f32); float
+    k/v in q's dtype with any strides whose last dim is contiguous and the
+    others multiples of 16 bytes; int8 codes likewise, with f32 scales.
+    Nothing is padded: keys past S simply do not exist, and the kernel
+    treats them as INVALID_POS.
     T = 1 takes the split kernel, sized by `ring_split_plan` from S alone
     (no value is read back from the card)."""
     global launches, launches_decode
@@ -223,9 +246,7 @@ def ring_block_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q.dim() == 4 and k.dim() == 4, "q/k/v must be 4-D")
     B, T, Nq, H = q.shape
     quant = k_scale is not None
-    _check(q.dtype in _DTYPE_CODE, f"q dtype {q.dtype} unsupported "
-           f"(bfloat16 or float32)")
-    _check(H in _HEAD_DIMS, f"head_dim {H} not in {_HEAD_DIMS}")
+    ring_route(T, H, q.dtype)
     if quant:
         Kv, S = k.shape[1], k.shape[2]
         _check(k.shape == (B, Kv, S, H), "int8 codes must be [B, Kv, S, H]")

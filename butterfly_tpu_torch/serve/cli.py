@@ -1,4 +1,4 @@
-"""`butterfly generate` and `butterfly serve` on the PyTorch/CUDA port.
+"""`butterfly generate`, `serve` and `bench` on the PyTorch/CUDA port.
 
     python -m butterfly_tpu_torch.serve.cli generate --model llama3-8b --prompt "hello" --max-new 32
     python -m butterfly_tpu_torch.serve.cli generate --model tiny --device cpu
@@ -6,8 +6,11 @@
     python -m butterfly_tpu_torch.serve.cli serve --model llama3-8b --port 8000
     python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu
     python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu --seq-parallel 2 --seq-parallel-threshold 256
+    python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu --prefix-caching --host-tier-mb 64
+    python -m butterfly_tpu_torch.serve.cli bench --model tiny --device cpu --serving --mixed --prompt-len 64 --max-new 32
+    python -m butterfly_tpu_torch.serve.cli bench --model llama3-8b --serving --mixed --host-tier-mb 512
 
-Both subcommands keep the JAX CLI's flags (butterfly_tpu/serve/cli.py) and
+The subcommands keep the JAX CLI's flags (butterfly_tpu/serve/cli.py) and
 add --device (default cuda). `--seq-parallel N` builds a seq mesh of N
 shards: on cuda:0..N-1 with --device cuda (N cards needed), on the CPU with
 --device cpu. Flags whose path the port does not carry yet are accepted
@@ -93,10 +96,19 @@ def build_parser() -> argparse.ArgumentParser:
                    default="both",
                    help="fleet placement role advertised on /health")
     s.add_argument("--prefix-caching", action="store_true",
-                   help="prefix caching (not ported yet)")
+                   help="reuse KV pages across requests sharing a prompt "
+                        "prefix (content-hashed, refcounted; cuts TTFT for "
+                        "shared system prompts)")
     s.add_argument("--host-tier-mb", type=float, default=0.0,
-                   help="host-RAM KV tier (not ported yet)")
-    s.add_argument("--host-tier-dir", default=None, metavar="DIR")
+                   help="host-RAM KV tier budget in MiB (requires "
+                        "--prefix-caching): device-pool evictions demote "
+                        "pages to host memory instead of dropping them, "
+                        "and a later prefix hit on an evicted chain "
+                        "revives the pages back to the card. 0 = off")
+    s.add_argument("--host-tier-dir", default=None, metavar="DIR",
+                   help="optional disk-spill directory for the host KV "
+                        "tier: pages LRU-demoted past --host-tier-mb "
+                        "spill to .pt files here instead of being dropped")
     s.add_argument("--speculate", type=int, default=0, metavar="GAMMA",
                    help="speculative serving (not ported yet)")
     s.add_argument("--draft-source", default="ngram")
@@ -129,6 +141,33 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--timeseries-interval", type=float, default=1.0,
                    metavar="SECONDS",
                    help="GET /debug/timeseries sampling interval; 0 = off")
+
+    b = sub.add_parser("bench", help="throughput microbenchmark")
+    common(b)
+    b.add_argument("--batch", type=int, default=8)
+    b.add_argument("--prompt-len", type=int, default=128)
+    b.add_argument("--max-new", type=int, default=128)
+    b.add_argument("--serving", action="store_true",
+                   help="also run the serving-path benchmark (Scheduler + "
+                        "ServingEngine under staggered arrivals) and the "
+                        "long-context row at this operating point and "
+                        "merge their keys into the JSON line")
+    b.add_argument("--inflight-blocks", type=_positive_int, default=2,
+                   help="dispatch-ahead depth for --serving / --mixed")
+    b.add_argument("--max-batch", type=_positive_int, default=0,
+                   help="serving slot count for --serving / --mixed "
+                        "(default: --batch)")
+    b.add_argument("--mixed", action="store_true",
+                   help="also run the mixed-workload serving phase: the "
+                        "mixed_chat population fired open-loop in bursts "
+                        "against an under-provisioned page pool with "
+                        "prefix caching, plus the decode_steps_per_tick x "
+                        "inflight_blocks operating-point table + knee; "
+                        "merges mixed_* keys into the JSON line")
+    b.add_argument("--host-tier-mb", type=float, default=0.0,
+                   help="with --mixed: a host-RAM KV tier of this many "
+                        "MiB, so the contested pool demotes and revives "
+                        "pages instead of dropping them")
     return p
 
 
@@ -264,9 +303,62 @@ def cmd_serve(args) -> int:
     return run_server(args)
 
 
+def cmd_bench(args) -> int:
+    """The benchmark legs (obs/benchmark.py) on one engine's weights: one
+    JSON line on stdout, its metric decode tokens/s per card."""
+    import json
+
+    from butterfly_tpu_torch.obs.benchmark import (run_decode_benchmark,
+                                                   run_longctx_benchmark,
+                                                   run_mixed_benchmark,
+                                                   run_serving_benchmark)
+    if args.quant != "none":
+        from butterfly_tpu_torch.engine.engine import not_ported
+        raise not_ported("--quant int8 weights", "int8 weights")
+    model = resolve_model(args)
+    mesh = build_mesh(args)
+    params = load_params(model, args)
+    stats = run_decode_benchmark(model, params, batch=args.batch,
+                                 prompt_len=args.prompt_len,
+                                 max_new=args.max_new, mesh=mesh,
+                                 kv_quant=args.kv_quant)
+    serving_batch = args.max_batch or args.batch
+    if args.serving:
+        # the serving legs are single-engine, as in the JAX CLI
+        stats.update(run_serving_benchmark(
+            model, params, n_requests=2 * serving_batch,
+            prompt_len=args.prompt_len, max_new=args.max_new,
+            max_batch=serving_batch, kv_quant=args.kv_quant,
+            inflight_blocks=args.inflight_blocks,
+            isolated_decode_tok_s_chip=stats[
+                "decode_tokens_per_sec_per_chip"]))
+        if mesh is None:
+            # builds its own seq = 4 mesh when the card count allows; with
+            # fewer cards it reports longctx_supported: false plus the
+            # ring microbench pair
+            stats.update(run_longctx_benchmark(
+                model, params, kv_quant=args.kv_quant))
+    if args.mixed:
+        stats.update(run_mixed_benchmark(
+            model, params, n_requests=2 * serving_batch,
+            max_batch=serving_batch,
+            prompt_lo=max(8, args.prompt_len // 4),
+            prompt_hi=args.prompt_len,
+            max_new_lo=max(4, args.max_new // 4),
+            max_new_hi=args.max_new,
+            inflight_blocks=args.inflight_blocks,
+            host_kv_tier_mb=args.host_tier_mb,
+            kv_quant=args.kv_quant))
+    print(json.dumps({"metric": "decode_tokens_per_sec_per_chip",
+                      "value": stats["decode_tokens_per_sec_per_chip"],
+                      "unit": "tokens/sec/chip", **stats}))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return {"generate": cmd_generate, "serve": cmd_serve}[args.cmd](args)
+    return {"generate": cmd_generate, "serve": cmd_serve,
+            "bench": cmd_bench}[args.cmd](args)
 
 
 if __name__ == "__main__":

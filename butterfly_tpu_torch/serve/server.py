@@ -28,10 +28,9 @@ zero-egress environment):
 * GET /kv/pages?hashes=h1,h2,...   export registered prefix-cache KV
   pages by chain hash (fleet/kvtransfer.py payload: base64 page bytes +
   geometry; the leading registered run ships, the rest come back
-  "missing"). Needs prefix caching, which the port does not carry yet:
-  501 with the reason.
+  "missing"). Needs --prefix-caching: 501 with the reason without it.
 * POST /kv/import   land an exported payload into the local pool +
-  prefix registry as warm pages: 501 until prefix caching is ported.
+  prefix registry as warm pages (409 on a geometry mismatch).
 * POST /debug/profile   a torch.profiler capture of the live loop: 501
   until that slice (ROADMAP.md).
 * GET /debug/requests[?n=K]   recent per-request trace timelines as JSON
@@ -464,22 +463,28 @@ class ServerState:
 
     def export_kv(self, hex_hashes) -> dict:
         """GET /kv/pages body: export registered pages by chain hash.
-        Under the serving lock — the scheduler thread must not donate
-        the pools (every decode/prefill dispatch donates them) while
-        the export gather reads page bytes out."""
-        raise LookupError(
-            "KV export needs prefix caching, not ported yet (ROADMAP.md, "
-            "PyTorch/CUDA port queue: prefix caching, host KV tier and "
-            "fleet)")
+        Under the serving lock — the scheduler thread must not dispatch
+        onto the pools while the export gather reads page bytes out."""
+        from butterfly_tpu_torch.fleet.kvtransfer import export_payload
+        with self._locked():
+            if self.error:
+                raise RuntimeError("server wedged: " + self.error)
+            # full reconcile (cause="flush") before page bytes leave
+            # the process: drains every in-flight block and flushes the
+            # write-combined KV window, so the exported pool bytes are
+            # never missing staged-but-unflushed K/V
+            self.sched._drain_inflight("flush")
+            return export_payload(self.sched, hex_hashes)
 
     def import_kv(self, payload: dict) -> dict:
         """POST /kv/import body -> result. Under the serving lock: the
         import claims pages from the same free/evictable lists
         admissions allocate from."""
-        raise LookupError(
-            "KV import needs prefix caching, not ported yet (ROADMAP.md, "
-            "PyTorch/CUDA port queue: prefix caching, host KV tier and "
-            "fleet)")
+        from butterfly_tpu_torch.fleet.kvtransfer import import_payload
+        with self._locked():
+            if self.error:
+                raise RuntimeError("server wedged: " + self.error)
+            return import_payload(self.sched, payload)
 
     def count_deadline(self, where: str) -> None:
         """Handler-thread deadline accounting (requests 504ed before

@@ -58,7 +58,10 @@ raises and the script exits non-zero:
              scales; one decode token against 2048 keys (the T = 1 split
              kernel): bf16, int8, f32, and 4 batch rows at different
              positions (the split plain version too); f32 on the CUDA
-             cores at T=256. Tolerances: m 1e-3 absolute, l 2**-7
+             cores at T=256; the tiny preset's heads (Nq=4, Kv=2, H=16)
+             on the CUDA-core routes in bf16 and f32, T=1024 and T = 1;
+             f16 on the tensor-core routes (the diagonal block and a
+             decode token). Tolerances (f16 as bf16): m 1e-3 absolute, l 2**-7
              relative, the finalised acc/l per element within the flash
              phase's bound and per 64-row tile 1e-2; f32 1e-4. A second
              launch must give the same bits. Times as above; the
@@ -120,6 +123,22 @@ raises and the script exits non-zero:
              prefill tokens; ring (all T > 1: the wgmma kernel) and paged
              launches multiples of 32; every request finishes. Tokens/s
              and TTFT.
+15. bench    the benchmark legs (obs/benchmark.py) on the same weights,
+             sized by request counts: decode (batch 8, prompt 128, 64
+             new: tokens/s per card, hbm_util, mfu against the card's
+             datasheet row), serving (16 requests, 128 + 32 tokens, 8
+             slots, int8 pool; TTFT/ITL; its _alt leg on the flash
+             kernels), warm prefill (6 x 640-token prompts in 256-token
+             chunks, warm flash kernel vs the dense gather), long context
+             (the ring microbench pair; the serving lane needs 4 cards),
+             mixed (12 mixed_chat requests in one burst on a starved pool
+             of 8-token pages with prefix caching and a 512 MiB host KV
+             tier, the 2x2 operating-point sweep, the _alt leg); then
+             `butterfly bench --model tiny
+             --device cuda --serving`. Each leg's JSON on a labelled line
+             with its wall seconds. Prefix hits, preemptions and tier
+             revivals must be > 0, the ring microbench kernelized, and
+             each of the four kernels must launch.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
@@ -138,10 +157,6 @@ import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# datasheet memory bandwidth (bytes/s) by part; dense peak (op/s) by type
-_BW = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
-_PEAK = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
-         "int8": 1979e12}
 
 
 def log(label: str, **kv) -> None:
@@ -149,11 +164,17 @@ def log(label: str, **kv) -> None:
           flush=True)
 
 
-def bandwidth(name: str) -> float:
-    for part in ("PCIe", "NVL"):
-        if part in name:
-            return _BW[part]
-    return _BW["SXM"]
+def figures(name: str):
+    """(memory bandwidth bytes/s, dense peak op/s by type) of the card
+    called `name`, from the port's datasheet table
+    (butterfly_tpu_torch/obs/benchmark.py: CARDS); every bound below is
+    taken against it. A card not in the table has no bound: raise."""
+    from butterfly_tpu_torch.obs.benchmark import card_figures
+    fig = card_figures(name)
+    if fig is None:
+        raise RuntimeError(f"no datasheet figures for {name!r} "
+                           f"(obs/benchmark.py CARDS)")
+    return fig
 
 
 # -- phase 3: the kernel against its plain version ---------------------------
@@ -296,7 +317,7 @@ def phase_kernel(torch, card):
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    bw = bandwidth(card)
+    bw, peak = figures(card)
     # (name, q dtype, int8 pool, window width, abs tol, per-slot rel tol):
     # a bf16 output rounds to within one ulp, at most 2**-7 of its
     # magnitude, so per slot 1e-2 of the slot's max |output|
@@ -347,7 +368,7 @@ def phase_kernel(torch, card):
         nbytes, ops = _bytes_ops(args, win, lens, wc, Nq, Kv, H, page,
                                  quant)
         t_bytes = nbytes / bw * 1e3
-        t_ops = ops / _PEAK[str(dt).replace("torch.", "")] * 1e3
+        t_ops = ops / peak[str(dt).replace("torch.", "")] * 1e3
         bound = max(t_bytes, t_ops)
         results[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                              bound_ms=bound,
@@ -520,7 +541,7 @@ def phase_flash_kernel(torch, card):
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    bw = bandwidth(card)
+    bw, peak = figures(card)
     results = {}
     for name, B, T, causal, dts, prefix, tol, rel_tol in FLASH_CASES:
         dt = getattr(torch, dts)
@@ -557,7 +578,7 @@ def phase_flash_kernel(torch, card):
                         flush)
         nbytes, ops = _flash_bytes_ops(q, k, causal, kw)
         t_bytes = nbytes / bw * 1e3
-        t_ops = ops / _PEAK[dts] * 1e3
+        t_ops = ops / peak[dts] * 1e3
         bound = max(t_bytes, t_ops)
         results[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                              bound_ms=bound,
@@ -597,11 +618,23 @@ RING_CASES = [
     ("decode_T1_B4", 4, 1, 2048, [3000, 1000, 100, 2047], 0, "bfloat16",
      False, False),
     ("f32_T256", 1, 256, 256, 0, 0, "float32", False, False),
+    # the CUDA-core routes at the tiny preset's heads (H = 16), and f16
+    # on the tensor-core routes at Llama-3-8B's heads
+    ("h16_bf16", 1, 1024, 1024, 0, 0, "bfloat16", False, False),
+    ("h16_T1_bf16", 1, 1, 2048, 3000, 0, "bfloat16", False, False),
+    ("h16_f32", 1, 1024, 1024, 0, 0, "float32", False, False),
+    ("h16_T1_f32", 1, 1, 2048, 3000, 0, "float32", False, False),
+    ("f16", 1, 2048, 2048, 0, 0, "float16", False, False),
+    ("decode_T1_f16", 1, 1, 2048, 3000, 0, "float16", False, False),
 ]
+#: (Nq, Kv, H) of the cases not at Llama-3-8B's heads: the tiny preset's
+_RING_HEADS = {name: (4, 2, 16) for name in
+               ("h16_bf16", "h16_T1_bf16", "h16_f32", "h16_T1_f32")}
 
 
-def _ring_inputs(torch, B, T, S, q0, k0, dt, quant, ragged, gen):
-    Nq, Kv, H = 32, 8, 128
+def _ring_inputs(torch, B, T, S, q0, k0, dt, quant, ragged, gen,
+                 heads=(32, 8, 128)):
+    Nq, Kv, H = heads
     dev = "cuda"
     q = torch.randn((B, T, Nq, H), generator=gen, device=dev).to(dt)
     if quant:
@@ -702,12 +735,14 @@ def phase_ring(torch, card):
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    bw = bandwidth(card)
+    bw, peak = figures(card)
     results = {}
     for name, B, T, S, q0, k0, dts, quant, ragged in RING_CASES:
         dt = getattr(torch, dts)
-        bf16 = dt == torch.bfloat16
-        args = _ring_inputs(torch, B, T, S, q0, k0, dt, quant, ragged, gen)
+        bf16 = dt != torch.float32   # 16-bit: bf16 or f16
+        heads = _RING_HEADS.get(name, (32, 8, 128))
+        args = _ring_inputs(torch, B, T, S, q0, k0, dt, quant, ragged, gen,
+                            heads)
         stats = ra.ring_block_stats(*args)
         again = ra.ring_block_stats(*args)
         torch.cuda.synchronize()
@@ -736,14 +771,15 @@ def phase_ring(torch, card):
             l_ms = _time_ms(torch, _ring_sdpa(torch, args), flush)
         nbytes, ops = _ring_bytes_ops(args)
         t_bytes = nbytes / bw * 1e3
-        t_ops = ops / _PEAK[dts] * 1e3
+        t_ops = ops / peak[dts] * 1e3
         bound = max(t_bytes, t_ops)
         results[name] = dict(max_abs_err=out_err, ms=k_ms, plain_ms=p_ms,
                              bound_ms=bound,
                              bound_by="bytes" if t_bytes >= t_ops
                              else "operations", library_ms=l_ms)
         log("ring", case=name, card=card.replace(" ", "_"), B=B, T=T, S=S,
-            route="split" if T == 1 else ("wgmma" if bf16 else "cuda_cores"),
+            heads="x".join(map(str, heads)),
+            route=ra.ring_route(T, heads[2], dt),
             m_abs_err=f"{m_err:.3g}", l_rel_err=f"{l_rel:.3g}",
             out_abs_err=f"{out_err:.3g}",
             **({"max_err_over_elem_bound": f"{elem:.3g}"} if bf16 else {}),
@@ -1506,6 +1542,109 @@ def phase_longserve(torch, model, params, tok):
     return n_ring, n_paged
 
 
+# -- phase 15: the benchmark legs ---------------------------------------------
+
+#: the mixed leg's shape: the JAX package's CPU bench round (12
+#: mixed_chat requests, 8-48 prompt and 16-48 new tokens, 8-token pages,
+#: 4 slots, the pool at 0.35 of worst-case demand, one burst), with TTFT
+#: shedding off (the card's TTFT exceeds the leg's 1 s default SLO, so it
+#: would shed instead of contend) and a host tier of 512 MiB (a
+#: Llama-3-8B page of 8 tokens holds 1 MiB of K/V: 512 pages)
+BENCH_MIXED = dict(n_requests=12, max_batch=4, prompt_lo=8, prompt_hi=48,
+                   max_new_lo=16, max_new_hi=48, page_size=8,
+                   pool_fraction=0.35, arrival="burst:2000:0.5:0.1",
+                   slo_ttft_ms=None, host_kv_tier_mb=512.0,
+                   max_seconds=180.0)
+
+
+def phase_bench(torch, model, params):
+    """The benchmark legs of obs/benchmark.py called directly on the
+    shared Llama-3-8B weights (not built a second time), sized by request
+    counts and max_seconds, never by width or depth; each leg's JSON on a
+    labelled line with its wall seconds. Then one `butterfly bench
+    --model tiny --device cuda --serving` (head_dim 16 in f32: the ring
+    kernel's CUDA-core route at the tiny heads). The four kernels' counts
+    are zeroed just before and read just after; each must have launched.
+    Returns {kernel: launches}."""
+    import contextlib
+    import io
+
+    from butterfly_tpu_torch.obs import benchmark as bm
+    from butterfly_tpu_torch.ops import ring_attention as ra
+    from butterfly_tpu_torch.ops.flash_attention import flash_attention
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    from butterfly_tpu_torch.serve.cli import main as cli_main
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    legs = [
+        ("decode", lambda: bm.run_decode_benchmark(
+            model, params, batch=8, prompt_len=128, max_new=64)),
+        ("serving", lambda: bm.run_serving_benchmark(
+            model, params, n_requests=16, prompt_len=128, max_new=32,
+            max_batch=8)),
+        ("warm_prefill", lambda: bm.run_warm_prefill_benchmark(
+            model, params, repeats=2)),
+        ("longctx", lambda: bm.run_longctx_benchmark(model, params)),
+        ("mixed", lambda: bm.run_mixed_benchmark(model, params,
+                                                 **BENCH_MIXED)),
+    ]
+    ra.launches = ra.launches_decode = paged_attention.launches = 0
+    flash_attention.launches_fresh = flash_attention.launches_warm = 0
+    torch.cuda.synchronize()
+    res = {}
+    for name, run in legs:
+        t0 = time.monotonic()
+        res[name] = run()
+        torch.cuda.synchronize()
+        print(f"[bench] leg={name} card={card} "
+              f"wall_s={time.monotonic() - t0:.1f} "
+              + json.dumps(res[name], sort_keys=True), flush=True)
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["bench", "--model", "tiny", "--device", "cuda",
+                       "--serving", "--batch", "8", "--prompt-len", "64",
+                       "--max-new", "32"])
+    torch.cuda.synchronize()
+    lines = buf.getvalue().strip().splitlines()
+    print(f"[bench] leg=cli_tiny card={card} "
+          f"wall_s={time.monotonic() - t0:.1f} rc={rc} "
+          + (lines[-1] if lines else "no output"), flush=True)
+    counts = {"paged": paged_attention.launches,
+              "fresh": flash_attention.launches_fresh,
+              "warm": flash_attention.launches_warm,
+              "ring": ra.launches}
+
+    assert rc == 0 and len(lines) == 1, "bench CLI: not one JSON line"
+    cli = json.loads(lines[0])
+    assert cli["metric"] == "decode_tokens_per_sec_per_chip" \
+        and cli["value"] > 0
+    assert cli["longctx_ring_kernelized"] is True
+    dec, mixed = res["decode"], res["mixed"]
+    for k in ("decode_tokens_per_sec_per_chip", "hbm_util", "mfu"):
+        assert dec[k] is not None and 0 < dec[k] < float("inf"), (k, dec[k])
+    assert dec["hbm_util"] < 1 and dec["mfu"] < 1
+    assert res["serving"]["serving_tokens_per_sec_per_chip"] > 0
+    assert res["warm_prefill"]["warm_prefill_kernelized"] is True
+    assert res["longctx"]["longctx_ring_kernelized"] is True
+    assert mixed["mixed_prefix_cache_hit_tokens"] > 0, "no prefix hit"
+    assert mixed["mixed_serving_preemptions"] > 0, "pool never contested"
+    assert mixed["kv_tier_pages_restored_total"] > 0, "no tier revival"
+    for kname, n in counts.items():
+        assert n > 0, f"the {kname} kernel never launched in the bench legs"
+    log("bench", card=card, **{f"{k}_launches": n for k, n in counts.items()},
+        decode_tok_s_per_card=f"{dec['decode_tokens_per_sec_per_chip']:.2f}",
+        hbm_util=f"{dec['hbm_util']:.4f}", mfu=f"{dec['mfu']:.4f}",
+        serving_tok_s="{:.2f}".format(
+            res["serving"]["serving_tokens_per_sec_per_chip"]),
+        mixed_tok_s=mixed["mixed_serving_tokens_per_sec"],
+        mixed_preemptions=mixed["mixed_serving_preemptions"],
+        mixed_prefix_hit_tokens=mixed["mixed_prefix_cache_hit_tokens"],
+        tier_saved=mixed["kv_tier_pages_saved_total"],
+        tier_restored=mixed["kv_tier_pages_restored_total"])
+    return counts
+
+
 def _demangle(names):
     """Kernel names as C++ would print them (c++filt, when the toolkit's
     machine has it), with the namespaces and type spellings shortened."""
@@ -1570,7 +1709,7 @@ def main() -> int:
     smi_line = smi[0] if smi else "nvidia-smi gave no answer"
     log("device", name=name, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda,
-        bandwidth_TBps=bandwidth(name) / 1e12)
+        bandwidth_TBps=figures(name)[0] / 1e12)
     print(smi_line, flush=True)
 
     t0 = time.monotonic()
@@ -1604,6 +1743,7 @@ def main() -> int:
     phase_ring_parity(torch, model, params, tok)
     serve_ring, long_paged = phase_longserve(torch, model, params, tok)
     long_ring += serve_ring
+    bench = phase_bench(torch, model, params)
 
     def entry(kname, source, replaces, launches, cases, main_case):
         e = {"name": kname, "route": "cuda", "source": source,
@@ -1622,18 +1762,19 @@ def main() -> int:
         entry("paged_attention",
               "butterfly_tpu_torch/ops/csrc/paged_attention.cu",
               "butterfly_tpu/ops/paged_attention.py:65",
-              serve_launches + alt["paged"] + long_paged, kres,
-              "bf16_w64"),
+              serve_launches + alt["paged"] + long_paged + bench["paged"],
+              kres, "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
-              gen_fresh + alt["fresh"], fresh_cases, "fresh_bf16"),
+              gen_fresh + alt["fresh"] + bench["fresh"], fresh_cases,
+              "fresh_bf16"),
         entry("flash_attention_warm", flash_src,
               "butterfly_tpu/ops/flash_attention.py:97",
-              alt["warm"], warm_cases, "warm_bf16"),
+              alt["warm"] + bench["warm"], warm_cases, "warm_bf16"),
         entry("ring_attention",
               "butterfly_tpu_torch/ops/csrc/ring_attention.cu",
-              "butterfly_tpu/ops/ring_attention.py:158", long_ring, rres,
-              "diag_bf16"),
+              "butterfly_tpu/ops/ring_attention.py:158",
+              long_ring + bench["ring"], rres, "diag_bf16"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     assert paged_attention.launches > 0

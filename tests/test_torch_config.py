@@ -49,7 +49,14 @@ def test_port_never_imports_jax_or_the_jax_package():
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"butterfly_tpu_torch/core/mesh.py",
             "butterfly_tpu_torch/parallel/sequence.py",
-            "butterfly_tpu_torch/ops/ring_attention.py"} <= names
+            "butterfly_tpu_torch/ops/ring_attention.py",
+            "butterfly_tpu_torch/cache/prefix.py",
+            "butterfly_tpu_torch/cache/hosttier.py",
+            "butterfly_tpu_torch/fleet/kvtransfer.py",
+            "butterfly_tpu_torch/workload/models.py",
+            "butterfly_tpu_torch/workload/arrivals.py",
+            "butterfly_tpu_torch/workload/sweep.py",
+            "butterfly_tpu_torch/obs/benchmark.py"} <= names
     for f in files:
         tree = ast.parse(f.read_text(), filename=str(f))
         for node in ast.walk(tree):

@@ -176,3 +176,26 @@ def test_embed_and_final_logits(trees):
     got = T.final_logits(tp, TCFG, _t(x))
     assert got.dtype == torch.float32
     _close(got, J.final_logits(jp, CFG, jnp.asarray(x)))
+
+
+def test_model_handle_init_cache_and_call(trees):
+    """The Model handle's init_cache and call match the module-level
+    functions and the JAX handle's `__call__` (logits and cache) on the
+    same weights and tokens: a prompt, then one appended token."""
+    jp, tp = trees
+    jm, tm = JModel(CFG), T.Model(TCFG, device="cpu")
+    tc = tm.init_cache(2, 32)
+    ref = T.init_cache(TCFG, 2, 32, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(tc, ref) if a is not None)
+    jc = jm.init_cache(2, 32)
+    assert tuple(tc.k.shape) == jc.k.shape and tc.k.dtype == torch.float32
+    toks = np.random.RandomState(3).randint(1, CFG.vocab_size, (2, 7))
+    for step in (toks, toks[:, :1]):
+        jl, jc = jm(jp, jnp.asarray(step, jnp.int32), jc)
+        tl, tc = tm(tp, _t(step.astype(np.int32)), tc)
+        rl, ref = T.forward(tp, TCFG, _t(step.astype(np.int32)), ref)
+        _close(tl, jl)
+        assert torch.equal(tl, rl)
+        _close(tc.k, jc.k)
+        _close(tc.v, jc.v)
+        assert np.array_equal(tc.length.numpy(), np.asarray(jc.length))

@@ -394,3 +394,82 @@ def test_wgmma_kernel_matches_plain_on_the_card(Tq, S, q0, k0, H_, quant,
     assert (T.launches, T.launches_decode) == (n0 + 2, d0)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     _card_check(args, got, T.ring_block_stats_ref(*args), False)
+
+
+# -- coverage: every head dim and float type the paged / flash kernels take --
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+def test_ring_route_covers_every_preset_head_dim(dt):
+    """The wrapper takes every preset's head_dim (and the tiny one) in
+    f32, bf16 and f16, for T = 1 and T > 1, and its set covers the paged
+    and flash wrappers' sets: bf16 / f16 at 64 / 128 on the tensor cores,
+    the rest on the CUDA cores. Anything else raises (no plain fallback
+    on the card)."""
+    from butterfly_tpu_torch.core.config import PRESETS, tiny
+    from butterfly_tpu_torch.ops import flash_attention, paged_attention
+    heads = {PRESETS[name]().head_dim for name in PRESETS}
+    heads |= {tiny("llama").head_dim, tiny("gpt2").head_dim}
+    heads |= set(paged_attention._HEAD_DIMS) | set(flash_attention._HEAD_DIMS)
+    assert set(paged_attention._DTYPE_CODE) <= set(T._DTYPE_CODE)
+    for H_ in sorted(heads):
+        tc = dt != torch.float32 and H_ in (64, 128)
+        assert T.ring_route(1, H_, dt) == ("split_tc" if tc else "split_cc")
+        assert T.ring_route(7, H_, dt) == ("wgmma" if tc else "cuda_cores")
+    for bad_h in (8, 48, 96, 512):
+        with pytest.raises(ValueError, match="head_dim"):
+            T.ring_route(4, bad_h, dt)
+    with pytest.raises(ValueError, match="dtype"):
+        T.ring_route(4, 64, torch.float64)
+
+
+# (B, T, S, Nq, Kv, H, query start, dtype, int8, holes): the routes added
+# for the tiny preset's heads (H = 16) and the other head dims outside the
+# tensor-core kernels (32, 256), in f32, bf16 and f16; f16 on the
+# tensor-core routes (H = 128, T = 1 and T > 1)
+CARD_COVERAGE = [
+    (2, 1, 300, 4, 2, 16, 299, torch.float32, False, True),
+    (2, 1, 300, 4, 2, 16, 299, torch.bfloat16, False, True),
+    (2, 1, 600, 4, 2, 16, 400, torch.float16, True, False),
+    (2, 70, 130, 4, 2, 16, 60, torch.bfloat16, False, True),
+    (2, 70, 130, 4, 2, 16, 60, torch.float16, True, True),
+    (1, 100, 300, 4, 2, 16, 200, torch.float32, False, False),
+    (2, 1, 520, 8, 2, 32, 519, torch.bfloat16, False, False),
+    (2, 64, 200, 8, 2, 32, 100, torch.float16, False, True),
+    (1, 1, 700, 8, 4, 256, 650, torch.bfloat16, False, True),
+    (1, 96, 160, 8, 4, 256, 64, torch.bfloat16, True, False),
+    (2, 1, 2048, 32, 8, 128, 3000, torch.float16, False, True),
+    (2, 1, 1000, 32, 8, 128, 999, torch.float16, True, False),
+    (2, 300, 700, 32, 8, 128, 500, torch.float16, False, True),
+    (2, 200, 260, 32, 8, 128, 60, torch.float16, True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_,Tq,S,Nq,Kv,H_,q0,dt,quant,holes",
+                         CARD_COVERAGE)
+def test_added_routes_match_plain_on_the_card(B_, Tq, S, Nq, Kv, H_, q0, dt,
+                                              quant, holes):
+    """Head dims 16 / 32 / 256 (CUDA cores) and f16 on the tensor-core
+    routes against ring_block_stats_ref (T = 1: also the split plain
+    version) within the element bound (f32: 1e-4); masked rows exact; the
+    same bits on a relaunch; each call counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qp = torch.arange(q0, q0 + Tq, device="cuda",
+                      dtype=torch.int32)[None].repeat(B_, 1)
+    qp[0] -= q0 // 2      # the batch rows sit at different positions
+    args = _card_inputs(B_, Tq, S, Nq, Kv, H_, qp, dt, quant, holes,
+                        Tq + S + H_)
+    n0, d0 = T.launches, T.launches_decode
+    got = T.ring_block_stats(*args)
+    again = T.ring_block_stats(*args)
+    torch.cuda.synchronize()
+    assert (T.launches, T.launches_decode) == (n0 + 2,
+                                               d0 + 2 * (Tq == 1))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    f32 = dt == torch.float32
+    _card_check(args, got, T.ring_block_stats_ref(*args), f32)
+    if Tq == 1:
+        _card_check(args, got, T.ring_block_stats_split_ref(*args), f32)

@@ -206,8 +206,6 @@ def test_sample_batched_greedy_rows_and_seeding():
 
 REFUSED = {
     "speculation": dict(speculative_gamma=2),
-    "prefix_caching": dict(prefix_caching=True),
-    "host_kv_tier": dict(host_kv_tier_mb=1.0),
     # the seq-parallel lane is ported; over a seq x tensor mesh it is not
     "seq_parallel": dict(seq_parallel_threshold=16),
 }
