@@ -336,13 +336,76 @@ def flush_paged_window(cache: PagedKVCache, window: KVWindow, win_len):
     return cache, torch.zeros_like(win_len), win_len.sum()
 
 
+def permute_window_tail(window: KVWindow, win_len, perm) -> KVWindow:
+    """Compact a tree round's accepted path inside the window, IN PLACE:
+    the round staged its N chunk entries at window indices win_len ..
+    win_len+N-1 (chunk order); `perm` [S, C] names, for each of the C
+    kept positions, the chunk index whose K/V belongs there. Afterwards
+    window index win_len+i holds the i-th kept node's K/V, so the
+    caller's win_len += m keeps exactly the accepted path. A gather along
+    the W axis (identity outside the staged run) that materialises before
+    the write, so overlapping source and destination are safe."""
+    W = window.width
+    C = perm.shape[1]
+    dev = win_len.device
+    ar = torch.arange(W, device=dev)[None, :]
+    rel = ar - win_len.long()[:, None]                        # [S, W]
+    tail = torch.gather(perm.long(), 1, rel.clamp(0, C - 1))
+    idx = torch.where((rel >= 0) & (rel < C), win_len.long()[:, None] + tail,
+                      ar.expand_as(rel))                      # [S, W]
+    L, S, Kv, _, H = window.k.shape
+    gi = idx[None, :, None, :, None].expand(L, S, Kv, W, H)
+    for t in (window.k, window.v):
+        t.copy_(torch.gather(t, 3, gi))
+    if window.quantized:
+        gs = idx[None, :, None, :].expand(L, S, Kv, W)
+        for t in (window.k_scale, window.v_scale):
+            t.copy_(torch.gather(t, 3, gs))
+    return window
+
+
+def permute_paged_tail(cache: PagedKVCache, perm,
+                       active=None) -> PagedKVCache:
+    """Window-off twin of permute_window_tail, IN PLACE: the tree round's
+    N chunk entries sit in the pool at positions lengths .. lengths+N-1;
+    gather the C kept nodes' entries (positions lengths + perm[:, i]) and
+    write them to lengths .. lengths+C-1 across all layers. Positions
+    past the table row, and inactive slots, route to the null page (the
+    gather reads it, the write lands there)."""
+    L, Pp, Kv, page, H = cache.k_pages.shape
+    S, C = perm.shape
+    dev = perm.device
+    base = cache.lengths.long()[:, None]                      # [S, 1]
+    keep = None if active is None else active[:, None].expand(S, C)
+    src_pages, src_off = _page_slots(cache.page_table, base + perm.long(),
+                                     page, Pp - 1, keep)
+    dst_pages, dst_off = _page_slots(
+        cache.page_table, base + torch.arange(C, device=dev)[None, :], page,
+        Pp - 1, keep)
+    # advanced indices at dims 1 and 3 (a slice between) put the index
+    # dim first: values move as [S*C, L, Kv, H]; the gather materialises
+    # before the write
+    for t in (cache.k_pages, cache.v_pages):
+        t[:, dst_pages, :, dst_off] = t[:, src_pages, :, src_off]
+    if cache.quantized:
+        # kv-major flat scale dim: col = kv*page + offset
+        kv = torch.arange(Kv, device=dev)[None, :] * page
+        src_cols = kv + src_off[:, None]
+        dst_cols = kv + dst_off[:, None]
+        for t in (cache.k_scale_pages, cache.v_scale_pages):
+            t[:, dst_pages[:, None], dst_cols] = \
+                t[:, src_pages[:, None], src_cols]
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Paged forward pass
 # ---------------------------------------------------------------------------
 
 def paged_layer_body(x, lp, kp, vp, *, cfg: ModelConfig, page_table,
                      positions, mask, cos, sin, active, use_kernel: bool,
-                     fresh: bool = False, ksp=None, vsp=None, win=None):
+                     fresh: bool = False, ksp=None, vsp=None, win=None,
+                     force_dense: bool = False):
     """One transformer layer against one layer's page pool slice.
 
     x: [B,T,D]; kp/vp: [P,Kv,page,H]; ksp/vsp: [P,Kv*page] iff int8.
@@ -362,6 +425,8 @@ def paged_layer_body(x, lp, kp, vp, *, cfg: ModelConfig, page_table,
     never contribute — int8 pools hand the chunk in quantized and back
     (the values the dense path reads from the pool). Otherwise the pool
     is gathered into a dense view (window inserted) for attend().
+    `force_dense` (an explicit, non-causal mask: the tree verify) keeps
+    the warm chunk off the flash kernel too.
     """
     T = x.shape[1]
     quant = ksp is not None
@@ -397,7 +462,8 @@ def paged_layer_body(x, lp, kp, vp, *, cfg: ModelConfig, page_table,
         out = out[:, None]
     elif cfg.attn_impl == "flash" and T > 1 and fresh:
         out = flash_attention(q, k, v, causal=True)
-    elif cfg.attn_impl == "flash" and T > 1 and win is None:
+    elif cfg.attn_impl == "flash" and T > 1 and win is None \
+            and not force_dense:
         plen = torch.where(active, start, zero).to(torch.int32)
         if quant:
             ck, k_s = gather_paged_layer_q(kp, ksp, page_table)
@@ -434,14 +500,18 @@ def paged_layer_body(x, lp, kp, vp, *, cfg: ModelConfig, page_table,
 
 def paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
                   positions=None, active=None, use_kernel: bool = False,
-                  fresh: bool = False, last_index=None):
+                  fresh: bool = False, last_index=None, attn_mask=None):
     """Forward over [B,T] tokens against the paged cache (one row per
     table row), writing K/V into the pool in place. `active` [B] bool
     masks rows with no live request (their lengths stay, their writes go
     to the null page). `fresh`: every row starts at position 0 with
     nothing live before (paged_layer_body's fresh flash branch).
-    last_index [B] runs the LM head on that row only ([B,1,V]). Returns
-    (logits [B,T,V] f32, cache with advanced lengths)."""
+    last_index [B] runs the LM head on that row only ([B,1,V]).
+    attn_mask [B,T,S_max] replaces the causal mask (the tree verify: each
+    node attends committed history + its ancestor chunk positions) and
+    forces the dense path; K/V still land at start + chunk index while
+    RoPE follows `positions`. Returns (logits [B,T,V] f32, cache with
+    advanced lengths)."""
     B, T = tokens.shape
     dev = tokens.device
     quant = cache.quantized
@@ -451,7 +521,9 @@ def paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=dev)
     x, cos, sin = embed_tokens(params, cfg, tokens, positions)
-    mask = make_mask(positions, cache.max_seq) & active[:, None, None]
+    mask = attn_mask if attn_mask is not None \
+        else make_mask(positions, cache.max_seq)
+    mask = mask & active[:, None, None]
     for i in range(cfg.num_layers):
         out = paged_layer_body(
             x, layer_params(params, i), cache.k_pages[i], cache.v_pages[i],
@@ -459,7 +531,8 @@ def paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
             mask=mask, cos=cos, sin=sin, active=active,
             use_kernel=use_kernel, fresh=fresh,
             ksp=cache.k_scale_pages[i] if quant else None,
-            vsp=cache.v_scale_pages[i] if quant else None)
+            vsp=cache.v_scale_pages[i] if quant else None,
+            force_dense=attn_mask is not None)
         x = out[0]
     if last_index is not None:
         x = _take_rows(x, last_index)
@@ -471,12 +544,14 @@ def paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
 def paged_forward_window(params, cfg: ModelConfig, tokens,
                          cache: PagedKVCache, window: KVWindow, win_len,
                          active=None, use_kernel: bool = False,
-                         positions=None):
+                         positions=None, attn_mask=None):
     """Windowed (kv_write_combine) forward over [B,T] tokens: the pool is
     READ-ONLY, fresh K/V stages into `window` (in place) at per-slot
     offset win_len, and attention reads pool + window. The true length
     per slot is cache.lengths (flushed) + win_len (staged); neither
-    advances here. Returns (logits [B,T,V] f32, window)."""
+    advances here. `positions` / `attn_mask` override the causal
+    defaults for the tree verify (paged_forward's attn_mask). Returns
+    (logits [B,T,V] f32, window)."""
     B, T = tokens.shape
     dev = tokens.device
     quant = cache.quantized
@@ -486,7 +561,9 @@ def paged_forward_window(params, cfg: ModelConfig, tokens,
         positions = (cache.lengths + win_len).long()[:, None] \
             + torch.arange(T, device=dev)[None, :]
     x, cos, sin = embed_tokens(params, cfg, tokens, positions)
-    mask = make_mask(positions, cache.max_seq) & active[:, None, None]
+    mask = attn_mask if attn_mask is not None \
+        else make_mask(positions, cache.max_seq)
+    mask = mask & active[:, None, None]
     wl = win_len.long()
     for i in range(cfg.num_layers):
         out = paged_layer_body(

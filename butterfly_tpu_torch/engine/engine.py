@@ -14,6 +14,11 @@ kernel (or Ulysses) that leaves the prompt's K/V sharded where it was
 computed, then decode steps that merge per-shard partial attention. Every
 other program runs on the mesh's first device.
 
+`generate_speculative` is prompt-lookup speculative decoding on one
+sequence: n-gram drafts verified in one (gamma+1)-token forward, accepted
+on the host for greedy rows and by the rejection-sampling correction
+otherwise. Weight trees may be int8 ({"q8", "s"} leaves, quant/int8.py).
+
 Batch shapes are rectangular: prompts are right-padded; pad keys sit at
 positions the causal mask never reaches before decode overwrites them.
 Random draws come from ONE torch.Generator seeded from `seed` (the JAX
@@ -31,7 +36,8 @@ import torch
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
 from butterfly_tpu_torch.core.mesh import require_seq_mesh, seq_degree
-from butterfly_tpu_torch.engine.sampling import SamplingParams, sample
+from butterfly_tpu_torch.engine.sampling import (
+    SamplingParams, sample, speculative_accept)
 from butterfly_tpu_torch.models.common import (
     KVCache, Model, decode_step_win, flush_window, forward, init_cache,
     torch_dtype)
@@ -54,13 +60,42 @@ class GenerateResult:
     prompt_lengths: np.ndarray  # [B]
 
 
-def is_quantized_tree(params) -> bool:
-    """Does the weight tree hold int8 ({"q8", "s"}) leaves?"""
-    if isinstance(params, dict):
-        if "q8" in params and "s" in params:
-            return True
-        return any(is_quantized_tree(v) for v in params.values())
-    return False
+@dataclass
+class SpeculativeResult:
+    tokens: np.ndarray       # [n] generated ids (stop-truncated)
+    forwards: int            # device forwards taken (prefill + verifies)
+    accepted_drafts: int     # draft tokens accepted across all verifies
+
+    @property
+    def tokens_per_forward(self) -> float:
+        return len(self.tokens) / max(1, self.forwards)
+
+
+def _accept_drafts(draft, greedy) -> List[int]:
+    """Greedy draft acceptance (the host twin of speculative_accept's
+    temp-0 rows): emit greedy[0], then keep accepting while draft[i] ==
+    greedy[i], each acceptance also emitting greedy[i+1]. Token for token
+    identical to plain greedy decode."""
+    emitted = [int(greedy[0])]
+    for i, d in enumerate(draft):
+        if d != int(greedy[i]):
+            break
+        emitted.append(int(greedy[i + 1]))
+    return emitted
+
+
+def _ngram_draft(history, gamma: int, ngram: int):
+    """Prompt-lookup draft: the most recent earlier occurrence of the
+    trailing `ngram` tokens and the `gamma` tokens that followed it,
+    zero-padded on no match or a short continuation."""
+    draft = []
+    if len(history) > ngram:
+        tail = history[-ngram:]
+        for i in range(len(history) - ngram - 1, -1, -1):
+            if history[i:i + ngram] == tail:
+                draft = history[i + ngram:i + ngram + gamma]
+                break
+    return draft + [0] * (gamma - len(draft))
 
 
 def mesh_device(mesh, device, model) -> torch.device:
@@ -102,8 +137,6 @@ class InferenceEngine:
         self.runtime = runtime or RuntimeConfig()
         if self.cfg.is_moe:
             raise not_ported("MoE models", "Mixtral / expert parallelism")
-        if is_quantized_tree(params):
-            raise not_ported("int8 weights (--quant int8)", "int8 weights")
         self.mesh = mesh
         self.device = mesh_device(mesh, device, model)
         # (B, max_seq) -> reusable cache buffers from the previous call;
@@ -291,9 +324,93 @@ class InferenceEngine:
                               lengths=lens,
                               prompt_lengths=np.asarray([true_len]))
 
-    def generate_speculative(self, *args, **kwargs):
-        """Prompt-lookup speculative generation."""
-        raise not_ported("generate_speculative", "speculation")
+    def generate_speculative(self, prompt: Sequence[int],
+                             sp: Optional[SamplingParams] = None,
+                             gamma: int = 4, ngram: int = 2,
+                             seed: int = 0) -> SpeculativeResult:
+        """Generation with prompt-lookup speculative decoding: draft
+        `gamma` tokens per step by matching the last `ngram` tokens
+        against the sequence so far, verify the draft in ONE
+        (gamma+1)-token warm forward. Greedy output is token for token
+        plain greedy decode (`_accept_drafts`); at temperature > 0 the
+        rejection-sampling correction (speculative_accept) keeps the
+        output distribution exact.
+
+        A verify writes K/V for every draft position; rejected positions
+        hold stale K/V past the rolled-back length, and the next verify
+        starts at the first of them and rewrites them before any query
+        can attend that far. Single sequence, host-looped (the batched
+        edition is the serving engine's spec block)."""
+        sp = sp or SamplingParams()
+        if gamma < 1 or ngram < 1:
+            raise ValueError("gamma and ngram must be >= 1")
+        tokens, true_lens = pad_prompts([list(prompt)])
+        total = tokens.shape[1] + sp.max_new_tokens
+        if total > self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt + max_new_tokens = {total} exceeds max_seq_len")
+        # + gamma slack: the last verify may write past `total`
+        cache = self.new_cache(1, max(self.runtime.max_seq_len,
+                                      total + gamma))
+        stochastic = not sp.is_greedy
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        logits, cache = self.prefill(
+            torch.as_tensor(tokens).to(self.device),
+            torch.as_tensor(true_lens).to(self.device), cache)
+        cur = int(sample(logits, gen, sp)[0]) if stochastic \
+            else int(torch.argmax(logits[0]))
+        history = list(prompt) + [cur]
+        out = [cur]
+        forwards = 1  # the prefill produced the first token
+        accepted_total = 0
+        temps = torch.tensor([sp.temperature], dtype=torch.float32,
+                             device=self.device)
+        while len(out) < sp.max_new_tokens and \
+                not (sp.stop_token >= 0 and out[-1] == sp.stop_token):
+            draft = _ngram_draft(history, gamma, ngram)
+            pos0 = len(history) - 1  # cur's absolute position
+            toks = torch.tensor([[cur] + draft], dtype=torch.int32,
+                                device=self.device)
+            positions = pos0 + torch.arange(gamma + 1,
+                                            device=self.device)[None, :]
+            ver, cache = self._verify(toks, cache, positions, stochastic)
+            forwards += 1
+            if stochastic:
+                em, n_acc = speculative_accept(
+                    ver, torch.tensor([draft], dtype=torch.int32,
+                                      device=self.device),
+                    gen, temps, sp.top_k, sp.top_p)
+                both = torch.cat([n_acc.to(torch.int32), em[0]]).cpu()
+                emitted = both[1:int(both[0]) + 2].tolist()
+            else:
+                emitted = _accept_drafts(draft, ver[0].cpu().numpy())
+            accepted_total += len(emitted) - 1
+            # valid cache entries: cur + the accepted drafts
+            cache = cache._replace(length=torch.tensor(
+                [pos0 + len(emitted)], dtype=torch.int32,
+                device=self.device))
+            for t in emitted:
+                out.append(t)
+                history.append(t)
+                if len(out) >= sp.max_new_tokens or \
+                        (sp.stop_token >= 0 and t == sp.stop_token):
+                    break
+            cur = out[-1]
+        if sp.stop_token >= 0 and sp.stop_token in out:
+            out = out[:out.index(sp.stop_token) + 1]
+        return SpeculativeResult(tokens=np.asarray(out, np.int32),
+                                 forwards=forwards,
+                                 accepted_drafts=accepted_total)
+
+    def _verify(self, toks, cache: KVCache, positions, logits: bool):
+        """The (gamma+1)-token warm verify (the JAX _verify_program):
+        per-position greedy next tokens [B, gamma+1], or the raw logits
+        [B, gamma+1, V] when `logits` (the stochastic path)."""
+        out, cache = forward(self.params, self.cfg, toks, cache, positions)
+        if not logits:
+            out = torch.argmax(out, dim=-1).to(torch.int32)
+        return out, cache
 
 
 # ---------------------------------------------------------------------------

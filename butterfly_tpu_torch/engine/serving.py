@@ -31,25 +31,38 @@ gang through the fresh kernel, a chunk continuation through the warm
 kernel (prefill_flash_warm, the default). Mixed blocks' prefill lanes take
 the dense gather + attend path, as on the TPU.
 
-Configurations whose device half is not ported yet raise
-NotImplementedError at construction, naming the ROADMAP.md item, so no
-request runs silently on a path the JAX package would run differently.
+Speculation (runtime.speculative_gamma > 0) dispatches spec blocks
+instead of decode blocks: `spec_block_async` (draft -> one batched
+(gamma+1)-token verify -> accept on the device, per round; token trees
+under spec_tree_width) and, under mixed dispatch, `mixed_spec_block_async`
+with prefill lanes. Drafts come from DRAFT_SOURCES: prompt lookup
+("ngram") or the on-device draft model ("model", models/draft.py). A
+verify is a multi-token warm step: it takes the dense gather, as on the
+TPU. Weights may be int8 ({"q8", "s"} leaves, quant/int8.py).
+
+MoE configurations raise NotImplementedError at construction, naming the
+ROADMAP.md item, so no request runs silently on a path the JAX package
+would run differently.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from butterfly_tpu_torch.cache.paged import (
     KVWindow, PagedKVCache, flush_paged_window, init_kv_window,
-    init_paged_cache, paged_forward, paged_forward_window)
+    init_paged_cache, paged_forward, paged_forward_window,
+    permute_paged_tail, permute_window_tail)
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.mesh import seq_degree
 from butterfly_tpu_torch.engine.engine import (
-    cast_params, is_quantized_tree, mesh_device, not_ported, to_device)
-from butterfly_tpu_torch.engine.sampling import _filter_logits, gumbel_argmax
+    cast_params, mesh_device, not_ported, to_device)
+from butterfly_tpu_torch.engine.sampling import (
+    _filter_logits, gumbel_argmax, speculative_accept,
+    speculative_tree_accept, tree_ancestor_matrix, tree_depth,
+    tree_node_index)
 from butterfly_tpu_torch.models.common import Model
 from butterfly_tpu_torch.parallel.sequence import (
     replicate_params, sp_chunk_body)
@@ -97,18 +110,12 @@ def sample_batched(logits: torch.Tensor, generator: Optional[torch.Generator],
     return torch.where(temps > 0, drawn, greedy)
 
 
-def _refuse_unported(cfg: ModelConfig, rt: RuntimeConfig,
-                     params) -> None:
-    """Raise for every configuration whose device half is not ported (a
-    mesh with an axis other than seq raises in mesh_device)."""
-    def no(what: str, item: str) -> None:
-        raise not_ported(what, item)
-    if rt.speculative_gamma > 0:
-        no("speculative serving (speculative_gamma > 0)", "speculation")
+def _refuse_unported(cfg: ModelConfig) -> None:
+    """Raise for a configuration whose device half is not ported (a mesh
+    with an axis other than seq raises in mesh_device; an independent
+    draft checkpoint in the draft-source factory)."""
     if cfg.is_moe:
-        no("MoE models", "Mixtral / expert parallelism")
-    if is_quantized_tree(params):
-        no("int8 weights (--quant int8)", "int8 weights")
+        raise not_ported("MoE models", "Mixtral / expert parallelism")
 
 
 class ServingEngine:
@@ -120,7 +127,7 @@ class ServingEngine:
         self.model = model
         self.cfg = model.cfg
         self.runtime = runtime or RuntimeConfig()
-        _refuse_unported(self.cfg, self.runtime, params)
+        _refuse_unported(self.cfg)
         self.device = mesh_device(mesh, device, model)
         # Optional obs.trace.Tracer (the scheduler shares its own)
         self.tracer = None
@@ -158,6 +165,52 @@ class ServingEngine:
         self._win_len = None       # [S] staged count; None = seed zeros
         self._win_dirty = False    # staged entries not yet flushed
         self._win_hwm = 0          # host upper bound on staged entries
+        # Speculation (speculative_gamma > 0): the draft source resolves
+        # from runtime.draft_model NOW, so a typo fails at engine build;
+        # the "model" source also builds its draft weights and allocates
+        # its KV carry here. Tree speculation validates its geometry.
+        self._tree_width = 0
+        self._tree_nodes = 0
+        self._draft_src = None
+        self._draft_stateful = False
+        self._draft_state = None
+        if self.runtime.speculative_gamma > 0:
+            self._init_speculation()
+
+    def _init_speculation(self) -> None:
+        rt = self.runtime
+        name = rt.draft_model
+        if name not in DRAFT_SOURCES:
+            raise ValueError(
+                f"unknown draft source {name!r}: expected one of "
+                f"{sorted(DRAFT_SOURCES)} (register_draft_source)")
+        entry = DRAFT_SOURCES[name]
+        if getattr(entry, "draft_source_factory", False):
+            self._draft_src = entry(self)
+        elif hasattr(entry, "draft"):
+            self._draft_src = entry        # a pre-built source object
+        else:
+            self._draft_src = _FnDraftSource(entry)
+        self._draft_stateful = bool(getattr(self._draft_src, "stateful",
+                                            False))
+        if self._draft_stateful:
+            self._draft_state = self._draft_src.init_state()
+        if rt.spec_tree_width >= 2:
+            w = rt.spec_tree_width
+            # default node budget gamma+1: tree and linear verify the
+            # same number of positions
+            n = rt.spec_tree_nodes or (rt.speculative_gamma + 1)
+            if n < w + 1 or (n - 1) % w != 0:
+                raise ValueError(
+                    f"spec_tree_nodes={n} invalid for width {w}: need n >= "
+                    f"width+1 and (n-1) divisible by width (full sibling "
+                    f"fans only)")
+            if not hasattr(self._draft_src, "tree_draft"):
+                raise ValueError(
+                    f"spec_tree_width requires a draft source with "
+                    f"tree_draft (the 'model' source); {rt.draft_model!r} "
+                    f"has none")
+            self._tree_width, self._tree_nodes = w, n
 
     # -- host <-> device ----------------------------------------------------
 
@@ -213,23 +266,45 @@ class ServingEngine:
 
     @property
     def spec_tree_mode(self) -> bool:
-        return False
+        """Token-tree speculation on: a spec round drafts a width-w node
+        tree and verifies it in one tree-masked forward."""
+        return self._tree_nodes > 0
 
     @property
     def spec_tree_geometry(self) -> Tuple[int, int]:
-        return 0, 0
+        """(width, nodes) of the validated tree; (0, 0) off."""
+        return self._tree_width, self._tree_nodes
 
     @property
     def spec_emit_width(self) -> int:
+        """Max tokens a spec round emits per slot (the C of the (toks,
+        valid) stack): gamma + 1 linear; the tree's depth + 1."""
+        if self.spec_tree_mode:
+            return tree_depth(self._tree_width, self._tree_nodes) + 1
         return self.runtime.speculative_gamma + 1
 
     @property
     def mixed_dispatch_ready(self) -> bool:
-        return bool(self.runtime.mixed_dispatch)
+        """Can the scheduler route this engine through mixed blocks?
+        mixed_dispatch on AND a stateless draft source (a stateful
+        source's admission hook, draft_prefill, needs the drain barrier
+        mixed dispatch deletes) AND no tree speculation (no fused mixed
+        tree program)."""
+        return bool(self.runtime.mixed_dispatch) \
+            and not self._draft_stateful and not self.spec_tree_mode
 
     @property
     def mixed_fallback_reason(self) -> Optional[str]:
-        return None
+        """Why mixed_dispatch_ready is False although the config asks for
+        mixed dispatch (the scheduler reports it in metrics()); None when
+        mixed is off by config or on."""
+        if not self.runtime.mixed_dispatch or self.mixed_dispatch_ready:
+            return None
+        if self._draft_stateful:
+            return ("stateful draft source "
+                    f"({self.runtime.draft_model!r}) needs the "
+                    "admission drain barrier for draft_prefill")
+        return "tree speculation has no fused mixed program"
 
     @property
     def runtime_top_k(self) -> int:
@@ -554,8 +629,119 @@ class ServingEngine:
             c.v_scale_pages[:, idx] = torch.as_tensor(v_scales).to(
                 self.device, torch.float32)
 
+    # -- speculation ------------------------------------------------------
+
     def draft_prefill(self, slots, rows, lens) -> None:
-        """No draft model without speculation (refused at construction)."""
+        """Reseed newly admitted slots' draft-model KV from host truth
+        (the scheduler's admission, with the same prompt rows it seeds
+        the history with, the first sampled token excluded: the
+        draft_len == hist_len - 1 invariant). Stateful sources only;
+        admission runs behind a full drain barrier."""
+        if not self._draft_stateful:
+            return
+        self._draft_state = self._draft_src.prefill(
+            self._draft_state, slots, rows, lens)
+
+    def _spec_generators(self, seed: int, n: int):
+        """`n` device generators for one block's independent random
+        streams (accept, draft, prefill-lane first tokens), seeded from
+        the block seed: the port's counterpart of the JAX block key's
+        three fold_in ranges."""
+        host = torch.Generator(device="cpu")
+        host.manual_seed(int(seed))
+        seeds = torch.randint(0, 2**62, (n,), generator=host).tolist()
+        return tuple(self._block_generator(s) for s in seeds)
+
+    def spec_block_async(self, hist, hist_len, active: np.ndarray,
+                         temps: np.ndarray, stops: np.ndarray, budgets,
+                         spec_mask: np.ndarray, seed: int, rounds: int):
+        """Dispatch ONE fused speculative block, no host sync: `rounds`
+        chained draft -> batched verify -> on-device accept rounds for
+        every active slot (_spec_scan, or _spec_tree_scan in tree mode,
+        with their _win twins under kv_write_combine). Drafts read the
+        device token history (`hist` [S, H], `hist_len` [S]); per-slot
+        stop ids and budgets kill finished slots on the device; `budgets`
+        is a host array or the previous block's device remainder;
+        `spec_mask` [S] False opts a slot out of draft acceptance. `seed`
+        seeds the block's generators. A stateful draft source's KV rides
+        the same carry. Returns (toks [rounds, S, C], valid [rounds, S,
+        C], hist, hist_len, rem), all on the device, C =
+        spec_emit_width."""
+        self._sync_table()
+        tree = self.spec_tree_mode
+        rt = self.runtime
+        # the history advances in place inside the block: a copy keeps
+        # the caller's binding (an earlier block's result) intact
+        hist = self._h2d(hist, torch.int32).clone()
+        args = (self._h2d(hist_len, torch.int32), self.cache,
+                self._draft_state)
+        rest = (self._h2d(active, torch.bool), self._h2d(temps, torch.float32),
+                self._h2d(stops, torch.int32), self._h2d(budgets, torch.int32),
+                self.runtime_top_k, self.runtime_top_p,
+                self._spec_generators(seed, 2),
+                self._h2d(spec_mask, torch.bool))
+        geo = (rounds, self._tree_width, self._tree_nodes) if tree \
+            else (rounds, rt.speculative_gamma, rt.speculative_ngram)
+        if self._window_mode:
+            # per-round window demand is the VERIFY width: N staged tree
+            # nodes, or the linear chunk gamma+1
+            C = self._tree_nodes if tree else rt.speculative_gamma + 1
+            self._ensure_window(rounds * C)
+            fn = _spec_tree_scan_win if tree else _spec_scan_win
+            (toks, valid, hist, hlen, rem, cache, window, wlen,
+             dstate) = fn(self.cfg, *geo, self._draft_src, self.params, hist,
+                          *args, self._kv_window, self._win_len, *rest,
+                          use_kernel=self._use_kernels)
+            self.cache, self._kv_window, self._win_len = cache, window, wlen
+            self._draft_state = dstate
+            self._win_dirty = True
+            self._win_hwm += rounds * C
+            return toks, valid, hist, hlen, rem
+        fn = _spec_tree_scan if tree else _spec_scan
+        toks, valid, hist, hlen, rem, self.cache, self._draft_state = fn(
+            self.cfg, *geo, self._draft_src, self.params, hist, *args, *rest,
+            use_kernel=self._use_kernels)
+        return toks, valid, hist, hlen, rem
+
+    def mixed_spec_block_async(self, hist, hist_len, cursor, plen,
+                               active: np.ndarray, temps: np.ndarray,
+                               stops: np.ndarray, budgets,
+                               spec_mask: np.ndarray, seed: int,
+                               rounds: int):
+        """Dispatch ONE fused speculative MIXED block: spec_block_async
+        with prefill lanes (_mixed_spec_scan[_win]). The history carry
+        doubles as the prompt buffer; `cursor` [S] is the device chunk
+        cursor and `plen` [S] the prompt lengths. A completing prefill
+        slot's first token arrives as one valid entry at column 0 of its
+        completion round. Stateless draft sources only. Returns (toks,
+        valid, hist, hist_len, rem, cursor)."""
+        self._sync_table()
+        rt = self.runtime
+        hist = self._h2d(hist, torch.int32).clone()
+        args = (self._h2d(hist_len, torch.int32),
+                self._h2d(cursor, torch.int32), self._h2d(plen, torch.int32),
+                self.cache)
+        rest = (self._h2d(active, torch.bool), self._h2d(temps, torch.float32),
+                self._h2d(stops, torch.int32), self._h2d(budgets, torch.int32),
+                self.runtime_top_k, self.runtime_top_p,
+                self._spec_generators(seed, 3),
+                self._h2d(spec_mask, torch.bool))
+        geo = (rounds, rt.speculative_gamma, rt.speculative_ngram,
+               self._draft_src, self.params)
+        if self._window_mode:
+            C = rt.speculative_gamma + 1
+            self._ensure_window(rounds * C)
+            (toks, valid, hist, hlen, rem, cursor, cache, window,
+             wlen) = _mixed_spec_scan_win(
+                self.cfg, *geo, hist, *args, self._kv_window, self._win_len,
+                *rest, use_kernel=self._use_kernels)
+            self.cache, self._kv_window, self._win_len = cache, window, wlen
+            self._win_dirty = True
+            self._win_hwm += rounds * C
+            return toks, valid, hist, hlen, rem, cursor
+        toks, valid, hist, hlen, rem, cursor, self.cache = _mixed_spec_scan(
+            self.cfg, *geo, hist, *args, *rest, use_kernel=self._use_kernels)
+        return toks, valid, hist, hlen, rem, cursor
 
 
 def _prefill_slot(cfg: ModelConfig, fresh: bool, params, tokens,
@@ -808,3 +994,522 @@ def _mixed_scan_win(cfg: ModelConfig, k: int, C: int, params, tokens,
         emits.append(emit)
     return (torch.stack(toks_out), torch.stack(emits), cur, cursor, cache,
             window, wlen)
+
+
+# ---------------------------------------------------------------------------
+# Speculative blocks
+# ---------------------------------------------------------------------------
+
+def _ngram_drafts(hist, hist_len, gamma: int, ngram: int) -> torch.Tensor:
+    """Prompt-lookup drafts for every slot, on the device (the batched
+    twin of engine._ngram_draft): the most recent STRICTLY-EARLIER
+    occurrence of each slot's trailing `ngram` tokens in its history
+    hist [S, H] (live length hist_len [S]) and the `gamma` tokens that
+    followed it, zero-padded where the continuation runs out or no match
+    exists."""
+    S, H = hist.shape
+    dev = hist.device
+    pos = torch.arange(H, device=dev)
+    hl = hist_len.long()
+    nr = torch.arange(ngram, device=dev)
+    tail = torch.gather(hist, 1, (hl[:, None] - ngram + nr[None, :])
+                        .clamp(0, H - 1))                        # [S, n]
+    wins = hist[:, (pos[:, None] + nr[None, :]).clamp(0, H - 1)]  # [S,H,n]
+    ok = (wins == tail[:, None, :]).all(-1)                      # [S, H]
+    # the window must END before the tail starts, and a history no
+    # longer than the ngram has nothing to look up
+    ok = ok & ((pos[None, :] + ngram) <= (hl[:, None] - 1)) \
+        & (hl > ngram)[:, None]
+    i_star = torch.where(ok, pos[None, :], torch.full_like(ok, -1,
+                                                            dtype=torch.long)
+                         ).amax(dim=1)                           # [S]
+    src = i_star[:, None] + ngram + torch.arange(gamma, device=dev)[None, :]
+    valid = (i_star >= 0)[:, None] & (src < hl[:, None])
+    cont = torch.gather(hist, 1, src.clamp(0, H - 1))
+    return torch.where(valid, cont, torch.zeros_like(cont)).to(torch.int32)
+
+
+class _FnDraftSource:
+    """A plain draft FUNCTION ((hist [S, H], hist_len [S], gamma, ngram)
+    -> drafts [S, gamma] int32, torch ops on the device) as a draft
+    source: stateless, no proposal distribution (q one-hot at the
+    draft)."""
+
+    stateful = False
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def init_state(self):
+        return None
+
+    def draft(self, hist, hlen, gamma, ngram, live, state, generator, temps,
+              top_k, top_p):
+        return self.fn(hist, hlen, gamma, ngram), None, None
+
+
+def _build_model_draft_source(engine: "ServingEngine"):
+    """DRAFT_SOURCES["model"] factory: the on-device draft model
+    (models/draft.py) derived from the engine's own weights (the first
+    draft_layers layers, embed/unembed shared: already cast or quantized
+    like the target, since the leaves ARE the target's). An independent
+    checkpoint (draft_ckpt) needs the checkpoint loader and is refused."""
+    from butterfly_tpu_torch.models.draft import (
+        ModelDraftSource, derive_draft_params, load_draft_checkpoint)
+    rt = engine.runtime
+    if rt.draft_ckpt:
+        load_draft_checkpoint(rt.draft_ckpt, engine.cfg)
+    dcfg, dparams = derive_draft_params(engine.params, engine.cfg,
+                                        rt.draft_layers)
+    # width = serving max_seq + γ+1 slack: micro-step writes at the
+    # sequence cap clamp into slack, never onto a live entry
+    return ModelDraftSource(
+        dcfg, dparams, num_slots=engine.num_slots,
+        width=engine.cache.max_seq + rt.speculative_gamma + 1,
+        kv_quant=rt.kv_quant)
+
+
+_build_model_draft_source.draft_source_factory = True
+
+
+#: Draft sources for the spec block (RuntimeConfig.draft_model selects by
+#: name). An entry is a plain draft function (hist [S, H], hist_len [S],
+#: gamma, ngram) -> drafts [S, gamma] int32 ("ngram", prompt lookup), or
+#: a FACTORY (attribute draft_source_factory=True) called with the engine
+#: at build time and returning a source with `.stateful`, `.init_state()`,
+#: `.draft(hist, hlen, gamma, ngram, live, state, generator, temps, top_k,
+#: top_p) -> (drafts, q_logits, state)` and, when stateful, `.prefill(
+#: state, slots, rows, lens)` ("model", the on-device draft model).
+DRAFT_SOURCES: Dict[str, object] = {
+    "ngram": _ngram_drafts,
+    "model": _build_model_draft_source,
+}
+
+
+def register_draft_source(name: str, fn) -> None:
+    """Register a custom draft source (the DRAFT_SOURCES contract)."""
+    DRAFT_SOURCES[name] = fn
+
+
+def _draft_rollback(dstate, dlen0, live, m):
+    """Roll the draft-model KV length back to the ACCEPTED count: the
+    micro-steps advanced a live slot to dlen0 + γ+1; only the m accepted
+    emissions stay, the rejected drafts' K/V sit past the length and
+    the next round overwrites them from dlen0 + m. None for stateless
+    sources."""
+    if dstate is None:
+        return None
+    return dstate._replace(
+        length=torch.where(live, dlen0 + m, dlen0).to(torch.int32))
+
+
+def _last_token(hist, hlen):
+    """Each slot's newest history token [S]."""
+    H = hist.shape[1]
+    return torch.gather(hist, 1,
+                        (hlen.long() - 1).clamp(0, H - 1)[:, None])[:, 0]
+
+
+def _spec_live0(hist, hist_len, active, stops, budgets, is_pf0=None):
+    """Liveness at block start: inactive, out of budget, or whose last
+    history token is its stop id starts dead (prefill-phase slots skip
+    the stop check: their history tail is prompt)."""
+    has_stop = stops >= 0
+    check = has_stop if is_pf0 is None else has_stop & ~is_pf0
+    live = active & (budgets > 0) & torch.where(
+        check, _last_token(hist, hist_len) != stops,
+        torch.ones_like(has_stop))
+    return has_stop, live
+
+
+def _spec_valid(emitted, n_acc, rem, live, stops, has_stop, C: int,
+                lanes=None):
+    """A round's valid emissions [S, C]: the accepted prefix n_acc + 1,
+    clipped at the remaining budget and cut at the first stop id
+    INCLUSIVE (the stop token itself emits); `lanes` [S] limits them to
+    decode-phase slots."""
+    col = torch.arange(C, device=emitted.device)[None, :]
+    cand = (col <= n_acc[:, None]) & (col < rem[:, None])
+    if lanes is not None:
+        cand = cand & lanes[:, None]
+    stop_at = cand & has_stop[:, None] & (emitted == stops[:, None])
+    si = stop_at.to(torch.int32)
+    prior = torch.cumsum(si, dim=1) - si
+    return cand & (prior == 0) & live[:, None]
+
+
+def _spec_commit(hist, hlen, rem, live, emitted, valid, stops, has_stop):
+    """Append a round's valid emissions to the history carry (IN PLACE,
+    at hlen ..), spend the budget, and kill slots whose emission hit
+    their stop id or that ran out. Returns (hlen, rem, live, m)."""
+    S, H = hist.shape
+    C = emitted.shape[1]
+    m = valid.sum(dim=1).to(torch.int32)
+    col = torch.arange(C, device=hist.device)[None, :]
+    wpos = (hlen.long()[:, None] + col).clamp(0, H - 1)
+    rows = torch.arange(S, device=hist.device)[:, None].expand(S, C)
+    cur = torch.gather(hist, 1, wpos)
+    hist[rows, wpos] = torch.where(valid, emitted, cur)
+    hlen = torch.where(live, hlen + m, hlen).to(torch.int32)
+    rem = torch.where(live, rem - m, rem)
+    died = (valid & has_stop[:, None] & (emitted == stops[:, None])).any(1)
+    live = live & ~died & (rem > 0)
+    return hlen, rem, live, m
+
+
+def _spec_scan(cfg: ModelConfig, rounds: int, gamma: int, ngram: int,
+               draft_src, params, hist, hist_len, cache: PagedKVCache,
+               dstate, active, temps, stops, budgets, top_k: int,
+               top_p: float, gens, spec_mask, use_kernel: bool = False):
+    """`rounds` chained speculative rounds (the JAX lax.scan as a Python
+    loop of device work), window off. Each round, for every live slot:
+    draft gamma tokens (draft_src.draft: prompt lookup over the history,
+    or the draft model over its KV carry `dstate`, with its proposal
+    logits), ONE batched (gamma+1)-token verify forward over [S, C]
+    writing every position's K/V (the dense warm path), accept on the
+    device (speculative_accept), truncate at the stop id / budget, roll
+    the cache length back to W + m (the old chain token + the accepted
+    drafts; the last emission is never written, decode-style) and the
+    draft length likewise, and append the survivors to the history.
+    Rejected positions hold stale K/V past the length; the next round's
+    C-wide chunk starts there and rewrites them before any query can
+    attend that far. `gens` = (accept, draft) generators.
+
+    Returns (toks [rounds, S, C], valid [rounds, S, C], hist, hist_len,
+    rem, cache, dstate)."""
+    g_acc, g_draft = gens[0], gens[1]
+    C = gamma + 1
+    has_stop, live = _spec_live0(hist, hist_len, active, stops, budgets)
+    hlen, rem, dst = hist_len, budgets, dstate
+    toks_out, valid_out = [], []
+    for _ in range(rounds):
+        dlen0 = dst.length if dst is not None else None
+        drafts, qlog, dst = draft_src.draft(
+            hist, hlen, gamma, ngram, live, dst, g_draft, temps, top_k,
+            top_p)
+        toks = torch.cat([_last_token(hist, hlen)[:, None], drafts], dim=1)
+        W = cache.lengths
+        logits, cache = paged_forward(params, cfg, toks, cache, active=live,
+                                      use_kernel=use_kernel)
+        emitted, n_acc = speculative_accept(logits, drafts, g_acc, temps,
+                                            top_k, top_p, spec_mask, qlog)
+        valid = _spec_valid(emitted, n_acc, rem, live, stops, has_stop, C)
+        hlen, rem, live2, m = _spec_commit(hist, hlen, rem, live, emitted,
+                                           valid, stops, has_stop)
+        cache = cache._replace(
+            lengths=torch.where(live, W + m, W).to(torch.int32))
+        dst = _draft_rollback(dst, dlen0, live, m)
+        live = live2
+        toks_out.append(emitted)
+        valid_out.append(valid)
+    return (torch.stack(toks_out), torch.stack(valid_out), hist, hlen, rem,
+            cache, dst)
+
+
+def _spec_scan_win(cfg: ModelConfig, rounds: int, gamma: int, ngram: int,
+                   draft_src, params, hist, hist_len, cache: PagedKVCache,
+                   dstate, window: KVWindow, win_len, active, temps, stops,
+                   budgets, top_k: int, top_p: float, gens, spec_mask,
+                   use_kernel: bool = False):
+    """Write-combined twin of _spec_scan with IDENTICAL draft / verify /
+    accept semantics: each verify stages all C = gamma+1 positions into
+    the window at win_len, and win_len advances by the ACCEPTED count m
+    only, so a rejected draft's K/V sits past win_len, is never attended
+    and never flushed (the pool never holds speculative state). The
+    draft carry rolls back by the same count.
+
+    Returns (toks, valid, hist, hist_len, rem, cache, window, win_len,
+    dstate)."""
+    g_acc, g_draft = gens[0], gens[1]
+    C = gamma + 1
+    has_stop, live = _spec_live0(hist, hist_len, active, stops, budgets)
+    hlen, rem, dst, wlen = hist_len, budgets, dstate, win_len
+    toks_out, valid_out = [], []
+    for _ in range(rounds):
+        dlen0 = dst.length if dst is not None else None
+        drafts, qlog, dst = draft_src.draft(
+            hist, hlen, gamma, ngram, live, dst, g_draft, temps, top_k,
+            top_p)
+        toks = torch.cat([_last_token(hist, hlen)[:, None], drafts], dim=1)
+        logits, window = paged_forward_window(params, cfg, toks, cache,
+                                              window, wlen, active=live,
+                                              use_kernel=use_kernel)
+        emitted, n_acc = speculative_accept(logits, drafts, g_acc, temps,
+                                            top_k, top_p, spec_mask, qlog)
+        valid = _spec_valid(emitted, n_acc, rem, live, stops, has_stop, C)
+        hlen, rem, live2, m = _spec_commit(hist, hlen, rem, live, emitted,
+                                           valid, stops, has_stop)
+        wlen = torch.where(live, wlen + m, wlen).to(torch.int32)
+        dst = _draft_rollback(dst, dlen0, live, m)
+        live = live2
+        toks_out.append(emitted)
+        valid_out.append(valid)
+    return (torch.stack(toks_out), torch.stack(valid_out), hist, hlen, rem,
+            cache, window, wlen, dst)
+
+
+def _tree_tables(width: int, nodes: int, device):
+    """(depth [N], ancestor matrix [N, N]) of the token tree on `device`,
+    copied once per block through pinned memory without blocking."""
+    depth = np.zeros((nodes,), np.int64)
+    for d in range(1, tree_depth(width, nodes) + 1):
+        for j in range(width):
+            depth[tree_node_index(d, j, width)] = d
+    out = []
+    for a in (depth, tree_ancestor_matrix(width, nodes)):
+        t = torch.from_numpy(a)
+        if torch.device(device).type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out.append(t)
+    return tuple(out)
+
+
+def _tree_chunk_operands(tables, base, s_max: int):
+    """RoPE positions [S, N] and the tree-attention mask [S, N, s_max] of
+    one tree-verify chunk whose node 0 sits at absolute position `base`
+    [S]; `tables` = _tree_tables(width, nodes). positions = base +
+    depth(n) (siblings share a RoPE position but occupy distinct storage
+    at base + chunk index); node n attends committed history (j < base)
+    and its own root->n ancestor path (self included), never a sibling
+    branch."""
+    depth, anc = tables
+    nodes = depth.shape[0]
+    b = base.long()
+    positions = b[:, None] + depth[None, :]
+    j_abs = torch.arange(s_max, device=b.device)[None, :]
+    rel = j_abs - b[:, None]                                  # [S, Smax]
+    tree_bits = anc[:, rel.clamp(0, nodes - 1)]               # [N,S,Smax]
+    mask = (j_abs < b[:, None])[:, None, :] \
+        | (((rel >= 0) & (rel < nodes))[:, None, :]
+           & tree_bits.permute(1, 0, 2))
+    return positions, mask
+
+
+def _spec_tree_scan(cfg: ModelConfig, rounds: int, width: int, nodes: int,
+                    draft_src, params, hist, hist_len, cache: PagedKVCache,
+                    dstate, active, temps, stops, budgets, top_k: int,
+                    top_p: float, gens, spec_mask,
+                    use_kernel: bool = False):
+    """Token-TREE twin of _spec_scan: each round drafts a width-w, N-node
+    tree (draft_src.tree_draft), verifies all N nodes in ONE forward
+    under the tree mask (_tree_chunk_operands), walks the
+    recursive-residual accept (speculative_tree_accept), then compacts
+    the accepted path's K/V to base..base+m-1 (permute_paged_tail) and
+    rolls the length back to base + m; rejected branches sit past it and
+    the next round's N-wide chunk rewrites them. The emission width is
+    D+1, narrower than the verify width N. The draft cache rolls back to
+    base + m too.
+
+    Returns _spec_scan's tuple with C = D+1."""
+    g_acc, g_draft = gens[0], gens[1]
+    D = tree_depth(width, nodes)
+    C = D + 1
+    S = hist.shape[0]
+    tables = _tree_tables(width, nodes, hist.device)
+    has_stop, live = _spec_live0(hist, hist_len, active, stops, budgets)
+    hlen, rem, dst = hist_len, budgets, dstate
+    toks_out, valid_out = [], []
+    for _ in range(rounds):
+        dlen0 = dst.length if dst is not None else None
+        drafts, qlog, dst = draft_src.tree_draft(
+            hist, hlen, width, D, live, dst, g_draft, temps, top_k, top_p)
+        toks = torch.cat([_last_token(hist, hlen)[:, None],
+                          drafts.reshape(S, D * width)], dim=1)
+        W = cache.lengths
+        positions, mask = _tree_chunk_operands(tables, W, cache.max_seq)
+        logits, cache = paged_forward(params, cfg, toks, cache, active=live,
+                                      use_kernel=use_kernel,
+                                      positions=positions, attn_mask=mask)
+        emitted, n_acc, perm = speculative_tree_accept(
+            logits, drafts, g_acc, temps, top_k, top_p, spec_mask, qlog,
+            width=width, nodes=nodes)
+        valid = _spec_valid(emitted, n_acc, rem, live, stops, has_stop, C)
+        hlen, rem, live2, m = _spec_commit(hist, hlen, rem, live, emitted,
+                                           valid, stops, has_stop)
+        cache = permute_paged_tail(cache._replace(lengths=W), perm,
+                                   active=live)
+        cache = cache._replace(
+            lengths=torch.where(live, W + m, W).to(torch.int32))
+        dst = _draft_rollback(dst, dlen0, live, m)
+        live = live2
+        toks_out.append(emitted)
+        valid_out.append(valid)
+    return (torch.stack(toks_out), torch.stack(valid_out), hist, hlen, rem,
+            cache, dst)
+
+
+def _spec_tree_scan_win(cfg: ModelConfig, rounds: int, width: int,
+                        nodes: int, draft_src, params, hist, hist_len,
+                        cache: PagedKVCache, dstate, window: KVWindow,
+                        win_len, active, temps, stops, budgets, top_k: int,
+                        top_p: float, gens, spec_mask,
+                        use_kernel: bool = False):
+    """Write-combined twin of _spec_tree_scan: the verify stages all N
+    nodes at win_len (chunk order), permute_window_tail compacts the
+    accepted path to win_len..win_len+m-1, and win_len advances by m, so
+    rejected branches are never attended or flushed. Node 0 sits at
+    cache.lengths + win_len (flushed + staged), which the mask's
+    `j < base` covers.
+
+    Returns _spec_scan_win's tuple with C = D+1."""
+    g_acc, g_draft = gens[0], gens[1]
+    D = tree_depth(width, nodes)
+    C = D + 1
+    S = hist.shape[0]
+    tables = _tree_tables(width, nodes, hist.device)
+    has_stop, live = _spec_live0(hist, hist_len, active, stops, budgets)
+    hlen, rem, dst, wlen = hist_len, budgets, dstate, win_len
+    toks_out, valid_out = [], []
+    for _ in range(rounds):
+        dlen0 = dst.length if dst is not None else None
+        drafts, qlog, dst = draft_src.tree_draft(
+            hist, hlen, width, D, live, dst, g_draft, temps, top_k, top_p)
+        toks = torch.cat([_last_token(hist, hlen)[:, None],
+                          drafts.reshape(S, D * width)], dim=1)
+        positions, mask = _tree_chunk_operands(
+            tables, cache.lengths + wlen, cache.max_seq)
+        logits, window = paged_forward_window(
+            params, cfg, toks, cache, window, wlen, active=live,
+            use_kernel=use_kernel, positions=positions, attn_mask=mask)
+        emitted, n_acc, perm = speculative_tree_accept(
+            logits, drafts, g_acc, temps, top_k, top_p, spec_mask, qlog,
+            width=width, nodes=nodes)
+        valid = _spec_valid(emitted, n_acc, rem, live, stops, has_stop, C)
+        hlen, rem, live2, m = _spec_commit(hist, hlen, rem, live, emitted,
+                                           valid, stops, has_stop)
+        window = permute_window_tail(window, wlen, perm)
+        wlen = torch.where(live, wlen + m, wlen).to(torch.int32)
+        dst = _draft_rollback(dst, dlen0, live, m)
+        live = live2
+        toks_out.append(emitted)
+        valid_out.append(valid)
+    return (torch.stack(toks_out), torch.stack(valid_out), hist, hlen, rem,
+            cache, window, wlen, dst)
+
+
+def _mixed_spec_round(logits, drafts, qlog, is_pf, count, cursor, plen,
+                      live, rem, stops, has_stop, temps, top_k: int,
+                      top_p: float, g_acc, g_pf, spec_mask, C: int):
+    """Accept + emission of one mixed spec round: decode lanes take
+    _spec_scan's accept and truncation; a prefill lane whose chunk
+    completes the prompt samples its FIRST token from the chunk's last
+    real column (the third generator) and emits it as one valid entry at
+    column 0. Returns (emitted, valid, adv): adv is each lane's real
+    K/V advance (a prefill chunk's length, a decode round's m)."""
+    emitted, n_acc = speculative_accept(logits, drafts, g_acc, temps, top_k,
+                                        top_p, spec_mask, qlog)
+    valid = _spec_valid(emitted, n_acc, rem, live, stops, has_stop, C,
+                        lanes=~is_pf)
+    completing = is_pf & (cursor + count >= plen)
+    V = logits.shape[-1]
+    sidx = (count - 1).clamp(0, C - 1).long()
+    lg = torch.gather(logits, 1, sidx[:, None, None].expand(-1, 1, V))[:, 0]
+    first = sample_batched(lg, g_pf, temps, top_k, top_p)
+    col0 = torch.arange(C, device=logits.device)[None, :] == 0
+    emitted = torch.where(is_pf[:, None] & col0, first[:, None], emitted)
+    valid = valid | ((completing & live)[:, None] & col0)
+    m = valid.sum(dim=1).to(torch.int32)
+    return emitted, valid, torch.where(is_pf, count, m)
+
+
+def _mixed_spec_io(hist, hlen, cursor, plen, drafts, C: int):
+    """A mixed spec round's [S, C] tokens: a prefill lane's next C prompt
+    tokens from its history row (the prompt buffer under spec), a decode
+    lane's chain token + drafts. Also returns (is_pf, count)."""
+    H = hist.shape[1]
+    is_pf = cursor < plen
+    count = torch.where(is_pf, (plen - cursor).clamp(0, C),
+                        torch.zeros_like(cursor))
+    col = torch.arange(C, device=hist.device)[None, :]
+    pchunk = torch.gather(hist, 1, (cursor.long()[:, None] + col)
+                          .clamp(0, H - 1))
+    dec = torch.cat([_last_token(hist, hlen)[:, None], drafts], dim=1)
+    return torch.where(is_pf[:, None], pchunk, dec), is_pf, count
+
+
+def _mixed_spec_scan(cfg: ModelConfig, rounds: int, gamma: int, ngram: int,
+                     draft_src, params, hist, hist_len, cursor, plen,
+                     cache: PagedKVCache, active, temps, stops, budgets,
+                     top_k: int, top_p: float, gens, spec_mask,
+                     use_kernel: bool = False):
+    """Speculative mixed block, window off: _spec_scan with prefill
+    lanes. Decode-phase slots run the draft -> verify -> accept round
+    token for token as _spec_scan; prefill-phase slots (cursor < plen)
+    spend the round's [S, C = gamma+1] forward on a C-token chunk of
+    their history row (the full prompt at admission, hist_len == prompt
+    length). Each lane's cache length advances by its real count, which
+    rolls the verify's +C back. `gens` = (accept, draft, prefill-lane)
+    generators. Stateless draft sources only (mixed_dispatch_ready).
+
+    Returns (toks [rounds, S, C], valid, hist, hist_len, rem, cursor,
+    cache)."""
+    g_acc, g_draft, g_pf = gens
+    C = gamma + 1
+    has_stop, live = _spec_live0(hist, hist_len, active, stops, budgets,
+                                 is_pf0=cursor < plen)
+    hlen, rem = hist_len, budgets
+    toks_out, valid_out = [], []
+    for _ in range(rounds):
+        is_pf = cursor < plen
+        drafts, qlog, _ = draft_src.draft(
+            hist, hlen, gamma, ngram, live & ~is_pf, None, g_draft, temps,
+            top_k, top_p)
+        toks, is_pf, count = _mixed_spec_io(hist, hlen, cursor, plen, drafts,
+                                            C)
+        W = cache.lengths
+        logits, cache = paged_forward(params, cfg, toks, cache, active=live,
+                                      use_kernel=use_kernel)
+        emitted, valid, adv = _mixed_spec_round(
+            logits, drafts, qlog, is_pf, count, cursor, plen, live, rem,
+            stops, has_stop, temps, top_k, top_p, g_acc, g_pf, spec_mask, C)
+        cache = cache._replace(
+            lengths=torch.where(live, W + adv, W).to(torch.int32))
+        cursor = torch.where(live & is_pf, cursor + count, cursor)
+        hlen, rem, live, _ = _spec_commit(hist, hlen, rem, live, emitted,
+                                          valid, stops, has_stop)
+        toks_out.append(emitted)
+        valid_out.append(valid)
+    return (torch.stack(toks_out), torch.stack(valid_out), hist, hlen, rem,
+            cursor, cache)
+
+
+def _mixed_spec_scan_win(cfg: ModelConfig, rounds: int, gamma: int,
+                         ngram: int, draft_src, params, hist, hist_len,
+                         cursor, plen, cache: PagedKVCache, window: KVWindow,
+                         win_len, active, temps, stops, budgets, top_k: int,
+                         top_p: float, gens, spec_mask,
+                         use_kernel: bool = False):
+    """Write-combined twin of _mixed_spec_scan with identical lane
+    semantics: each round's forward stages into the window and win_len
+    advances by each lane's real count, so filler, rejected drafts and
+    dead-round repeats sit past win_len, never attended or flushed.
+
+    Returns (toks, valid, hist, hist_len, rem, cursor, cache, window,
+    win_len)."""
+    g_acc, g_draft, g_pf = gens
+    C = gamma + 1
+    has_stop, live = _spec_live0(hist, hist_len, active, stops, budgets,
+                                 is_pf0=cursor < plen)
+    hlen, rem, wlen = hist_len, budgets, win_len
+    toks_out, valid_out = [], []
+    for _ in range(rounds):
+        is_pf = cursor < plen
+        drafts, qlog, _ = draft_src.draft(
+            hist, hlen, gamma, ngram, live & ~is_pf, None, g_draft, temps,
+            top_k, top_p)
+        toks, is_pf, count = _mixed_spec_io(hist, hlen, cursor, plen, drafts,
+                                            C)
+        logits, window = paged_forward_window(params, cfg, toks, cache,
+                                              window, wlen, active=live,
+                                              use_kernel=use_kernel)
+        emitted, valid, adv = _mixed_spec_round(
+            logits, drafts, qlog, is_pf, count, cursor, plen, live, rem,
+            stops, has_stop, temps, top_k, top_p, g_acc, g_pf, spec_mask, C)
+        wlen = torch.where(live, wlen + adv, wlen).to(torch.int32)
+        cursor = torch.where(live & is_pf, cursor + count, cursor)
+        hlen, rem, live, _ = _spec_commit(hist, hlen, rem, live, emitted,
+                                          valid, stops, has_stop)
+        toks_out.append(emitted)
+        valid_out.append(valid)
+    return (torch.stack(toks_out), torch.stack(valid_out), hist, hlen, rem,
+            cursor, cache, window, wlen)

@@ -18,7 +18,9 @@ Numerics follow the JAX functions: norms and softmax in float32, masked
 scores at the finite -1e30, int8 K/V codes that are never dequantized
 into a copy (the K scale multiplies the scores, the V scale folds into
 the probabilities), and round-half-to-even int8 quantization, so int8
-codes come out byte-identical to the JAX package's.
+codes come out byte-identical to the JAX package's. Every matmul weight
+goes through quant/int8.py:qeinsum, so int8 weight trees ({"q8", "s"}
+leaves) run the same layer math as float ones.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.core.device import resolve_device
 from butterfly_tpu_torch.ops.flash_attention import flash_attention
+from butterfly_tpu_torch.quant.int8 import qeinsum
 
 Params = Dict[str, Any]
 
@@ -216,15 +219,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _proj(spec: str, x: torch.Tensor, w, dtype) -> torch.Tensor:
-    """einsum(spec, x, W) with W cast to the compute dtype (the JAX
-    qeinsum for float weights; int8 weight trees are refused upstream)."""
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "int8 weight trees are not ported yet (ROADMAP.md, PyTorch/CUDA "
-            "port queue: int8 weights)")
-    if w.dtype != dtype:
-        w = w.to(dtype)
-    return torch.einsum(spec, x, w)
+    """einsum(spec, x, W) in the compute dtype: the JAX qeinsum, int8
+    ({"q8", "s"}) weights included (quant/int8.py)."""
+    return qeinsum(spec, x, w, dtype)
 
 
 def qkv_proj(x: torch.Tensor, p: Params, cfg: ModelConfig,

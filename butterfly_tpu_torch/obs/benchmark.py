@@ -16,8 +16,12 @@ from the datasheet row of the card (`card_figures`); on a card not in the
 table, and on the CPU, they are None. Decode time is isolated by
 subtracting a max_new=1 run (prefill + first sample) from the full run.
 
+The speculation leg (`run_spec_benchmark`) compares spec on and off and
+the draft sources. Weight bytes count what the tree holds: an int8 tree
+streams one byte per code plus its scales.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): the speculation, fleet, autoscale and chaos legs.
+item): the fleet, autoscale and chaos legs.
 """
 from __future__ import annotations
 
@@ -117,6 +121,7 @@ def run_decode_benchmark(model, params, batch: int, prompt_len: int,
     # streams one weight copy per data-parallel replica.
     cfg = model.cfg
     leaves = list(_leaves(engine.params))
+    # the tree as it streams: int8 codes at 1 byte each plus their scales
     param_bytes = sum(x.nbytes for x in leaves)
     param_count = sum(x.numel() for x in leaves)
     S = prompt_len + max_new
@@ -763,8 +768,125 @@ def _not_ported(leg: str, item: str):
     return not_ported(f"the {leg} benchmark leg", item)
 
 
-def run_spec_benchmark(model, params, **kwargs) -> Dict:
-    raise _not_ported("speculation", "speculation")
+def draft_friendly_prompts(sched, n_requests: int, prompt_len: int,
+                           seed: int = 0):
+    """The spec leg's prompts: max(4, prompt_len // 4) random tokens each
+    (from `seed`), followed by the model's OWN greedy continuation up to
+    prompt_len, harvested with `sched` (a spec-off scheduler), so the
+    prompts carry the looping structure prompt lookup mines."""
+    rng = np.random.RandomState(seed)
+    V = sched.engine.cfg.vocab_size
+    seed_len = max(4, prompt_len // 4)
+    bases = [rng.randint(1, V, (seed_len,)).tolist()
+             for _ in range(n_requests)]
+    cont = [sched.submit(b, max_new_tokens=prompt_len - seed_len)
+            for b in bases]
+    sched.run_until_done(max_ticks=10 ** 6)
+    return [b + r.output for b, r in zip(bases, cont)]
+
+
+def run_spec_benchmark(model, params, *, n_requests: int = 8,
+                       prompt_len: int = 32, max_new: int = 64,
+                       max_batch: int = 4, gamma: int = 4, ngram: int = 2,
+                       decode_steps_per_tick: int = 4,
+                       inflight_blocks: int = 2,
+                       kv_quant: str = "none", seed: int = 0,
+                       draft_layers: int = 1) -> Dict:
+    """Speculation leg of the serving bench: spec-on against spec-off
+    tokens/sec at the SAME operating point, with the speculation
+    instruments (spec_tokens_per_forward, spec_accept_rate) and the
+    drain barriers per verify round.
+
+    The on/off prompts are draft-friendly: each is seeded with the
+    model's OWN greedy continuation (measured once up front), so prompt
+    lookup has something to find; greedy, at `max_batch` slots. A second
+    part drafts with "ngram" and with the on-device draft model ("model",
+    the first `draft_layers` layers) on mixed_chat prompts, recording
+    spec_accept_rate_{src}, spec_tokens_per_forward_{src} and
+    serving_spec_{src}_tokens_per_sec; a third row ("tree") reruns the
+    model draft as a width-2 token tree at the same node budget
+    (spec_tree_nodes = gamma + 1), when gamma is even."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    from butterfly_tpu_torch.workload.models import mixed_chat
+
+    V = model.cfg.vocab_size
+    max_seq = prompt_len + 2 * max_new + 16
+
+    def build(rt):
+        return Scheduler(ServingEngine(model, params, rt))
+
+    def drive(rt, prompts, label):
+        sched = build(rt)
+        # warm off the clock (first kernel use, buffers)
+        for p in prompts[:min(len(prompts), max_batch)]:
+            sched.submit(p, max_new_tokens=4)
+        sched.run_until_done(max_ticks=10 ** 6)
+        reqs = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
+        t0 = time.monotonic()
+        sched.run_until_done(max_ticks=10 ** 6)
+        wall = time.monotonic() - t0
+        unfinished = [r.id for r in reqs if r.state != "finished"]
+        if unfinished:
+            raise RuntimeError(
+                f"spec benchmark ({label}) left requests unfinished "
+                f"(ids {unfinished[:8]})")
+        return sched.metrics(), wall
+
+    rt_off = RuntimeConfig(max_batch_size=max_batch, max_seq_len=max_seq,
+                           kv_quant=kv_quant,
+                           decode_steps_per_tick=decode_steps_per_tick,
+                           inflight_blocks=inflight_blocks)
+    rt_on = rt_off.replace(speculative_gamma=gamma, speculative_ngram=ngram)
+
+    prompts = draft_friendly_prompts(build(rt_off), n_requests, prompt_len,
+                                     seed)
+    m_off, wall_off = drive(rt_off, prompts, "off")
+    m_on, wall_on = drive(rt_on, prompts, "on")
+    out = {
+        "serving_spec_gamma": gamma,
+        "serving_spec_tokens_per_sec": m_on["tokens_generated_total"]
+        / wall_on,
+        "serving_spec_off_tokens_per_sec": m_off["tokens_generated_total"]
+        / wall_off,
+        "spec_tokens_per_forward": m_on.get("spec_tokens_per_forward", 0.0),
+        "spec_accept_rate": m_on.get("spec_accept_rate", 0.0),
+        "spec_forwards_total": m_on["spec_forwards_total"],
+        "spec_drafts_accepted_total": m_on["spec_drafts_accepted_total"],
+        "spec_drain_barriers_per_forward":
+            m_on["drain_barriers_total"]
+            / max(1.0, m_on["spec_forwards_total"]),
+    }
+    out["serving_spec_speedup"] = (out["serving_spec_tokens_per_sec"]
+                                   / out["serving_spec_off_tokens_per_sec"]
+                                   if out["serving_spec_off_tokens_per_sec"]
+                                   else 0.0)
+
+    # draft sources on mixed_chat prompts (template + fresh tails: the
+    # shape where prompt lookup earns little), same operating point
+    p_hi = max(16, prompt_len)
+    wl = mixed_chat(page_size=rt_off.page_size, vocab=V,
+                    prompt_lo=max(8, p_hi // 4), prompt_hi=p_hi,
+                    max_new_lo=max(8, max_new // 4), max_new_hi=max_new)
+    mixed_prompts = [s.tokens for s in wl.sample(n_requests, seed)]
+    out["serving_spec_draft_layers"] = draft_layers
+    rows = [("ngram", {}),
+            ("model", {"draft_model": "model",
+                       "draft_layers": draft_layers})]
+    if gamma % 2 == 0:  # width 2 needs (N - 1) = gamma divisible by 2
+        rows.append(("tree", {"draft_model": "model",
+                              "draft_layers": draft_layers,
+                              "spec_tree_width": 2,
+                              "spec_tree_nodes": gamma + 1}))
+    for src, extra in rows:
+        m, wall = drive(rt_on.replace(**extra), mixed_prompts, src)
+        out[f"spec_accept_rate_{src}"] = m.get("spec_accept_rate", 0.0)
+        out[f"spec_tokens_per_forward_{src}"] = \
+            m.get("spec_tokens_per_forward", 0.0)
+        out[f"serving_spec_{src}_tokens_per_sec"] = \
+            m["tokens_generated_total"] / wall
+    return out
 
 
 def run_fleet_benchmark(topology: str = "2p2d", **kwargs) -> Dict:

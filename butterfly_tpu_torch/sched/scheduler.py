@@ -286,11 +286,11 @@ class Scheduler:
         self._next_tokens = np.zeros((engine.num_slots,), np.int32)
         # In-flight fused blocks, tagged tuples in dispatch order:
         #   ("decode", completion event, block [k, S], k, snapshot, t)
-        #   ("spec",   hist_len [S],   (toks [R, S, C], valid
+        #   ("spec",   completion event, (toks [R, S, C], valid
         #              [R, S, C]), R rounds, snapshot, t)
         #   ("mixed",  final [S], (block [k, S], valid [k, S]), k,
         #              snapshot, t, pf_done slots, emit_vec [S])
-        #   ("mixed_spec", hist_len [S], (toks, valid) [R, S, C], R,
+        #   ("mixed_spec", completion event, (toks, valid) [R, S, C], R,
         #              snapshot, t, pf_done slots, None)
         # where snapshot maps slot -> (request, generation); mixed
         # entries additionally carry the slots whose prefill completed
@@ -1855,7 +1855,10 @@ class Scheduler:
             self._hist_dev, self._hist_len_dev, active, temps, stops,
             budgets, specm, sub, rounds)
         self._hist_dev, self._hist_len_dev, self._spec_rem = hist, hlen, rem
-        self._inflight.append(("spec", hlen, (toks, valid), rounds,
+        # slot 1: the completion event _device_ready probes (the JAX
+        # entry holds hist_len, whose is_ready() a torch tensor lacks)
+        self._inflight.append(("spec", self.engine.record_event(),
+                               (toks, valid), rounds,
                                snapshot, time.monotonic()))
         self._note_bubble()
         return True
@@ -1916,7 +1919,8 @@ class Scheduler:
                     active, temps, stops, budgets, specm, sub, k)
             self._hist_dev, self._hist_len_dev = hist, hlen
             self._spec_rem, self._cursor_dev = rem, cursor
-            self._inflight.append(("mixed_spec", hlen, (toks, valid), k,
+            self._inflight.append(("mixed_spec", self.engine.record_event(),
+                                   (toks, valid), k,
                                    snapshot, time.monotonic(), pf_done,
                                    None))
             self._note_bubble()

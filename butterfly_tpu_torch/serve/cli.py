@@ -9,13 +9,17 @@
     python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu --prefix-caching --host-tier-mb 64
     python -m butterfly_tpu_torch.serve.cli bench --model tiny --device cpu --serving --mixed --prompt-len 64 --max-new 32
     python -m butterfly_tpu_torch.serve.cli bench --model llama3-8b --serving --mixed --host-tier-mb 512
+    python -m butterfly_tpu_torch.serve.cli generate --model tiny --device cpu --quant int8 --speculate 4
+    python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu --speculate 4 --draft-source model --draft-layers 1
+    python -m butterfly_tpu_torch.serve.cli bench --model tiny --device cpu --spec --prompt-len 32 --max-new 32
 
 The subcommands keep the JAX CLI's flags (butterfly_tpu/serve/cli.py) and
 add --device (default cuda). `--seq-parallel N` builds a seq mesh of N
 shards: on cuda:0..N-1 with --device cuda (N cards needed), on the CPU with
 --device cpu. Flags whose path the port does not carry yet are accepted
 and refused with NotImplementedError naming the ROADMAP.md item. Without
---ckpt, weights are random (demo mode).
+--ckpt, weights are random (demo mode); `--quant int8` quantizes them
+right after they are built.
 """
 from __future__ import annotations
 
@@ -62,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--max-seq", type=int, default=2048)
         sp.add_argument("--dcn-axes", default="data")
         sp.add_argument("--quant", choices=["none", "int8"], default="none",
-                        help="weight-only quantization (not ported yet)")
+                        help="weight-only quantization: int8 codes with "
+                             "per-output-channel scales for every matmul "
+                             "weight (quant/int8.py)")
         sp.add_argument("--kv-quant", choices=["none", "int8"],
                         default="none",
                         help="KV-cache quantization (int8 halves the cache "
@@ -77,8 +83,11 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--top-p", type=float, default=1.0)
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--speculate", type=int, default=0, metavar="GAMMA",
-                   help="prompt-lookup speculative decoding (not ported "
-                        "yet)")
+                   help="prompt-lookup speculative decoding: draft GAMMA "
+                        "tokens per step, verify them in one forward. "
+                        "Greedy output is plain decode's; with "
+                        "--temperature > 0 the rejection-sampling "
+                        "correction keeps the distribution exact")
 
     s = sub.add_parser("serve", help="HTTP serving with continuous batching")
     common(s)
@@ -110,12 +119,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "tier: pages LRU-demoted past --host-tier-mb "
                         "spill to .pt files here instead of being dropped")
     s.add_argument("--speculate", type=int, default=0, metavar="GAMMA",
-                   help="speculative serving (not ported yet)")
-    s.add_argument("--draft-source", default="ngram")
-    s.add_argument("--draft-layers", type=int, default=0)
-    s.add_argument("--draft-ckpt", default=None)
-    s.add_argument("--spec-tree", type=int, default=0, metavar="WIDTH")
-    s.add_argument("--spec-tree-nodes", type=int, default=0, metavar="N")
+                   help="speculative serving on the block pipeline: draft "
+                        "GAMMA tokens per slot, verify every slot in one "
+                        "batched (GAMMA+1)-token forward per round, accept "
+                        "and roll back on the device; clients opt out per "
+                        'request with "speculative": false')
+    s.add_argument("--draft-source", default="ngram",
+                   help="draft source: 'ngram' (prompt lookup over the "
+                        "token history) or 'model' (the on-device draft "
+                        "model, models/draft.py)")
+    s.add_argument("--draft-layers", type=int, default=0,
+                   help="--draft-source model: the draft is the target's "
+                        "first N layers, embed/unembed shared (0 = "
+                        "num_layers/4, floor 1)")
+    s.add_argument("--draft-ckpt", default=None,
+                   help="an independent draft checkpoint (not ported yet: "
+                        "needs the checkpoint loader)")
+    s.add_argument("--spec-tree", type=int, default=0, metavar="WIDTH",
+                   help="token-tree speculation of this width (needs "
+                        "--draft-source model); 0/1 = linear chain")
+    s.add_argument("--spec-tree-nodes", type=int, default=0, metavar="N",
+                   help="tree node budget per verify incl. the root; "
+                        "(N-1) must divide by --spec-tree; 0 = GAMMA+1")
     s.add_argument("--decode-steps-per-tick", type=_positive_int, default=1,
                    help="fused block width: decode iterations per "
                         "scheduler tick, drained in ONE stacked fetch")
@@ -168,6 +193,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --mixed: a host-RAM KV tier of this many "
                         "MiB, so the contested pool demotes and revives "
                         "pages instead of dropping them")
+    b.add_argument("--spec", action="store_true",
+                   help="also run the speculation leg (spec on vs off on "
+                        "draft-friendly prompts, then the ngram, model and "
+                        "tree draft rows on mixed_chat prompts) and merge "
+                        "its spec_* keys into the JSON line (gamma 4, a "
+                        "1-layer draft model)")
     return p
 
 
@@ -188,7 +219,9 @@ def load_params(model, args):
     their slice). The tree is drawn straight into the COMPUTE dtype:
     init_params draws float32 and rounds into the leaf type, so this is
     bit-identical to drawing in the float32 master dtype and casting —
-    without ever holding the float32 copy (32 GB for Llama-3-8B)."""
+    without ever holding the float32 copy (32 GB for Llama-3-8B).
+    `--quant int8` quantizes the tree right after it is built, as the
+    JAX CLI does."""
     if args.ckpt:
         raise NotImplementedError(
             "--ckpt is not ported yet (ROADMAP.md, PyTorch/CUDA port "
@@ -198,7 +231,11 @@ def load_params(model, args):
     cfg = model.cfg.replace(param_dtype=model.cfg.dtype)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(0)  # demo mode: identical random weights every run
-    return init_params(cfg, gen, model.device)
+    params = init_params(cfg, gen, model.device)
+    if getattr(args, "quant", "none") == "int8":
+        from butterfly_tpu_torch.quant.int8 import quantize_int8
+        params = quantize_int8(params, model.cfg)
+    return params
 
 
 def build_mesh(args):
@@ -238,7 +275,7 @@ def cmd_generate(args) -> int:
     """One-shot generation: the text on stdout, then the token count and
     rate on stderr, as the JAX CLI prints them."""
     from butterfly_tpu_torch.core.config import RuntimeConfig
-    from butterfly_tpu_torch.engine.engine import InferenceEngine, not_ported
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
     from butterfly_tpu_torch.engine.sampling import SamplingParams
     from butterfly_tpu_torch.utils.tokenizer import load_tokenizer
 
@@ -247,10 +284,6 @@ def cmd_generate(args) -> int:
               "(the long-context path has no warm multi-token verify)",
               file=sys.stderr)
         return 2
-    if args.speculate > 0:
-        raise not_ported("generate --speculate", "speculation")
-    if args.quant != "none":
-        raise not_ported("--quant int8 weights", "int8 weights")
     model = resolve_model(args)
     tok = load_tokenizer(args.tokenizer or args.ckpt)
     mesh = build_mesh(args)
@@ -283,6 +316,16 @@ def cmd_generate(args) -> int:
               f"{args.seq_parallel}-way sequence parallelism",
               file=sys.stderr)
         return 0
+    if args.speculate > 0:
+        res = engine.generate_speculative(ids, sp, gamma=args.speculate,
+                                          seed=args.seed)
+        dt = time.perf_counter() - t0
+        print(tok.decode(res.tokens.tolist()))
+        print(f"[butterfly] {len(res.tokens)} tokens in {dt:.2f}s via "
+              f"{res.forwards} forwards ({res.tokens_per_forward:.2f} "
+              f"tok/forward, {res.accepted_drafts} drafts accepted)",
+              file=sys.stderr)
+        return 0
     res = engine.generate([ids], sp, seed=args.seed)
     dt = time.perf_counter() - t0
     n = int(res.lengths[0])
@@ -311,10 +354,8 @@ def cmd_bench(args) -> int:
     from butterfly_tpu_torch.obs.benchmark import (run_decode_benchmark,
                                                    run_longctx_benchmark,
                                                    run_mixed_benchmark,
-                                                   run_serving_benchmark)
-    if args.quant != "none":
-        from butterfly_tpu_torch.engine.engine import not_ported
-        raise not_ported("--quant int8 weights", "int8 weights")
+                                                   run_serving_benchmark,
+                                                   run_spec_benchmark)
     model = resolve_model(args)
     mesh = build_mesh(args)
     params = load_params(model, args)
@@ -348,6 +389,12 @@ def cmd_bench(args) -> int:
             max_new_hi=args.max_new,
             inflight_blocks=args.inflight_blocks,
             host_kv_tier_mb=args.host_tier_mb,
+            kv_quant=args.kv_quant))
+    if args.spec:
+        stats.update(run_spec_benchmark(
+            model, params, n_requests=serving_batch,
+            prompt_len=args.prompt_len, max_new=args.max_new,
+            max_batch=serving_batch, inflight_blocks=args.inflight_blocks,
             kv_quant=args.kv_quant))
     print(json.dumps({"metric": "decode_tokens_per_sec_per_chip",
                       "value": stats["decode_tokens_per_sec_per_chip"],

@@ -1258,10 +1258,6 @@ def build_serving(args):
                            args, "seq_parallel_threshold", 0),
                        seq_parallel_chunk=getattr(
                            args, "seq_parallel_chunk", 0))
-    if getattr(args, "quant", "none") != "none":
-        raise NotImplementedError(
-            "--quant int8 weights are not ported yet (ROADMAP.md, "
-            "PyTorch/CUDA port queue: int8 weights)")
     params = load_params(model, args)
     engine = ServingEngine(model, params, rt, mesh=mesh,
                            device=getattr(args, "device", None))

@@ -123,18 +123,56 @@ raises and the script exits non-zero:
              prefill tokens; ring (all T > 1: the wgmma kernel) and paged
              launches multiples of 32; every request finishes. Tokens/s
              and TTFT.
-15. bench    the benchmark legs (obs/benchmark.py) on the same weights,
+15. quant    int8 weights (quant/int8.py) on the shared weights:
+             quantize_int8 and the int8 tree's bytes (codes held as
+             int8); one prefill + decode step's logits against the same
+             step on the maybe_dequant bf16 tree (0.5 absolute, the
+             parity phase's bar); generate (4 greedy prompts of 16-1000
+             bytes, 32 new tokens, fused then stepped: equal tokens, the
+             fresh flash kernel 32 times per prefill); 8 concurrent
+             greedy requests through serve/server.build_serving with
+             --quant int8 (paged launches a multiple of 32); one decode
+             step's host wall and device busy time and decode tok/s,
+             int8 and bf16 weights.
+16. spec     speculation (ServingEngine + Scheduler) on the shared bf16
+             weights, 8 greedy requests on draft-friendly prompts (32
+             tokens: 8 random + the model's own greedy continuation, as
+             run_spec_benchmark builds them), 32 new tokens: (a) ngram,
+             gamma 4, the serve defaults (mixed dispatch, window on),
+             and the same block with an oracle draft function
+             registered through register_draft_source, which proposes
+             the spec-off run's tokens: random weights never repeat
+             themselves, so prompt lookup finds nothing to accept and
+             the oracle drives the accept path;
+             (b) the 8-layer draft model (the alternating fallback:
+             fresh / warm flash launches multiples of 32); (c) a width-2,
+             5-node token tree with that draft; (d) generate_speculative
+             on one prompt; (e) (a) at temperature 0.8, which must
+             finish. For (a)-(d) every request finishes, verify forwards
+             happen, the oracle run accepts drafts, and a teacher-forced
+             check: in
+             one plain forward of prompt + output, every emitted token's
+             logit is within 0.5 of that position's maximum. Prints
+             tokens per forward, acceptance rate, tok/s and, against the
+             spec-off run, the requests with equal tokens and the first
+             divergence of the others (bf16 verify and decode take
+             different attention paths, so near-ties may flip).
+17. bench    the benchmark legs (obs/benchmark.py) on the same weights,
              sized by request counts: decode (batch 8, prompt 128, 64
              new: tokens/s per card, hbm_util, mfu against the card's
              datasheet row), serving (16 requests, 128 + 32 tokens, 8
              slots, int8 pool; TTFT/ITL; its _alt leg on the flash
              kernels), warm prefill (6 x 640-token prompts in 256-token
-             chunks, warm flash kernel vs the dense gather), long context
+             chunks, warm flash kernel vs the dense gather, one repeat:
+             the smoke keeps near half its time limit), long context
              (the ring microbench pair; the serving lane needs 4 cards),
              mixed (12 mixed_chat requests in one burst on a starved pool
              of 8-token pages with prefix caching and a 512 MiB host KV
-             tier, the 2x2 operating-point sweep, the _alt leg); then
-             `butterfly bench --model tiny
+             tier, the 2x2 operating-point sweep, the _alt leg), decode
+             once more on the int8 tree, speculation (spec on vs off on
+             draft-friendly prompts, then the ngram, 1-layer model and
+             width-2 tree rows on mixed_chat prompts; verify forwards
+             must happen); then `butterfly bench --model tiny
              --device cuda --serving`. Each leg's JSON on a labelled line
              with its wall seconds. Prefix hits, preemptions and tier
              revivals must be > 0, the ring microbench kernelized, and
@@ -978,11 +1016,13 @@ def phase_parity(torch, engine):
 
 # -- phase 7: where a decode step's time goes --------------------------------
 
-def phase_profile(torch, engine, steps=5):
+def _decode_step_profile(torch, engine, steps=5):
     """Decode steps of the real engine path (mixed_block_async, k=1,
     C=1, every slot decoding at the lengths below) timed on the host
-    clock with a device sync, then traced with torch.profiler: device
-    busy time per step, the idle share, and the top kernels."""
+    clock with a device sync, then traced with torch.profiler. Returns
+    (host ms per step, traced ms per step, device busy ms per step or
+    0.0 when the trace shows none, the profiler's key averages, the
+    lengths)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     S = engine.num_slots
@@ -1020,17 +1060,27 @@ def phase_profile(torch, engine, steps=5):
         run(steps)
         wall = (time.perf_counter() - t0) / steps * 1e3
     ka = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in ka if e.device_type.name == "CUDA") \
+    busy = sum(_dev_us(e) for e in ka if e.device_type.name == "CUDA") \
         / steps / 1e3
+    return step_ms, wall, busy, ka, lengths
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def phase_profile(torch, engine, steps=5):
+    """Where one decode step's time goes (_decode_step_profile): device
+    busy time per step, the idle share, the paged kernels' share and the
+    top kernels."""
+    step_ms, wall, busy, ka, lengths = _decode_step_profile(torch, engine,
+                                                            steps)
     top = sorted((e for e in ka if e.device_type.name == "CUDA"),
-                 key=dev_us, reverse=True)[:8]
+                 key=_dev_us, reverse=True)[:8]
     paged = [e for e in ka if e.device_type.name == "CUDA"
              and "paged_" in e.key and "kernel" in e.key]
-    paged_ms = sum(dev_us(e) for e in paged) / steps / 1e3
+    paged_ms = sum(_dev_us(e) for e in paged) / steps / 1e3
     log("profile", decode_step_ms=f"{step_ms:.3f}",
         traced_step_ms=f"{wall:.3f}", device_busy_ms=f"{busy:.3f}",
         idle_share=f"{1 - busy / wall:.3f}" if busy else "not measured",
@@ -1041,7 +1091,7 @@ def phase_profile(torch, engine, steps=5):
         lengths=",".join(map(str, lengths)))
     for e in top:
         log("profile", kernel=e.key[:60].replace(" ", "_"),
-            ms_per_step=f"{dev_us(e) / steps / 1e3:.4f}",
+            ms_per_step=f"{_dev_us(e) / steps / 1e3:.4f}",
             calls_per_step=e.count // steps)
 
 
@@ -1054,6 +1104,22 @@ def _check_tokens(res, B, n, vocab, what):
     assert res.tokens.shape == (B, n), f"{what}: shape {res.tokens.shape}"
     assert ((res.tokens >= 0) & (res.tokens < vocab)).all(), what
     assert (res.lengths == n).all(), f"{what}: lengths {res.lengths}"
+
+
+def _cli_params(cli, params):
+    """A context in which the CLI's load_params hands back `params` (the
+    weights built once) instead of drawing them again."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = cli.load_params
+        cli.load_params = lambda model, args: params
+        try:
+            yield
+        finally:
+            cli.load_params = saved
+    return ctx()
 
 
 def phase_generate(torch, model, params, tok):
@@ -1112,17 +1178,13 @@ def phase_generate(torch, model, params, tok):
     assert (outs["bf16_fused"] == outs["bf16_stepped"]).all(), \
         "fused and stepped greedy tokens differ"
     # the CLI's generate, handed the weights built once
-    saved = cli.load_params
-    cli.load_params = lambda model, args: params
     out, err = io.StringIO(), io.StringIO()
     flash_attention.launches_fresh = 0
-    try:
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli.main(["generate", "--model", "llama3-8b", "--device",
-                           "cuda", "--prompt", _TEXT[:300], "--max-new",
-                           str(new)])
-    finally:
-        cli.load_params = saved
+    with _cli_params(cli, params), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(["generate", "--model", "llama3-8b", "--device",
+                       "cuda", "--prompt", _TEXT[:300], "--max-new",
+                       str(new)])
     assert rc == 0, f"cli generate rc {rc}: {err.getvalue()}"
     assert flash_attention.launches_fresh == L
     total += flash_attention.launches_fresh
@@ -1542,7 +1604,376 @@ def phase_longserve(torch, model, params, tok):
     return n_ring, n_paged
 
 
-# -- phase 15: the benchmark legs ---------------------------------------------
+# -- phase 15: int8 weights ------------------------------------------------------
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.nbytes
+
+
+def _int8_leaves(tree):
+    """Every {"q8", "s"} leaf of the tree."""
+    if isinstance(tree, dict):
+        if "q8" in tree and "s" in tree:
+            return [tree]
+        return [x for v in tree.values() for x in _int8_leaves(v)]
+    return []
+
+
+def phase_quant(torch, model, params, tok):
+    """int8 weights (quant/int8.py) on the shared Llama-3-8B tree:
+    quantize_int8, the int8 tree's bytes (codes held as int8), one prefill
+    + decode step's logits against the same step on the maybe_dequant
+    bf16 tree (0.5 absolute), generate (4 greedy prompts, 32 new,
+    fused then stepped: equal tokens; the fresh flash kernel 32 times per
+    prefill), 8 concurrent greedy requests through
+    serve/server.build_serving with --quant int8 (paged launches a
+    multiple of 32), and one decode step's host wall and device busy time
+    with int8 and with bf16 weights (_decode_step_profile). Returns
+    (int8 tree, {kernel: launches})."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.models.common import forward, init_cache
+    from butterfly_tpu_torch.ops.flash_attention import flash_attention
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    from butterfly_tpu_torch.quant.int8 import dequant_tree, quantize_int8
+    from butterfly_tpu_torch.serve import cli
+    from butterfly_tpu_torch.serve.server import build_serving
+    cfg = model.cfg
+    L = cfg.num_layers
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_int8(params, cfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    leaves = _int8_leaves(qparams)
+    assert len(leaves) == 7 + 1, f"{len(leaves)} quantized leaves"
+    for leaf in leaves:
+        assert leaf["q8"].dtype == torch.int8 and leaf["q8"].is_cuda
+    q_bytes = sum(leaf["q8"].nbytes for leaf in leaves)
+    s_bytes = sum(leaf["s"].nbytes for leaf in leaves)
+    log("quant", card=card, quantize_s=f"{quant_s:.2f}",
+        bf16_tree_GB=f"{_tree_bytes(params) / 1e9:.3f}",
+        int8_tree_GB=f"{_tree_bytes(qparams) / 1e9:.3f}",
+        int8_codes_GB=f"{q_bytes / 1e9:.3f}",
+        scales_MB=f"{s_bytes / 1e6:.2f}", quantized_leaves=len(leaves))
+
+    # one prefill + decode step: int8 tree against its dequantized twin
+    deq = dequant_tree(qparams, torch.bfloat16)
+    ids = tok.encode(_TEXT[:200])
+    outs = {}
+    for name, tree in (("int8", qparams), ("dequant", deq)):
+        cache = init_cache(cfg, 1, 256, device="cuda")
+        pf, cache = forward(tree, cfg, torch.tensor([ids], device="cuda"),
+                            cache, fresh=True)
+        nxt = pf[:, -1].argmax(-1).to(torch.int32)
+        step, _ = forward(tree, cfg, nxt[:, None], cache)
+        outs[name] = (pf[0, -1].float(), step[0, -1].float(), nxt)
+    del deq, cache
+    torch.cuda.empty_cache()
+    (pf_i, st_i, n_i), (pf_d, st_d, n_d) = outs["int8"], outs["dequant"]
+    assert torch.equal(n_i, n_d), "the prefill's greedy tokens differ"
+    d_pf = (pf_i - pf_d).abs().max().item()
+    d_st = (st_i - st_d).abs().max().item()
+    for x in (pf_i, st_i):
+        assert torch.isfinite(x).all()
+    log("quant", check="int8_vs_dequant_bf16", prompt_tokens=len(ids),
+        prefill_logits_max_abs_diff=f"{d_pf:.4g}",
+        decode_logits_max_abs_diff=f"{d_st:.4g}", tol=LOGITS_TOL,
+        max_abs_logit=f"{st_d.abs().max().item():.4g}",
+        argmax_equal=bool(st_i.argmax() == st_d.argmax()))
+    assert d_pf <= LOGITS_TOL and d_st <= LOGITS_TOL, (d_pf, d_st)
+
+    # generate on the int8 tree, fused then stepped
+    prompts = [tok.encode(_TEXT[:n]) for n in (16, 200, 600, 1000)]
+    B, new = len(prompts), 32
+    eng = InferenceEngine(model, qparams, RuntimeConfig())
+    assert all(leaf["q8"].dtype == torch.int8
+               for leaf in _int8_leaves(eng.params))
+    counts = {"fresh": 0, "paged": 0}
+    toks = {}
+    for fused in (True, False):
+        flash_attention.launches_fresh = flash_attention.launches_warm = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, SamplingParams(max_new_tokens=new),
+                           fused=fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fresh = flash_attention.launches_fresh
+        assert n_fresh == L and flash_attention.launches_warm == 0, n_fresh
+        counts["fresh"] += n_fresh
+        _check_tokens(res, B, new, cfg.vocab_size, f"int8 fused={fused}")
+        toks[fused] = res.tokens
+        log("quant", run="generate_fused" if fused else "generate_stepped",
+            batch=B, new_tokens=new, wall_s=f"{wall:.3f}",
+            tokens_per_s=f"{B * new / wall:.2f}", fresh_launches=n_fresh,
+            note="smoke run, not a benchmark")
+    assert (toks[True] == toks[False]).all(), "fused and stepped differ"
+    del eng
+    torch.cuda.empty_cache()
+
+    # serve --quant int8: 8 concurrent greedy requests
+    args = cli.build_parser().parse_args(
+        ["serve", "--model", "llama3-8b", "--device", "cuda", "--quant",
+         "int8", "--port", "0", "--timeseries-interval", "0"])
+    with _cli_params(cli, qparams):
+        sched, _, rt = build_serving(args)
+    engine = sched.engine
+    assert all(leaf["q8"].dtype == torch.int8
+               for leaf in _int8_leaves(engine.params))
+    sizes = [16, 64, 200, 400, 600, 800, 1000, 1200]
+    news = [32, 40, 48, 56, 64, 32, 40, 64]
+    paged_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [sched.submit(tok.encode(_TEXT[:n]), max_new_tokens=m)
+            for n, m in zip(sizes, news)]
+    sched.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n_paged = paged_attention.launches
+    for r, m in zip(reqs, news):
+        assert r.state == "finished" and len(r.output) == m, r.id
+        assert all(0 <= t < cfg.vocab_size for t in r.output)
+    assert n_paged > 0 and n_paged % L == 0, n_paged
+    counts["paged"] += n_paged
+    gen_tokens = sum(len(r.output) for r in reqs)
+    log("quant", run="serve_int8", requests=len(reqs),
+        generated_tokens=gen_tokens, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{gen_tokens / wall:.2f}", paged_launches=n_paged,
+        note="smoke run, not a benchmark")
+    del sched
+
+    # one decode step, int8 against bf16 weights (same engine shape)
+    prof = {}
+    for name, eng in (("int8", engine),
+                      ("bf16", None)):
+        if eng is None:
+            eng = ServingEngine(model, params, rt)
+        step_ms, wall_ms, busy, _, _ = _decode_step_profile(torch, eng)
+        prof[name] = (step_ms, wall_ms, busy)
+        log("quant", decode_step=name, card=card, slots=eng.num_slots,
+            host_wall_ms=f"{step_ms:.3f}", traced_wall_ms=f"{wall_ms:.3f}",
+            device_busy_ms=f"{busy:.3f}" if busy else "not measured",
+            idle_share=f"{1 - busy / wall_ms:.3f}" if busy
+            else "not measured",
+            decode_tok_s=f"{eng.num_slots / step_ms * 1e3:.2f}")
+        eng.cache = eng._kv_window = None
+        del eng
+        torch.cuda.empty_cache()
+    engine = None
+    return qparams, counts
+
+
+# -- phase 16: speculative decoding ------------------------------------------------
+
+SPEC_PROMPT_LEN = 32   # run_spec_benchmark's prompt shape
+SPEC_NEW = 32
+
+
+def _teacher_forced_gap(torch, params, cfg, prompt, out):
+    """Prompt + output through one plain forward (fresh, dense): the
+    largest gap, over the emitted positions, between that position's
+    maximum logit and the emitted token's logit."""
+    from butterfly_tpu_torch.models.common import forward, init_cache
+    seq = list(prompt) + list(out)
+    cache = init_cache(cfg, 1, len(seq), device="cuda")
+    logits, _ = forward(params, cfg, torch.tensor([seq], device="cuda"),
+                        cache, fresh=True)
+    lg = logits[0, len(prompt) - 1:len(seq) - 1].float()
+    emitted = torch.tensor(out, device="cuda", dtype=torch.long)
+    gap = lg.max(-1).values - lg.gather(1, emitted[:, None])[:, 0]
+    return gap.max().item()
+
+
+def _divergence(a, b):
+    """First position where two token lists differ (None when equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _oracle_drafts(torch, refs):
+    """A draft function (the DRAFT_SOURCES contract: hist [S, H],
+    hist_len [S], gamma, ngram -> drafts [S, gamma], on the device) that
+    proposes the next gamma tokens of the reference sequence whose first
+    8 tokens are the slot's, zero where there is none."""
+    width = max(len(r) for r in refs)
+    R = torch.zeros((len(refs), width), dtype=torch.int32, device="cuda")
+    for i, r in enumerate(refs):
+        R[i, :len(r)] = torch.tensor(r, dtype=torch.int32)
+    K = 8
+
+    def fn(hist, hist_len, gamma, ngram):
+        match = (hist[:, None, :K] == R[None, :, :K]).all(-1)   # [S, n]
+        rows = R[match.to(torch.int32).argmax(1)]               # [S, W]
+        pos = hist_len.long()[:, None] \
+            + torch.arange(gamma, device=hist.device)[None, :]
+        ok = match.any(1)[:, None] & (pos < width)
+        d = torch.gather(rows, 1, pos.clamp(0, width - 1))
+        return torch.where(ok, d, torch.zeros_like(d))
+    return fn
+
+
+def _spec_run(torch, label, rt, drive, params, cfg, prompts, off, card):
+    """One spec configuration of phase_spec, with its checks and line."""
+    out, m, wall, gen, n = drive(label, rt)
+    assert m["spec_forwards_total"] > 0, label
+    if label == "a_oracle":
+        assert m["spec_drafts_accepted_total"] > 0, "no draft accepted"
+    if label.startswith(("b_", "c_")):
+        assert n["fresh"] > 0, f"{label}: no fresh flash launch"
+    gap = max(_teacher_forced_gap(torch, params, cfg, p, o)
+              for p, o in zip(prompts, out))
+    div = [_divergence(o, r) for o, r in zip(out, off)]
+    log("spec", run=label, card=card,
+        mixed_dispatch=m.get("spec_mixed_fallback_reason") is None,
+        tokens_per_forward=f"{m.get('spec_tokens_per_forward', 0):.3f}",
+        accept_rate=f"{m.get('spec_accept_rate', 0):.3f}",
+        spec_forwards=int(m["spec_forwards_total"]),
+        drafts_accepted=int(m["spec_drafts_accepted_total"]),
+        tokens_per_s=f"{gen / wall:.2f}", wall_s=f"{wall:.3f}",
+        teacher_forced_max_gap=f"{gap:.4g}", tol=LOGITS_TOL,
+        equal_to_spec_off=sum(d is None for d in div),
+        first_divergence=",".join("-" if d is None else str(d)
+                                  for d in div),
+        fresh_launches=n["fresh"], warm_launches=n["warm"],
+        paged_launches=n["paged"], note="smoke run, not a benchmark")
+    assert gap <= LOGITS_TOL, f"{label}: teacher-forced gap {gap}"
+
+
+def phase_spec(torch, model, params, tok):
+    """ServingEngine + Scheduler with speculation on the shared weights:
+    8 greedy requests on draft-friendly prompts (obs/benchmark.py
+    draft_friendly_prompts), 32 new tokens each: (a) ngram, gamma 4,
+    the serve CLI's defaults (mixed dispatch, window on), and the same
+    with the oracle draft function (_oracle_drafts: the spec-off run's
+    tokens), which must have drafts accepted; (b) the draft model of 8
+    layers (the alternating fallback: fresh / warm flash launches
+    multiples of 32); (c) a width-2, 5-node token tree with that draft;
+    (d) generate_speculative on one prompt; (e) (a) at temperature 0.8
+    (must finish). For (a)-(d): every request finishes, verify forwards
+    happen, and every emitted token's logit in one plain forward of
+    prompt + output is within LOGITS_TOL of that position's maximum.
+    Returns {kernel: launches}."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.engine.serving import (
+        DRAFT_SOURCES, ServingEngine, register_draft_source)
+    from butterfly_tpu_torch.obs.benchmark import draft_friendly_prompts
+    from butterfly_tpu_torch.ops.flash_attention import flash_attention
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    cfg = model.cfg
+    L = cfg.num_layers
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    base = RuntimeConfig(max_batch_size=8, max_seq_len=2048, page_size=16)
+    t0 = time.monotonic()
+    prompts = draft_friendly_prompts(
+        Scheduler(ServingEngine(model, params, base)), 8, SPEC_PROMPT_LEN)
+    log("spec", prompts=len(prompts), prompt_tokens=len(prompts[0]),
+        new_tokens=SPEC_NEW, harvest_s=f"{time.monotonic() - t0:.1f}")
+    counts = {"fresh": 0, "warm": 0, "paged": 0}
+
+    def drive(label, rt, temperature=0.0):
+        engine = ServingEngine(model, params, rt)
+        sched = Scheduler(engine)
+        flash_attention.launches_fresh = flash_attention.launches_warm = 0
+        paged_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        reqs = [sched.submit(p, max_new_tokens=SPEC_NEW,
+                             temperature=temperature) for p in prompts]
+        sched.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        n = {"fresh": flash_attention.launches_fresh,
+             "warm": flash_attention.launches_warm,
+             "paged": paged_attention.launches}
+        for r in reqs:
+            assert r.state == "finished" and len(r.output) == SPEC_NEW, \
+                f"{label}: request {r.id} {r.state} {len(r.output)}"
+            assert all(0 <= t < cfg.vocab_size for t in r.output), label
+        for k, v in n.items():
+            assert v % L == 0, f"{label}: {k} {v} launches"
+            counts[k] += v
+        m = sched.metrics()
+        gen = sum(len(r.output) for r in reqs)
+        out = [r.output for r in reqs]
+        engine.cache = engine._kv_window = None
+        del engine, sched
+        torch.cuda.empty_cache()
+        return out, m, wall, gen, n
+
+    off, _, wall_off, gen_off, _ = drive("off", base)
+    log("spec", run="off", tokens_per_s=f"{gen_off / wall_off:.2f}",
+        wall_s=f"{wall_off:.3f}")
+    # Random Llama-3-8B weights never repeat themselves (a probe of 300
+    # greedy tokens gave 299 distinct), so prompt lookup finds no draft
+    # the verify accepts. The accept path is driven by (a_oracle): the
+    # same mixed spec block with a draft function, registered through
+    # register_draft_source, that proposes the spec-off run's tokens.
+    register_draft_source("oracle", _oracle_drafts(
+        torch, [p + o for p, o in zip(prompts, off)]))
+    runs = [
+        ("a_ngram", base.replace(speculative_gamma=4)),
+        ("a_oracle", base.replace(speculative_gamma=4,
+                                  draft_model="oracle")),
+        ("b_model8", base.replace(speculative_gamma=4, draft_model="model",
+                                  draft_layers=8)),
+        ("c_tree_w2_n5", base.replace(speculative_gamma=4,
+                                      draft_model="model", draft_layers=8,
+                                      spec_tree_width=2, spec_tree_nodes=5)),
+    ]
+    try:
+        for label, rt in runs:
+            _spec_run(torch, label, rt, drive, params, cfg, prompts, off,
+                      card)
+    finally:
+        DRAFT_SOURCES.pop("oracle", None)
+
+    # (d) generate_speculative on one prompt
+    eng = InferenceEngine(model, params, RuntimeConfig())
+    sp = SamplingParams(max_new_tokens=SPEC_NEW)
+    flash_attention.launches_fresh = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate_speculative(prompts[0], sp, gamma=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert flash_attention.launches_fresh == L
+    counts["fresh"] += L
+    out = res.tokens.tolist()
+    assert len(out) == SPEC_NEW and res.forwards > 1
+    gap = _teacher_forced_gap(torch, params, cfg, prompts[0], out)
+    log("spec", run="d_generate_speculative",
+        tokens_per_forward=f"{res.tokens_per_forward:.3f}",
+        forwards=res.forwards, drafts_accepted=res.accepted_drafts,
+        tokens_per_s=f"{len(out) / wall:.2f}",
+        teacher_forced_max_gap=f"{gap:.4g}",
+        first_divergence_vs_serving_off=_divergence(out, off[0]))
+    assert gap <= LOGITS_TOL, f"generate_speculative: gap {gap}"
+    del eng
+    torch.cuda.empty_cache()
+
+    # (e) (a) at temperature 0.8
+    _, m, wall, gen, _ = drive("e_ngram_t0.8",
+                               base.replace(speculative_gamma=4), 0.8)
+    log("spec", run="e_ngram_t0.8",
+        tokens_per_forward=f"{m.get('spec_tokens_per_forward', 0):.3f}",
+        accept_rate=f"{m.get('spec_accept_rate', 0):.3f}",
+        tokens_per_s=f"{gen / wall:.2f}")
+    return counts
+
+
+# -- phase 17: the benchmark legs ---------------------------------------------
 
 #: the mixed leg's shape: the JAX package's CPU bench round (12
 #: mixed_chat requests, 8-48 prompt and 16-48 new tokens, 8-token pages,
@@ -1557,11 +1988,13 @@ BENCH_MIXED = dict(n_requests=12, max_batch=4, prompt_lo=8, prompt_hi=48,
                    max_seconds=180.0)
 
 
-def phase_bench(torch, model, params):
+def phase_bench(torch, model, params, qparams):
     """The benchmark legs of obs/benchmark.py called directly on the
     shared Llama-3-8B weights (not built a second time), sized by request
     counts and max_seconds, never by width or depth; each leg's JSON on a
-    labelled line with its wall seconds. Then one `butterfly bench
+    labelled line with its wall seconds. The decode leg runs once more on
+    the int8 tree `qparams`, and the speculation leg (spec on vs off, the
+    ngram / model / tree rows) on the bf16 weights. Then one `butterfly bench
     --model tiny --device cuda --serving` (head_dim 16 in f32: the ring
     kernel's CUDA-core route at the tiny heads). The four kernels' counts
     are zeroed just before and read just after; each must have launched.
@@ -1582,10 +2015,15 @@ def phase_bench(torch, model, params):
             model, params, n_requests=16, prompt_len=128, max_new=32,
             max_batch=8)),
         ("warm_prefill", lambda: bm.run_warm_prefill_benchmark(
-            model, params, repeats=2)),
+            model, params, repeats=1)),
         ("longctx", lambda: bm.run_longctx_benchmark(model, params)),
         ("mixed", lambda: bm.run_mixed_benchmark(model, params,
                                                  **BENCH_MIXED)),
+        ("decode_int8", lambda: bm.run_decode_benchmark(
+            model, qparams, batch=8, prompt_len=128, max_new=64)),
+        ("spec", lambda: bm.run_spec_benchmark(
+            model, params, n_requests=8, prompt_len=SPEC_PROMPT_LEN,
+            max_new=SPEC_NEW, max_batch=8, gamma=4, draft_layers=1)),
     ]
     ra.launches = ra.launches_decode = paged_attention.launches = 0
     flash_attention.launches_fresh = flash_attention.launches_warm = 0
@@ -1630,6 +2068,9 @@ def phase_bench(torch, model, params):
     assert mixed["mixed_prefix_cache_hit_tokens"] > 0, "no prefix hit"
     assert mixed["mixed_serving_preemptions"] > 0, "pool never contested"
     assert mixed["kv_tier_pages_restored_total"] > 0, "no tier revival"
+    dq, spec = res["decode_int8"], res["spec"]
+    assert 0 < dq["hbm_util"] < 1 and dq["decode_tokens_per_sec_per_chip"] > 0
+    assert spec["spec_forwards_total"] > 0
     for kname, n in counts.items():
         assert n > 0, f"the {kname} kernel never launched in the bench legs"
     log("bench", card=card, **{f"{k}_launches": n for k, n in counts.items()},
@@ -1642,6 +2083,15 @@ def phase_bench(torch, model, params):
         mixed_prefix_hit_tokens=mixed["mixed_prefix_cache_hit_tokens"],
         tier_saved=mixed["kv_tier_pages_saved_total"],
         tier_restored=mixed["kv_tier_pages_restored_total"])
+    log("bench", decode_int8_tok_s_per_card="{:.2f}".format(
+            dq["decode_tokens_per_sec_per_chip"]),
+        decode_int8_hbm_util=f"{dq['hbm_util']:.4f}",
+        spec_tok_s=f"{spec['serving_spec_tokens_per_sec']:.2f}",
+        spec_off_tok_s=f"{spec['serving_spec_off_tokens_per_sec']:.2f}",
+        spec_tokens_per_forward=f"{spec['spec_tokens_per_forward']:.3f}",
+        spec_accept_rate=f"{spec['spec_accept_rate']:.3f}",
+        **{f"spec_accept_rate_{k}": f"{spec['spec_accept_rate_' + k]:.3f}"
+           for k in ("ngram", "model", "tree")})
     return counts
 
 
@@ -1743,7 +2193,10 @@ def main() -> int:
     phase_ring_parity(torch, model, params, tok)
     serve_ring, long_paged = phase_longserve(torch, model, params, tok)
     long_ring += serve_ring
-    bench = phase_bench(torch, model, params)
+    qparams, quant = phase_quant(torch, model, params, tok)
+    spec = phase_spec(torch, model, params, tok)
+    bench = phase_bench(torch, model, params, qparams)
+    del qparams
 
     def entry(kname, source, replaces, launches, cases, main_case):
         e = {"name": kname, "route": "cuda", "source": source,
@@ -1762,15 +2215,16 @@ def main() -> int:
         entry("paged_attention",
               "butterfly_tpu_torch/ops/csrc/paged_attention.cu",
               "butterfly_tpu/ops/paged_attention.py:65",
-              serve_launches + alt["paged"] + long_paged + bench["paged"],
-              kres, "bf16_w64"),
+              serve_launches + alt["paged"] + long_paged + quant["paged"]
+              + spec["paged"] + bench["paged"], kres, "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
-              gen_fresh + alt["fresh"] + bench["fresh"], fresh_cases,
-              "fresh_bf16"),
+              gen_fresh + alt["fresh"] + quant["fresh"] + spec["fresh"]
+              + bench["fresh"], fresh_cases, "fresh_bf16"),
         entry("flash_attention_warm", flash_src,
               "butterfly_tpu/ops/flash_attention.py:97",
-              alt["warm"] + bench["warm"], warm_cases, "warm_bf16"),
+              alt["warm"] + spec["warm"] + bench["warm"], warm_cases,
+              "warm_bf16"),
         entry("ring_attention",
               "butterfly_tpu_torch/ops/csrc/ring_attention.cu",
               "butterfly_tpu/ops/ring_attention.py:158",

@@ -5,8 +5,10 @@ The decode, serving and warm-prefill legs return the JAX package's key
 sets letter for letter at the same tiny sizes; the mixed leg at the
 shape of the JAX package's bench-phase smoke satisfies its assertions,
 with prefix-cache hits and the host tier's keys; the long-context leg on
-the CPU reports the plain microbench pair; `bench --serving --mixed`
-prints one JSON line. On the CPU no device figure exists, so hbm_util
+the CPU reports the plain microbench pair; the speculation leg returns
+the JAX leg's keys and accepts drafts on its draft-friendly prompts;
+`bench --serving --mixed` and `bench --spec --quant int8` print one JSON
+line. On the CPU no device figure exists, so hbm_util
 and mfu are None: those numbers come only from a card."""
 import json
 
@@ -124,13 +126,41 @@ def test_longctx_leg_on_the_cpu_reports_the_plain_pair(models):
     assert out["longctx_ring_block_ms_jnp"] > 0
 
 
-@pytest.mark.parametrize("leg", ["run_spec_benchmark", "run_fleet_benchmark",
+#: butterfly_tpu/obs/benchmark.py:run_spec_benchmark's keys with an even
+#: gamma (the tree row runs): the JAX leg takes ~40 s to compile on this
+#: CPU, so its key set is written out here rather than recomputed
+JAX_SPEC_KEYS = {
+    "serving_spec_draft_layers", "serving_spec_gamma",
+    "serving_spec_model_tokens_per_sec", "serving_spec_ngram_tokens_per_sec",
+    "serving_spec_off_tokens_per_sec", "serving_spec_speedup",
+    "serving_spec_tokens_per_sec", "serving_spec_tree_tokens_per_sec",
+    "spec_accept_rate", "spec_accept_rate_model", "spec_accept_rate_ngram",
+    "spec_accept_rate_tree", "spec_drafts_accepted_total",
+    "spec_drain_barriers_per_forward", "spec_forwards_total",
+    "spec_tokens_per_forward", "spec_tokens_per_forward_model",
+    "spec_tokens_per_forward_ngram", "spec_tokens_per_forward_tree"}
+
+
+def test_spec_leg_on_tiny(models):
+    (_, _), (tm, tp) = models
+    out = TB.run_spec_benchmark(tm, tp, n_requests=4, prompt_len=16,
+                                max_new=8, max_batch=2, gamma=2,
+                                decode_steps_per_tick=2)
+    assert set(out) == JAX_SPEC_KEYS
+    assert out["spec_forwards_total"] > 0
+    assert out["spec_drafts_accepted_total"] > 0   # draft-friendly prompts
+    for k, v in out.items():
+        if k.endswith("tokens_per_sec"):
+            assert v > 0, k
+    assert out["spec_tokens_per_forward_tree"] >= 1.0
+
+
+@pytest.mark.parametrize("leg", ["run_fleet_benchmark",
                                  "run_autoscale_benchmark",
                                  "run_chaos_benchmark"])
 def test_unported_legs_raise(leg):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(TB, leg)(None, None) if leg == "run_spec_benchmark" \
-            else getattr(TB, leg)()
+        getattr(TB, leg)()
 
 
 def test_card_figures_from_the_device_name():
@@ -161,3 +191,15 @@ def test_cli_bench_prints_one_json_line(capsys):
               "mixed_serving_tokens_per_sec", "operating_points",
               "mixed_host_kv_tier_mb"):
         assert k in out, k
+
+
+def test_cli_bench_spec_int8_prints_one_json_line(capsys):
+    from butterfly_tpu_torch.serve.cli import main
+    assert main(["bench", "--model", "tiny", "--device", "cpu", "--spec",
+                 "--quant", "int8", "--batch", "2", "--prompt-len", "16",
+                 "--max-new", "8"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["decode_tokens_per_sec_per_chip"] > 0
+    assert JAX_SPEC_KEYS <= set(out) and out["serving_spec_gamma"] == 4

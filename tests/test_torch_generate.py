@@ -264,8 +264,6 @@ def test_engine_refuses_what_is_not_ported():
     eng = InferenceEngine(T.Model(tconfig.tiny("llama", **F32),
                                   device="cpu"), trees()[1])
     assert eng.device.type == "cpu" and eng._prefill_cfg.attn_impl == "dense"
-    with pytest.raises(NotImplementedError, match="speculation"):
-        eng.generate_speculative([1, 2, 3])
     # generate_long is ported: without a seq axis it refuses as JAX does
     with pytest.raises(ValueError, match="seq axis"):
         eng.generate_long([1, 2, 3])
@@ -315,11 +313,10 @@ def test_cli_generate_on_cpu(capsys):
     assert err.startswith("[butterfly] ") and " tokens in " in err
 
 
-@pytest.mark.parametrize("flags,item", [(["--speculate", "2"], "speculation"),
-                                        (["--seq-parallel", "2",
+@pytest.mark.parametrize("flags,item", [(["--seq-parallel", "2",
                                           "--tensor-parallel", "2"],
                                          "tensor parallelism")],
-                         ids=["speculate", "seq_parallel"])
+                         ids=["seq_parallel"])
 def test_cli_generate_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["generate", "--device", "cpu", "--model", "tiny", *flags])

@@ -4,8 +4,10 @@
 answer as in the JAX package; greedy /generate text on the bridged JAX
 weights equals ByteTokenizer.decode of the JAX Scheduler's greedy tokens;
 /kv/* answer 501 without prefix caching and /debug/profile until its
-slice; `serve`'s startup machinery builds on the CPU and refuses unported
-flags."""
+slice; `serve`'s startup machinery builds on the CPU (with --speculate
+and --quant int8 too, the per-request "speculative" field answering) and
+refuses unported flags; `generate --quant int8 --speculate 4` runs."""
+import contextlib
 import json
 import threading
 import urllib.error
@@ -41,10 +43,25 @@ def jax_params():
     return JModel(CFG).init(jax.random.PRNGKey(0))
 
 
+@contextlib.contextmanager
+def _listening(sched):
+    """The scheduler behind an HTTP server on a free local port."""
+    from http.server import ThreadingHTTPServer
+    state = ServerState(sched, ByteTokenizer())
+    state.thread.start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_port}"
+    finally:
+        state.stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+
+
 @pytest.fixture(scope="module")
 def server(jax_params):
-    from http.server import ThreadingHTTPServer
-
     from butterfly_tpu_torch.obs.ticklog import FlightRecorder
     from butterfly_tpu_torch.obs.trace import Tracer
     params = params_from_numpy(jax.tree.map(np.asarray, jax_params),
@@ -52,15 +69,8 @@ def server(jax_params):
     engine = ServingEngine(Model(TCFG, device="cpu"), params,
                            tconfig.RuntimeConfig(**RT))
     sched = Scheduler(engine, tracer=Tracer(), flightrec=FlightRecorder())
-    state = ServerState(sched, ByteTokenizer())
-    state.thread.start()
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
-    t = threading.Thread(target=httpd.serve_forever, daemon=True)
-    t.start()
-    yield f"http://127.0.0.1:{httpd.server_port}"
-    state.stop.set()
-    httpd.shutdown()
-    httpd.server_close()
+    with _listening(sched) as url:
+        yield url
 
 
 def post(url, path, obj, raw=False):
@@ -147,9 +157,48 @@ def test_serve_machinery_builds_on_cpu():
     assert sched.engine.device.type == "cpu"
     assert rt.mixed_dispatch and rt.kv_write_combine
     assert sched.metrics()["tokens_generated_total"] > 0  # the warm-up ran
-    for flag in (["--speculate", "2"], ["--quant", "int8"],
-                 ["--tensor-parallel", "2"], ["--ckpt", "x"]):
+    for flag in (["--tensor-parallel", "2"], ["--ckpt", "x"],
+                 ["--speculate", "2", "--draft-source", "model",
+                  "--draft-ckpt", "x"]):
         args = build_parser().parse_args(
             ["serve", "--model", "tiny", "--device", "cpu"] + flag)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_serving(args)
+
+
+@pytest.mark.parametrize("flags", [["--speculate", "4"],
+                                   ["--speculate", "4", "--quant", "int8",
+                                    "--draft-source", "model",
+                                    "--draft-layers", "1", "--spec-tree",
+                                    "2"]],
+                         ids=["ngram", "int8-model-tree"])
+def test_serve_speculate_answers_the_speculative_field(flags):
+    """`serve --speculate 4` builds (warm-up included) and /generate
+    answers with the per-request opt-out on and off: greedy text is the
+    same either way."""
+    from butterfly_tpu_torch.serve.cli import build_parser
+    from butterfly_tpu_torch.serve.server import build_serving
+    args = build_parser().parse_args(
+        ["serve", "--model", "tiny", "--device", "cpu", "--max-seq", "128",
+         "--port", "0", "--timeseries-interval", "0"] + flags)
+    sched, tok, rt = build_serving(args)
+    assert rt.speculative_gamma == 4
+    with _listening(sched) as url:
+        body = {"prompt": "abcabcabc", "max_tokens": 12, "stop_token": -1}
+        on = post(url, "/generate", body)
+        off = post(url, "/generate", dict(body, speculative=False))
+        with pytest.raises(urllib.error.HTTPError) as e:
+            post(url, "/generate", dict(body, speculative="no"))
+        assert e.value.code == 400
+    assert on["tokens"] == off["tokens"] and len(on["tokens"]) == 12
+    assert sched.metrics()["spec_forwards_total"] > 0
+
+
+def test_cli_generate_quant_int8_speculate(capsys):
+    from butterfly_tpu_torch.serve import cli
+    rc = cli.main(["generate", "--device", "cpu", "--model", "tiny",
+                   "--prompt", "hello hello hello", "--max-new", "16",
+                   "--quant", "int8", "--speculate", "4"])
+    out, err = capsys.readouterr()
+    assert rc == 0 and len(out) > 1
+    assert "tok/forward" in err and "drafts accepted" in err

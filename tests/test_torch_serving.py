@@ -205,7 +205,6 @@ def test_sample_batched_greedy_rows_and_seeding():
 # -- configurations the port refuses -------------------------------------------
 
 REFUSED = {
-    "speculation": dict(speculative_gamma=2),
     # the seq-parallel lane is ported; over a seq x tensor mesh it is not
     "seq_parallel": dict(seq_parallel_threshold=16),
 }
@@ -219,7 +218,7 @@ def _cpu_mesh(*shape):
     return Mesh(devs.reshape(shape))
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED) + ["mesh", "moe", "int8"])
+@pytest.mark.parametrize("name", sorted(REFUSED) + ["mesh", "moe"])
 def test_unported_configurations_refused(name):
     cfg, params, mesh, rt = TCFG, trees()[1], None, _rt(tconfig)
     if name in REFUSED:
@@ -230,9 +229,6 @@ def test_unported_configurations_refused(name):
         mesh = _cpu_mesh(2, 1, 1, 1, 1)
     elif name == "moe":
         cfg = tconfig.tiny("mixtral", dtype="float32")
-    elif name == "int8":
-        params = dict(params, lm_head={"q8": params["lm_head"],
-                                       "s": params["lm_head"][:1]})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServingEngine(Model(cfg, device="cpu"), params, rt, mesh=mesh)
 
