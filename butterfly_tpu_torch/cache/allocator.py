@@ -7,9 +7,9 @@ request must wait or a running one must be preempted (sched/scheduler.py
 policy). Page P-1 is the reserved null page (cache/paged.py) and is
 never handed out.
 
-The JAX package also binds a C++ twin of this free list (identical
-semantics); the port uses the pure-Python class until that binding is
-carried over (ROADMAP.md, PyTorch/CUDA port queue).
+A C++ twin of this free list (native/allocator.cc, identical
+semantics) is bound through ctypes in native/__init__.py;
+make_page_allocator picks it when its library is built.
 """
 from __future__ import annotations
 
@@ -87,7 +87,10 @@ class PageAllocator:
 
 def make_page_allocator(num_pages: int, page_size: int,
                         max_pages_per_seq: int, num_slots: int = 4096):
-    """The page allocator for a scheduler: the pure-Python free list
-    (the native binding is not carried over yet; `num_slots` keeps the
-    JAX factory's signature)."""
+    """Native (C++) allocator when the lib is built, else pure Python."""
+    from butterfly_tpu_torch.native import (NativePageAllocator,
+                                            native_available)
+    if native_available():
+        return NativePageAllocator(num_pages, page_size, max_pages_per_seq,
+                                   num_slots)
     return PageAllocator(num_pages, page_size, max_pages_per_seq)

@@ -20,8 +20,11 @@ The speculation leg (`run_spec_benchmark`) compares spec on and off and
 the draft sources. Weight bytes count what the tree holds: an int8 tree
 streams one byte per code plus its scales.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): the fleet, autoscale and chaos legs.
+The fleet, autoscale and chaos legs (`run_fleet_benchmark`,
+`run_autoscale_benchmark`, `run_chaos_benchmark`) drive an in-process
+fleet (fleet/harness.py) of tiny-model replicas on `device` through the
+port's loadgen (workload/loadgen.py): they measure the control plane,
+not the model.
 """
 from __future__ import annotations
 
@@ -763,11 +766,6 @@ def run_mixed_benchmark(model, params, *, n_requests: int = 32,
     return out
 
 
-def _not_ported(leg: str, item: str):
-    from butterfly_tpu_torch.engine.engine import not_ported
-    return not_ported(f"the {leg} benchmark leg", item)
-
-
 def draft_friendly_prompts(sched, n_requests: int, prompt_len: int,
                            seed: int = 0):
     """The spec leg's prompts: max(4, prompt_len // 4) random tokens each
@@ -889,13 +887,323 @@ def run_spec_benchmark(model, params, *, n_requests: int = 8,
     return out
 
 
-def run_fleet_benchmark(topology: str = "2p2d", **kwargs) -> Dict:
-    raise _not_ported("fleet", "router, fleet and workload")
+def run_fleet_benchmark(topology: str = "2p2d", *, clients: int = 3,
+                        requests_per_client: int = 4,
+                        prompt_len: int = 48, max_tokens: int = 8,
+                        page_size: int = 8, max_batch: int = 2,
+                        disagg_threshold: int = 16,
+                        prefix_share: float = 0.5,
+                        slo_ttft_ms: float = 2000.0,
+                        slo_itl_ms: float = 500.0,
+                        arrival: Optional[str] = None,
+                        host_kv_tier_mb: float = 0.0,
+                        seed: int = 0, device=None) -> Dict:
+    """Fleet soak benchmark: an in-process disaggregated topology
+    (fleet/harness.py — tiny model always: the fleet numbers measure
+    the CONTROL PLANE, not the model) on `device` (None = CUDA) driven
+    by the loadgen soak through a full rolling drain/restart cycle.
+
+    Two phases at the same workload: a DIRECT phase (disaggregation
+    off — every request dispatches straight to the decode tier) for
+    the before-TTFT, then the disaggregated soak with rolling
+    drain/restart for the after-TTFT, the transfer counters, and the
+    zero-drop property. Emits the fleet_* keys the bench JSON carries:
+    fleet_ttft_p50/p95 (+ the direct-phase _direct twins),
+    kv_transfer_bytes, kv_transfer_hit_rate, drop counts, and — against
+    the declared CPU-smoke objectives — the soak's client-measured
+    fleet_slo_attainment (loadgen judges every response against
+    slo_ttft_ms/slo_itl_ms)."""
+    from butterfly_tpu_torch.fleet.harness import start_fleet
+    from butterfly_tpu_torch.workload import loadgen as lg
+
+    shared_len = max(page_size * 4, disagg_threshold)
+    tail = page_size // 2
+    fleet = start_fleet(topology, page_size=page_size,
+                        max_batch=max_batch,
+                        max_seq=shared_len + tail + max_tokens + 16,
+                        disagg_threshold=disagg_threshold,
+                        slo_ttft_s=slo_ttft_ms / 1e3,
+                        slo_itl_s=slo_itl_ms / 1e3,
+                        host_kv_tier_mb=host_kv_tier_mb,
+                        # warm at the workload's prompt length so phase
+                        # 1 (the before-TTFT) doesn't pay the first
+                        # launches of the workload's prefill shape
+                        warm_len=shared_len + tail, device=device)
+    try:
+        # phase 1 — direct (the "before"): threshold above any prompt
+        fleet.state.disagg_threshold = 10 ** 9
+        direct = lg.run_load(fleet.url, clients=clients,
+                             requests_per_client=requests_per_client,
+                             prefix_share=prefix_share,
+                             shared_len=shared_len, tail_len=tail,
+                             max_tokens=max_tokens, seed=seed)
+        # phase 2 — disaggregated soak with rolling drain/restart
+        fleet.state.disagg_threshold = disagg_threshold
+        soak = lg.run_fleet_soak(
+            fleet.url, clients=clients,
+            requests_per_client=requests_per_client,
+            prefix_share=prefix_share, shared_len=shared_len,
+            tail_len=tail, max_tokens=max_tokens, seed=seed + 1,
+            replicas=fleet.rids,
+            restart_hook=lambda rid: fleet.by_rid[rid].restart(),
+            slo_ttft_ms=slo_ttft_ms, slo_itl_ms=slo_itl_ms,
+            arrival=arrival)
+        tier = {}
+        if host_kv_tier_mb > 0:
+            for r in fleet.replicas:
+                for k, v in r.sched.metrics().items():
+                    if k.startswith("kv_tier_"):
+                        tier[k] = tier.get(k, 0.0) + v
+            # hit rate and restore percentiles don't sum across
+            # replicas: re-derive the rate, keep the worst percentiles
+            lookups = tier.get("kv_tier_pages_restored_total", 0.0) \
+                + tier.get("kv_tier_misses_total", 0.0)
+            tier["kv_tier_hit_rate"] = round(
+                tier.get("kv_tier_pages_restored_total", 0.0) / lookups
+                if lookups else 0.0, 4)
+            for pk in ("kv_tier_restore_seconds_p50",
+                       "kv_tier_restore_seconds_p95"):
+                vals = [r.sched.metrics().get(pk) for r in fleet.replicas]
+                vals = [v for v in vals if v is not None]
+                if vals:
+                    tier[pk] = round(max(vals), 6)
+    finally:
+        fleet.stop()
+    fm = soak.get("fleet_metrics", {})
+    return {
+        "fleet_topology": topology,
+        "fleet_arrival": arrival,
+        **tier,
+        "fleet_requests": soak["sent"],
+        "fleet_dropped": soak["failed"],
+        "fleet_outcomes": soak.get("outcomes", {}),
+        "fleet_disaggregated": soak["disaggregated"],
+        "fleet_ttft_p50": soak["ttft_p50_s"],
+        "fleet_ttft_p95": soak["ttft_p95_s"],
+        "fleet_ttft_direct_p50": direct["ttft_p50_s"],
+        "fleet_ttft_direct_p95": direct["ttft_p95_s"],
+        "fleet_rps": soak["rps"],
+        "kv_transfer_bytes": fm.get("kv_transfer_bytes", 0.0),
+        "kv_transfer_pages": fm.get("kv_transfer_pages", 0.0),
+        "kv_transfer_hit_rate": fm.get("kv_transfer_hit_rate", 0.0),
+        "fleet_rolling_cycles": len(soak.get("rolling_cycles", ())),
+        # client-measured SLO attainment during the soak, against the
+        # declared objectives (also in the JSON so regressions show)
+        "fleet_slo_ttft_ms": slo_ttft_ms,
+        "fleet_slo_itl_ms": slo_itl_ms,
+        "fleet_slo_attainment": soak.get("slo_attainment"),
+    }
 
 
-def run_autoscale_benchmark(topology: str = "1p1d", **kwargs) -> Dict:
-    raise _not_ported("autoscale", "router, fleet and workload")
+def run_autoscale_benchmark(topology: str = "1p1d", *, clients: int = 4,
+                            requests_per_client: int = 6,
+                            max_tokens: int = 8, page_size: int = 8,
+                            max_batch: int = 2,
+                            arrival: str = "ramp:2:16:4",
+                            slo_ttft_ms: float = 10000.0,
+                            slo_itl_ms: float = 2000.0,
+                            max_decode: int = 3,
+                            signal_high: float = 0.5,
+                            signal_low: float = 0.05,
+                            cooldown_down_s: float = 1.0,
+                            settle_s: float = 6.0,
+                            seed: int = 0, device=None) -> Dict:
+    """Elastic-fleet acceptance soak: a ramp-arrival open loop against
+    a small in-process fleet on `device` (None = CUDA) WITH the
+    closed-loop autoscaler live on the decode tier. The claim under test: the
+    autoscaler holds the soak's client-measured slo_attainment while
+    spending FEWER replica-seconds than a fleet statically provisioned
+    at the peak shape it reached — elasticity pays for itself.
+
+    The ramp (``ramp:2:16:4`` — 2 -> 16 req/s over 4s, then hold) is
+    the canonical shape: the fleet starts small and correct for the
+    head of the ramp, the scraped queue-depth rings rise with the
+    offered rate, and the loop must grow the decode tier mid-soak.
+    After the load ends a settle window lets the hysteresis-guarded
+    scale-down fire, demonstrating both directions in one run. Every
+    decision lands in the control plane's flight recorder, fetched
+    over HTTP from /debug/flightrecorder as the audit evidence."""
+    import json as _json
+    import urllib.request as _rq
+
+    from butterfly_tpu_torch.fleet.autoscale import Autoscaler, TierPolicy
+    from butterfly_tpu_torch.fleet.harness import start_fleet
+    from butterfly_tpu_torch.workload import loadgen as lg
+
+    shared_len = page_size * 4
+    tail = page_size // 2
+    fleet = start_fleet(topology, page_size=page_size,
+                        max_batch=max_batch,
+                        max_seq=shared_len + tail + max_tokens + 16,
+                        probe_interval=0.1,
+                        slo_ttft_s=slo_ttft_ms / 1e3,
+                        slo_itl_s=slo_itl_ms / 1e3,
+                        warm_len=shared_len + tail, device=device)
+    try:
+        n0 = len(fleet.replicas)
+        pol = TierPolicy("decode", min_replicas=1,
+                         max_replicas=max_decode, signal="queue_depth",
+                         high=signal_high, low=signal_low, window=2,
+                         cooldown_up_s=0.5,
+                         cooldown_down_s=cooldown_down_s)
+        scaler = Autoscaler(fleet.state, fleet.spawn, fleet.retire,
+                            [pol], interval_s=0.2)
+        scaler.start()
+        t0 = time.monotonic()
+        load = lg.run_load(fleet.url, clients=clients,
+                           requests_per_client=requests_per_client,
+                           prefix_share=0.5, shared_len=shared_len,
+                           tail_len=tail, max_tokens=max_tokens,
+                           seed=seed, slo_ttft_ms=slo_ttft_ms,
+                           slo_itl_ms=slo_itl_ms, arrival=arrival)
+        # settle: idle rings drain below the low band and the
+        # hysteresis window elapses — the scale-down half of the claim
+        deadline = time.monotonic() + settle_s
+        while time.monotonic() < deadline:
+            if scaler.stats()["scale_downs"] > 0:
+                break
+            time.sleep(0.2)
+        wall = time.monotonic() - t0
+        scaler.stop()
+        st = scaler.stats()
+        # replay the event log to find the peak shape the fleet reached
+        ns, n = [n0], n0
+        for e in st["events"]:
+            n += 1 if e["direction"] == "up" else -1
+            ns.append(n)
+        peak = max(ns)
+        with _rq.urlopen(fleet.url + "/debug/flightrecorder",
+                         timeout=10.0) as resp:
+            rec = _json.loads(resp.read())
+        scale_events = [e for e in rec.get("events", ())
+                        if e.get("kind") == "scale"]
+    finally:
+        fleet.stop()
+    static_peak = peak * wall
+    return {
+        "autoscale_topology": topology,
+        "autoscale_arrival": arrival,
+        "autoscale_requests": load["sent"],
+        "autoscale_dropped": load["failed"],
+        "autoscale_slo_ttft_ms": slo_ttft_ms,
+        "autoscale_slo_itl_ms": slo_itl_ms,
+        "autoscale_slo_attainment": load.get("slo_attainment"),
+        "autoscale_ttft_p95_s": load.get("ttft_p95_s"),
+        # the cost side: integral of live replicas over the soak vs a
+        # static fleet provisioned at the peak shape the whole time
+        "autoscale_replica_seconds": round(st["replica_seconds"], 3),
+        "autoscale_static_peak_replica_seconds": round(static_peak, 3),
+        "autoscale_replica_seconds_saved_frac": round(
+            1.0 - st["replica_seconds"] / static_peak, 4)
+        if static_peak > 0 else 0.0,
+        "autoscale_peak_replicas": peak,
+        "autoscale_scale_ups": st["scale_ups"],
+        "autoscale_scale_downs": st["scale_downs"],
+        # audit evidence: the decisions as served by the control
+        # plane's /debug/flightrecorder
+        "autoscale_flightrec_scale_events": len(scale_events),
+    }
 
 
-def run_chaos_benchmark(topology: str = "2p2d", **kwargs) -> Dict:
-    raise _not_ported("chaos", "router, fleet and workload")
+def run_chaos_benchmark(topology: str = "2p2d", *, clients: int = 3,
+                        requests_per_client: int = 4,
+                        max_tokens: int = 8, page_size: int = 8,
+                        max_batch: int = 2, disagg_threshold: int = 16,
+                        prefix_share: float = 0.5,
+                        seed: int = 0, device=None) -> Dict:
+    """Chaos soak benchmark: the in-process fleet on `device` (None =
+    CUDA) under the SEEDED stock fault plan (fleet/chaos.py default_plan —
+    delayed prefill, 500s and a breaker-tripping wedge burst on the
+    decode tier, dropped and truncated connections) driven by loadgen,
+    plus a burst of already-expired deadline requests.
+
+    The pass property is system-level: every submitted request reaches
+    a TERMINAL outcome (tokens, 429, or 504) — zero un-started drops,
+    zero client hangs — while the faults actually fire. The JSON keys
+    carry the overload-protection counters: serving_shed_total (summed
+    over replica schedulers), deadline_expired_total (replicas +
+    control plane), breaker_open_total (pool-wide open transitions),
+    and the classified leg-failure count."""
+    from butterfly_tpu_torch.fleet.chaos import default_plan
+    from butterfly_tpu_torch.fleet.harness import start_fleet
+    from butterfly_tpu_torch.workload import loadgen as lg
+
+    plan = default_plan(seed=seed)
+    shared_len = max(page_size * 4, disagg_threshold)
+    tail = page_size // 2
+    # generous declared objectives: the SLO/shed machinery is ACTIVE
+    # (counters live, shed path armed) without turning CPU-smoke
+    # latency noise into nondeterministic shedding
+    fleet = start_fleet(topology, page_size=page_size,
+                        max_batch=max_batch,
+                        max_seq=shared_len + tail + max_tokens + 16,
+                        disagg_threshold=disagg_threshold,
+                        chaos=plan, slo_ttft_s=120.0, slo_itl_s=120.0,
+                        warm_len=shared_len + tail, device=device)
+    try:
+        # arm the control plane's flight recorder for the spent-budget
+        # burst below: 3 expiries inside the window is a deadline-
+        # expiry-burst anomaly at this soak's scale, so the soak also
+        # proves the post-mortem path end-to-end
+        fleet.state.flightrec.expiry_burst = 3
+        # phase 1 — the chaos load: faults fire across both tiers while
+        # closed-loop clients demand terminal outcomes
+        load = lg.run_load(fleet.url, clients=clients,
+                           requests_per_client=requests_per_client,
+                           prefix_share=prefix_share,
+                           shared_len=shared_len, tail_len=tail,
+                           max_tokens=max_tokens, seed=seed)
+        # phase 2 — a spent-budget burst: every request arrives with a
+        # dead deadline and must 504 at the control plane, never
+        # touching a queue or a decode slot
+        expired = lg.run_load(fleet.url, clients=1,
+                              requests_per_client=3,
+                              prefix_share=0.0, shared_len=shared_len,
+                              tail_len=tail, max_tokens=max_tokens,
+                              seed=seed + 1, deadline_ms=0.0)
+        # the fleet-wide flight-recorder rollup: control-plane +
+        # per-replica rings merged on the probe-offset clock, with the
+        # expiry-burst trigger's post-mortem artifact(s) attached
+        import json as _json
+        import urllib.request as _rq
+        with _rq.urlopen(fleet.url + "/fleet/flightrecorder",
+                         timeout=10.0) as resp:
+            flightrec = _json.loads(resp.read())
+        shed = sum(r.sched.metrics().get("shed_total", 0.0)
+                   for r in fleet.replicas)
+        deadline = sum(
+            r.sched.metrics().get("deadline_expired_total", 0.0)
+            for r in fleet.replicas)
+        cp = fleet.state.fleet_counters()
+        deadline += cp["deadline_expired"]
+        breaker_opens = fleet.state.pool.breaker_opens_total()
+    finally:
+        fleet.stop()
+    o1, o2 = load["outcomes"], expired["outcomes"]
+    sent = load["sent"] + expired["sent"]
+    terminal = load["terminal"] + expired["terminal"]
+    return {
+        "chaos_topology": topology,
+        "chaos_seed": seed,
+        "chaos_requests": sent,
+        "chaos_terminal": terminal,
+        "chaos_unterminal": sent - terminal,
+        "chaos_errors": o1["error"] + o2["error"],
+        "chaos_shed_429": o1["shed_429"] + o2["shed_429"],
+        "chaos_deadline_504": o1["deadline_504"] + o2["deadline_504"],
+        "chaos_injected": plan.total_injected,
+        "chaos_fallbacks": cp["disagg_fallbacks"],
+        "chaos_leg_failures": cp["leg_failures"],
+        # the overload-protection counter families (acceptance keys in
+        # the bench JSON)
+        "serving_shed_total": shed,
+        "deadline_expired_total": deadline,
+        "breaker_open_total": breaker_opens,
+        # flight-recorder evidence: the expiry burst must
+        # have produced at least one schema-valid post-mortem artifact
+        "chaos_flightrec_dumps": len(flightrec.get("dumps", ())),
+        "chaos_flightrec_reasons": sorted(
+            {d.get("reason") for d in flightrec.get("dumps", ())}),
+        "chaos_flightrec_sources": len(flightrec.get("sources", {})),
+        "chaos_flightrec_events": len(flightrec.get("events", ())),
+    }

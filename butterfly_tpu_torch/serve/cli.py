@@ -12,9 +12,17 @@
     python -m butterfly_tpu_torch.serve.cli generate --model tiny --device cpu --quant int8 --speculate 4
     python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu --speculate 4 --draft-source model --draft-layers 1
     python -m butterfly_tpu_torch.serve.cli bench --model tiny --device cpu --spec --prompt-len 32 --max-new 32
+    python -m butterfly_tpu_torch.serve.cli route --backends 127.0.0.1:8000,127.0.0.1:8001 --port 8100
+    python -m butterfly_tpu_torch.serve.cli fleet --topology 2p2d --device cpu
+    python -m butterfly_tpu_torch.serve.cli workload generate --n 32 --out trace.jsonl
+    python -m butterfly_tpu_torch.serve.cli workload replay --trace trace.jsonl --url http://127.0.0.1:8100
+    python -m butterfly_tpu_torch.serve.cli workload sweep --device cpu --n 16 --prompt-hi 64 --max-new-hi 16
+    python -m butterfly_tpu_torch.serve.cli dash timeseries.json --text
 
-The subcommands keep the JAX CLI's flags (butterfly_tpu/serve/cli.py) and
-add --device (default cuda). `--seq-parallel N` builds a seq mesh of N
+The subcommands keep the JAX CLI's flags (butterfly_tpu/serve/cli.py);
+the ones that build an engine (generate, serve, bench, fleet, workload
+sweep) add --device (default cuda). route, workload generate|replay and
+dash load no model and touch no device. `--seq-parallel N` builds a seq mesh of N
 shards: on cuda:0..N-1 with --device cuda (N cards needed), on the CPU with
 --device cpu. Flags whose path the port does not carry yet are accepted
 and refused with NotImplementedError naming the ROADMAP.md item. Without
@@ -41,10 +49,20 @@ def build_parser() -> argparse.ArgumentParser:
                                             "(PyTorch/CUDA port)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def common(sp):
+    def slo_flags(sp):
+        sp.add_argument("--slo-ttft-ms", type=float, default=None,
+                        help="declared time-to-first-token objective (ms)")
+        sp.add_argument("--slo-itl-ms", type=float, default=None,
+                        help="declared mean inter-token-latency "
+                             "objective (ms)")
+
+    def device_flag(sp):
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="where the engine runs (default cuda; without "
                              "a card, pass cpu explicitly)")
+
+    def common(sp):
+        device_flag(sp)
         sp.add_argument("--model", default="tiny",
                         help="preset name (gpt2-124m, llama3-8b, "
                              "llama3-70b, mixtral-8x7b) or 'tiny'")
@@ -152,10 +170,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--seq-parallel-chunk", type=int, default=0,
                    help="tokens per seq-parallel prefill dispatch (0 = "
                         "N x the prefill chunk)")
-    s.add_argument("--slo-ttft-ms", type=float, default=None,
-                   help="declared time-to-first-token objective (ms)")
-    s.add_argument("--slo-itl-ms", type=float, default=None,
-                   help="declared mean inter-token-latency objective (ms)")
+    slo_flags(s)
     s.add_argument("--profiler-port", type=int, default=0,
                    help="profiler server (not ported yet; 0 = off)")
     s.add_argument("--flightrec-dir", default=None, metavar="DIR",
@@ -199,6 +214,176 @@ def build_parser() -> argparse.ArgumentParser:
                         "tree draft rows on mixed_chat prompts) and merge "
                         "its spec_* keys into the JSON line (gamma 4, a "
                         "1-layer draft model)")
+
+    # multi-replica router in front of `serve` replicas: loads no model
+    # and touches no device, so it gets no common() flags
+    r = sub.add_parser("route",
+                       help="route requests across serve replicas "
+                            "(prefix-affinity + health-aware failover)")
+    r.add_argument("--backends", required=True,
+                   help="comma-separated replica addresses, e.g. "
+                        "10.0.0.1:8000,10.0.0.2:8000")
+    r.add_argument("--port", type=int, default=8100)
+    r.add_argument("--host", default="0.0.0.0")
+    r.add_argument("--page-size", type=int, default=16,
+                   help="MUST match the replicas' --page-size: affinity "
+                        "keys hash the same token blocks their prefix "
+                        "caches key pages by")
+    r.add_argument("--affinity-blocks", type=int, default=4,
+                   help="leading full prompt blocks hashed into the "
+                        "affinity key")
+    r.add_argument("--saturate-after", type=int, default=8,
+                   help="outstanding requests at which the affinity "
+                        "target is considered saturated and routing "
+                        "falls back to least-outstanding")
+    r.add_argument("--probe-interval", type=float, default=0.5,
+                   help="seconds between /health probes of each replica")
+    r.add_argument("--dead-after", type=int, default=3,
+                   help="consecutive connect failures before a replica "
+                        "is marked dead")
+    r.add_argument("--read-timeout", type=float, default=300.0,
+                   help="per-request socket timeout toward a replica")
+    r.add_argument("--disaggregate", action="store_true",
+                   help="run the KV-aware fleet control plane instead of "
+                        "the plain router: prefill-heavy requests go to "
+                        "--role prefill replicas, their KV pages stream "
+                        "to a --role decode replica by chain hash "
+                        "(GET /kv/pages -> POST /kv/import), and "
+                        "generation finishes there")
+    r.add_argument("--disagg-threshold", type=int, default=64,
+                   help="predicted fresh-prefill tokens at which a "
+                        "request is worth the prefill/decode handoff")
+    slo_flags(r)
+
+    # local disaggregated fleet for manual debugging: N prefill + M
+    # decode in-process tiny-model replicas behind one control plane
+    f = sub.add_parser("fleet",
+                       help="spin a local prefill/decode fleet (replicas "
+                            "+ control plane, in-process) for manual "
+                            "debugging")
+    device_flag(f)
+    f.add_argument("--topology", default="2p2d",
+                   help="'<N>p<M>d' = N prefill + M decode replicas "
+                        "(default 2p2d), or a bare count for a "
+                        "role-less pool")
+    f.add_argument("--page-size", type=int, default=8)
+    f.add_argument("--max-batch", type=int, default=2)
+    f.add_argument("--max-seq", type=int, default=128)
+    f.add_argument("--disagg-threshold", type=int, default=16)
+    f.add_argument("--autoscale", action="store_true",
+                   help="run the closed-loop autoscaler (fleet/"
+                        "autoscale.py) on every tier in the topology; "
+                        "decisions land in GET /debug/flightrecorder")
+    f.add_argument("--scale-min", type=int, default=1,
+                   help="autoscaler floor per tier (default 1)")
+    f.add_argument("--scale-max", type=int, default=4,
+                   help="autoscaler ceiling per tier (default 4)")
+    f.add_argument("--scale-high", type=float, default=4.0,
+                   help="tier-mean queue_depth above which a tier "
+                        "grows (default 4.0)")
+    f.add_argument("--scale-low", type=float, default=0.5,
+                   help="tier-mean queue_depth below which a tier "
+                        "shrinks, after the hysteresis cooldown "
+                        "(default 0.5)")
+    f.add_argument("--host-tier-mb", type=float, default=0.0,
+                   help="per-replica host-RAM KV tier budget in MiB "
+                        "(see `serve --host-tier-mb`); 0 = off")
+    f.add_argument("--host-tier-dir", default=None, metavar="DIR",
+                   help="disk-spill directory for the replicas' host "
+                        "KV tiers (see `serve --host-tier-dir`)")
+    f.add_argument("--chaos", default=None, metavar="PLAN",
+                   help="seeded fault-injection plan: a JSON file "
+                        "(fleet/chaos.py ChaosPlan.from_file) or the "
+                        "literal 'default' for the stock soak plan")
+    slo_flags(f)
+
+    # workload tooling: seeded traces, open-loop replay at a live URL,
+    # and operating-point sweeps on an in-process engine
+    w = sub.add_parser("workload",
+                       help="stochastic workload tooling: generate a "
+                            "seeded trace, replay one at a server "
+                            "open-loop, or sweep scheduler operating "
+                            "points")
+    wsub = w.add_subparsers(dest="wcmd", required=True)
+
+    def workload_shape_flags(sp):
+        sp.add_argument("--workload", default="mixed_chat",
+                        help="canned workload name (mixed_chat, uniform)")
+        sp.add_argument("--n", type=int, default=32,
+                        help="requests to sample")
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--arrival", default="poisson:8",
+                        help="arrival process: poisson:<rate>, "
+                             "burst:<rate_on>:<mean_on_s>:<mean_off_s>"
+                             "[:<rate_off>], ramp:<r0>:<r1>:<ramp_s>")
+        sp.add_argument("--vocab", type=int, default=258,
+                        help="token-id vocabulary (match the target "
+                             "model; 258 = tiny)")
+        sp.add_argument("--page-size", type=int, default=16,
+                        help="prefix alignment unit — match the "
+                             "server's --page-size")
+        sp.add_argument("--prompt-lo", type=int, default=32)
+        sp.add_argument("--prompt-hi", type=int, default=1024)
+        sp.add_argument("--max-new-lo", type=int, default=8)
+        sp.add_argument("--max-new-hi", type=int, default=256)
+        sp.add_argument("--deadline-ms", type=float, default=None,
+                        help="latency budget for the workload's "
+                             "deadline-carrying cohort")
+
+    wg = wsub.add_parser("generate",
+                         help="sample a workload + arrival schedule "
+                              "into a JSONL trace")
+    workload_shape_flags(wg)
+    wg.add_argument("--out", required=True, metavar="FILE",
+                    help="trace output path (JSONL)")
+
+    wr = wsub.add_parser("replay",
+                         help="fire a saved trace at a live server/"
+                              "router URL with absolute-time fidelity "
+                              "(open loop)")
+    wr.add_argument("--trace", required=True, metavar="FILE")
+    wr.add_argument("--url", required=True,
+                    help="target base URL, e.g. http://127.0.0.1:8000")
+    wr.add_argument("--speed", type=float, default=1.0,
+                    help="schedule compression: 2.0 replays twice as "
+                         "fast")
+    wr.add_argument("--timeout", type=float, default=120.0)
+    slo_flags(wr)
+
+    ws = wsub.add_parser("sweep",
+                         help="run one workload across a "
+                              "decode_steps_per_tick x inflight_blocks "
+                              "grid (in-process engine) and emit the "
+                              "latency/throughput table + knee")
+    workload_shape_flags(ws)
+    device_flag(ws)
+    ws.add_argument("--model", default="tiny")
+    ws.add_argument("--quant", choices=["none", "int8"], default="none")
+    ws.add_argument("--kv-quant", choices=["none", "int8"], default="none",
+                    help="KV-cache quantization")
+    ws.add_argument("--ckpt", default=None)
+    ws.add_argument("--grid", default="1,4x1,2",
+                    help="'<k1>,<k2>x<d1>,<d2>' decode_steps_per_tick "
+                         "x inflight_blocks values, full cross product")
+    ws.add_argument("--max-batch", type=int, default=8)
+    ws.add_argument("--num-pages", type=int, default=0,
+                    help="KV page pool size (0 = full provisioning)")
+    ws.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="arm SLO-aware admission shedding during the "
+                         "sweep (sheds are counted per point)")
+
+    # timeseries dashboard renderer (tools/dashboard.py, stdlib): loads
+    # no model and touches no device
+    d = sub.add_parser("dash",
+                       help="render a dumped /debug/timeseries or "
+                            "/fleet/timeseries body as a static HTML "
+                            "dashboard or --text sparklines")
+    d.add_argument("dump", help="JSON file (the timeseries body)")
+    d.add_argument("--out", default=None,
+                   help="write HTML here (default: stdout)")
+    d.add_argument("--text", action="store_true",
+                   help="unicode sparklines for terminals instead of "
+                        "HTML")
     return p
 
 
@@ -402,10 +587,193 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_route(args) -> int:
+    backends = [b for b in args.backends.split(",") if b.strip()]
+    if args.disaggregate:
+        from butterfly_tpu_torch.fleet.controlplane import fleet_forever
+        return fleet_forever(backends, host=args.host, port=args.port,
+                             page_size=args.page_size,
+                             affinity_blocks=args.affinity_blocks,
+                             saturate_after=args.saturate_after,
+                             probe_interval=args.probe_interval,
+                             dead_after=args.dead_after,
+                             read_timeout=args.read_timeout,
+                             disagg_threshold=args.disagg_threshold,
+                             slo_ttft_s=(args.slo_ttft_ms / 1e3
+                                         if args.slo_ttft_ms else None),
+                             slo_itl_s=(args.slo_itl_ms / 1e3
+                                        if args.slo_itl_ms else None))
+    if args.slo_ttft_ms or args.slo_itl_ms:
+        print("[butterfly] note: --slo-ttft-ms/--slo-itl-ms apply to "
+              "the control plane (--disaggregate) and to the replicas' "
+              "own `serve` flags; the plain router records no SLO",
+              file=sys.stderr)
+    from butterfly_tpu_torch.router.proxy import route_forever
+    return route_forever(backends, host=args.host, port=args.port,
+                         page_size=args.page_size,
+                         affinity_blocks=args.affinity_blocks,
+                         saturate_after=args.saturate_after,
+                         probe_interval=args.probe_interval,
+                         dead_after=args.dead_after,
+                         read_timeout=args.read_timeout)
+
+
+def cmd_fleet(args) -> int:
+    """`butterfly fleet`: the in-process fleet topology on --device,
+    held open for manual poking (curl the printed control-plane URL)."""
+    import threading
+
+    from butterfly_tpu_torch.fleet.harness import parse_topology, start_fleet
+
+    chaos = None
+    if args.chaos:
+        from butterfly_tpu_torch.fleet.chaos import ChaosPlan, default_plan
+        chaos = default_plan() if args.chaos == "default" \
+            else ChaosPlan.from_file(args.chaos)
+        print(f"[butterfly] chaos plan armed: {len(chaos.rules)} rules, "
+              f"seed {chaos.seed}", flush=True)
+    print(f"[butterfly] starting local fleet {args.topology} on "
+          f"{args.device} (tiny model, warming each replica)...",
+          flush=True)
+    fleet = start_fleet(args.topology, page_size=args.page_size,
+                        max_batch=args.max_batch, max_seq=args.max_seq,
+                        disagg_threshold=args.disagg_threshold,
+                        chaos=chaos, host_kv_tier_mb=args.host_tier_mb,
+                        host_kv_tier_dir=args.host_tier_dir,
+                        slo_ttft_s=(args.slo_ttft_ms / 1e3
+                                    if args.slo_ttft_ms else None),
+                        slo_itl_s=(args.slo_itl_ms / 1e3
+                                   if args.slo_itl_ms else None),
+                        device=args.device)
+    scaler = None
+    if args.autoscale:
+        from butterfly_tpu_torch.fleet.autoscale import (Autoscaler,
+                                                         TierPolicy)
+        policies = [TierPolicy(role, min_replicas=args.scale_min,
+                               max_replicas=args.scale_max,
+                               high=args.scale_high, low=args.scale_low)
+                    for role in dict.fromkeys(parse_topology(args.topology))]
+        scaler = Autoscaler(fleet.state, fleet.spawn, fleet.retire,
+                            policies, interval_s=1.0)
+        scaler.start()
+        print(f"[butterfly] autoscaler live on "
+              f"{[p.role for p in policies]} "
+              f"(bounds {args.scale_min}..{args.scale_max}, band "
+              f"{args.scale_low}..{args.scale_high}; decisions at "
+              f"GET /debug/flightrecorder)", flush=True)
+    print(f"[butterfly] control plane: {fleet.url}  "
+          f"(GET /fleet/state, POST /generate)", flush=True)
+    for r in fleet.replicas:
+        print(f"[butterfly]   replica {r.rid}  role={r.role}", flush=True)
+    print("[butterfly] Ctrl-C to stop", flush=True)
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        fleet.stop()
+    return 0
+
+
+def cmd_workload(args) -> int:
+    """`butterfly workload generate|replay|sweep`: generate and replay
+    are stdlib (no engine, no device); sweep builds an in-process engine
+    on --device."""
+    import json
+
+    from butterfly_tpu_torch.workload import (assign_arrivals, get_workload,
+                                              parse_arrival)
+    from butterfly_tpu_torch.workload import replay as replay_mod
+
+    if args.wcmd == "generate":
+        wl = get_workload(args.workload, page_size=args.page_size,
+                          vocab=args.vocab, prompt_lo=args.prompt_lo,
+                          prompt_hi=args.prompt_hi,
+                          max_new_lo=args.max_new_lo,
+                          max_new_hi=args.max_new_hi,
+                          deadline_ms=args.deadline_ms)
+        specs = wl.sample(args.n, args.seed)
+        assign_arrivals(specs, parse_arrival(args.arrival), args.seed)
+        replay_mod.save_trace(args.out, specs, workload=wl,
+                              arrival=args.arrival, seed=args.seed)
+        cohorts = {}
+        for s in specs:
+            cohorts[s.cohort] = cohorts.get(s.cohort, 0) + 1
+        print(json.dumps({
+            "trace": str(args.out), "workload": wl.name, "n": len(specs),
+            "seed": args.seed, "arrival": args.arrival,
+            "cohorts": cohorts,
+            "prompt_tokens": sum(len(s.tokens) for s in specs),
+            "max_new_tokens": sum(s.max_new for s in specs),
+            "span_s": round(specs[-1].arrival_s, 3) if specs else 0.0}))
+        return 0
+    if args.wcmd == "replay":
+        _, specs = replay_mod.load_trace(args.trace)
+        stats = replay_mod.replay_trace(
+            args.url, specs, speed=args.speed, timeout=args.timeout,
+            slo_ttft_ms=args.slo_ttft_ms, slo_itl_ms=args.slo_itl_ms)
+        print(json.dumps(stats, indent=2))
+        # sheds / 504s are requested backpressure; only transport
+        # errors and 5xx faults fail the replay
+        return 0 if stats["outcomes"]["error"] == 0 else 1
+    from butterfly_tpu_torch.core.config import PRESETS, tiny
+    from butterfly_tpu_torch.models.common import Model
+    from butterfly_tpu_torch.workload.sweep import (parse_grid,
+                                                    run_operating_point_sweep)
+    cfg = tiny("llama", dtype="float32", param_dtype="float32") \
+        if args.model == "tiny" else PRESETS[args.model]()
+    model = Model(cfg, device=args.device)
+    params = load_params(model, args)
+    # the sweep drives a real engine, so the workload's vocabulary is
+    # the MODEL's (--vocab applies to `generate`, whose trace may
+    # target any server)
+    wl = get_workload(args.workload, page_size=args.page_size,
+                      vocab=model.cfg.vocab_size,
+                      prompt_lo=args.prompt_lo, prompt_hi=args.prompt_hi,
+                      max_new_lo=args.max_new_lo,
+                      max_new_hi=args.max_new_hi,
+                      deadline_ms=args.deadline_ms)
+    out = run_operating_point_sweep(
+        model, params, workload=wl, arrival=args.arrival,
+        n_requests=args.n, grid=parse_grid(args.grid),
+        max_batch=args.max_batch, num_pages=args.num_pages,
+        kv_quant=args.kv_quant, slo_ttft_ms=args.slo_ttft_ms,
+        seed=args.seed)
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def cmd_dash(args) -> int:
+    """`butterfly dash`: the stdlib timeseries dashboard renderer, the
+    repo's tools/dashboard.py loaded by path (it is not part of either
+    package, so this needs a source checkout)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[2] / "tools" / "dashboard.py"
+    if not path.exists():
+        print("error: butterfly dash needs the repo's tools/dashboard.py "
+              "(run from a source checkout)", file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location("butterfly_dashboard",
+                                                  path)
+    dashboard = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(dashboard)
+    argv = [args.dump]
+    if args.out:
+        argv += ["--out", args.out]
+    if args.text:
+        argv.append("--text")
+    return dashboard.main(argv)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     return {"generate": cmd_generate, "serve": cmd_serve,
-            "bench": cmd_bench}[args.cmd](args)
+            "bench": cmd_bench, "route": cmd_route, "fleet": cmd_fleet,
+            "workload": cmd_workload, "dash": cmd_dash}[args.cmd](args)
 
 
 if __name__ == "__main__":

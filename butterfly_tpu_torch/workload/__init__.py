@@ -1,7 +1,6 @@
 """Workload modeling: stochastic mixed traffic for honest serving numbers.
 
-The port of butterfly_tpu/workload/ (its trace replay driver is not
-carried over yet):
+The port of butterfly_tpu/workload/:
 
   models.py    composable request-population specs (length
                distributions, shared-prefix cohorts, priority/deadline
@@ -11,10 +10,15 @@ carried over yet):
   sweep.py     operating-point sweep engine: one workload across a
                decode_steps_per_tick x inflight_blocks grid, emitting
                the latency/throughput curve + knee point
+  replay.py    JSONL trace files + absolute-time open-loop replay at
+               a live server / router / control-plane URL
+  loadgen.py   the load generator (closed-loop clients, the fleet soak,
+               open-loop workloads), a copy of tools/loadgen.py
 
-models and arrivals are stdlib-only copies of the JAX package's, so the
-same (spec, seed) gives the same trace in both; sweep drives an
-in-process Scheduler and imports the engine lazily.
+models, arrivals, replay and loadgen are stdlib-only copies of the JAX
+package's (and of tools/loadgen.py), so the same (spec, seed) gives the
+same trace in both; sweep drives an in-process Scheduler and imports
+the engine lazily.
 """
 from butterfly_tpu_torch.workload.arrivals import (  # noqa: F401
     MarkovOnOff,

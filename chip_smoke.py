@@ -10,7 +10,8 @@ raises and the script exits non-zero:
 2. build     compiles every CUDA kernel from the sources in this checkout,
              one nvcc per source, all started together; prints ptxas'
              registers, spills and static shared memory for every kernel
-             instantiation, by name.
+             instantiation, by name; then the native page allocator
+             (native/allocator.cc, g++), which must load.
 3. kernel    the paged-attention kernel (split-KV + merge) against its
              plain PyTorch version and the plain version of its split
              decomposition at Llama-3-8B main-path shapes (S=8, Nq=32, Kv=8,
@@ -76,6 +77,7 @@ raises and the script exits non-zero:
              steps share ticks. Kernel launch counts are zeroed just before
              and read just after; the paged kernel must have launched, a
              multiple of 32 times (one launch per layer per decode step).
+             The scheduler must run on the native page allocator.
              These weights are built once; every later engine shares them.
 7. parity    on the same engine, one decode step through all layers with
              equal carries, bf16: each layer's kernel output against the
@@ -157,7 +159,30 @@ raises and the script exits non-zero:
              spec-off run, the requests with equal tokens and the first
              divergence of the others (bf16 verify and decode take
              different attention paths, so near-ties may flip).
-17. bench    the benchmark legs (obs/benchmark.py) on the same weights,
+17. fleet    `butterfly fleet` at full width and depth: the native
+             allocator is built in phase 2 (the serve phase runs on it;
+             fleet replicas run the prefix-caching allocator, whose
+             registry KV transfer addresses); fleet/harness.start_fleet(
+             "2p2d") on the shared bf16 weights (one tree: the memory
+             rise at start must stay under 8 GiB), page 16, 4 slots of
+             1024 tokens, threshold 64, behind the control plane. 8
+             greedy requests of 384 tokens (half share a 256-token head),
+             32 new, from 4 client threads: a direct run (threshold
+             10**9), then the disaggregated run (prefill leg, GET
+             /kv/pages, POST /kv/import, decode leg), where every request
+             must be disaggregated and pages transferred; per request the
+             first divergence from the direct run (bf16 near-ties may
+             flip) and a teacher-forced check (every emitted token's
+             logit within 0.5 of its position's maximum in one plain
+             forward). Then an export -> import -> export of a fresh
+             prompt's pages (identical page bytes), a drained restart of
+             one decode replica under load (nothing dropped), spawn and
+             retire of a decode replica (memory back within one pool).
+             Prints the legs' median seconds (control-plane tracer),
+             TTFT p50/p95 of both runs, transfer bytes, the payload's
+             raw and JSON bytes and each replica's tick host share; the
+             paged kernel must launch.
+18. bench    the benchmark legs (obs/benchmark.py) on the same weights,
              sized by request counts: decode (batch 8, prompt 128, 64
              new: tokens/s per card, hbm_util, mfu against the card's
              datasheet row), serving (16 requests, 128 + 32 tokens, 8
@@ -172,7 +197,11 @@ raises and the script exits non-zero:
              once more on the int8 tree, speculation (spec on vs off on
              draft-friendly prompts, then the ngram, 1-layer model and
              width-2 tree rows on mixed_chat prompts; verify forwards
-             must happen); then `butterfly bench --model tiny
+             must happen), the fleet (nothing dropped through the
+             rolling restart, pages transferred), chaos (every request
+             terminal, faults injected) and autoscale (a scale-up in the
+             flight recorder) legs at their JAX defaults on tiny-model
+             fleets; then `butterfly bench --model tiny
              --device cuda --serving`. Each leg's JSON on a labelled line
              with its wall seconds. Prefix hits, preemptions and tier
              revivals must be > 0, the ring microbench kernelized, and
@@ -856,11 +885,15 @@ def phase_serve(torch):
     sched, tok, rt = build_serving(args)
     engine = sched.engine
     cfg = engine.cfg
+    # the native free list, built in the build phase (no prefix caching)
+    assert type(sched.alloc).__name__ == "NativePageAllocator", \
+        type(sched.alloc).__name__
     log("serve", model=args.model, layers=cfg.num_layers,
         hidden=cfg.hidden_size, dtype=cfg.dtype, slots=rt.max_batch_size,
         max_seq=rt.max_seq_len, page=rt.page_size,
         mixed_dispatch=rt.mixed_dispatch,
         kv_write_combine=rt.kv_write_combine,
+        allocator=type(sched.alloc).__name__,
         setup_s=f"{time.monotonic() - t0:.1f}")
     class Server(ThreadingHTTPServer):
         # the serve entrypoint's backlog (serve/server.py:serve_forever):
@@ -1973,7 +2006,261 @@ def phase_spec(torch, model, params, tok):
     return counts
 
 
-# -- phase 17: the benchmark legs ---------------------------------------------
+# -- phase 17: the disaggregated fleet ----------------------------------------
+
+#: the fleet phase's shape: 2 prefill + 2 decode replicas of the shared
+#: Llama-3-8B tree, 4 slots of 1024 tokens each in 16-token pages
+FLEET = dict(page_size=16, max_batch=4, max_seq=1024, disagg_threshold=64)
+FLEET_PROMPT, FLEET_SHARED, FLEET_NEW, FLEET_REQUESTS = 384, 256, 32, 8
+
+
+def _fleet_prompts(vocab):
+    """8 token prompts of 384 tokens from a seed; the even ones share a
+    256-token head, the odd ones are private."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, vocab, FLEET_SHARED).tolist()
+    return [shared + rng.integers(1, vocab,
+                                  FLEET_PROMPT - FLEET_SHARED).tolist()
+            if i % 2 == 0 else rng.integers(1, vocab, FLEET_PROMPT).tolist()
+            for i in range(FLEET_REQUESTS)]
+
+
+def _fleet_run(url, prompts, tag):
+    """The prompts through the control plane's /generate from 4 client
+    threads (2 requests each), greedy, FLEET_NEW tokens. Returns
+    ([(status, body)] in prompt order, wall seconds)."""
+    results = [None] * len(prompts)
+
+    def client(c):
+        for i in range(c, len(prompts), 4):
+            results[i] = _post(url, {"tokens": prompts[i],
+                                     "max_tokens": FLEET_NEW,
+                                     "temperature": 0.0, "stop_token": -1,
+                                     "request_id": f"{tag}-{i}"})
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    for i, r in enumerate(results):
+        assert r is not None, f"{tag} request {i} got no answer"
+        code, body = r
+        assert code == 200, f"{tag} request {i}: HTTP {code}"
+        assert len(body["tokens"]) == FLEET_NEW, \
+            f"{tag} request {i}: {len(body['tokens'])} tokens"
+    return [b for _, b in results], wall
+
+
+def _legs(tracer, tag):
+    """Median seconds of each control-plane leg span of the requests
+    whose id starts with `tag`, and each leg's count by status ("ok",
+    or the HTTP code of a failed leg, "None" for a transport failure)."""
+    legs, status = {}, {}
+    for tl in tracer.timelines():
+        if not (tl["request_id"] or "").startswith(tag):
+            continue
+        for ev in tl["events"]:
+            if "dur_s" in ev:
+                legs.setdefault(ev["name"], []).append(ev["dur_s"])
+                by = status.setdefault(ev["name"], {})
+                st = str(ev.get("status", "ok"))
+                by[st] = by.get(st, 0) + 1
+    return ({k: statistics.median(v) for k, v in sorted(legs.items())},
+            {k: "+".join(f"{n}x{st}" for st, n in sorted(v.items()))
+             for k, v in sorted(status.items())})
+
+
+def _pool_bytes(engine):
+    c = engine.cache
+    return sum(t.numel() * t.element_size()
+               for t in (c.k_pages, c.v_pages, c.k_scale_pages,
+                         c.v_scale_pages) if t is not None)
+
+
+def phase_fleet(torch, model, params):
+    """`butterfly fleet` on the card: fleet/harness.start_fleet("2p2d")
+    over the shared Llama-3-8B weights (full width and depth, one tree for
+    all four replicas), the control plane in front, on cuda. A direct run
+    (disaggregation off) and a disaggregated run of the same 8 requests;
+    the page bytes of an export -> import -> export; a drained restart of
+    one decode replica under load with nothing dropped; spawn and retire
+    of a decode replica, its pool's memory given back. Returns {kernel:
+    launches} (the paged kernel's count over the phase)."""
+    import gc
+
+    import numpy as np
+
+    from butterfly_tpu_torch.cache.prefix import (PrefixCachingAllocator,
+                                                  chain_block_hashes)
+    from butterfly_tpu_torch.fleet.harness import start_fleet
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    from butterfly_tpu_torch.workload import loadgen as lg
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    cfg = model.cfg
+    paged_attention.launches = 0
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    fleet = start_fleet("2p2d", model=model, params=params, device="cuda",
+                        **FLEET)
+    try:
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        pool = _pool_bytes(fleet.replicas[0].sched.engine)
+        log("fleet", card=card, topology="2p2d", layers=cfg.num_layers,
+            hidden=cfg.hidden_size, dtype=cfg.dtype,
+            start_s=f"{time.monotonic() - t0:.1f}",
+            memory_allocated_GiB_before=f"{mem0 / 2**30:.3f}",
+            memory_allocated_GiB_after=f"{mem1 / 2**30:.3f}",
+            pool_GiB=f"{pool / 2**30:.3f}",
+            allocators=",".join(type(r.sched.alloc).__name__
+                                for r in fleet.replicas))
+        assert mem1 - mem0 < 8 * 2**30, "the weights were copied"
+        # KV transfer addresses pages through the prefix registry, so a
+        # fleet replica always runs the prefix-caching allocator
+        assert all(isinstance(r.sched.alloc, PrefixCachingAllocator)
+                   for r in fleet.replicas)
+
+        prompts = _fleet_prompts(cfg.vocab_size)
+        c0 = fleet.state.fleet_counters()
+        fleet.state.disagg_threshold = 10 ** 9
+        direct, wall_direct = _fleet_run(fleet.url, prompts, "direct")
+        c1 = fleet.state.fleet_counters()
+        fleet.state.disagg_threshold = FLEET["disagg_threshold"]
+        disagg, wall_disagg = _fleet_run(fleet.url, prompts, "disagg")
+        c2 = fleet.state.fleet_counters()
+        n_disagg = c2["disagg_requests"] - c1["disagg_requests"]
+        pages = c2["kv_transfer_pages"] - c1["kv_transfer_pages"]
+        xbytes = c2["kv_transfer_bytes"] - c1["kv_transfer_bytes"]
+        assert c1["disagg_requests"] == c0["disagg_requests"]
+        assert n_disagg == FLEET_REQUESTS, f"{n_disagg} disaggregated"
+        assert all(b.get("disaggregated") for b in disagg)
+        assert pages > 0, "no KV page transferred"
+        div = [_divergence(d["tokens"], r["tokens"])
+               for d, r in zip(disagg, direct)]
+        gap = max(_teacher_forced_gap(torch, params, cfg, p, b["tokens"])
+                  for p, b in zip(prompts, disagg))
+        legs, legs_status = _legs(fleet.state.tracer, "disagg")
+        legs_direct, _ = _legs(fleet.state.tracer, "direct")
+        n_tokens = FLEET_REQUESTS * FLEET_NEW
+        ttft_d = sorted(b["ttft_s"] for b in direct)
+        ttft_x = sorted(b["ttft_s"] for b in disagg)
+
+        def p95(xs):
+            return xs[min(len(xs) - 1, int(round(0.95 * (len(xs) - 1))))]
+        log("fleet", run="direct_vs_disagg", card=card,
+            equal_to_direct=sum(d is None for d in div),
+            first_divergence=",".join("-" if d is None else str(d)
+                                      for d in div),
+            teacher_forced_max_gap=f"{gap:.4g}", tol=LOGITS_TOL,
+            fleet_disaggregated=int(n_disagg), kv_transfer_pages=int(pages),
+            kv_transfer_bytes=int(xbytes),
+            ttft_direct_p50_s=f"{statistics.median(ttft_d):.4f}",
+            ttft_direct_p95_s=f"{p95(ttft_d):.4f}",
+            ttft_disagg_p50_s=f"{statistics.median(ttft_x):.4f}",
+            ttft_disagg_p95_s=f"{p95(ttft_x):.4f}",
+            wall_direct_s=f"{wall_direct:.3f}",
+            wall_disagg_s=f"{wall_disagg:.3f}",
+            tokens_per_s_direct=f"{n_tokens / wall_direct:.2f}",
+            tokens_per_s_disagg=f"{n_tokens / wall_disagg:.2f}",
+            note="smoke run, not a benchmark")
+        log("fleet", run="leg_medians_s", card=card,
+            **{f"disagg_{k}": f"{v:.4f}" for k, v in legs.items()},
+            **{f"direct_{k}": f"{v:.4f}" for k, v in legs_direct.items()})
+        # the /kv legs take the replica's serving lock with a 2 s bound:
+        # a longer tick answers 503 and the decode replica prefills the
+        # prompt itself
+        log("fleet", run="leg_status", card=card,
+            **{f"disagg_{k}": v for k, v in legs_status.items()})
+        log("fleet", run="tick_host_frac", card=card,
+            **{f"{r.role}_{r.port}":
+               "{:.4f}".format(r.sched.metrics().get("tick_host_frac", -1))
+               for r in fleet.replicas})
+        assert gap <= LOGITS_TOL, f"teacher-forced gap {gap}"
+
+        # payload bytes: export -> import -> export
+        pre, dec = fleet.replicas[0], fleet.replicas[2]
+        probe = np.random.default_rng(1).integers(
+            1, cfg.vocab_size, FLEET_PROMPT).tolist()
+        lg._post_json(pre.url, "/generate", {"tokens": probe,
+                                             "max_tokens": 1,
+                                             "stop_token": -1}, timeout=600)
+        path = "/kv/pages?hashes=" + ",".join(
+            h.hex() for h in chain_block_hashes(probe, FLEET["page_size"]))
+        t0 = time.monotonic()
+        a = lg._get_json(pre.url, path, timeout=600)
+        t_export = time.monotonic() - t0
+        t0 = time.monotonic()
+        res = lg._post_json(dec.url, "/kv/import", a, timeout=600)
+        t_import = time.monotonic() - t0
+        b = lg._get_json(dec.url, path, timeout=600)
+        assert len(a["pages"]) == FLEET_PROMPT // FLEET["page_size"]
+        assert res["imported"] + res["skipped"] == len(a["pages"])
+        assert b["pages"] == a["pages"], "page bytes changed in transit"
+        log("fleet", run="payload", card=card, pages=len(a["pages"]),
+            raw_bytes=a["bytes"],
+            json_bytes=len(json.dumps(a).encode()),
+            export_s=f"{t_export:.3f}", import_s=f"{t_import:.3f}",
+            identical_after_roundtrip=True)
+
+        # a drained restart of one decode replica under load
+        soak = lg.run_fleet_soak(
+            fleet.url, clients=4, requests_per_client=2, prefix_share=0.5,
+            shared_len=FLEET_SHARED, tail_len=FLEET_PROMPT - FLEET_SHARED,
+            max_tokens=FLEET_NEW, seed=1, vocab=cfg.vocab_size,
+            timeout=600.0, replicas=[dec.rid],
+            restart_hook=lambda rid: fleet.by_rid[rid].restart())
+        log("fleet", run="restart", card=card, replica=dec.rid,
+            sent=soak["sent"], failed=soak["failed"],
+            cycles=len(soak["rolling_cycles"]),
+            drained=soak["rolling_cycles"][0].get("drained"))
+        assert soak["sent"] == 8 and soak["failed"] == 0, soak
+        assert soak["rolling_cycles"][0].get("restarted")
+
+        # spawn and retire a decode replica: its pool must go away
+        gc.collect()
+        torch.cuda.synchronize()
+        m_before = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        handle = fleet.spawn("decode")
+        t_spawn = time.monotonic() - t0
+        r = lg._post_json(handle.url, "/generate",
+                          {"tokens": prompts[0][:64], "max_tokens": 4,
+                           "stop_token": -1}, timeout=600)
+        assert len(r["tokens"]) == 4
+        torch.cuda.synchronize()
+        m_spawned = torch.cuda.memory_allocated()
+        rid = handle.rid
+        del handle, r
+        t0 = time.monotonic()
+        assert fleet.retire(rid)
+        t_retire = time.monotonic() - t0
+        torch.cuda.synchronize()
+        m_after = torch.cuda.memory_allocated()
+        log("fleet", run="spawn_retire", card=card,
+            spawn_s=f"{t_spawn:.2f}", retire_s=f"{t_retire:.2f}",
+            memory_allocated_GiB_before=f"{m_before / 2**30:.3f}",
+            memory_allocated_GiB_spawned=f"{m_spawned / 2**30:.3f}",
+            memory_allocated_GiB_after=f"{m_after / 2**30:.3f}",
+            pool_GiB=f"{pool / 2**30:.3f}")
+        assert abs(m_after - m_before) < pool, \
+            "the retired replica's pool is still allocated"
+    finally:
+        fleet.stop()
+    launches = paged_attention.launches
+    assert launches > 0, "the paged kernel never launched in the fleet"
+    log("fleet", card=card, paged_attention_launches=launches)
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged": launches}
+
+
+# -- phase 18: the benchmark legs ---------------------------------------------
 
 #: the mixed leg's shape: the JAX package's CPU bench round (12
 #: mixed_chat requests, 8-48 prompt and 16-48 new tokens, 8-token pages,
@@ -1994,9 +2281,11 @@ def phase_bench(torch, model, params, qparams):
     counts and max_seconds, never by width or depth; each leg's JSON on a
     labelled line with its wall seconds. The decode leg runs once more on
     the int8 tree `qparams`, and the speculation leg (spec on vs off, the
-    ngram / model / tree rows) on the bf16 weights. Then one `butterfly bench
-    --model tiny --device cuda --serving` (head_dim 16 in f32: the ring
-    kernel's CUDA-core route at the tiny heads). The four kernels' counts
+    ngram / model / tree rows) on the bf16 weights, then the fleet, chaos
+    and autoscale legs at their defaults (in-process tiny-model fleets on
+    the card). Then one `butterfly bench --model tiny --device cuda
+    --serving` (head_dim 16 in f32: the ring kernel's CUDA-core route at
+    the tiny heads). The four kernels' counts
     are zeroed just before and read just after; each must have launched.
     Returns {kernel: launches}."""
     import contextlib
@@ -2024,6 +2313,12 @@ def phase_bench(torch, model, params, qparams):
         ("spec", lambda: bm.run_spec_benchmark(
             model, params, n_requests=8, prompt_len=SPEC_PROMPT_LEN,
             max_new=SPEC_NEW, max_batch=8, gamma=4, draft_layers=1)),
+        # the fleet legs at the JAX defaults: tiny-model replicas, since
+        # they measure the control plane, not the model
+        ("fleet", lambda: bm.run_fleet_benchmark("2p2d", device="cuda")),
+        ("chaos", lambda: bm.run_chaos_benchmark("2p2d", device="cuda")),
+        ("autoscale", lambda: bm.run_autoscale_benchmark(
+            "1p1d", device="cuda")),
     ]
     ra.launches = ra.launches_decode = paged_attention.launches = 0
     flash_attention.launches_fresh = flash_attention.launches_warm = 0
@@ -2071,6 +2366,11 @@ def phase_bench(torch, model, params, qparams):
     dq, spec = res["decode_int8"], res["spec"]
     assert 0 < dq["hbm_util"] < 1 and dq["decode_tokens_per_sec_per_chip"] > 0
     assert spec["spec_forwards_total"] > 0
+    fl, ch, au = res["fleet"], res["chaos"], res["autoscale"]
+    assert fl["fleet_dropped"] == 0 and fl["kv_transfer_pages"] > 0, fl
+    assert ch["chaos_unterminal"] == 0 and ch["chaos_injected"] > 0, ch
+    assert au["autoscale_scale_ups"] >= 1 \
+        and au["autoscale_flightrec_scale_events"] >= 1, au
     for kname, n in counts.items():
         assert n > 0, f"the {kname} kernel never launched in the bench legs"
     log("bench", card=card, **{f"{k}_launches": n for k, n in counts.items()},
@@ -2148,6 +2448,8 @@ def main() -> int:
               "run needs an NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from butterfly_tpu_torch import native
+    from butterfly_tpu_torch.native import build as native_build
     from butterfly_tpu_torch.ops import build
     from butterfly_tpu_torch.ops.paged_attention import paged_attention
 
@@ -2166,6 +2468,11 @@ def main() -> int:
     built = build.build_all()
     log("build", seconds=f"{time.monotonic() - t0:.1f}",
         built=",".join(built) or "cached")
+    t0 = time.monotonic()
+    lib = native_build.build(verbose=False)
+    assert native.native_available(), "the native allocator did not load"
+    log("build", source="native/allocator.cc", lib=os.path.relpath(lib, ROOT),
+        gxx_s=f"{time.monotonic() - t0:.1f}")
     for k, (secs, err) in build.build_log.items():
         log("build", source=k, nvcc_s=f"{secs:.1f}")
         for kern, regs, spill, smem in _ptxas_kernels(err):
@@ -2195,6 +2502,7 @@ def main() -> int:
     long_ring += serve_ring
     qparams, quant = phase_quant(torch, model, params, tok)
     spec = phase_spec(torch, model, params, tok)
+    fleet = phase_fleet(torch, model, params)
     bench = phase_bench(torch, model, params, qparams)
     del qparams
 
@@ -2216,7 +2524,8 @@ def main() -> int:
               "butterfly_tpu_torch/ops/csrc/paged_attention.cu",
               "butterfly_tpu/ops/paged_attention.py:65",
               serve_launches + alt["paged"] + long_paged + quant["paged"]
-              + spec["paged"] + bench["paged"], kres, "bf16_w64"),
+              + spec["paged"] + fleet["paged"] + bench["paged"], kres,
+              "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
               gen_fresh + alt["fresh"] + quant["fresh"] + spec["fresh"]

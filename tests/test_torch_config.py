@@ -58,7 +58,18 @@ def test_port_never_imports_jax_or_the_jax_package():
             "butterfly_tpu_torch/workload/sweep.py",
             "butterfly_tpu_torch/obs/benchmark.py",
             "butterfly_tpu_torch/quant/int8.py",
-            "butterfly_tpu_torch/models/draft.py"} <= names
+            "butterfly_tpu_torch/models/draft.py",
+            "butterfly_tpu_torch/router/pool.py",
+            "butterfly_tpu_torch/router/policy.py",
+            "butterfly_tpu_torch/router/proxy.py",
+            "butterfly_tpu_torch/fleet/controlplane.py",
+            "butterfly_tpu_torch/fleet/harness.py",
+            "butterfly_tpu_torch/fleet/autoscale.py",
+            "butterfly_tpu_torch/fleet/chaos.py",
+            "butterfly_tpu_torch/workload/replay.py",
+            "butterfly_tpu_torch/workload/loadgen.py",
+            "butterfly_tpu_torch/native/__init__.py",
+            "butterfly_tpu_torch/native/build.py"} <= names
     for f in files:
         tree = ast.parse(f.read_text(), filename=str(f))
         for node in ast.walk(tree):
