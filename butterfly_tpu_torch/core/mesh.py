@@ -14,12 +14,22 @@ run seq=4 on `cpu`, and one card runs seq=2 with both shards on cuda:0.
 Nothing places shards implicitly: with no list, the mesh takes the
 visible cards cuda:0..n-1 and their count must match.
 
-Only the `seq` axis is ported. A mesh with another axis larger than 1
-(tensor, data, stage, expert) raises NotImplementedError naming its
-ROADMAP item.
+The `seq` and `expert` axes are ported, one at a time. A mesh with
+another axis larger than 1 (tensor, data, stage), or with both `seq` and
+`expert` larger than 1, raises NotImplementedError naming its ROADMAP
+item.
+
+The engines make their mesh the ACTIVE mesh (`mesh_ctx`, the counterpart
+of the JAX package's ambient mesh, core/compat.py:mesh_ctx) around every
+forward they dispatch; the expert-parallel FFN (parallel/expert.py) reads
+it with `active_mesh()` as the JAX one reads the abstract mesh, so the
+layer functions keep their signatures.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -32,8 +42,10 @@ _UNPORTED_AXES = {
     "tensor": "tensor parallelism",
     "data": "data parallelism",
     "stage": "pipeline parallelism",
-    "expert": "Mixtral / expert parallelism",
 }
+
+#: where a mesh that combines two ported axes waits
+_COMBINED_AXES = "item 6, meshes that combine axes (expert x seq)"
 
 
 class Mesh:
@@ -46,13 +58,27 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               devices.shape))
 
+    def _along(self, axis: str) -> List[torch.device]:
+        """The devices along `axis`, every other coordinate 0."""
+        idx = tuple(slice(None) if a == axis else 0 for a in self.axis_names)
+        return list(self.devices[idx])
+
     def seq_devices(self) -> List[torch.device]:
-        """The devices along the seq axis (every other axis is 1), shard
-        order."""
-        return list(self.devices.reshape(-1))
+        """The devices along the seq axis, shard order."""
+        return self._along("seq")
+
+    def expert_devices(self) -> List[torch.device]:
+        """The devices along the expert axis, shard order: shard i holds
+        experts [i*E/N, (i+1)*E/N)."""
+        return self._along("expert")
+
+    @property
+    def first_device(self) -> torch.device:
+        """The device every program that is not sharded runs on."""
+        return self.devices.reshape(-1)[0]
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={self.seq_devices()})"
+        return f"Mesh({self.shape}, devices={list(self.devices.reshape(-1))})"
 
 
 def _refuse_unported_axes(cfg: MeshConfig) -> None:
@@ -61,7 +87,12 @@ def _refuse_unported_axes(cfg: MeshConfig) -> None:
             raise NotImplementedError(
                 f"a mesh with {axis}={getattr(cfg, axis)} is not ported yet "
                 f"(ROADMAP.md, PyTorch/CUDA port queue: {item}); only the "
-                "seq axis runs")
+                "seq and expert axes run")
+    if cfg.expert > 1 and cfg.seq > 1:
+        raise NotImplementedError(
+            f"a mesh with expert={cfg.expert} and seq={cfg.seq} is not "
+            f"ported yet (ROADMAP.md, PyTorch/CUDA port queue: "
+            f"{_COMBINED_AXES}); the seq and expert axes run one at a time")
 
 
 def make_mesh(cfg: MeshConfig,
@@ -111,12 +142,51 @@ def mesh_for(n_devices: int, tensor: int = 0, stage: int = 1,
     return make_mesh(cfg, devices=list(devices)[:n_devices])
 
 
-def require_seq_mesh(mesh: Mesh) -> None:
-    """Raise NotImplementedError unless every axis but `seq` is 1."""
-    sizes = {a: mesh.shape.get(a, 1) for a in _UNPORTED_AXES}
-    _refuse_unported_axes(MeshConfig(**sizes))
+def require_ported_mesh(mesh: Mesh) -> None:
+    """Raise NotImplementedError unless the mesh is a seq-only or an
+    expert-only mesh (every other axis 1)."""
+    _refuse_unported_axes(MeshConfig(**{a: mesh.shape.get(a, 1)
+                                        for a in MESH_AXES}))
 
 
 def seq_degree(mesh: Optional[Mesh]) -> int:
     """The mesh's seq size (1 without a mesh)."""
     return 1 if mesh is None else mesh.shape.get("seq", 1)
+
+
+def expert_degree(mesh: Optional[Mesh]) -> int:
+    """The mesh's expert size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape.get("expert", 1)
+
+
+_ACTIVE: contextvars.ContextVar[Optional[Mesh]] = \
+    contextvars.ContextVar("butterfly_active_mesh", default=None)
+
+
+def active_mesh() -> Optional[Mesh]:
+    """The mesh of the innermost `mesh_ctx` in this thread, else None."""
+    return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def mesh_ctx(mesh: Optional[Mesh]):
+    """Make `mesh` the active mesh for the block (None = leave the
+    active mesh as it is, as the JAX mesh_ctx does)."""
+    if mesh is None:
+        yield
+        return
+    token = _ACTIVE.set(mesh)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+def under_mesh(method):
+    """Decorator for an engine method that dispatches forwards: run it
+    with the engine's `self.mesh` active."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kw):
+        with mesh_ctx(self.mesh):
+            return method(self, *args, **kw)
+    return wrapped

@@ -11,8 +11,12 @@ device work.
 Under a seq mesh (core/mesh.py) `generate_long` runs the long-context
 path of parallel/sequence.py: a sequence-parallel prefill through the ring
 kernel (or Ulysses) that leaves the prompt's K/V sharded where it was
-computed, then decode steps that merge per-shard partial attention. Every
-other program runs on the mesh's first device.
+computed, then decode steps that merge per-shard partial attention. Under
+an expert mesh the MoE expert leaves are split over its shards
+(parallel/partition.py:shard_params) and every forward runs with the mesh
+active, so the expert-parallel FFN (cfg.moe_impl="ep",
+parallel/expert.py) dispatches over it. Every other program runs on the
+mesh's first device.
 
 `generate_speculative` is prompt-lookup speculative decoding on one
 sequence: n-gram drafts verified in one (gamma+1)-token forward, accepted
@@ -35,12 +39,14 @@ import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
-from butterfly_tpu_torch.core.mesh import require_seq_mesh, seq_degree
+from butterfly_tpu_torch.core.mesh import (
+    expert_degree, require_ported_mesh, seq_degree, under_mesh)
 from butterfly_tpu_torch.engine.sampling import (
     SamplingParams, sample, speculative_accept)
 from butterfly_tpu_torch.models.common import (
     KVCache, Model, decode_step_win, flush_window, forward, init_cache,
     torch_dtype)
+from butterfly_tpu_torch.parallel.partition import ExpertShards, shard_params
 from butterfly_tpu_torch.parallel.sequence import (
     replicate_params, sp_decode_step, sp_forward)
 
@@ -99,15 +105,15 @@ def _ngram_draft(history, gamma: int, ngram: int):
 
 
 def mesh_device(mesh, device, model) -> torch.device:
-    """The engine's device: the mesh's first device under a (seq-only)
-    mesh, where every program that is not seq-parallel runs; else
+    """The engine's device: the mesh's first device under a (seq-only or
+    expert-only) mesh, where every program that is not sharded runs; else
     `device`, else the model's. A `device` that disagrees with the mesh
     raises."""
     if mesh is None:
         return resolve_device(
             device if device is not None else getattr(model, "device", None))
-    require_seq_mesh(mesh)
-    first = resolve_device(mesh.seq_devices()[0])
+    require_ported_mesh(mesh)
+    first = resolve_device(mesh.first_device)
     if device is not None:
         want = torch.device(device)
         if want.type != first.type or want.index not in (None, first.index):
@@ -117,17 +123,39 @@ def mesh_device(mesh, device, model) -> torch.device:
 
 
 def to_device(params, device: torch.device):
-    """The weight tree with every leaf on `device` (no copy when there)."""
+    """The weight tree with every leaf on `device` (no copy when there);
+    expert leaves already split over a mesh keep their placement."""
     if isinstance(params, dict):
         return {k: to_device(v, device) for k, v in params.items()}
+    if isinstance(params, ExpertShards):
+        return params
     return params.to(device)
+
+
+def place_params(params, cfg: ModelConfig, device: torch.device, mesh):
+    """The engine's weight tree: cast to the compute dtype on `device`
+    and, under an expert mesh, the expert leaves split over its shards
+    (views where a shard shares the device: one card holds one tree)."""
+    params = to_device(cast_params(params, cfg), device)
+    if expert_degree(mesh) > 1:
+        params = shard_params(params, cfg, mesh)
+    return params
+
+
+def seq_replicas(params, mesh):
+    """The weights on every distinct device of a seq mesh (shards that
+    share a card share its tensors: no second copy); None otherwise."""
+    if seq_degree(mesh) <= 1:
+        return None
+    return replicate_params(params, mesh.seq_devices())
 
 
 class InferenceEngine:
     """Inference over a weight tree on `device` (None = the model's
     device, CUDA unless the caller asks for the CPU), or over a seq-only
-    `mesh` (core/mesh.py): then on the mesh's first device, with one copy
-    of the weights per distinct mesh device for `generate_long`."""
+    or expert-only `mesh` (core/mesh.py): then on the mesh's first
+    device, with one copy of the weights per distinct seq device for
+    `generate_long`, or the expert leaves split over the expert shards."""
 
     def __init__(self, model: Model, params,
                  runtime: Optional[RuntimeConfig] = None, mesh=None,
@@ -135,19 +163,14 @@ class InferenceEngine:
         self.model = model
         self.cfg = model.cfg
         self.runtime = runtime or RuntimeConfig()
-        if self.cfg.is_moe:
-            raise not_ported("MoE models", "Mixtral / expert parallelism")
         self.mesh = mesh
         self.device = mesh_device(mesh, device, model)
         # (B, max_seq) -> reusable cache buffers from the previous call;
         # bounded (FIFO) so varying shapes can't pin unbounded memory
         self._cache_pool: "OrderedDict" = OrderedDict()
         self._cache_pool_cap = 2
-        self.params = to_device(cast_params(params, self.cfg), self.device)
-        # the weights on every other distinct mesh device (shards that
-        # share a card share its tensors: no second copy)
-        self._replicas = None if mesh is None else \
-            replicate_params(self.params, mesh.seq_devices())
+        self.params = place_params(params, self.cfg, self.device, mesh)
+        self._replicas = seq_replicas(self.params, mesh)
         if use_flash_prefill is None:
             # the hand-written kernels need the card; the CPU runs their
             # plain versions (the wrapper picks by tensor device)
@@ -168,6 +191,7 @@ class InferenceEngine:
                           max_seq or self.runtime.max_seq_len,
                           quant=self.runtime.kv_quant, device=self.device)
 
+    @under_mesh
     def prefill(self, tokens: torch.Tensor, true_lens: torch.Tensor,
                 cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
         """tokens [B,Tpad] right-padded; returns (last-token logits [B,V],
@@ -175,12 +199,14 @@ class InferenceEngine:
         return _prefill_step(self._prefill_cfg, self.params, tokens, cache,
                              true_lens)
 
+    @under_mesh
     def decode(self, token: torch.Tensor, cache: KVCache,
                generator: Optional[torch.Generator], sp: SamplingParams
                ) -> Tuple[torch.Tensor, KVCache, torch.Generator]:
         return _decode_step(self.cfg, self.params, token, cache, generator,
                             sp)
 
+    @under_mesh
     def generate(self, prompts: Sequence[Sequence[int]],
                  sp: Optional[SamplingParams] = None,
                  seed: int = 0, fused: bool = True) -> GenerateResult:
@@ -247,6 +273,7 @@ class InferenceEngine:
         return GenerateResult(tokens=out[:n_real], lengths=lens[:n_real],
                               prompt_lengths=np.asarray(true_lens)[:n_real])
 
+    @under_mesh
     def generate_long(self, prompt: Sequence[int],
                       sp: Optional[SamplingParams] = None,
                       seed: int = 0, impl: str = "ring") -> GenerateResult:
@@ -324,6 +351,7 @@ class InferenceEngine:
                               lengths=lens,
                               prompt_lengths=np.asarray([true_len]))
 
+    @under_mesh
     def generate_speculative(self, prompt: Sequence[int],
                              sp: Optional[SamplingParams] = None,
                              gamma: int = 4, ngram: int = 2,

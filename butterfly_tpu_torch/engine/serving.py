@@ -21,8 +21,11 @@ Under a seq-only mesh (core/mesh.py) a third dispatch serves the
 scheduler's long-prompt lane (`sp_prefill_chunk`): one chunk of a long
 prompt sharded over `seq`, its fresh K/V attended through the ring
 kernel, landing in the ordinary page pool; the slot then decodes like any
-other. Every other program, and the pool, live on the mesh's first
-device.
+other. Under an expert-only mesh the MoE expert leaves are split over its
+shards (parallel/partition.py:shard_params) and every dispatch runs with
+the mesh active, so the expert-parallel FFN (cfg.moe_impl="ep",
+parallel/expert.py) dispatches over it in every path. Every other
+program, the pool and the window live on the mesh's first device.
 
 Decode steps (C == 1) attend through the hand-written paged-attention
 kernel on CUDA (`use_kernels`, on by default there). With kernels on, the
@@ -39,10 +42,6 @@ with prefill lanes. Drafts come from DRAFT_SOURCES: prompt lookup
 ("ngram") or the on-device draft model ("model", models/draft.py). A
 verify is a multi-token warm step: it takes the dense gather, as on the
 TPU. Weights may be int8 ({"q8", "s"} leaves, quant/int8.py).
-
-MoE configurations raise NotImplementedError at construction, naming the
-ROADMAP.md item, so no request runs silently on a path the JAX package
-would run differently.
 """
 from __future__ import annotations
 
@@ -56,16 +55,15 @@ from butterfly_tpu_torch.cache.paged import (
     init_paged_cache, paged_forward, paged_forward_window,
     permute_paged_tail, permute_window_tail)
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
-from butterfly_tpu_torch.core.mesh import seq_degree
+from butterfly_tpu_torch.core.mesh import seq_degree, under_mesh
 from butterfly_tpu_torch.engine.engine import (
-    cast_params, mesh_device, not_ported, to_device)
+    mesh_device, place_params, seq_replicas)
 from butterfly_tpu_torch.engine.sampling import (
     _filter_logits, gumbel_argmax, speculative_accept,
     speculative_tree_accept, tree_ancestor_matrix, tree_depth,
     tree_node_index)
 from butterfly_tpu_torch.models.common import Model
-from butterfly_tpu_torch.parallel.sequence import (
-    replicate_params, sp_chunk_body)
+from butterfly_tpu_torch.parallel.sequence import sp_chunk_body
 
 
 def bucket_len(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
@@ -110,14 +108,6 @@ def sample_batched(logits: torch.Tensor, generator: Optional[torch.Generator],
     return torch.where(temps > 0, drawn, greedy)
 
 
-def _refuse_unported(cfg: ModelConfig) -> None:
-    """Raise for a configuration whose device half is not ported (a mesh
-    with an axis other than seq raises in mesh_device; an independent
-    draft checkpoint in the draft-source factory)."""
-    if cfg.is_moe:
-        raise not_ported("MoE models", "Mixtral / expert parallelism")
-
-
 class ServingEngine:
     """Device-side half of the serving stack (host half: sched/)."""
 
@@ -127,16 +117,13 @@ class ServingEngine:
         self.model = model
         self.cfg = model.cfg
         self.runtime = runtime or RuntimeConfig()
-        _refuse_unported(self.cfg)
         self.device = mesh_device(mesh, device, model)
         # Optional obs.trace.Tracer (the scheduler shares its own)
         self.tracer = None
         self.mesh = mesh
-        self.params = to_device(cast_params(params, self.cfg), self.device)
-        # the weights on every other distinct mesh device, for the
-        # seq-parallel lane (shards that share a card share its tensors)
-        self._replicas = None if mesh is None else \
-            replicate_params(self.params, mesh.seq_devices())
+        self.params = place_params(params, self.cfg, self.device, mesh)
+        # the weights on every distinct seq device, for the lane
+        self._replicas = seq_replicas(self.params, mesh)
         if use_kernels is None:
             # the hand-written kernels need the card; the CPU runs the
             # plain versions (ops/*: the wrapper picks by tensor device)
@@ -393,6 +380,7 @@ class ServingEngine:
         last-token logits [V] (prefill_batch with B = 1)."""
         return self.prefill_batch([slot], [tokens], [start])[0]
 
+    @under_mesh
     def prefill_batch(self, slots: list, chunks: list,
                       starts: list) -> torch.Tensor:
         """Run one prompt chunk for EACH of B requests as ONE [B, Tbucket]
@@ -450,6 +438,7 @@ class ServingEngine:
 
     # -- the seq-parallel long-prompt lane ------------------------------------
 
+    @under_mesh
     def sp_prefill_chunk(self, slot: int, tokens: list,
                          start: int) -> torch.Tensor:
         """Run one seq-parallel chunk of one LONG prompt; returns the
@@ -499,6 +488,7 @@ class ServingEngine:
         nxt, logits = self.decode_active_async(tokens, active, temps, seed)
         return nxt.cpu().numpy(), logits
 
+    @under_mesh
     def decode_active_async(self, tokens, active: np.ndarray,
                             temps: np.ndarray, seed: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -519,6 +509,7 @@ class ServingEngine:
             use_kernel=self._use_kernels)
         return nxt, logits
 
+    @under_mesh
     def decode_block_async(self, tokens, active: np.ndarray,
                            temps: np.ndarray, stops: np.ndarray,
                            budgets: np.ndarray, seed: int,
@@ -560,6 +551,7 @@ class ServingEngine:
 
     # -- the mixed block ------------------------------------------------------
 
+    @under_mesh
     def mixed_block_async(self, tokens, cursor, pbuf, plen,
                           active: np.ndarray, temps: np.ndarray,
                           stops: np.ndarray, budgets, seed: int,
@@ -631,6 +623,7 @@ class ServingEngine:
 
     # -- speculation ------------------------------------------------------
 
+    @under_mesh
     def draft_prefill(self, slots, rows, lens) -> None:
         """Reseed newly admitted slots' draft-model KV from host truth
         (the scheduler's admission, with the same prompt rows it seeds
@@ -652,6 +645,7 @@ class ServingEngine:
         seeds = torch.randint(0, 2**62, (n,), generator=host).tolist()
         return tuple(self._block_generator(s) for s in seeds)
 
+    @under_mesh
     def spec_block_async(self, hist, hist_len, active: np.ndarray,
                          temps: np.ndarray, stops: np.ndarray, budgets,
                          spec_mask: np.ndarray, seed: int, rounds: int):
@@ -703,6 +697,7 @@ class ServingEngine:
             use_kernel=self._use_kernels)
         return toks, valid, hist, hlen, rem
 
+    @under_mesh
     def mixed_spec_block_async(self, hist, hist_len, cursor, plen,
                                active: np.ndarray, temps: np.ndarray,
                                stops: np.ndarray, budgets,

@@ -32,6 +32,8 @@ import torch.nn.functional as F
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.core.device import resolve_device
 from butterfly_tpu_torch.ops.flash_attention import flash_attention
+from butterfly_tpu_torch.parallel.partition import (expert_parts, part_device,
+                                                    shard_count)
 from butterfly_tpu_torch.quant.int8 import qeinsum
 
 Params = Dict[str, Any]
@@ -274,12 +276,75 @@ def pre_norm(x: torch.Tensor, norm_p: Params, cfg: ModelConfig
     return rms_norm(x, norm_p["scale"], cfg.norm_eps)
 
 
+def route_tokens(x: torch.Tensor, router_w: torch.Tensor,
+                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE routing: f32 logits -> (gates [.., k] f32, expert idx
+    [.., k] int64).
+
+    The router product runs in the operands' common dtype (as the JAX
+    einsum promotes) and is then cast to f32; the softmax is over the
+    SELECTED k (Mixtral convention). Ties keep the lower expert first, as
+    lax.top_k does (a stable descending sort). The single definition
+    shared by the dense block and both expert-parallel dispatch paths."""
+    dt = torch.promote_types(x.dtype, router_w.dtype)
+    logits = torch.einsum("btd,de->bte", x.to(dt), router_w.to(dt)).float()
+    gates, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return torch.softmax(gates[..., :k], dim=-1), idx[..., :k]
+
+
+def expert_swiglu(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                  spec_in: str, spec_out: str, dtype=None) -> torch.Tensor:
+    """Every expert's SwiGLU, `spec_in` for gate/up and `spec_out` for
+    down, x and both outputs expert-major (expert axis first). Experts
+    split over shards (parallel/partition.py:ExpertShards) run where each
+    shard's weights live, their rows of x moved there and the output
+    moved back to x's device, then concatenated in expert order; a plain
+    leaf is one shard."""
+    act = ACTIVATIONS[cfg.act]
+    n = shard_count(p)
+    lo = 0
+    ys = []
+    for wg, wu, wd in zip(*(expert_parts(p[k], n)
+                            for k in ("w_gate", "w_up", "w_down"))):
+        ne = (wg["q8"] if isinstance(wg, dict) else wg).shape[0]
+        xs, lo = x[lo:lo + ne], lo + ne
+        xs = xs.to(part_device(wg), non_blocking=True)
+        g = qeinsum(spec_in, xs, wg, dtype)
+        u = qeinsum(spec_in, xs, wu, dtype)
+        ys.append(qeinsum(spec_out, act(g) * u, wd, dtype)
+                  .to(x.device, non_blocking=True))
+    return ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
+
+
+def moe_block(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    """Dense-compute MoE: every expert sees every token, masked by the
+    router's combine weights. The expert-parallel dispatch lives in
+    parallel/expert.py; this dense form is the single-device reference.
+
+    The JAX product `btd,edf->ebtf` runs as `ebtd,edf->ebtf` over x
+    broadcast along the experts: the same sums, with the expert axis a
+    batch axis of both operands. Given `btd,edf`, torch.einsum would
+    permute the [E, D, F] weight into one [D, E*F] matrix, a copy of
+    every expert's gate and up weights at each call."""
+    E = cfg.num_experts
+    weights, idx = route_tokens(x, p["router"], cfg.num_experts_per_tok)
+    onehot = F.one_hot(idx, E).float()                        # [B,T,k,E]
+    comb = torch.einsum("btk,btke->bte", weights, onehot)      # [B,T,E]
+    xe = x.unsqueeze(0).expand(E, *x.shape)                    # [E,B,T,D]
+    y = expert_swiglu(xe, p, cfg, "ebtd,edf->ebtf", "ebtf,efd->ebtd",
+                      x.dtype)
+    return torch.einsum("ebtd,bte->btd", y, comb.to(y.dtype))
+
+
 def ffn_block(h: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
-    """Dense MLP. MoE configs are not ported yet."""
+    """FFN dispatch shared by every forward variant (contiguous, paged,
+    window, spec verify, sequence-parallel): dense MLP, dense MoE, or
+    expert-parallel MoE per cfg."""
     if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP.md, PyTorch/CUDA port "
-            "queue: Mixtral / expert parallelism)")
+        if cfg.moe_impl == "ep":
+            from butterfly_tpu_torch.parallel.expert import moe_block_ep
+            return moe_block_ep(h, lp["moe"], cfg)
+        return moe_block(h, lp["moe"], cfg)
     return mlp_block(h, lp["mlp"], cfg)
 
 
@@ -771,10 +836,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         layers["attn"].update(bq=zeros(L, Nq, H), bk=zeros(L, Kv, H),
                               bv=zeros(L, Kv, H), bo=zeros(L, D))
     if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE params are not ported yet (ROADMAP.md, PyTorch/CUDA port "
-            "queue: Mixtral / expert parallelism)")
-    if cfg.arch == "gpt2":
+        E = cfg.num_experts
+        layers["moe"] = {"router": draw((L, D, E)),
+                         "w_gate": draw((L, E, D, F_)),
+                         "w_up": draw((L, E, D, F_)),
+                         "w_down": draw((L, E, F_, D))}
+    elif cfg.arch == "gpt2":
         layers["mlp"] = {"w_up": draw((L, D, F_)), "b_up": zeros(L, F_),
                          "w_down": draw((L, F_, D)), "b_down": zeros(L, D)}
     else:

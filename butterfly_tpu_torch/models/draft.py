@@ -4,7 +4,8 @@ The counterpart of butterfly_tpu/models/draft.py. The draft is the
 target's first `draft_layers` layers (`derive_draft_params`): the layer
 leaves are views of the target's stacked tensors, and the embedding,
 final norm and LM head are the SAME tensor objects, so the draft costs
-no extra weight memory, float and int8 trees alike. Its per-round
+no extra weight memory, float and int8 trees alike; an MoE target's
+draft keeps its `moe` leaves (expert-sharded ones too), as in JAX. Its per-round
 micro-steps run inside the serving engine's spec block, over its own
 contiguous KV cache (models.common.KVCache, int8 codes + scales when
 kv_quant="int8") that rides the block carry: each round writes γ+1

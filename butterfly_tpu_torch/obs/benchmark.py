@@ -18,7 +18,11 @@ subtracting a max_new=1 run (prefill + first sample) from the full run.
 
 The speculation leg (`run_spec_benchmark`) compares spec on and off and
 the draft sources. Weight bytes count what the tree holds: an int8 tree
-streams one byte per code plus its scales.
+streams one byte per code plus its scales. Every parameter counts, an
+MoE model's experts included (the JAX formulas): the dense MoE block
+reads and multiplies every expert for every token, so the count is the
+work that path does; under an expert mesh the tree's expert leaves are
+counted once, across their shards.
 
 The fleet, autoscale and chaos legs (`run_fleet_benchmark`,
 `run_autoscale_benchmark`, `run_chaos_benchmark`) drive an in-process

@@ -1,0 +1,194 @@
+"""Expert parallelism: GShard-style capacity-based MoE dispatch and
+combine, in PyTorch, on the single-controller mesh.
+
+The counterpart of butterfly_tpu/parallel/expert.py, with its two
+dispatch paths and its routing rule (`moe_block_ep`):
+
+* **Counting sort + all_to_all** (`_moe_ep_a2a`, prefill): the tokens are
+  split over the `expert` axis along the sequence; each source shard i,
+  in shard order and on its device, routes its chunk and counting-sorts
+  its (token, k) assignments into a send buffer [N, ne, C, D]. The
+  all_to_all is the block transpose `recv_j[i] = send_i[j]`, each block
+  moved with `.to(device_j, non_blocking=True)` (a no-op when the shards
+  share a card). Shard j runs its ne experts over [ne, N*C, D], the
+  reverse exchange brings each block home, and each source gathers its
+  assignments' outputs and sums them over k with their gates.
+* **One-hot einsum dispatch** (`_moe_ep_einsum`): decode steps and the
+  shapes the sequence split does not divide. Dispatch and combine are
+  einsums with one-hot slot tensors; the experts run where each shard's
+  weights live (models/common.py:expert_swiglu).
+
+The mesh comes from the active mesh (core/mesh.py:mesh_ctx), which the
+engines enter around their forwards, as the JAX function reads the
+abstract mesh. The expert weights may be split over the shards
+(parallel/partition.py:shard_params) or plain tensors (each shard then
+takes a view of its experts).
+
+Capacity: each expert takes at most C assignments per sequence (einsum
+path) or per source shard (a2a path, pooled over the shard's B
+sequences); overflow assignments are dropped (their FFN contribution is
+zero and the residual passes through). With a capacity large enough that
+nothing drops, both paths equal the dense reference
+models/common.py:moe_block. Under a dropping capacity each path drops
+exactly the assignments its JAX counterpart drops. Inference only: no
+load-balancing loss.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from butterfly_tpu_torch.core.config import ModelConfig
+from butterfly_tpu_torch.core.mesh import active_mesh, expert_degree
+from butterfly_tpu_torch.models.common import (Params, expert_swiglu,
+                                               route_tokens)
+from butterfly_tpu_torch.parallel.partition import expert_parts, part_device
+
+
+def expert_capacity(cfg: ModelConfig, tokens_per_seq: int) -> int:
+    """Per-sequence per-expert token slots."""
+    c = math.ceil(cfg.moe_capacity_factor * cfg.num_experts_per_tok
+                  * tokens_per_seq / cfg.num_experts)
+    return max(1, min(c, cfg.num_experts_per_tok * tokens_per_seq))
+
+
+def a2a_capacity(cfg: ModelConfig, batch: int, local_tokens: int,
+                 capacity: Optional[int] = None) -> int:
+    """The a2a path's pooled per-shard capacity C: the caller's
+    per-sequence `capacity` over the shard's `batch` sequences, at most
+    every assignment of its chunk (min(capacity*B, k*B*Tl)), else
+    expert_capacity over the B*Tl local tokens."""
+    if capacity is not None:
+        return min(capacity * batch,
+                   cfg.num_experts_per_tok * batch * local_tokens)
+    return expert_capacity(cfg, batch * local_tokens)
+
+
+def takes_a2a(x: torch.Tensor, cfg: ModelConfig) -> bool:
+    """The routing rule: the a2a path iff the active mesh has an expert
+    axis N > 1 that divides both T (> 1) and the expert count."""
+    N = expert_degree(active_mesh())
+    T = x.shape[1]
+    return N > 1 and T > 1 and T % N == 0 and cfg.num_experts % N == 0
+
+
+def moe_block_ep(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                 capacity: Optional[int] = None) -> torch.Tensor:
+    """Expert-parallel MoE FFN: dispatch -> expert SwiGLU -> combine.
+
+    x: [B, T, D]; p: one layer's `moe` leaves (router [D, E], w_gate /
+    w_up [E, D, F], w_down [E, F, D], plain or split over the shards).
+    `capacity` is per-sequence per-expert slots on both paths (the a2a
+    path pools it per shard, a2a_capacity). Returns [B, T, D]."""
+    if takes_a2a(x, cfg):
+        return _moe_ep_a2a(x, p, cfg, expert_degree(active_mesh()),
+                           capacity)
+    return _moe_ep_einsum(x, p, cfg, capacity)
+
+
+def _moe_ep_einsum(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                   capacity: Optional[int] = None) -> torch.Tensor:
+    """One-hot einsum dispatch: expert e takes its assignments in
+    (t, k)-priority order per sequence, up to C."""
+    B, T, D = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    C = capacity or expert_capacity(cfg, T)
+    gates, idx = route_tokens(x, p["router"], k)              # [B,T,k]
+    emask = F.one_hot(idx, E).to(torch.int32)                  # [B,T,k,E]
+    pos = (torch.cumsum(emask.reshape(B, T * k, E), dim=1) - 1) \
+        .reshape(B, T, k, E)                                   # slot in expert
+    keep = (pos < C) & (emask > 0)                             # overflow drops
+    sel = keep.float() * emask.float()
+    # slot[b,t,k,e,c] = 1 iff pos == c (no slot for pos -1 or >= C)
+    slot = (pos[..., None] == torch.arange(C, device=x.device)).float()
+    dispatch = torch.einsum("btke,btkec->btec", sel, slot)
+    combine = torch.einsum("btk,btke,btkec->btec", gates, sel, slot)
+    xin = torch.einsum("btec,btd->ebcd", dispatch.to(x.dtype), x)
+    y = expert_swiglu(xin, p, cfg, "ebcd,edf->ebcf", "ebcf,efd->ebcd")
+    return torch.einsum("btec,ebcd->btd", combine.to(y.dtype), y)
+
+
+def a2a_slots(idx: torch.Tensor, E: int, C: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Counting sort of a shard's A = B*Tl*k assignments (expert ids
+    `idx` [B, Tl, k], in (b, t, k) order) by expert: (dest [A], keep [A]).
+    An assignment's slot is its rank among the earlier assignments to its
+    expert; it is kept iff the slot is < C, and then lands at row
+    `expert*C + slot` of the [E*C, D] send buffer; a dropped one points
+    one past the end."""
+    g = idx.reshape(-1)
+    onehot = F.one_hot(g, E).to(torch.int32)                  # [A,E]
+    pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, g[:, None])[:, 0]
+    keep = pos < C
+    dest = torch.where(keep, g * C + pos, torch.full_like(g, E * C))
+    return dest, keep
+
+
+def dropped_assignments(x: torch.Tensor, router_w: torch.Tensor,
+                        cfg: ModelConfig, n_shards: int,
+                        capacity: Optional[int] = None) -> torch.Tensor:
+    """How many (token, k) assignments of x [B, T, D] the a2a path over
+    `n_shards` drops at this capacity (a device scalar)."""
+    B, T, _ = x.shape
+    Tl = T // n_shards
+    C = a2a_capacity(cfg, B, Tl, capacity)
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(n_shards):
+        _, idx = route_tokens(x[:, i * Tl:(i + 1) * Tl], router_w,
+                              cfg.num_experts_per_tok)
+        total = total + (~a2a_slots(idx, cfg.num_experts, C)[1]).sum()
+    return total
+
+
+def _moe_ep_a2a(x: torch.Tensor, p: Params, cfg: ModelConfig, N: int,
+                capacity: Optional[int] = None) -> torch.Tensor:
+    """Counting sort + all_to_all dispatch over N expert shards."""
+    B, T, D = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    ne, Tl = E // N, T // N
+    C = a2a_capacity(cfg, B, Tl, capacity)
+    shards = [dict(zip(("w_gate", "w_up", "w_down"), parts)) for parts in
+              zip(*(expert_parts(p[w], N)
+                    for w in ("w_gate", "w_up", "w_down")))]
+    devs = [part_device(s["w_gate"]) for s in shards]
+
+    # each source shard routes its chunk and fills its send buffer
+    sends: List[torch.Tensor] = []
+    metas = []
+    for i in range(N):
+        xi = x[:, i * Tl:(i + 1) * Tl].to(devs[i], non_blocking=True)
+        gates, idx = route_tokens(
+            xi, p["router"].to(devs[i], non_blocking=True), k)
+        dest, keep = a2a_slots(idx, E, C)
+        x_rep = xi.reshape(B * Tl, D).repeat_interleave(k, dim=0)   # [A,D]
+        # one spare row takes the dropped assignments, then goes
+        send = torch.zeros((E * C + 1, D), dtype=x.dtype, device=devs[i])
+        send.index_copy_(0, dest, x_rep)
+        sends.append(send[:-1].reshape(N, ne, C, D))
+        metas.append((dest, keep, gates))
+
+    # the all_to_all, then each shard's ne experts over [ne, N*C, D]
+    ys = []
+    for j in range(N):
+        recv = torch.stack([sends[i][j].to(devs[j], non_blocking=True)
+                            for i in range(N)])              # [N,ne,C,D]
+        xin = recv.transpose(0, 1).reshape(ne, N * C, D)
+        y = expert_swiglu(xin, shards[j], cfg, "ecd,edf->ecf",
+                          "ecf,efd->ecd")
+        ys.append(y.reshape(ne, N, C, D).transpose(0, 1))   # block i -> i
+
+    # the reverse all_to_all; gather, gate and sum over k at each source
+    outs = []
+    for i in range(N):
+        y_back = torch.stack([ys[j][i].to(devs[i], non_blocking=True)
+                              for j in range(N)]).reshape(E * C, D)
+        dest, keep, gates = metas[i]
+        y_flat = y_back.index_select(0, dest.clamp(max=E * C - 1))
+        y_flat = torch.where(keep[:, None], y_flat,
+                             torch.zeros_like(y_flat)).to(x.dtype)
+        out = y_flat.reshape(B, Tl, k, D) * gates[..., None].to(x.dtype)
+        outs.append(out.sum(dim=2).to(x.device, non_blocking=True))
+    return torch.cat(outs, dim=1)

@@ -21,8 +21,14 @@ card the convert materialises a compute-dtype copy of the weight for each
 call; a fused W8A16 GEMM that reads the codes directly is on the ROADMAP's
 performance list.
 
-Not ported yet: `quant_specs_like` and `shard_quantized_params`, which
-wait for tensor parallelism.
+The MoE expert leaves (`layers.moe.w_*`, [L, E, D, F] / [L, E, F, D])
+quantize over their D / F axis like the dense MLP's; `qeinsum` takes the
+MoE specs of models/common.py and parallel/expert.py as it takes the
+dense ones. Under an expert mesh the {"q8", "s"} expert leaves split over
+the shards with the float ones (parallel/partition.py:shard_params).
+
+Not ported yet: `quant_specs_like` and the tensor-parallel part of
+`shard_quantized_params`, which wait for tensor parallelism.
 """
 from __future__ import annotations
 

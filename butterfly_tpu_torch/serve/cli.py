@@ -12,6 +12,8 @@
     python -m butterfly_tpu_torch.serve.cli generate --model tiny --device cpu --quant int8 --speculate 4
     python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu --speculate 4 --draft-source model --draft-layers 1
     python -m butterfly_tpu_torch.serve.cli bench --model tiny --device cpu --spec --prompt-len 32 --max-new 32
+    python -m butterfly_tpu_torch.serve.cli generate --model mixtral-8x7b --quant int8 --prompt "hello" --max-new 32
+    python -m butterfly_tpu_torch.serve.cli generate --model tiny --device cpu --expert-parallel 2
     python -m butterfly_tpu_torch.serve.cli route --backends 127.0.0.1:8000,127.0.0.1:8001 --port 8100
     python -m butterfly_tpu_torch.serve.cli fleet --topology 2p2d --device cpu
     python -m butterfly_tpu_torch.serve.cli workload generate --n 32 --out trace.jsonl
@@ -23,11 +25,15 @@ The subcommands keep the JAX CLI's flags (butterfly_tpu/serve/cli.py);
 the ones that build an engine (generate, serve, bench, fleet, workload
 sweep) add --device (default cuda). route, workload generate|replay and
 dash load no model and touch no device. `--seq-parallel N` builds a seq mesh of N
-shards: on cuda:0..N-1 with --device cuda (N cards needed), on the CPU with
---device cpu. Flags whose path the port does not carry yet are accepted
-and refused with NotImplementedError naming the ROADMAP.md item. Without
---ckpt, weights are random (demo mode); `--quant int8` quantizes them
-right after they are built.
+shards and `--expert-parallel N` an expert mesh of N shards (an MoE model
+then takes the expert-parallel dispatch, cfg.moe_impl="ep"): on
+cuda:0..N-1 with --device cuda (N cards needed), on the CPU with
+--device cpu. Flags whose path the port does not carry yet (the tensor,
+stage and data axes, and --expert-parallel with --seq-parallel) are
+accepted and refused with NotImplementedError naming the ROADMAP.md item.
+Without --ckpt, weights are random (demo mode); `--quant int8` draws them
+straight into int8 (quant/int8.py:init_params_quantized), so the float
+tree is never held.
 """
 from __future__ import annotations
 
@@ -71,9 +77,13 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--dtype", default=None,
                         help="override compute dtype")
         for flag in ("--tensor-parallel", "--stage-parallel",
-                     "--expert-parallel", "--data-parallel"):
+                     "--data-parallel"):
             sp.add_argument(flag, type=int, default=1,
                             help="(not ported yet)")
+        sp.add_argument("--expert-parallel", type=int, default=1,
+                        help="shard an MoE model's experts over N devices "
+                             "(GShard all_to_all dispatch); --device cuda "
+                             "needs N cards")
         sp.add_argument("--seq-parallel", type=int, default=1,
                         help="shard long prompts over N devices (ring "
                              "attention / Ulysses); --device cuda needs N "
@@ -396,6 +406,10 @@ def resolve_model(args):
         cfg = PRESETS[args.model]()
     if args.dtype:
         cfg = cfg.replace(dtype=args.dtype)
+    if getattr(args, "expert_parallel", 1) > 1 and cfg.is_moe:
+        # EP means the GShard all_to_all dispatch, not an expert-sharded
+        # dense MoE where every expert still computes every token
+        cfg = cfg.replace(moe_impl="ep")
     return Model(cfg, device=getattr(args, "device", None))
 
 
@@ -405,31 +419,33 @@ def load_params(model, args):
     init_params draws float32 and rounds into the leaf type, so this is
     bit-identical to drawing in the float32 master dtype and casting —
     without ever holding the float32 copy (32 GB for Llama-3-8B).
-    `--quant int8` quantizes the tree right after it is built, as the
-    JAX CLI does."""
+    `--quant int8` draws every model's matmul weights straight into
+    int8 codes and scales, chunk by chunk (init_params_quantized), so the
+    compute-dtype tree is never held either (92.9 GB for Mixtral-8x7B,
+    more than one card): the int8 demo weights are other random draws
+    than the float ones."""
     if args.ckpt:
         raise NotImplementedError(
             "--ckpt is not ported yet (ROADMAP.md, PyTorch/CUDA port "
             "queue: checkpoints)")
-    from butterfly_tpu_torch.models.common import init_params
     import torch
     cfg = model.cfg.replace(param_dtype=model.cfg.dtype)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(0)  # demo mode: identical random weights every run
-    params = init_params(cfg, gen, model.device)
     if getattr(args, "quant", "none") == "int8":
-        from butterfly_tpu_torch.quant.int8 import quantize_int8
-        params = quantize_int8(params, model.cfg)
-    return params
+        from butterfly_tpu_torch.quant.int8 import init_params_quantized
+        return init_params_quantized(cfg, gen, model.device)
+    from butterfly_tpu_torch.models.common import init_params
+    return init_params(cfg, gen, model.device)
 
 
 def build_mesh(args):
     """Mesh from the CLI parallelism flags; None when all are 1.
 
     --device cuda takes cards cuda:0..n-1 and refuses n larger than the
-    visible count; --device cpu takes n shards on the CPU. Only the seq
-    axis is ported: the other flags > 1 raise NotImplementedError
-    (core/mesh.py)."""
+    visible count; --device cpu takes n shards on the CPU. The seq and
+    expert axes are ported, one at a time: the other flags > 1, and seq
+    with expert, raise NotImplementedError (core/mesh.py)."""
     import torch
 
     from butterfly_tpu_torch.core.config import MeshConfig
@@ -456,6 +472,16 @@ def build_mesh(args):
     return make_mesh(cfg, [f"cuda:{i}" for i in range(n)])
 
 
+def shard_for_mesh(params, cfg, mesh):
+    """The tree placed over the mesh (parallel/partition.py:shard_params:
+    the expert leaves split over an expert axis, int8 leaves alike); the
+    tree itself without a mesh."""
+    if mesh is None:
+        return params
+    from butterfly_tpu_torch.parallel.partition import shard_params
+    return shard_params(params, cfg, mesh)
+
+
 def cmd_generate(args) -> int:
     """One-shot generation: the text on stdout, then the token count and
     rate on stderr, as the JAX CLI prints them."""
@@ -473,7 +499,7 @@ def cmd_generate(args) -> int:
     tok = load_tokenizer(args.tokenizer or args.ckpt)
     mesh = build_mesh(args)
     engine = InferenceEngine(
-        model, load_params(model, args),
+        model, shard_for_mesh(load_params(model, args), model.cfg, mesh),
         runtime=RuntimeConfig(max_seq_len=args.max_seq,
                               kv_quant=args.kv_quant),
         mesh=mesh)
@@ -543,7 +569,7 @@ def cmd_bench(args) -> int:
                                                    run_spec_benchmark)
     model = resolve_model(args)
     mesh = build_mesh(args)
-    params = load_params(model, args)
+    params = shard_for_mesh(load_params(model, args), model.cfg, mesh)
     stats = run_decode_benchmark(model, params, batch=args.batch,
                                  prompt_len=args.prompt_len,
                                  max_new=args.max_new, mesh=mesh,

@@ -1306,10 +1306,13 @@ def run_server(args) -> int:
     """`butterfly serve` entrypoint (serve/cli.py)."""
     sched, tok, rt = build_serving(args)
     engine = sched.engine
+    mesh = engine.mesh
+    mesh_desc = "" if mesh is None else " mesh=" + "x".join(
+        f"{k}{v}" for k, v in mesh.shape.items() if v > 1)
     print(f"[butterfly] serving {args.model} on {args.host}:{args.port} "
           f"(device={engine.device}, slots={rt.max_batch_size}, "
-          f"pages={engine.cache.num_pages - 1}x{rt.page_size}tok)",
-          flush=True)
+          f"pages={engine.cache.num_pages - 1}x{rt.page_size}tok"
+          f"{mesh_desc})", flush=True)
     return serve_forever(sched, tok, args.host, args.port,
                          max_queue=rt.max_queue, model_name=args.model,
                          role=getattr(args, "role", "both"))

@@ -185,7 +185,7 @@ raises and the script exits non-zero:
 18. bench    the benchmark legs (obs/benchmark.py) on the same weights,
              sized by request counts: decode (batch 8, prompt 128, 64
              new: tokens/s per card, hbm_util, mfu against the card's
-             datasheet row), serving (16 requests, 128 + 32 tokens, 8
+             datasheet row), serving (8 requests, 128 + 32 tokens, 8
              slots, int8 pool; TTFT/ITL; its _alt leg on the flash
              kernels), warm prefill (6 x 640-token prompts in 256-token
              chunks, warm flash kernel vs the dense gather, one repeat:
@@ -200,12 +200,41 @@ raises and the script exits non-zero:
              must happen), the fleet (nothing dropped through the
              rolling restart, pages transferred), chaos (every request
              terminal, faults injected) and autoscale (a scale-up in the
-             flight recorder) legs at their JAX defaults on tiny-model
+             flight recorder; 12 requests of 64 new tokens a client, so
+             one replica cannot keep up) legs at their JAX defaults on tiny-model
              fleets; then `butterfly bench --model tiny
              --device cuda --serving`. Each leg's JSON on a labelled line
              with its wall seconds. Prefix hits, preemptions and tier
              revivals must be > 0, the ring microbench kernelized, and
              each of the four kernels must launch.
+19. moe      Mixtral-8x7B at full width and depth on int8 weights, once
+             the Llama-3-8B trees are freed (memory_allocated logged at
+             each step): the tree drawn by the CLI's loader
+             (init_params_quantized on a seed-0 cuda generator; its GB,
+             the codes' GB, the scales' MB, 8 quantized leaves); 8
+             greedy requests of 32 new tokens through
+             serve/server.build_serving at the serve defaults (paged
+             launches a multiple of 32; TTFT p50, tok/s, tick host
+             share); the parity phase's check on that pool (each layer's
+             paged kernel against its plain version, 2e-2, and the
+             step's logits, 0.5); one decode step's host wall, device
+             busy time and the MoE blocks' share of it; generate (4
+             prompts of 17-1001 tokens, 32 new, fused then stepped: equal
+             tokens, fresh flash launches a multiple of 32), then the
+             CLI's `generate` and the bench decode leg through `butterfly
+             bench` (batch 8, 128 + 64: tok/s per card, hbm_util, mfu),
+             both `--model mixtral-8x7b --quant int8` handed that tree. Then the expert axis on one card, expert = 2 with both
+             shards on cuda:0: the expert slices must be views of one
+             tree (nothing allocated by the sharding); (a) f32, full
+             width, 2 layers, no-drop capacity: a 256-token prefill (the
+             a2a path) and 8 decode steps (the einsum path), logits
+             within 1e-4 x max |dense| of the dense forward and equal
+             greedy tokens; (c) capacity factor 1.0: finite logits and
+             each layer's dropped assignments; (b) bf16, full width, 4
+             layers: 8 greedy requests through ServingEngine on the
+             expert mesh against a dense engine (equal requests, first
+             divergences and the teacher-forced gap reported: bf16
+             near-ties may flip).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
@@ -213,6 +242,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -965,7 +995,7 @@ LAYER_TOL = 2e-2   # bf16 tolerance of the kernel phase, absolute
 LOGITS_TOL = 0.5   # ~2x the largest kernel-vs-plain gap seen on an H100
 
 
-def phase_parity(torch, engine):
+def phase_parity(torch, engine, label="parity"):
     """One windowed decode step through all 32 layers on the serve
     phase's pool (real K/V written by the requests), equal carries, bf16:
     every layer's kernel output against the plain version on the same
@@ -980,7 +1010,22 @@ def phase_parity(torch, engine):
     H100 the two differ by one bf16 ulp at most (7.8e-3 on outputs of
     magnitude 1-2). 32 layers of random weights amplify such ulps to
     0.21-0.23 on logits of magnitude ~6, so the step's logits must agree
-    to LOGITS_TOL."""
+    to LOGITS_TOL.
+
+    An MoE model routes each token to its top-k experts, a discontinuous
+    choice: one ulp of attention output can swap a token's k-th expert
+    for a near-tied one, and that token's hidden state then moves by a
+    whole expert's output. So for MoE the passes after the kernel's
+    replay the kernel pass's expert choices (the gates still computed
+    from each pass's own router logits), so a routing flip the kernel
+    sets off is not counted as its error; the unpinned gap and the
+    number of flips are printed beside it. LOGITS_TOL was measured on
+    Llama-3-8B; on an MoE model the bound is the larger of it and the
+    gap between the two plain versions (the plain kernel twin and the
+    dense gather + attend path, routing replayed in both): the kernel
+    may differ from the plain version by no more than the two plain
+    versions differ from each other."""
+    import butterfly_tpu_torch.models.common as common_mod
     import butterfly_tpu_torch.cache.paged as paged_mod
     from butterfly_tpu_torch.cache.paged import (init_kv_window,
                                                  paged_forward_window)
@@ -1016,20 +1061,44 @@ def phase_parity(torch, engine):
         errs.append((out.float() - ref.float()).abs().max().item())
         return out
 
-    def step(attn, use_kernel=True):
+    route_plain = common_mod.route_tokens
+    chosen, flips = [], []
+
+    def recorded(x, w, k):
+        gates, idx = route_plain(x, w, k)
+        chosen.append(idx)
+        return gates, idx
+
+    def replayed(x, w, k):
+        # route_tokens' logits, with the kernel pass's choice of experts
+        _, own = route_plain(x, w, k)
+        idx = chosen[len(flips)]
+        flips.append((own.sort(-1).values != idx.sort(-1).values)
+                     .any(-1).sum())
+        dt = torch.promote_types(x.dtype, w.dtype)
+        logits = torch.einsum("btd,de->bte", x.to(dt), w.to(dt)).float()
+        return torch.softmax(logits.gather(-1, idx), dim=-1), idx
+
+    def step(attn, use_kernel=True, route=route_plain):
+        flips.clear()
         paged_mod.paged_attention = attn
+        common_mod.route_tokens = route
         try:
             logits, _ = paged_forward_window(
                 engine.params, engine.cfg, toks, c, win, wlen,
                 active=active, use_kernel=use_kernel)
         finally:
             paged_mod.paged_attention = paged_attention
+            common_mod.route_tokens = route_plain
         torch.cuda.synchronize()
         return logits[:, 0][active].float()
 
-    kern = step(checked)
-    plain = step(paged_attention_ref)
-    dense = step(paged_attention, use_kernel=False)
+    moe = engine.cfg.is_moe
+    kern = step(checked, route=recorded if moe else route_plain)
+    plain = step(paged_attention_ref, route=replayed if moe else route_plain)
+    n_flips = int(sum(flips))
+    dense = step(paged_attention, use_kernel=False,
+                 route=replayed if moe else route_plain)
     assert len(errs) == engine.cfg.num_layers, errs
     layer_err = max(errs)
     for x in (kern, plain, dense):
@@ -1037,14 +1106,26 @@ def phase_parity(torch, engine):
     d_plain = (kern - plain).abs().max().item()
     d_dense = (kern - dense).abs().max().item()
     agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    log("parity", layers=len(errs), max_layer_abs_err=f"{layer_err:.3g}",
+    extra, bound = {}, LOGITS_TOL
+    if moe:
+        free = step(paged_attention_ref)
+        spread = (plain - dense).abs().max().item()
+        bound = max(LOGITS_TOL, spread)
+        extra = dict(
+            routing="replayed_from_kernel_pass", routing_flips=n_flips,
+            routed_tokens=sum(i.shape[0] * i.shape[1] for i in chosen),
+            logits_plain_vs_dense=f"{spread:.4g}",
+            logits_bound=f"{bound:.4g}",
+            logits_kernel_vs_plain_unpinned=
+            f"{(kern - free).abs().max().item():.4g}")
+    log(label, layers=len(errs), max_layer_abs_err=f"{layer_err:.3g}",
         layer_tol=LAYER_TOL, max_abs_logit=f"{plain.abs().max().item():.4g}",
         logits_kernel_vs_plain=f"{d_plain:.4g}",
         logits_tol=LOGITS_TOL, argmax_agree_vs_plain=f"{agree:.3f}",
-        logits_kernel_vs_dense=f"{d_dense:.4g}")
+        logits_kernel_vs_dense=f"{d_dense:.4g}", **extra)
     assert layer_err <= LAYER_TOL, f"kernel vs plain in-model: {layer_err}"
-    assert d_plain <= LOGITS_TOL, \
-        f"kernel vs plain logits differ by {d_plain} > {LOGITS_TOL}"
+    assert d_plain <= bound, \
+        f"kernel vs plain logits differ by {d_plain} > {bound}"
 
 
 # -- phase 7: where a decode step's time goes --------------------------------
@@ -1054,8 +1135,7 @@ def _decode_step_profile(torch, engine, steps=5):
     C=1, every slot decoding at the lengths below) timed on the host
     clock with a device sync, then traced with torch.profiler. Returns
     (host ms per step, traced ms per step, device busy ms per step or
-    0.0 when the trace shows none, the profiler's key averages, the
-    lengths)."""
+    0.0 when the trace shows none, the profiler, the lengths)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     S = engine.num_slots
@@ -1092,10 +1172,9 @@ def _decode_step_profile(torch, engine, steps=5):
         t0 = time.perf_counter()
         run(steps)
         wall = (time.perf_counter() - t0) / steps * 1e3
-    ka = prof.key_averages()
-    busy = sum(_dev_us(e) for e in ka if e.device_type.name == "CUDA") \
-        / steps / 1e3
-    return step_ms, wall, busy, ka, lengths
+    busy = sum(_dev_us(e) for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / steps / 1e3
+    return step_ms, wall, busy, prof, lengths
 
 
 def _dev_us(e):
@@ -1107,8 +1186,9 @@ def phase_profile(torch, engine, steps=5):
     """Where one decode step's time goes (_decode_step_profile): device
     busy time per step, the idle share, the paged kernels' share and the
     top kernels."""
-    step_ms, wall, busy, ka, lengths = _decode_step_profile(torch, engine,
-                                                            steps)
+    step_ms, wall, busy, prof, lengths = _decode_step_profile(
+        torch, engine, steps)
+    ka = prof.key_averages()
     top = sorted((e for e in ka if e.device_type.name == "CUDA"),
                  key=_dev_us, reverse=True)[:8]
     paged = [e for e in ka if e.device_type.name == "CUDA"
@@ -2283,7 +2363,7 @@ def phase_bench(torch, model, params, qparams):
     the int8 tree `qparams`, and the speculation leg (spec on vs off, the
     ngram / model / tree rows) on the bf16 weights, then the fleet, chaos
     and autoscale legs at their defaults (in-process tiny-model fleets on
-    the card). Then one `butterfly bench --model tiny --device cuda
+    the card; the autoscale leg with 12 requests of 64 tokens a client). Then one `butterfly bench --model tiny --device cuda
     --serving` (head_dim 16 in f32: the ring kernel's CUDA-core route at
     the tiny heads). The four kernels' counts
     are zeroed just before and read just after; each must have launched.
@@ -2300,8 +2380,9 @@ def phase_bench(torch, model, params, qparams):
     legs = [
         ("decode", lambda: bm.run_decode_benchmark(
             model, params, batch=8, prompt_len=128, max_new=64)),
+        # 8 requests keep the whole smoke inside its time limit
         ("serving", lambda: bm.run_serving_benchmark(
-            model, params, n_requests=16, prompt_len=128, max_new=32,
+            model, params, n_requests=8, prompt_len=128, max_new=32,
             max_batch=8)),
         ("warm_prefill", lambda: bm.run_warm_prefill_benchmark(
             model, params, repeats=1)),
@@ -2317,8 +2398,14 @@ def phase_bench(torch, model, params, qparams):
         # they measure the control plane, not the model
         ("fleet", lambda: bm.run_fleet_benchmark("2p2d", device="cuda")),
         ("chaos", lambda: bm.run_chaos_benchmark("2p2d", device="cuda")),
+        # 12 requests of 64 tokens a client, not the default 6 of 8: with
+        # those a fast host's one decode replica drained the ramp before
+        # the autoscaler's window saw a queue and nothing scaled (seen on
+        # an H100 host); now the ramp holds its peak past one replica's
+        # two slots
         ("autoscale", lambda: bm.run_autoscale_benchmark(
-            "1p1d", device="cuda")),
+            "1p1d", device="cuda", requests_per_client=12,
+            max_tokens=64)),
     ]
     ra.launches = ra.launches_decode = paged_attention.launches = 0
     flash_attention.launches_fresh = flash_attention.launches_warm = 0
@@ -2393,6 +2480,354 @@ def phase_bench(torch, model, params, qparams):
         **{f"spec_accept_rate_{k}": f"{spec['spec_accept_rate_' + k]:.3f}"
            for k in ("ngram", "model", "tree")})
     return counts
+
+
+# -- phase 19: Mixtral-8x7B and expert parallelism ------------------------------
+
+EP_LAYERS_F32 = 2    # the f32 expert-parallel check: full width, 2 layers
+EP_LAYERS_BF16 = 4   # the bf16 expert-mesh serving run: full width, 4 layers
+EP_REL_TOL = 1e-4    # f32 EP vs dense logits, relative to max |dense|
+
+
+def _mem(torch, label, step):
+    log(label, step=step, memory_allocated_GiB=
+        f"{torch.cuda.memory_allocated() / 2**30:.3f}")
+
+
+def _moe_serve(torch, sched, tok, vocab, news):
+    """8 greedy requests (prompts of 16-1200 bytes) submitted together;
+    returns (prompts, requests, wall seconds)."""
+    prompts = [tok.encode(_TEXT[:n])
+               for n in (16, 64, 200, 400, 600, 800, 1000, 1200)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [sched.submit(p, max_new_tokens=news) for p in prompts]
+    sched.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for r in reqs:
+        assert r.state == "finished" and len(r.output) == news, r.id
+        assert all(0 <= t < vocab for t in r.output), r.id
+    return prompts, reqs, wall
+
+
+def phase_moe(torch, tok):
+    """Mixtral-8x7B at full width and depth on int8 weights, then the
+    expert axis on one card (module docstring, phase 19). Returns
+    {kernel: launches} of the phase's main paths."""
+    import contextlib
+    import io
+
+    from butterfly_tpu_torch.core.config import MeshConfig, RuntimeConfig
+    from butterfly_tpu_torch.core.mesh import make_mesh, mesh_ctx
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.models import common
+    from butterfly_tpu_torch.models.common import (Model, forward, init_cache,
+                                                   init_params)
+    from butterfly_tpu_torch.ops.flash_attention import flash_attention
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    from butterfly_tpu_torch.parallel import expert as expert_mod
+    from butterfly_tpu_torch.parallel.expert import dropped_assignments
+    from butterfly_tpu_torch.parallel.partition import (ExpertShards,
+                                                        shard_params)
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    from butterfly_tpu_torch.serve import cli
+    from butterfly_tpu_torch.serve.server import build_serving
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    counts = {"paged": 0, "fresh": 0}
+    t_phase = time.monotonic()
+    _mem(torch, "moe", "start")
+
+    # 1. the int8 tree, drawn by the CLI's own loader (init_params_quantized
+    #    on a seed-0 cuda generator: the bf16 tree, 92.9 GB, never exists)
+    argv = ["serve", "--model", "mixtral-8x7b", "--device", "cuda",
+            "--quant", "int8", "--port", "0", "--timeseries-interval", "0"]
+    args = cli.build_parser().parse_args(argv)
+    model = cli.resolve_model(args)
+    cfg = model.cfg
+    L = cfg.num_layers
+    assert cfg.is_moe and cfg.moe_impl == "dense" and L == 32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = cli.load_params(model, args)
+    torch.cuda.synchronize()
+    leaves = _int8_leaves(qparams)
+    n_leaves = len(leaves)
+    assert n_leaves == 7 + 1, f"{n_leaves} quantized leaves"
+    q_bytes = sum(leaf["q8"].nbytes for leaf in leaves)
+    s_bytes = sum(leaf["s"].nbytes for leaf in leaves)
+    del leaves   # the tree's memory must go with qparams later
+    log("moe", step="tree", card=card, model=args.model, layers=L,
+        experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+        hidden=cfg.hidden_size, ffn=cfg.intermediate_size,
+        draw_s=f"{time.perf_counter() - t0:.2f}",
+        int8_tree_GB=f"{_tree_bytes(qparams) / 1e9:.3f}",
+        int8_codes_GB=f"{q_bytes / 1e9:.3f}",
+        scales_MB=f"{s_bytes / 1e6:.2f}", quantized_leaves=n_leaves)
+    _mem(torch, "moe", "tree")
+
+    # 2. serve: build_serving's path at the serve defaults, 8 requests
+    t0 = time.monotonic()
+    with _cli_params(cli, qparams):
+        sched, _, rt = build_serving(args)
+    engine = sched.engine
+    setup_s = time.monotonic() - t0
+    assert rt.mixed_dispatch and rt.kv_write_combine \
+        and rt.max_batch_size == 8 and rt.page_size == 16
+    assert all(leaf["q8"].dtype == torch.int8
+               for leaf in _int8_leaves(engine.params))
+    paged_attention.launches = 0
+    _, reqs, wall = _moe_serve(torch, sched, tok, cfg.vocab_size, 32)
+    n_paged = paged_attention.launches
+    assert n_paged > 0 and n_paged % L == 0, n_paged
+    counts["paged"] += n_paged
+    gen = sum(len(r.output) for r in reqs)
+    m = sched.metrics()
+    log("moe", step="serve", card=card, slots=rt.max_batch_size,
+        max_seq=rt.max_seq_len, page=rt.page_size, setup_s=f"{setup_s:.1f}",
+        requests=len(reqs), generated_tokens=gen, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{gen / wall:.2f}",
+        ttft_p50_s=f"{statistics.median(r.ttft for r in reqs):.4f}",
+        tick_host_frac="{:.4f}".format(m.get("tick_host_frac", -1)),
+        paged_launches=n_paged, note="smoke run, not a benchmark")
+    _mem(torch, "moe", "serve")
+
+    # 3. the paged kernel against its plain version, in the model
+    phase_parity(torch, engine, label="moe")
+
+    # 4. where one decode step's time goes; the MoE blocks' device time
+    #    reads from a profiler range around each moe_block call
+    plain_moe = common.moe_block
+
+    def ranged_moe(*a, **kw):
+        with torch.profiler.record_function("moe_block"):
+            return plain_moe(*a, **kw)
+    common.moe_block = ranged_moe
+    try:
+        step_ms, wall_ms, _, prof, lengths = _decode_step_profile(
+            torch, engine)
+    finally:
+        common.moe_block = plain_moe
+    # the kernels' time only: the range's device-side annotation spans
+    # the gaps between its kernels, so it is left out of both sums
+    ka = prof.key_averages()
+    busy = sum(_dev_us(e) for e in ka if e.device_type.name == "CUDA"
+               and e.key != "moe_block") / 5 / 1e3
+    moe_ms = sum(e.device_time_total for e in prof.events()
+                 if e.name == "moe_block"
+                 and e.device_type.name == "CPU") / 5 / 1e3
+    top = sorted((e for e in ka if e.device_type.name == "CUDA"
+                  and e.key != "moe_block"), key=_dev_us, reverse=True)[:6]
+    log("moe", step="profile", card=card, host_wall_ms=f"{step_ms:.3f}",
+        traced_wall_ms=f"{wall_ms:.3f}",
+        device_busy_ms=f"{busy:.3f}" if busy else "not measured",
+        idle_share=f"{1 - busy / wall_ms:.3f}" if busy else "not measured",
+        busy_over_untraced_wall=f"{busy / step_ms:.3f}",
+        moe_block_device_ms=f"{moe_ms:.3f}",
+        moe_share_of_busy=f"{moe_ms / busy:.3f}" if busy
+        else "not measured", floor_ms_from_bytes=69,
+        lengths=",".join(map(str, lengths)))
+    for e in top:
+        log("moe", kernel=e.key[:60].replace(" ", "_"),
+            ms_per_step=f"{_dev_us(e) / 5 / 1e3:.4f}",
+            calls_per_step=e.count // 5)
+    engine.cache = engine._kv_window = None
+    del sched, engine
+    gc.collect()   # the scheduler and its engine sit in reference cycles
+    torch.cuda.empty_cache()
+
+    # 5. generate: 4 prompts of 17-1001 tokens, 32 new, fused then stepped
+    prompts = [tok.encode(_TEXT[:n]) for n in (16, 200, 600, 1000)]
+    eng = InferenceEngine(model, qparams, RuntimeConfig())
+    toks = {}
+    for fused in (True, False):
+        flash_attention.launches_fresh = flash_attention.launches_warm = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, SamplingParams(max_new_tokens=32),
+                           fused=fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fresh = flash_attention.launches_fresh
+        assert n_fresh > 0 and n_fresh % L == 0 \
+            and flash_attention.launches_warm == 0, n_fresh
+        counts["fresh"] += n_fresh
+        _check_tokens(res, len(prompts), 32, cfg.vocab_size, "moe generate")
+        toks[fused] = res.tokens
+        log("moe", step="generate_fused" if fused else "generate_stepped",
+            card=card, prompt_tokens=",".join(str(len(p)) for p in prompts),
+            new_tokens=32, wall_s=f"{wall:.3f}",
+            tokens_per_s=f"{len(prompts) * 32 / wall:.2f}",
+            fresh_launches=n_fresh, note="smoke run, not a benchmark")
+    assert (toks[True] == toks[False]).all(), "fused and stepped differ"
+    del eng
+    torch.cuda.empty_cache()
+
+    # the CLI's generate and bench on that tree (its loader handed the
+    # tree drawn above): `--model mixtral-8x7b --quant int8` on one card
+    out, err = io.StringIO(), io.StringIO()
+    flash_attention.launches_fresh = 0
+    with _cli_params(cli, qparams), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(["generate", "--model", "mixtral-8x7b", "--quant",
+                       "int8", "--device", "cuda", "--prompt", _TEXT[:300],
+                       "--max-new", "32"])
+    assert rc == 0 and flash_attention.launches_fresh == L, \
+        (rc, flash_attention.launches_fresh, err.getvalue())
+    counts["fresh"] += flash_attention.launches_fresh
+    log("moe", step="cli_generate", rc=rc, text_chars=len(out.getvalue()),
+        stderr=err.getvalue().strip().replace(" ", "_"))
+
+    # 6. the bench decode leg, through `butterfly bench`
+    flash_attention.launches_fresh = paged_attention.launches = 0
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with _cli_params(cli, qparams), contextlib.redirect_stdout(out):
+        rc = cli.main(["bench", "--model", "mixtral-8x7b", "--quant",
+                       "int8", "--device", "cuda", "--batch", "8",
+                       "--prompt-len", "128", "--max-new", "64"])
+    torch.cuda.synchronize()
+    lines = out.getvalue().strip().splitlines()
+    assert rc == 0 and len(lines) == 1, "bench CLI: not one JSON line"
+    dec = json.loads(lines[0])
+    counts["fresh"] += flash_attention.launches_fresh
+    counts["paged"] += paged_attention.launches
+    for k in ("decode_tokens_per_sec_per_chip", "hbm_util", "mfu"):
+        assert dec[k] is not None and 0 < dec[k] < 1e9, (k, dec[k])
+    assert dec["hbm_util"] < 1 and dec["mfu"] < 1
+    print(f"[moe] step=bench_decode card={card} "
+          f"wall_s={time.monotonic() - t0:.1f} "
+          + json.dumps(dec, sort_keys=True), flush=True)
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mem(torch, "moe", "int8_tree_freed")
+
+    # 7. the expert axis on one card: expert = 2, both shards on cuda:0
+    mesh = make_mesh(MeshConfig(expert=2), ["cuda:0", "cuda:0"])
+    E = cfg.num_experts
+    gen_ = torch.Generator(device="cuda")
+    gen_.manual_seed(0)
+    # (a) f32, full width, 2 layers, no-drop capacity (cf = E)
+    f32 = cfg.replace(num_layers=EP_LAYERS_F32, dtype="float32",
+                      param_dtype="float32", moe_capacity_factor=float(E))
+    params = init_params(f32, gen_, "cuda")
+    before = torch.cuda.memory_allocated()
+    sharded = shard_params(params, f32, mesh)
+    grown = torch.cuda.memory_allocated() - before
+    for name in ("w_gate", "w_up", "w_down"):
+        leaf, full = sharded["layers"]["moe"][name], \
+            params["layers"]["moe"][name]
+        assert isinstance(leaf, ExpertShards) and len(leaf.parts) == 2
+        for i, part in enumerate(leaf.parts):
+            assert part.untyped_storage().data_ptr() == \
+                full.untyped_storage().data_ptr(), (name, i)
+    assert grown == 0, f"sharding allocated {grown} bytes"
+    log("moe", step="ep_placement", mesh="expert2_on_cuda:0",
+        f32_tree_GB=f"{_tree_bytes(params) / 1e9:.3f}",
+        bytes_allocated_by_sharding=grown, views="all expert slices")
+    ep = f32.replace(moe_impl="ep")
+    ids = torch.tensor([tok.encode(_TEXT[:255])], device="cuda")
+    assert ids.shape[1] == 256
+    caches = {k: init_cache(f32, 1, 512, device="cuda")
+              for k in ("dense", "ep")}
+    with mesh_ctx(mesh):
+        lg_ep, caches["ep"] = forward(sharded, ep, ids, caches["ep"],
+                                      fresh=True)
+    lg_d, caches["dense"] = forward(params, f32, ids, caches["dense"],
+                                    fresh=True)
+    ref_max = lg_d.abs().max().item()
+    worst = (lg_ep - lg_d).abs().max().item() / ref_max
+    cur = lg_d[:, -1:].argmax(-1).to(torch.int32)
+    agree = bool((lg_ep[0].argmax(-1) == lg_d[0].argmax(-1)).all())
+    for _ in range(8):
+        with mesh_ctx(mesh):
+            s_ep, caches["ep"] = forward(sharded, ep, cur, caches["ep"])
+        s_d, caches["dense"] = forward(params, f32, cur, caches["dense"])
+        worst = max(worst, (s_ep - s_d).abs().max().item()
+                    / s_d.abs().max().item())
+        agree = agree and bool(s_ep.argmax(-1).eq(s_d.argmax(-1)).all())
+        cur = s_d[:, -1:].argmax(-1).to(torch.int32)
+    log("moe", step="ep_f32", layers=EP_LAYERS_F32, prefill_tokens=256,
+        decode_steps=8, max_rel_logit_err=f"{worst:.3g}",
+        tol=EP_REL_TOL, greedy_equal=agree, max_abs_logit=f"{ref_max:.4g}")
+    assert worst <= EP_REL_TOL, f"EP vs dense logits: {worst}"
+    assert agree, "EP and dense greedy tokens differ"
+
+    # (c) a dropping capacity (cf 1.0): finite logits; each layer's
+    #     dropped assignments counted on the inputs its a2a dispatch gets
+    drop = ep.replace(moe_capacity_factor=1.0)
+    plain_ep = expert_mod.moe_block_ep
+    dropped = []
+
+    def counted_ep(x, p, c, capacity=None):
+        dropped.append(dropped_assignments(x, p["router"], c, 2, capacity))
+        return plain_ep(x, p, c, capacity)
+    expert_mod.moe_block_ep = counted_ep
+    try:
+        with mesh_ctx(mesh):
+            lg, _ = forward(sharded, drop, ids,
+                            init_cache(drop, 1, 256, device="cuda"),
+                            fresh=True)
+    finally:
+        expert_mod.moe_block_ep = plain_ep
+    assert torch.isfinite(lg).all(), "dropping capacity: non-finite logits"
+    assert len(dropped) == EP_LAYERS_F32
+    log("moe", step="ep_drop", capacity_factor=1.0,
+        dropped_assignments_per_layer=",".join(str(int(d)) for d in dropped),
+        assignments_per_layer=256 * cfg.num_experts_per_tok,
+        max_rel_diff_vs_no_drop=
+        f"{(lg - lg_d).abs().max().item() / ref_max:.4g}")
+    del params, sharded, caches, lg, lg_d, lg_ep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) bf16, full width, 4 layers: 8 greedy requests on the expert mesh
+    #     against the same requests on a dense engine
+    b16 = cfg.replace(num_layers=EP_LAYERS_BF16, param_dtype="bfloat16",
+                      moe_capacity_factor=float(E))
+    params = init_params(b16, gen_, "cuda")
+    outs = {}
+    for name, mcfg, m in (("dense", b16, None),
+                          ("ep", b16.replace(moe_impl="ep"), mesh)):
+        eng = ServingEngine(Model(mcfg, device="cuda"), params,
+                            RuntimeConfig(), mesh=m)
+        paged_attention.launches = 0
+        prompts, reqs, wall = _moe_serve(torch, Scheduler(eng), tok,
+                                         cfg.vocab_size, 32)
+        assert paged_attention.launches % EP_LAYERS_BF16 == 0
+        counts["paged"] += paged_attention.launches
+        outs[name] = (reqs, wall)
+        eng.cache = eng._kv_window = None
+        del eng
+    equal, divs = 0, []
+    gaps = {"dense": [], "ep": []}
+    for p, rd, re_ in zip(prompts, outs["dense"][0], outs["ep"][0]):
+        equal += rd.output == re_.output
+        d = _divergence(rd.output, re_.output)
+        if d is not None:
+            divs.append(d)
+        for name, r in (("dense", rd), ("ep", re_)):
+            gaps[name].append(_teacher_forced_gap(torch, params, b16, p,
+                                                  r.output))
+    log("moe", step="ep_bf16_serve", layers=EP_LAYERS_BF16,
+        requests=len(outs["ep"][0]), equal_to_dense=equal,
+        first_divergences=",".join(map(str, divs)) or "none",
+        teacher_forced_gap_max_ep=f"{max(gaps['ep']):.4f}",
+        teacher_forced_gap_max_dense=f"{max(gaps['dense']):.4f}",
+        dense_wall_s=f"{outs['dense'][1]:.2f}",
+        ep_wall_s=f"{outs['ep'][1]:.2f}",
+        note="bf16 near-ties may flip: reported, not asserted")
+    del params, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mem(torch, "moe", "end")
+    log("moe", phase_s=f"{time.monotonic() - t_phase:.1f}",
+        paged_launches=counts["paged"], fresh_launches=counts["fresh"])
+    return counts
+
 
 
 def _demangle(names):
@@ -2504,7 +2939,11 @@ def main() -> int:
     spec = phase_spec(torch, model, params, tok)
     fleet = phase_fleet(torch, model, params)
     bench = phase_bench(torch, model, params, qparams)
-    del qparams
+    # the Llama-3-8B trees go before Mixtral's int8 tree is drawn
+    del qparams, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(torch, tok)
 
     def entry(kname, source, replaces, launches, cases, main_case):
         e = {"name": kname, "route": "cuda", "source": source,
@@ -2524,12 +2963,13 @@ def main() -> int:
               "butterfly_tpu_torch/ops/csrc/paged_attention.cu",
               "butterfly_tpu/ops/paged_attention.py:65",
               serve_launches + alt["paged"] + long_paged + quant["paged"]
-              + spec["paged"] + fleet["paged"] + bench["paged"], kres,
+              + spec["paged"] + fleet["paged"] + bench["paged"]
+              + moe["paged"], kres,
               "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
               gen_fresh + alt["fresh"] + quant["fresh"] + spec["fresh"]
-              + bench["fresh"], fresh_cases, "fresh_bf16"),
+              + bench["fresh"] + moe["fresh"], fresh_cases, "fresh_bf16"),
         entry("flash_attention_warm", flash_src,
               "butterfly_tpu/ops/flash_attention.py:97",
               alt["warm"] + spec["warm"] + bench["warm"], warm_cases,

@@ -26,7 +26,7 @@ from butterfly_tpu.parallel import sequence as JS
 from butterfly_tpu_torch.core import config as tconfig
 from butterfly_tpu_torch.core.config import MeshConfig
 from butterfly_tpu_torch.core.mesh import (local_mesh, make_mesh, mesh_for,
-                                           require_seq_mesh, seq_degree)
+                                           require_ported_mesh, seq_degree)
 from butterfly_tpu_torch.models import common as T
 from butterfly_tpu_torch.models.bridge import params_from_numpy
 from butterfly_tpu_torch.ops.ring_attention import INVALID_POS
@@ -63,13 +63,21 @@ def test_mesh_maps_coordinates_to_devices():
     assert seq_degree(m) == 4 and seq_degree(None) == 1
     assert local_mesh("cpu").shape["seq"] == 1
     assert mesh_for(2, tensor=1, seq=2, devices=["cpu"] * 2).shape["seq"] == 2
-    require_seq_mesh(m)
+    require_ported_mesh(m)
     with pytest.raises(ValueError, match="wants 4 devices"):
         make_mesh(MeshConfig(seq=4), ["cpu"] * 3)
 
 
 @pytest.mark.parametrize("axis", ["tensor", "data", "stage", "expert"])
 def test_mesh_refuses_unported_axes(axis):
+    """Each unported axis raises naming its ROADMAP item; the expert axis
+    is ported: an expert mesh builds, expert x seq is refused."""
+    if axis == "expert":
+        m = make_mesh(MeshConfig(expert=2), ["cpu"] * 2)
+        assert m.shape["expert"] == 2 and seq_degree(m) == 1
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+            make_mesh(MeshConfig(expert=2, seq=2), ["cpu"] * 4)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_mesh(MeshConfig(**{axis: 2}), ["cpu"] * 2)
 
