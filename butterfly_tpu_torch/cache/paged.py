@@ -23,6 +23,16 @@ cfg.attn_impl == "flash" attend through the flash kernels
 (ops/flash_attention.py): a fresh chunk over its own K/V, a warm chunk
 over the gathered pool view as its cached prefix. Everything else gathers
 the pool into a dense view and runs models.common.attend.
+
+Under a tensor mesh each pool, scale pool and window is one contiguous
+tensor per shard (parallel/partition.py:Shards over the kv heads): the
+writes, gathers and flushes run per shard (parallel/tensor.py:tmap) and
+the kernels through their sharded wrappers, each shard on its q heads
+and its own pool. Under a data mesh the forwards run each data group's
+slots against its rows of the block table and its part of the window;
+the pool is replicated (any slot may read a page another group wrote:
+prefix caching shares pages), shared where the groups share a device,
+else one copy per group, and every write reaches every copy.
 """
 from __future__ import annotations
 
@@ -32,12 +42,17 @@ import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
+from butterfly_tpu_torch.core.mesh import data_degree, tensor_degree
 from butterfly_tpu_torch.models.common import (
     _cast_layer, _dequant_mirror, _take_rows, attend, attn_output,
     embed_tokens, ffn_block, final_logits, layer_params, make_mask, pre_norm,
     qkv_proj, quantize_kv, torch_dtype)
-from butterfly_tpu_torch.ops.flash_attention import flash_attention
-from butterfly_tpu_torch.ops.paged_attention import paged_attention
+from butterfly_tpu_torch.ops.flash_attention import flash_attention_sharded
+from butterfly_tpu_torch.ops.paged_attention import paged_attention_sharded
+from butterfly_tpu_torch.parallel.partition import (Shards, axis_parts,
+                                                    same_device)
+from butterfly_tpu_torch.parallel.tensor import (
+    cat_groups, data_groups, group_part, group_rows, over_heads, tmap)
 
 
 class PagedKVCache(NamedTuple):
@@ -74,10 +89,16 @@ class PagedKVCache(NamedTuple):
 
 
 def init_paged_cache(cfg: ModelConfig, runtime: RuntimeConfig,
-                     dtype=None, device=None) -> PagedKVCache:
+                     dtype=None, device=None, mesh=None) -> PagedKVCache:
     """Pool sized from the runtime config (+1 reserved null page), on
     `device` (None = CUDA). kv_quant="int8" allocates int8 code pools +
-    f32 scale pools."""
+    f32 scale pools. Under a tensor or data `mesh` the pools are placed
+    as parallel/partition.py:shard_paged_cache places them, allocated per
+    shard: one contiguous pool per tensor shard (kv heads Kv/t when the
+    tensor axis divides Kv), one replica per data group on its own
+    devices (shared where the groups share them)."""
+    if tensor_degree(mesh) > 1 or data_degree(mesh) > 1:
+        return _init_paged_sharded(cfg, runtime, dtype, mesh)
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     page = runtime.page_size
@@ -105,6 +126,44 @@ def init_paged_cache(cfg: ModelConfig, runtime: RuntimeConfig,
         k_pages=torch.zeros(shape, dtype=dtype, device=dev),
         v_pages=torch.zeros(shape, dtype=dtype, device=dev),
         page_table=table, lengths=lengths)
+
+
+def _init_paged_sharded(cfg: ModelConfig, runtime: RuntimeConfig, dtype,
+                        mesh) -> PagedKVCache:
+    T = tensor_degree(mesh)
+    T = T if cfg.num_kv_heads % T == 0 else 1
+    shard_cfg = cfg.replace(num_kv_heads=cfg.num_kv_heads // T)
+
+    def replica(d):
+        return [init_paged_cache(shard_cfg, runtime, dtype, dev)
+                for dev in mesh.tensor_devices(d)[:T]]
+    reps = [replica(0)]
+    for d in range(1, data_degree(mesh)):
+        if not all(same_device(a, b) for a, b in
+                   zip(mesh.tensor_devices(0), mesh.tensor_devices(d))):
+            reps.append(replica(d))
+    first = reps[0][0]
+    pools = {}
+    for name in ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages"):
+        if getattr(first, name) is None:
+            pools[name] = None
+            continue
+        per = [Shards([getattr(c, name) for c in r], "tensor", 2)
+               if T > 1 else getattr(r[0], name) for r in reps]
+        pools[name] = Shards(per, "data", None) if len(per) > 1 else per[0]
+    return first._replace(**pools)
+
+
+def pool_replicas(cache: PagedKVCache) -> list:
+    """The cache once per data replica of its pools (one entry where the
+    data groups share them): each pool a tensor or a tensor Shards."""
+    parts = axis_parts(cache.k_pages, "data")
+    if parts is None:
+        return [cache]
+    return [cache._replace(**{n: group_part(getattr(cache, n), r) for n in
+                              ("k_pages", "v_pages", "k_scale_pages",
+                               "v_scale_pages")})
+            for r in range(len(parts))]
 
 
 def _page_slots(page_table, pos, page: int, null_page: int, keep=None):
@@ -232,22 +291,50 @@ class KVWindow(NamedTuple):
         return self.k_scale is not None
 
 
-def init_kv_window(cache: PagedKVCache, width: int) -> KVWindow:
+def init_kv_window(cache: PagedKVCache, width: int, mesh=None) -> KVWindow:
     """Allocate a window of `width` staged tokens per slot, in the pool's
-    representation, on the pool's device."""
+    representation, on the pool's device. Under a tensor or data `mesh`
+    it is placed as parallel/partition.py:shard_kv_window places it,
+    allocated per shard: each data group's slots, each tensor shard's kv
+    heads (the pools' split), one contiguous tensor per (group, shard)."""
+    if tensor_degree(mesh) > 1 or data_degree(mesh) > 1:
+        return _init_window_sharded(cache, width, mesh)
     L, _, Kv, _, H = cache.k_pages.shape
-    shape = (L, cache.num_slots, Kv, width, H)
-    dev = cache.k_pages.device
-    if cache.quantized:
+    return _alloc_window((L, cache.num_slots, Kv, width, H),
+                         cache.k_pages.dtype, cache.quantized,
+                         cache.k_pages.device)
+
+
+def _alloc_window(shape, dtype, quant: bool, dev) -> KVWindow:
+    if quant:
         return KVWindow(
             k=torch.zeros(shape, dtype=torch.int8, device=dev),
             v=torch.zeros(shape, dtype=torch.int8, device=dev),
             k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
             v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
-    return KVWindow(k=torch.zeros(shape, dtype=cache.k_pages.dtype,
-                                  device=dev),
-                    v=torch.zeros(shape, dtype=cache.v_pages.dtype,
-                                  device=dev))
+    return KVWindow(k=torch.zeros(shape, dtype=dtype, device=dev),
+                    v=torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def _init_window_sharded(cache: PagedKVCache, width: int,
+                         mesh) -> KVWindow:
+    pool = group_part(cache.k_pages, 0)
+    parts = axis_parts(pool, "tensor") or [pool]
+    S = cache.num_slots
+    D = data_degree(mesh)
+    D = D if S % D == 0 else 1
+    groups = [[_alloc_window((p.shape[0], S // D, p.shape[2], width,
+                              p.shape[4]), p.dtype, cache.quantized, dev)
+               for p, dev in zip(parts, mesh.tensor_devices(d))]
+              for d in range(D)]
+
+    def leaf(j):
+        per = [[w[j] for w in g] for g in groups]
+        if per[0][0] is None:
+            return None
+        per = [Shards(p, "tensor", 2) if len(p) > 1 else p[0] for p in per]
+        return Shards(per, "data", 1) if D > 1 else per[0]
+    return KVWindow(*(leaf(j) for j in range(4)))
 
 
 def stage_window_layer(wk, wv, k, v, win_len, wks=None, wvs=None):
@@ -304,36 +391,52 @@ def insert_window_view_q(codes, scales, wl, wsl, base):
 
 def flush_paged_window(cache: PagedKVCache, window: KVWindow, win_len):
     """Flush every slot's staged window entries into the page pool, IN
-    PLACE: ONE scatter per pool tensor covering ALL layers. Entries past
-    win_len route to the null page, so the flushed pool never holds them.
-    Returns (cache with lengths advanced by win_len, zeroed win_len,
-    flushed token count [scalar tensor])."""
-    L, Pp, Kv, page, H = cache.k_pages.shape
-    S = win_len.shape[0]
-    W = window.width
-    dev = win_len.device
+    PLACE: ONE scatter per pool tensor covering ALL layers (per tensor
+    shard, per data group's slots, into every pool replica). Entries
+    past win_len route to the null page, so the flushed pool never holds
+    them. Returns (cache with lengths advanced by win_len, zeroed
+    win_len, flushed token count [scalar tensor])."""
+    for g in data_groups(win_len.shape[0]) or [None]:
+        def rows(x, dim=0):
+            return x if g is None else group_rows(x, g, dim, inplace=dim > 0)
+        win = tuple(rows(t, 1) for t in window)
+        for rep in pool_replicas(cache):
+            tmap(_flush_layers, rep.k_pages, rep.v_pages, rep.k_scale_pages,
+                 rep.v_scale_pages, *win, rows(cache.page_table),
+                 rows(cache.lengths), rows(win_len))
+    cache = cache._replace(lengths=(cache.lengths + win_len).to(torch.int32))
+    return cache, torch.zeros_like(win_len), win_len.sum()
+
+
+def _flush_layers(kp, vp, ksp, vsp, wk, wv, wks, wvs, page_table, lengths,
+                  win_len) -> None:
+    """flush_paged_window on one pool's tensors (every layer) from one
+    window's slots, read on the pool's device."""
+    L, Pp, Kv, page, H = kp.shape
+    S, W = wk.shape[1], wk.shape[3]
+    dev = kp.device
+    wk, wv, wks, wvs, page_table, lengths, win_len = (
+        None if t is None else t.to(dev, non_blocking=True)
+        for t in (wk, wv, wks, wvs, page_table, lengths, win_len))
     ar = torch.arange(W, device=dev)[None, :]
-    pos = cache.lengths.long()[:, None] + ar                  # [S, W]
+    pos = lengths.long()[:, None] + ar                        # [S, W]
     valid = ar < win_len.long()[:, None]
-    flat_pages, flat_off = _page_slots(cache.page_table, pos, page, Pp - 1,
-                                       valid)
+    flat_pages, flat_off = _page_slots(page_table, pos, page, Pp - 1, valid)
     # advanced indices at dims 1 and 3 (a slice between) put the index
     # dim FIRST: values arrive [S*W, L, Kv, H]
-    cache.k_pages[:, flat_pages, :, flat_off] = \
-        window.k.permute(1, 3, 0, 2, 4).reshape(S * W, L, Kv, H)
-    cache.v_pages[:, flat_pages, :, flat_off] = \
-        window.v.permute(1, 3, 0, 2, 4).reshape(S * W, L, Kv, H)
-    if window.quantized:
+    kp[:, flat_pages, :, flat_off] = \
+        wk.permute(1, 3, 0, 2, 4).reshape(S * W, L, Kv, H)
+    vp[:, flat_pages, :, flat_off] = \
+        wv.permute(1, 3, 0, 2, 4).reshape(S * W, L, Kv, H)
+    if wks is not None:
         # kv-major flat scale dim: col = kv*page + offset; adjacent
         # advanced dims (1, 2) stay in place: values arrive [L, S*W, Kv]
         cols = torch.arange(Kv, device=dev)[None, :] * page \
             + flat_off[:, None]
-        cache.k_scale_pages[:, flat_pages[:, None], cols] = \
-            window.k_scale.permute(0, 1, 3, 2).reshape(L, S * W, Kv)
-        cache.v_scale_pages[:, flat_pages[:, None], cols] = \
-            window.v_scale.permute(0, 1, 3, 2).reshape(L, S * W, Kv)
-    cache = cache._replace(lengths=(cache.lengths + win_len).to(torch.int32))
-    return cache, torch.zeros_like(win_len), win_len.sum()
+        ksp[:, flat_pages[:, None], cols] = \
+            wks.permute(0, 1, 3, 2).reshape(L, S * W, Kv)
+        vsp[:, flat_pages[:, None], cols] = \
+            wvs.permute(0, 1, 3, 2).reshape(L, S * W, Kv)
 
 
 def permute_window_tail(window: KVWindow, win_len, perm) -> KVWindow:
@@ -344,7 +447,20 @@ def permute_window_tail(window: KVWindow, win_len, perm) -> KVWindow:
     window index win_len+i holds the i-th kept node's K/V, so the
     caller's win_len += m keeps exactly the accepted path. A gather along
     the W axis (identity outside the staged run) that materialises before
-    the write, so overlapping source and destination are safe."""
+    the write, so overlapping source and destination are safe. Per data
+    group's slots and per tensor shard."""
+    for g in data_groups(win_len.shape[0]) or [None]:
+        if g is None:
+            tmap(_permute_window, *window, win_len, perm)
+        else:
+            tmap(_permute_window,
+                 *(group_rows(t, g, 1, inplace=True) for t in window),
+                 group_rows(win_len, g), group_rows(perm, g))
+    return window
+
+
+def _permute_window(wk, wv, wks, wvs, win_len, perm) -> None:
+    window = KVWindow(wk, wv, wks, wvs)
     W = window.width
     C = perm.shape[1]
     dev = win_len.device
@@ -361,7 +477,6 @@ def permute_window_tail(window: KVWindow, win_len, perm) -> KVWindow:
         gs = idx[None, :, None, :].expand(L, S, Kv, W)
         for t in (window.k_scale, window.v_scale):
             t.copy_(torch.gather(t, 3, gs))
-    return window
 
 
 def permute_paged_tail(cache: PagedKVCache, perm,
@@ -371,7 +486,18 @@ def permute_paged_tail(cache: PagedKVCache, perm,
     gather the C kept nodes' entries (positions lengths + perm[:, i]) and
     write them to lengths .. lengths+C-1 across all layers. Positions
     past the table row, and inactive slots, route to the null page (the
-    gather reads it, the write lands there)."""
+    gather reads it, the write lands there). Per tensor shard, in every
+    pool replica."""
+    for rep in pool_replicas(cache):
+        tmap(_permute_pages, rep.k_pages, rep.v_pages, rep.k_scale_pages,
+             rep.v_scale_pages, cache.page_table, cache.lengths, perm,
+             active)
+    return cache
+
+
+def _permute_pages(kp, vp, ksp, vsp, page_table, lengths, perm,
+                   active) -> None:
+    cache = PagedKVCache(kp, vp, page_table, lengths, ksp, vsp)
     L, Pp, Kv, page, H = cache.k_pages.shape
     S, C = perm.shape
     dev = perm.device
@@ -395,7 +521,6 @@ def permute_paged_tail(cache: PagedKVCache, perm,
         for t in (cache.k_scale_pages, cache.v_scale_pages):
             t[:, dst_pages[:, None], dst_cols] = \
                 t[:, src_pages[:, None], src_cols]
-    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -427,6 +552,11 @@ def paged_layer_body(x, lp, kp, vp, *, cfg: ModelConfig, page_table,
     is gathered into a dense view (window inserted) for attend().
     `force_dense` (an explicit, non-causal mask: the tree verify) keeps
     the warm chunk off the flash kernel too.
+
+    Tensor-split weights (parallel/partition.py) give per-shard q/k/v;
+    the pools and window are then per-shard Shards too (or one replicated
+    pool where Kv does not divide the tensor axis), and every write,
+    gather and kernel call runs per shard.
     """
     T = x.shape[1]
     quant = ksp is not None
@@ -439,58 +569,60 @@ def paged_layer_body(x, lp, kp, vp, *, cfg: ModelConfig, page_table,
     if win is not None:
         wk, wv, wks, wvs, win_len = win
         base = start - win_len  # flushed pool length per slot
-        wk, wv, wks, wvs = stage_window_layer(wk, wv, k, v, win_len,
-                                              wks, wvs)
+        wk, wv, wks, wvs = tmap(stage_window_layer, wk, wv, k, v, win_len,
+                                wks, wvs)
     else:
-        kp, vp, ksp, vsp = write_paged_layer(kp, vp, page_table, k, v,
-                                             start, active, ksp, vsp)
+        kp, vp, ksp, vsp = tmap(write_paged_layer, kp, vp, page_table, k, v,
+                                start, active, ksp, vsp)
     zero = torch.zeros_like(start)
     if use_kernel and T == 1:
-        q1 = q[:, 0].contiguous()
+        q1 = tmap(lambda t: t[:, 0].contiguous(), q, out_split=1)
         if win is not None:
             # pool-valid lengths are the FLUSHED base; the staged run
             # (prior entries + the token just staged) is the window
             lens = torch.where(active, base, zero).to(torch.int32)
             wcnt = torch.where(active, win_len + T, zero).to(torch.int32)
-            out = paged_attention(q1, kp, vp, page_table, lens, ksp, vsp,
-                                  win_k=wk, win_v=wv, win_count=wcnt,
-                                  win_k_scale=wks, win_v_scale=wvs)
+            out = paged_attention_sharded(
+                q1, kp, vp, page_table, lens, ksp, vsp, win_k=wk, win_v=wv,
+                win_count=wcnt, win_k_scale=wks, win_v_scale=wvs)
         else:
             # lengths INCLUDING the token just written (inactive: 0)
             lens = torch.where(active, start + 1, zero).to(torch.int32)
-            out = paged_attention(q1, kp, vp, page_table, lens, ksp, vsp)
-        out = out[:, None]
+            out = paged_attention_sharded(q1, kp, vp, page_table, lens, ksp,
+                                          vsp)
+        out = tmap(lambda t: t[:, None], out, out_split=2)
     elif cfg.attn_impl == "flash" and T > 1 and fresh:
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention_sharded(q, k, v, causal=True)
     elif cfg.attn_impl == "flash" and T > 1 and win is None \
             and not force_dense:
         plen = torch.where(active, start, zero).to(torch.int32)
         if quant:
-            ck, k_s = gather_paged_layer_q(kp, ksp, page_table)
-            cv, v_s = gather_paged_layer_q(vp, vsp, page_table)
-            out = flash_attention(q, _dequant_mirror(k), _dequant_mirror(v),
-                                  causal=True, prefix_k=ck, prefix_v=cv,
-                                  prefix_len=plen, prefix_k_scale=k_s,
-                                  prefix_v_scale=v_s)
+            ck, k_s = tmap(gather_paged_layer_q, kp, ksp, page_table)
+            cv, v_s = tmap(gather_paged_layer_q, vp, vsp, page_table)
+            out = flash_attention_sharded(
+                q, tmap(_dequant_mirror, k), tmap(_dequant_mirror, v),
+                causal=True, prefix_k=ck, prefix_v=cv, prefix_len=plen,
+                prefix_k_scale=k_s, prefix_v_scale=v_s)
         else:
-            out = flash_attention(q, k, v, causal=True,
-                                  prefix_k=gather_paged_layer(kp, page_table),
-                                  prefix_v=gather_paged_layer(vp, page_table),
-                                  prefix_len=plen)
+            out = flash_attention_sharded(
+                q, k, v, causal=True,
+                prefix_k=tmap(gather_paged_layer, kp, page_table),
+                prefix_v=tmap(gather_paged_layer, vp, page_table),
+                prefix_len=plen)
     elif quant:
-        ck, k_s = gather_paged_layer_q(kp, ksp, page_table)
-        cv, v_s = gather_paged_layer_q(vp, vsp, page_table)
+        ck, k_s = tmap(gather_paged_layer_q, kp, ksp, page_table)
+        cv, v_s = tmap(gather_paged_layer_q, vp, vsp, page_table)
         if win is not None:
-            ck, k_s = insert_window_view_q(ck, k_s, wk, wks, base)
-            cv, v_s = insert_window_view_q(cv, v_s, wv, wvs, base)
-        out = attend(q, ck, cv, mask, cfg, k_s, v_s)
+            ck, k_s = tmap(insert_window_view_q, ck, k_s, wk, wks, base)
+            cv, v_s = tmap(insert_window_view_q, cv, v_s, wv, wvs, base)
+        out = over_heads(attend, q, ck, cv, mask, cfg, k_s, v_s)
     else:
-        ck = gather_paged_layer(kp, page_table)
-        cv = gather_paged_layer(vp, page_table)
+        ck = tmap(gather_paged_layer, kp, page_table)
+        cv = tmap(gather_paged_layer, vp, page_table)
         if win is not None:
-            ck = insert_window_view(ck, wk, base)
-            cv = insert_window_view(cv, wv, base)
-        out = attend(q, ck, cv, mask, cfg)
+            ck = tmap(insert_window_view, ck, wk, base)
+            cv = tmap(insert_window_view, cv, wv, base)
+        out = over_heads(attend, q, ck, cv, mask, cfg)
     x = x + attn_output(out, lp["attn"], cfg)
     x = x + ffn_block(pre_norm(x, lp["ln2"], cfg), lp, cfg)
     if win is not None:
@@ -511,15 +643,69 @@ def paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
     node attends committed history + its ancestor chunk positions) and
     forces the dense path; K/V still land at start + chunk index while
     RoPE follows `positions`. Returns (logits [B,T,V] f32, cache with
-    advanced lengths)."""
+    advanced lengths). Data groups run their rows against their replica
+    of the pool; each group's writes are copied into the other replicas."""
     B, T = tokens.shape
     dev = tokens.device
-    quant = cache.quantized
     if positions is None:
         positions = cache.lengths.long()[:, None] \
             + torch.arange(T, device=dev)[None, :]
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=dev)
+    groups = data_groups(B)
+    if groups is None:
+        return _paged_forward(params, cfg, tokens, cache, positions, active,
+                              use_kernel, fresh, last_index, attn_mask)
+    reps = pool_replicas(cache)
+    outs = []
+    for g in groups:
+        r = g.index if len(reps) > 1 else 0
+        table = group_rows(cache.page_table, g)
+        pos_g, act_g = group_rows(positions, g), group_rows(active, g)
+        logits, c = _paged_forward(
+            group_part(params, g.index), cfg, group_rows(tokens, g),
+            reps[r]._replace(page_table=table,
+                             lengths=group_rows(cache.lengths, g)),
+            pos_g, act_g, use_kernel, fresh, group_rows(last_index, g),
+            group_rows(attn_mask, g))
+        for other in reps[:r] + reps[r + 1:]:
+            _copy_written(reps[r], other, table, pos_g[:, 0], T, act_g)
+        outs.append((logits, c.lengths))
+    return (cat_groups([o[0] for o in outs]),
+            cache._replace(lengths=cat_groups([o[1] for o in outs])))
+
+
+def _copy_written(src: PagedKVCache, dst: PagedKVCache, page_table, start,
+                  T: int, active) -> None:
+    """Copy the pool cells a window-off forward wrote (T tokens from
+    `start` of each active row, every layer) from replica `src` into
+    replica `dst`, per tensor shard."""
+    pos = start.long()[:, None] + torch.arange(T, device=start.device)
+    keep = active[:, None].expand_as(pos)
+
+    def copy(sk, sv, sks, svs, dk, dv, dks, dvs):
+        page = sk.shape[3]
+        pages, off = _page_slots(page_table.to(sk.device), pos.to(sk.device),
+                                 page, sk.shape[1] - 1, keep.to(sk.device))
+        for a, b in ((sk, dk), (sv, dv)):
+            b[:, pages.to(b.device), :, off.to(b.device)] = \
+                a[:, pages, :, off].to(b.device)
+        if sks is not None:
+            cols = torch.arange(sk.shape[2], device=sk.device)[None, :] \
+                * page + off[:, None]
+            for a, b in ((sks, dks), (svs, dvs)):
+                b[:, pages[:, None].to(b.device), cols.to(b.device)] = \
+                    a[:, pages[:, None], cols].to(b.device)
+    tmap(copy, src.k_pages, src.v_pages, src.k_scale_pages,
+         src.v_scale_pages, dst.k_pages, dst.v_pages, dst.k_scale_pages,
+         dst.v_scale_pages)
+
+
+def _paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
+                   positions, active, use_kernel: bool, fresh: bool,
+                   last_index, attn_mask):
+    T = tokens.shape[1]
+    quant = cache.quantized
     x, cos, sin = embed_tokens(params, cfg, tokens, positions)
     mask = attn_mask if attn_mask is not None \
         else make_mask(positions, cache.max_seq)
@@ -551,15 +737,37 @@ def paged_forward_window(params, cfg: ModelConfig, tokens,
     per slot is cache.lengths (flushed) + win_len (staged); neither
     advances here. `positions` / `attn_mask` override the causal
     defaults for the tree verify (paged_forward's attn_mask). Returns
-    (logits [B,T,V] f32, window)."""
+    (logits [B,T,V] f32, window). Data groups run their slots against
+    their part of the window and their replica of the pool."""
     B, T = tokens.shape
     dev = tokens.device
-    quant = cache.quantized
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=dev)
     if positions is None:
         positions = (cache.lengths + win_len).long()[:, None] \
             + torch.arange(T, device=dev)[None, :]
+    groups = data_groups(B)
+    if groups is None:
+        return _paged_forward_window(params, cfg, tokens, cache, window,
+                                     win_len, active, use_kernel, positions,
+                                     attn_mask), window
+    reps = pool_replicas(cache)
+    logits = [_paged_forward_window(
+        group_part(params, g.index), cfg, group_rows(tokens, g),
+        reps[g.index if len(reps) > 1 else 0]._replace(
+            page_table=group_rows(cache.page_table, g),
+            lengths=group_rows(cache.lengths, g)),
+        KVWindow(*(group_rows(t, g, 1, inplace=True) for t in window)),
+        group_rows(win_len, g), group_rows(active, g), use_kernel,
+        group_rows(positions, g), group_rows(attn_mask, g))
+        for g in groups]
+    return cat_groups(logits), window
+
+
+def _paged_forward_window(params, cfg: ModelConfig, tokens,
+                          cache: PagedKVCache, window: KVWindow, win_len,
+                          active, use_kernel: bool, positions, attn_mask):
+    quant = cache.quantized
     x, cos, sin = embed_tokens(params, cfg, tokens, positions)
     mask = attn_mask if attn_mask is not None \
         else make_mask(positions, cache.max_seq)
@@ -577,4 +785,4 @@ def paged_forward_window(params, cfg: ModelConfig, tokens,
                  window.k_scale[i] if quant else None,
                  window.v_scale[i] if quant else None, wl))
         x = out[0]
-    return final_logits(params, cfg, x), window
+    return final_logits(params, cfg, x)

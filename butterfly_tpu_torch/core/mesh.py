@@ -14,10 +14,11 @@ run seq=4 on `cpu`, and one card runs seq=2 with both shards on cuda:0.
 Nothing places shards implicitly: with no list, the mesh takes the
 visible cards cuda:0..n-1 and their count must match.
 
-The `seq` and `expert` axes are ported, one at a time. A mesh with
-another axis larger than 1 (tensor, data, stage), or with both `seq` and
-`expert` larger than 1, raises NotImplementedError naming its ROADMAP
-item.
+The `seq`, `expert`, `tensor` and `data` axes are ported: `seq` and
+`expert` one at a time, `tensor` and `data` alone or with each other (the
+JAX tests' tensor x data meshes). A mesh with `stage` larger than 1, or
+one that combines `seq` or `expert` with another axis larger than 1,
+raises NotImplementedError naming its ROADMAP item.
 
 The engines make their mesh the ACTIVE mesh (`mesh_ctx`, the counterpart
 of the JAX package's ambient mesh, core/compat.py:mesh_ctx) around every
@@ -38,14 +39,14 @@ import torch
 from butterfly_tpu_torch.core.config import MESH_AXES, MeshConfig
 
 #: where each unported mesh axis waits (ROADMAP.md, PyTorch/CUDA port)
-_UNPORTED_AXES = {
-    "tensor": "tensor parallelism",
-    "data": "data parallelism",
-    "stage": "pipeline parallelism",
-}
+_UNPORTED_AXES = {"stage": "item 6, pipeline parallelism"}
+
+#: what each ported axis computes (named in the refusals)
+_AXIS_KIND = {"tensor": "tensor parallelism", "data": "data parallelism",
+              "seq": "sequence parallelism", "expert": "expert parallelism"}
 
 #: where a mesh that combines two ported axes waits
-_COMBINED_AXES = "item 6, meshes that combine axes (expert x seq)"
+_COMBINED_AXES = "item 6, meshes that combine axes"
 
 
 class Mesh:
@@ -72,6 +73,20 @@ class Mesh:
         experts [i*E/N, (i+1)*E/N)."""
         return self._along("expert")
 
+    def tensor_devices(self, data_index: int = 0) -> List[torch.device]:
+        """The devices along the tensor axis of data group `data_index`,
+        shard order: shard i holds the i-th slice of every split head,
+        hidden and vocab dim."""
+        idx = tuple(slice(None) if a == "tensor" else
+                    (data_index if a == "data" else 0)
+                    for a in self.axis_names)
+        return list(self.devices[idx])
+
+    def data_devices(self) -> List[torch.device]:
+        """The first device of each data group, group order: group d
+        serves rows [d*B/N, (d+1)*B/N) of every batch and slot dim."""
+        return self._along("data")
+
     @property
     def first_device(self) -> torch.device:
         """The device every program that is not sharded runs on."""
@@ -86,13 +101,22 @@ def _refuse_unported_axes(cfg: MeshConfig) -> None:
         if getattr(cfg, axis) > 1:
             raise NotImplementedError(
                 f"a mesh with {axis}={getattr(cfg, axis)} is not ported yet "
-                f"(ROADMAP.md, PyTorch/CUDA port queue: {item}); only the "
-                "seq and expert axes run")
-    if cfg.expert > 1 and cfg.seq > 1:
-        raise NotImplementedError(
-            f"a mesh with expert={cfg.expert} and seq={cfg.seq} is not "
-            f"ported yet (ROADMAP.md, PyTorch/CUDA port queue: "
-            f"{_COMBINED_AXES}); the seq and expert axes run one at a time")
+                f"(ROADMAP.md, PyTorch/CUDA port queue: {item}); the seq, "
+                "expert, tensor and data axes run")
+    on = [a for a in ("tensor", "data", "expert", "seq")
+          if getattr(cfg, a) > 1]
+    # seq and expert combine with nothing; tensor and data with each other
+    for a in ("expert", "seq"):
+        others = [b for b in on if b != a]
+        if a in on and others:
+            b = others[0]
+            raise NotImplementedError(
+                f"a mesh with {a}={getattr(cfg, a)} and "
+                f"{b}={getattr(cfg, b)} is not ported yet (ROADMAP.md, "
+                f"PyTorch/CUDA port queue: {_COMBINED_AXES} ({a} x {b})); "
+                f"{_AXIS_KIND[a]} runs alone, {_AXIS_KIND[b]} "
+                + ("alone" if b in ("expert", "seq") else
+                   "alone or with the other of tensor and data"))
 
 
 def make_mesh(cfg: MeshConfig,
@@ -143,8 +167,8 @@ def mesh_for(n_devices: int, tensor: int = 0, stage: int = 1,
 
 
 def require_ported_mesh(mesh: Mesh) -> None:
-    """Raise NotImplementedError unless the mesh is a seq-only or an
-    expert-only mesh (every other axis 1)."""
+    """Raise NotImplementedError unless the mesh is a seq-only, an
+    expert-only, or a tensor x data mesh (every other axis 1)."""
     _refuse_unported_axes(MeshConfig(**{a: mesh.shape.get(a, 1)
                                         for a in MESH_AXES}))
 
@@ -157,6 +181,16 @@ def seq_degree(mesh: Optional[Mesh]) -> int:
 def expert_degree(mesh: Optional[Mesh]) -> int:
     """The mesh's expert size (1 without a mesh)."""
     return 1 if mesh is None else mesh.shape.get("expert", 1)
+
+
+def tensor_degree(mesh: Optional[Mesh]) -> int:
+    """The mesh's tensor size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape.get("tensor", 1)
+
+
+def data_degree(mesh: Optional[Mesh]) -> int:
+    """The mesh's data size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape.get("data", 1)
 
 
 _ACTIVE: contextvars.ContextVar[Optional[Mesh]] = \

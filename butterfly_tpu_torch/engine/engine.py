@@ -15,8 +15,11 @@ computed, then decode steps that merge per-shard partial attention. Under
 an expert mesh the MoE expert leaves are split over its shards
 (parallel/partition.py:shard_params) and every forward runs with the mesh
 active, so the expert-parallel FFN (cfg.moe_impl="ep",
-parallel/expert.py) dispatches over it. Every other program runs on the
-mesh's first device.
+parallel/expert.py) dispatches over it. Under a tensor x data mesh the
+weights and the contiguous cache are split (heads, F and vocab over
+`tensor`, batch rows over `data`; models/common.py runs the layers per
+shard), and `generate` pads the batch to a multiple of the data size.
+Every program that is not sharded runs on the mesh's first device.
 
 `generate_speculative` is prompt-lookup speculative decoding on one
 sequence: n-gram drafts verified in one (gamma+1)-token forward, accepted
@@ -40,13 +43,14 @@ import torch
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
 from butterfly_tpu_torch.core.mesh import (
-    expert_degree, require_ported_mesh, seq_degree, under_mesh)
+    data_degree, expert_degree, require_ported_mesh, seq_degree,
+    tensor_degree, under_mesh)
 from butterfly_tpu_torch.engine.sampling import (
     SamplingParams, sample, speculative_accept)
 from butterfly_tpu_torch.models.common import (
     KVCache, Model, decode_step_win, flush_window, forward, init_cache,
     torch_dtype)
-from butterfly_tpu_torch.parallel.partition import ExpertShards, shard_params
+from butterfly_tpu_torch.parallel.partition import Shards, shard_params
 from butterfly_tpu_torch.parallel.sequence import (
     replicate_params, sp_decode_step, sp_forward)
 
@@ -105,8 +109,8 @@ def _ngram_draft(history, gamma: int, ngram: int):
 
 
 def mesh_device(mesh, device, model) -> torch.device:
-    """The engine's device: the mesh's first device under a (seq-only or
-    expert-only) mesh, where every program that is not sharded runs; else
+    """The engine's device: the mesh's first device under a mesh, where
+    every program that is not sharded runs; else
     `device`, else the model's. A `device` that disagrees with the mesh
     raises."""
     if mesh is None:
@@ -124,20 +128,21 @@ def mesh_device(mesh, device, model) -> torch.device:
 
 def to_device(params, device: torch.device):
     """The weight tree with every leaf on `device` (no copy when there);
-    expert leaves already split over a mesh keep their placement."""
+    leaves already split over a mesh keep their placement."""
     if isinstance(params, dict):
         return {k: to_device(v, device) for k, v in params.items()}
-    if isinstance(params, ExpertShards):
+    if isinstance(params, Shards):
         return params
     return params.to(device)
 
 
 def place_params(params, cfg: ModelConfig, device: torch.device, mesh):
     """The engine's weight tree: cast to the compute dtype on `device`
-    and, under an expert mesh, the expert leaves split over its shards
-    (views where a shard shares the device: one card holds one tree)."""
+    and, under an expert, tensor or data mesh, placed over it
+    (parallel/partition.py:shard_params; views where a shard shares the
+    device: one card holds one tree)."""
     params = to_device(cast_params(params, cfg), device)
-    if expert_degree(mesh) > 1:
+    if max(expert_degree(mesh), tensor_degree(mesh), data_degree(mesh)) > 1:
         params = shard_params(params, cfg, mesh)
     return params
 
@@ -152,10 +157,10 @@ def seq_replicas(params, mesh):
 
 class InferenceEngine:
     """Inference over a weight tree on `device` (None = the model's
-    device, CUDA unless the caller asks for the CPU), or over a seq-only
-    or expert-only `mesh` (core/mesh.py): then on the mesh's first
-    device, with one copy of the weights per distinct seq device for
-    `generate_long`, or the expert leaves split over the expert shards."""
+    device, CUDA unless the caller asks for the CPU), or over a `mesh`
+    (core/mesh.py): a seq mesh keeps one copy of the weights per distinct
+    seq device for `generate_long`; an expert mesh splits the expert
+    leaves; a tensor x data mesh splits the weights and the cache."""
 
     def __init__(self, model: Model, params,
                  runtime: Optional[RuntimeConfig] = None, mesh=None,
@@ -187,9 +192,12 @@ class InferenceEngine:
     # -- public API ---------------------------------------------------------
 
     def new_cache(self, batch: int, max_seq: Optional[int] = None) -> KVCache:
+        """A zeroed cache, placed over the mesh's tensor and data axes
+        (parallel/partition.py:shard_cache) when it has them."""
         return init_cache(self.cfg, batch,
                           max_seq or self.runtime.max_seq_len,
-                          quant=self.runtime.kv_quant, device=self.device)
+                          quant=self.runtime.kv_quant, device=self.device,
+                          mesh=self.mesh)
 
     @under_mesh
     def prefill(self, tokens: torch.Tensor, true_lens: torch.Tensor,
@@ -213,6 +221,11 @@ class InferenceEngine:
         """End-to-end batched generation from python-list prompts."""
         sp = sp or SamplingParams()
         n_real = len(prompts)
+        # the mesh's data axis splits the batch: pad the request count to
+        # a multiple of it (the dummy rows are stripped from the result)
+        dp = data_degree(self.mesh)
+        if n_real % dp:
+            prompts = list(prompts) + [list(prompts[0])] * (dp - n_real % dp)
         tokens, true_lens = pad_prompts(prompts)
         B = tokens.shape[0]
         total = tokens.shape[1] + sp.max_new_tokens
@@ -372,6 +385,10 @@ class InferenceEngine:
         sp = sp or SamplingParams()
         if gamma < 1 or ngram < 1:
             raise ValueError("gamma and ngram must be >= 1")
+        if data_degree(self.mesh) > 1:
+            # one sequence cannot be split over data (the JAX refusal)
+            raise NotImplementedError(
+                "speculative decoding supports tensor/expert meshes only")
         tokens, true_lens = pad_prompts([list(prompt)])
         total = tokens.shape[1] + sp.max_new_tokens
         if total > self.cfg.max_seq_len:

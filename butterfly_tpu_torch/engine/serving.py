@@ -24,8 +24,15 @@ kernel, landing in the ordinary page pool; the slot then decodes like any
 other. Under an expert-only mesh the MoE expert leaves are split over its
 shards (parallel/partition.py:shard_params) and every dispatch runs with
 the mesh active, so the expert-parallel FFN (cfg.moe_impl="ep",
-parallel/expert.py) dispatches over it in every path. Every other
-program, the pool and the window live on the mesh's first device.
+parallel/expert.py) dispatches over it in every path. Under a tensor x
+data mesh the weights split over `tensor` (views on one card), the pool
+and the window hold one contiguous tensor per tensor shard, the slots
+split over `data` groups and the pool is replicated over them (shared on
+one device); every path runs each shard's kernels on its heads and each
+group's on its slots (cache/paged.py), while the block table stays on
+the host. Pages read back (`read_pages`, the host KV tier, /kv/pages)
+come out in the unsharded layout, so any two engines exchange KV. Every
+other program lives on the mesh's first device.
 
 Decode steps (C == 1) attend through the hand-written paged-attention
 kernel on CUDA (`use_kernels`, on by default there). With kernels on, the
@@ -53,7 +60,7 @@ import torch
 from butterfly_tpu_torch.cache.paged import (
     KVWindow, PagedKVCache, flush_paged_window, init_kv_window,
     init_paged_cache, paged_forward, paged_forward_window,
-    permute_paged_tail, permute_window_tail)
+    permute_paged_tail, permute_window_tail, pool_replicas)
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.mesh import seq_degree, under_mesh
 from butterfly_tpu_torch.engine.engine import (
@@ -63,6 +70,7 @@ from butterfly_tpu_torch.engine.sampling import (
     speculative_tree_accept, tree_ancestor_matrix, tree_depth,
     tree_node_index)
 from butterfly_tpu_torch.models.common import Model
+from butterfly_tpu_torch.parallel.partition import axis_parts
 from butterfly_tpu_torch.parallel.sequence import sp_chunk_body
 
 
@@ -138,7 +146,7 @@ class ServingEngine:
         self._warm_cfg = self._prefill_cfg \
             if self.runtime.prefill_flash_warm else self.cfg
         self.cache = init_paged_cache(self.cfg, self.runtime,
-                                      device=self.device)
+                                      device=self.device, mesh=mesh)
         # Host-side block-table mirror (the host is the only writer): the
         # whole int32 table transfers ONCE per dispatch that needs it.
         self._host_table = np.full(tuple(self.cache.page_table.shape),
@@ -341,12 +349,14 @@ class ServingEngine:
                 self.flush_kv_window()
             if width < need:
                 width = max(1, self.runtime.inflight_blocks) * need
-                self._kv_window = init_kv_window(self.cache, width)
+                self._kv_window = init_kv_window(self.cache, width,
+                                                 self.mesh)
                 self._win_len = None
         if self._win_len is None:
             self._win_len = torch.zeros((self.num_slots,), dtype=torch.int32,
                                         device=self.device)
 
+    @under_mesh
     def flush_kv_window(self):
         """Flush every staged window entry into the page pool (one scatter
         per pool tensor, in place, ordered after every staging block).
@@ -592,34 +602,47 @@ class ServingEngine:
 
     # -- page import / export ------------------------------------------------
 
+    @under_mesh
     def read_pages(self, pids):
         """Page contents on the host: (k [L, n, Kv, page, H], v, k_scales,
         v_scales) as CPU tensors — scales [L, n, Kv*page] iff the pool is
-        int8, else None. Synchronous."""
+        int8, else None. A pool split over `tensor` reads each shard's
+        pages and concatenates the kv heads (and the kv-major scale
+        columns) in shard order: the unsharded engine's bytes.
+        Synchronous."""
         if self._win_dirty:
             self.flush_kv_window()
-        idx = torch.as_tensor(list(pids), dtype=torch.long,
-                              device=self.device)
-        c = self.cache
-        k, v = c.k_pages[:, idx].cpu(), c.v_pages[:, idx].cpu()
-        ks = vs = None
-        if c.quantized:
-            ks, vs = c.k_scale_pages[:, idx].cpu(), \
-                c.v_scale_pages[:, idx].cpu()
-        return k, v, ks, vs
+        c = pool_replicas(self.cache)[0]
 
+        def read(pool):
+            if pool is None:
+                return None
+            parts = axis_parts(pool, "tensor") or [pool]
+            idx = torch.as_tensor(list(pids), dtype=torch.long)
+            return torch.cat([p[:, idx.to(p.device)].cpu() for p in parts],
+                             dim=2)
+        return (read(c.k_pages), read(c.v_pages), read(c.k_scale_pages),
+                read(c.v_scale_pages))
+
+    @under_mesh
     def write_pages(self, pids, k, v, k_scales=None, v_scales=None) -> None:
-        """Land page contents (the read_pages layout) at page ids pids."""
-        idx = torch.as_tensor(list(pids), dtype=torch.long,
-                              device=self.device)
-        c = self.cache
-        c.k_pages[:, idx] = torch.as_tensor(k).to(self.device, c.k_pages.dtype)
-        c.v_pages[:, idx] = torch.as_tensor(v).to(self.device, c.v_pages.dtype)
-        if c.quantized:
-            c.k_scale_pages[:, idx] = torch.as_tensor(k_scales).to(
-                self.device, torch.float32)
-            c.v_scale_pages[:, idx] = torch.as_tensor(v_scales).to(
-                self.device, torch.float32)
+        """Land page contents (the read_pages layout) at page ids pids:
+        split over the kv heads into each tensor shard's pool, in every
+        data replica of the pool."""
+        def write(pool, val, dtype):
+            parts = axis_parts(pool, "tensor") or [pool]
+            val = torch.as_tensor(val)
+            sizes = [p.shape[2] for p in parts]
+            for p, vp in zip(parts, torch.split(val, sizes, dim=2)):
+                idx = torch.as_tensor(list(pids), dtype=torch.long,
+                                      device=p.device)
+                p[:, idx] = vp.to(p.device, dtype)
+        for c in pool_replicas(self.cache):
+            write(c.k_pages, k, c.k_pages.dtype)
+            write(c.v_pages, v, c.v_pages.dtype)
+            if c.quantized:
+                write(c.k_scale_pages, k_scales, torch.float32)
+                write(c.v_scale_pages, v_scales, torch.float32)
 
     # -- speculation ------------------------------------------------------
 
@@ -1061,7 +1084,7 @@ def _build_model_draft_source(engine: "ServingEngine"):
     return ModelDraftSource(
         dcfg, dparams, num_slots=engine.num_slots,
         width=engine.cache.max_seq + rt.speculative_gamma + 1,
-        kv_quant=rt.kv_quant)
+        kv_quant=rt.kv_quant, mesh=engine.mesh)
 
 
 _build_model_draft_source.draft_source_factory = True

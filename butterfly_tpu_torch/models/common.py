@@ -21,6 +21,18 @@ the probabilities), and round-half-to-even int8 quantization, so int8
 codes come out byte-identical to the JAX package's. Every matmul weight
 goes through quant/int8.py:qeinsum, so int8 weight trees ({"q8", "s"}
 leaves) run the same layer math as float ones.
+
+Under a tensor mesh (parallel/partition.py:shard_params) the split
+leaves are Shards and the same functions run per tensor shard
+(parallel/tensor.py): q/k/v and the MLP's gate/up stay split over the
+heads and F from the column-parallel matmuls to the row-parallel wo and
+w_down, whose partials are summed by `all_reduce` (then bo / b_down,
+once); attention runs per shard on its heads and its own cache
+(`over_heads`, the sharded flash wrapper); the embedding looks up each
+shard's vocab range and sums, the logits concatenate the vocab shards.
+Under a data mesh `forward`, `decode_step_win` and `flush_window` run
+each data group's batch rows against its part of the cache and
+concatenate the results.
 """
 from __future__ import annotations
 
@@ -31,10 +43,13 @@ import torch.nn.functional as F
 
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.core.device import resolve_device
-from butterfly_tpu_torch.ops.flash_attention import flash_attention
-from butterfly_tpu_torch.parallel.partition import (expert_parts, part_device,
-                                                    shard_count)
-from butterfly_tpu_torch.quant.int8 import qeinsum
+from butterfly_tpu_torch.core.mesh import data_degree, tensor_degree
+from butterfly_tpu_torch.ops.flash_attention import flash_attention_sharded
+from butterfly_tpu_torch.parallel.partition import (
+    Shards, expert_parts, part_device, shard_count)
+from butterfly_tpu_torch.parallel.tensor import (
+    cat_groups, data_groups, embed_lookup, gather, group_part, group_rows,
+    over_heads, sharded_einsum, tmap)
 
 Params = Dict[str, Any]
 
@@ -82,8 +97,15 @@ class KVCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               quant: str = "none", device=None) -> KVCache:
-    """A zeroed cache on `device` (None = CUDA)."""
+               quant: str = "none", device=None, mesh=None,
+               split_batch: bool = True) -> KVCache:
+    """A zeroed cache on `device` (None = CUDA), or, under a tensor or
+    data `mesh`, placed as parallel/partition.py:shard_cache places it
+    (kv heads over `tensor`, batch over `data` unless `split_batch` is
+    False), allocated per shard."""
+    if tensor_degree(mesh) > 1 or data_degree(mesh) > 1:
+        return _init_cache_sharded(cfg, batch, max_seq, dtype, quant, mesh,
+                                   split_batch)
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     length = torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -102,6 +124,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
                    v=torch.zeros(shape, dtype=dtype, device=dev),
                    length=length)
+
+
+def _init_cache_sharded(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                        quant: str, mesh, split_batch: bool) -> KVCache:
+    T = tensor_degree(mesh)
+    T = T if cfg.num_kv_heads % T == 0 else 1
+    D = data_degree(mesh) if split_batch else 1
+    D = D if batch % D == 0 else 1
+    shard_cfg = cfg.replace(num_kv_heads=cfg.num_kv_heads // T)
+    kv_dim = 2 if quant == "int8" else 3
+    groups = []
+    for d in range(D):
+        devs = mesh.tensor_devices(d)[:T]
+        groups.append([init_cache(shard_cfg, batch // D, max_seq, dtype,
+                                  quant, dev) for dev in devs])
+
+    def leaf(name):
+        per = [[getattr(c, name) for c in g] for g in groups]
+        if per[0][0] is None:
+            return None
+        per = [Shards(p, "tensor", kv_dim) if T > 1 else p[0] for p in per]
+        return Shards(per, "data", 1) if D > 1 else per[0]
+    length = torch.zeros((batch,), dtype=torch.int32,
+                         device=mesh.first_device)
+    return KVCache(k=leaf("k"), v=leaf("v"), length=length,
+                   k_scale=leaf("k_scale"), v_scale=leaf("v_scale"))
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -222,8 +270,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _proj(spec: str, x: torch.Tensor, w, dtype) -> torch.Tensor:
     """einsum(spec, x, W) in the compute dtype: the JAX qeinsum, int8
-    ({"q8", "s"}) weights included (quant/int8.py)."""
-    return qeinsum(spec, x, w, dtype)
+    ({"q8", "s"}) weights included (quant/int8.py); a W split over the
+    tensor axis runs column- or row-parallel (parallel/tensor.py)."""
+    return sharded_einsum(spec, x, w, dtype)
 
 
 def qkv_proj(x: torch.Tensor, p: Params, cfg: ModelConfig,
@@ -236,18 +285,20 @@ def qkv_proj(x: torch.Tensor, p: Params, cfg: ModelConfig,
     k = _proj("btd,dkh->btkh", x, p["wk"], dt)
     v = _proj("btd,dkh->btkh", x, p["wv"], dt)
     if cfg.use_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = tmap(torch.add, q, p["bq"])
+        k = tmap(torch.add, k, p["bk"])
+        v = tmap(torch.add, v, p["bv"])
     if cfg.pos_embedding == "rope":
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        q = tmap(apply_rope, q, cos, sin)
+        k = tmap(apply_rope, k, cos, sin)
     return q, k, v
 
 
 def attn_output(out: torch.Tensor, p: Params, cfg: ModelConfig
                 ) -> torch.Tensor:
-    """Output projection of the attention sublayer. out: [B,T,Nq,H]."""
+    """Output projection of the attention sublayer. out: [B,T,Nq,H]
+    (split over the heads under a tensor mesh: row-parallel, summed
+    before the bias)."""
     out = _proj("btnh,nhd->btd", out, p["wo"], out.dtype)
     if cfg.use_bias:
         out = out + p["bo"]
@@ -259,13 +310,14 @@ def mlp_block(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
     if cfg.arch == "gpt2":
         h = _proj("btd,df->btf", x, p["w_up"], dt)
-        h = act(h + p["b_up"])
+        h = tmap(lambda a, b: act(a + b), h, p["b_up"])
         out = _proj("btf,fd->btd", h, p["w_down"], dt)
         return out + p["b_down"]
     # llama-style gated SwiGLU
     g = _proj("btd,df->btf", x, p["w_gate"], dt)
     u = _proj("btd,df->btf", x, p["w_up"], dt)
-    return _proj("btf,fd->btd", act(g) * u, p["w_down"], dt)
+    return _proj("btf,fd->btd", tmap(lambda a, b: act(a) * b, g, u),
+                 p["w_down"], dt)
 
 
 def pre_norm(x: torch.Tensor, norm_p: Params, cfg: ModelConfig
@@ -296,10 +348,11 @@ def expert_swiglu(x: torch.Tensor, p: Params, cfg: ModelConfig,
                   spec_in: str, spec_out: str, dtype=None) -> torch.Tensor:
     """Every expert's SwiGLU, `spec_in` for gate/up and `spec_out` for
     down, x and both outputs expert-major (expert axis first). Experts
-    split over shards (parallel/partition.py:ExpertShards) run where each
-    shard's weights live, their rows of x moved there and the output
-    moved back to x's device, then concatenated in expert order; a plain
-    leaf is one shard."""
+    split over expert shards (parallel/partition.py:Shards) run where
+    each shard's weights live, their rows of x moved there and the
+    output moved back to x's device, then concatenated in expert order;
+    a plain leaf is one shard. F split over the tensor axis runs the gate/up
+    column-parallel and the down projection row-parallel."""
     act = ACTIVATIONS[cfg.act]
     n = shard_count(p)
     lo = 0
@@ -309,9 +362,10 @@ def expert_swiglu(x: torch.Tensor, p: Params, cfg: ModelConfig,
         ne = (wg["q8"] if isinstance(wg, dict) else wg).shape[0]
         xs, lo = x[lo:lo + ne], lo + ne
         xs = xs.to(part_device(wg), non_blocking=True)
-        g = qeinsum(spec_in, xs, wg, dtype)
-        u = qeinsum(spec_in, xs, wu, dtype)
-        ys.append(qeinsum(spec_out, act(g) * u, wd, dtype)
+        g = sharded_einsum(spec_in, xs, wg, dtype)
+        u = sharded_einsum(spec_in, xs, wu, dtype)
+        h = tmap(lambda a, b: act(a) * b, g, u)
+        ys.append(sharded_einsum(spec_out, h, wd, dtype)
                   .to(x.device, non_blocking=True))
     return ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
 
@@ -364,7 +418,7 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Token (+pos) embedding. Returns (x [B,T,D], cos, sin)."""
     B, T = tokens.shape
     compute = torch_dtype(cfg.dtype)
-    x = params["embed"]["tok"].to(compute)[tokens]
+    x = embed_lookup(params["embed"]["tok"], tokens, compute)
     if cfg.pos_embedding == "learned":
         x = x + params["embed"]["pos"].to(compute)[positions]
         cos = sin = torch.zeros((B, T, cfg.head_dim // 2),
@@ -376,7 +430,8 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def final_logits(params: Params, cfg: ModelConfig,
                  x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head. Returns logits [B,T,V] float32."""
+    """Final norm + LM head. Returns logits [B,T,V] float32 (a head split
+    over the vocab gives each shard's columns, concatenated)."""
     compute = torch_dtype(cfg.dtype)
     if cfg.arch == "gpt2":
         x = layer_norm(x, params["final_norm"]["scale"],
@@ -384,11 +439,12 @@ def final_logits(params: Params, cfg: ModelConfig,
     else:
         x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = torch.einsum("btd,vd->btv", x,
-                              params["embed"]["tok"].to(compute))
+        logits = tmap(lambda w, h: torch.einsum("btd,vd->btv", h,
+                                                w.to(compute)),
+                      params["embed"]["tok"], x, out_split=2)
     else:
         logits = _proj("btd,dv->btv", x, params["lm_head"], compute)
-    return logits.float()
+    return gather(logits, -1).float()
 
 
 def layer_params(params: Params, i: int) -> Params:
@@ -417,6 +473,33 @@ def _run_index(start: torch.Tensor, S: int, T: int):
         + torch.arange(T, device=start.device)[None, :]
     rows = torch.arange(B, device=start.device)[:, None].expand(B, T)
     return rows, pos
+
+
+def _set(dst, idx: tuple, val) -> None:
+    """dst[idx] = val, IN PLACE, per tensor shard when dst is split (the
+    index tensors read on each part's device)."""
+    def put(d, v):
+        d[tuple(i.to(d.device, non_blocking=True)
+                if isinstance(i, torch.Tensor) else i for i in idx)] = v
+    tmap(put, dst, val)
+
+
+def _stack(items: list, dim: int = 0):
+    """torch.stack per tensor shard (a list of Shards stacks part-wise)."""
+    if isinstance(items[0], Shards):
+        return tmap(lambda *xs: torch.stack(xs, dim=dim), *items,
+                    out_split=items[0].split + (items[0].split >= dim))
+    return torch.stack(items, dim=dim)
+
+
+def _new_kv(k, v, quant: bool, dtype):
+    """One token's K/V [B, Kv, H] in the cache's representation: float
+    (k, v) or int8 (kq, vq, k_scale, v_scale); per shard when split."""
+    if quant:
+        kq, ksc = tmap(quantize_kv, k)
+        vq, vsc = tmap(quantize_kv, v)
+        return kq, vq, ksc, vsc
+    return tmap(lambda a: a.to(dtype), k), tmap(lambda a: a.to(dtype), v)
 
 
 def update_cache_layer(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
@@ -480,26 +563,27 @@ def attention_block(x, p: Params, cfg: ModelConfig, ck, cv, positions, mask,
     if ck is None:
         if not fresh:
             raise ValueError("no-cache attention_block is fresh-prefill only")
-        out = flash_attention(q, k, v, causal=True) if flash \
-            else attend(q, k, v, mask, cfg)
+        out = flash_attention_sharded(q, k, v, causal=True) if flash \
+            else over_heads(attend, q, k, v, mask, cfg)
         return attn_output(out, p, cfg), k, v
     start = positions[:, 0]
     if k_s is not None:
-        ck, cv, k_s, v_s = update_cache_layer_q(ck, cv, k_s, v_s, k, v, start)
+        ck, cv, k_s, v_s = tmap(update_cache_layer_q, ck, cv, k_s, v_s, k, v,
+                                start)
     else:
-        ck, cv = update_cache_layer(ck, cv, k, v, start)
+        ck, cv = tmap(update_cache_layer, ck, cv, k, v, start)
     if flash and fresh:
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention_sharded(q, k, v, causal=True)
     elif flash:
         kf, vf = k, v
         if k_s is not None:
-            kf, vf = _dequant_mirror(k), _dequant_mirror(v)
-        out = flash_attention(q, kf, vf, causal=True, prefix_k=ck,
-                              prefix_v=cv,
-                              prefix_len=start.to(torch.int32).contiguous(),
-                              prefix_k_scale=k_s, prefix_v_scale=v_s)
+            kf, vf = tmap(_dequant_mirror, k), tmap(_dequant_mirror, v)
+        out = flash_attention_sharded(
+            q, kf, vf, causal=True, prefix_k=ck, prefix_v=cv,
+            prefix_len=start.to(torch.int32).contiguous(),
+            prefix_k_scale=k_s, prefix_v_scale=v_s)
     else:
-        out = attend(q, ck, cv, mask, cfg, k_s, v_s)
+        out = over_heads(attend, q, ck, cv, mask, cfg, k_s, v_s)
     if k_s is not None:
         return attn_output(out, p, cfg), ck, cv, k_s, v_s
     return attn_output(out, p, cfg), ck, cv
@@ -561,15 +645,17 @@ def _fresh_prefill_forward(params: Params, cfg: ModelConfig, tokens,
         x, k, v = transformer_layer(x, lp, cfg, None, None, positions, mask,
                                     cos, sin, fresh=True)
         if quant:
-            kq, ks = quantize_kv(k)
-            vq, vs = quantize_kv(v)
-            cache.k[i, :, :, :T] = kq.permute(0, 2, 1, 3)
-            cache.v[i, :, :, :T] = vq.permute(0, 2, 1, 3)
-            cache.k_scale[i, :, :, :T] = ks.permute(0, 2, 1)
-            cache.v_scale[i, :, :, :T] = vs.permute(0, 2, 1)
+            kq, ks = tmap(quantize_kv, k)
+            vq, vs = tmap(quantize_kv, v)
+            cols = (i, slice(None), slice(None), slice(0, T))
+            _set(cache.k, cols, tmap(lambda a: a.permute(0, 2, 1, 3), kq))
+            _set(cache.v, cols, tmap(lambda a: a.permute(0, 2, 1, 3), vq))
+            _set(cache.k_scale, cols, tmap(lambda a: a.permute(0, 2, 1), ks))
+            _set(cache.v_scale, cols, tmap(lambda a: a.permute(0, 2, 1), vs))
         else:
-            cache.k[i, :, :T] = k.to(cache.k.dtype)
-            cache.v[i, :, :T] = v.to(cache.v.dtype)
+            rows = (i, slice(None), slice(0, T))
+            _set(cache.k, rows, tmap(lambda a: a.to(cache.k.dtype), k))
+            _set(cache.v, rows, tmap(lambda a: a.to(cache.v.dtype), v))
     if last_index is not None:
         x = _take_rows(x, last_index)
     logits = final_logits(params, cfg, x)
@@ -644,8 +730,8 @@ def _decode_layer_body(x, lp: Params, cfg: ModelConfig, cache: KVCache, i,
         k_s, v_s = cache.k_scale[i], cache.v_scale[i]
     h = pre_norm(x, lp["ln1"], cfg)
     q, k, v = qkv_proj(h, lp["attn"], cfg, cos, sin)
-    out = decode_attend(q, k, v, cache.k[i], cache.v[i], start, cfg, k_s,
-                        v_s, wk_i, wv_i, wks_i, wvs_i)
+    out = over_heads(decode_attend, q, k, v, cache.k[i], cache.v[i], start,
+                     cfg, k_s, v_s, wk_i, wv_i, wks_i, wvs_i)
     x = x + attn_output(out, lp["attn"], cfg)
     x = x + ffn_block(pre_norm(x, lp["ln2"], cfg), lp, cfg)
     return x, k, v
@@ -656,7 +742,6 @@ def _decode_forward(params: Params, cfg: ModelConfig, tokens,
     """Single-token decode step with ONE cache write for all layers after
     the layer loop (the cache is read-only inside it). Every row's length
     advances by 1. Returns (logits [B,1,V], cache)."""
-    B = tokens.shape[0]
     x, cos, sin = embed_tokens(params, cfg, tokens, positions)
     start = positions[:, 0]
     quant = cache.quantized
@@ -664,26 +749,35 @@ def _decode_forward(params: Params, cfg: ModelConfig, tokens,
     for i in range(cfg.num_layers):
         x, k, v = _decode_layer_body(x, layer_params(params, i), cfg, cache,
                                      i, cos, sin, start)
-        if quant:
-            kq, ksc = quantize_kv(k[:, 0])
-            vq, vsc = quantize_kv(v[:, 0])
-            new.append((kq, vq, ksc, vsc))
-        else:
-            new.append((k[:, 0].to(cache.k.dtype), v[:, 0].to(cache.v.dtype)))
+        new.append(_new_kv(k[:, 0], v[:, 0], quant, cache.k.dtype))
     logits = final_logits(params, cfg, x)
-    stacked = [torch.stack(c) for c in zip(*new)]  # [L, B, Kv(, H)]
+    stacked = [_stack(list(c)) for c in zip(*new)]  # [L, B, Kv(, H)]
     rows, pos = _run_index(start, cache.max_seq, 1)
     rows, pos = rows[:, 0], pos[:, 0]
     if quant:
         # advanced dims 1 and 3 (a slice between) go first: [B, L, Kv, H]
-        cache.k[:, rows, :, pos] = stacked[0].transpose(0, 1)
-        cache.v[:, rows, :, pos] = stacked[1].transpose(0, 1)
-        cache.k_scale[:, rows, :, pos] = stacked[2].transpose(0, 1)
-        cache.v_scale[:, rows, :, pos] = stacked[3].transpose(0, 1)
+        idx = (slice(None), rows, slice(None), pos)
+        for dst, val in zip((cache.k, cache.v, cache.k_scale, cache.v_scale),
+                            stacked):
+            _set(dst, idx, tmap(lambda a: a.transpose(0, 1), val))
     else:
-        cache.k[:, rows, pos] = stacked[0]
-        cache.v[:, rows, pos] = stacked[1]
+        _set(cache.k, (slice(None), rows, pos), stacked[0])
+        _set(cache.v, (slice(None), rows, pos), stacked[1])
     return logits, cache._replace(length=(cache.length + 1).to(torch.int32))
+
+
+def _group_cache(cache: KVCache, g) -> KVCache:
+    """Data group g's rows of a contiguous cache (written in place)."""
+    return KVCache(*(group_rows(t, g, 1, inplace=True)
+                     for t in (cache.k, cache.v)),
+                   length=group_rows(cache.length, g),
+                   k_scale=group_rows(cache.k_scale, g, 1, inplace=True),
+                   v_scale=group_rows(cache.v_scale, g, 1, inplace=True))
+
+
+def _group_steps(steps: list, g) -> list:
+    """Group g's rows of window steps (tuples of [L, B, ...] tensors)."""
+    return [tuple(group_rows(t, g, 1) for t in s) for s in steps]
 
 
 def decode_step_win(params: Params, cfg: ModelConfig, tokens,
@@ -693,26 +787,35 @@ def decode_step_win(params: Params, cfg: ModelConfig, tokens,
     holds this flush group's steps 0..wstep-1 as returned by this
     function. Returns (logits, new_kv): this token's per-layer K/V
     stacked [L,B,Kv,H] — float (k, v) or int8 (kq, vq, k_scale [L,B,Kv],
-    v_scale) in the cache's representation."""
+    v_scale) in the cache's representation. Data groups run their rows
+    and the results concatenate."""
+    groups = data_groups(tokens.shape[0])
+    if groups is not None:
+        outs = [_decode_step_win(group_part(params, g.index), cfg,
+                                 group_rows(tokens, g), _group_cache(cache, g),
+                                 _group_steps(prev, g), wstep)
+                for g in groups]
+        return (cat_groups([o[0] for o in outs]),
+                cat_groups([o[1] for o in outs], dim=1))
+    return _decode_step_win(params, cfg, tokens, cache, prev, wstep)
+
+
+def _decode_step_win(params: Params, cfg: ModelConfig, tokens,
+                     cache: KVCache, prev: list, wstep: int):
     quant = cache.quantized
     positions = (cache.length + wstep)[:, None]
     x, cos, sin = embed_tokens(params, cfg, tokens, positions)
     start = cache.length
-    win = tuple(torch.stack(c, dim=1) for c in zip(*prev)) if prev else ()
+    win = tuple(_stack(list(c), dim=1) for c in zip(*prev)) if prev else ()
     new = []
     for i in range(cfg.num_layers):
         w = [t[i] for t in win]   # [W,B,Kv,H] (+ [W,B,Kv] scales)
         x, k, v = _decode_layer_body(
             x, layer_params(params, i), cfg, cache, i, cos, sin, start,
             *(w + [None] * (4 - len(w))))
-        if quant:
-            kq, ksc = quantize_kv(k[:, 0])
-            vq, vsc = quantize_kv(v[:, 0])
-            new.append((kq, vq, ksc, vsc))
-        else:
-            new.append((k[:, 0].to(cache.k.dtype), v[:, 0].to(cache.v.dtype)))
+        new.append(_new_kv(k[:, 0], v[:, 0], quant, cache.k.dtype))
     return final_logits(params, cfg, x), \
-        tuple(torch.stack(c) for c in zip(*new))
+        tuple(_stack(list(c)) for c in zip(*new))
 
 
 def flush_window(cache: KVCache, steps: list,
@@ -723,7 +826,20 @@ def flush_window(cache: KVCache, steps: list,
 
     `uniform` asserts every row's flushed length is equal: the write then
     starts at row 0's length for every row (the JAX package's one
-    scalar-offset update), still read on the device."""
+    scalar-offset update), still read on the device. Data groups write
+    their rows."""
+    groups = data_groups(cache.length.shape[0])
+    if groups is not None:
+        for g in groups:
+            _flush_window(_group_cache(cache, g), _group_steps(steps, g),
+                          uniform)
+        return cache._replace(length=(cache.length + len(steps))
+                              .to(torch.int32))
+    return _flush_window(cache, steps, uniform)
+
+
+def _flush_window(cache: KVCache, steps: list,
+                  uniform: bool = False) -> KVCache:
     start = cache.length
     C = len(steps)
     S = cache.max_seq
@@ -732,20 +848,19 @@ def flush_window(cache: KVCache, steps: list,
         start = start[:1].expand(B)
     rows, pos = _run_index(start, S, C)       # [B, C]
     if cache.quantized:
-        kq = torch.stack([s[0] for s in steps], dim=3)   # [L,B,Kv,C,H]
-        vq = torch.stack([s[1] for s in steps], dim=3)
-        ksc = torch.stack([s[2] for s in steps], dim=3)  # [L,B,Kv,C]
-        vsc = torch.stack([s[3] for s in steps], dim=3)
+        kq, vq, ksc, vsc = (_stack([s[j] for s in steps], dim=3)
+                            for j in range(4))  # [L,B,Kv,C(,H)]
         # advanced dims 1 and 3 (a slice between) go first: [B,C,L,Kv(,H)]
-        cache.k[:, rows, :, pos] = kq.permute(1, 3, 0, 2, 4)
-        cache.v[:, rows, :, pos] = vq.permute(1, 3, 0, 2, 4)
-        cache.k_scale[:, rows, :, pos] = ksc.permute(1, 3, 0, 2)
-        cache.v_scale[:, rows, :, pos] = vsc.permute(1, 3, 0, 2)
+        idx = (slice(None), rows, slice(None), pos)
+        _set(cache.k, idx, tmap(lambda a: a.permute(1, 3, 0, 2, 4), kq))
+        _set(cache.v, idx, tmap(lambda a: a.permute(1, 3, 0, 2, 4), vq))
+        _set(cache.k_scale, idx, tmap(lambda a: a.permute(1, 3, 0, 2), ksc))
+        _set(cache.v_scale, idx, tmap(lambda a: a.permute(1, 3, 0, 2), vsc))
     else:
-        ks = torch.stack([s[0] for s in steps], dim=2)   # [L,B,C,Kv,H]
-        vs = torch.stack([s[1] for s in steps], dim=2)
-        cache.k[:, rows, pos] = ks
-        cache.v[:, rows, pos] = vs
+        ks, vs = (_stack([s[j] for s in steps], dim=2)
+                  for j in range(2))           # [L,B,C,Kv,H]
+        _set(cache.k, (slice(None), rows, pos), ks)
+        _set(cache.v, (slice(None), rows, pos), vs)
     return cache._replace(length=(cache.length + C).to(torch.int32))
 
 
@@ -759,11 +874,26 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache: KVCache,
     them out); only then may the fresh flash kernel run. Single-token
     warm calls take the decode fast path (_decode_forward). last_index
     [B] runs the LM head on that row only ([B,1,V]). Returns (logits
-    [B,T,V] float32, cache with length + T)."""
+    [B,T,V] float32, cache with length + T). Data groups run their rows
+    against their part of the cache and the results concatenate."""
     B, T = tokens.shape
     if positions is None:
         positions = cache.length.long()[:, None] \
             + torch.arange(T, device=tokens.device)[None, :]
+    groups = data_groups(B)
+    if groups is not None:
+        outs = [_forward(group_part(params, g.index), cfg,
+                         group_rows(tokens, g), _group_cache(cache, g),
+                         group_rows(positions, g), fresh,
+                         group_rows(last_index, g)) for g in groups]
+        return (cat_groups([o[0] for o in outs]), cache._replace(
+            length=cat_groups([o[1].length for o in outs])))
+    return _forward(params, cfg, tokens, cache, positions, fresh, last_index)
+
+
+def _forward(params: Params, cfg: ModelConfig, tokens, cache: KVCache,
+             positions, fresh: bool, last_index):
+    T = tokens.shape[1]
     if T == 1 and not fresh:
         return _decode_forward(params, cfg, tokens, cache, positions)
     if fresh and T > 1:

@@ -28,6 +28,7 @@ import torch
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.engine.sampling import _filter_logits, gumbel_argmax
 from butterfly_tpu_torch.models.common import KVCache, forward, init_cache
+from butterfly_tpu_torch.parallel.tensor import tmap
 
 Params = dict
 
@@ -118,11 +119,11 @@ def _draft_prefill_step(cfg: ModelConfig, params, cache: KVCache, tokens,
     M, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(M, T)
     _, sub = forward(params, cfg, tokens, sub, positions, fresh=True)
-    _set_drop(cache.k, 1, slots, sub.k)
-    _set_drop(cache.v, 1, slots, sub.v)
-    if quant:
-        _set_drop(cache.k_scale, 1, slots, sub.k_scale)
-        _set_drop(cache.v_scale, 1, slots, sub.v_scale)
+    for dst, val in ((cache.k, sub.k), (cache.v, sub.v),
+                     (cache.k_scale, sub.k_scale),
+                     (cache.v_scale, sub.v_scale)):
+        if dst is not None:
+            tmap(_set_drop, dst, 1, slots, val)
     length = cache.length.clone()
     _set_drop(length, 0, slots, lens.to(torch.int32))
     return cache._replace(length=length)
@@ -137,21 +138,25 @@ class ModelDraftSource:
     stateful = True
 
     def __init__(self, cfg: ModelConfig, params, *, num_slots: int,
-                 width: int, kv_quant: str = "none"):
+                 width: int, kv_quant: str = "none", mesh=None):
         self.cfg = cfg
         self.params = params
         self.num_slots = num_slots
         self.width = width
         self.kv_quant = kv_quant
+        self.mesh = mesh
         self.device = params["final_norm"]["scale"].device
 
     def init_state(self) -> KVCache:
         """A zeroed draft cache [L_d, S, W_d, Kv, H] (int8 codes + scales
         iff kv_quant="int8"); W_d = the serving max_seq + γ+1 slack, so
         micro-step writes at the sequence cap never clamp onto a live
-        entry."""
+        entry. Under a tensor mesh its kv heads split with the weights'; its
+        slots stay whole (admission gathers any slots), each data group
+        reading its rows."""
         return init_cache(self.cfg, self.num_slots, self.width,
-                          quant=self.kv_quant, device=self.device)
+                          quant=self.kv_quant, device=self.device,
+                          mesh=self.mesh, split_batch=False)
 
     def prefill(self, state: KVCache, slots, rows: np.ndarray,
                 lens: np.ndarray) -> KVCache:

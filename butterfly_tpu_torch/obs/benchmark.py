@@ -21,8 +21,10 @@ the draft sources. Weight bytes count what the tree holds: an int8 tree
 streams one byte per code plus its scales. Every parameter counts, an
 MoE model's experts included (the JAX formulas): the dense MoE block
 reads and multiplies every expert for every token, so the count is the
-work that path does; under an expert mesh the tree's expert leaves are
-counted once, across their shards.
+work that path does; under an expert or tensor mesh a split leaf is
+counted once, across its shards, and the tree once per data group (each
+group's forward streams it). A mesh counts the distinct cards it spans:
+shards that share a card share its bandwidth and peak.
 
 The fleet, autoscale and chaos legs (`run_fleet_benchmark`,
 `run_autoscale_benchmark`, `run_chaos_benchmark`) drive an in-process
@@ -124,10 +126,11 @@ def run_decode_benchmark(model, params, batch: int, prompt_len: int,
 
     # Roofline accounting: every decode step streams the full weight tree
     # and reads the whole KV cache buffer (k + v). An unmeshed engine runs
-    # on exactly one card; a meshed engine uses every mesh device and
+    # on exactly one card; a meshed engine uses every card of the mesh and
     # streams one weight copy per data-parallel replica.
+    from butterfly_tpu_torch.parallel.tensor import group_part
     cfg = model.cfg
-    leaves = list(_leaves(engine.params))
+    leaves = list(_leaves(group_part(engine.params, 0)))
     # the tree as it streams: int8 codes at 1 byte each plus their scales
     param_bytes = sum(x.nbytes for x in leaves)
     param_count = sum(x.numel() for x in leaves)
@@ -138,7 +141,8 @@ def run_decode_benchmark(model, params, batch: int, prompt_len: int,
                                 else torch_dtype(cfg.dtype).itemsize) \
         + (4 if kv_quant == "int8" else 0)
     kv_bytes = 2 * cfg.num_layers * batch * S * cfg.num_kv_heads * vec_bytes
-    n_chips = mesh.devices.size if mesh is not None else 1
+    n_chips = 1 if mesh is None else \
+        len({str(d) for d in mesh.devices.reshape(-1)})
     dp = mesh.shape.get("data", 1) if mesh is not None else 1
     bytes_per_step = param_bytes * dp + kv_bytes
     fig = _figures(dev)

@@ -15,8 +15,11 @@ version, `flash_attention_ref`. Two entry points, two launch counters:
   continuation of the alternating serving path
   (`flash_attention.launches_warm`).
 
-The `mesh` wrapper of the JAX package (`flash_attention_sharded`) is not
-ported: without a mesh it is this function.
+Under a tensor mesh `flash_attention_sharded` (the JAX package's mesh
+wrapper) runs the unmodified kernel per tensor shard on its q heads and
+its own K/V and prefix, or once over every head where the K/V is
+replicated (`shardable_axes` finds no tensor split); without a mesh it is
+`flash_attention`.
 """
 from __future__ import annotations
 
@@ -24,6 +27,10 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from butterfly_tpu_torch.core.mesh import active_mesh
+from butterfly_tpu_torch.parallel.partition import Shards
+from butterfly_tpu_torch.parallel.tensor import over_heads
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -218,7 +225,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if rc != 0:
             raise RuntimeError(f"flash_attention fresh kernel launch failed "
                                f"(code {rc})")
-        flash_attention.launches_fresh += 1
+        _WRAPPER.launches_fresh += 1
         return out
     quant = prefix_k_scale is not None
     _check(prefix_v is not None and prefix_len is not None,
@@ -268,7 +275,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention warm kernel launch failed "
                            f"(code {rc})")
-    flash_attention.launches_warm += 1
+    _WRAPPER.launches_warm += 1
     return out
 
 
@@ -276,3 +283,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: them to 0 before a run to count that run's launches)
 flash_attention.launches_fresh = 0
 flash_attention.launches_warm = 0
+#: the wrapper that holds the counts: its body counts through this name,
+#: so a check that rebinds the module's `flash_attention` (to compare each
+#: call of the sharded wrapper with the plain version) leaves them in place
+_WRAPPER = flash_attention
+
+
+def shardable_axes(batch: int, nq: int, kv: int):
+    """(data_axis, tensor_axis) of the active mesh usable to shard an
+    attention operand set: `data` must divide the batch/slot dim,
+    `tensor` both head counts; an axis absent or of size 1 is None. The
+    eligibility rule of both kernel wrappers, and of the K/V placement
+    (parallel/partition.py splits the pools by the same test)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return None, None
+    D, T = mesh.shape.get("data", 1), mesh.shape.get("tensor", 1)
+    d = "data" if D > 1 and batch % D == 0 else None
+    t = "tensor" if T > 1 and nq % T == 0 and kv % T == 0 else None
+    return d, t
+
+
+def live_auto_mesh() -> bool:
+    """True when the active mesh has an axis larger than 1: a kernel call
+    whose operands no axis splits then runs once over the whole operand
+    set on the replicated tensors (the JAX package's dense fallback)."""
+    mesh = active_mesh()
+    return mesh is not None and any(v > 1 for v in mesh.shape.values())
+
+
+def check_shard_layout(who: str, q, kv, nq: int, nkv: int) -> None:
+    """Raise unless `kv` is split over the tensor axis exactly where the
+    mesh rule (`shardable_axes`) splits it."""
+    _, t = shardable_axes(1, nq, nkv)
+    split = isinstance(kv, Shards)
+    if live_auto_mesh() and (t is not None) != split:
+        raise ValueError(f"{who}: K/V {'split' if split else 'replicated'} "
+                         f"over the tensor axis, but the mesh rule "
+                         f"{'splits' if t else 'replicates'} Nq={nq}, "
+                         f"Kv={nkv}")
+    if split and not isinstance(q, Shards):
+        raise ValueError(f"{who}: split K/V needs q split over its heads")
+
+
+def flash_attention_sharded(q, k, v, causal: bool = True, prefix_k=None,
+                            prefix_v=None, prefix_len=None,
+                            prefix_k_scale=None, prefix_v_scale=None):
+    """Mesh-aware flash attention: q [B, T, Nq, H] split over the tensor
+    axis's heads (parallel/partition.py:Shards, one part per shard),
+    k/v [B, T, Kv, H] and the prefix operands split the same way
+    (`warm_prefix_specs`: kv heads with the pools). Each shard runs the
+    unmodified kernel on its heads; no cross-shard traffic. Where Kv does
+    not divide the tensor axis the K/V and the prefix are replicated:
+    the kernel runs once over every head and each shard takes its heads'
+    rows, so the kernel stays on the path. Unsharded operands: exactly
+    `flash_attention`. Data groups arrive split already (the forwards
+    run each group's rows)."""
+    check_shard_layout("flash_attention_sharded", q, k, q.shape[2],
+                       k.shape[2])
+    return over_heads(flash_attention, q, k, v, causal=causal,
+                      prefix_k=prefix_k, prefix_v=prefix_v,
+                      prefix_len=prefix_len, prefix_k_scale=prefix_k_scale,
+                      prefix_v_scale=prefix_v_scale)

@@ -23,6 +23,9 @@ from typing import Optional
 
 import torch
 
+from butterfly_tpu_torch.ops.flash_attention import check_shard_layout
+from butterfly_tpu_torch.parallel.tensor import over_heads
+
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 #: tokens of the paged run one kernel block folds (a whole number of pages)
@@ -302,10 +305,37 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(code {rc})")
-    paged_attention.launches += 1
+    _WRAPPER.launches += 1
     return out
 
 
 #: kernel launches since the last reset (a plain int; set it to 0 before
 #: a run to count that run's launches)
 paged_attention.launches = 0
+#: the wrapper that holds the count: its body counts through this name, so
+#: a check that rebinds the module's `paged_attention` (to compare each
+#: call of the sharded wrapper with the plain version) leaves it in place
+_WRAPPER = paged_attention
+
+
+def paged_attention_sharded(q, k_pages, v_pages, page_table, lengths,
+                            k_scale_pages=None, v_scale_pages=None,
+                            win_k=None, win_v=None, win_count=None,
+                            win_k_scale=None, win_v_scale=None):
+    """Mesh-aware paged attention: q [slots, Nq, H] split over the tensor
+    axis's heads (parallel/partition.py:Shards), each shard's own pool
+    [P, Kv/t, page, H] (a separate contiguous tensor, as the kernel
+    requires), its int8 scale pool [P, Kv/t*page] and its window
+    [S, Kv/t, W, H]; the block table and lengths are every shard's. Each
+    shard calls the unmodified kernel on its heads (Kv/t kv heads, G =
+    Nq/Kv unchanged). Where Kv does not divide the tensor axis the pool
+    is replicated: the kernel runs once over every head and each shard
+    takes its heads' rows. Unsharded operands: exactly
+    `paged_attention`. Data groups arrive split already (each group's
+    forward passes its slots)."""
+    check_shard_layout("paged_attention_sharded", q, k_pages, q.shape[1],
+                       k_pages.shape[1])
+    return over_heads(paged_attention, q, k_pages, v_pages, page_table,
+                      lengths, k_scale_pages, v_scale_pages, win_k=win_k,
+                      win_v=win_v, win_count=win_count,
+                      win_k_scale=win_k_scale, win_v_scale=win_v_scale)

@@ -1,59 +1,83 @@
-"""Weight placement over the mesh, single-controller: the expert axis.
+"""Weight and KV placement over the mesh, single-controller.
 
-The counterpart of butterfly_tpu/parallel/partition.py's `shard_params`
-for the one mesh axis whose weights the port shards today. The JAX
-package attaches a PartitionSpec to every leaf and lets GSPMD place it;
-here ONE process drives every device, so a sharded leaf is an explicit
-list of per-shard tensors (`ExpertShards`): the MoE expert leaves
-`layers.moe.w_gate` / `w_up` [L, E, D, F] and `w_down` [L, E, F, D], int8
-`{"q8", "s"}` leaves alike, are split over the expert axis, experts
-[i*ne, (i+1)*ne) on shard i's device (ne = E / N). Where a shard's device
-is the tree's device the part is a VIEW of the stacked tensor, so one
-card with N shards still holds one tree, not N. The router and every
-other leaf stay on the mesh's first device.
+The counterpart of butterfly_tpu/parallel/partition.py. The JAX package
+attaches a PartitionSpec to every leaf and lets GSPMD place it; here ONE
+process drives every device, so the specs are the same tuples of axis
+names (`param_specs`, `cache_specs`, `paged_cache_specs`,
+`kv_window_specs`, `warm_prefix_specs`: one entry per dim, an axis name
+or None, JAX's rule `_div` included: a dim is split only where it divides
+by its axis, else replicated) and a split leaf becomes an explicit
+container of per-shard tensors, `Shards`:
 
-The expert FFN (models/common.py:moe_block, parallel/expert.py) runs each
-shard's experts where their part lives (`expert_parts`).
+* tensor (Megatron): wq/wk/wv (and GPT-2's bq/bk/bv) column-parallel over
+  the heads, wo row-parallel; w_gate/w_up (and b_up) column-parallel over
+  F, w_down row-parallel; the MoE expert leaves split on F when the
+  expert axis is 1; embed.tok and lm_head split over the vocab. The
+  reductions the row-parallel leaves need run in parallel/tensor.py;
+* expert: the MoE expert leaves split over E (parallel/expert.py);
+* data: weights and the page pool are replicated, batch rows and slots
+  split (the forwards run each data group on its rows; see
+  parallel/tensor.py:data_groups).
 
-Not ported yet (ROADMAP.md, PyTorch/CUDA port queue, item 6): the
-tensor-parallel specs (column/row-parallel attention and MLP, the
-vocab-sharded embedding), the stage specs of pipeline parallelism, the
-data axis, and `shard_cache`; `shard_params` refuses a mesh with those
-axes through core/mesh.py.
+Where a shard shares its device with the tree, a weight part is a VIEW of
+the stacked leaf, so one card with N shards still holds one tree, not N
+(`copy=True` places real copies, the branch shards on distinct devices
+take). The KV pools, windows and caches split over `tensor` are separate
+tensors per shard, as the kernels need each shard's operands contiguous.
+A data replica of a weight or of the pool is the same tensor where the
+data groups share a device; elsewhere (or with `copy=True`) each group
+holds its own copy, and every pool write reaches every replica
+(cache/paged.py, engine/serving.py).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
-from butterfly_tpu_torch.core.mesh import (Mesh, expert_degree,
+from butterfly_tpu_torch.core.mesh import (Mesh, data_degree,
                                            require_ported_mesh)
+from butterfly_tpu_torch.quant.int8 import is_quantized_leaf, quant_specs_like
 
 Params = Dict[str, Any]
+Spec = Tuple[Optional[str], ...]
 
-_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
+class Shards:
+    """One leaf split over the mesh axis `axis` ("tensor", "expert" or
+    "data"): `parts[i]` is shard i's part, on shard i's device. `split` is
+    the dim of the whole leaf the parts partition, in order; None when
+    every part is the whole leaf (the data replicas of a replicated
+    leaf). A part may itself be a Shards (a tensor-split leaf replicated
+    over data groups).
 
-class ExpertShards:
-    """One expert leaf split over the expert axis: `parts[i]` holds shard
-    i's experts on shard i's device. Indexing takes the same index of
-    every part (the leading layer axes, as `layer_params` and the draft's
-    layer slice do), so a layer's slice is again an ExpertShards; the
-    expert axis is the axis right after the indexed ones."""
+    Indexing takes the same index of every part (the leading layer axes,
+    as `layer_params` and the draft's layer slice do), so a layer's slice
+    is again a Shards, its split dim shifted past the integer indices."""
 
-    __slots__ = ("parts",)
+    __slots__ = ("parts", "axis", "split")
 
-    def __init__(self, parts: Sequence[torch.Tensor]):
+    def __init__(self, parts: Sequence[Any], axis: str,
+                 split: Optional[int]):
         self.parts = tuple(parts)
+        self.axis = axis
+        self.split = split
 
-    def __getitem__(self, idx) -> "ExpertShards":
-        return ExpertShards([p[idx] for p in self.parts])
+    def __getitem__(self, idx) -> "Shards":
+        split = self.split
+        if split is not None:
+            lead = idx if isinstance(idx, tuple) else (idx,)
+            if len(lead) > split and isinstance(lead[split], int):
+                raise IndexError(f"an integer index on the split dim "
+                                 f"{split} of {self!r}")
+            split -= sum(isinstance(i, int) for i in lead[:split])
+        return Shards([p[idx] for p in self.parts], self.axis, split)
 
-    def to(self, *args, **kw) -> "ExpertShards":
+    def to(self, *args, **kw) -> "Shards":
         """Each part converted alike (a dtype cast keeps the placement)."""
-        return ExpertShards([p.to(*args, **kw) for p in self.parts])
+        return Shards([p.to(*args, **kw) for p in self.parts], self.axis,
+                      self.split)
 
     def is_floating_point(self) -> bool:
         return self.parts[0].is_floating_point()
@@ -63,6 +87,18 @@ class ExpertShards:
         return self.parts[0].dtype
 
     @property
+    def device(self) -> torch.device:
+        return self.parts[0].device
+
+    @property
+    def shape(self) -> torch.Size:
+        """The whole leaf's shape."""
+        s = list(self.parts[0].shape)
+        if self.split is not None:
+            s[self.split] = sum(p.shape[self.split] for p in self.parts)
+        return torch.Size(s)
+
+    @property
     def nbytes(self) -> int:
         return sum(p.nbytes for p in self.parts)
 
@@ -70,24 +106,38 @@ class ExpertShards:
         return sum(p.numel() for p in self.parts)
 
     def __repr__(self) -> str:
-        return ("ExpertShards(" + ", ".join(
+        return (f"Shards({self.axis}, split={self.split}: " + ", ".join(
             f"{tuple(p.shape)}@{p.device}" for p in self.parts) + ")")
 
 
+def axis_parts(x: Any, axis: str) -> Optional[List[Any]]:
+    """The parts of `x` along `axis`, or None when x is not split there."""
+    if isinstance(x, Shards) and x.axis == axis:
+        return list(x.parts)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# The expert axis
+# ---------------------------------------------------------------------------
+
 def expert_parts(w: Any, n: Optional[int] = None) -> List[Any]:
     """One layer's expert leaf ([E, ...], float or {"q8", "s"}) as its
-    per-shard parts: an ExpertShards' own parts; a plain tensor as `n`
-    views along the expert axis (one part when n is None)."""
+    per-shard parts: an expert Shards' own parts; anything else (a plain
+    tensor, a tensor-split leaf) as `n` views along the expert axis (one
+    part, the leaf itself, when n is None)."""
     if isinstance(w, dict):
         keys = list(w)
         cols = [expert_parts(w[k], n) for k in keys]
         return [dict(zip(keys, vals)) for vals in zip(*cols)]
-    if isinstance(w, ExpertShards):
-        if n is not None and n != len(w.parts):
+    parts = axis_parts(w, "expert")
+    if parts is not None:
+        if n is not None and n != len(parts):
             raise ValueError(f"the expert leaves are split over "
-                             f"{len(w.parts)} shards, not {n}")
-        return list(w.parts)
-    n = n or 1
+                             f"{len(parts)} shards, not {n}")
+        return parts
+    if not n or n == 1:
+        return [w]
     if w.shape[0] % n:
         raise ValueError(f"{w.shape[0]} experts do not split over {n} "
                          "shards")
@@ -95,11 +145,12 @@ def expert_parts(w: Any, n: Optional[int] = None) -> List[Any]:
 
 
 def shard_count(p_moe: Params) -> int:
-    """How many shards one layer's MoE leaves are split over (1 when
-    they are plain tensors)."""
+    """How many expert shards one layer's MoE leaves are split over (1
+    when they are not split over experts)."""
     w = p_moe["w_gate"]
     w = w["q8"] if isinstance(w, dict) else w
-    return len(w.parts) if isinstance(w, ExpertShards) else 1
+    parts = axis_parts(w, "expert")
+    return 1 if parts is None else len(parts)
 
 
 def part_device(w: Any) -> torch.device:
@@ -107,52 +158,316 @@ def part_device(w: Any) -> torch.device:
     return (w["q8"] if isinstance(w, dict) else w).device
 
 
-def _place(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# Specs (the JAX package's PartitionSpec entries, as tuples)
+# ---------------------------------------------------------------------------
+
+def _div(n: int, mesh: Mesh, axis: str) -> Optional[str]:
+    """`axis` if a dim of size n shards evenly over it (and it is > 1),
+    else None."""
+    size = mesh.shape.get(axis, 1)
+    return axis if size > 1 and n % size == 0 else None
+
+
+def _div_multi(n: int, mesh: Mesh, *axes: str):
+    """Largest prefix-combination of the active `axes` that divides n
+    (JAX `_div_multi`): an axis tuple, a name, or None."""
+    for i in range(len(axes)):
+        active = [a for a in axes[i:] if mesh.shape.get(a, 1) > 1]
+        size = 1
+        for a in active:
+            size *= mesh.shape[a]
+        if active and n % size == 0:
+            return tuple(active) if len(active) > 1 else active[0]
+    return None
+
+
+def param_specs(cfg: ModelConfig, mesh: Mesh) -> Params:
+    """The spec tree mirroring models.common.init_params exactly (JAX
+    `param_specs`): Megatron column/row-parallel attention and MLP, the
+    MoE experts over `expert` (and F over `tensor`), the vocab-split
+    embedding and head. Stacked leaves lead with the layer dim (split over
+    `stage` in the JAX package; `stage` is 1 here)."""
+    D, Nq, Kv, F, V = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.intermediate_size, cfg.vocab_size)
+
+    def tp(n):
+        return _div(n, mesh, "tensor")
+    L = _div(cfg.num_layers, mesh, "stage")
+    layers: Params = {
+        "ln1": {"scale": (L, None)},
+        "ln2": {"scale": (L, None)},
+        "attn": {
+            "wq": (L, None, tp(Nq), None),    # column-parallel (heads)
+            "wk": (L, None, tp(Kv), None),
+            "wv": (L, None, tp(Kv), None),
+            "wo": (L, tp(Nq), None, None),    # row-parallel -> a reduction
+        },
+    }
+    if cfg.use_bias:
+        layers["ln1"]["bias"] = (L, None)
+        layers["ln2"]["bias"] = (L, None)
+        layers["attn"].update(bq=(L, tp(Nq), None), bk=(L, tp(Kv), None),
+                              bv=(L, tp(Kv), None), bo=(L, None))
+    if cfg.is_moe:
+        ep = _div(cfg.num_experts, mesh, "expert")
+        layers["moe"] = {"router": (L, None, None),
+                         "w_gate": (L, ep, None, tp(F)),
+                         "w_up": (L, ep, None, tp(F)),
+                         "w_down": (L, ep, tp(F), None)}
+    elif cfg.arch == "gpt2":
+        layers["mlp"] = {"w_up": (L, None, tp(F)), "b_up": (L, tp(F)),
+                         "w_down": (L, tp(F), None), "b_down": (L, None)}
+    else:
+        layers["mlp"] = {"w_gate": (L, None, tp(F)),
+                         "w_up": (L, None, tp(F)),
+                         "w_down": (L, tp(F), None)}
+    specs: Params = {"embed": {"tok": (tp(V), None)}, "layers": layers,
+                     "final_norm": {"scale": (None,)}}
+    if cfg.pos_embedding == "learned":
+        specs["embed"]["pos"] = (None, None)
+    if cfg.arch == "gpt2":
+        specs["final_norm"]["bias"] = (None,)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, _div_multi(V, mesh, "stage", "tensor"))
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, mesh: Mesh, quant: bool = False) -> dict:
+    """Specs of the contiguous KVCache's leaves: batch over `data`,
+    kv-heads over `tensor`. Float caches are [L, B, S, Kv, H]; int8 ones
+    [L, B, Kv, S, H] + scales [L, B, Kv, S]."""
+    lspec = _div(cfg.num_layers, mesh, "stage")
+    dspec = "data" if mesh.shape.get("data", 1) > 1 else None
+    tspec = _div(cfg.num_kv_heads, mesh, "tensor")
+    if quant:
+        kv = (lspec, dspec, tspec, None, None)
+        sc = (lspec, dspec, tspec, None)
+    else:
+        kv = (lspec, dspec, None, tspec, None)
+        sc = None
+    return {"k": kv, "v": kv, "length": (dspec,), "k_scale": sc,
+            "v_scale": sc}
+
+
+def paged_cache_specs(cfg: ModelConfig, mesh: Mesh, num_slots: int,
+                      quant: bool = False) -> dict:
+    """Specs of the PagedKVCache's leaves: pools [L, P, Kv, page, H]
+    kv-heads over `tensor`, the page dim replicated (any slot may read
+    any page: prefix caching shares them); the block table and lengths
+    slots over `data` when the slots divide. int8 scale pools
+    [L, P, Kv*page] split their flat dim with the codes: a tensor chunk
+    of the kv-major flat dim is one kv group's scales."""
+    dslots = _div(num_slots, mesh, "data")
+    lspec = _div(cfg.num_layers, mesh, "stage")
+    tspec = _div(cfg.num_kv_heads, mesh, "tensor")
+    kv = (lspec, None, tspec, None, None)
+    sc = (lspec, None, tspec) if quant else None
+    return {"k_pages": kv, "v_pages": kv, "page_table": (dslots, None),
+            "lengths": (dslots,), "k_scale_pages": sc, "v_scale_pages": sc}
+
+
+def kv_window_specs(cfg: ModelConfig, mesh: Mesh, num_slots: int,
+                    quant: bool = False) -> dict:
+    """Specs of the write-combined window [L, S, Kv, W, H]: slots over
+    `data` with the block table, kv-heads over `tensor` with the pools."""
+    dslots = _div(num_slots, mesh, "data")
+    tspec = _div(cfg.num_kv_heads, mesh, "tensor")
+    kv = (None, dslots, tspec, None, None)
+    sc = (None, dslots, tspec, None) if quant else None
+    return {"k": kv, "v": kv, "k_scale": sc, "v_scale": sc}
+
+
+def warm_prefix_specs(d: Optional[str], t: Optional[str],
+                      quant: bool) -> Tuple[Spec, ...]:
+    """Specs of the warm flash kernel's cached-context operands, in call
+    order (prefix_k, prefix_v, prefix_len[, k_scale, v_scale]): batch
+    over `data` with the q rows, kv heads over `tensor` with the pools.
+    A float prefix is [B, S, Kv, H]; int8 codes [B, Kv, S, H] with
+    scales [B, Kv, S]."""
+    if quant:
+        code = (d, t, None, None)
+        return (code, code, (d,), (d, t, None), (d, t, None))
+    view = (d, None, t, None)
+    return (view, view, (d,))
+
+
+# ---------------------------------------------------------------------------
+# Placement
+# ---------------------------------------------------------------------------
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (an unindexed device matches any
+    index of its type)."""
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
+def _place(t: torch.Tensor, dev, copy: bool = False) -> torch.Tensor:
     """`t` on `dev`: the tensor itself (a view stays a view) when it is
-    there already."""
-    dev = torch.device(dev)
-    same = t.device.type == dev.type and \
-        (dev.index is None or t.device.index == dev.index)
-    return t if same else t.to(dev)
+    there already and `copy` is False; else a contiguous copy there."""
+    if same_device(t.device, dev) and not copy:
+        return t
+    return t.to(torch.device(dev), copy=True,
+                memory_format=torch.contiguous_format)
 
 
-def _to_first(node: Any, dev: torch.device) -> Any:
+def _split_leaf(leaf: torch.Tensor, axis: str, dim: int,
+                devs: Sequence, copy: bool) -> Shards:
+    n = len(devs)
+    size = leaf.shape[dim] // n
+    return Shards([_place(leaf.narrow(dim, i * size, size), devs[i], copy)
+                   for i in range(n)], axis, dim)
+
+
+def _place_tree(node: Any, spec: Any, mesh: Mesh, data_index: int,
+                copy: bool) -> Any:
+    """One data group's copy of a (sub)tree by its specs: the tensor and
+    expert dims split over the group's devices, every other leaf on the
+    group's first device."""
     if isinstance(node, dict):
-        return {k: _to_first(v, dev) for k, v in node.items()}
-    if isinstance(node, ExpertShards):
+        if is_quantized_leaf(node) and not isinstance(spec, dict):
+            spec = quant_specs_like(node, spec)
+        return {k: _place_tree(v, spec[k], mesh, data_index, copy)
+                for k, v in node.items()}
+    if isinstance(node, Shards):
         return node
-    return _place(node, dev)
+    tdevs = mesh.tensor_devices(data_index)
+    for dim, ax in enumerate(spec):
+        if ax == "tensor":
+            return _split_leaf(node, "tensor", dim, tdevs, copy)
+        if ax == "expert":
+            return _split_leaf(node, "expert", dim, mesh.expert_devices(),
+                               copy)
+    return _place(node, tdevs[0], copy and data_index > 0)
 
 
-def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
-    """The tree placed over `mesh`: with an expert axis N > 1, each
-    `layers.moe.w_*` leaf (int8 codes and scales alike) becomes an
-    ExpertShards of N parts, experts [i*ne, (i+1)*ne) on
-    `mesh.expert_devices()[i]`, a view where that is the leaf's device.
-    Every other leaf goes to the mesh's first device (no copy when it is
-    there). Leaves already sharded stay as they are. The input tree is
-    not modified."""
+def _over_data(place_group, mesh: Mesh, copy: bool):
+    """`place_group(d)` for every data group d: group 0's placement alone
+    where every group shares its devices and `copy` is False, else a
+    Shards over "data" of each group's own placement (replicas)."""
+    D = data_degree(mesh)
+    first = place_group(0)
+    if D == 1 or (not copy and all(
+            same_device(a, b) for d in range(1, D)
+            for a, b in zip(mesh.tensor_devices(0),
+                            mesh.tensor_devices(d)))):
+        return first
+    return [first] + [place_group(d) for d in range(1, D)]
+
+
+def _zip_data(groups: list) -> Any:
+    """A list of per-group trees as one tree of data Shards."""
+    g0 = groups[0]
+    if isinstance(g0, dict):
+        return {k: _zip_data([g[k] for g in groups]) for k in g0}
+    if g0 is None:
+        return None
+    return Shards(groups, "data", None)
+
+
+def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh,
+                 copy: bool = False) -> Params:
+    """The tree placed over `mesh` by `param_specs`: each leaf with a
+    tensor (or expert) dim becomes a Shards over that axis (an expert
+    axis that does not divide the experts raises), views of the
+    leaf where a shard shares its device (`copy` places contiguous
+    copies); every other leaf goes to the mesh's first device (no copy
+    when it is there). Data groups on other devices (or `copy`) get
+    their own replica: every leaf is then a Shards over "data". Leaves
+    already sharded stay as they are; the input tree is not modified."""
     require_ported_mesh(mesh)
-    out = _to_first(params, mesh.first_device)
-    N = expert_degree(mesh)
-    moe = out.get("layers", {}).get("moe")
-    if N <= 1 or moe is None:
-        return out
-    E = cfg.num_experts
-    if E % N:
-        raise ValueError(f"{E} experts do not split over an expert axis "
-                         f"of {N}")
-    ne = E // N
-    devs = mesh.expert_devices()
+    N = mesh.shape.get("expert", 1)
+    if cfg.is_moe and N > 1 and cfg.num_experts % N:
+        # the expert dispatch needs every shard to own whole experts
+        raise ValueError(f"{cfg.num_experts} experts do not split over an "
+                         f"expert axis of {N}")
+    specs = param_specs(cfg, mesh)
+    out = _over_data(lambda d: _place_tree(params, specs, mesh, d, copy),
+                     mesh, copy)
+    return _zip_data(out) if isinstance(out, list) else out
 
-    def split(node):
-        if isinstance(node, dict):
-            return {k: split(v) for k, v in node.items()}
-        if isinstance(node, ExpertShards):
-            return node
-        return ExpertShards([_place(node.narrow(1, i * ne, ne), devs[i])
-                             for i in range(N)])
-    out["layers"] = dict(out["layers"])
-    out["layers"]["moe"] = {k: split(v) if k in _EXPERT_LEAVES else v
-                            for k, v in moe.items()}
-    return out
+
+def _shard_pool(t: torch.Tensor, axis: Optional[str], mesh: Mesh,
+                data_index: int, split: int, copy: bool):
+    """A KV tensor split on `split` over the tensor axis (`axis` is its
+    spec entry there) as separate contiguous per-shard tensors (the
+    kernels' operands), or placed whole on the group's first device."""
+    tdevs = mesh.tensor_devices(data_index)
+    if axis == "tensor":
+        return _split_leaf(t, "tensor", split, tdevs, True)
+    return _place(t, tdevs[0], copy or data_index > 0)
+
+
+def shard_paged_cache(cache, cfg: ModelConfig, mesh: Mesh,
+                      copy: bool = False):
+    """The PagedKVCache placed by `paged_cache_specs`: the pools (and
+    int8 scale pools) split over `tensor` into one contiguous pool per
+    shard; replicated over data groups (each group its own copy on other
+    devices, or with `copy`). The block table and lengths, rewritten by
+    the host every dispatch, stay on the mesh's first device: each data
+    group reads its slots' rows from there."""
+    require_ported_mesh(mesh)
+    specs = paged_cache_specs(cfg, mesh, cache.num_slots, cache.quantized)
+
+    def group(d):
+        out = {}
+        for name in ("k_pages", "v_pages", "k_scale_pages",
+                     "v_scale_pages"):
+            t = getattr(cache, name)
+            out[name] = None if t is None else _shard_pool(
+                t, specs[name][2], mesh, d, 2, copy)
+        return out
+    pools = _over_data(group, mesh, copy)
+    if isinstance(pools, list):
+        pools = _zip_data(pools)
+    first = mesh.first_device
+    return cache._replace(page_table=_place(cache.page_table, first),
+                          lengths=_place(cache.lengths, first), **pools)
+
+
+def _split_rows(t: torch.Tensor, mesh: Mesh, dim: int, tsplit: Optional[int],
+                copy: bool):
+    """A slot- or batch-indexed KV tensor split over data groups on
+    `dim` (each group's rows on its devices) and, when `tsplit` is set,
+    each group's rows over the tensor axis on `tsplit`."""
+    D = data_degree(mesh)
+    rows = t.shape[dim] // D
+    groups = []
+    for d in range(D):
+        part = t.narrow(dim, d * rows, rows)
+        if tsplit is not None:
+            groups.append(_split_leaf(part, "tensor", tsplit,
+                                      mesh.tensor_devices(d), True))
+        else:
+            groups.append(_place(part, mesh.tensor_devices(d)[0], copy))
+    return groups[0] if D == 1 else Shards(groups, "data", dim)
+
+
+def shard_kv_window(window, cfg: ModelConfig, mesh: Mesh,
+                    copy: bool = False):
+    """The KVWindow placed by `kv_window_specs`: slots split over data
+    groups, kv-heads over `tensor` (separate contiguous tensors per
+    shard)."""
+    specs = kv_window_specs(cfg, mesh, window.k.shape[1], window.quantized)
+    return window._replace(**{
+        name: None if t is None else _split_rows(
+            t, mesh, 1, 2 if specs[name][2] == "tensor" else None, copy)
+        for name, t in zip(window._fields, window)})
+
+
+def shard_cache(cache, cfg: ModelConfig, mesh: Mesh, copy: bool = False):
+    """The contiguous KVCache placed by `cache_specs`: batch split over
+    data groups, kv-heads over `tensor` (separate tensors per shard); the
+    lengths stay on the mesh's first device."""
+    specs = cache_specs(cfg, mesh, cache.quantized)
+    kv_dim = 2 if cache.quantized else 3
+    out = {}
+    for name in ("k", "v", "k_scale", "v_scale"):
+        t = getattr(cache, name)
+        out[name] = None if t is None else _split_rows(
+            t, mesh, 1, kv_dim if specs[name][kv_dim] == "tensor" else None,
+            copy)
+    return cache._replace(length=_place(cache.length, mesh.first_device),
+                          **out)

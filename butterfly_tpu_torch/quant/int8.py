@@ -24,11 +24,10 @@ performance list.
 The MoE expert leaves (`layers.moe.w_*`, [L, E, D, F] / [L, E, F, D])
 quantize over their D / F axis like the dense MLP's; `qeinsum` takes the
 MoE specs of models/common.py and parallel/expert.py as it takes the
-dense ones. Under an expert mesh the {"q8", "s"} expert leaves split over
-the shards with the float ones (parallel/partition.py:shard_params).
-
-Not ported yet: `quant_specs_like` and the tensor-parallel part of
-`shard_quantized_params`, which wait for tensor parallelism.
+dense ones. Under a mesh the {"q8", "s"} leaves split with the float
+ones (`shard_quantized_params`): the codes take the weight's spec, the
+scale keeps it only on its dims still > 1 (`quant_specs_like`), so a
+tensor shard's codes and scales are the same output channels.
 """
 from __future__ import annotations
 
@@ -249,3 +248,27 @@ def init_params_quantized(cfg, generator: Optional[torch.Generator] = None,
                                              kind, dev)
         return out
     return walk(_shape_tree(cfg), "")
+
+
+def quant_specs_like(qparams: Any, specs: Any) -> Any:
+    """Mirror a param_specs (sub)tree (parallel/partition.py) onto a
+    quantized one: q8 takes the weight's spec; the scale keeps an axis
+    only on its dims still > 1 (a contraction dim collapsed to 1 by
+    keepdims must not be split)."""
+    if is_quantized_leaf(qparams) and not isinstance(specs, dict):
+        s_spec = tuple(specs[i] if i < len(specs) and
+                       qparams["s"].shape[i] > 1 else None
+                       for i in range(len(qparams["s"].shape)))
+        return {"q8": specs, "s": s_spec}
+    if isinstance(qparams, dict):
+        return {k: quant_specs_like(qparams[k], specs[k]) for k in qparams}
+    return specs
+
+
+def shard_quantized_params(qparams: Params, cfg, mesh,
+                           copy: bool = False) -> Params:
+    """A quantized tree placed over `mesh` (tensor, expert, data): the
+    placement of parallel/partition.py:shard_params under the specs of
+    `quant_specs_like`."""
+    from butterfly_tpu_torch.parallel.partition import shard_params
+    return shard_params(qparams, cfg, mesh, copy=copy)

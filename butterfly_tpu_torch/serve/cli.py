@@ -14,6 +14,7 @@
     python -m butterfly_tpu_torch.serve.cli bench --model tiny --device cpu --spec --prompt-len 32 --max-new 32
     python -m butterfly_tpu_torch.serve.cli generate --model mixtral-8x7b --quant int8 --prompt "hello" --max-new 32
     python -m butterfly_tpu_torch.serve.cli generate --model tiny --device cpu --expert-parallel 2
+    python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu --tensor-parallel 2 --data-parallel 2
     python -m butterfly_tpu_torch.serve.cli route --backends 127.0.0.1:8000,127.0.0.1:8001 --port 8100
     python -m butterfly_tpu_torch.serve.cli fleet --topology 2p2d --device cpu
     python -m butterfly_tpu_torch.serve.cli workload generate --n 32 --out trace.jsonl
@@ -25,12 +26,15 @@ The subcommands keep the JAX CLI's flags (butterfly_tpu/serve/cli.py);
 the ones that build an engine (generate, serve, bench, fleet, workload
 sweep) add --device (default cuda). route, workload generate|replay and
 dash load no model and touch no device. `--seq-parallel N` builds a seq mesh of N
-shards and `--expert-parallel N` an expert mesh of N shards (an MoE model
-then takes the expert-parallel dispatch, cfg.moe_impl="ep"): on
-cuda:0..N-1 with --device cuda (N cards needed), on the CPU with
---device cpu. Flags whose path the port does not carry yet (the tensor,
-stage and data axes, and --expert-parallel with --seq-parallel) are
-accepted and refused with NotImplementedError naming the ROADMAP.md item.
+shards, `--expert-parallel N` an expert mesh of N shards (an MoE model
+then takes the expert-parallel dispatch, cfg.moe_impl="ep"), and
+`--tensor-parallel N` / `--data-parallel M` a tensor x data mesh (the
+weights and KV split Megatron-style over N shards, slots and batch rows
+over M groups): on cuda:0..n-1 with --device cuda (n cards needed), on
+the CPU with --device cpu. Flags whose path the port does not carry yet
+(--stage-parallel, and --seq-parallel or --expert-parallel with another
+axis) are accepted and refused with NotImplementedError naming the
+ROADMAP.md item.
 Without --ckpt, weights are random (demo mode); `--quant int8` draws them
 straight into int8 (quant/int8.py:init_params_quantized), so the float
 tree is never held.
@@ -76,10 +80,13 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--tokenizer", default=None)
         sp.add_argument("--dtype", default=None,
                         help="override compute dtype")
-        for flag in ("--tensor-parallel", "--stage-parallel",
-                     "--data-parallel"):
-            sp.add_argument(flag, type=int, default=1,
-                            help="(not ported yet)")
+        sp.add_argument("--tensor-parallel", type=int, default=1,
+                        help="split heads, F and vocab over N shards "
+                             "(Megatron); --device cuda needs N cards")
+        sp.add_argument("--data-parallel", type=int, default=1,
+                        help="split slots and batch rows over M groups")
+        sp.add_argument("--stage-parallel", type=int, default=1,
+                        help="(not ported yet)")
         sp.add_argument("--expert-parallel", type=int, default=1,
                         help="shard an MoE model's experts over N devices "
                              "(GShard all_to_all dispatch); --device cuda "
@@ -444,8 +451,9 @@ def build_mesh(args):
 
     --device cuda takes cards cuda:0..n-1 and refuses n larger than the
     visible count; --device cpu takes n shards on the CPU. The seq and
-    expert axes are ported, one at a time: the other flags > 1, and seq
-    with expert, raise NotImplementedError (core/mesh.py)."""
+    expert axes run alone, tensor and data alone or together; stage, and
+    seq or expert with another axis, raise NotImplementedError
+    (core/mesh.py)."""
     import torch
 
     from butterfly_tpu_torch.core.config import MeshConfig
@@ -474,8 +482,8 @@ def build_mesh(args):
 
 def shard_for_mesh(params, cfg, mesh):
     """The tree placed over the mesh (parallel/partition.py:shard_params:
-    the expert leaves split over an expert axis, int8 leaves alike); the
-    tree itself without a mesh."""
+    the expert leaves split over an expert axis, the Megatron split over
+    a tensor axis, int8 leaves alike); the tree itself without a mesh."""
     if mesh is None:
         return params
     from butterfly_tpu_torch.parallel.partition import shard_params
@@ -569,8 +577,13 @@ def cmd_bench(args) -> int:
                                                    run_spec_benchmark)
     model = resolve_model(args)
     mesh = build_mesh(args)
-    params = shard_for_mesh(load_params(model, args), model.cfg, mesh)
-    stats = run_decode_benchmark(model, params, batch=args.batch,
+    # the decode leg runs on the mesh; the serving legs are single-engine
+    # (as in the JAX CLI) on the same weights, unsharded: where the shards
+    # share the tree's device the sharded leaves are views of these
+    params = load_params(model, args)
+    stats = run_decode_benchmark(model,
+                                 shard_for_mesh(params, model.cfg, mesh),
+                                 batch=args.batch,
                                  prompt_len=args.prompt_len,
                                  max_new=args.max_new, mesh=mesh,
                                  kv_quant=args.kv_quant)

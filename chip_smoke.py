@@ -207,7 +207,33 @@ raises and the script exits non-zero:
              with its wall seconds. Prefix hits, preemptions and tier
              revivals must be > 0, the ring microbench kernelized, and
              each of the four kernels must launch.
-19. moe      Mixtral-8x7B at full width and depth on int8 weights, once
+19. tp       tensor and data parallelism on one card (every shard on
+             cuda:0, make_mesh(MeshConfig(...), ["cuda:0"] * n)) on the
+             shared Llama-3-8B trees: shard_params at tensor = 2 (the
+             parts must be views: nothing allocated); tensor = 2 serving
+             at full width and depth, the serve defaults, 8 greedy
+             requests of 16-1200 bytes with 32 new tokens (tok/s, TTFT
+             p50, requests equal to the serve phase's and the
+             teacher-forced gap of the others, pool bytes per shard);
+             one windowed decode step on a pool of random K/V, tensor = 2
+             against unsharded: each shard's paged kernel against its
+             plain version (2e-2) and the step's logits within max(0.5,
+             the same run's unsharded kernel-vs-plain gap); a decode
+             step's profile against the unsharded one (host wall, device
+             busy, idle share, top kernels, and copies whose input is a
+             weight: none expected); the alternating path at tensor = 2
+             (fresh and warm flash per shard); tensor = 8 generate (4
+             prompts of 17-1001 tokens, 32 new, fused: fresh flash at
+             Nq 4, Kv 1 per shard) against unsharded, and the decode-step
+             check at tensor = 8 (the paged kernel at Kv = 1); tensor = 4
+             x data = 2 serving at full width and 4 layers with prefix
+             caching (3 requests sharing a prompt: hit tokens >= 16,
+             tokens against the unsharded engine at that depth); the int8
+             tree at tensor = 2 (the decode-step check); the bench decode
+             leg at tensor = 2 beside the unsharded one. One card moves
+             no byte between shards: reductions over NVLink are not
+             measured.
+20. moe      Mixtral-8x7B at full width and depth on int8 weights, once
              the Llama-3-8B trees are freed (memory_allocated logged at
              each step): the tree drawn by the CLI's loader
              (init_params_quantized on a seed-0 cuda generator; its GB,
@@ -986,7 +1012,7 @@ def phase_serve(torch):
         max_memory_allocated_GiB=
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         note="smoke run, not a benchmark")
-    return engine, launches, tok
+    return engine, launches, tok, [b["tokens"] for _, b in results]
 
 
 # -- phase 6: the kernel inside the model, against the plain version --------
@@ -1026,7 +1052,7 @@ def phase_parity(torch, engine, label="parity"):
     may differ from the plain version by no more than the two plain
     versions differ from each other."""
     import butterfly_tpu_torch.models.common as common_mod
-    import butterfly_tpu_torch.cache.paged as paged_mod
+    import butterfly_tpu_torch.ops.paged_attention as pa_mod
     from butterfly_tpu_torch.cache.paged import (init_kv_window,
                                                  paged_forward_window)
     from butterfly_tpu_torch.ops.paged_attention import (paged_attention,
@@ -1081,14 +1107,15 @@ def phase_parity(torch, engine, label="parity"):
 
     def step(attn, use_kernel=True, route=route_plain):
         flips.clear()
-        paged_mod.paged_attention = attn
+        # the sharded wrapper the layers call reads the module attribute
+        pa_mod.paged_attention = attn
         common_mod.route_tokens = route
         try:
             logits, _ = paged_forward_window(
                 engine.params, engine.cfg, toks, c, win, wlen,
                 active=active, use_kernel=use_kernel)
         finally:
-            paged_mod.paged_attention = paged_attention
+            pa_mod.paged_attention = paged_attention
             common_mod.route_tokens = route_plain
         torch.cuda.synchronize()
         return logits[:, 0][active].float()
@@ -1130,12 +1157,13 @@ def phase_parity(torch, engine, label="parity"):
 
 # -- phase 7: where a decode step's time goes --------------------------------
 
-def _decode_step_profile(torch, engine, steps=5):
+def _decode_step_profile(torch, engine, steps=5, record_shapes=False):
     """Decode steps of the real engine path (mixed_block_async, k=1,
     C=1, every slot decoding at the lengths below) timed on the host
-    clock with a device sync, then traced with torch.profiler. Returns
-    (host ms per step, traced ms per step, device busy ms per step or
-    0.0 when the trace shows none, the profiler, the lengths)."""
+    clock with a device sync, then traced with torch.profiler (operator
+    input shapes too with `record_shapes`). Returns (host ms per step,
+    traced ms per step, device busy ms per step or 0.0 when the trace
+    shows none, the profiler, the lengths)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     S = engine.num_slots
@@ -1167,8 +1195,8 @@ def _decode_step_profile(torch, engine, steps=5):
     t0 = time.perf_counter()
     run(steps)
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         run(steps)
         wall = (time.perf_counter() - t0) / steps * 1e3
@@ -1372,7 +1400,7 @@ def phase_flash_parity(torch, engine):
     kernel on any output of magnitude >= 4, whose ulp is 0.031), and each
     pass's last-token logits against the same pass with the plain version
     at every layer (LOGITS_TOL)."""
-    import butterfly_tpu_torch.cache.paged as paged_mod
+    import butterfly_tpu_torch.ops.flash_attention as fa_mod
     from butterfly_tpu_torch.ops.flash_attention import (flash_attention,
                                                          flash_attention_ref)
     L = engine.cfg.num_layers
@@ -1394,12 +1422,13 @@ def phase_flash_parity(torch, engine):
         return out
 
     def run(attn):
-        paged_mod.flash_attention = attn
+        # the sharded wrapper the layers call reads the module attribute
+        fa_mod.flash_attention = attn
         try:
             fresh = engine.prefill_batch([0], [toks[:512]], [0])
             warm = engine.prefill_batch([0], [toks[512:]], [512])
         finally:
-            paged_mod.flash_attention = flash_attention
+            fa_mod.flash_attention = flash_attention
         torch.cuda.synchronize()
         return fresh.float(), warm.float()
 
@@ -2367,7 +2396,7 @@ def phase_bench(torch, model, params, qparams):
     --serving` (head_dim 16 in f32: the ring kernel's CUDA-core route at
     the tiny heads). The four kernels' counts
     are zeroed just before and read just after; each must have launched.
-    Returns {kernel: launches}."""
+    Returns ({kernel: launches}, the decode leg's result)."""
     import contextlib
     import io
 
@@ -2479,10 +2508,461 @@ def phase_bench(torch, model, params, qparams):
         spec_accept_rate=f"{spec['spec_accept_rate']:.3f}",
         **{f"spec_accept_rate_{k}": f"{spec['spec_accept_rate_' + k]:.3f}"
            for k in ("ngram", "model", "tree")})
+    return counts, dec
+
+
+# -- phase 19: tensor and data parallelism on one card ---------------------------
+
+TP_DP_LAYERS = 4     # the tensor = 4 x data = 2 serving run: 4 layers
+TP_NEW = 32          # new tokens of the tensor-parallel requests
+
+
+def _one_card_mesh(**axes):
+    """A mesh of every shard on cuda:0 (build_mesh refuses more shards
+    than cards)."""
+    from butterfly_tpu_torch.core.config import MeshConfig
+    from butterfly_tpu_torch.core.mesh import make_mesh
+    mc = MeshConfig(**axes)
+    return make_mesh(mc, ["cuda:0"] * mc.num_devices)
+
+
+def _launch_counts():
+    from butterfly_tpu_torch.ops.flash_attention import flash_attention
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    return {"paged": paged_attention.launches,
+            "fresh": flash_attention.launches_fresh,
+            "warm": flash_attention.launches_warm}
+
+
+def _zero_counts():
+    from butterfly_tpu_torch.ops.flash_attention import flash_attention
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    paged_attention.launches = 0
+    flash_attention.launches_fresh = flash_attention.launches_warm = 0
+
+
+def _shard_on_card(torch, tree, cfg, mesh, place=None):
+    """The tree placed over `mesh` by `place` (default shard_params; an
+    int8 tree through shard_quantized_params): returns (sharded tree,
+    bytes the placement allocated, split leaves), every part checked to
+    be a view of its leaf's storage."""
+    from butterfly_tpu_torch.parallel.partition import Shards, shard_params
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    sharded = (place or shard_params)(tree, cfg, mesh)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    split = 0
+
+    def walk(s, t):
+        nonlocal split
+        if isinstance(s, dict):
+            for k in s:
+                walk(s[k], t[k])
+        elif isinstance(s, Shards):
+            split += 1
+            for part in s.parts:
+                assert part.untyped_storage().data_ptr() == \
+                    t.untyped_storage().data_ptr(), "a part is not a view"
+    walk(sharded, tree)
+    return sharded, grown, split
+
+
+def _weight_shapes(tree):
+    """The shapes a copy of a split weight part would have: one layer's
+    slice of each part (whole parts for the embedding and the head), as
+    it is, with a leading batch dim of 1, and merged into 2-D (the
+    operand forms of an einsum's batched matmul)."""
+    from butterfly_tpu_torch.parallel.partition import Shards
+    out = set()
+
+    def forms(shape):
+        yield shape
+        yield (1,) + shape
+        for i in range(1, len(shape)):
+            a = b = 1
+            for d in shape[:i]:
+                a *= d
+            for d in shape[i:]:
+                b *= d
+            yield (a, b)
+            yield (1, a, b)
+
+    def walk(node, stacked):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, stacked or k == "layers")
+        elif isinstance(node, Shards):
+            for p in node.parts:
+                out.update(forms(tuple(p.shape[1:] if stacked
+                                       else p.shape)))
+    walk(tree, False)
+    return out
+
+
+def _weight_copies(prof, shapes_of_weights, steps):
+    """(count, device ms, source shapes) per step of aten::copy_ calls
+    whose source has the shape of a weight part (`_weight_shapes`)."""
+    n, us, shapes = 0, 0.0, {}
+    for e in prof.events():
+        if e.name != "aten::copy_" or len(e.input_shapes) < 2:
+            continue
+        src = tuple(e.input_shapes[1])
+        if src in shapes_of_weights:
+            n += 1
+            us += e.device_time_total if hasattr(e, "device_time_total") \
+                else e.cuda_time_total
+            key = "x".join(map(str, src))
+            shapes[key] = shapes.get(key, 0) + 1
+    return n / steps, us / steps / 1e3, ",".join(
+        f"{k}:{v // steps}" for k, v in sorted(shapes.items())) or "none"
+
+
+def _tp_step_check(torch, tree, sharded, cfg, mesh, label):
+    """One windowed decode step (8 slots at ragged lengths to 1300
+    tokens, window entries staged) on a pool of random K/V, unsharded
+    and over `mesh`: the unsharded step with the kernel and with the
+    plain version at every layer, and the sharded step with each shard's
+    kernel checked against its plain version (LAYER_TOL). The sharded
+    logits must agree with the unsharded kernel step within max(
+    LOGITS_TOL, the unsharded kernel-vs-plain gap of this run). Its
+    launches are checks, not a main path: the caller counts none."""
+    import butterfly_tpu_torch.ops.paged_attention as pa_mod
+    from butterfly_tpu_torch.cache.paged import (
+        init_kv_window, init_paged_cache, paged_forward_window)
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.ops.paged_attention import (paged_attention,
+                                                         paged_attention_ref)
+    from butterfly_tpu_torch.parallel.partition import (shard_kv_window,
+                                                        shard_paged_cache)
+    S, page = 8, 16
+    rt = RuntimeConfig(max_batch_size=S, max_seq_len=2048, page_size=page)
+    cache = init_paged_cache(cfg, rt, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for t in (cache.k_pages, cache.v_pages):
+        t.normal_(0.0, 0.5, generator=gen)
+    mp = cache.page_table.shape[1]
+    lengths = [5, 100, 700, 1300, 0, 33, 64, 1000]
+    table = torch.full((S, mp), cache.null_page, dtype=torch.int32,
+                       device="cuda")
+    for s in range(S):
+        n = -(-lengths[s] // page)
+        table[s, :n] = torch.arange(s * mp, s * mp + n, dtype=torch.int32)
+    cache = cache._replace(page_table=table, lengths=torch.tensor(
+        lengths, dtype=torch.int32, device="cuda"))
+    win = init_kv_window(cache, 64)
+    for t in (win.k, win.v):
+        t.normal_(0.0, 0.5, generator=gen)
+    wlen = torch.tensor([3, 0, 10, 63, 0, 1, 7, 20], dtype=torch.int32,
+                        device="cuda")
+    active = torch.tensor([n > 0 for n in lengths], device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (S, 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    scache = shard_paged_cache(cache, cfg, mesh)
+    swin = shard_kv_window(win, cfg, mesh)
+    errs, kv_heads = [], set()
+
+    def checked(q, kp, *args, **kw):
+        out = paged_attention(q, kp, *args, **kw)
+        ref = paged_attention_ref(q, kp, *args, **kw)
+        errs.append((out.float() - ref.float()).abs().max().item())
+        kv_heads.add((q.shape[1], kp.shape[1]))
+        return out
+
+    def step(params, c, w, attn, m=None):
+        pa_mod.paged_attention = attn
+        try:
+            with mesh_ctx(m):
+                logits, _ = paged_forward_window(params, cfg, toks, c, w,
+                                                 wlen, active=active,
+                                                 use_kernel=True)
+        finally:
+            pa_mod.paged_attention = paged_attention
+        torch.cuda.synchronize()
+        return logits[:, 0][active].float()
+
+    kern = step(tree, cache, win, paged_attention)
+    plain = step(tree, cache, win, paged_attention_ref)
+    shard = step(sharded, scache, swin, checked, mesh)
+    T = mesh.shape["tensor"]
+    assert len(errs) == cfg.num_layers * T, (len(errs), T)
+    for x in (kern, plain, shard):
+        assert torch.isfinite(x).all()
+    layer_err = max(errs)
+    spread = (kern - plain).abs().max().item()
+    gap = (shard - kern).abs().max().item()
+    bound = max(LOGITS_TOL, spread)
+    agree = (shard.argmax(-1) == kern.argmax(-1)).float().mean().item()
+    log("tp", step=label, shards=T,
+        shard_heads="/".join(f"Nq{a}_Kv{b}" for a, b in sorted(kv_heads)),
+        kernel_calls=len(errs), max_layer_abs_err=f"{layer_err:.3g}",
+        layer_tol=LAYER_TOL, logits_sharded_vs_unsharded=f"{gap:.4g}",
+        logits_unsharded_kernel_vs_plain=f"{spread:.4g}",
+        logits_bound=f"{bound:.4g}", argmax_agree=f"{agree:.3f}",
+        max_abs_logit=f"{kern.abs().max().item():.4g}")
+    assert layer_err <= LAYER_TOL, f"{label}: shard kernel vs plain " \
+        f"{layer_err}"
+    assert gap <= bound, f"{label}: sharded logits differ by {gap} > {bound}"
+    del cache, scache, win, swin
+    torch.cuda.empty_cache()
+
+
+def _pool_bytes_per_shard(engine):
+    from butterfly_tpu_torch.parallel.partition import axis_parts
+    c = engine.cache
+    per = None
+    for t in (c.k_pages, c.v_pages, c.k_scale_pages, c.v_scale_pages):
+        if t is None:
+            continue
+        parts = axis_parts(t, "tensor") or [t]
+        sizes = [p.numel() * p.element_size() for p in parts]
+        per = sizes if per is None else [a + b for a, b in zip(per, sizes)]
+    return per
+
+
+def phase_tp(torch, model, params, qparams, tok, serve_tokens, decode_ref):
+    """Tensor and data parallelism on one card (module docstring, phase
+    19). Returns {kernel: launches} of the phase's main paths."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.models.common import Model
+    from butterfly_tpu_torch.obs import benchmark as bm
+    from butterfly_tpu_torch.quant.int8 import shard_quantized_params
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    from butterfly_tpu_torch.serve.cli import build_parser
+    cfg = model.cfg
+    L = cfg.num_layers
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    counts = {"paged": 0, "fresh": 0, "warm": 0}
+
+    def main_path(fn):
+        _zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in _launch_counts().items():
+            counts[k] += v
+        return out, _launch_counts()
+
+    t_phase = time.monotonic()
+    # (a) the placement: views of the one tree
+    mesh2 = _one_card_mesh(tensor=2)
+    sp2, grown, split = _shard_on_card(torch, params, cfg, mesh2)
+    log("tp", step="shard_params", mesh="tensor2_on_cuda:0",
+        split_leaves=split, weight_bytes_allocated=grown,
+        tree_GB=f"{_tree_bytes(params) / 1e9:.3f}")
+    assert grown == 0, f"the tensor = 2 placement allocated {grown} bytes"
+
+    # (b) tensor = 2 serving at the serve defaults
+    args = build_parser().parse_args(["serve", "--model", "llama3-8b"])
+    rt = RuntimeConfig(max_batch_size=args.max_batch,
+                       max_seq_len=args.max_seq, page_size=args.page_size)
+    t0 = time.monotonic()
+    engine = ServingEngine(model, sp2, rt, mesh=mesh2)
+    sched = Scheduler(engine)
+    setup = time.monotonic() - t0
+    per_shard = _pool_bytes_per_shard(engine)
+    pk = engine.cache.k_pages
+    unsharded_pool = 2 * pk.numel() * pk.dtype.itemsize   # k and v
+    (prompts, reqs, wall), n = main_path(
+        lambda: _moe_serve(torch, sched, tok, cfg.vocab_size, TP_NEW))
+    assert n["paged"] > 0 and n["paged"] % (L * 2) == 0, n
+    equal, gaps, first = 0, [], []
+    for p, r, ref in zip(prompts, reqs, serve_tokens):
+        if r.output == ref[:TP_NEW]:
+            equal += 1
+        else:
+            first.append(_divergence(r.output, ref[:TP_NEW]))
+            gaps.append(_teacher_forced_gap(torch, params, cfg, p,
+                                            r.output))
+    ttfts = sorted(r.ttft for r in reqs)
+    log("tp", step="serve", mesh="tensor2_on_cuda:0", layers=L,
+        slots=rt.max_batch_size, setup_s=f"{setup:.1f}",
+        wall_s=f"{wall:.3f}", tokens_per_s=f"{8 * TP_NEW / wall:.2f}",
+        ttft_p50_s=f"{statistics.median(ttfts):.4f}",
+        equal_to_serve_phase=f"{equal}/8",
+        first_divergence=",".join(map(str, first)) or "none",
+        teacher_forced_gap=f"{max(gaps):.4g}" if gaps else "none",
+        paged_launches=n["paged"],
+        pool_bytes_per_shard="/".join(map(str, per_shard)),
+        unsharded_pool_bytes=unsharded_pool,
+        note="smoke run, not a benchmark")
+    assert all(b * 2 == unsharded_pool for b in per_shard), per_shard
+    if gaps:
+        assert max(gaps) <= LOGITS_TOL, f"teacher-forced gap {max(gaps)}"
+
+    # (c) the decode-step check at tensor = 2
+    _tp_step_check(torch, params, sp2, cfg, mesh2, "parity_tensor2")
+
+    # (d) a decode step's profile, sharded against unsharded
+    wshapes = _weight_shapes(sp2)
+    for name, eng in (("tensor2", engine),
+                      ("unsharded", ServingEngine(model, params, rt))):
+        step_ms, wall_ms, busy, prof, _ = _decode_step_profile(
+            torch, eng, steps=5, record_shapes=True)
+        ka = prof.key_averages()
+        top = sorted((e for e in ka if e.device_type.name == "CUDA"),
+                     key=_dev_us, reverse=True)[:6]
+        n_copy, copy_ms, copy_shapes = _weight_copies(prof, wshapes, 5)
+        log("tp", step="profile", engine=name, host_step_ms=f"{step_ms:.3f}",
+            traced_step_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy:.3f}",
+            idle_share=f"{1 - busy / wall_ms:.3f}" if busy
+            else "not measured",
+            idle_share_untraced=f"{1 - busy / step_ms:.3f}" if busy
+            else "not measured",
+            weight_copies_per_step=f"{n_copy:g}",
+            weight_copy_ms_per_step=f"{copy_ms:.4f}",
+            weight_copy_shapes=copy_shapes)
+        for e in top:
+            log("tp", step="profile", engine=name,
+                kernel=e.key[:60].replace(" ", "_"),
+                ms_per_step=f"{_dev_us(e) / 5 / 1e3:.4f}",
+                calls_per_step=e.count // 5)
+        if name == "tensor2":
+            assert n_copy == 0, f"{n_copy} weight copies per sharded step"
+        else:
+            eng.cache = eng._kv_window = None
+        del eng
+    engine.cache = engine._kv_window = None
+    del engine, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the alternating path at tensor = 2: fresh and warm flash per shard
+    alt_rt = RuntimeConfig(max_batch_size=8, max_seq_len=2048,
+                           page_size=16, mixed_dispatch=False)
+    alt = Scheduler(ServingEngine(model, sp2, alt_rt, mesh=mesh2))
+    sizes = [600, 1200]
+
+    def run_alt():
+        reqs = [alt.submit(tok.encode(_TEXT[:s]), max_new_tokens=8)
+                for s in sizes]
+        alt.run_until_done()
+        return reqs
+    areqs, n = main_path(run_alt)
+    for r in areqs:
+        assert r.state == "finished" and len(r.output) == 8, r.id
+    assert n["fresh"] > 0 and n["warm"] > 0 and n["paged"] > 0, n
+    assert n["fresh"] % (L * 2) == 0 and n["warm"] % (L * 2) == 0, n
+    log("tp", step="alternate", mesh="tensor2_on_cuda:0",
+        prompt_bytes=",".join(map(str, sizes)), fresh_launches=n["fresh"],
+        warm_launches=n["warm"], paged_launches=n["paged"])
+    alt.engine.cache = alt.engine._kv_window = None
+    del alt
+    gc.collect()
+
+    # (f) tensor = 8 generate (BASELINE configs[1]) and its decode step
+    mesh8 = _one_card_mesh(tensor=8)
+    sp8, grown8, _ = _shard_on_card(torch, params, cfg, mesh8)
+    assert grown8 == 0, grown8
+    gprompts = [tok.encode(_TEXT[:n]) for n in (16, 200, 600, 1000)]
+    sp = SamplingParams(max_new_tokens=TP_NEW)
+    want = InferenceEngine(model, params).generate(gprompts, sp).tokens
+    eng8 = InferenceEngine(model, sp8, mesh=mesh8)
+    eng8.generate(gprompts[:1], SamplingParams(max_new_tokens=2))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res, n = main_path(lambda: eng8.generate(gprompts, sp))
+    gwall = time.monotonic() - t0
+    _check_tokens(res, len(gprompts), TP_NEW, cfg.vocab_size,
+                  "tensor = 8 generate")
+    assert n["fresh"] == L * 8, n
+    equal8 = sum(int((a == b).all()) for a, b in zip(res.tokens, want))
+    gaps8 = [_teacher_forced_gap(torch, params, cfg, p, list(o))
+             for p, o, w in zip(gprompts, res.tokens, want)
+             if not (o == w).all()]
+    log("tp", step="generate", mesh="tensor8_on_cuda:0", layers=L,
+        prompt_tokens=",".join(str(len(p)) for p in gprompts),
+        new_tokens=TP_NEW, wall_s=f"{gwall:.3f}",
+        tokens_per_s=f"{len(gprompts) * TP_NEW / gwall:.2f}",
+        fresh_launches=n["fresh"], shard_heads="Nq4_Kv1",
+        equal_to_unsharded=f"{equal8}/{len(gprompts)}",
+        teacher_forced_gap=f"{max(gaps8):.4g}" if gaps8 else "none")
+    if gaps8:
+        assert max(gaps8) <= LOGITS_TOL, f"teacher-forced gap {max(gaps8)}"
+    del eng8
+    _tp_step_check(torch, params, sp8, cfg, mesh8, "parity_tensor8")
+    del sp8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) tensor = 4 x data = 2 serving, 4 layers, prefix caching
+    from butterfly_tpu_torch.models.draft import _slice_layers
+    cfg4 = cfg.replace(num_layers=TP_DP_LAYERS)
+    p4 = dict(params, layers=_slice_layers(params["layers"], TP_DP_LAYERS))
+    model4 = Model(cfg4, device="cuda")
+    mesh42 = _one_card_mesh(data=2, tensor=4)
+    prompt = tok.encode(_TEXT[:600])
+    seqs = (prompt, prompt, prompt[:300])
+    rt4 = RuntimeConfig(max_batch_size=8, max_seq_len=2048, page_size=16,
+                        prefix_caching=True)
+
+    def run_one(s, p):
+        r = s.submit(p, max_new_tokens=TP_NEW)
+        s.run_until_done()
+        assert r.state == "finished" and len(r.output) == TP_NEW, r.id
+        return r.output
+    plain = Scheduler(ServingEngine(model4, p4, rt4))
+    want4 = [run_one(plain, p) for p in seqs]
+    plain.engine.cache = plain.engine._kv_window = None
+    dp = Scheduler(ServingEngine(model4, p4, rt4, mesh=mesh42))
+    got4, n = main_path(lambda: [run_one(dp, p) for p in seqs])
+    hits = dp.alloc.hit_tokens
+    eq4 = sum(a == b for a, b in zip(got4, want4))
+    gaps4 = [_teacher_forced_gap(torch, p4, cfg4, p, a)
+             for p, a, b in zip(seqs, got4, want4) if a != b]
+    log("tp", step="serve_data2_tensor4", mesh="data2_x_tensor4_on_cuda:0",
+        layers=TP_DP_LAYERS, prefix_hit_tokens=hits,
+        unsharded_prefix_hit_tokens=plain.alloc.hit_tokens,
+        equal_to_unsharded=f"{eq4}/3",
+        first_divergence=",".join(str(_divergence(a, b))
+                                  for a, b in zip(got4, want4)),
+        teacher_forced_gap=f"{max(gaps4):.4g}" if gaps4 else "none",
+        paged_launches=n["paged"])
+    assert hits >= 16, f"{hits} prefix hit tokens"
+    if gaps4:
+        assert max(gaps4) <= LOGITS_TOL, f"teacher-forced gap {max(gaps4)}"
+    assert n["paged"] > 0 and n["paged"] % (TP_DP_LAYERS * 8) == 0, n
+    dp.engine.cache = dp.engine._kv_window = None
+    del dp, plain
+    gc.collect()
+
+    # (h) int8 weights at tensor = 2
+    qsp2, qgrown, qsplit = _shard_on_card(torch, qparams, cfg, mesh2,
+                                          shard_quantized_params)
+    log("tp", step="shard_quantized_params", mesh="tensor2_on_cuda:0",
+        split_leaves=qsplit, weight_bytes_allocated=qgrown)
+    assert qgrown == 0, f"the int8 placement allocated {qgrown} bytes"
+    _tp_step_check(torch, qparams, qsp2, cfg, mesh2, "parity_int8_tensor2")
+    del qsp2
+
+    # (i) the bench decode leg at tensor = 2
+    dec, n = main_path(lambda: bm.run_decode_benchmark(
+        model, sp2, batch=8, prompt_len=128, max_new=64, mesh=mesh2))
+    print(f"[bench] leg=decode_tensor2 card={card} "
+          + json.dumps(dec, sort_keys=True), flush=True)
+    log("tp", step="bench_decode", mesh="tensor2_on_cuda:0",
+        tok_s_per_card=f"{dec['decode_tokens_per_sec_per_chip']:.2f}",
+        hbm_util=f"{dec['hbm_util']:.4f}", mfu=f"{dec['mfu']:.4f}",
+        unsharded_tok_s_per_card="{:.2f}".format(
+            decode_ref["decode_tokens_per_sec_per_chip"]),
+        unsharded_hbm_util=f"{decode_ref['hbm_util']:.4f}",
+        unsharded_mfu=f"{decode_ref['mfu']:.4f}", fresh_launches=n["fresh"])
+    assert 0 < dec["hbm_util"] < 1 and dec["n_chips"] == 1, dec
+    del sp2
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in counts.items():
+        assert v > 0, f"the {k} kernel never launched in the tp phase"
+    log("tp", step="done", seconds=f"{time.monotonic() - t_phase:.1f}",
+        **{f"{k}_launches": v for k, v in counts.items()})
     return counts
 
 
-# -- phase 19: Mixtral-8x7B and expert parallelism ------------------------------
+# -- phase 20: Mixtral-8x7B and expert parallelism ------------------------------
 
 EP_LAYERS_F32 = 2    # the f32 expert-parallel check: full width, 2 layers
 EP_LAYERS_BF16 = 4   # the bf16 expert-mesh serving run: full width, 4 layers
@@ -2513,7 +2993,7 @@ def _moe_serve(torch, sched, tok, vocab, news):
 
 def phase_moe(torch, tok):
     """Mixtral-8x7B at full width and depth on int8 weights, then the
-    expert axis on one card (module docstring, phase 19). Returns
+    expert axis on one card (module docstring, phase 20). Returns
     {kernel: launches} of the phase's main paths."""
     import contextlib
     import io
@@ -2530,7 +3010,7 @@ def phase_moe(torch, tok):
     from butterfly_tpu_torch.ops.paged_attention import paged_attention
     from butterfly_tpu_torch.parallel import expert as expert_mod
     from butterfly_tpu_torch.parallel.expert import dropped_assignments
-    from butterfly_tpu_torch.parallel.partition import (ExpertShards,
+    from butterfly_tpu_torch.parallel.partition import (Shards,
                                                         shard_params)
     from butterfly_tpu_torch.sched.scheduler import Scheduler
     from butterfly_tpu_torch.serve import cli
@@ -2720,7 +3200,8 @@ def phase_moe(torch, tok):
     for name in ("w_gate", "w_up", "w_down"):
         leaf, full = sharded["layers"]["moe"][name], \
             params["layers"]["moe"][name]
-        assert isinstance(leaf, ExpertShards) and len(leaf.parts) == 2
+        assert isinstance(leaf, Shards) and leaf.axis == "expert" \
+            and len(leaf.parts) == 2
         for i, part in enumerate(leaf.parts):
             assert part.untyped_storage().data_ptr() == \
                 full.untyped_storage().data_ptr(), (name, i)
@@ -2917,7 +3398,7 @@ def main() -> int:
     kres = phase_kernel(torch, name)
     fres = phase_flash_kernel(torch, name)
     rres = phase_ring(torch, name)
-    engine, serve_launches, tok = phase_serve(torch)
+    engine, serve_launches, tok, serve_tokens = phase_serve(torch)
     phase_parity(torch, engine)
     phase_profile(torch, engine)
     model, params = engine.model, engine.params
@@ -2938,7 +3419,9 @@ def main() -> int:
     qparams, quant = phase_quant(torch, model, params, tok)
     spec = phase_spec(torch, model, params, tok)
     fleet = phase_fleet(torch, model, params)
-    bench = phase_bench(torch, model, params, qparams)
+    bench, decode_leg = phase_bench(torch, model, params, qparams)
+    tp = phase_tp(torch, model, params, qparams, tok, serve_tokens,
+                  decode_leg)
     # the Llama-3-8B trees go before Mixtral's int8 tree is drawn
     del qparams, params, model
     gc.collect()
@@ -2964,15 +3447,17 @@ def main() -> int:
               "butterfly_tpu/ops/paged_attention.py:65",
               serve_launches + alt["paged"] + long_paged + quant["paged"]
               + spec["paged"] + fleet["paged"] + bench["paged"]
-              + moe["paged"], kres,
+              + tp["paged"] + moe["paged"], kres,
               "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
               gen_fresh + alt["fresh"] + quant["fresh"] + spec["fresh"]
-              + bench["fresh"] + moe["fresh"], fresh_cases, "fresh_bf16"),
+              + bench["fresh"] + tp["fresh"] + moe["fresh"], fresh_cases,
+              "fresh_bf16"),
         entry("flash_attention_warm", flash_src,
               "butterfly_tpu/ops/flash_attention.py:97",
-              alt["warm"] + spec["warm"] + bench["warm"], warm_cases,
+              alt["warm"] + spec["warm"] + bench["warm"] + tp["warm"],
+              warm_cases,
               "warm_bf16"),
         entry("ring_attention",
               "butterfly_tpu_torch/ops/csrc/ring_attention.cu",

@@ -116,7 +116,7 @@ def test_alternating_scheduler_greedy_tokens_match_jax(name, kw, kernels):
 def test_alternating_prefills_route_through_the_flash_wrapper(monkeypatch):
     """With kernels on, a fresh gang calls the fresh flash entry and a
     chunk continuation the warm one (prefix_len = the chunk's start)."""
-    import butterfly_tpu_torch.cache.paged as paged_mod
+    import butterfly_tpu_torch.ops.flash_attention as fa_mod
     from butterfly_tpu_torch.ops.flash_attention import flash_attention
     calls = []
 
@@ -125,7 +125,8 @@ def test_alternating_prefills_route_through_the_flash_wrapper(monkeypatch):
         calls.append(None if prefix_len is None else prefix_len.tolist())
         return flash_attention(q, k, v, causal, prefix_k, prefix_v,
                                prefix_len, **kw)
-    monkeypatch.setattr(paged_mod, "flash_attention", spy)
+    # the layers call it through flash_attention_sharded
+    monkeypatch.setattr(fa_mod, "flash_attention", spy)
     sched = Scheduler(port_engine(use_kernels=True, mixed_dispatch=False))
     r = sched.submit(list(range(1, 20)), max_new_tokens=3)
     sched.run_until_done()

@@ -30,7 +30,7 @@ from butterfly_tpu_torch.models.bridge import params_from_numpy
 from butterfly_tpu_torch.models.common import (Model, init_params, moe_block,
                                                route_tokens)
 from butterfly_tpu_torch.parallel import expert as TE
-from butterfly_tpu_torch.parallel.partition import (ExpertShards,
+from butterfly_tpu_torch.parallel.partition import (Shards,
                                                     expert_parts,
                                                     shard_params)
 from butterfly_tpu_torch.quant.int8 import quantize_int8
@@ -202,7 +202,8 @@ def test_shard_params_places_views_of_one_tree():
             pairs = [(leaf, src)] if not isinstance(src, dict) else \
                 [(leaf[k], src[k]) for k in ("q8", "s")]
             for sh, full in pairs:
-                assert isinstance(sh, ExpertShards) and len(sh.parts) == 2
+                assert isinstance(sh, Shards) and sh.axis == "expert" \
+                    and len(sh.parts) == 2
                 for i, part in enumerate(sh.parts):
                     assert part._base is full       # a view: no copy
                     assert torch.equal(part, full[:, 2 * i:2 * i + 2])
@@ -239,7 +240,8 @@ def test_inference_engine_on_an_expert_mesh_matches_dense(kvq, fused):
     sp = SamplingParams(max_new_tokens=8)
     want = InferenceEngine(dm, tp, rt).generate(PROMPTS, sp, fused=fused)
     eng = InferenceEngine(em, tp, rt, mesh=mesh)
-    assert isinstance(eng.params["layers"]["moe"]["w_gate"], ExpertShards)
+    w_gate = eng.params["layers"]["moe"]["w_gate"]
+    assert isinstance(w_gate, Shards) and w_gate.axis == "expert"
     got = eng.generate(PROMPTS, sp, fused=fused)
     assert got.tokens.tolist() == want.tokens.tolist()
     spec = eng.generate_speculative(PROMPTS[1], sp, gamma=3)

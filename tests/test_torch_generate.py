@@ -267,12 +267,12 @@ def test_engine_refuses_what_is_not_ported():
     # generate_long is ported: without a seq axis it refuses as JAX does
     with pytest.raises(ValueError, match="seq axis"):
         eng.generate_long([1, 2, 3])
-    # a mesh axis other than seq is not ported
+    # the stage axis (pipeline parallelism) is not ported
     devs = np.empty(2, dtype=object)
     devs[:] = [torch.device("cpu")] * 2
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         InferenceEngine(T.Model(tconfig.tiny("llama", **F32), device="cpu"),
-                        trees()[1], mesh=Mesh(devs.reshape(2, 1, 1, 1, 1)))
+                        trees()[1], mesh=Mesh(devs.reshape(1, 2, 1, 1, 1)))
 
 
 # -- sampling held by its distribution ----------------------------------------------

@@ -246,8 +246,8 @@ def test_cli_refusals(capsys):
     rc, _, err = _cli(capsys, "serve", "--device", "cpu",
                       "--seq-parallel-threshold", "64")
     assert rc == 2 and "needs a seq axis" in err
-    with pytest.raises(NotImplementedError, match="tensor"):
-        cli.main(["generate", "--device", "cpu", "--tensor-parallel", "2"])
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        cli.main(["generate", "--device", "cpu", "--stage-parallel", "2"])
     args = cli.build_parser().parse_args(
         ["generate", "--device", "cpu", "--seq-parallel", "3"])
     mesh = cli.build_mesh(args)

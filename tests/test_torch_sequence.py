@@ -70,16 +70,18 @@ def test_mesh_maps_coordinates_to_devices():
 
 @pytest.mark.parametrize("axis", ["tensor", "data", "stage", "expert"])
 def test_mesh_refuses_unported_axes(axis):
-    """Each unported axis raises naming its ROADMAP item; the expert axis
-    is ported: an expert mesh builds, expert x seq is refused."""
-    if axis == "expert":
-        m = make_mesh(MeshConfig(expert=2), ["cpu"] * 2)
-        assert m.shape["expert"] == 2 and seq_degree(m) == 1
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-            make_mesh(MeshConfig(expert=2, seq=2), ["cpu"] * 4)
+    """The stage axis raises naming its ROADMAP item; the expert, tensor
+    and data axes are ported: their mesh builds, and each with seq is
+    refused as a combined mesh (item 6)."""
+    if axis == "stage":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*pipeline parallelism"):
+            make_mesh(MeshConfig(stage=2), ["cpu"] * 2)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(MeshConfig(**{axis: 2}), ["cpu"] * 2)
+    m = make_mesh(MeshConfig(**{axis: 2}), ["cpu"] * 2)
+    assert m.shape[axis] == 2 and seq_degree(m) == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+        make_mesh(MeshConfig(**{axis: 2, "seq": 2}), ["cpu"] * 4)
 
 
 def test_mesh_refuses_cuda_without_a_card():

@@ -157,7 +157,7 @@ def test_serve_machinery_builds_on_cpu():
     assert sched.engine.device.type == "cpu"
     assert rt.mixed_dispatch and rt.kv_write_combine
     assert sched.metrics()["tokens_generated_total"] > 0  # the warm-up ran
-    for flag in (["--tensor-parallel", "2"], ["--ckpt", "x"],
+    for flag in (["--stage-parallel", "2"], ["--ckpt", "x"],
                  ["--speculate", "2", "--draft-source", "model",
                   "--draft-ckpt", "x"]):
         args = build_parser().parse_args(
