@@ -52,7 +52,8 @@ from butterfly_tpu_torch.ops.paged_attention import paged_attention_sharded
 from butterfly_tpu_torch.parallel.partition import (Shards, axis_parts,
                                                     same_device)
 from butterfly_tpu_torch.parallel.tensor import (
-    cat_groups, data_groups, group_part, group_rows, over_heads, tmap)
+    cat_groups, data_groups, group_part, group_rows, over_heads, run_groups,
+    tmap)
 
 
 class PagedKVCache(NamedTuple):
@@ -657,8 +658,8 @@ def paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
         return _paged_forward(params, cfg, tokens, cache, positions, active,
                               use_kernel, fresh, last_index, attn_mask)
     reps = pool_replicas(cache)
-    outs = []
-    for g in groups:
+
+    def group(g):
         r = g.index if len(reps) > 1 else 0
         table = group_rows(cache.page_table, g)
         pos_g, act_g = group_rows(positions, g), group_rows(active, g)
@@ -670,7 +671,8 @@ def paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
             group_rows(attn_mask, g))
         for other in reps[:r] + reps[r + 1:]:
             _copy_written(reps[r], other, table, pos_g[:, 0], T, act_g)
-        outs.append((logits, c.lengths))
+        return logits, c.lengths
+    outs = run_groups(groups, group, B)
     return (cat_groups([o[0] for o in outs]),
             cache._replace(lengths=cat_groups([o[1] for o in outs])))
 
@@ -752,15 +754,14 @@ def paged_forward_window(params, cfg: ModelConfig, tokens,
                                      win_len, active, use_kernel, positions,
                                      attn_mask), window
     reps = pool_replicas(cache)
-    logits = [_paged_forward_window(
+    logits = run_groups(groups, lambda g: _paged_forward_window(
         group_part(params, g.index), cfg, group_rows(tokens, g),
         reps[g.index if len(reps) > 1 else 0]._replace(
             page_table=group_rows(cache.page_table, g),
             lengths=group_rows(cache.lengths, g)),
         KVWindow(*(group_rows(t, g, 1, inplace=True) for t in window)),
         group_rows(win_len, g), group_rows(active, g), use_kernel,
-        group_rows(positions, g), group_rows(attn_mask, g))
-        for g in groups]
+        group_rows(positions, g), group_rows(attn_mask, g)), B)
     return cat_groups(logits), window
 
 

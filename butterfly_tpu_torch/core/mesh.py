@@ -14,11 +14,14 @@ run seq=4 on `cpu`, and one card runs seq=2 with both shards on cuda:0.
 Nothing places shards implicitly: with no list, the mesh takes the
 visible cards cuda:0..n-1 and their count must match.
 
-The `seq`, `expert`, `tensor` and `data` axes are ported: `seq` and
-`expert` one at a time, `tensor` and `data` alone or with each other (the
-JAX tests' tensor x data meshes). A mesh with `stage` larger than 1, or
-one that combines `seq` or `expert` with another axis larger than 1,
-raises NotImplementedError naming its ROADMAP item.
+The `seq`, `expert`, `tensor` and `data` axes are ported, alone and
+combined as the JAX package combines them: `seq` with `tensor` and/or
+`data`, `expert` with `tensor` and/or `data`, `tensor` with `data`. A
+shard's devices are found by its coordinates (`along`): the tensor
+shards of seq shard i of data group d are
+`along("tensor", data=d, seq=i)`. A mesh with `stage` larger than 1,
+or one that combines `seq` with `expert`, raises NotImplementedError
+naming its ROADMAP item by title.
 
 The engines make their mesh the ACTIVE mesh (`mesh_ctx`, the counterpart
 of the JAX package's ambient mesh, core/compat.py:mesh_ctx) around every
@@ -38,15 +41,12 @@ import torch
 
 from butterfly_tpu_torch.core.config import MESH_AXES, MeshConfig
 
-#: where each unported mesh axis waits (ROADMAP.md, PyTorch/CUDA port)
-_UNPORTED_AXES = {"stage": "item 6, pipeline parallelism"}
+#: what each unported mesh axis computes, and where it waits (ROADMAP.md,
+#: PyTorch/CUDA port queue, by the item's title)
+_UNPORTED_AXES = {"stage": ("pipeline parallelism", "Pipeline stages")}
 
-#: what each ported axis computes (named in the refusals)
-_AXIS_KIND = {"tensor": "tensor parallelism", "data": "data parallelism",
-              "seq": "sequence parallelism", "expert": "expert parallelism"}
-
-#: where a mesh that combines two ported axes waits
-_COMBINED_AXES = "item 6, meshes that combine axes"
+#: where a mesh that combines seq and expert waits
+_COMBINED_AXES = "Meshes that combine axes (seq x expert)"
 
 
 class Mesh:
@@ -59,33 +59,45 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               devices.shape))
 
-    def _along(self, axis: str) -> List[torch.device]:
-        """The devices along `axis`, every other coordinate 0."""
-        idx = tuple(slice(None) if a == axis else 0 for a in self.axis_names)
-        return list(self.devices[idx])
-
-    def seq_devices(self) -> List[torch.device]:
-        """The devices along the seq axis, shard order."""
-        return self._along("seq")
-
-    def expert_devices(self) -> List[torch.device]:
-        """The devices along the expert axis, shard order: shard i holds
-        experts [i*E/N, (i+1)*E/N)."""
-        return self._along("expert")
-
-    def tensor_devices(self, data_index: int = 0) -> List[torch.device]:
-        """The devices along the tensor axis of data group `data_index`,
-        shard order: shard i holds the i-th slice of every split head,
-        hidden and vocab dim."""
-        idx = tuple(slice(None) if a == "tensor" else
-                    (data_index if a == "data" else 0)
+    def along(self, axis: str, **coords: int) -> List[torch.device]:
+        """The devices along `axis`, in shard order, at the coordinates
+        `coords` of the other axes (0 for an axis not named)."""
+        for a in coords:
+            if a not in self.axis_names or a == axis:
+                raise ValueError(f"no coordinate {a!r} beside axis {axis!r}")
+        idx = tuple(slice(None) if a == axis else coords.get(a, 0)
                     for a in self.axis_names)
         return list(self.devices[idx])
+
+    def group_devices(self, data_index: int = 0) -> List[torch.device]:
+        """Every device of data group `data_index`, in mesh order."""
+        return list(self.devices[data_index].reshape(-1))
+
+    def seq_devices(self, data_index: int = 0,
+                    tensor_index: int = 0) -> List[torch.device]:
+        """The seq ring of data group `data_index` at tensor shard
+        `tensor_index`, shard order."""
+        return self.along("seq", data=data_index, tensor=tensor_index)
+
+    def expert_devices(self, data_index: int = 0,
+                       tensor_index: int = 0) -> List[torch.device]:
+        """The expert shards of data group `data_index` at tensor shard
+        `tensor_index`, shard order: shard i holds experts
+        [i*E/N, (i+1)*E/N)."""
+        return self.along("expert", data=data_index, tensor=tensor_index)
+
+    def tensor_devices(self, data_index: int = 0, seq_index: int = 0,
+                       expert_index: int = 0) -> List[torch.device]:
+        """The tensor shards of data group `data_index` at seq shard
+        `seq_index` and expert shard `expert_index`, shard order: shard i
+        holds the i-th slice of every split head, hidden and vocab dim."""
+        return self.along("tensor", data=data_index, seq=seq_index,
+                          expert=expert_index)
 
     def data_devices(self) -> List[torch.device]:
         """The first device of each data group, group order: group d
         serves rows [d*B/N, (d+1)*B/N) of every batch and slot dim."""
-        return self._along("data")
+        return self.along("data")
 
     @property
     def first_device(self) -> torch.device:
@@ -97,26 +109,18 @@ class Mesh:
 
 
 def _refuse_unported_axes(cfg: MeshConfig) -> None:
-    for axis, item in _UNPORTED_AXES.items():
+    for axis, (kind, item) in _UNPORTED_AXES.items():
         if getattr(cfg, axis) > 1:
             raise NotImplementedError(
-                f"a mesh with {axis}={getattr(cfg, axis)} is not ported yet "
-                f"(ROADMAP.md, PyTorch/CUDA port queue: {item}); the seq, "
-                "expert, tensor and data axes run")
-    on = [a for a in ("tensor", "data", "expert", "seq")
-          if getattr(cfg, a) > 1]
-    # seq and expert combine with nothing; tensor and data with each other
-    for a in ("expert", "seq"):
-        others = [b for b in on if b != a]
-        if a in on and others:
-            b = others[0]
-            raise NotImplementedError(
-                f"a mesh with {a}={getattr(cfg, a)} and "
-                f"{b}={getattr(cfg, b)} is not ported yet (ROADMAP.md, "
-                f"PyTorch/CUDA port queue: {_COMBINED_AXES} ({a} x {b})); "
-                f"{_AXIS_KIND[a]} runs alone, {_AXIS_KIND[b]} "
-                + ("alone" if b in ("expert", "seq") else
-                   "alone or with the other of tensor and data"))
+                f"a mesh with {axis}={getattr(cfg, axis)} ({kind}) is not "
+                f"ported yet (ROADMAP.md, PyTorch/CUDA port queue: {item}); "
+                "the seq, expert, tensor and data axes run")
+    if cfg.seq > 1 and cfg.expert > 1:
+        raise NotImplementedError(
+            f"a mesh with seq={cfg.seq} and expert={cfg.expert} is not "
+            f"ported yet (ROADMAP.md, PyTorch/CUDA port queue: "
+            f"{_COMBINED_AXES}); seq and expert each run with tensor "
+            "and data")
 
 
 def make_mesh(cfg: MeshConfig,
@@ -167,8 +171,8 @@ def mesh_for(n_devices: int, tensor: int = 0, stage: int = 1,
 
 
 def require_ported_mesh(mesh: Mesh) -> None:
-    """Raise NotImplementedError unless the mesh is a seq-only, an
-    expert-only, or a tensor x data mesh (every other axis 1)."""
+    """Raise NotImplementedError for a mesh with a stage axis, or one
+    that combines seq and expert."""
     _refuse_unported_axes(MeshConfig(**{a: mesh.shape.get(a, 1)
                                         for a in MESH_AXES}))
 

@@ -11,15 +11,18 @@ device work.
 Under a seq mesh (core/mesh.py) `generate_long` runs the long-context
 path of parallel/sequence.py: a sequence-parallel prefill through the ring
 kernel (or Ulysses) that leaves the prompt's K/V sharded where it was
-computed, then decode steps that merge per-shard partial attention. Under
-an expert mesh the MoE expert leaves are split over its shards
-(parallel/partition.py:shard_params) and every forward runs with the mesh
-active, so the expert-parallel FFN (cfg.moe_impl="ep",
-parallel/expert.py) dispatches over it. Under a tensor x data mesh the
-weights and the contiguous cache are split (heads, F and vocab over
-`tensor`, batch rows over `data`; models/common.py runs the layers per
-shard), and `generate` pads the batch to a multiple of the data size.
-Every program that is not sharded runs on the mesh's first device.
+computed, then decode steps that merge per-shard partial attention; with
+a tensor axis each seq shard runs its layer math and its ring per tensor
+shard, with a data axis each data group runs its own ring. Under an
+expert mesh the MoE expert leaves are split over its shards
+(parallel/partition.py:shard_params; over F too under expert x tensor)
+and every forward runs with the mesh active, so the expert-parallel FFN
+(cfg.moe_impl="ep", parallel/expert.py) dispatches over it. Under a
+tensor or data axis the weights and the contiguous cache are split
+(heads, F and vocab over `tensor`, batch rows over `data`;
+models/common.py runs the layers per shard), and `generate` pads the
+batch to a multiple of the data size. Every program that is not sharded
+runs on the mesh's first device.
 
 `generate_speculative` is prompt-lookup speculative decoding on one
 sequence: n-gram drafts verified in one (gamma+1)-token forward, accepted
@@ -148,19 +151,22 @@ def place_params(params, cfg: ModelConfig, device: torch.device, mesh):
 
 
 def seq_replicas(params, mesh):
-    """The weights on every distinct device of a seq mesh (shards that
-    share a card share its tensors: no second copy); None otherwise."""
+    """The weights on every seq shard of a seq mesh, each data group's
+    replica and each tensor part on its shard's devices, as views where
+    they share a card (a tensor-split tree is not gathered); None
+    without a seq axis."""
     if seq_degree(mesh) <= 1:
         return None
-    return replicate_params(params, mesh.seq_devices())
+    return replicate_params(params, mesh)
 
 
 class InferenceEngine:
     """Inference over a weight tree on `device` (None = the model's
     device, CUDA unless the caller asks for the CPU), or over a `mesh`
-    (core/mesh.py): a seq mesh keeps one copy of the weights per distinct
-    seq device for `generate_long`; an expert mesh splits the expert
-    leaves; a tensor x data mesh splits the weights and the cache."""
+    (core/mesh.py): a seq mesh places the weights on every seq shard for
+    `generate_long`; an expert mesh splits the expert leaves; a tensor or
+    data axis splits the weights and the cache; the axes combine as
+    core/mesh.py allows."""
 
     def __init__(self, model: Model, params,
                  runtime: Optional[RuntimeConfig] = None, mesh=None,
@@ -336,7 +342,7 @@ class InferenceEngine:
         # replicated suffix cache sized for the whole decode run (in the
         # prefix's representation)
         suffix = init_cache(self.cfg, 1, sp.max_new_tokens, quant=kvq,
-                            device=dev)
+                            device=dev, mesh=self.mesh)
         depth = max(1, self.runtime.inflight_blocks)
         pending = deque([cur])
         out: List[int] = []

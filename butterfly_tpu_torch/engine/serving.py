@@ -17,15 +17,17 @@ loop over eagerly launched device work; nothing in a block synchronizes
 with the host, so the scheduler can dispatch block t+1 before it drains
 block t.
 
-Under a seq-only mesh (core/mesh.py) a third dispatch serves the
-scheduler's long-prompt lane (`sp_prefill_chunk`): one chunk of a long
-prompt sharded over `seq`, its fresh K/V attended through the ring
-kernel, landing in the ordinary page pool; the slot then decodes like any
-other. Under an expert-only mesh the MoE expert leaves are split over its
-shards (parallel/partition.py:shard_params) and every dispatch runs with
-the mesh active, so the expert-parallel FFN (cfg.moe_impl="ep",
-parallel/expert.py) dispatches over it in every path. Under a tensor x
-data mesh the weights split over `tensor` (views on one card), the pool
+Under a seq mesh (core/mesh.py) a third dispatch serves the scheduler's
+long-prompt lane (`sp_prefill_chunk`): one chunk of a long prompt
+sharded over `seq` on the ring of the slot's data group (per tensor
+shard under a tensor axis), its fresh K/V attended through the ring
+kernel, landing in the ordinary page pool, in every data replica of it;
+the slot then decodes like any other. Under an expert mesh the MoE
+expert leaves are split over its shards (parallel/partition.py:
+shard_params) and every dispatch runs with the mesh active, so the
+expert-parallel FFN (cfg.moe_impl="ep", parallel/expert.py) dispatches
+over it in every path. Under a tensor or
+data axis the weights split over `tensor` (views on one card), the pool
 and the window hold one contiguous tensor per tensor shard, the slots
 split over `data` groups and the pool is replicated over them (shared on
 one device); every path runs each shard's kernels on its heads and each
@@ -70,8 +72,9 @@ from butterfly_tpu_torch.engine.sampling import (
     speculative_tree_accept, tree_ancestor_matrix, tree_depth,
     tree_node_index)
 from butterfly_tpu_torch.models.common import Model
-from butterfly_tpu_torch.parallel.partition import axis_parts
+from butterfly_tpu_torch.parallel.partition import Shards, axis_parts
 from butterfly_tpu_torch.parallel.sequence import sp_chunk_body
+from butterfly_tpu_torch.parallel.tensor import data_groups, tmap
 
 
 def bucket_len(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
@@ -251,7 +254,8 @@ class ServingEngine:
     @property
     def supports_seq_parallel(self) -> bool:
         """Can long prompts route through the seq-parallel prefill lane?
-        Needs a mesh with a seq axis > 1 (every other axis is 1)."""
+        Needs a mesh with a seq axis > 1 (with tensor and data axes or
+        not)."""
         return self.sp_degree > 1
 
     @property
@@ -475,10 +479,13 @@ class ServingEngine:
             self.tracer.event(None, "engine.sp_prefill_dispatch",
                               slot=slot, tokens=len(tokens), bucket=C,
                               start=start, degree=N)
+        groups = data_groups(self.cache.num_slots, self.mesh)
+        d = 0 if groups is None else next(
+            g.index for g in groups if g.rows.start <= slot < g.rows.stop)
         logits = _sp_chunk(self.cfg, self._replicas, self.mesh,
                            self._h2d(buf, torch.int32), self.cache,
                            self._host_table[slot], self._h2d, start,
-                           len(tokens))
+                           len(tokens), d)
         lengths = self.cache.lengths.clone()
         lengths[slot] = start + len(tokens)
         self.cache = self.cache._replace(lengths=lengths)
@@ -781,62 +788,92 @@ def _prefill_slot(cfg: ModelConfig, fresh: bool, params, tokens,
 
 def _sp_chunk(cfg: ModelConfig, replicas, mesh, tokens,
               cache: PagedKVCache, row: np.ndarray, h2d, start: int,
-              clen: int) -> torch.Tensor:
-    """One seq-parallel chunk against one slot's table row (host array):
-    gather the slot's flushed prefix for every layer (the pages holding
-    positions < start; one page when there are none), run the chunk
-    through sp_chunk_body, then scatter its K/V into the pool IN PLACE
-    with one all-layer write per pool tensor, pad rows (>= clen) routed to
-    the null page. Returns the chunk's last real token's logits [V]."""
-    L, Pp, Kv, pg, H = cache.k_pages.shape
+              clen: int, data_index: int = 0) -> torch.Tensor:
+    """One seq-parallel chunk against one slot's table row (host array),
+    on the ring of the slot's data group `data_index`: gather the slot's
+    flushed prefix for every layer (the pages holding positions < start;
+    one page when there are none) from the group's pool replica, per
+    tensor shard of a split pool, run the chunk through sp_chunk_body,
+    then scatter its K/V IN PLACE into EVERY pool replica (a slot may
+    later decode in any replica's reads), with one all-layer write per
+    pool tensor and tensor shard, pad rows (>= clen) routed to the null
+    page. Returns the chunk's last real token's logits [V]."""
+    reps = pool_replicas(cache)
+    src = reps[data_index if len(reps) > 1 else 0]
+    first = (axis_parts(src.k_pages, "tensor") or [src.k_pages])[0]
+    L, Pp, _, pg, H = first.shape
     mp = row.shape[0]
     S_full = mp * pg
     n_live = max(1, -(-start // pg))
     live = h2d(row[:n_live], torch.long)
     S = n_live * pg
-    if cache.quantized:   # codes [L, 1, Kv, S, H], scales [L, 1, Kv, S]
-        prefix = tuple(p[:, live].transpose(1, 2).reshape(L, 1, Kv, S, H)
-                       for p in (cache.k_pages, cache.v_pages)) + tuple(
-            sc[:, live].reshape(L, n_live, Kv, pg).transpose(1, 2)
-            .reshape(L, 1, Kv, S)
-            for sc in (cache.k_scale_pages, cache.v_scale_pages))
-    else:                 # [L, 1, S, Kv, H]
-        prefix = tuple(p[:, live].transpose(2, 3).reshape(L, 1, S, Kv, H)
-                       for p in (cache.k_pages, cache.v_pages))
-    logits, kv = sp_chunk_body(replicas, cfg, tokens, start, prefix, mesh)
+
+    def codes(p):     # [L, 1, Kv, S, H]
+        return p[:, live.to(p.device)].transpose(1, 2).reshape(
+            L, 1, p.shape[2], S, H)
+
+    def scales(sc):   # [L, 1, Kv, S] from the kv-major flat dim
+        kv = sc.shape[2] // pg
+        return sc[:, live.to(sc.device)].reshape(L, n_live, kv, pg) \
+            .transpose(1, 2).reshape(L, 1, kv, S)
+
+    def floats(p):    # [L, 1, S, Kv, H]
+        return p[:, live.to(p.device)].transpose(2, 3).reshape(
+            L, 1, S, p.shape[2], H)
+    if cache.quantized:
+        prefix = (tmap(codes, src.k_pages, out_split=2),
+                  tmap(codes, src.v_pages, out_split=2),
+                  tmap(scales, src.k_scale_pages, out_split=2),
+                  tmap(scales, src.v_scale_pages, out_split=2))
+    else:
+        prefix = (tmap(floats, src.k_pages, out_split=3),
+                  tmap(floats, src.v_pages, out_split=3))
+    logits, kv = sp_chunk_body(replicas, cfg, tokens, start, prefix, mesh,
+                               data_index)
     del prefix
-    dev = cache.k_pages.device
     C = tokens.shape[1]
     Cl = C // len(logits)
-    ar = torch.arange(C, device=dev)
-    pos = start + ar
-    row_t = h2d(row, torch.long)
-    page_idx = row_t[(pos // pg).clamp(0, mp - 1)]
-    page_idx = torch.where((ar < clen) & (pos < S_full), page_idx,
-                           torch.full_like(page_idx, cache.null_page))
-    off = pos % pg
-    # advanced indices at dims 1 and 3 (a slice between) put the index
-    # dim first: the indexed view is [C, L, Kv, H]
-    if cache.quantized:
-        ck, cv, cks, cvs = (torch.cat([p[j].to(dev) for p in kv], dim=3)
-                            for j in range(4))      # [L,1,Kv,C(,H)]
-        cache.k_pages[:, page_idx, :, off] = ck[:, 0].permute(2, 0, 1, 3)
-        cache.v_pages[:, page_idx, :, off] = cv[:, 0].permute(2, 0, 1, 3)
-        # the flat scale dim is kv-major: col = kv * page + offset
-        cols = torch.arange(Kv, device=dev)[None, :] * pg + off[:, None]
-        cache.k_scale_pages[:, page_idx[:, None], cols] = \
-            cks[:, 0].permute(0, 2, 1)                  # [L, C, Kv]
-        cache.v_scale_pages[:, page_idx[:, None], cols] = \
-            cvs[:, 0].permute(0, 2, 1)
-    else:
-        ck, cv = (torch.cat([p[j].to(dev) for p in kv], dim=2)
-                  for j in range(2))                  # [L,1,C,Kv,H]
-        cache.k_pages[:, page_idx, :, off] = \
-            ck[:, 0].transpose(0, 1).to(cache.k_pages.dtype)
-        cache.v_pages[:, page_idx, :, off] = \
-            cv[:, 0].transpose(0, 1).to(cache.v_pages.dtype)
+
+    def part(x, t):
+        return x.parts[t] if isinstance(x, Shards) else x
+    for rep in reps:
+        n = len(axis_parts(rep.k_pages, "tensor") or [rep.k_pages])
+        pools = [axis_parts(getattr(rep, name), "tensor")
+                 or [getattr(rep, name)] * n for name in
+                 ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")]
+        for t, (kp, vp, ksp, vsp) in enumerate(zip(*pools)):
+            dev = kp.device
+            ar = torch.arange(C, device=dev)
+            pos = start + ar
+            row_t = h2d(row, torch.long).to(dev)
+            page_idx = row_t[(pos // pg).clamp(0, mp - 1)]
+            page_idx = torch.where((ar < clen) & (pos < S_full), page_idx,
+                                   torch.full_like(page_idx, kp.shape[1] - 1))
+            off = pos % pg
+
+            def chunk(j, dim):
+                return torch.cat([part(c[j], t).to(dev) for c in kv],
+                                 dim=dim)
+            # advanced indices at dims 1 and 3 (a slice between) put the
+            # index dim first: the indexed view is [C, L, Kv, H]
+            if cache.quantized:
+                ck, cv = chunk(0, 3), chunk(1, 3)      # [L,1,Kv,C,H]
+                cks, cvs = chunk(2, 3), chunk(3, 3)    # [L,1,Kv,C]
+                kp[:, page_idx, :, off] = ck[:, 0].permute(2, 0, 1, 3)
+                vp[:, page_idx, :, off] = cv[:, 0].permute(2, 0, 1, 3)
+                # the flat scale dim is kv-major: col = kv * page + offset
+                cols = torch.arange(kp.shape[2], device=dev)[None, :] * pg \
+                    + off[:, None]
+                ksp[:, page_idx[:, None], cols] = cks[:, 0].permute(0, 2, 1)
+                vsp[:, page_idx[:, None], cols] = cvs[:, 0].permute(0, 2, 1)
+            else:
+                ck, cv = chunk(0, 2), chunk(1, 2)      # [L,1,C,Kv,H]
+                kp[:, page_idx, :, off] = \
+                    ck[:, 0].transpose(0, 1).to(kp.dtype)
+                vp[:, page_idx, :, off] = \
+                    cv[:, 0].transpose(0, 1).to(vp.dtype)
     shard, r = divmod(clen - 1, Cl)
-    return logits[shard][0, r].to(dev)
+    return logits[shard][0, r].to(tokens.device)
 
 
 def _decode_all(cfg: ModelConfig, params, tokens, cache: PagedKVCache,

@@ -49,7 +49,7 @@ from butterfly_tpu_torch.parallel.partition import (
     Shards, expert_parts, part_device, shard_count)
 from butterfly_tpu_torch.parallel.tensor import (
     cat_groups, data_groups, embed_lookup, gather, group_part, group_rows,
-    over_heads, sharded_einsum, tmap)
+    over_heads, run_groups, sharded_einsum, tmap)
 
 Params = Dict[str, Any]
 
@@ -875,17 +875,18 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache: KVCache,
     warm calls take the decode fast path (_decode_forward). last_index
     [B] runs the LM head on that row only ([B,1,V]). Returns (logits
     [B,T,V] float32, cache with length + T). Data groups run their rows
-    against their part of the cache and the results concatenate."""
+    against their part of the cache, one GroupRun over the batch
+    (parallel/tensor.py), and the results concatenate."""
     B, T = tokens.shape
     if positions is None:
         positions = cache.length.long()[:, None] \
             + torch.arange(T, device=tokens.device)[None, :]
     groups = data_groups(B)
     if groups is not None:
-        outs = [_forward(group_part(params, g.index), cfg,
-                         group_rows(tokens, g), _group_cache(cache, g),
-                         group_rows(positions, g), fresh,
-                         group_rows(last_index, g)) for g in groups]
+        outs = run_groups(groups, lambda g: _forward(
+            group_part(params, g.index), cfg, group_rows(tokens, g),
+            _group_cache(cache, g), group_rows(positions, g), fresh,
+            group_rows(last_index, g)), B)
         return (cat_groups([o[0] for o in outs]), cache._replace(
             length=cat_groups([o[1].length for o in outs])))
     return _forward(params, cfg, tokens, cache, positions, fresh, last_index)

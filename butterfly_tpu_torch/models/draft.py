@@ -246,4 +246,4 @@ class ModelDraftSource:
 def load_draft_checkpoint(path: str, target_cfg: Optional[ModelConfig]):
     """An independent draft checkpoint needs ckpt/load.py, not ported."""
     from butterfly_tpu_torch.engine.engine import not_ported
-    raise not_ported(f"--draft-ckpt ({path})", "item 7, checkpoints")
+    raise not_ported(f"--draft-ckpt ({path})", "Checkpoints")

@@ -5,7 +5,7 @@ expert-parallel dispatch in parallel/expert.py (cfg.moe_impl="ep"). The
 counterpart of butterfly_tpu/models/mixtral.py.
 
 Its HF checkpoint converter, `params_from_hf_state_dict`, waits for the
-checkpoint loader (ROADMAP.md, PyTorch/CUDA port queue, item 7)."""
+checkpoint loader (ROADMAP.md, PyTorch/CUDA port queue: Checkpoints)."""
 from __future__ import annotations
 
 from butterfly_tpu_torch.core.config import ModelConfig, mixtral_8x7b  # noqa: F401

@@ -461,7 +461,7 @@ def run_longctx_benchmark(model, params, *, prompt_len: int = 256,
                           n_decoders: int = 3, decode_prompt_len: int = 16,
                           decode_new: int = 24, page_size: int = 16,
                           kv_quant: str = "none", repeats: int = 3,
-                          seed: int = 0) -> Dict:
+                          seed: int = 0, devices=None) -> Dict:
     """Long-context serving phase: one prompt spanning many
     `prefill_chunk`s (>= 8x) admitted through the scheduler's
     seq-parallel lane, measured two ways:
@@ -480,8 +480,10 @@ def run_longctx_benchmark(model, params, *, prompt_len: int = 256,
       kernel ran (the model lives on a card).
 
     The serving lane needs a seq axis: it builds seq = 4 x data =
-    (cards / 4) when the card count allows, else reports
-    `longctx_supported: false` and returns only the microbench pair.
+    (n / 4) over the n `devices` (None = the visible cards; a caller on
+    the CPU passes CPU shards, as the JAX test passes its fake devices)
+    when n allows, else reports `longctx_supported: false` and returns
+    only the microbench pair.
     """
     from butterfly_tpu_torch.core.config import MeshConfig, RuntimeConfig
     from butterfly_tpu_torch.core.mesh import make_mesh
@@ -525,12 +527,13 @@ def run_longctx_benchmark(model, params, *, prompt_len: int = 256,
         out["longctx_ring_block_ms" + suffix] = float(np.median(ts)) * 1e3
 
     # -- the serving lane needs a seq axis
-    n_dev = torch.cuda.device_count() if kernelized else 0
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    n_dev = len(devices)
     if n_dev < 4 or n_dev % 4:
         out["longctx_supported"] = False
         return out
-    mesh = make_mesh(MeshConfig(seq=4, data=n_dev // 4),
-                     [f"cuda:{i}" for i in range(n_dev)])
+    mesh = make_mesh(MeshConfig(seq=4, data=n_dev // 4), devices)
     rt = RuntimeConfig(max_batch_size=1 + n_decoders,
                        max_seq_len=prompt_len + max_new + 16,
                        page_size=page_size, kv_quant=kv_quant,

@@ -18,8 +18,8 @@ doesn't care) as well as raising probes (counted as misses by
 `check_now`, latching at `max_misses`).
 
 Probes: `device_probe` proves the local card completes a program (one
-tiny op and a read-back); `all_hosts_probe` waits for the multi-device
-port.
+tiny op and a read-back); `all_hosts_probe` proves every device of the
+single-controller job takes part in a sum over all of them.
 
 Recovery after the latch is deliberately NOT automatic: a chip that
 flapped is not trustworthy; restart serving (checkpoint/resume path).
@@ -36,14 +36,33 @@ def device_probe(device="cuda") -> bool:
     return (torch.ones(8, device=device) + 1).sum().item() == 16.0
 
 
-def all_hosts_probe() -> bool:
-    """Prove every process in the job still participates in collectives.
+def all_hosts_probe(devices=None) -> bool:
+    """Prove every device of the job still completes a collective: the
+    single-process counterpart of the JAX psum of 1 over every device.
+    One ones(1) per device (`devices`; None = the visible cards, CPU
+    shards when the caller passes them), summed in device order on the
+    first device, read back and compared with the device count.
 
-    The multi-device probe needs the port's multi-device runtime, which
-    does not exist yet (ROADMAP.md, PyTorch/CUDA port queue)."""
-    raise NotImplementedError(
-        "all_hosts_probe needs the multi-device port "
-        "(ROADMAP.md: PyTorch/CUDA port, multi-device slice)")
+    Single-controller only: a job of several processes (an initialised
+    torch.distributed group larger than 1) waits for the multi-host port
+    (ROADMAP.md, PyTorch/CUDA port queue: Multi-host)."""
+    import torch
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "all_hosts_probe across processes is not ported yet "
+            "(ROADMAP.md, PyTorch/CUDA port queue: Multi-host)")
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = [torch.device(d) for d in devices]
+    if not devs:
+        raise RuntimeError("all_hosts_probe: no device to probe (no card "
+                           "is visible; pass CPU devices to probe those)")
+    total = torch.zeros(1, device=devs[0])
+    for d in devs:
+        total = total + torch.ones(1, device=d).to(devs[0])
+    return int(total.item()) == len(devs)
 
 
 class HeartbeatMonitor:

@@ -18,6 +18,15 @@ dispatch paths and its routing rule (`moe_block_ep`):
   einsums with one-hot slot tensors; the experts run where each shard's
   weights live (models/common.py:expert_swiglu).
 
+Under expert x data each data group runs its rows (models/common.py,
+cache/paged.py), but the a2a path's capacity and counting sort are the
+whole batch's, as in the JAX body, which is manual over `expert` alone:
+a group's slots continue the per-expert counts the groups before it
+left (parallel/tensor.py:GroupRun), so the same assignments drop. Under
+expert x tensor each expert shard's weights are split over F
+(parallel/partition.py): its SwiGLU runs column-parallel on gate/up and
+row-parallel on down (models/common.py:expert_swiglu).
+
 The mesh comes from the active mesh (core/mesh.py:mesh_ctx), which the
 engines enter around their forwards, as the JAX function reads the
 abstract mesh. The expert weights may be split over the shards
@@ -46,6 +55,7 @@ from butterfly_tpu_torch.core.mesh import active_mesh, expert_degree
 from butterfly_tpu_torch.models.common import (Params, expert_swiglu,
                                                route_tokens)
 from butterfly_tpu_torch.parallel.partition import expert_parts, part_device
+from butterfly_tpu_torch.parallel.tensor import group_run
 
 
 def expert_capacity(cfg: ModelConfig, tokens_per_seq: int) -> int:
@@ -111,17 +121,22 @@ def _moe_ep_einsum(x: torch.Tensor, p: Params, cfg: ModelConfig,
     return torch.einsum("btec,ebcd->btd", combine.to(y.dtype), y)
 
 
-def a2a_slots(idx: torch.Tensor, E: int, C: int
+def a2a_slots(idx: torch.Tensor, E: int, C: int,
+              base: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Counting sort of a shard's A = B*Tl*k assignments (expert ids
     `idx` [B, Tl, k], in (b, t, k) order) by expert: (dest [A], keep [A]).
     An assignment's slot is its rank among the earlier assignments to its
-    expert; it is kept iff the slot is < C, and then lands at row
-    `expert*C + slot` of the [E*C, D] send buffer; a dropped one points
-    one past the end."""
+    expert, counted from `base[e]` (the assignments to expert e of the
+    rows before these: the data groups run before this one) or 0; it is
+    kept iff the slot is < C, and then lands at row `expert*C + slot` of
+    the [E*C, D] send buffer; a dropped one points one past the end."""
     g = idx.reshape(-1)
     onehot = F.one_hot(g, E).to(torch.int32)                  # [A,E]
-    pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, g[:, None])[:, 0]
+    ranks = torch.cumsum(onehot, dim=0) - 1
+    if base is not None:
+        ranks = ranks + base.to(ranks.dtype)[None, :]
+    pos = ranks.gather(1, g[:, None])[:, 0]
     keep = pos < C
     dest = torch.where(keep, g * C + pos, torch.full_like(g, E * C))
     return dest, keep
@@ -149,7 +164,18 @@ def _moe_ep_a2a(x: torch.Tensor, p: Params, cfg: ModelConfig, N: int,
     B, T, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     ne, Tl = E // N, T // N
-    C = a2a_capacity(cfg, B, Tl, capacity)
+    # a data group's rows are part of the whole batch: its capacity and
+    # its counting sort are the whole batch's (JAX's body is manual over
+    # `expert` alone, so it sees every row), continued from the counts
+    # the groups before it left
+    run = group_run()
+    C = a2a_capacity(cfg, B if run is None else run.batch, Tl, capacity)
+    prior = None
+    if run is not None:
+        call = run.next_call()
+        if call == len(run.carry):
+            run.carry.append(None)
+        prior = run.carry[call]
     shards = [dict(zip(("w_gate", "w_up", "w_down"), parts)) for parts in
               zip(*(expert_parts(p[w], N)
                     for w in ("w_gate", "w_up", "w_down")))]
@@ -157,18 +183,25 @@ def _moe_ep_a2a(x: torch.Tensor, p: Params, cfg: ModelConfig, N: int,
 
     # each source shard routes its chunk and fills its send buffer
     sends: List[torch.Tensor] = []
-    metas = []
+    metas, counts = [], []
     for i in range(N):
         xi = x[:, i * Tl:(i + 1) * Tl].to(devs[i], non_blocking=True)
         gates, idx = route_tokens(
             xi, p["router"].to(devs[i], non_blocking=True), k)
-        dest, keep = a2a_slots(idx, E, C)
+        base = None if prior is None else prior[i].to(devs[i])
+        dest, keep = a2a_slots(idx, E, C, base)
+        if run is not None:
+            seen = torch.bincount(idx.reshape(-1), minlength=E)
+            counts.append(seen if base is None else seen + base)
         x_rep = xi.reshape(B * Tl, D).repeat_interleave(k, dim=0)   # [A,D]
         # one spare row takes the dropped assignments, then goes
         send = torch.zeros((E * C + 1, D), dtype=x.dtype, device=devs[i])
         send.index_copy_(0, dest, x_rep)
         sends.append(send[:-1].reshape(N, ne, C, D))
         metas.append((dest, keep, gates))
+
+    if run is not None:
+        run.carry[call] = counts
 
     # the all_to_all, then each shard's ne experts over [ne, N*C, D]
     ys = []

@@ -11,10 +11,14 @@ container of per-shard tensors, `Shards`:
 
 * tensor (Megatron): wq/wk/wv (and GPT-2's bq/bk/bv) column-parallel over
   the heads, wo row-parallel; w_gate/w_up (and b_up) column-parallel over
-  F, w_down row-parallel; the MoE expert leaves split on F when the
-  expert axis is 1; embed.tok and lm_head split over the vocab. The
-  reductions the row-parallel leaves need run in parallel/tensor.py;
-* expert: the MoE expert leaves split over E (parallel/expert.py);
+  F, w_down row-parallel; the MoE expert leaves split on F too; embed.tok
+  and lm_head split over the vocab. The reductions the row-parallel
+  leaves need run in parallel/tensor.py;
+* expert: the MoE expert leaves split over E (parallel/expert.py); under
+  expert x tensor each expert part is again split over F, over the
+  tensor devices of its expert shard (a Shards of Shards);
+* seq: the weights replicate (parallel/sequence.py places one tree per
+  seq shard, views where the shards share a card);
 * data: weights and the page pool are replicated, batch rows and slots
   split (the forwards run each data group on its rows; see
   parallel/tensor.py:data_groups).
@@ -323,9 +327,11 @@ def _split_leaf(leaf: torch.Tensor, axis: str, dim: int,
 
 def _place_tree(node: Any, spec: Any, mesh: Mesh, data_index: int,
                 copy: bool) -> Any:
-    """One data group's copy of a (sub)tree by its specs: the tensor and
-    expert dims split over the group's devices, every other leaf on the
-    group's first device."""
+    """One data group's copy of a (sub)tree by its specs: an expert dim
+    split over the group's expert shards, then (an MoE leaf under
+    expert x tensor) each expert part's tensor dim over that expert
+    shard's tensor devices; a tensor dim over the group's tensor
+    devices; every other leaf on the group's first device."""
     if isinstance(node, dict):
         if is_quantized_leaf(node) and not isinstance(spec, dict):
             spec = quant_specs_like(node, spec)
@@ -333,13 +339,25 @@ def _place_tree(node: Any, spec: Any, mesh: Mesh, data_index: int,
                 for k, v in node.items()}
     if isinstance(node, Shards):
         return node
+    dims = {ax: dim for dim, ax in enumerate(spec)
+            if ax in ("tensor", "expert")}
     tdevs = mesh.tensor_devices(data_index)
-    for dim, ax in enumerate(spec):
-        if ax == "tensor":
-            return _split_leaf(node, "tensor", dim, tdevs, copy)
-        if ax == "expert":
-            return _split_leaf(node, "expert", dim, mesh.expert_devices(),
-                               copy)
+    if "expert" in dims:
+        edim, N = dims["expert"], mesh.shape["expert"]
+        size = node.shape[edim] // N
+        parts = []
+        for e in range(N):
+            part = node.narrow(edim, e * size, size)
+            if "tensor" in dims:
+                parts.append(_split_leaf(
+                    part, "tensor", dims["tensor"],
+                    mesh.tensor_devices(data_index, expert_index=e), copy))
+            else:
+                parts.append(_place(part, mesh.expert_devices(
+                    data_index)[e], copy))
+        return Shards(parts, "expert", edim)
+    if "tensor" in dims:
+        return _split_leaf(node, "tensor", dims["tensor"], tdevs, copy)
     return _place(node, tdevs[0], copy and data_index > 0)
 
 
@@ -351,8 +369,7 @@ def _over_data(place_group, mesh: Mesh, copy: bool):
     first = place_group(0)
     if D == 1 or (not copy and all(
             same_device(a, b) for d in range(1, D)
-            for a, b in zip(mesh.tensor_devices(0),
-                            mesh.tensor_devices(d)))):
+            for a, b in zip(mesh.group_devices(0), mesh.group_devices(d)))):
         return first
     return [first] + [place_group(d) for d in range(1, D)]
 

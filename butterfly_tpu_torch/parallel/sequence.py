@@ -17,11 +17,28 @@ shard's work in shard order. The collectives become:
 * `axis_index`: the loop index;
 * `all_to_all` / `all_gather` (Ulysses): concatenations and splits.
 
-Weights are replicated as under the JAX seq-only mesh, but once per
-DISTINCT device (`replicate_params`): shards that share a card share its
-tensors. Replicated values (the decode step's activations, the suffix
-cache, the serving lane's gathered prefix) live on the first shard's
-device, which is where every program that is not seq-parallel runs.
+Weights are replicated over `seq` as under the JAX mesh, once per seq
+shard's devices (`replicate_params`): shards that share a card share its
+tensors (views, no second copy). Replicated values (the decode step's
+activations, the suffix cache, the serving lane's gathered prefix) live
+on the first shard's device, which is where every program that is not
+seq-parallel runs.
+
+The other axes compose as the JAX body leaves them automatic inside its
+shard_map (manual over {"seq"} only):
+
+* data: each data group runs its own ring over its rows, on its own seq
+  shards (`mesh.seq_devices(d)`); the rows' math is independent, and the
+  results concatenate in group order (the cache as a data Shards);
+* tensor: each seq shard's tree holds tensor Shards on its tensor
+  devices (`mesh.tensor_devices(d, seq_index=i)`), so its projections
+  and FFN run per tensor shard (parallel/tensor.py); the ring runs once
+  per tensor shard on that shard's heads across the seq shards
+  (`ring_heads`), and `attn_output` sums the row-parallel partials.
+  Where Kv does not divide the tensor axis the K/V stay replicated and
+  each tensor shard reads the kv heads its q heads need (`_kv_for`).
+  Ulysses reshards whole heads, so it gathers each seq shard's heads and
+  splits its output back.
 
 Masking follows ops/ring_attention.py: the one predicate is
 k_pos <= q_pos, invalid keys carry INVALID_POS.
@@ -32,49 +49,125 @@ codes + scales, dequantised in the kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.models.common import (
-    KVCache, Params, _cast_layer, attend, attn_output, embed_tokens,
-    ffn_block, final_logits, layer_params, pre_norm, qkv_proj, quantize_kv,
-    torch_dtype, update_cache_layer, update_cache_layer_q)
+    KVCache, Params, _cast_layer, _group_cache, _stack, attend, attn_output,
+    embed_tokens, ffn_block, final_logits, layer_params, pre_norm, qkv_proj,
+    quantize_kv, torch_dtype, update_cache_layer, update_cache_layer_q)
 from butterfly_tpu_torch.ops.ring_attention import (
     INVALID_POS, block_stats, finalize_stats, merge_stats, zero_stats)
+from butterfly_tpu_torch.parallel.partition import Shards as TShards
+from butterfly_tpu_torch.parallel.tensor import (
+    DataGroup, cat_groups, data_groups, gather, group_part, group_rows, tmap)
 
-Shards = List[torch.Tensor]
+Shards = List[Any]
 
 
-class Replicated(dict):
-    """One weight tree per distinct device: {torch.device: tree}."""
+class Replicated:
+    """The weight tree of every seq shard: `trees[d][i]` is seq shard i
+    of data group d's tree, its leaves on that shard's devices (a tensor
+    split leaf's part t on the shard's tensor device t). Shards whose
+    devices are the same share one tree."""
+
+    def __init__(self, trees: List[List[Params]]):
+        self.trees = trees
 
 
-def replicate_params(params: Params, devices: Sequence[torch.device]
-                     ) -> Replicated:
-    """The weight tree on every distinct device of `devices` (the tree
-    itself where it already lives: no copy)."""
-    def to(node, dev):
-        if isinstance(node, dict):
-            return {k: to(v, dev) for k, v in node.items()}
-        return node.to(dev)
-    out = Replicated()
-    for d in devices:
-        d = torch.device(d)
-        if d not in out:
-            out[d] = to(params, d)
+def _place_on(node: Any, devs: Sequence[torch.device]) -> Any:
+    """A (sub)tree on one shard's tensor devices `devs`: part t of a
+    tensor split leaf on devs[t], any other leaf on devs[0]; a leaf that
+    is there already is itself (a view stays a view)."""
+    if isinstance(node, dict):
+        return {k: _place_on(v, devs) for k, v in node.items()}
+    if isinstance(node, tuple):
+        return tuple(_place_on(v, devs) for v in node)
+    if node is None:
+        return None
+    if isinstance(node, TShards):
+        if node.axis != "tensor":
+            raise ValueError(f"{node!r} on a seq shard: only tensor "
+                             "splits ride a seq mesh")
+        return TShards([p.to(d, non_blocking=True)
+                        for p, d in zip(node.parts, devs)], "tensor",
+                       node.split)
+    return node.to(devs[0], non_blocking=True)
+
+
+def replicate_params(params: Params, mesh) -> Replicated:
+    """The weight tree on every seq shard of `mesh` (each data group's
+    replica, each tensor part on its shard's tensor device; no copy where
+    it already lives there, as on one card)."""
+    D = mesh.shape.get("data", 1)
+    N = mesh.shape.get("seq", 1)
+    by_devs: Dict[tuple, Params] = {}
+    trees = []
+    for d in range(D):
+        src = group_part(params, d)
+        row = []
+        for i in range(N):
+            devs = tuple(mesh.tensor_devices(d, seq_index=i))
+            key = (id(src),) + devs
+            if key not in by_devs:
+                by_devs[key] = _place_on(src, devs)
+            row.append(by_devs[key])
+        trees.append(row)
+    return Replicated(trees)
+
+
+def _replicas(params, mesh) -> Replicated:
+    return params if isinstance(params, Replicated) \
+        else replicate_params(params, mesh)
+
+
+def _layer_params(trees: Sequence[Params], i: int, dtype) -> list:
+    """Layer i's weights in the compute dtype, per seq shard (cast once
+    per distinct tree)."""
+    done: Dict[int, Dict] = {}
+    out = []
+    for t in trees:
+        if id(t) not in done:
+            done[id(t)] = _cast_layer(layer_params(t, i), dtype)
+        out.append(done[id(t)])
     return out
 
 
-def _replicas(params, devices) -> Replicated:
-    return params if isinstance(params, Replicated) \
-        else replicate_params(params, devices)
+def _groups(mesh, batch: int) -> List[DataGroup]:
+    """The mesh's data groups over `batch` rows (one group without a
+    data axis)."""
+    return data_groups(batch, mesh) or [
+        DataGroup(0, slice(0, batch), mesh.first_device)]
 
 
-def _layer_params(reps: Replicated, i: int, dtype) -> Dict:
-    """Layer i's weights in the compute dtype, per distinct device."""
-    return {d: _cast_layer(layer_params(p, i), dtype) for d, p in reps.items()}
+def _rows(x: Any, g: DataGroup, dim: int = 1) -> Any:
+    """Group g's rows of a per-seq-shard value, where it lives: its part
+    of a data Shards, else a view of its rows."""
+    if x is None:
+        return None
+    if isinstance(x, TShards) and x.axis == "data":
+        return x.parts[g.index]
+    return x[(slice(None),) * dim + (g.rows,)]
+
+
+def _join(parts: list, dim: int = 1) -> Any:
+    """Per-group values as one: a data Shards on `dim` (the value itself
+    for one group)."""
+    return parts[0] if len(parts) == 1 else TShards(parts, "data", dim)
+
+
+def _whole(x: Any, kv_dim: int, device=None) -> torch.Tensor:
+    """A per-seq-shard cache value as one tensor on `device`: its data
+    groups concatenated on the batch dim (1), its tensor shards on
+    `kv_dim`."""
+    if isinstance(x, TShards) and x.axis == "data":
+        return torch.cat([_whole(p, kv_dim, device) for p in x.parts], dim=1)
+    if isinstance(x, TShards):
+        return torch.cat([_whole(p, kv_dim, device) for p in x.parts],
+                         dim=kv_dim)
+    return x if device is None else x.to(device)
 
 
 def _rotate(xs: Sequence[Optional[torch.Tensor]],
@@ -103,7 +196,10 @@ class ShardedKVCache(NamedTuple):
     """sp_forward's cache: each shard keeps the K/V it computed.
 
     k/v[i]: shard i's [L, B, Tl, Kv, H] (float) or codes [L, B, Kv, Tl, H]
-    with k_scale/v_scale[i] [L, B, Kv, Tl] (int8), on shard i's device;
+    with k_scale/v_scale[i] [L, B, Kv, Tl] (int8), on shard i's devices:
+    under a tensor axis a tensor Shards over the kv heads (or one
+    replicated tensor where Kv does not divide it), under a data axis a
+    data Shards over the batch rows (each group's part on its devices);
     `length` [B] on the first shard's device."""
 
     k: Shards
@@ -123,14 +219,104 @@ class ShardedKVCache(NamedTuple):
     def gather(self, device=None) -> KVCache:
         """The whole cache as one contiguous KVCache (the JAX global
         array's layout) on `device` (None = the first shard's)."""
-        sd = 3 if self.quantized else 2
-        k, v = gather_shards(self.k, sd, device), gather_shards(self.v, sd,
-                                                                device)
-        if not self.quantized:
-            return KVCache(k=k, v=v, length=self.length.to(k.device))
-        return KVCache(k=k, v=v, length=self.length.to(k.device),
-                       k_scale=gather_shards(self.k_scale, 3, device),
-                       v_scale=gather_shards(self.v_scale, 3, device))
+        q = self.quantized
+        sd = 3 if q else 2
+
+        def whole(xs, kv_dim):
+            parts = [_whole(x, kv_dim, device) for x in xs]
+            return gather_shards(parts, sd, device)
+        k = whole(self.k, 2 if q else 3)
+        v = whole(self.v, 2 if q else 3)
+        length = self.length.to(k.device)
+        if not q:
+            return KVCache(k=k, v=v, length=length)
+        return KVCache(k=k, v=v, length=length,
+                       k_scale=whole(self.k_scale, 2),
+                       v_scale=whole(self.v_scale, 2))
+
+
+# ---------------------------------------------------------------------------
+# The tensor axis inside a seq shard
+# ---------------------------------------------------------------------------
+
+def _kv_for(k: Any, q: TShards, t: int, dim: int) -> Any:
+    """Tensor shard t's K/V operand (kv heads on `dim`) for its q heads:
+    its own part of a split K/V; of a replicated one (Kv does not divide
+    the tensor axis), the kv heads its q heads read, each q head's kv
+    head repeated when the shard's heads do not cover whole GQA groups,
+    so the kernel's head grouping stays that of the whole model."""
+    if k is None or isinstance(k, TShards):
+        return None if k is None else k.parts[t]
+    sizes = [p.shape[2] for p in q.parts]
+    lo = sum(sizes[:t])
+    hi = lo + sizes[t]
+    G = sum(sizes) // k.shape[dim]
+    if lo // G == (hi - 1) // G:
+        return k.narrow(dim, lo // G, 1)
+    if lo % G == 0 and hi % G == 0:
+        return k.narrow(dim, lo // G, (hi - lo) // G)
+    idx = torch.arange(lo, hi, device=k.device) // G
+    return k.index_select(dim, idx)
+
+
+def _stats_shards(per: list) -> tuple:
+    """Per-tensor-shard (m, l, acc) as one tuple of tensor Shards over
+    the heads (dim 1)."""
+    return tuple(TShards([p[j] for p in per], "tensor", 1) for j in range(3))
+
+
+def _block_heads(q, k, v, q_pos, k_pos, k_scale=None, v_scale=None,
+                 quant: bool = False, kernel: Optional[bool] = None):
+    """block_stats of one K/V block, per tensor shard on its heads where
+    q is split (each shard's call on its K/V's device), else one call.
+    Float K/V [B, S, Kv, H]; int8 codes [B, Kv, S, H], scales
+    [B, Kv, S]."""
+    if not isinstance(q, TShards):
+        return block_stats(q, k, v, q_pos, k_pos, k_scale, v_scale,
+                           kernel=kernel)
+    kd = 1 if quant else 2
+    per = []
+    for t, qt in enumerate(q.parts):
+        kt = _kv_for(k, q, t, kd)
+        d = kt.device
+        per.append(block_stats(
+            qt.to(d, non_blocking=True), kt, _kv_for(v, q, t, kd).to(d),
+            q_pos.to(d, non_blocking=True), k_pos.to(d, non_blocking=True),
+            None if k_scale is None else _kv_for(k_scale, q, t, 1).to(d),
+            None if v_scale is None else _kv_for(v_scale, q, t, 1).to(d),
+            kernel=kernel))
+    return _stats_shards(per)
+
+
+def _merge(a: tuple, b: tuple) -> tuple:
+    """merge_stats, per tensor shard when the stats are split."""
+    if isinstance(a[0], TShards):
+        return tmap(lambda *x: merge_stats(x[:3], x[3:]), *a, *b,
+                    out_split=1)
+    return merge_stats(a, b)
+
+
+def _finalize(stats: tuple, dtype) -> Any:
+    """finalize_stats ([B, T, Nq, H]), per tensor shard when split."""
+    if isinstance(stats[0], TShards):
+        return tmap(lambda m, l, a: finalize_stats((m, l, a), dtype),
+                    *stats, out_split=2)
+    return finalize_stats(stats, dtype)
+
+
+def _quantize(k: Any) -> Tuple[Any, Any]:
+    """A [B, T, Kv, H] chunk as int8 (codes [B, Kv, T, H], scales
+    [B, Kv, T]), per tensor shard when split."""
+    return tmap(lambda x: quantize_kv(x.movedim(2, 1)), k, out_split=1)
+
+
+def _split_heads(x: torch.Tensor, like: TShards, dim: int) -> TShards:
+    """A whole-head value as a tensor Shards split on `dim` like `like`'s
+    heads (dim 2 of [B, T, Nq, H]), part t on like's part t device."""
+    sizes = [p.shape[2] for p in like.parts]
+    return TShards([c.to(p.device, non_blocking=True) for c, p in
+                    zip(torch.split(x, sizes, dim=dim), like.parts)],
+                   "tensor", dim)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +403,43 @@ def ulysses_attention(q: Shards, k: Shards, v: Shards,
                       dim=2) for i in range(N)]
 
 
+def ring_heads(q: Shards, k: Shards, v: Shards, q_pos: Shards,
+               k_pos: Shards, k_scale: Optional[Shards] = None,
+               v_scale: Optional[Shards] = None, quant: bool = False,
+               kernel: Optional[bool] = None) -> list:
+    """ring_stats over the seq shards, once per tensor shard on its heads
+    where the shards' q are tensor Shards (the ring of tensor shard t
+    runs over the seq shards' devices at tensor coordinate t); else one
+    ring. Returns per seq shard (m, l, acc), tensor Shards over the heads
+    when split."""
+    if not isinstance(q[0], TShards):
+        return ring_stats(q, k, v, q_pos, k_pos, k_scale, v_scale,
+                          kernel=kernel)
+    kd = 1 if quant else 2
+    per = []
+    for t in range(len(q[0].parts)):
+        qt = [x.parts[t] for x in q]
+        devs = [x.device for x in qt]
+
+        def pick(xs, dim):
+            if xs is None:
+                return None
+            return [_kv_for(x, qi, t, dim).to(d, non_blocking=True)
+                    for x, qi, d in zip(xs, q, devs)]
+        per.append(ring_stats(
+            qt, pick(k, kd), pick(v, kd),
+            [p.to(d, non_blocking=True) for p, d in zip(q_pos, devs)],
+            [p.to(d, non_blocking=True) for p, d in zip(k_pos, devs)],
+            pick(k_scale, 1), pick(v_scale, 1), kernel=kernel))
+    return [_stats_shards([p[i] for p in per]) for i in range(len(q))]
+
+
+def _gathered(xs: Shards, dim: int) -> list:
+    """Each seq shard's value with its tensor shards concatenated on
+    `dim` (a replicated value as it is)."""
+    return [gather(x, dim) for x in xs]
+
+
 # ---------------------------------------------------------------------------
 # Whole-model sequence-parallel prefill
 # ---------------------------------------------------------------------------
@@ -225,29 +448,47 @@ def _attend_chunk(q, k, v, pos, impl: str, quant: bool, compute,
                   kernel: Optional[bool]):
     """One layer's attention over the shards' fresh chunks (sp_forward).
     Returns (out per shard, the chunk's K/V per shard in the cache's
-    representation)."""
+    representation). Under a tensor axis the ring runs per tensor shard
+    on its heads; Ulysses reshards whole heads, so it gathers each seq
+    shard's heads first and splits its output back (the JAX body sees
+    every head: the tensor axis is automatic inside it)."""
+    split = isinstance(q[0], TShards)
     if quant:
-        qk = [quantize_kv(x.movedim(2, 1)) for x in k]       # [B,Kv,Tl,H]
-        qv = [quantize_kv(x.movedim(2, 1)) for x in v]
+        qk = [_quantize(x) for x in k]                      # [B,Kv,Tl,H]
+        qv = [_quantize(x) for x in v]
         kq, ksc = [a for a, _ in qk], [b for _, b in qk]
         vq, vsc = [a for a, _ in qv], [b for _, b in qv]
+        kv_out = list(zip(kq, vq, ksc, vsc))
         if impl == "ring":
-            out = ring_attention(q, kq, vq, pos, pos, ksc, vsc,
-                                 kernel=kernel)
-        else:
-            # Ulysses gathers whole sequences for a dense attend: it reads
-            # the dequantised values (same operands, no scale plumbing)
-            kf = [(a.float() * s[..., None]).movedim(1, 2).to(compute)
-                  for a, s in zip(kq, ksc)]
-            vf = [(a.float() * s[..., None]).movedim(1, 2).to(compute)
-                  for a, s in zip(vq, vsc)]
-            out = ulysses_attention(q, kf, vf, pos)
-        return out, list(zip(kq, vq, ksc, vsc))
-    if impl == "ring":
-        out = ring_attention(q, k, v, pos, pos, kernel=kernel)
+            stats = ring_heads(q, kq, vq, pos, pos, ksc, vsc, quant=True,
+                               kernel=kernel)
+            return [_finalize(s, x.dtype) for s, x in zip(stats, q)], kv_out
+        # Ulysses gathers whole sequences for a dense attend: it reads
+        # the dequantised values (same operands, no scale plumbing)
+        kf = [(a.float() * s[..., None]).movedim(1, 2).to(compute)
+              for a, s in zip(_gathered(kq, 1), _gathered(ksc, 1))]
+        vf = [(a.float() * s[..., None]).movedim(1, 2).to(compute)
+              for a, s in zip(_gathered(vq, 1), _gathered(vsc, 1))]
     else:
-        out = ulysses_attention(q, k, v, pos)
-    return out, [(a.to(compute), b.to(compute)) for a, b in zip(k, v)]
+        kv_out = [(tmap(lambda a: a.to(compute), a),
+                   tmap(lambda b: b.to(compute), b)) for a, b in zip(k, v)]
+        if impl == "ring":
+            stats = ring_heads(q, k, v, pos, pos, kernel=kernel)
+            return [_finalize(s, x.dtype) for s, x in zip(stats, q)], kv_out
+        kf, vf = _gathered(k, 2), _gathered(v, 2)
+    out = ulysses_attention(_gathered(q, 2), kf, vf, pos)
+    if split:
+        out = [_split_heads(o, x, 2) for o, x in zip(out, q)]
+    return out, kv_out
+
+
+def _check_seq_args(T: int, N: int, kv_quant: str, impl: str) -> None:
+    if T % N != 0:
+        raise ValueError(f"seq len {T} not divisible by seq axis {N}")
+    if kv_quant not in ("none", "int8"):
+        raise ValueError(f"unknown kv quant {kv_quant!r}")
+    if impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown seq impl {impl!r}")
 
 
 def sp_forward(params, cfg: ModelConfig, tokens: torch.Tensor, mesh,
@@ -257,35 +498,56 @@ def sp_forward(params, cfg: ModelConfig, tokens: torch.Tensor, mesh,
     """Long-context prefill with activations sharded over `seq`.
 
     tokens: [B, T], T divisible by the seq size. `params` is one weight
-    tree or `replicate_params`' map. Returns (logits per shard
-    [B, T/N, V] f32, ShardedKVCache with S = T: int8 codes + scales when
+    tree (placed over the mesh's tensor and data axes or not) or
+    `replicate_params`' result. Each data group runs its own ring over
+    its rows; under a tensor axis each seq shard's layer math runs per
+    tensor shard and the ring once per tensor shard. Returns (logits per
+    shard [B, T/N, V] f32 on the shard's first device of data group 0,
+    ShardedKVCache with S = T: int8 codes + scales when
     kv_quant="int8")."""
-    devs = mesh.seq_devices()
-    N = len(devs)
+    N = mesh.shape.get("seq", 1)
     B, T = tokens.shape
-    if T % N != 0:
-        raise ValueError(f"seq len {T} not divisible by seq axis {N}")
-    if kv_quant not in ("none", "int8"):
-        raise ValueError(f"unknown kv quant {kv_quant!r}")
-    if impl not in ("ring", "ulysses"):
-        raise ValueError(f"unknown seq impl {impl!r}")
+    _check_seq_args(T, N, kv_quant, impl)
     quant = kv_quant == "int8"
-    reps = _replicas(params, devs)
+    reps = _replicas(params, mesh)
+    outs = [_sp_forward_group(reps.trees[g.index], cfg, tokens[g.rows],
+                              mesh.seq_devices(g.index), impl, quant, kernel)
+            for g in _groups(mesh, B)]
+    logits = [cat_groups([o[0][i] for o in outs]) for i in range(N)]
+    parts = [[_join([o[1][i][j] for o in outs])
+              for j in range(len(outs[0][1][0]))] for i in range(N)]
+    length = torch.full((B,), T, dtype=torch.int32,
+                        device=mesh.seq_devices(0)[0])
+    cols = [[p[j] for p in parts] for j in range(len(parts[0]))]
+    if quant:
+        cache = ShardedKVCache(k=cols[0], v=cols[1], length=length,
+                               k_scale=cols[2], v_scale=cols[3])
+    else:
+        cache = ShardedKVCache(k=cols[0], v=cols[1], length=length)
+    return logits, cache
+
+
+def _sp_forward_group(trees, cfg: ModelConfig, tokens: torch.Tensor,
+                      devs, impl: str, quant: bool,
+                      kernel: Optional[bool]):
+    """sp_forward on one data group's rows over its ring `devs`: (logits
+    per shard, per shard its K/V components stacked over the layers)."""
+    N = len(devs)
     compute = torch_dtype(cfg.dtype)
+    B, T = tokens.shape
     Tl = T // N
     toks = _split(tokens, devs)
     pos = [(i * Tl + torch.arange(Tl, device=d))[None, :].expand(B, Tl)
            .to(torch.int32) for i, d in enumerate(devs)]
     xs, cs, ss = [], [], []
-    for i, d in enumerate(devs):
-        x, cos, sin = embed_tokens(reps[d], cfg, toks[i], pos[i])
+    for i in range(N):
+        x, cos, sin = embed_tokens(trees[i], cfg, toks[i], pos[i])
         xs.append(x)
         cs.append(cos)
         ss.append(sin)
     kv_layers = []
     for li in range(cfg.num_layers):
-        lps = _layer_params(reps, li, compute)
-        lp = [lps[d] for d in devs]
+        lp = _layer_params(trees, li, compute)
         qs, ks, vs = [], [], []
         for i in range(N):
             h = pre_norm(xs[i], lp[i]["ln1"], cfg)
@@ -299,24 +561,42 @@ def sp_forward(params, cfg: ModelConfig, tokens: torch.Tensor, mesh,
             x = xs[i] + attn_output(out[i], lp[i]["attn"], cfg)
             xs[i] = x + ffn_block(pre_norm(x, lp[i]["ln2"], cfg), lp[i], cfg)
         kv_layers.append(kv_out)
-    logits = [final_logits(reps[d], cfg, x) for d, x in zip(devs, xs)]
+    logits = [final_logits(trees[i], cfg, x) for i, x in enumerate(xs)]
     # per shard: stack its layers' K/V ([L, ...] like the JAX cache)
-    parts = [[torch.stack([kv_layers[li][i][j] for li in range(cfg.num_layers)])
+    parts = [[_stack([kv_layers[li][i][j] for li in range(cfg.num_layers)])
               for j in range(len(kv_layers[0][0]))] for i in range(N)]
-    length = torch.full((B,), T, dtype=torch.int32, device=devs[0])
-    if quant:
-        cache = ShardedKVCache(k=[p[0] for p in parts], v=[p[1] for p in parts],
-                               length=length, k_scale=[p[2] for p in parts],
-                               v_scale=[p[3] for p in parts])
-    else:
-        cache = ShardedKVCache(k=[p[0] for p in parts],
-                               v=[p[1] for p in parts], length=length)
-    return logits, cache
+    return logits, parts
 
 
 # ---------------------------------------------------------------------------
 # Decode over the sharded prefix
 # ---------------------------------------------------------------------------
+
+def _combine(parts: list, dev) -> tuple:
+    """The seq shards' partial stats of one block, combined on `dev` in
+    shard order: pmax of m, then psum of the rescaled l and acc."""
+    parts = [[t.to(dev, non_blocking=True) for t in p] for p in parts]
+    m_g = parts[0][0]
+    for p in parts[1:]:
+        m_g = torch.maximum(m_g, p[0])
+    l_g = acc_g = None
+    for m_i, l_i, acc_i in parts:
+        corr = torch.exp(m_i - m_g)
+        l_c, acc_c = l_i * corr, acc_i * corr[..., None]
+        l_g = l_c if l_g is None else l_g + l_c
+        acc_g = acc_c if acc_g is None else acc_g + acc_c
+    return m_g, l_g, acc_g
+
+
+def _combine_heads(parts: list, q: Any) -> tuple:
+    """_combine per tensor shard (on q's part device) where the stats are
+    tensor Shards, else once on q's device."""
+    if not isinstance(q, TShards):
+        return _combine(parts, q.device)
+    return _stats_shards([
+        _combine([tuple(s.parts[t] for s in p) for p in parts], qt.device)
+        for t, qt in enumerate(q.parts)])
+
 
 def sp_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, prefix: ShardedKVCache,
@@ -327,12 +607,14 @@ def sp_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 
     The long prefix stays sharded where prefill left it; generated tokens
     live in a small replicated contiguous `suffix` cache (on the first
-    shard's device, written IN PLACE). Each shard attends its prefix chunk
-    into partial (m, l, acc); the partials combine on the first device in
-    shard order (the JAX pmax/psum), then the suffix block folds in with
-    merge_stats before one finalize. Per layer that is N prefix launches
-    plus ONE suffix launch (JAX runs the replicated suffix block once per
-    device).
+    shard's device, written IN PLACE; init_cache(mesh=...) splits it over
+    the mesh's tensor and data axes as it splits any cache). Each shard
+    attends its prefix chunk into partial (m, l, acc); the partials
+    combine on the first device in shard order (the JAX pmax/psum), then
+    the suffix block folds in with merge_stats before one finalize. Per
+    layer that is N prefix launches plus ONE suffix launch (JAX runs the
+    replicated suffix block once per device), per tensor shard under a
+    tensor axis; each data group runs its rows.
 
     tokens/positions: [B, 1] on the first device (positions = prefix
     length + step). prefix_len [B]: real prefix tokens per row (slots at
@@ -352,20 +634,42 @@ def sp_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 "init_cache(max_seq=...) for the whole decode run")
     if prefix_len is None:
         prefix_len = prefix.length
-    quant = prefix.quantized
-    if quant != suffix.quantized:
+    if prefix.quantized != suffix.quantized:
         raise ValueError("prefix and suffix caches must agree on kv_quant")
-    devs = mesh.seq_devices()
-    N = len(devs)
+    reps = _replicas(params, mesh)
+    B = tokens.shape[0]
+    groups = data_groups(B, mesh)
+    if groups is None:
+        logits = _sp_decode_group(reps.trees[0], cfg, tokens, positions,
+                                  prefix, suffix, prefix_len,
+                                  mesh.seq_devices(0))
+    else:
+        logits = cat_groups([_sp_decode_group(
+            reps.trees[g.index], cfg, group_rows(tokens, g),
+            group_rows(positions, g),
+            prefix._replace(**{n: None if getattr(prefix, n) is None else
+                               [_rows(x, g) for x in getattr(prefix, n)]
+                               for n in ("k", "v", "k_scale", "v_scale")}),
+            _group_cache(suffix, g), group_rows(prefix_len, g),
+            mesh.seq_devices(g.index)) for g in groups])
+    return logits, suffix._replace(
+        length=(suffix.length + 1).to(torch.int32))
+
+
+def _sp_decode_group(trees, cfg: ModelConfig, tokens, positions,
+                     prefix: ShardedKVCache, suffix: KVCache, prefix_len,
+                     devs) -> torch.Tensor:
+    """sp_decode_step on one data group's rows over its ring `devs`."""
+    quant = prefix.quantized
     dev0 = devs[0]
-    reps = _replicas(params, devs)
     compute = torch_dtype(cfg.dtype)
     B = tokens.shape[0]
     Smax = suffix.max_seq
     Tl = prefix.local_len
-    slen = suffix.length
+    slen = suffix.length.to(dev0)
     plen = prefix_len.to(dev0)
-    x, cos, sin = embed_tokens(reps[dev0], cfg, tokens, positions)
+    tokens, positions = tokens.to(dev0), positions.to(dev0)
+    x, cos, sin = embed_tokens(trees[0], cfg, tokens, positions)
     # sanitised key positions, built ONCE outside the layer loop: suffix
     # slot j holds the token at position plen + j, visible up to this
     # step's own write (j <= slen); prefix slots at or past plen (the
@@ -386,42 +690,31 @@ def sp_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
         q_pos.append(positions.to(d).to(torch.int32))
     suf_qpos = positions.to(torch.int32)
     for li in range(cfg.num_layers):
-        lp = _cast_layer(layer_params(reps[dev0], li), compute)
+        lp = _cast_layer(layer_params(trees[0], li), compute)
         h = pre_norm(x, lp["ln1"], cfg)
         q, k, v = qkv_proj(h, lp["attn"], cfg, cos, sin)
         if quant:
-            ck, cv, cks, cvs = update_cache_layer_q(
-                suffix.k[li], suffix.v[li], suffix.k_scale[li],
-                suffix.v_scale[li], k, v, slen)
+            ck, cv, cks, cvs = tmap(update_cache_layer_q, suffix.k[li],
+                                    suffix.v[li], suffix.k_scale[li],
+                                    suffix.v_scale[li], k, v, slen)
         else:
-            ck, cv = update_cache_layer(suffix.k[li], suffix.v[li], k, v,
-                                        slen)
+            ck, cv = tmap(update_cache_layer, suffix.k[li], suffix.v[li], k,
+                          v, slen)
             cks = cvs = None
         parts = []
         for i, d in enumerate(devs):
-            blk = block_stats(
-                q.to(d, non_blocking=True), prefix.k[i][li],
-                prefix.v[i][li], q_pos[i], pre_pos[i],
+            qi = q if isinstance(q, TShards) else q.to(d, non_blocking=True)
+            parts.append(_block_heads(
+                qi, prefix.k[i][li], prefix.v[i][li], q_pos[i], pre_pos[i],
                 prefix.k_scale[i][li] if quant else None,
-                prefix.v_scale[i][li] if quant else None)
-            parts.append([t.to(dev0, non_blocking=True) for t in blk])
-        # pmax, then psum of the rescaled partials, in shard order
-        m_g = parts[0][0]
-        for p in parts[1:]:
-            m_g = torch.maximum(m_g, p[0])
-        l_g = acc_g = None
-        for m_i, l_i, acc_i in parts:
-            corr = torch.exp(m_i - m_g)
-            l_c, acc_c = l_i * corr, acc_i * corr[..., None]
-            l_g = l_c if l_g is None else l_g + l_c
-            acc_g = acc_c if acc_g is None else acc_g + acc_c
-        suf = block_stats(q, ck, cv, suf_qpos, suf_pos, cks, cvs)
-        out = finalize_stats(merge_stats((m_g, l_g, acc_g), suf), x.dtype)
+                prefix.v_scale[i][li] if quant else None, quant=quant))
+        suf = _block_heads(q, ck, cv, suf_qpos, suf_pos, cks, cvs,
+                           quant=quant)
+        out = _finalize(_merge(_combine_heads(parts, q), suf), x.dtype)
         x = x + attn_output(out, lp["attn"], cfg)
         x = x + ffn_block(pre_norm(x, lp["ln2"], cfg), lp, cfg)
-    logits = final_logits(reps[dev0], cfg, x)
-    return logits[:, -1, :], suffix._replace(
-        length=(suffix.length + 1).to(torch.int32))
+    logits = final_logits(trees[0], cfg, x)
+    return logits[:, -1, :]
 
 
 # ---------------------------------------------------------------------------
@@ -429,85 +722,90 @@ def sp_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def sp_chunk_body(params, cfg: ModelConfig, tokens: torch.Tensor,
-                  start: int, prefix: tuple, mesh):
+                  start: int, prefix: tuple, mesh, data_index: int = 0):
     """One paged long-prompt prefill chunk, sharded over `seq` — the
     serving sibling of sp_forward (the JAX body runs inside shard_map).
 
     tokens: [B=1, C] chunk buffer (C divisible by the seq size) whose
     first token sits at absolute position `start`, also the count of
-    flushed pool-prefix tokens. `prefix` is the slot's gathered pool
-    prefix for every layer, replicated: (pk, pv) [L, B, S, Kv, H] when
-    float, (pk, pv, pks, pvs) codes [L, B, Kv, S, H] + scales [L, B, Kv, S]
-    when the pool is int8; it is copied once to each other distinct shard
-    device. Each query attends that prefix (positions < start live) and
-    the fresh chunk via the ring; the two partials share one finalize.
-    Chunk padding needs no sanitising: pad positions exceed every real
-    query's, and the caller routes pad K/V to the null page.
+    flushed pool-prefix tokens; it runs on the ring of data group
+    `data_index` (the slot's group). `prefix` is the slot's gathered
+    pool prefix for every layer, replicated over seq: (pk, pv)
+    [L, B, S, Kv, H] when float, (pk, pv, pks, pvs) codes
+    [L, B, Kv, S, H] + scales [L, B, Kv, S] when the pool is int8, each a
+    tensor Shards over the kv heads where the pool is split; it is
+    copied once to each other distinct shard device. Each query attends
+    that prefix (positions < start live) and the fresh chunk via the
+    ring; the two partials share one finalize. Chunk padding needs no
+    sanitising: pad positions exceed every real query's, and the caller
+    routes pad K/V to the null page.
 
     Returns (logits per shard [B, C/N, V], per shard the chunk's K/V for
     every layer in the pool's representation: (k, v) [L, B, C/N, Kv, H]
-    in the compute dtype, or codes [L, B, Kv, C/N, H] + scales)."""
-    devs = mesh.seq_devices()
+    in the compute dtype, or codes [L, B, Kv, C/N, H] + scales; tensor
+    Shards where the pool is split)."""
+    devs = mesh.seq_devices(data_index)
     N = len(devs)
-    reps = _replicas(params, devs)
+    trees = _replicas(params, mesh).trees[data_index]
     compute = torch_dtype(cfg.dtype)
     quant = len(prefix) == 4
     B, C = tokens.shape
     Cl = C // N
     S = prefix[0].shape[3] if quant else prefix[0].shape[2]
-    pre = {}
-    for d in devs:
-        if d not in pre:
-            pre[d] = tuple(t.to(d, non_blocking=True) for t in prefix)
-    toks = _split(tokens, devs)
-    pos, pre_pos = [], {}
+    pre, pre_pos = [], []
+    placed: Dict[tuple, tuple] = {}
     for i, d in enumerate(devs):
-        pos.append((start + i * Cl + torch.arange(Cl, device=d))[None, :]
-                   .expand(B, Cl).to(torch.int32))
-        if d not in pre_pos:
+        key = tuple(mesh.tensor_devices(data_index, seq_index=i))
+        if key not in placed:
             # exactly the flushed tokens (< start) are attendable
             g = torch.arange(S, device=d)
-            pre_pos[d] = torch.where(g < start, g,
-                                     torch.full_like(g, INVALID_POS))[None] \
-                .expand(B, S).to(torch.int32)
+            placed[key] = (_place_on(tuple(prefix), key), torch.where(
+                g < start, g, torch.full_like(g, INVALID_POS))[None]
+                .expand(B, S).to(torch.int32))
+        pre.append(placed[key][0])
+        pre_pos.append(placed[key][1])
+    toks = _split(tokens, devs)
+    pos = [(start + i * Cl + torch.arange(Cl, device=d))[None, :]
+           .expand(B, Cl).to(torch.int32) for i, d in enumerate(devs)]
     xs, cs, ss = [], [], []
-    for i, d in enumerate(devs):
-        x, cos, sin = embed_tokens(reps[d], cfg, toks[i], pos[i])
+    for i in range(N):
+        x, cos, sin = embed_tokens(trees[i], cfg, toks[i], pos[i])
         xs.append(x)
         cs.append(cos)
         ss.append(sin)
     kv_layers = []
     for li in range(cfg.num_layers):
-        lps = _layer_params(reps, li, compute)
-        lp = [lps[d] for d in devs]
+        lp = _layer_params(trees, li, compute)
         qs, ks, vs, pres = [], [], [], []
-        for i, d in enumerate(devs):
+        for i in range(N):
             h = pre_norm(xs[i], lp[i]["ln1"], cfg)
             q, k, v = qkv_proj(h, lp[i]["attn"], cfg, cs[i], ss[i])
-            p = pre[d]
-            pres.append(block_stats(
-                q, p[0][li], p[1][li], pos[i], pre_pos[d],
-                p[2][li] if quant else None, p[3][li] if quant else None))
+            p = pre[i]
+            pres.append(_block_heads(
+                q, p[0][li], p[1][li], pos[i], pre_pos[i],
+                p[2][li] if quant else None, p[3][li] if quant else None,
+                quant=quant))
             qs.append(q)
             ks.append(k)
             vs.append(v)
         if quant:
-            qk = [quantize_kv(x.movedim(2, 1)) for x in ks]  # [B,Kv,Cl,H]
-            qv = [quantize_kv(x.movedim(2, 1)) for x in vs]
-            fresh = ring_stats(qs, [a for a, _ in qk], [a for a, _ in qv],
+            qk = [_quantize(x) for x in ks]                 # [B,Kv,Cl,H]
+            qv = [_quantize(x) for x in vs]
+            fresh = ring_heads(qs, [a for a, _ in qk], [a for a, _ in qv],
                                pos, pos, [s for _, s in qk],
-                               [s for _, s in qv])
+                               [s for _, s in qv], quant=True)
             kv_out = [(a, b, s, t) for (a, s), (b, t) in zip(qk, qv)]
         else:
-            fresh = ring_stats(qs, ks, vs, pos, pos)
-            kv_out = [(a.to(compute), b.to(compute)) for a, b in zip(ks, vs)]
+            fresh = ring_heads(qs, ks, vs, pos, pos)
+            kv_out = [(tmap(lambda a: a.to(compute), a),
+                       tmap(lambda b: b.to(compute), b))
+                      for a, b in zip(ks, vs)]
         for i in range(N):
-            out = finalize_stats(merge_stats(pres[i], fresh[i]), xs[i].dtype)
+            out = _finalize(_merge(pres[i], fresh[i]), xs[i].dtype)
             x = xs[i] + attn_output(out, lp[i]["attn"], cfg)
             xs[i] = x + ffn_block(pre_norm(x, lp[i]["ln2"], cfg), lp[i], cfg)
         kv_layers.append(kv_out)
-    logits = [final_logits(reps[d], cfg, x) for d, x in zip(devs, xs)]
-    kv = [tuple(torch.stack([kv_layers[li][i][j]
-                             for li in range(cfg.num_layers)])
+    logits = [final_logits(trees[i], cfg, x) for i, x in enumerate(xs)]
+    kv = [tuple(_stack([kv_layers[li][i][j] for li in range(cfg.num_layers)])
                 for j in range(len(kv_layers[0][0]))) for i in range(N)]
     return logits, kv

@@ -32,6 +32,7 @@ results in group order.
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
@@ -222,11 +223,12 @@ class DataGroup(NamedTuple):
     device: torch.device    # its first device
 
 
-def data_groups(batch: int) -> Optional[List[DataGroup]]:
-    """The active mesh's data groups over a `batch`-row dim, or None
-    without a data axis. Rows that do not divide by the data size run as
-    one group, group 0 (the JAX rule `_div`: the dim stays replicated)."""
-    mesh = active_mesh()
+def data_groups(batch: int, mesh=None) -> Optional[List[DataGroup]]:
+    """The data groups of `mesh` (None = the active mesh) over a
+    `batch`-row dim, or None without a data axis. Rows that do not
+    divide by the data size run as one group, group 0 (the JAX rule
+    `_div`: the dim stays replicated)."""
+    mesh = active_mesh() if mesh is None else mesh
     D = data_degree(mesh)
     if D <= 1:
         return None
@@ -236,6 +238,50 @@ def data_groups(batch: int) -> Optional[List[DataGroup]]:
     n = batch // D
     return [DataGroup(d, slice(d * n, (d + 1) * n), devs[d])
             for d in range(D)]
+
+
+class GroupRun:
+    """One forward's data groups, run one after another over a batch of
+    `batch` rows. What the JAX package computes over the whole batch
+    inside a body manual over another axis (the expert a2a's capacity and
+    counting sort, parallel/expert.py) reads it: `carry[c]` is what the
+    groups run so far left for the c-th such call of the layer stack,
+    `call` the running group's next call index."""
+
+    def __init__(self, batch: int):
+        self.batch = batch
+        self.carry: List[Any] = []
+        self.call = 0
+
+    def next_call(self) -> int:
+        c = self.call
+        self.call += 1
+        return c
+
+
+_RUN: contextvars.ContextVar[Optional[GroupRun]] = \
+    contextvars.ContextVar("butterfly_group_run", default=None)
+
+
+def group_run() -> Optional[GroupRun]:
+    """The GroupRun of the data-group loop running now, else None."""
+    return _RUN.get()
+
+
+def run_groups(groups: Sequence[DataGroup], fn: Callable, batch: int
+               ) -> list:
+    """[fn(g) for g in groups], in group order, as one GroupRun over the
+    whole `batch`."""
+    run = GroupRun(batch)
+    token = _RUN.set(run)
+    try:
+        outs = []
+        for g in groups:
+            run.call = 0
+            outs.append(fn(g))
+        return outs
+    finally:
+        _RUN.reset(token)
 
 
 def group_part(x: Any, d: int) -> Any:

@@ -434,7 +434,7 @@ def load_params(model, args):
     if args.ckpt:
         raise NotImplementedError(
             "--ckpt is not ported yet (ROADMAP.md, PyTorch/CUDA port "
-            "queue: checkpoints)")
+            "queue: Checkpoints)")
     import torch
     cfg = model.cfg.replace(param_dtype=model.cfg.dtype)
     gen = torch.Generator(device=model.device)
@@ -451,9 +451,9 @@ def build_mesh(args):
 
     --device cuda takes cards cuda:0..n-1 and refuses n larger than the
     visible count; --device cpu takes n shards on the CPU. The seq and
-    expert axes run alone, tensor and data alone or together; stage, and
-    seq or expert with another axis, raise NotImplementedError
-    (core/mesh.py)."""
+    expert axes each run alone or with tensor and/or data, tensor and
+    data alone or together; stage, and seq with expert, raise
+    NotImplementedError naming their ROADMAP item (core/mesh.py)."""
     import torch
 
     from butterfly_tpu_torch.core.config import MeshConfig

@@ -1230,7 +1230,8 @@ def build_serving(args):
     if getattr(args, "profiler_port", 0):
         raise NotImplementedError(
             "--profiler-port needs torch.profiler, not ported yet "
-            "(ROADMAP.md, PyTorch/CUDA port queue: torch.profiler)")
+            "(ROADMAP.md, PyTorch/CUDA port queue: Profiling and the rest of "
+            "the CLI)")
     model = resolve_model(args)
     tok = load_tokenizer(args.tokenizer or args.ckpt)
     mesh = build_mesh(args)

@@ -261,6 +261,36 @@ raises and the script exits non-zero:
              expert mesh against a dense engine (equal requests, first
              divergences and the teacher-forced gap reported: bf16
              near-ties may flip).
+21. combined meshes that combine axes, every shard on cuda:0 (no byte
+             crosses NVLink), in two parts. After the tp phase, on the
+             Llama-3-8B tree at full width and depth: all_hosts_probe
+             over the visible cards; seq = 2 x tensor = 2 (the placement
+             must allocate nothing): one sp_forward of the longgen
+             phase's 4096-token prompt with every ring block's kernel
+             stats, per tensor shard at Nq 16 / Kv 4, finalised, against
+             the plain version (2e-2 absolute and the ring phase's
+             element bound), its last-position logits within 0.5 of the
+             longgen phase's seq-only ring run, then generate_long with
+             16 greedy new tokens (ring launches exact per tensor shard)
+             and the long prefill's host wall, device busy and ring time;
+             seq = 2 x data = 2 serving at the serve defaults with
+             seq_parallel_threshold 1024 and one pool copy per data
+             group: the 16-, 200-, 4000- and 600-byte requests of the
+             longserve phase (the 4000-byte one through the lane), the
+             lane's tokens > 0, both pool replicas equal byte for byte,
+             greedy tokens against the longserve run (equal count, first
+             divergences, the teacher-forced gap of the others within
+             0.5). After the moe phase, on its bf16 4-layer Mixtral tree:
+             expert = 2 x tensor = 2 and expert = 2 x data = 2, each:
+             the placement allocates nothing; 8 greedy requests through
+             ServingEngine (against the moe phase's dense run: equal
+             count and first divergences); InferenceEngine.generate of 4
+             prompts (fresh flash 8 launches: 4 layers x 2 tensor shards
+             or data groups); one decode step against the unsharded
+             step, routing replayed, within max(0.5, the two plain
+             versions' gap); a 2 x 256-token prefill at capacity factor
+             1.0: the a2a's dropped assignments equal the count of the
+             dense routing over the whole batch, layer by layer.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
@@ -1562,7 +1592,8 @@ def phase_longgen(torch, model, params, tok):
     device). The prefill's last-position logits are held to the dense
     prefill (the flash kernel) within LOGITS_TOL; the int8 run, whose
     attention reads quantized K/V, to the same prefill with the plain ring
-    version. Returns the ring kernel's launches."""
+    version. Returns the ring kernel's launches and the ring bf16
+    prefill's last-position logits."""
     from butterfly_tpu_torch.core.config import RuntimeConfig
     from butterfly_tpu_torch.engine.engine import InferenceEngine
     from butterfly_tpu_torch.engine.sampling import SamplingParams
@@ -1614,6 +1645,7 @@ def phase_longgen(torch, model, params, tok):
         last = logits[-1][0, -1].float().to("cuda:0")
         del logits, prefix
         if name == "ring_bf16":
+            seq_last = last
             _profile_prefill(torch, lambda: sp_forward(
                 eng._replicas, cfg, tokens, mesh, impl=impl, kv_quant=kvq))
             _profile_decode(torch, lambda: eng.generate_long(ids, sp,
@@ -1639,7 +1671,7 @@ def phase_longgen(torch, model, params, tok):
             logits_tol=LOGITS_TOL, note="smoke run, not a benchmark")
         del eng
         torch.cuda.empty_cache()
-    return total
+    return total, seq_last
 
 
 def phase_ring_parity(torch, model, params, tok):
@@ -1653,7 +1685,7 @@ def phase_ring_parity(torch, model, params, tok):
                                                        sp_forward)
     cfg = model.cfg
     mesh, where = _seq_mesh(torch)
-    reps = replicate_params(params, mesh.seq_devices())
+    reps = replicate_params(params, mesh)
     ids = tok.encode(_LONG)
     tokens = torch.tensor([ids], dtype=torch.int32, device="cuda")
     ratios, errs = [], []
@@ -1694,7 +1726,7 @@ def phase_longserve(torch, model, params, tok):
     greedy. Every lane chunk launches the ring kernel N = 2 times per layer
     over the slot's pool prefix plus N*N = 4 for the ring over the chunk,
     so ring and paged launches are multiples of 32. Returns the ring and
-    paged kernels' launches."""
+    paged kernels' launches and the runs as (prompt, max_new, output)."""
     from butterfly_tpu_torch.core.config import RuntimeConfig
     from butterfly_tpu_torch.engine.serving import ServingEngine
     from butterfly_tpu_torch.ops import ring_attention as ra
@@ -1743,7 +1775,9 @@ def phase_longserve(torch, model, params, tok):
     engine.cache = engine._kv_window = None
     del engine, sched
     torch.cuda.empty_cache()
-    return n_ring, n_paged
+    runs = [(tok.encode(_LONG[:n]), m, list(r.output))
+            for n, m, r in zip(sizes, news, reqs)]
+    return n_ring, n_paged, runs
 
 
 # -- phase 15: int8 weights ------------------------------------------------------
@@ -2562,6 +2596,9 @@ def _shard_on_card(torch, tree, cfg, mesh, place=None):
         elif isinstance(s, Shards):
             split += 1
             for part in s.parts:
+                if isinstance(part, Shards):   # an expert part over tensor
+                    walk(part, t)
+                    continue
                 assert part.untyped_storage().data_ptr() == \
                     t.untyped_storage().data_ptr(), "a part is not a view"
     walk(sharded, tree)
@@ -2994,7 +3031,8 @@ def _moe_serve(torch, sched, tok, vocab, news):
 def phase_moe(torch, tok):
     """Mixtral-8x7B at full width and depth on int8 weights, then the
     expert axis on one card (module docstring, phase 20). Returns
-    {kernel: launches} of the phase's main paths."""
+    ({kernel: launches} of the phase's main paths, the bf16 4-layer tree
+    with its dense serve run for the combined phase)."""
     import contextlib
     import io
 
@@ -3301,14 +3339,405 @@ def phase_moe(torch, tok):
         dense_wall_s=f"{outs['dense'][1]:.2f}",
         ep_wall_s=f"{outs['ep'][1]:.2f}",
         note="bf16 near-ties may flip: reported, not asserted")
-    del params, outs
-    gc.collect()
-    torch.cuda.empty_cache()
     _mem(torch, "moe", "end")
     log("moe", phase_s=f"{time.monotonic() - t_phase:.1f}",
         paged_launches=counts["paged"], fresh_launches=counts["fresh"])
+    # the bf16 4-layer tree and the dense run go on to the combined phase
+    return counts, dict(cfg=b16, params=params, prompts=prompts,
+                        dense=[list(r.output) for r in outs["dense"][0]])
+
+
+
+# -- phase 21: meshes that combine axes -------------------------------------
+
+COMBINED_NEW = 16          # new tokens of the seq x tensor generate_long
+COMBINED_SERVE = (1, 2, 3, 4)   # longserve's runs redone at seq x data:
+#                                 16, 200, 4000 (the lane) and 600 bytes
+
+
+def _pool_tensors(cache):
+    return [getattr(cache, n) for n in ("k_pages", "v_pages",
+                                        "k_scale_pages", "v_scale_pages")
+            if getattr(cache, n) is not None]
+
+
+def phase_combined(torch, model, params, tok, seq_last, longserve_runs):
+    """Meshes that combine axes on Llama-3-8B at full width and depth,
+    every shard on cuda:0 (module docstring, phase 21): seq = 2 x tensor
+    = 2 generate_long and seq = 2 x data = 2 serving with the long-prompt
+    lane. Returns {kernel: launches} of the phase's main paths."""
+    import butterfly_tpu_torch.parallel.sequence as seq_mod
+    from butterfly_tpu_torch.cache.paged import (init_paged_cache,
+                                                 pool_replicas)
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.obs.health import all_hosts_probe
+    from butterfly_tpu_torch.ops import ring_attention as ra
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    from butterfly_tpu_torch.parallel.partition import shard_paged_cache
+    from butterfly_tpu_torch.parallel.sequence import sp_forward
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    cfg = model.cfg
+    L, N, T = cfg.num_layers, 2, 2
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    counts = {"paged": 0, "ring": 0}
+    t_phase = time.monotonic()
+    assert all_hosts_probe(), "all_hosts_probe on the visible cards"
+    log("combined", step="all_hosts_probe", card=card,
+        devices=torch.cuda.device_count(), ok=True)
+
+    # (a) seq = 2 x tensor = 2: generate_long on the 4096-token prompt
+    mesh = _one_card_mesh(seq=N, tensor=T)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng = InferenceEngine(model, params, RuntimeConfig(max_seq_len=4096),
+                          mesh=mesh)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    assert grown == 0, f"the seq x tensor placement allocated {grown} B"
+    ids = tok.encode(_LONG)
+    tokens = torch.tensor([ids], dtype=torch.int32, device="cuda")
+    heads, errs, ratios = set(), [], []
+
+    def checked(*args, kernel=None):
+        stats = ra.ring_block_stats(*args)
+        ref = ra.ring_block_stats_ref(*args)
+        _, _, err, elem, _ = _ring_check(torch, ra, args, stats, ref, True)
+        heads.add((args[0].shape[2], args[1].shape[2]))
+        errs.append(err)
+        ratios.append(elem)
+        return stats
+    seq_mod.block_stats = checked
+    try:
+        kern, _ = sp_forward(eng._replicas, cfg, tokens, mesh)
+    finally:
+        seq_mod.block_stats = ra.block_stats
+    torch.cuda.synchronize()
+    assert len(errs) == L * N * N * T, len(errs)
+    assert heads == {(cfg.num_heads // T, cfg.num_kv_heads // T)}, heads
+    last = kern[-1][0, -1].float().to("cuda:0")
+    del kern
+    gap = (last - seq_last).abs().max().item()
+    log("combined", step="seq2_tensor2_ring", card=card,
+        mesh="seq2_x_tensor2_on_cuda:0",
+        placement_bytes_allocated=grown,
+        per_shard_heads="Nq{}_Kv{}_H{}".format(
+            cfg.num_heads // T, cfg.num_kv_heads // T, cfg.head_dim),
+        blocks=len(errs), max_block_abs_err=f"{max(errs):.3g}",
+        tol=LAYER_TOL, max_err_over_elem_bound=f"{max(ratios):.3g}",
+        logits_vs_seq_only=f"{gap:.4g}", logits_tol=LOGITS_TOL)
+    assert max(errs) <= LAYER_TOL and max(ratios) <= 1.0, \
+        f"ring per tensor shard vs plain: {max(errs)}, {max(ratios)} x bound"
+    assert torch.isfinite(last).all() and gap <= LOGITS_TOL, \
+        f"seq x tensor logits differ from seq-only by {gap}"
+    sp = SamplingParams(max_new_tokens=COMBINED_NEW)
+    ra.launches = ra.launches_decode = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate_long(ids, sp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, n_dec = ra.launches, ra.launches_decode
+    want_dec = (COMBINED_NEW - 1) * L * (N + 1) * T
+    assert n == L * N * N * T + want_dec and n_dec == want_dec, (n, n_dec)
+    _check_tokens(res, 1, COMBINED_NEW, cfg.vocab_size, "seq2_tensor2")
+    counts["ring"] += n
+    pf_wall, ka, dev_ms = _profile(torch, lambda: sp_forward(
+        eng._replicas, cfg, tokens, mesh))
+    busy = sum(dev_ms(e) for e in ka)
+    ring = sum(dev_ms(e) for e in ka if "ring" in e.key)
+    log("combined", step="seq2_tensor2_generate_long", card=card,
+        prompt_tokens=len(ids), new_tokens=COMBINED_NEW,
+        wall_s=f"{wall:.3f}", tokens_per_s=f"{COMBINED_NEW / wall:.2f}",
+        prefill_wall_ms=f"{pf_wall:.1f}",
+        prefill_device_busy_ms=f"{busy:.1f}",
+        prefill_ring_ms=f"{ring:.1f}",
+        ring_launches=n, ring_launches_per_tensor_shard=n // T,
+        ring_split_launches=n_dec, note="smoke run, not a benchmark")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) seq = 2 x data = 2: serving with the long-prompt lane, one pool
+    #     copy per data group (what groups on their own cards hold)
+    mesh = _one_card_mesh(seq=N, data=2)
+    rt = RuntimeConfig(max_seq_len=4096, seq_parallel_threshold=1024)
+    engine = ServingEngine(model, params, rt, mesh=mesh)
+    engine.cache = None
+    torch.cuda.empty_cache()
+    engine.cache = shard_paged_cache(init_paged_cache(cfg, rt, device="cuda"),
+                                     cfg, mesh, copy=True)
+    reps = pool_replicas(engine.cache)
+    assert len(reps) == 2
+    sched = Scheduler(engine)
+    runs = [longserve_runs[i] for i in COMBINED_SERVE]
+    ra.launches = ra.launches_decode = paged_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [sched.submit(list(p), max_new_tokens=m) for p, m, _ in runs]
+    sched.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n_ring, n_paged = ra.launches, paged_attention.launches
+    sp_tokens = sched.metrics()["seq_parallel_prefill_tokens_total"]
+    assert sp_tokens > 0, "no prompt went through the seq-parallel lane"
+    for r, (_, m, _) in zip(reqs, runs):
+        assert r.state == "finished" and len(r.output) == m, r.id
+    for kname, k in (("ring", n_ring), ("paged", n_paged)):
+        assert k > 0 and k % L == 0, f"{kname}: {k} launches"
+    counts["ring"] += n_ring
+    counts["paged"] += n_paged
+    if engine._win_dirty:
+        engine.flush_kv_window()
+    torch.cuda.synchronize()
+    # every replica holds every page the groups wrote (the null page,
+    # where each group routes its idle rows, aside)
+    same = all(torch.equal(a[:, :-1], b[:, :-1]) for a, b in
+               zip(_pool_tensors(reps[0]), _pool_tensors(reps[1])))
+    assert same, "the pool replicas differ"
+    equal, divs, gaps = 0, [], []
+    for (p, _, want), r in zip(runs, reqs):
+        equal += r.output == want
+        d = _divergence(r.output, want)
+        if d is not None:
+            divs.append(d)
+            gaps.append(_teacher_forced_gap(torch, params, cfg, p, r.output))
+    gen = sum(len(r.output) for r in reqs)
+    log("combined", step="seq2_data2_serve", card=card,
+        mesh="seq2_x_data2_on_cuda:0", pool_replicas=len(reps),
+        replicas_equal=same, prompt_bytes=",".join(
+            str(len(p) - 1) for p, _, _ in runs), requests=len(reqs),
+        generated_tokens=gen, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{gen / wall:.2f}", sp_prefill_tokens=int(sp_tokens),
+        equal_to_longserve=f"{equal}/{len(reqs)}",
+        first_divergence=",".join(map(str, divs)) or "none",
+        teacher_forced_gap=f"{max(gaps):.4f}" if gaps else "none",
+        gap_tol=LOGITS_TOL, ring_launches=n_ring, paged_launches=n_paged,
+        note="smoke run, not a benchmark")
+    assert not gaps or max(gaps) <= LOGITS_TOL, \
+        f"teacher-forced gap {max(gaps)}"
+    engine.cache = engine._kv_window = None
+    del engine, sched, reps
+    torch.cuda.empty_cache()
+    log("combined", part="llama", phase_s=f"{time.monotonic() - t_phase:.1f}",
+        ring_launches=counts["ring"], paged_launches=counts["paged"])
     return counts
 
+
+def _moe_step_vs_dense(torch, params, cfg, mesh, data):
+    """One decode step (window off, kernels on, 8 slots over a pool of
+    random K/V at lengths up to 1300) on the expert mesh against the same
+    step unsharded, the mesh pass replaying the unsharded kernel pass's
+    expert choices (routing flips on bf16 ulps are not the mesh's error;
+    phase_parity): returns (gap, bound = max(LOGITS_TOL, the gap between
+    the two plain versions unsharded), flips, max |logit|)."""
+    import butterfly_tpu_torch.models.common as common_mod
+    import butterfly_tpu_torch.ops.paged_attention as pa_mod
+    from butterfly_tpu_torch.cache.paged import init_paged_cache, paged_forward
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.parallel import expert as expert_mod
+    from butterfly_tpu_torch.parallel.partition import (shard_paged_cache,
+                                                        shard_params)
+    from butterfly_tpu_torch.ops.paged_attention import (paged_attention,
+                                                         paged_attention_ref)
+    rt = RuntimeConfig()
+    S, L = rt.max_batch_size, cfg.num_layers
+    pool = init_paged_cache(cfg, rt, device="cuda")
+    mp, page = pool.page_table.shape[1], pool.page_size
+    lengths = [5, 100, 700, 1300, 0, 33, 64, 1000][:S]
+    table = torch.full((S, mp), pool.null_page, dtype=torch.int32,
+                       device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for s, n in enumerate(lengths):
+        k = n // page + 1   # the step writes position n: its page too
+        table[s, :k] = torch.arange(s * mp, s * mp + k, dtype=torch.int32)
+    for t in (pool.k_pages, pool.v_pages):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 0.5)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    dense_c = pool._replace(page_table=table, lengths=lens)
+    mesh_c = shard_paged_cache(pool, cfg, mesh)._replace(page_table=table,
+                                                         lengths=lens)
+    ep = cfg.replace(moe_impl="ep")
+    sharded = shard_params(params, ep, mesh)
+    active = torch.tensor([n > 0 for n in lengths], device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (S, 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    plain_route = common_mod.route_tokens
+    chosen, flips = [], []
+
+    def record(x, w, k):
+        gates, idx = plain_route(x, w, k)
+        chosen.append(idx)
+        return gates, idx
+
+    def replay(rows_of):
+        calls = []
+
+        def route(x, w, k):
+            layer, rows = rows_of(len(calls))
+            calls.append(1)
+            _, own = plain_route(x, w, k)
+            idx = chosen[layer][rows]
+            flips.append(int((own.sort(-1).values != idx.sort(-1).values)
+                             .any(-1).sum()))
+            dt = torch.promote_types(x.dtype, w.dtype)
+            lg = torch.einsum("btd,de->bte", x.to(dt), w.to(dt)).float()
+            return torch.softmax(lg.gather(-1, idx), dim=-1), idx
+        return route
+
+    def step(tree, c, mcfg, m, attn, route, use_kernel=True):
+        pa_mod.paged_attention = attn
+        common_mod.route_tokens = expert_mod.route_tokens = route
+        try:
+            with mesh_ctx(m):
+                logits, _ = paged_forward(tree, mcfg, toks, c, active=active,
+                                          use_kernel=use_kernel)
+        finally:
+            pa_mod.paged_attention = paged_attention
+            common_mod.route_tokens = expert_mod.route_tokens = plain_route
+        torch.cuda.synchronize()
+        return logits[:, 0][active].float()
+
+    def whole(i):
+        return i, slice(None)
+    half = S // 2
+
+    def per_group(i):   # each data group runs every layer on its rows
+        g, layer = divmod(i, L)
+        return layer, slice(g * half, (g + 1) * half)
+    kern = step(params, dense_c, cfg, None, paged_attention, record)
+    plain = step(params, dense_c, cfg, None, paged_attention_ref,
+                 replay(whole))
+    gather = step(params, dense_c, cfg, None, paged_attention,
+                  replay(whole), use_kernel=False)
+    flips.clear()
+    got = step(sharded, mesh_c, ep, mesh, paged_attention,
+               replay(per_group if data else whole))
+    for x in (kern, plain, gather, got):
+        assert torch.isfinite(x).all()
+    bound = max(LOGITS_TOL, (plain - gather).abs().max().item())
+    return ((got - kern).abs().max().item(), bound, sum(flips),
+            kern.abs().max().item())
+
+
+def phase_combined_moe(torch, tok, state):
+    """Meshes that combine axes on Mixtral-8x7B at full width, bf16, cut
+    to 4 layers (the moe phase's expert-run tree), every shard on cuda:0
+    (module docstring, phase 21): expert = 2 x tensor = 2 and expert = 2
+    x data = 2. Returns {kernel: launches} of the phase's main paths."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.models.common import Model, forward, init_cache
+    from butterfly_tpu_torch.ops.flash_attention import flash_attention
+    from butterfly_tpu_torch.ops.paged_attention import paged_attention
+    from butterfly_tpu_torch.parallel import expert as expert_mod
+    from butterfly_tpu_torch.parallel.partition import shard_params
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    cfg, params = state["cfg"], state["params"]
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    counts = {"paged": 0, "fresh": 0}
+    t_phase = time.monotonic()
+    ep = cfg.replace(moe_impl="ep")
+    prompts = [tok.encode(_TEXT[:n]) for n in (17, 200, 500, 1001)]
+    sp = SamplingParams(max_new_tokens=16)
+    dense_gen = InferenceEngine(Model(cfg, device="cuda"), params).generate(
+        prompts, sp)
+    for axes in (dict(expert=2, tensor=2), dict(expert=2, data=2)):
+        name = "_x_".join(f"{a}{n}" for a, n in axes.items())
+        data = "data" in axes
+        mesh = _one_card_mesh(**axes)
+        # the placement: views of the tree, nothing allocated
+        sharded, grown, split = _shard_on_card(torch, params, ep, mesh)
+        assert grown == 0, f"{name}: the placement allocated {grown} B"
+        del sharded
+        # 8 greedy requests through the serving engine on the mesh
+        eng = ServingEngine(Model(ep, device="cuda"), params,
+                            RuntimeConfig(), mesh=mesh)
+        _zero_counts()
+        _, reqs, wall = _moe_serve(torch, Scheduler(eng), tok, vocab, 32)
+        n_paged = paged_attention.launches
+        assert n_paged > 0 and n_paged % L == 0, n_paged
+        counts["paged"] += n_paged
+        equal = sum(r.output == d for r, d in zip(reqs, state["dense"]))
+        divs = [d for d in (_divergence(r.output, w) for r, w in
+                            zip(reqs, state["dense"])) if d is not None]
+        eng.cache = eng._kv_window = None
+        del eng
+        torch.cuda.empty_cache()
+        # generate: the fresh flash kernel per tensor shard / data group
+        geng = InferenceEngine(Model(ep, device="cuda"), params, mesh=mesh)
+        _zero_counts()
+        res = geng.generate(prompts, sp)
+        n_fresh = flash_attention.launches_fresh
+        assert n_fresh == L * 2, f"{name}: {n_fresh} fresh flash launches"
+        counts["fresh"] += n_fresh
+        gen_equal = int(sum((res.tokens[i] == dense_gen.tokens[i]).all()
+                            for i in range(len(prompts))))
+        del geng
+        # the decode step against the dense run
+        gap, bound, flips, top = _moe_step_vs_dense(torch, params, cfg,
+                                                    mesh, data)
+        # a dropping capacity: the a2a's drops against the dense-routing
+        # count over the whole batch, layer by layer
+        drop = ep.replace(moe_capacity_factor=1.0)
+        made, seen = [], []
+        plain_slots, plain_ep = expert_mod.a2a_slots, expert_mod.moe_block_ep
+
+        def counted_slots(idx, E, C, base=None):
+            dest, keep = plain_slots(idx, E, C, base)
+            made.append((~keep).sum())
+            return dest, keep
+
+        def recorded_ep(x, p, c, capacity=None):
+            seen.append((x, p["router"]))
+            return plain_ep(x, p, c, capacity)
+        ids = torch.tensor([tok.encode(_TEXT[:255]),
+                            tok.encode(_TEXT[300:555])], device="cuda")
+        dtree = shard_params(params, drop, mesh)
+        expert_mod.a2a_slots = counted_slots
+        expert_mod.moe_block_ep = recorded_ep
+        try:
+            with mesh_ctx(mesh):
+                lg, _ = forward(dtree, drop, ids, init_cache(
+                    drop, 2, 256, device="cuda", mesh=mesh), fresh=True)
+        finally:
+            expert_mod.a2a_slots = plain_slots
+            expert_mod.moe_block_ep = plain_ep
+        del dtree
+        groups = 2 if data else 1
+        assert len(seen) == L * groups, len(seen)
+        want = 0
+        for layer in range(L):
+            xs = [seen[g * L + layer][0] for g in range(groups)]
+            want += int(expert_mod.dropped_assignments(
+                torch.cat(xs), seen[layer][1], drop, 2))
+        got = int(sum(int(m) for m in made))
+        assert torch.isfinite(lg).all()
+        log("combined", step=f"{name}_moe", card=card, layers=L,
+            mesh=f"{name}_on_cuda:0", placement_bytes_allocated=grown,
+            split_leaves=split, requests=len(reqs),
+            serve_equal_to_dense=f"{equal}/{len(reqs)}",
+            serve_first_divergences=",".join(map(str, divs)) or "none",
+            serve_wall_s=f"{wall:.2f}", paged_launches=n_paged,
+            generate_equal_to_dense=f"{gen_equal}/{len(prompts)}",
+            fresh_launches=n_fresh, step_logits_vs_dense=f"{gap:.4g}",
+            step_bound=f"{bound:.4g}", step_max_abs_logit=f"{top:.4g}",
+            routing_flips=flips,
+            dropped_a2a=got, dropped_dense_routing=want,
+            note="smoke run, not a benchmark")
+        assert gap <= bound, f"{name}: step logits vs dense {gap} > {bound}"
+        assert got == want > 0, f"{name}: {got} dropped, dense routing {want}"
+    log("combined", part="mixtral",
+        phase_s=f"{time.monotonic() - t_phase:.1f}",
+        paged_launches=counts["paged"], fresh_launches=counts["fresh"])
+    return counts
 
 
 def _demangle(names):
@@ -3412,9 +3841,10 @@ def main() -> int:
     alt_engine.cache = alt_engine._kv_window = None
     del alt_engine
     torch.cuda.empty_cache()
-    long_ring = phase_longgen(torch, model, params, tok)
+    long_ring, seq_last = phase_longgen(torch, model, params, tok)
     phase_ring_parity(torch, model, params, tok)
-    serve_ring, long_paged = phase_longserve(torch, model, params, tok)
+    serve_ring, long_paged, long_runs = phase_longserve(torch, model,
+                                                        params, tok)
     long_ring += serve_ring
     qparams, quant = phase_quant(torch, model, params, tok)
     spec = phase_spec(torch, model, params, tok)
@@ -3422,11 +3852,16 @@ def main() -> int:
     bench, decode_leg = phase_bench(torch, model, params, qparams)
     tp = phase_tp(torch, model, params, qparams, tok, serve_tokens,
                   decode_leg)
+    comb = phase_combined(torch, model, params, tok, seq_last, long_runs)
     # the Llama-3-8B trees go before Mixtral's int8 tree is drawn
     del qparams, params, model
     gc.collect()
     torch.cuda.empty_cache()
-    moe = phase_moe(torch, tok)
+    moe, moe_state = phase_moe(torch, tok)
+    comb_moe = phase_combined_moe(torch, tok, moe_state)
+    del moe_state
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def entry(kname, source, replaces, launches, cases, main_case):
         e = {"name": kname, "route": "cuda", "source": source,
@@ -3447,13 +3882,13 @@ def main() -> int:
               "butterfly_tpu/ops/paged_attention.py:65",
               serve_launches + alt["paged"] + long_paged + quant["paged"]
               + spec["paged"] + fleet["paged"] + bench["paged"]
-              + tp["paged"] + moe["paged"], kres,
-              "bf16_w64"),
+              + tp["paged"] + moe["paged"] + comb["paged"]
+              + comb_moe["paged"], kres, "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
               gen_fresh + alt["fresh"] + quant["fresh"] + spec["fresh"]
-              + bench["fresh"] + tp["fresh"] + moe["fresh"], fresh_cases,
-              "fresh_bf16"),
+              + bench["fresh"] + tp["fresh"] + moe["fresh"]
+              + comb_moe["fresh"], fresh_cases, "fresh_bf16"),
         entry("flash_attention_warm", flash_src,
               "butterfly_tpu/ops/flash_attention.py:97",
               alt["warm"] + spec["warm"] + bench["warm"] + tp["warm"],
@@ -3462,7 +3897,7 @@ def main() -> int:
         entry("ring_attention",
               "butterfly_tpu_torch/ops/csrc/ring_attention.cu",
               "butterfly_tpu/ops/ring_attention.py:158",
-              long_ring + bench["ring"], rres, "diag_bf16"),
+              long_ring + bench["ring"] + comb["ring"], rres, "diag_bf16"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     assert paged_attention.launches > 0

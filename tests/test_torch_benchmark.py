@@ -126,6 +126,21 @@ def test_longctx_leg_on_the_cpu_reports_the_plain_pair(models):
     assert out["longctx_ring_block_ms_jnp"] > 0
 
 
+def test_longctx_leg_on_eight_cpu_shards_reaches_the_lane(models):
+    """tests/test_longctx.py:221's counterpart: over 8 CPU shards the leg
+    builds seq = 4 x data = 2 and drives the serving lane."""
+    _, (tm, tp) = models
+    out = TB.run_longctx_benchmark(tm, tp, prompt_len=128, prefill_chunk=16,
+                                   max_new=4, n_decoders=2, decode_new=12,
+                                   repeats=1, devices=["cpu"] * 8)
+    assert out["longctx_supported"] is True
+    assert out["longctx_ring_kernelized"] is False
+    assert out["longctx_sp_prefill_tokens"] > 0
+    assert out["longctx_prefill_tokens_per_sec"] > 0
+    assert "longctx_itl_budget_s" in out
+    assert isinstance(out["longctx_itl_within_budget"], bool)
+
+
 #: butterfly_tpu/obs/benchmark.py:run_spec_benchmark's keys with an even
 #: gamma (the tree row runs): the JAX leg takes ~40 s to compile on this
 #: CPU, so its key set is written out here rather than recomputed

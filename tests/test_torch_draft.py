@@ -118,7 +118,7 @@ def test_derivation_depth_matches_jax():
 
 
 def test_draft_ckpt_refused_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 7"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*Checkpoints"):
         port_sched(speculative_gamma=2, draft_model="model",
                    draft_ckpt="/nonexistent/draft")
 

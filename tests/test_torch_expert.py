@@ -286,10 +286,18 @@ def test_expert_mesh_devices_and_refusals():
     assert m.expert_devices() == [torch.device("cpu")] * 4
     assert m.first_device == torch.device("cpu")
     require_ported_mesh(m)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md.*Meshes that combine axes"):
         make_mesh(tconfig.MeshConfig(expert=2, seq=2), ["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        make_mesh(tconfig.MeshConfig(expert=2, tensor=2), ["cpu"] * 4)
+    # expert x tensor builds: expert shard e's tensor devices, and the
+    # expert shards at each tensor coordinate
+    names = [f"cpu:{i}" for i in range(4)]
+    m = make_mesh(tconfig.MeshConfig(expert=2, tensor=2), names)
+    require_ported_mesh(m)
+    assert m.tensor_devices(expert_index=1) == \
+        [torch.device("cpu:2"), torch.device("cpu:3")]
+    assert m.expert_devices(tensor_index=1) == \
+        [torch.device("cpu:1"), torch.device("cpu:3")]
 
 
 def _cli(capsys, *argv):

@@ -314,8 +314,8 @@ def test_cli_generate_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [(["--seq-parallel", "2",
-                                          "--tensor-parallel", "2"],
-                                         "tensor parallelism")],
+                                          "--expert-parallel", "2"],
+                                         "Meshes that combine axes")],
                          ids=["seq_parallel"])
 def test_cli_generate_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -70,18 +70,34 @@ def test_mesh_maps_coordinates_to_devices():
 
 @pytest.mark.parametrize("axis", ["tensor", "data", "stage", "expert"])
 def test_mesh_refuses_unported_axes(axis):
-    """The stage axis raises naming its ROADMAP item; the expert, tensor
-    and data axes are ported: their mesh builds, and each with seq is
-    refused as a combined mesh (item 6)."""
+    """The stage axis raises naming its ROADMAP item by title; the
+    expert, tensor and data axes are ported: their mesh builds. With seq,
+    tensor and data build a combined mesh whose seq rings are found by
+    coordinate; expert with seq is still refused, naming its item."""
     if axis == "stage":
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*pipeline parallelism"):
+                           match="ROADMAP.*Pipeline stages"):
             make_mesh(MeshConfig(stage=2), ["cpu"] * 2)
         return
     m = make_mesh(MeshConfig(**{axis: 2}), ["cpu"] * 2)
     assert m.shape[axis] == 2 and seq_degree(m) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        make_mesh(MeshConfig(**{axis: 2, "seq": 2}), ["cpu"] * 4)
+    if axis == "expert":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*Meshes that combine axes"):
+            make_mesh(MeshConfig(**{axis: 2, "seq": 2}), ["cpu"] * 4)
+        return
+    names = [f"cpu:{i}" for i in range(4)]
+    m = make_mesh(MeshConfig(**{axis: 2, "seq": 2}), names)
+    require_ported_mesh(m)
+    assert seq_degree(m) == 2 and m.shape[axis] == 2
+    # mesh order (data, stage, expert, seq, tensor): seq is the outer of
+    # the two axes under tensor, the inner one under data
+    stride = 2 if axis == "tensor" else 1
+    for c in range(2):
+        kw = {"data_index": c} if axis == "data" else {"tensor_index": c}
+        want = [torch.device(names[(c if axis == "tensor" else 2 * c)
+                                   + stride * i]) for i in range(2)]
+        assert m.seq_devices(**kw) == want
 
 
 def test_mesh_refuses_cuda_without_a_card():

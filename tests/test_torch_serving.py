@@ -205,7 +205,8 @@ def test_sample_batched_greedy_rows_and_seeding():
 # -- configurations the port refuses -------------------------------------------
 
 REFUSED = {
-    # the seq-parallel lane is ported; over a seq x tensor mesh it is not
+    # the seq-parallel lane is ported, over tensor and data axes too;
+    # over a seq x expert mesh it is not
     "seq_parallel": dict(seq_parallel_threshold=16),
 }
 
@@ -234,7 +235,7 @@ def test_unported_configurations_refused(name):
     if name in REFUSED:
         rt = _rt(tconfig, **REFUSED[name])
         if name == "seq_parallel":
-            mesh = _cpu_mesh(1, 1, 1, 2, 2)
+            mesh = _cpu_mesh(1, 1, 2, 2, 1)
     elif name == "mesh":
         mesh = _cpu_mesh(1, 2, 1, 1, 1)   # stage: pipeline parallelism
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
