@@ -57,15 +57,6 @@ from butterfly_tpu_torch.parallel.partition import Shards, shard_params
 from butterfly_tpu_torch.parallel.sequence import (
     replicate_params, sp_decode_step, sp_forward)
 
-#: where each refused configuration waits (ROADMAP.md, PyTorch/CUDA port)
-ROADMAP = "ROADMAP.md, PyTorch/CUDA port queue"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({ROADMAP}: "
-                               f"{item})")
-
-
 @dataclass
 class GenerateResult:
     tokens: np.ndarray          # [B, max_new] ids (past a stop: the stop id)

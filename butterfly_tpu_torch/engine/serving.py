@@ -1104,18 +1104,29 @@ class _FnDraftSource:
 
 
 def _build_model_draft_source(engine: "ServingEngine"):
-    """DRAFT_SOURCES["model"] factory: the on-device draft model
-    (models/draft.py) derived from the engine's own weights (the first
-    draft_layers layers, embed/unembed shared: already cast or quantized
-    like the target, since the leaves ARE the target's). An independent
-    checkpoint (draft_ckpt) needs the checkpoint loader and is refused."""
-    from butterfly_tpu_torch.models.draft import (
-        ModelDraftSource, derive_draft_params, load_draft_checkpoint)
+    """DRAFT_SOURCES["model"] factory: a real on-device draft model
+    (models/draft.py): an independent narrow checkpoint when
+    RuntimeConfig.draft_ckpt is set (loaded on the engine's device, then
+    cast as the reference casts it; on a mesh it is placed like the
+    target's tree), else the truncated-layer derivation of the engine's
+    own params (the first draft_layers layers, embed/unembed shared:
+    already cast or quantized like the target, since the leaves ARE the
+    target's)."""
+    from butterfly_tpu_torch.models.draft import (ModelDraftSource,
+                                                  derive_draft_params)
     rt = engine.runtime
     if rt.draft_ckpt:
-        load_draft_checkpoint(rt.draft_ckpt, engine.cfg)
-    dcfg, dparams = derive_draft_params(engine.params, engine.cfg,
-                                        rt.draft_layers)
+        from butterfly_tpu_torch.ckpt.load import load_draft_checkpoint
+        from butterfly_tpu_torch.engine.engine import cast_params
+        dcfg, dparams = load_draft_checkpoint(rt.draft_ckpt, engine.cfg,
+                                              engine.device)
+        dparams = cast_params(dparams, dcfg)
+        if engine.mesh is not None:
+            from butterfly_tpu_torch.parallel.partition import shard_params
+            dparams = shard_params(dparams, dcfg, engine.mesh)
+    else:
+        dcfg, dparams = derive_draft_params(engine.params, engine.cfg,
+                                            rt.draft_layers)
     # width = serving max_seq + γ+1 slack: micro-step writes at the
     # sequence cap clamp into slack, never onto a live entry
     return ModelDraftSource(

@@ -14,13 +14,12 @@ ACCEPTED count, so rejected drafts sit past it, unattendable, and the
 next round overwrites them in place. At admission the scheduler reseeds
 a slot's draft cache from host truth (`ModelDraftSource.prefill`).
 
-An independent draft checkpoint (RuntimeConfig.draft_ckpt) needs the
-checkpoint loader, which is not ported yet: the serving engine refuses
-it, naming the ROADMAP.md item.
+An independent draft checkpoint (RuntimeConfig.draft_ckpt) is loaded by
+ckpt/load.py:load_draft_checkpoint (engine/serving.py builds the source).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -241,9 +240,3 @@ class ModelDraftSource:
             return fan, fan[:, 0]
         return self._micro_steps(hist, hlen, depth, live, state, temps,
                                  top_k, top_p, pick)
-
-
-def load_draft_checkpoint(path: str, target_cfg: Optional[ModelConfig]):
-    """An independent draft checkpoint needs ckpt/load.py, not ported."""
-    from butterfly_tpu_torch.engine.engine import not_ported
-    raise not_ported(f"--draft-ckpt ({path})", "Checkpoints")

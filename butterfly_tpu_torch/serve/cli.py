@@ -21,6 +21,9 @@
     python -m butterfly_tpu_torch.serve.cli workload replay --trace trace.jsonl --url http://127.0.0.1:8100
     python -m butterfly_tpu_torch.serve.cli workload sweep --device cpu --n 16 --prompt-hi 64 --max-new-hi 16
     python -m butterfly_tpu_torch.serve.cli dash timeseries.json --text
+    python -m butterfly_tpu_torch.serve.cli generate --model llama3-8b --ckpt /path/to/hf_dir --prompt "hello"
+    python -m butterfly_tpu_torch.serve.cli serve --model tiny --device cpu --profiler-port 9999
+    python -m butterfly_tpu_torch.serve.cli lint --list-rules
 
 The subcommands keep the JAX CLI's flags (butterfly_tpu/serve/cli.py);
 the ones that build an engine (generate, serve, bench, fleet, workload
@@ -35,9 +38,11 @@ the CPU with --device cpu. Flags whose path the port does not carry yet
 (--stage-parallel, and --seq-parallel or --expert-parallel with another
 axis) are accepted and refused with NotImplementedError naming the
 ROADMAP.md item.
-Without --ckpt, weights are random (demo mode); `--quant int8` draws them
-straight into int8 (quant/int8.py:init_params_quantized), so the float
-tree is never held.
+`--ckpt DIR` loads an HF-format checkpoint directory (safetensors or
+pytorch_model*.bin, ckpt/load.py) into the compute dtype, leaf by leaf;
+without it, weights are random (demo mode). `--quant int8` quantizes
+either one layer at a time as it arrives, so the float tree is never
+held. `lint` runs the repo's tools/staticcheck.py from a source checkout.
 """
 from __future__ import annotations
 
@@ -76,7 +81,10 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--model", default="tiny",
                         help="preset name (gpt2-124m, llama3-8b, "
                              "llama3-70b, mixtral-8x7b) or 'tiny'")
-        sp.add_argument("--ckpt", default=None, help="checkpoint path")
+        sp.add_argument("--ckpt", default=None,
+                        help="HF-format checkpoint dir (*.safetensors or "
+                             "pytorch_model*.bin, plus config.json); "
+                             "default: random weights")
         sp.add_argument("--tokenizer", default=None)
         sp.add_argument("--dtype", default=None,
                         help="override compute dtype")
@@ -168,8 +176,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "first N layers, embed/unembed shared (0 = "
                         "num_layers/4, floor 1)")
     s.add_argument("--draft-ckpt", default=None,
-                   help="an independent draft checkpoint (not ported yet: "
-                        "needs the checkpoint loader)")
+                   help="--draft-source model: an independent narrow draft "
+                        "checkpoint (HF-format dir with its own "
+                        "config.json; same vocabulary as the target)")
     s.add_argument("--spec-tree", type=int, default=0, metavar="WIDTH",
                    help="token-tree speculation of this width (needs "
                         "--draft-source model); 0/1 = linear chain")
@@ -189,7 +198,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "N x the prefill chunk)")
     slo_flags(s)
     s.add_argument("--profiler-port", type=int, default=0,
-                   help="profiler server (not ported yet; 0 = off)")
+                   help="on-demand torch.profiler captures of the live "
+                        "loop over HTTP on this port (POST /profile "
+                        "{duration_ms}; obs/profile.py); 0 = off")
     s.add_argument("--flightrec-dir", default=None, metavar="DIR",
                    help="write flight-recorder post-mortems here")
     s.add_argument("--inflight-blocks", type=_positive_int, default=2,
@@ -389,6 +400,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="arm SLO-aware admission shedding during the "
                          "sweep (sheds are counted per point)")
 
+    # project-native static analysis (tools/staticcheck.py): the
+    # donation/lock/host-sync/determinism contracts as AST rules — the
+    # same walk the tier-1 test runs. Loads no model, touches no device.
+    li = sub.add_parser("lint",
+                        help="AST lint for the serving contracts "
+                             "(donation, locks, host-sync, HTTP "
+                             "timeouts, determinism, PRNG hygiene); "
+                             "exit 1 on any unsuppressed finding")
+    li.add_argument("paths", nargs="*",
+                    help="files/trees to lint (default: butterfly_tpu "
+                         "tools tests, fixture snippets excluded)")
+    li.add_argument("--list-rules", action="store_true",
+                    help="print the rule catalog (id, slug, scope, "
+                         "invariant) and exit")
+    li.add_argument("--json", action="store_true",
+                    help="machine-readable jsonl findings")
+    li.add_argument("--show-suppressed", action="store_true",
+                    help="also print suppressed findings")
+    li.add_argument("--force", action="store_true",
+                    help="ignore per-rule scopes (ad-hoc sweeps)")
+
     # timeseries dashboard renderer (tools/dashboard.py, stdlib): loads
     # no model and touches no device
     d = sub.add_parser("dash",
@@ -421,25 +453,26 @@ def resolve_model(args):
 
 
 def load_params(model, args):
-    """Random-init weights on the model's device (checkpoints wait for
-    their slice). The tree is drawn straight into the COMPUTE dtype:
-    init_params draws float32 and rounds into the leaf type, so this is
-    bit-identical to drawing in the float32 master dtype and casting —
-    without ever holding the float32 copy (32 GB for Llama-3-8B).
-    `--quant int8` draws every model's matmul weights straight into
-    int8 codes and scales, chunk by chunk (init_params_quantized), so the
-    compute-dtype tree is never held either (92.9 GB for Mixtral-8x7B,
-    more than one card): the int8 demo weights are other random draws
-    than the float ones."""
+    """The weights on the model's device, in the compute dtype: loaded
+    from --ckpt (ckpt/load.py:load_checkpoint, leaf by leaf), or random
+    (demo mode). Random weights are drawn straight into the COMPUTE
+    dtype: init_params draws float32 and rounds into the leaf type, so
+    this is bit-identical to drawing in the float32 master dtype and
+    casting — without ever holding the float32 copy (32 GB for
+    Llama-3-8B). `--quant int8` quantizes every matmul weight as it is
+    loaded or drawn, one layer at a time, so the compute-dtype tree is
+    never held either (92.9 GB for Mixtral-8x7B, more than one card); the
+    int8 demo weights are other random draws than the float ones."""
+    quant = getattr(args, "quant", "none") == "int8"
     if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt is not ported yet (ROADMAP.md, PyTorch/CUDA port "
-            "queue: Checkpoints)")
+        from butterfly_tpu_torch.ckpt import load_checkpoint
+        return load_checkpoint(args.ckpt, model.cfg, model.device,
+                               quantize=quant)
     import torch
     cfg = model.cfg.replace(param_dtype=model.cfg.dtype)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(0)  # demo mode: identical random weights every run
-    if getattr(args, "quant", "none") == "int8":
+    if quant:
         from butterfly_tpu_torch.quant.int8 import init_params_quantized
         return init_params_quantized(cfg, gen, model.device)
     from butterfly_tpu_torch.models.common import init_params
@@ -784,6 +817,37 @@ def cmd_workload(args) -> int:
     return 0
 
 
+def cmd_lint(args) -> int:
+    """`butterfly lint`: the project-native static analyzer
+    (tools/staticcheck.py) from the package entrypoint. The analyzer
+    lives with the repo's tooling, not inside either package: a source
+    checkout is where the contracts it enforces exist."""
+    import importlib
+    from pathlib import Path
+
+    tools = Path(__file__).resolve().parents[2] / "tools"
+    if not (tools / "staticcheck.py").exists():
+        print("error: butterfly lint needs the repo's tools/ directory "
+              "(run from a source checkout)", file=sys.stderr)
+        return 2
+    # staticcheck imports its sibling staticrules by name
+    sys.path.insert(0, str(tools))
+    try:
+        staticcheck = importlib.import_module("staticcheck")
+    finally:
+        sys.path.remove(str(tools))
+    argv = list(args.paths)
+    if args.list_rules:
+        argv.append("--list-rules")
+    if args.json:
+        argv.append("--json")
+    if args.show_suppressed:
+        argv.append("--show-suppressed")
+    if args.force:
+        argv.append("--force")
+    return staticcheck.main(argv)
+
+
 def cmd_dash(args) -> int:
     """`butterfly dash`: the stdlib timeseries dashboard renderer, the
     repo's tools/dashboard.py loaded by path (it is not part of either
@@ -812,7 +876,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     return {"generate": cmd_generate, "serve": cmd_serve,
             "bench": cmd_bench, "route": cmd_route, "fleet": cmd_fleet,
-            "workload": cmd_workload, "dash": cmd_dash}[args.cmd](args)
+            "workload": cmd_workload, "lint": cmd_lint,
+            "dash": cmd_dash}[args.cmd](args)
 
 
 if __name__ == "__main__":

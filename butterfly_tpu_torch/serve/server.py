@@ -31,8 +31,11 @@ zero-egress environment):
   "missing"). Needs --prefix-caching: 501 with the reason without it.
 * POST /kv/import   land an exported payload into the local pool +
   prefix registry as warm pages (409 on a geometry mismatch).
-* POST /debug/profile   a torch.profiler capture of the live loop: 501
-  until that slice (ROADMAP.md).
+* POST /debug/profile  {"duration_ms", "logdir"}: a torch.profiler
+  capture of the live loop (obs/profile.py) -> {"logdir", "trace",
+  "files", ...}; 409 while a capture runs, 501 when none can start.
+  `--profiler-port P` serves the same captures on port P
+  (POST /profile), through the same loop-thread hand-off.
 * GET /debug/requests[?n=K]   recent per-request trace timelines as JSON
   (obs/trace.py; requires the scheduler to be built with a Tracer —
   returns {"enabled": false} otherwise). Clients may tag requests with
@@ -55,7 +58,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Optional
 
+from butterfly_tpu_torch.obs import profile as obs_profile
 from butterfly_tpu_torch.obs.metrics import ThroughputWindow, render_prometheus
+from butterfly_tpu_torch.obs.profile import ProfilerBusy, ProfilerUnavailable
 
 
 class LockTimeout(RuntimeError):
@@ -63,17 +68,6 @@ class LockTimeout(RuntimeError):
     slow or hung tick holds it). Every HTTP path that can raise this
     answers 503 + Retry-After instead of pinning the handler thread —
     and the timeout is counted (server_lock_timeouts_total)."""
-
-
-class ProfilerUnavailable(RuntimeError):
-    """The profiler capture could not start. The port has no capture yet
-    (torch.profiler waits for its slice), so POST /debug/profile always
-    answers 501 with the reason — never a crash."""
-
-
-class ProfilerBusy(RuntimeError):
-    """A capture is already in flight: one at a time (the profiler is
-    process-global). POST /debug/profile answers 409."""
 
 
 class StopSequenceMatcher:
@@ -302,14 +296,14 @@ class ServerState:
 
     @staticmethod
     def _profiler_start(logdir: str) -> None:
-        """Start the process-global profiler trace: not ported yet."""
-        raise ProfilerUnavailable(
-            "profiling needs torch.profiler, not ported yet (ROADMAP.md, "
-            "PyTorch/CUDA port queue: torch.profiler)")
+        """Start the process-global torch.profiler capture (split out so
+        tests can force the 501 path by monkeypatching)."""
+        obs_profile.start_capture(logdir)
 
     @staticmethod
-    def _profiler_stop() -> None:
-        pass
+    def _profiler_stop() -> str:
+        """Stop it and write the Chrome trace; returns its path."""
+        return obs_profile.stop_capture()
 
     def _maybe_profile(self) -> None:
         """Runs on the scheduler loop thread, OUTSIDE the serving lock:
@@ -321,7 +315,6 @@ class ServerState:
         if req is not None and self._profile_active is None:
             self._profile_pending = None
             dur_s, logdir = req
-            t0 = time.monotonic()
             try:
                 self._profiler_start(logdir)
             except Exception as e:  # no profiler plugin / busy / bad dir
@@ -329,6 +322,9 @@ class ServerState:
                     "error": f"{type(e).__name__}: {e}"}
                 self._profile_done.set()
                 return
+            # the window opens once the profiler is live: its first start
+            # in a process takes seconds, longer than a short capture
+            t0 = time.monotonic()
             self._profile_active = (t0 + dur_s, logdir, t0)
         act = self._profile_active
         if act is not None and time.monotonic() >= act[0]:
@@ -337,7 +333,7 @@ class ServerState:
             result = {"logdir": logdir,
                       "duration_s": time.monotonic() - t0}
             try:
-                self._profiler_stop()
+                result["trace"] = self._profiler_stop()
             except Exception as e:
                 result["error"] = f"{type(e).__name__}: {e}"
             self._profile_result = result
@@ -682,12 +678,12 @@ def make_handler(state: ServerState):
 
         def _handle_profile(self):
             """POST /debug/profile {duration_ms, logdir}: a
-            duration-bounded profiler capture of the LIVE tick
-            loop (501 until torch.profiler is ported). The capture runs on the scheduler loop thread and
+            duration-bounded torch.profiler capture of the LIVE tick
+            loop. The capture runs on the scheduler loop thread and
             never holds the serving lock — only this handler thread
-            blocks (bounded) waiting for the artifact. 501 = no profiler
-            in this build (graceful fallback, with reason); 409 = a
-            capture is already in flight."""
+            blocks (bounded) waiting for the artifact. 501 = the capture
+            could not start or complete (graceful fallback, with
+            reason); 409 = a capture is already in flight."""
             try:
                 body = self._read_body()
                 duration_ms = float(body.get("duration_ms", 1000.0))
@@ -703,7 +699,7 @@ def make_handler(state: ServerState):
                 self._json(409, {"error": str(e)})
             except ProfilerUnavailable as e:
                 self._json(501, {"error": str(e),
-                                 "reason": "no profiler in the port yet"})
+                                 "reason": "no profiler or capture failed"})
 
         def _handle_kv_import(self):
             try:
@@ -1171,8 +1167,13 @@ def serve_forever(scheduler, tokenizer, host: str = "0.0.0.0",
                   port: int = 8000, max_queue: int = 256,
                   ready_event: Optional[threading.Event] = None,
                   heartbeat=None, model_name: str = "butterfly",
-                  role: str = "both"):
+                  role: str = "both", profiler_port: int = 0):
     """Blocking serve loop. `ready_event` is set once listening (tests).
+
+    `profiler_port` > 0 also serves on-demand profile captures there
+    (obs/profile.py:start_profiler_server), handed to the scheduler loop
+    thread like POST /debug/profile's, so the trace holds the loop's CPU
+    ops. A server that cannot start logs and serving goes on without it.
 
     `heartbeat`: a HeartbeatMonitor to use (callers may tune interval /
     misses / probe); defaults to the LOCAL device probe. Deliberately so
@@ -1192,6 +1193,11 @@ def serve_forever(scheduler, tokenizer, host: str = "0.0.0.0",
                         heartbeat=heartbeat, model_name=model_name,
                         role=role)
     state.thread.start()
+    profiling = bool(profiler_port) and obs_profile.start_profiler_server(
+        profiler_port, capture=state.request_profile)
+    if profiling:
+        print(f"[butterfly] profiler server on :{profiler_port} "
+              f"(POST /profile)", flush=True)
     # stdlib default listen backlog is 5: a burst of concurrent clients
     # gets connection resets before the accept loop ever sees them
     # (observed at 50 simultaneous connects in the r5 soak). Size it
@@ -1211,6 +1217,8 @@ def serve_forever(scheduler, tokenizer, host: str = "0.0.0.0",
         state.stop.set()
         if state.heartbeat is not None:
             state.heartbeat.stop()
+        if profiling:
+            obs_profile.stop_profiler_server()
         httpd.server_close()
     return 0
 
@@ -1227,11 +1235,6 @@ def build_serving(args):
                                                resolve_model)
     from butterfly_tpu_torch.utils.tokenizer import load_tokenizer
 
-    if getattr(args, "profiler_port", 0):
-        raise NotImplementedError(
-            "--profiler-port needs torch.profiler, not ported yet "
-            "(ROADMAP.md, PyTorch/CUDA port queue: Profiling and the rest of "
-            "the CLI)")
     model = resolve_model(args)
     tok = load_tokenizer(args.tokenizer or args.ckpt)
     mesh = build_mesh(args)
@@ -1316,4 +1319,5 @@ def run_server(args) -> int:
           f"{mesh_desc})", flush=True)
     return serve_forever(sched, tok, args.host, args.port,
                          max_queue=rt.max_queue, model_name=args.model,
-                         role=getattr(args, "role", "both"))
+                         role=getattr(args, "role", "both"),
+                         profiler_port=getattr(args, "profiler_port", 0))

@@ -207,7 +207,42 @@ raises and the script exits non-zero:
              with its wall seconds. Prefix hits, preemptions and tier
              revivals must be > 0, the ring microbench kernelized, and
              each of the four kernels must launch.
-19. tp       tensor and data parallelism on one card (every shard on
+19. ckpt     checkpoints, snapshots and profiles on the serve phase's
+             Llama-3-8B tree cut to 8 layers at full width (5.6 GB; the
+             time limit): written as an HF directory under the
+             git-ignored build/ (config.json and 4 model-*.safetensors by
+             this script's own writer and inverse map; GB, seconds,
+             GB/s), config_from_hf_dir giving back llama3_8b()'s fields
+             at that depth; `serve --model llama3-8b --ckpt DIR` through
+             build_serving with the preset resolved at that depth (the
+             only step the CLI does not run), its load_checkpoint on cuda:0 timed
+             and watched (seconds, GB/s, host RSS peak growth, the card's
+             allocation peak over the tree, which must stay under 1.25x:
+             no float32 copy) and every leaf torch.equal to the source;
+             8 greedy requests over HTTP (HTTP 200, token counts, paged
+             launches a multiple of 8) with a 500 ms POST /debug/profile
+             among them, sent once all 8 are in and every live one
+             decodes (blocks with prefill lanes attend through the dense
+             gather; HTTP 200; its Chrome trace must name a
+             paged_*_kernel; MB and events); 4 prompts submitted before
+             the first tick of a scheduler on the loaded tree and of one
+             on the in-memory tree: identical greedy tokens (48 new); a
+             serving snapshot on the loaded tree, taken once each of the
+             4 requests has 4+ tokens and restored into a fresh
+             scheduler: the continuations equal to the uninterrupted run
+             and the first divergence of the others reported (the
+             restore recomputes the partial outputs through the bf16
+             prefill path, which may flip near-tied tokens of random
+             weights), their teacher-forced gap held to LOGITS_TOL; the
+             CLI's `generate --ckpt` (8 fresh flash launches, counts
+             zeroed just before; the text of the same generate on the
+             in-memory tree); the snapshot again in float32 at 4 layers,
+             loaded from the same directory: every continuation equal to
+             the uninterrupted run; save_checkpoint then
+             load_sharded onto the one-card tensor = 2 mesh at 4 layers:
+             every shard equal to shard_params's (seconds, GB/s, bytes
+             allocated). The directories are removed at the end.
+20. tp       tensor and data parallelism on one card (every shard on
              cuda:0, make_mesh(MeshConfig(...), ["cuda:0"] * n)) on the
              shared Llama-3-8B trees: shard_params at tensor = 2 (the
              parts must be views: nothing allocated); tensor = 2 serving
@@ -233,7 +268,7 @@ raises and the script exits non-zero:
              leg at tensor = 2 beside the unsharded one. One card moves
              no byte between shards: reductions over NVLink are not
              measured.
-20. moe      Mixtral-8x7B at full width and depth on int8 weights, once
+21. moe      Mixtral-8x7B at full width and depth on int8 weights, once
              the Llama-3-8B trees are freed (memory_allocated logged at
              each step): the tree drawn by the CLI's loader
              (init_params_quantized on a seed-0 cuda generator; its GB,
@@ -261,7 +296,7 @@ raises and the script exits non-zero:
              expert mesh against a dense engine (equal requests, first
              divergences and the teacher-forced gap reported: bf16
              near-ties may flip).
-21. combined meshes that combine axes, every shard on cuda:0 (no byte
+22. combined meshes that combine axes, every shard on cuda:0 (no byte
              crosses NVLink), in two parts. After the tp phase, on the
              Llama-3-8B tree at full width and depth: all_hosts_probe
              over the visible cards; seq = 2 x tensor = 2 (the placement
@@ -298,9 +333,11 @@ and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1187,6 +1224,35 @@ def phase_parity(torch, engine, label="parity"):
 
 # -- phase 7: where a decode step's time goes --------------------------------
 
+class _Kernel:
+    """One device kernel's totals over a trace: what key_averages() gives
+    for a CUDA row (key, count, self_device_time_total in us)."""
+    __slots__ = ("key", "count", "self_device_time_total")
+
+    def __init__(self, key):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+def _kernels(prof):
+    """The trace's device events grouped by name, read from the raw
+    kineto results with the filters key_averages() applies. key_averages()
+    would first build a Python event, and the CPU-op tree, for every op of
+    the trace: over a minute for one profiled generate_long."""
+    from torch.autograd import DeviceType
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_async() \
+                or e.start_thread_id() != e.end_thread_id() \
+                or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        k = by.get(e.name())
+        if k is None:
+            k = by[e.name()] = _Kernel(e.name())
+        k.count += 1
+        k.self_device_time_total += (e.end_ns() - e.start_ns()) / 1e3
+    return list(by.values())
+
+
 def _decode_step_profile(torch, engine, steps=5, record_shapes=False):
     """Decode steps of the real engine path (mixed_block_async, k=1,
     C=1, every slot decoding at the lengths below) timed on the host
@@ -1230,8 +1296,7 @@ def _decode_step_profile(torch, engine, steps=5, record_shapes=False):
         t0 = time.perf_counter()
         run(steps)
         wall = (time.perf_counter() - t0) / steps * 1e3
-    busy = sum(_dev_us(e) for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / steps / 1e3
+    busy = sum(_dev_us(e) for e in _kernels(prof)) / steps / 1e3
     return step_ms, wall, busy, prof, lengths
 
 
@@ -1246,11 +1311,9 @@ def phase_profile(torch, engine, steps=5):
     top kernels."""
     step_ms, wall, busy, prof, lengths = _decode_step_profile(
         torch, engine, steps)
-    ka = prof.key_averages()
-    top = sorted((e for e in ka if e.device_type.name == "CUDA"),
-                 key=_dev_us, reverse=True)[:8]
-    paged = [e for e in ka if e.device_type.name == "CUDA"
-             and "paged_" in e.key and "kernel" in e.key]
+    ka = _kernels(prof)
+    top = sorted(ka, key=_dev_us, reverse=True)[:8]
+    paged = [e for e in ka if "paged_" in e.key and "kernel" in e.key]
     paged_ms = sum(_dev_us(e) for e in paged) / steps / 1e3
     log("profile", decode_step_ms=f"{step_ms:.3f}",
         traced_step_ms=f"{wall:.3f}", device_busy_ms=f"{busy:.3f}",
@@ -1512,7 +1575,7 @@ def _profile(torch, run, warm_up=True):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ka = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    ka = _kernels(prof)
 
     def dev_ms(e):
         return getattr(e, "self_device_time_total",
@@ -2545,7 +2608,551 @@ def phase_bench(torch, model, params, qparams):
     return counts, dec
 
 
-# -- phase 19: tensor and data parallelism on one card ---------------------------
+# -- phase 19: checkpoints, serving snapshots and profiles -------------------
+
+CKPT_LAYERS = 8       # the checkpoint's depth at full width (time)
+CKPT_FILES = 4        # model-0000k-of-00004.safetensors, 2 layers a file
+SNAP_LAYERS = 4       # the f32 snapshot engine and the sharded load: 4 layers
+SNAP_NEW = 48         # new tokens a snapshot request asks for: the short
+                      # prompts decode while the 1000-token one prefills
+_ST_CODE = {"torch.bfloat16": "BF16", "torch.float32": "F32",
+            "torch.float16": "F16"}
+
+
+def _hf_llama_tensors(params, cfg):
+    """[(HF name, thunk)] of a Llama tree in LlamaForCausalLM's names and
+    [out, in] layouts: the inverse of models/llama.py's converter, written
+    here so the loader is held against an independent map. Each thunk
+    gives a view on the card; file k holds an equal run of layers."""
+    D, Nq, Kv, H = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    lay = params["layers"]
+    files = [[] for _ in range(CKPT_FILES)]
+    per = -(-cfg.num_layers // CKPT_FILES)
+    files[0].append(("model.embed_tokens.weight",
+                     lambda: params["embed"]["tok"]))
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        a, m = lay["attn"], lay["mlp"]
+        files[i // per] += [
+            (p + "input_layernorm.weight", lambda i=i: lay["ln1"]["scale"][i]),
+            (p + "post_attention_layernorm.weight",
+             lambda i=i: lay["ln2"]["scale"][i]),
+            (p + "self_attn.q_proj.weight",
+             lambda i=i: a["wq"][i].reshape(D, Nq * H).T),
+            (p + "self_attn.k_proj.weight",
+             lambda i=i: a["wk"][i].reshape(D, Kv * H).T),
+            (p + "self_attn.v_proj.weight",
+             lambda i=i: a["wv"][i].reshape(D, Kv * H).T),
+            (p + "self_attn.o_proj.weight",
+             lambda i=i: a["wo"][i].reshape(Nq * H, D).T),
+            (p + "mlp.gate_proj.weight", lambda i=i: m["w_gate"][i].T),
+            (p + "mlp.up_proj.weight", lambda i=i: m["w_up"][i].T),
+            (p + "mlp.down_proj.weight", lambda i=i: m["w_down"][i].T)]
+    files[-1] += [("model.norm.weight", lambda: params["final_norm"]["scale"]),
+                  ("lm_head.weight", lambda: params["lm_head"].T)]
+    return files
+
+
+def _write_safetensors(torch, path, named, staging):
+    """A safetensors file of [(name, thunk)] (8-byte header length, JSON
+    header, raw little-endian bytes), each tensor copied through the
+    pinned host buffer `staging` (uint8, as large as the largest one)."""
+    import struct
+    header, off = {}, 0
+    for name, thunk in named:
+        t = thunk()
+        code = _ST_CODE[str(t.dtype)]
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": code, "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name, thunk in named:
+            raw = thunk().contiguous().reshape(-1).view(torch.uint8)
+            host = staging[:raw.numel()]
+            host.copy_(raw)
+            f.write(host.numpy())
+    return off + 8 + len(blob)
+
+
+def _hf_llama_config(cfg):
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim,
+            "intermediate_size": cfg.intermediate_size,
+            "max_position_embeddings": cfg.max_seq_len,
+            "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+            "tie_word_embeddings": cfg.tie_embeddings,
+            "torch_dtype": cfg.dtype}
+
+
+class _RssPeak:
+    """The process's resident set sampled every 2 ms on a thread (the
+    loader's copies release the interpreter lock): the growth of its
+    peak over the value at entry, in bytes."""
+
+    def __enter__(self):
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(timeout=10)
+        self.peak = max(self.peak, self._rss())
+        self.growth = self.peak - self.start
+
+
+def _measured_loader(torch, stats):
+    """A context in which ckpt.load_checkpoint, as the CLI calls it, is
+    timed and watched: its seconds, the host RSS peak's growth and the
+    card's allocation peak over what was allocated before, in `stats`."""
+    import contextlib
+
+    import butterfly_tpu_torch.ckpt as ckpt
+
+    @contextlib.contextmanager
+    def ctx():
+        real = ckpt.load_checkpoint
+
+        def load(*a, **kw):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            with _RssPeak() as rss:
+                t0 = time.monotonic()
+                tree = real(*a, **kw)
+                torch.cuda.synchronize()
+                stats["load_s"] = time.monotonic() - t0
+            stats["card_peak"] = torch.cuda.max_memory_allocated() - before
+            stats["rss_growth"] = rss.growth
+            return tree
+        ckpt.load_checkpoint = load
+        try:
+            yield
+        finally:
+            ckpt.load_checkpoint = real
+    return ctx()
+
+
+def _trees_equal(torch, got, want, path=""):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for k in want:
+            _trees_equal(torch, got[k], want[k], f"{path}.{k}")
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape, path
+    assert torch.equal(got, want), f"{path}: the loaded leaf differs"
+
+
+def _shards_equal(torch, got, want, path=""):
+    """Same Shards structure (axis, split, parts), devices and values."""
+    from butterfly_tpu_torch.parallel.partition import Shards
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for k in want:
+            _shards_equal(torch, got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, Shards):
+        assert isinstance(got, Shards) and (got.axis, got.split) == \
+            (want.axis, want.split) and len(got.parts) == len(want.parts), \
+            path
+        for a, b in zip(got.parts, want.parts):
+            _shards_equal(torch, a, b, path)
+    else:
+        assert got.device == want.device and got.dtype == want.dtype, path
+        assert torch.equal(got, want), f"{path}: a shard differs"
+
+
+def _greedy_run(engine_args, prompts, new):
+    """Every prompt submitted to a fresh scheduler before its first tick,
+    run to the end: [tokens]."""
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    sched = Scheduler(ServingEngine(*engine_args))
+    reqs = [sched.submit(p, max_new_tokens=new) for p in prompts]
+    sched.run_until_done()
+    assert all(r.state == "finished" for r in reqs)
+    return [list(r.output) for r in reqs], sched
+
+
+def _snapshot_restore(engine_args, prompts, new, path):
+    """Every prompt submitted to a fresh scheduler, a serving snapshot
+    saved to `path` once each request has 4+ tokens, restored into
+    another fresh scheduler and run to the end: (the tokens each request
+    had at the snapshot, each request's whole output, ticks before the
+    snapshot, requests restored)."""
+    from butterfly_tpu_torch.ckpt import sharded
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    live = Scheduler(ServingEngine(*engine_args))
+    reqs = [live.submit(p, max_new_tokens=new) for p in prompts]
+    ticks = 0
+    while not all(len(r.output) >= 4 for r in reqs):   # every one mid-flight
+        live.tick()
+        ticks += 1
+    assert live.has_work and not any(r.done for r in reqs)
+    sharded.save_serving_snapshot(path, live)
+    partial = [list(r.output) for r in reqs]
+    del live, reqs
+    sched = Scheduler(ServingEngine(*engine_args))
+    n_restored = sharded.restore_serving_snapshot(path, sched)
+    restored = {tuple(r.prompt): r for r in sched.waiting}
+    sched.run_until_done()
+    conts = []
+    for p, pre in zip(prompts, partial):
+        rec = restored[tuple(p) + tuple(pre)]
+        assert rec.state == "finished"
+        conts.append(pre + list(rec.output))
+    return partial, conts, ticks, n_restored
+
+
+def _cli_model(cli, model):
+    """A context in which the CLI's resolve_model hands back `model` (the
+    preset cut to the checkpoint's depth)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = cli.resolve_model
+        cli.resolve_model = lambda args: model
+        try:
+            yield
+        finally:
+            cli.resolve_model = saved
+    return ctx()
+
+
+def phase_ckpt(torch, model, params, tok):
+    """Checkpoints on the serve phase's Llama-3-8B tree cut to CKPT_LAYERS
+    layers at full width: written as an HF directory (4 safetensors
+    files, this script's own writer and inverse map), then `serve --model
+    llama3-8b --ckpt` through build_serving with the preset resolved at
+    that depth (its load timed and watched: host RSS, card peak; every
+    leaf equal to the source), 8 requests over HTTP with a 500 ms POST
+    /debug/profile among them (the trace must name the paged kernel),
+    greedy tokens of the loaded and the in-memory trees on 4 prompts, a
+    serving snapshot taken mid-flight and restored on the loaded bf16
+    tree (equal continuations, first divergences, the teacher-forced
+    gap), `generate --ckpt` through the CLI, the snapshot again in f32
+    at 4 layers (exact), and save_checkpoint -> load_sharded onto the one-card tensor = 2 mesh (4 layers) against
+    shard_params. Returns {kernel: launches}."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    from http.server import ThreadingHTTPServer
+
+    from butterfly_tpu_torch.ckpt import config_from_hf_dir, load_checkpoint
+    from butterfly_tpu_torch.ckpt import sharded
+    from butterfly_tpu_torch.core.config import llama3_8b
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.models.common import Model
+    from butterfly_tpu_torch.models.draft import _slice_layers
+    from butterfly_tpu_torch.parallel.partition import shard_params
+    from butterfly_tpu_torch.serve import cli
+    from butterfly_tpu_torch.serve.server import (ServerState, build_serving,
+                                                  make_handler)
+    t_phase = time.monotonic()
+    L = CKPT_LAYERS
+    model = Model(model.cfg.replace(num_layers=L), device="cuda")
+    params = dict(params, layers=_slice_layers(params["layers"], L))
+    cfg = model.cfg
+    root = os.path.join(ROOT, "build", "smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    hf_dir = os.path.join(root, "hf")
+    os.makedirs(hf_dir)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    tree_bytes = _tree_bytes(params)
+    assert free_gb * 1e9 > 1.5 * tree_bytes, \
+        f"{free_gb:.1f} GB free under build/: the checkpoint needs more"
+
+    # 1. the HF directory, written by this script
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    staging = torch.empty(max(params["embed"]["tok"].nbytes,
+                              params["lm_head"].nbytes), dtype=torch.uint8,
+                          pin_memory=True)
+    written = 0
+    for k, named in enumerate(_hf_llama_tensors(params, cfg)):
+        written += _write_safetensors(torch, os.path.join(
+            hf_dir, f"model-{k + 1:05d}-of-{CKPT_FILES:05d}.safetensors"),
+            named, staging)
+    del staging
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump(_hf_llama_config(cfg), f)
+    write_s = time.monotonic() - t0
+    log("ckpt", step="write", files=CKPT_FILES, GB=f"{written / 1e9:.3f}",
+        write_s=f"{write_s:.2f}", GB_per_s=f"{written / 1e9 / write_s:.3f}",
+        disk_free_GB=f"{free_gb:.1f}")
+    hcfg = config_from_hf_dir(hf_dir)
+    assert dataclasses.asdict(hcfg) == dataclasses.asdict(
+        llama3_8b().replace(num_layers=L)), hcfg
+
+    # 2. serve --ckpt: the CLI's loader on cuda:0, timed and watched
+    args = cli.build_parser().parse_args(
+        ["serve", "--model", "llama3-8b", "--ckpt", hf_dir, "--device",
+         "cuda", "--host", "127.0.0.1", "--port", "0"])
+    stats = {}
+    t0 = time.monotonic()
+    with _measured_loader(torch, stats), _cli_model(cli, model):
+        sched, stok, rt = build_serving(args)
+    setup_s = time.monotonic() - t0
+    engine = sched.engine
+    loaded = engine.params
+    _trees_equal(torch, loaded, params)
+    assert stats["card_peak"] < 1.25 * tree_bytes, \
+        f"the load peaked at {stats['card_peak']} bytes on the card"
+    log("ckpt", step="load", device="cuda:0", GB=f"{tree_bytes / 1e9:.3f}",
+        load_s=f"{stats['load_s']:.2f}",
+        GB_per_s=f"{tree_bytes / 1e9 / stats['load_s']:.3f}",
+        host_rss_peak_growth_GB=f"{stats['rss_growth'] / 1e9:.3f}",
+        card_peak_growth_GB=f"{stats['card_peak'] / 1e9:.3f}",
+        card_peak_over_tree=f"{stats['card_peak'] / tree_bytes:.4f}",
+        leaves_equal=True, serve_setup_s=f"{setup_s:.1f}",
+        note="files in the page cache after the write")
+
+    # 3. 8 requests over HTTP, a profile capture among them
+    class Server(ThreadingHTTPServer):
+        request_queue_size = 128
+
+    state = ServerState(sched, stok)
+    state.thread.start()
+    httpd = Server(("127.0.0.1", 0), make_handler(state))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    sizes = [16, 64, 200, 400, 600, 800, 1000, 1200]
+    news = [32, 40, 48, 56, 64, 32, 40, 64]
+    results = [None] * len(sizes)
+    prof = {}
+    logdir = os.path.join(root, "profile")
+
+    def one(i):
+        results[i] = _post(url, {"prompt": _TEXT[:sizes[i]],
+                                 "max_tokens": news[i], "temperature": 0.0,
+                                 "stop_token": -1})
+
+    def decoding_only():
+        # mixed blocks with prefill lanes attend through the dense gather;
+        # the paged kernel runs once all 8 requests are in and every live
+        # one decodes
+        with state.lock:
+            live = sched.unfinished_requests()
+            return (sched._c_requests.value >= submitted + len(sizes)
+                    and bool(live) and all(r.state == "running"
+                                           for r in live))
+
+    def capture():
+        deadline = time.monotonic() + 120
+        while not decoding_only() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        req = urllib.request.Request(
+            url + "/debug/profile", data=json.dumps(
+                {"duration_ms": 500, "logdir": logdir}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            prof["status"], prof["body"] = resp.status, json.loads(resp.read())
+
+    submitted = sched._c_requests.value   # the warm-up's
+    try:
+        _zero_counts()
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(sizes))]
+        threads.append(threading.Thread(target=capture))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        n = _launch_counts()
+    finally:
+        state.stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+        if state.heartbeat is not None:
+            state.heartbeat.stop()
+        state.thread.join(timeout=30)
+    for i, r in enumerate(results):
+        assert r is not None, f"request {i} got no answer"
+        code, body = r
+        assert code == 200, f"request {i}: HTTP {code}"
+        assert len(body["tokens"]) == news[i], f"request {i}"
+    assert n["paged"] > 0 and n["paged"] % L == 0, n
+    assert prof.get("status") == 200, prof
+    trace_path = prof["body"]["trace"]
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    paged_events = [e for e in events
+                    if re.search(r"paged_\w*kernel", str(e.get("name")))]
+    kernels = collections.Counter(
+        str(e.get("name"))[:50] for e in events if e.get("cat") == "kernel")
+    assert paged_events, (
+        f"the profile names no paged_*_kernel: {len(events)} events, "
+        f"{sum(kernels.values())} kernels {kernels.most_common(4)}, "
+        f"categories {collections.Counter(e.get('cat') for e in events)}, "
+        f"{prof['body']}")
+    gen_tokens = sum(len(b["tokens"]) for _, b in results)
+    log("ckpt", step="serve", requests_answered=len(results),
+        generated_tokens=gen_tokens, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{gen_tokens / wall:.2f}",
+        paged_attention_launches=n["paged"],
+        decode_steps=n["paged"] // L, note="smoke run, not a benchmark")
+    log("ckpt", step="profile", http=prof["status"],
+        duration_ms=prof["body"]["duration_ms"],
+        trace_MB=f"{os.path.getsize(trace_path) / 1e6:.2f}",
+        events=len(events), paged_kernel_events=len(paged_events),
+        kernels=",".join(sorted({re.search(r"paged_\w*kernel", str(
+            e["name"])).group(0) for e in paged_events})))
+    counts = dict(n)
+    engine.cache = engine._kv_window = None
+    del sched, state, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the loaded and the in-memory tree: identical greedy tokens
+    t0 = time.monotonic()
+    # short prompts: a mixed block inlines 32 prompt tokens, so a long one
+    # would prefill for dozens of ticks while the others decode
+    prompts = [tok.encode(_TEXT[:k]) for k in (16, 64, 128, 256)]
+    got, _ = _greedy_run((model, loaded, rt), prompts, SNAP_NEW)
+    want, _ = _greedy_run((model, params, rt), prompts, SNAP_NEW)
+    assert got == want, "the loaded tree's greedy tokens differ"
+    log("ckpt", step="parity", prompts=len(prompts), new_tokens=SNAP_NEW,
+        identical_requests=sum(a == b for a, b in zip(got, want)),
+        s=f"{time.monotonic() - t0:.1f}")
+
+    # 5. a serving snapshot mid-flight on the loaded bf16 tree, restored
+    # into a fresh scheduler: the restore recomputes each partial output
+    # through the prefill path, whose bf16 rounding may flip near-tied
+    # tokens of random weights, so equal continuations and first
+    # divergences are reported and the teacher-forced gap is held to
+    # LOGITS_TOL (as the tp phase does)
+    t0 = time.monotonic()
+    snap = os.path.join(root, "snapshot_bf16.json")
+    partial, conts, ticks, n_restored = _snapshot_restore(
+        (model, loaded, rt), prompts, SNAP_NEW, snap)
+    equal, first, gaps = 0, [], []
+    for p, c, ref in zip(prompts, conts, got):
+        if c == ref:
+            equal += 1
+        else:
+            first.append(_divergence(c, ref))
+            gaps.append(_teacher_forced_gap(torch, loaded, cfg, p, c))
+    log("ckpt", step="snapshot", layers=L, dtype=cfg.dtype,
+        ticks_before=ticks, restored=n_restored,
+        partial_tokens=",".join(str(len(p)) for p in partial),
+        continuations_equal=f"{equal}/{len(prompts)}",
+        first_divergence=",".join(map(str, first)) or "none",
+        teacher_forced_gap=f"{max(gaps):.4g}" if gaps else "none",
+        gap_bound=LOGITS_TOL, s=f"{time.monotonic() - t0:.1f}")
+    if gaps:
+        assert max(gaps) <= LOGITS_TOL, f"teacher-forced gap {max(gaps)}"
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. generate --ckpt through the CLI
+    t0 = time.monotonic()
+    out, err = io.StringIO(), io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+            _cli_model(cli, model):
+        rc = cli.main(["generate", "--model", "llama3-8b", "--device", "cuda",
+                       "--ckpt", hf_dir, "--prompt", _TEXT[:300],
+                       "--max-new", "16"])
+    n = _launch_counts()
+    assert rc == 0, f"generate --ckpt rc {rc}: {err.getvalue()}"
+    assert n["fresh"] == L, f"{n['fresh']} fresh flash launches for one prefill"
+    for k in counts:
+        counts[k] += n[k]
+    ref = InferenceEngine(model, params).generate(
+        [tok.encode(_TEXT[:300])],
+        SamplingParams(max_new_tokens=16, stop_token=tok.eos_id))
+    m = int(ref.lengths[0])
+    assert out.getvalue().rstrip("\n") == tok.decode(
+        ref.tokens[0, :m].tolist()), "generate --ckpt text differs"
+    log("ckpt", step="generate", rc=rc, fresh_launches=n["fresh"],
+        text_equal=True, stderr=err.getvalue().strip().replace(" ", "_"),
+        s=f"{time.monotonic() - t0:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. the snapshot again in float32 at SNAP_LAYERS layers, loaded from
+    # the same directory: rounding cannot decide a token there, so the
+    # continuation must equal the uninterrupted run exactly
+    t0 = time.monotonic()
+    cfg_s = cfg.replace(num_layers=SNAP_LAYERS, dtype="float32")
+    model_s = Model(cfg_s, device="cuda")
+    p_s = load_checkpoint(hf_dir, cfg_s, "cuda:0")
+    full, _ = _greedy_run((model_s, p_s, rt), prompts, SNAP_NEW)
+    partial, conts, ticks, n_restored = _snapshot_restore(
+        (model_s, p_s, rt), prompts, SNAP_NEW,
+        os.path.join(root, "snapshot_f32.json"))
+    assert conts == full, "the restored run diverges"
+    log("ckpt", step="snapshot", layers=SNAP_LAYERS, dtype="float32",
+        ticks_before=ticks, restored=n_restored,
+        partial_tokens=",".join(str(len(p)) for p in partial),
+        continuation_equal=True, s=f"{time.monotonic() - t0:.1f}")
+    del p_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. save_checkpoint -> load_sharded onto tensor = 2 on one card
+    cfg4 = cfg.replace(num_layers=SNAP_LAYERS)
+    p4 = dict(params, layers=_slice_layers(params["layers"], SNAP_LAYERS))
+    own = os.path.join(root, "own")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    sharded.save_checkpoint(own, p4, cfg4, step=3)
+    save_s = time.monotonic() - t0
+    assert sharded.load_config(own) == (cfg4, 3)
+    mesh = _one_card_mesh(tensor=2)
+    want4 = shard_params(p4, cfg4, mesh)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    got4 = sharded.load_sharded(own, cfg4, mesh)
+    torch.cuda.synchronize()
+    load4_s = time.monotonic() - t0
+    grown = torch.cuda.memory_allocated() - before
+    _shards_equal(torch, got4, want4)
+    b4 = _tree_bytes(p4)
+    log("ckpt", step="sharded", mesh="tensor2_one_card", layers=SNAP_LAYERS,
+        GB=f"{b4 / 1e9:.3f}", save_s=f"{save_s:.2f}",
+        save_GB_per_s=f"{b4 / 1e9 / save_s:.3f}", load_s=f"{load4_s:.2f}",
+        load_GB_per_s=f"{b4 / 1e9 / load4_s:.3f}",
+        allocated_GB=f"{grown / 1e9:.3f}", shards_equal=True)
+    del got4, want4
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("ckpt", phase_s=f"{time.monotonic() - t_phase:.1f}")
+    return counts
+
+
+# -- phase 20: tensor and data parallelism on one card ---------------------------
 
 TP_DP_LAYERS = 4     # the tensor = 4 x data = 2 serving run: 4 layers
 TP_NEW = 32          # new tokens of the tensor-parallel requests
@@ -2840,9 +3447,7 @@ def phase_tp(torch, model, params, qparams, tok, serve_tokens, decode_ref):
                       ("unsharded", ServingEngine(model, params, rt))):
         step_ms, wall_ms, busy, prof, _ = _decode_step_profile(
             torch, eng, steps=5, record_shapes=True)
-        ka = prof.key_averages()
-        top = sorted((e for e in ka if e.device_type.name == "CUDA"),
-                     key=_dev_us, reverse=True)[:6]
+        top = sorted(_kernels(prof), key=_dev_us, reverse=True)[:6]
         n_copy, copy_ms, copy_shapes = _weight_copies(prof, wshapes, 5)
         log("tp", step="profile", engine=name, host_step_ms=f"{step_ms:.3f}",
             traced_step_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy:.3f}",
@@ -2999,7 +3604,7 @@ def phase_tp(torch, model, params, qparams, tok, serve_tokens, decode_ref):
     return counts
 
 
-# -- phase 20: Mixtral-8x7B and expert parallelism ------------------------------
+# -- phase 21: Mixtral-8x7B and expert parallelism ------------------------------
 
 EP_LAYERS_F32 = 2    # the f32 expert-parallel check: full width, 2 layers
 EP_LAYERS_BF16 = 4   # the bf16 expert-mesh serving run: full width, 4 layers
@@ -3130,14 +3735,13 @@ def phase_moe(torch, tok):
         common.moe_block = plain_moe
     # the kernels' time only: the range's device-side annotation spans
     # the gaps between its kernels, so it is left out of both sums
-    ka = prof.key_averages()
-    busy = sum(_dev_us(e) for e in ka if e.device_type.name == "CUDA"
-               and e.key != "moe_block") / 5 / 1e3
+    ka = _kernels(prof)
+    busy = sum(_dev_us(e) for e in ka if e.key != "moe_block") / 5 / 1e3
     moe_ms = sum(e.device_time_total for e in prof.events()
                  if e.name == "moe_block"
                  and e.device_type.name == "CPU") / 5 / 1e3
-    top = sorted((e for e in ka if e.device_type.name == "CUDA"
-                  and e.key != "moe_block"), key=_dev_us, reverse=True)[:6]
+    top = sorted((e for e in ka if e.key != "moe_block"), key=_dev_us,
+                 reverse=True)[:6]
     log("moe", step="profile", card=card, host_wall_ms=f"{step_ms:.3f}",
         traced_wall_ms=f"{wall_ms:.3f}",
         device_busy_ms=f"{busy:.3f}" if busy else "not measured",
@@ -3348,7 +3952,7 @@ def phase_moe(torch, tok):
 
 
 
-# -- phase 21: meshes that combine axes -------------------------------------
+# -- phase 22: meshes that combine axes -------------------------------------
 
 COMBINED_NEW = 16          # new tokens of the seq x tensor generate_long
 COMBINED_SERVE = (1, 2, 3, 4)   # longserve's runs redone at seq x data:
@@ -3798,6 +4402,15 @@ def main() -> int:
     from butterfly_tpu_torch.ops import build
     from butterfly_tpu_torch.ops.paged_attention import paged_attention
 
+    t_start = time.monotonic()
+
+    def clock(after):
+        # seconds since the start after each group of phases (where the
+        # time limit goes) and the threads still alive (a phase that
+        # leaves one running slows every host-bound phase after it)
+        log("clock", after=after, t_s=f"{time.monotonic() - t_start:.1f}",
+            threads=threading.active_count())
+
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3824,12 +4437,15 @@ def main() -> int:
             print(f"[build] {k}: {kern}: {regs} registers, spill {spill}, "
                   f"static smem {smem} bytes", flush=True)
 
+    clock("build")
     kres = phase_kernel(torch, name)
     fres = phase_flash_kernel(torch, name)
     rres = phase_ring(torch, name)
+    clock("kernels")
     engine, serve_launches, tok, serve_tokens = phase_serve(torch)
     phase_parity(torch, engine)
     phase_profile(torch, engine)
+    clock("serve,parity,profile")
     model, params = engine.model, engine.params
     # the serve engine's pool and window go; its weights stay shared
     engine.cache = engine._kv_window = None
@@ -3841,24 +4457,36 @@ def main() -> int:
     alt_engine.cache = alt_engine._kv_window = None
     del alt_engine
     torch.cuda.empty_cache()
+    clock("generate,alternate,flashpar")
     long_ring, seq_last = phase_longgen(torch, model, params, tok)
     phase_ring_parity(torch, model, params, tok)
     serve_ring, long_paged, long_runs = phase_longserve(torch, model,
                                                         params, tok)
     long_ring += serve_ring
+    clock("longgen,ringpar,longserve")
     qparams, quant = phase_quant(torch, model, params, tok)
+    clock("quant")
     spec = phase_spec(torch, model, params, tok)
+    clock("spec")
     fleet = phase_fleet(torch, model, params)
+    clock("fleet")
     bench, decode_leg = phase_bench(torch, model, params, qparams)
+    clock("bench")
+    ck = phase_ckpt(torch, model, params, tok)
+    clock("ckpt")
     tp = phase_tp(torch, model, params, qparams, tok, serve_tokens,
                   decode_leg)
+    clock("tp")
     comb = phase_combined(torch, model, params, tok, seq_last, long_runs)
+    clock("combined")
     # the Llama-3-8B trees go before Mixtral's int8 tree is drawn
     del qparams, params, model
     gc.collect()
     torch.cuda.empty_cache()
     moe, moe_state = phase_moe(torch, tok)
+    clock("moe")
     comb_moe = phase_combined_moe(torch, tok, moe_state)
+    clock("combined_moe")
     del moe_state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3882,16 +4510,17 @@ def main() -> int:
               "butterfly_tpu/ops/paged_attention.py:65",
               serve_launches + alt["paged"] + long_paged + quant["paged"]
               + spec["paged"] + fleet["paged"] + bench["paged"]
-              + tp["paged"] + moe["paged"] + comb["paged"]
+              + ck["paged"] + tp["paged"] + moe["paged"] + comb["paged"]
               + comb_moe["paged"], kres, "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
               gen_fresh + alt["fresh"] + quant["fresh"] + spec["fresh"]
-              + bench["fresh"] + tp["fresh"] + moe["fresh"]
+              + bench["fresh"] + ck["fresh"] + tp["fresh"] + moe["fresh"]
               + comb_moe["fresh"], fresh_cases, "fresh_bf16"),
         entry("flash_attention_warm", flash_src,
               "butterfly_tpu/ops/flash_attention.py:97",
-              alt["warm"] + spec["warm"] + bench["warm"] + tp["warm"],
+              alt["warm"] + spec["warm"] + bench["warm"] + ck["warm"]
+              + tp["warm"],
               warm_cases,
               "warm_bf16"),
         entry("ring_attention",

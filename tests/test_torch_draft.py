@@ -8,7 +8,8 @@ draft rollback invariant draft_len == hist_len - 1, and greedy tokens
 token for token against the JAX scheduler for model drafts and width-2
 trees with the window on and off (int8 weights: tests/test_torch_quant.py),
 and against plain greedy decode with int8 KV and other tree shapes. An
-independent draft checkpoint is refused, naming its ROADMAP.md item.
+independent draft checkpoint in another vocabulary is refused with the
+JAX loader's message.
 """
 import jax
 import numpy as np
@@ -117,10 +118,23 @@ def test_derivation_depth_matches_jax():
             TD.resolve_draft_layers(TCFG, bad)
 
 
-def test_draft_ckpt_refused_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*Checkpoints"):
+def test_draft_ckpt_refused_naming_the_roadmap_item(tmp_path):
+    """An independent draft checkpoint is loaded now: one whose vocabulary
+    is not the target's is refused when the engine builds, with the JAX
+    loader's message."""
+    import json
+
+    from butterfly_tpu.ckpt.load import load_draft_checkpoint
+    (tmp_path / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": 100, "hidden_size": 16,
+        "num_hidden_layers": 1, "num_attention_heads": 2,
+        "intermediate_size": 32}))
+    with pytest.raises(ValueError) as want:
+        load_draft_checkpoint(str(tmp_path), CFG)
+    with pytest.raises(ValueError, match="vocab 100 != target vocab") as got:
         port_sched(speculative_gamma=2, draft_model="model",
-                   draft_ckpt="/nonexistent/draft")
+                   draft_ckpt=str(tmp_path))
+    assert str(got.value) == str(want.value)
 
 
 def test_unknown_draft_source_fails_at_build():

@@ -3,10 +3,12 @@
 /generate (blocking and SSE), /v1/completions, /health and /metrics
 answer as in the JAX package; greedy /generate text on the bridged JAX
 weights equals ByteTokenizer.decode of the JAX Scheduler's greedy tokens;
-/kv/* answer 501 without prefix caching and /debug/profile until its
-slice; `serve`'s startup machinery builds on the CPU (with --speculate
-and --quant int8 too, the per-request "speculative" field answering) and
-refuses unported flags; `generate --quant int8 --speculate 4` runs."""
+/kv/* answer 501 without prefix caching and /debug/profile answers with
+a torch.profiler trace; `serve`'s startup machinery builds on the CPU
+(with --speculate and --quant int8 too, the per-request "speculative"
+field answering), refuses the unported --stage-parallel and reports a
+missing --ckpt / --draft-ckpt directory; `generate --quant int8
+--speculate 4` runs."""
 import contextlib
 import json
 import threading
@@ -138,13 +140,20 @@ def test_unported_endpoints_answer_501(server, method, path):
         if method == "POST" else None
     req = urllib.request.Request(server + path, data=data, method=method,
                                  headers={"Content-Type": "application/json"})
+    if path == "/debug/profile":
+        # profiling is ported: a capture of the live loop, as a trace
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            assert resp.status == 200
+            body = json.loads(resp.read())
+        assert body["trace"].endswith(".json") and body["files"]
+        with open(body["trace"]) as f:
+            assert json.load(f)["traceEvents"]
+        return
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(req, timeout=60)
     assert e.value.code == 501
     # this server runs without prefix caching, which KV transfer needs
-    want = "requires prefix caching" if path.startswith("/kv") \
-        else "not ported"
-    assert want in e.value.read().decode()
+    assert "requires prefix caching" in e.value.read().decode()
 
 
 def test_serve_machinery_builds_on_cpu():
@@ -157,12 +166,20 @@ def test_serve_machinery_builds_on_cpu():
     assert sched.engine.device.type == "cpu"
     assert rt.mixed_dispatch and rt.kv_write_combine
     assert sched.metrics()["tokens_generated_total"] > 0  # the warm-up ran
-    for flag in (["--stage-parallel", "2"], ["--ckpt", "x"],
+    args = build_parser().parse_args(
+        ["serve", "--model", "tiny", "--device", "cpu", "--stage-parallel",
+         "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_serving(args)
+    # checkpoints are ported: a missing directory is named, as the
+    # reference's loader names it
+    for flag in (["--ckpt", "x"],
                  ["--speculate", "2", "--draft-source", "model",
                   "--draft-ckpt", "x"]):
         args = build_parser().parse_args(
             ["serve", "--model", "tiny", "--device", "cpu"] + flag)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(FileNotFoundError,
+                           match="checkpoint dir not found: x"):
             build_serving(args)
 
 
