@@ -42,18 +42,23 @@ import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
-from butterfly_tpu_torch.core.mesh import data_degree, tensor_degree
+from butterfly_tpu_torch.core.mesh import (active_mesh, data_degree,
+                                           stage_degree, tensor_degree)
 from butterfly_tpu_torch.models.common import (
     _cast_layer, _dequant_mirror, _take_rows, attend, attn_output,
     embed_tokens, ffn_block, final_logits, layer_params, make_mask, pre_norm,
     qkv_proj, quantize_kv, torch_dtype)
 from butterfly_tpu_torch.ops.flash_attention import flash_attention_sharded
 from butterfly_tpu_torch.ops.paged_attention import paged_attention_sharded
-from butterfly_tpu_torch.parallel.partition import (Shards, axis_parts,
-                                                    same_device)
+from butterfly_tpu_torch.parallel.partition import (
+    Shards, axis_parts, layers_per_stage, same_device, stack_stages)
 from butterfly_tpu_torch.parallel.tensor import (
     cat_groups, data_groups, group_part, group_rows, over_heads, run_groups,
     tmap)
+
+
+#: the pool tensors of a PagedKVCache (the scale pools None unless int8)
+_POOLS = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
 
 
 class PagedKVCache(NamedTuple):
@@ -97,7 +102,18 @@ def init_paged_cache(cfg: ModelConfig, runtime: RuntimeConfig,
     as parallel/partition.py:shard_paged_cache places them, allocated per
     shard: one contiguous pool per tensor shard (kv heads Kv/t when the
     tensor axis divides Kv), one replica per data group on its own
-    devices (shared where the groups share them)."""
+    devices (shared where the groups share them). Under a stage mesh
+    each stage's pools hold its [L/S, ...] layers over its own mesh (a
+    Shards over "stage"); the block table and lengths sit on the mesh's
+    first device."""
+    if stage_degree(mesh) > 1:
+        Ls = layers_per_stage(cfg, mesh)
+        per = [init_paged_cache(cfg.replace(num_layers=Ls), runtime, dtype,
+                                sub.first_device, sub)
+               for sub in map(mesh.stage_mesh, range(stage_degree(mesh)))]
+        return per[0]._replace(**{n: stack_stages([getattr(c, n)
+                                                   for c in per])
+                                  for n in _POOLS})
     if tensor_degree(mesh) > 1 or data_degree(mesh) > 1:
         return _init_paged_sharded(cfg, runtime, dtype, mesh)
     dev = resolve_device(device)
@@ -645,7 +661,19 @@ def paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
     forces the dense path; K/V still land at start + chunk index while
     RoPE follows `positions`. Returns (logits [B,T,V] f32, cache with
     advanced lengths). Data groups run their rows against their replica
-    of the pool; each group's writes are copied into the other replicas."""
+    of the pool; each group's writes are copied into the other replicas.
+    With a stage mesh active the forward is the GPipe pipeline's
+    (parallel/pipeline.py:paged_pipeline_forward; no attn_mask)."""
+    mesh = active_mesh()
+    if stage_degree(mesh) > 1:
+        if attn_mask is not None:
+            raise ValueError("the tree verify's attn_mask has no slot in "
+                             "the stage pipeline (stage > 1)")
+        from butterfly_tpu_torch.parallel.pipeline import (
+            paged_pipeline_forward)
+        return paged_pipeline_forward(params, cfg, tokens, cache, positions,
+                                      active, use_kernel, fresh, last_index,
+                                      mesh=mesh)
     B, T = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -712,21 +740,69 @@ def _paged_forward(params, cfg: ModelConfig, tokens, cache: PagedKVCache,
     mask = attn_mask if attn_mask is not None \
         else make_mask(positions, cache.max_seq)
     mask = mask & active[:, None, None]
-    for i in range(cfg.num_layers):
-        out = paged_layer_body(
-            x, layer_params(params, i), cache.k_pages[i], cache.v_pages[i],
-            cfg=cfg, page_table=cache.page_table, positions=positions,
-            mask=mask, cos=cos, sin=sin, active=active,
-            use_kernel=use_kernel, fresh=fresh,
-            ksp=cache.k_scale_pages[i] if quant else None,
-            vsp=cache.v_scale_pages[i] if quant else None,
-            force_dense=attn_mask is not None)
-        x = out[0]
+    x = paged_layers(params["layers"], cfg, x, cache, positions, mask, cos,
+                     sin, active, use_kernel, fresh,
+                     force_dense=attn_mask is not None)
     if last_index is not None:
         x = _take_rows(x, last_index)
     logits = final_logits(params, cfg, x)
     new_len = torch.where(active, cache.lengths + T, cache.lengths)
     return logits, cache._replace(lengths=new_len.to(torch.int32))
+
+
+def paged_layers(layers, cfg: ModelConfig, x, cache: PagedKVCache,
+                 positions, mask, cos, sin, active, use_kernel: bool,
+                 fresh: bool = False, force_dense: bool = False):
+    """paged_layer_body over every layer of the stacked `layers` against
+    the pools' layers alike (both lead with the same n: the whole stack,
+    or one pipeline stage's slice of it), window off. Returns x."""
+    quant = cache.quantized
+    for i in range(cache.k_pages.shape[0]):
+        x = paged_layer_body(
+            x, layer_params({"layers": layers}, i), cache.k_pages[i],
+            cache.v_pages[i], cfg=cfg, page_table=cache.page_table,
+            positions=positions, mask=mask, cos=cos, sin=sin, active=active,
+            use_kernel=use_kernel, fresh=fresh,
+            ksp=cache.k_scale_pages[i] if quant else None,
+            vsp=cache.v_scale_pages[i] if quant else None,
+            force_dense=force_dense)[0]
+    return x
+
+
+def paged_stage_layers(layers, cfg: ModelConfig, x, cache: PagedKVCache,
+                       positions, mask, cos, sin, active, use_kernel: bool,
+                       fresh: bool, mesh):
+    """`paged_layers` for one pipeline stage over its own `mesh`
+    (core/mesh.py:Mesh.stage_mesh): data groups run their rows of x
+    against their replica of the stage's pools and weights, each group's
+    writes copied into the other replicas, as paged_forward does for the
+    whole stack. Returns x on the mesh's first device."""
+    B, T = x.shape[:2]
+    groups = data_groups(B, mesh)
+    if groups is None:
+        dev = mesh.first_device
+        return paged_layers(layers, cfg, x.to(dev, non_blocking=True),
+                            cache, positions.to(dev, non_blocking=True),
+                            mask.to(dev, non_blocking=True),
+                            cos.to(dev, non_blocking=True),
+                            sin.to(dev, non_blocking=True),
+                            active.to(dev, non_blocking=True), use_kernel,
+                            fresh)
+    reps = pool_replicas(cache)
+
+    def group(g):
+        r = g.index if len(reps) > 1 else 0
+        table = group_rows(cache.page_table, g)
+        pos_g, act_g = group_rows(positions, g), group_rows(active, g)
+        y = paged_layers(group_part(layers, g.index), cfg,
+                         group_rows(x, g), reps[r]._replace(
+                             page_table=table), pos_g, group_rows(mask, g),
+                         group_rows(cos, g), group_rows(sin, g), act_g,
+                         use_kernel, fresh)
+        for other in reps[:r] + reps[r + 1:]:
+            _copy_written(reps[r], other, table, pos_g[:, 0], T, act_g)
+        return y
+    return cat_groups(run_groups(groups, group, B))
 
 
 def paged_forward_window(params, cfg: ModelConfig, tokens,

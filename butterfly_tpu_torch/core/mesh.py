@@ -14,14 +14,16 @@ run seq=4 on `cpu`, and one card runs seq=2 with both shards on cuda:0.
 Nothing places shards implicitly: with no list, the mesh takes the
 visible cards cuda:0..n-1 and their count must match.
 
-The `seq`, `expert`, `tensor` and `data` axes are ported, alone and
-combined as the JAX package combines them: `seq` with `tensor` and/or
-`data`, `expert` with `tensor` and/or `data`, `tensor` with `data`. A
+Every axis is ported, alone and combined as the JAX package combines
+them: `seq` with `tensor` and/or `data`, `expert` with `tensor` and/or
+`data`, `stage` with `tensor` and/or `data`, `tensor` with `data`. A
 shard's devices are found by its coordinates (`along`): the tensor
 shards of seq shard i of data group d are
-`along("tensor", data=d, seq=i)`. A mesh with `stage` larger than 1,
-or one that combines `seq` with `expert`, raises NotImplementedError
-naming its ROADMAP item by title.
+`along("tensor", data=d, seq=i)`. Pipeline stage s runs its layers on
+its own mesh, `stage_mesh(s)`: the devices at stage coordinate s, the
+stage axis of size 1 (parallel/pipeline.py). A mesh that combines `seq`
+with `expert`, or `stage` with `seq` or `expert`, raises
+NotImplementedError naming its ROADMAP item by title.
 
 The engines make their mesh the ACTIVE mesh (`mesh_ctx`, the counterpart
 of the JAX package's ambient mesh, core/compat.py:mesh_ctx) around every
@@ -41,12 +43,12 @@ import torch
 
 from butterfly_tpu_torch.core.config import MESH_AXES, MeshConfig
 
-#: what each unported mesh axis computes, and where it waits (ROADMAP.md,
-#: PyTorch/CUDA port queue, by the item's title)
-_UNPORTED_AXES = {"stage": ("pipeline parallelism", "Pipeline stages")}
-
-#: where a mesh that combines seq and expert waits
+#: where a mesh that combines seq and expert waits (ROADMAP.md, PyTorch/CUDA
+#: port queue, by the item's title)
 _COMBINED_AXES = "Meshes that combine axes (seq x expert)"
+
+#: where a mesh that combines stage with seq or expert waits
+_STAGE_AXES = "Meshes that combine axes (stage x seq, stage x expert)"
 
 
 class Mesh:
@@ -94,6 +96,12 @@ class Mesh:
         return self.along("tensor", data=data_index, seq=seq_index,
                           expert=expert_index)
 
+    def stage_mesh(self, s: int) -> "Mesh":
+        """Pipeline stage s's own mesh: the devices at stage coordinate
+        s, every other axis as it is, the stage axis of size 1."""
+        i = self.axis_names.index("stage")
+        return Mesh(np.take(self.devices, [s], axis=i), self.axis_names)
+
     def data_devices(self) -> List[torch.device]:
         """The first device of each data group, group order: group d
         serves rows [d*B/N, (d+1)*B/N) of every batch and slot dim."""
@@ -109,12 +117,13 @@ class Mesh:
 
 
 def _refuse_unported_axes(cfg: MeshConfig) -> None:
-    for axis, (kind, item) in _UNPORTED_AXES.items():
-        if getattr(cfg, axis) > 1:
-            raise NotImplementedError(
-                f"a mesh with {axis}={getattr(cfg, axis)} ({kind}) is not "
-                f"ported yet (ROADMAP.md, PyTorch/CUDA port queue: {item}); "
-                "the seq, expert, tensor and data axes run")
+    if cfg.stage > 1 and (cfg.seq > 1 or cfg.expert > 1):
+        other = "seq" if cfg.seq > 1 else "expert"
+        raise NotImplementedError(
+            f"a mesh with stage={cfg.stage} and {other}="
+            f"{getattr(cfg, other)} is not ported yet (ROADMAP.md, "
+            f"PyTorch/CUDA port queue: {_STAGE_AXES}); stage runs with "
+            "tensor and data")
     if cfg.seq > 1 and cfg.expert > 1:
         raise NotImplementedError(
             f"a mesh with seq={cfg.seq} and expert={cfg.expert} is not "
@@ -171,8 +180,8 @@ def mesh_for(n_devices: int, tensor: int = 0, stage: int = 1,
 
 
 def require_ported_mesh(mesh: Mesh) -> None:
-    """Raise NotImplementedError for a mesh with a stage axis, or one
-    that combines seq and expert."""
+    """Raise NotImplementedError for a mesh that combines seq and
+    expert, or stage with seq or expert."""
     _refuse_unported_axes(MeshConfig(**{a: mesh.shape.get(a, 1)
                                         for a in MESH_AXES}))
 
@@ -195,6 +204,18 @@ def tensor_degree(mesh: Optional[Mesh]) -> int:
 def data_degree(mesh: Optional[Mesh]) -> int:
     """The mesh's data size (1 without a mesh)."""
     return 1 if mesh is None else mesh.shape.get("data", 1)
+
+
+def stage_degree(mesh: Optional[Mesh]) -> int:
+    """The mesh's stage size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape.get("stage", 1)
+
+
+def stage_devices(mesh: Mesh) -> List[torch.device]:
+    """The first device of each pipeline stage, stage order: where a
+    stage's activations arrive and leave."""
+    return [mesh.stage_mesh(s).first_device
+            for s in range(stage_degree(mesh))]
 
 
 _ACTIVE: contextvars.ContextVar[Optional[Mesh]] = \

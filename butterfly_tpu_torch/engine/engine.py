@@ -21,8 +21,13 @@ and every forward runs with the mesh active, so the expert-parallel FFN
 tensor or data axis the weights and the contiguous cache are split
 (heads, F and vocab over `tensor`, batch rows over `data`;
 models/common.py runs the layers per shard), and `generate` pads the
-batch to a multiple of the data size. Every program that is not sharded
-runs on the mesh's first device.
+batch to a multiple of the data size. Under a stage mesh every prefill
+and decode step is the GPipe pipeline's (parallel/pipeline.py:
+pipeline_forward, `num_microbatches` microbatches, `virtual_stages`
+chunks a stage: the interleaved schedule, its layer stack placed once
+in interleaved order as views) and the fused loop decodes one token a
+step (no write-combined window), as in the JAX engine. Every program
+that is not sharded runs on the mesh's first device.
 
 `generate_speculative` is prompt-lookup speculative decoding on one
 sequence: n-gram drafts verified in one (gamma+1)-token forward, accepted
@@ -47,13 +52,16 @@ from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
 from butterfly_tpu_torch.core.mesh import (
     data_degree, expert_degree, require_ported_mesh, seq_degree,
-    tensor_degree, under_mesh)
+    stage_degree, tensor_degree, under_mesh)
 from butterfly_tpu_torch.engine.sampling import (
     SamplingParams, sample, speculative_accept)
 from butterfly_tpu_torch.models.common import (
     KVCache, Model, decode_step_win, flush_window, forward, init_cache,
     torch_dtype)
-from butterfly_tpu_torch.parallel.partition import Shards, shard_params
+from butterfly_tpu_torch.parallel.partition import (Shards, shard_params,
+                                                    stage_count)
+from butterfly_tpu_torch.parallel.pipeline import (pipeline_forward,
+                                                   stage_layer_views)
 from butterfly_tpu_torch.parallel.sequence import (
     replicate_params, sp_decode_step, sp_forward)
 
@@ -130,13 +138,22 @@ def to_device(params, device: torch.device):
     return params.to(device)
 
 
-def place_params(params, cfg: ModelConfig, device: torch.device, mesh):
+def place_params(params, cfg: ModelConfig, device: torch.device, mesh,
+                 virtual_stages: int = 1):
     """The engine's weight tree: cast to the compute dtype on `device`
-    and, under an expert, tensor or data mesh, placed over it
+    and, under an expert, tensor, data or stage mesh, placed over it
     (parallel/partition.py:shard_params; views where a shard shares the
-    device: one card holds one tree)."""
+    device: one card holds one tree). With virtual_stages V > 1 on a
+    stage mesh the layer stack is placed once in interleaved order, S*V
+    chunks, views of the stack (parallel/pipeline.py:
+    stage_layer_views)."""
     params = to_device(cast_params(params, cfg), device)
-    if max(expert_degree(mesh), tensor_degree(mesh), data_degree(mesh)) > 1:
+    if virtual_stages > 1 and stage_count(params["layers"]) \
+            != stage_degree(mesh) * virtual_stages:
+        params = dict(params, layers=stage_layer_views(
+            params["layers"], cfg, mesh, virtual_stages))
+    if max(expert_degree(mesh), tensor_degree(mesh), data_degree(mesh),
+           stage_degree(mesh)) > 1:
         params = shard_params(params, cfg, mesh)
     return params
 
@@ -156,22 +173,33 @@ class InferenceEngine:
     device, CUDA unless the caller asks for the CPU), or over a `mesh`
     (core/mesh.py): a seq mesh places the weights on every seq shard for
     `generate_long`; an expert mesh splits the expert leaves; a tensor or
-    data axis splits the weights and the cache; the axes combine as
-    core/mesh.py allows."""
+    data axis splits the weights and the cache; a stage axis splits the
+    layer stack and the cache over the stages and runs every step through
+    the pipeline (`num_microbatches`, None = the JAX default;
+    `virtual_stages` > 1 the interleaved schedule, reset to 1 without a
+    stage axis); the axes combine as core/mesh.py allows."""
 
     def __init__(self, model: Model, params,
                  runtime: Optional[RuntimeConfig] = None, mesh=None,
-                 use_flash_prefill: Optional[bool] = None, device=None):
+                 use_flash_prefill: Optional[bool] = None, device=None,
+                 num_microbatches: Optional[int] = None,
+                 virtual_stages: int = 1):
         self.model = model
         self.cfg = model.cfg
         self.runtime = runtime or RuntimeConfig()
         self.mesh = mesh
         self.device = mesh_device(mesh, device, model)
+        S = stage_degree(mesh)
+        if S <= 1:
+            virtual_stages = 1    # no stage axis: the schedule knob is moot
+        self._num_microbatches = num_microbatches
+        self._virtual_stages = virtual_stages
         # (B, max_seq) -> reusable cache buffers from the previous call;
         # bounded (FIFO) so varying shapes can't pin unbounded memory
         self._cache_pool: "OrderedDict" = OrderedDict()
         self._cache_pool_cap = 2
-        self.params = place_params(params, self.cfg, self.device, mesh)
+        self.params = place_params(params, self.cfg, self.device, mesh,
+                                   virtual_stages)
         self._replicas = seq_replicas(self.params, mesh)
         if use_flash_prefill is None:
             # the hand-written kernels need the card; the CPU runs their
@@ -184,7 +212,21 @@ class InferenceEngine:
         window = self.runtime.decode_window
         if window == 0:  # auto (config.py rationale)
             window = 16 if self.runtime.kv_quant == "int8" else 1
-        self._decode_window = max(1, window)
+        # the pipeline writes its cache per step (no window under stage)
+        self._decode_window = max(1, window) if S <= 1 else 1
+
+    def _fwd(self, params, cfg: ModelConfig, tokens, cache: KVCache,
+             positions=None, fresh: bool = False, last_index=None):
+        """The engine's forward: models.common.forward, or under a stage
+        mesh the pipeline's."""
+        if stage_degree(self.mesh) > 1:
+            return pipeline_forward(params, cfg, tokens, cache, self.mesh,
+                                    self._num_microbatches, positions,
+                                    fresh=fresh,
+                                    virtual_stages=self._virtual_stages,
+                                    last_index=last_index)
+        return forward(params, cfg, tokens, cache, positions, fresh=fresh,
+                       last_index=last_index)
 
     # -- public API ---------------------------------------------------------
 
@@ -202,14 +244,14 @@ class InferenceEngine:
         """tokens [B,Tpad] right-padded; returns (last-token logits [B,V],
         cache)."""
         return _prefill_step(self._prefill_cfg, self.params, tokens, cache,
-                             true_lens)
+                             true_lens, self._fwd)
 
     @under_mesh
     def decode(self, token: torch.Tensor, cache: KVCache,
                generator: Optional[torch.Generator], sp: SamplingParams
                ) -> Tuple[torch.Tensor, KVCache, torch.Generator]:
         return _decode_step(self.cfg, self.params, token, cache, generator,
-                            sp)
+                            sp, self._fwd)
 
     @under_mesh
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -264,7 +306,7 @@ class InferenceEngine:
             else:
                 out, lens, cache = _generate_fused(
                     self.cfg, self.params, first, cache, gen, sp,
-                    sp.max_new_tokens)
+                    sp.max_new_tokens, self._fwd)
             both = torch.cat([out.to(torch.int32),
                               lens.to(torch.int32)[:, None]], dim=1).cpu()
             out, lens = both[:, :-1].numpy(), both[:, -1].numpy()
@@ -449,7 +491,7 @@ class InferenceEngine:
         """The (gamma+1)-token warm verify (the JAX _verify_program):
         per-position greedy next tokens [B, gamma+1], or the raw logits
         [B, gamma+1, V] when `logits` (the stochastic path)."""
-        out, cache = forward(self.params, self.cfg, toks, cache, positions)
+        out, cache = self._fwd(self.params, self.cfg, toks, cache, positions)
         if not logits:
             out = torch.argmax(out, dim=-1).to(torch.int32)
         return out, cache
@@ -460,19 +502,19 @@ class InferenceEngine:
 # ---------------------------------------------------------------------------
 
 def _prefill_step(cfg: ModelConfig, params, tokens, cache: KVCache,
-                  true_lens):
+                  true_lens, fwd=forward):
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     # last real token's logits only (forward last_index docs)
-    logits, cache = forward(params, cfg, tokens, cache, positions,
-                            fresh=True, last_index=true_lens - 1)
+    logits, cache = fwd(params, cfg, tokens, cache, positions, fresh=True,
+                        last_index=true_lens - 1)
     cache = cache._replace(length=true_lens.to(torch.int32))
     return logits[:, 0, :], cache
 
 
 def _decode_step(cfg: ModelConfig, params, token, cache: KVCache, generator,
-                 sp: SamplingParams):
-    logits, cache = forward(params, cfg, token[:, None], cache)
+                 sp: SamplingParams, fwd=forward):
+    logits, cache = fwd(params, cfg, token[:, None], cache)
     nxt = sample(logits[:, -1, :], generator, sp)
     return nxt, cache, generator
 
@@ -484,14 +526,15 @@ def _done0(first, sp: SamplingParams):
 
 
 def _generate_fused(cfg: ModelConfig, params, first, cache: KVCache,
-                    generator, sp: SamplingParams, max_new: int):
+                    generator, sp: SamplingParams, max_new: int,
+                    fwd=forward):
     """Every decode step launched back to back, no host sync: rows that
     hit the stop token keep stepping but their outputs freeze (done mask
     on the device). Returns (out [B, max_new], lens [B], cache)."""
     cur, done = first, _done0(first, sp)
     toks = [first]
     for _ in range(max_new - 1):
-        logits, cache = forward(params, cfg, cur[:, None], cache)
+        logits, cache = fwd(params, cfg, cur[:, None], cache)
         nxt = sample(logits[:, -1, :], generator, sp)
         nxt = torch.where(done, cur, nxt)
         if sp.stop_token >= 0:

@@ -33,8 +33,15 @@ split over `data` groups and the pool is replicated over them (shared on
 one device); every path runs each shard's kernels on its heads and each
 group's on its slots (cache/paged.py), while the block table stays on
 the host. Pages read back (`read_pages`, the host KV tier, /kv/pages)
-come out in the unsharded layout, so any two engines exchange KV. Every
-other program lives on the mesh's first device.
+come out in the unsharded layout, so any two engines exchange KV. Under
+a stage axis each stage holds its layers' weights and its slice of the
+pools, and every program (decode, decode blocks, mixed and linear spec
+blocks, prefills) runs the GPipe schedule over microbatches of slots
+(cache/paged.py:paged_forward hands it to parallel/pipeline.py:
+paged_pipeline_forward while the stage mesh is active); as in the JAX
+engine the write-combined window is off there, the seq lane does not
+run and tree speculation raises. Every other program lives on the
+mesh's first device.
 
 Decode steps (C == 1) attend through the hand-written paged-attention
 kernel on CUDA (`use_kernels`, on by default there). With kernels on, the
@@ -64,7 +71,8 @@ from butterfly_tpu_torch.cache.paged import (
     init_paged_cache, paged_forward, paged_forward_window,
     permute_paged_tail, permute_window_tail, pool_replicas)
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
-from butterfly_tpu_torch.core.mesh import seq_degree, under_mesh
+from butterfly_tpu_torch.core.mesh import (seq_degree, stage_degree,
+                                           under_mesh)
 from butterfly_tpu_torch.engine.engine import (
     mesh_device, place_params, seq_replicas)
 from butterfly_tpu_torch.engine.sampling import (
@@ -74,7 +82,7 @@ from butterfly_tpu_torch.engine.sampling import (
 from butterfly_tpu_torch.models.common import Model
 from butterfly_tpu_torch.parallel.partition import Shards, axis_parts
 from butterfly_tpu_torch.parallel.sequence import sp_chunk_body
-from butterfly_tpu_torch.parallel.tensor import data_groups, tmap
+from butterfly_tpu_torch.parallel.tensor import data_groups, group_part, tmap
 
 
 def bucket_len(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
@@ -129,6 +137,11 @@ class ServingEngine:
         self.cfg = model.cfg
         self.runtime = runtime or RuntimeConfig()
         self.device = mesh_device(mesh, device, model)
+        stage = stage_degree(mesh)
+        if stage > 1 and self.cfg.num_layers % stage != 0:
+            raise ValueError(
+                f"{self.cfg.num_layers} layers not divisible by "
+                f"{stage} pipeline stages")
         # Optional obs.trace.Tracer (the scheduler shares its own)
         self.tracer = None
         self.mesh = mesh
@@ -158,7 +171,9 @@ class ServingEngine:
         # Write-combined KV window (kv_write_combine): mixed blocks stage
         # fresh K/V in an engine-held window, the pool stays read-only
         # inside a block, and a drain flushes the window into the pool.
-        self._window_mode = bool(self.runtime.kv_write_combine)
+        # The pipeline (stage > 1) writes its stage slices per token.
+        self._window_mode = bool(self.runtime.kv_write_combine) \
+            and stage == 1
         self._kv_window: Optional[KVWindow] = None
         self._win_len = None       # [S] staged count; None = seed zeros
         self._win_dirty = False    # staged entries not yet flushed
@@ -208,6 +223,12 @@ class ServingEngine:
                     f"spec_tree_width requires a draft source with "
                     f"tree_draft (the 'model' source); {rt.draft_model!r} "
                     f"has none")
+            if stage_degree(self.mesh) > 1:
+                raise ValueError(
+                    "tree speculation does not compose with "
+                    "pipeline (stage > 1) serving: the tree-mask "
+                    "verify rides paged_forward's attn_mask, which "
+                    "the stage-local pipeline scan has no slot for")
             self._tree_width, self._tree_nodes = w, n
 
     # -- host <-> device ----------------------------------------------------
@@ -255,8 +276,9 @@ class ServingEngine:
     def supports_seq_parallel(self) -> bool:
         """Can long prompts route through the seq-parallel prefill lane?
         Needs a mesh with a seq axis > 1 (with tensor and data axes or
-        not)."""
-        return self.sp_degree > 1
+        not) and no pipeline stages (the ring body runs the whole layer
+        stack on every seq shard)."""
+        return self.sp_degree > 1 and stage_degree(self.mesh) == 1
 
     @property
     def sp_degree(self) -> int:
@@ -615,17 +637,21 @@ class ServingEngine:
         v_scales) as CPU tensors — scales [L, n, Kv*page] iff the pool is
         int8, else None. A pool split over `tensor` reads each shard's
         pages and concatenates the kv heads (and the kv-major scale
-        columns) in shard order: the unsharded engine's bytes.
+        columns) in shard order, one split over `stage` each stage's
+        layers in stage order: the unsharded engine's bytes.
         Synchronous."""
         if self._win_dirty:
             self.flush_kv_window()
         c = pool_replicas(self.cache)[0]
+        idx = torch.as_tensor(list(pids), dtype=torch.long)
 
         def read(pool):
             if pool is None:
                 return None
+            if axis_parts(pool, "stage") is not None:
+                return torch.cat([read(group_part(p, 0)) for p in
+                                  axis_parts(pool, "stage")], dim=0)
             parts = axis_parts(pool, "tensor") or [pool]
-            idx = torch.as_tensor(list(pids), dtype=torch.long)
             return torch.cat([p[:, idx.to(p.device)].cpu() for p in parts],
                              dim=2)
         return (read(c.k_pages), read(c.v_pages), read(c.k_scale_pages),
@@ -634,9 +660,20 @@ class ServingEngine:
     @under_mesh
     def write_pages(self, pids, k, v, k_scales=None, v_scales=None) -> None:
         """Land page contents (the read_pages layout) at page ids pids:
-        split over the kv heads into each tensor shard's pool, in every
-        data replica of the pool."""
+        split over the layers into each stage's pools and over the kv
+        heads into each tensor shard's pool, in every data replica of the
+        pool."""
         def write(pool, val, dtype):
+            stages = axis_parts(pool, "stage")
+            if stages is not None:
+                val = torch.as_tensor(val)
+                lo = 0
+                for p in stages:
+                    n = p.shape[0]
+                    for rep in axis_parts(p, "data") or [p]:
+                        write(rep, val[lo:lo + n], dtype)
+                    lo += n
+                return
             parts = axis_parts(pool, "tensor") or [pool]
             val = torch.as_tensor(val)
             sizes = [p.shape[2] for p in parts]
@@ -1111,28 +1148,41 @@ def _build_model_draft_source(engine: "ServingEngine"):
     target's tree), else the truncated-layer derivation of the engine's
     own params (the first draft_layers layers, embed/unembed shared:
     already cast or quantized like the target, since the leaves ARE the
-    target's)."""
+    target's). Under a stage mesh the draft runs whole on stage 0's mesh
+    (the JAX package replicates it over the stages), its layers then
+    taken from stage 0's slice: a deeper draft raises ValueError."""
     from butterfly_tpu_torch.models.draft import (ModelDraftSource,
-                                                  derive_draft_params)
+                                                  derive_draft_params,
+                                                  resolve_draft_layers)
+    from butterfly_tpu_torch.parallel.partition import (layers_per_stage,
+                                                        stage_part)
     rt = engine.runtime
+    mesh, params = engine.mesh, engine.params
+    if stage_degree(mesh) > 1:
+        n, Ls = resolve_draft_layers(engine.cfg, rt.draft_layers), \
+            layers_per_stage(engine.cfg, mesh)
+        if n > Ls and not rt.draft_ckpt:
+            raise ValueError(f"a {n}-layer draft does not fit stage 0's "
+                             f"{Ls} layers")
+        mesh, params = mesh.stage_mesh(0), stage_part(params, 0)
     if rt.draft_ckpt:
         from butterfly_tpu_torch.ckpt.load import load_draft_checkpoint
         from butterfly_tpu_torch.engine.engine import cast_params
         dcfg, dparams = load_draft_checkpoint(rt.draft_ckpt, engine.cfg,
                                               engine.device)
         dparams = cast_params(dparams, dcfg)
-        if engine.mesh is not None:
+        if mesh is not None:
             from butterfly_tpu_torch.parallel.partition import shard_params
-            dparams = shard_params(dparams, dcfg, engine.mesh)
+            dparams = shard_params(dparams, dcfg, mesh)
     else:
-        dcfg, dparams = derive_draft_params(engine.params, engine.cfg,
+        dcfg, dparams = derive_draft_params(params, engine.cfg,
                                             rt.draft_layers)
     # width = serving max_seq + γ+1 slack: micro-step writes at the
     # sequence cap clamp into slack, never onto a live entry
     return ModelDraftSource(
         dcfg, dparams, num_slots=engine.num_slots,
         width=engine.cache.max_seq + rt.speculative_gamma + 1,
-        kv_quant=rt.kv_quant, mesh=engine.mesh)
+        kv_quant=rt.kv_quant, mesh=mesh)
 
 
 _build_model_draft_source.draft_source_factory = True

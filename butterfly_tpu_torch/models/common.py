@@ -43,10 +43,12 @@ import torch.nn.functional as F
 
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.core.device import resolve_device
-from butterfly_tpu_torch.core.mesh import data_degree, tensor_degree
+from butterfly_tpu_torch.core.mesh import (data_degree, stage_degree,
+                                           tensor_degree)
 from butterfly_tpu_torch.ops.flash_attention import flash_attention_sharded
 from butterfly_tpu_torch.parallel.partition import (
-    Shards, expert_parts, part_device, shard_count)
+    Shards, expert_parts, layers_per_stage, part_device, shard_count,
+    stack_stages)
 from butterfly_tpu_torch.parallel.tensor import (
     cat_groups, data_groups, embed_lookup, gather, group_part, group_rows,
     over_heads, run_groups, sharded_einsum, tmap)
@@ -102,7 +104,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     """A zeroed cache on `device` (None = CUDA), or, under a tensor or
     data `mesh`, placed as parallel/partition.py:shard_cache places it
     (kv heads over `tensor`, batch over `data` unless `split_batch` is
-    False), allocated per shard."""
+    False), allocated per shard. Under a stage mesh each stage holds its
+    [L/S, ...] layers over its own mesh (a Shards over "stage")."""
+    if stage_degree(mesh) > 1:
+        Ls = layers_per_stage(cfg, mesh)
+        per = [init_cache(cfg.replace(num_layers=Ls), batch, max_seq, dtype,
+                          quant, sub.first_device, sub, split_batch)
+               for sub in map(mesh.stage_mesh, range(stage_degree(mesh)))]
+        return KVCache(*(stack_stages([c[j] for c in per])
+                         for j in (0, 1)),
+                       length=torch.zeros((batch,), dtype=torch.int32,
+                                          device=mesh.first_device),
+                       k_scale=stack_stages([c.k_scale for c in per]),
+                       v_scale=stack_stages([c.v_scale for c in per]))
     if tensor_degree(mesh) > 1 or data_degree(mesh) > 1:
         return _init_cache_sharded(cfg, batch, max_seq, dtype, quant, mesh,
                                    split_batch)

@@ -80,9 +80,16 @@ def _sync(device) -> None:
 
 
 def _leaves(tree):
+    """The leaves of a weight tree; a leaf split over stages as each
+    stage's first data replica (the bytes one replica streams)."""
+    from butterfly_tpu_torch.parallel.partition import axis_parts
+    from butterfly_tpu_torch.parallel.tensor import group_part
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
+    elif axis_parts(tree, "stage") is not None:
+        for p in axis_parts(tree, "stage"):
+            yield from _leaves(group_part(p, 0))
     else:
         yield tree
 

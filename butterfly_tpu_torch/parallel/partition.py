@@ -21,7 +21,13 @@ container of per-shard tensors, `Shards`:
   seq shard, views where the shards share a card);
 * data: weights and the page pool are replicated, batch rows and slots
   split (the forwards run each data group on its rows; see
-  parallel/tensor.py:data_groups).
+  parallel/tensor.py:data_groups);
+* stage: the layer-stacked leaves, the page pools and the contiguous
+  caches split their leading L dim, stage s holding layers
+  [s*L/S, (s+1)*L/S) placed over its own mesh (`Mesh.stage_mesh(s)`,
+  tensor and data as above); the embedding, the final norm and the LM
+  head are placed over stage 0's mesh (parallel/pipeline.py runs them
+  there).
 
 Where a shard shares its device with the tree, a weight part is a VIEW of
 the stacked leaf, so one card with N shards still holds one tree, not N
@@ -41,7 +47,7 @@ import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.core.mesh import (Mesh, data_degree,
-                                           require_ported_mesh)
+                                           require_ported_mesh, stage_degree)
 from butterfly_tpu_torch.quant.int8 import is_quantized_leaf, quant_specs_like
 
 Params = Dict[str, Any]
@@ -49,12 +55,13 @@ Spec = Tuple[Optional[str], ...]
 
 
 class Shards:
-    """One leaf split over the mesh axis `axis` ("tensor", "expert" or
-    "data"): `parts[i]` is shard i's part, on shard i's device. `split` is
-    the dim of the whole leaf the parts partition, in order; None when
-    every part is the whole leaf (the data replicas of a replicated
-    leaf). A part may itself be a Shards (a tensor-split leaf replicated
-    over data groups).
+    """One leaf split over the mesh axis `axis` ("tensor", "expert",
+    "data" or "stage"): `parts[i]` is shard i's part, on shard i's
+    device. `split` is the dim of the whole leaf the parts partition, in
+    order; None when every part is the whole leaf (the data replicas of
+    a replicated leaf). A part may itself be a Shards (a tensor-split
+    leaf replicated over data groups, a stage's slice split over
+    `tensor`).
 
     Indexing takes the same index of every part (the leading layer axes,
     as `layer_params` and the draft's layer slice do), so a layer's slice
@@ -119,6 +126,54 @@ def axis_parts(x: Any, axis: str) -> Optional[List[Any]]:
     if isinstance(x, Shards) and x.axis == axis:
         return list(x.parts)
     return None
+
+
+def stage_part(tree: Any, i: int) -> Any:
+    """Part i of every stage Shards in a tree or leaf (a pipeline stage's
+    layers, pools or cache; with virtual stages, chunk i), anything else
+    as it is. None stays None."""
+    if isinstance(tree, dict):
+        return {k: stage_part(v, i) for k, v in tree.items()}
+    if isinstance(tree, Shards) and tree.axis == "stage":
+        return tree.parts[i]
+    return tree
+
+
+def stage_count(tree: Any) -> int:
+    """How many parts the stage Shards of a tree or leaf have (1 when it
+    is not split over stages)."""
+    if isinstance(tree, dict):
+        return max([stage_count(v) for v in tree.values()] or [1])
+    parts = axis_parts(tree, "stage")
+    return 1 if parts is None else len(parts)
+
+
+def stack_stages(parts: Sequence[Any]) -> Any:
+    """Per-stage trees as one tree of stage Shards split on the layer
+    dim (dicts element-wise, None stays None)."""
+    p0 = parts[0]
+    if isinstance(p0, dict):
+        return {k: stack_stages([p[k] for p in parts]) for k in p0}
+    if p0 is None:
+        return None
+    return Shards(parts, "stage", 0)
+
+
+def layer_slice(tree: Any, lo: int, hi: int) -> Any:
+    """Layers [lo, hi) of every layer-stacked leaf (views)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, lo, hi) for k, v in tree.items()}
+    return None if tree is None else tree[lo:hi]
+
+
+def layers_per_stage(cfg: ModelConfig, mesh: Mesh) -> int:
+    """L / S, the layers each pipeline stage holds; indivisible layers
+    raise ValueError."""
+    S = stage_degree(mesh)
+    if cfg.num_layers % S:
+        raise ValueError(f"{cfg.num_layers} layers not divisible by {S} "
+                         "stages")
+    return cfg.num_layers // S
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +245,8 @@ def param_specs(cfg: ModelConfig, mesh: Mesh) -> Params:
     """The spec tree mirroring models.common.init_params exactly (JAX
     `param_specs`): Megatron column/row-parallel attention and MLP, the
     MoE experts over `expert` (and F over `tensor`), the vocab-split
-    embedding and head. Stacked leaves lead with the layer dim (split over
-    `stage` in the JAX package; `stage` is 1 here)."""
+    embedding and head. Stacked leaves lead with the layer dim, split over
+    `stage` (shard_params places each stage's slice over its own mesh)."""
     D, Nq, Kv, F, V = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                        cfg.intermediate_size, cfg.vocab_size)
 
@@ -393,8 +448,28 @@ def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh,
     copies); every other leaf goes to the mesh's first device (no copy
     when it is there). Data groups on other devices (or `copy`) get
     their own replica: every leaf is then a Shards over "data". Leaves
-    already sharded stay as they are; the input tree is not modified."""
+    already sharded stay as they are; the input tree is not modified.
+
+    Under `stage` each layer-stacked leaf becomes a Shards over "stage"
+    of its [L/S, ...] slices, slice s placed as above over stage s's
+    mesh (views where it shares the tree's device); the other leaves are
+    placed over stage 0's mesh."""
     require_ported_mesh(mesh)
+    if stage_degree(mesh) > 1:
+        Ls = layers_per_stage(cfg, mesh)
+        top = {k: v for k, v in params.items() if k != "layers"}
+        out = shard_params(top, cfg, mesh.stage_mesh(0), copy)
+        if "layers" in params:
+            if stage_count(params["layers"]) > 1:
+                out["layers"] = params["layers"]   # placed already
+            else:
+                scfg = cfg.replace(num_layers=Ls)
+                out["layers"] = stack_stages([shard_params(
+                    {"layers": layer_slice(params["layers"], s * Ls,
+                                           (s + 1) * Ls)},
+                    scfg, mesh.stage_mesh(s), copy)["layers"]
+                    for s in range(stage_degree(mesh))])
+        return out
     N = mesh.shape.get("expert", 1)
     if cfg.is_moe and N > 1 and cfg.num_experts % N:
         # the expert dispatch needs every shard to own whole experts
@@ -424,8 +499,21 @@ def shard_paged_cache(cache, cfg: ModelConfig, mesh: Mesh,
     shard; replicated over data groups (each group its own copy on other
     devices, or with `copy`). The block table and lengths, rewritten by
     the host every dispatch, stay on the mesh's first device: each data
-    group reads its slots' rows from there."""
+    group reads its slots' rows from there. Under `stage` each pool is a
+    Shards over "stage" of its [L/S, ...] slices, each placed so over
+    its stage's mesh."""
     require_ported_mesh(mesh)
+    if stage_degree(mesh) > 1:
+        Ls = layers_per_stage(cfg, mesh)
+        scfg = cfg.replace(num_layers=Ls)
+        names = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+        per = [shard_paged_cache(cache._replace(**{
+            n: layer_slice(getattr(cache, n), s * Ls, (s + 1) * Ls)
+            for n in names}), scfg, mesh.stage_mesh(s), copy)
+            for s in range(stage_degree(mesh))]
+        return per[0]._replace(**{n: stack_stages([getattr(c, n)
+                                                   for c in per])
+                                  for n in names})
     specs = paged_cache_specs(cfg, mesh, cache.num_slots, cache.quantized)
 
     def group(d):
@@ -477,7 +565,21 @@ def shard_kv_window(window, cfg: ModelConfig, mesh: Mesh,
 def shard_cache(cache, cfg: ModelConfig, mesh: Mesh, copy: bool = False):
     """The contiguous KVCache placed by `cache_specs`: batch split over
     data groups, kv-heads over `tensor` (separate tensors per shard); the
-    lengths stay on the mesh's first device."""
+    lengths stay on the mesh's first device. Under `stage` each cache
+    tensor is a Shards over "stage" of its [L/S, ...] slices, each placed
+    so over its stage's mesh."""
+    if stage_degree(mesh) > 1:
+        Ls = layers_per_stage(cfg, mesh)
+        scfg = cfg.replace(num_layers=Ls)
+        names = ("k", "v", "k_scale", "v_scale")
+        per = [shard_cache(cache._replace(**{
+            n: layer_slice(getattr(cache, n), s * Ls, (s + 1) * Ls)
+            for n in names}), scfg, mesh.stage_mesh(s), copy)
+            for s in range(stage_degree(mesh))]
+        return per[0]._replace(
+            length=_place(cache.length, mesh.first_device),
+            **{n: stack_stages([getattr(c, n) for c in per])
+               for n in names})
     specs = cache_specs(cfg, mesh, cache.quantized)
     kv_dim = 2 if cache.quantized else 3
     out = {}

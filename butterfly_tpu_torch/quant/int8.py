@@ -267,8 +267,9 @@ def quant_specs_like(qparams: Any, specs: Any) -> Any:
 
 def shard_quantized_params(qparams: Params, cfg, mesh,
                            copy: bool = False) -> Params:
-    """A quantized tree placed over `mesh` (tensor, expert, data): the
-    placement of parallel/partition.py:shard_params under the specs of
-    `quant_specs_like`."""
+    """A quantized tree placed over `mesh` (tensor, expert, data, stage):
+    the placement of parallel/partition.py:shard_params under the specs
+    of `quant_specs_like` (under stage, each stage's [L/S] slice of the
+    codes and the scales over its own mesh)."""
     from butterfly_tpu_torch.parallel.partition import shard_params
     return shard_params(qparams, cfg, mesh, copy=copy)

@@ -33,11 +33,13 @@ shards, `--expert-parallel N` an expert mesh of N shards (an MoE model
 then takes the expert-parallel dispatch, cfg.moe_impl="ep"), and
 `--tensor-parallel N` / `--data-parallel M` a tensor x data mesh (the
 weights and KV split Megatron-style over N shards, slots and batch rows
-over M groups): on cuda:0..n-1 with --device cuda (n cards needed), on
-the CPU with --device cpu. Flags whose path the port does not carry yet
-(--stage-parallel, and --seq-parallel or --expert-parallel with another
-axis) are accepted and refused with NotImplementedError naming the
-ROADMAP.md item.
+over M groups), `--stage-parallel N` a pipeline of N stages (the layer
+stack and the KV split over them, microbatches through the GPipe
+schedule; with tensor and/or data inside each stage): on cuda:0..n-1
+with --device cuda (n cards needed), on the CPU with --device cpu.
+Combinations the port does not carry yet (--seq-parallel with
+--expert-parallel, --stage-parallel with either) are accepted and
+refused with NotImplementedError naming the ROADMAP.md item.
 `--ckpt DIR` loads an HF-format checkpoint directory (safetensors or
 pytorch_model*.bin, ckpt/load.py) into the compute dtype, leaf by leaf;
 without it, weights are random (demo mode). `--quant int8` quantizes
@@ -94,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--data-parallel", type=int, default=1,
                         help="split slots and batch rows over M groups")
         sp.add_argument("--stage-parallel", type=int, default=1,
-                        help="(not ported yet)")
+                        help="pipeline the layer stack over N stages "
+                             "(GPipe); --device cuda needs N cards")
         sp.add_argument("--expert-parallel", type=int, default=1,
                         help="shard an MoE model's experts over N devices "
                              "(GShard all_to_all dispatch); --device cuda "
@@ -484,9 +487,10 @@ def build_mesh(args):
 
     --device cuda takes cards cuda:0..n-1 and refuses n larger than the
     visible count; --device cpu takes n shards on the CPU. The seq and
-    expert axes each run alone or with tensor and/or data, tensor and
-    data alone or together; stage, and seq with expert, raise
-    NotImplementedError naming their ROADMAP item (core/mesh.py)."""
+    expert axes each run alone or with tensor and/or data, so does stage,
+    tensor and data alone or together; seq with expert, and stage with
+    seq or expert, raise NotImplementedError naming their ROADMAP item
+    (core/mesh.py)."""
     import torch
 
     from butterfly_tpu_torch.core.config import MeshConfig

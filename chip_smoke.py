@@ -193,11 +193,12 @@ raises and the script exits non-zero:
              (the ring microbench pair; the serving lane needs 4 cards),
              mixed (12 mixed_chat requests in one burst on a starved pool
              of 8-token pages with prefix caching and a 512 MiB host KV
-             tier, the 2x2 operating-point sweep, the _alt leg), decode
-             once more on the int8 tree, speculation (spec on vs off on
-             draft-friendly prompts, then the ngram, 1-layer model and
-             width-2 tree rows on mixed_chat prompts; verify forwards
-             must happen), the fleet (nothing dropped through the
+             tier, 2 of the 4 operating points of the 2x2 sweep, (1, 1)
+             and (4, 1), the _alt leg; on the tree cut to 8 layers),
+             decode once more on the int8 tree, speculation (spec on vs
+             off on draft-friendly prompts, then the ngram, 1-layer model
+             and width-2 tree rows on mixed_chat prompts; verify forwards
+             must happen; on the tree cut to 8 layers), the fleet (nothing dropped through the
              rolling restart, pages transferred), chaos (every request
              terminal, faults injected) and autoscale (a scale-up in the
              flight recorder; 12 requests of 64 new tokens a client, so
@@ -257,10 +258,12 @@ raises and the script exits non-zero:
              step's profile against the unsharded one (host wall, device
              busy, idle share, top kernels, and copies whose input is a
              weight: none expected); the alternating path at tensor = 2
-             (fresh and warm flash per shard); tensor = 8 generate (4
-             prompts of 17-1001 tokens, 32 new, fused: fresh flash at
-             Nq 4, Kv 1 per shard) against unsharded, and the decode-step
-             check at tensor = 8 (the paged kernel at Kv = 1); tensor = 4
+             (fresh and warm flash per shard); tensor = 8 generate on
+             the tree cut to 8 layers at full width (4 prompts of
+             17-1001 tokens, 32 new, fused: fresh flash at Nq 4, Kv 1 per
+             shard) against unsharded at that depth, and the decode-step
+             check at tensor = 8 at that depth (the paged kernel at
+             Kv = 1); tensor = 4
              x data = 2 serving at full width and 4 layers with prefix
              caching (3 requests sharing a prompt: hit tokens >= 16,
              tokens against the unsharded engine at that depth); the int8
@@ -326,6 +329,38 @@ raises and the script exits non-zero:
              versions' gap); a 2 x 256-token prefill at capacity factor
              1.0: the a2a's dropped assignments equal the count of the
              dense routing over the whole batch, layer by layer.
+23. pipe     pipeline stages on one card, after the combined phase's
+             Llama half (every stage's shards on cuda:0,
+             make_mesh(MeshConfig(stage=2), ["cuda:0"] * 2); [pipe]
+             step=... lines with their seconds): shard_params at stage = 2
+             (each stage's layers views of the one tree: nothing
+             allocated); stage = 2 serving at the serve defaults, M = 4
+             microbatches of 2 slots, the serve phase's 8 greedy requests
+             with 32 new tokens through the GPipe schedule, on the tree
+             cut to 8 layers at full width (4 layers a stage; at full
+             depth this step alone took 45.2 s, over the phase's 60 s
+             with the rest) against the unsharded engine at that depth
+             (tok/s, TTFT p50, pool bytes per stage, paged launches a
+             multiple of 32; equal count, first divergences, the
+             teacher-forced gap of the others within 0.5); one decode
+             step at full width and depth with the window off, stage = 2
+             against unsharded: each stage's in-model paged kernel
+             against its plain version (2e-2) and the step's logits
+             within max(0.5, the same run's unsharded kernel-vs-plain
+             gap); then on the tree cut to 8 layers, each against the
+             unsharded engine at that depth: GPipe generate (4 prompts of
+             17-1001 tokens, 32 new; fresh flash 32 launches: 8 layers x
+             4 microbatches, counts zeroed just before), the interleaved
+             schedule (virtual_stages 2, its placement's allocated bytes:
+             0), serving (4 requests of 16-400 bytes, 8 new, 8 slots)
+             with the int8 pool at stage = 2, at stage 2 x tensor 2 and at
+             stage 2 x data 2.
+
+Runs cut to make room for phase 23 (PERF.md section 4): the tp phase's
+tensor = 8 generate and its step check run at 8 layers; the bench
+phase's mixed leg sweeps 2 of its 4 operating points; the mixed and
+spec legs run on the tree cut to 8 layers (their [bench] lines say
+layers=8). Every other phase keeps its size.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
@@ -2473,36 +2508,52 @@ def phase_fleet(torch, model, params):
 #: 4 slots, the pool at 0.35 of worst-case demand, one burst), with TTFT
 #: shedding off (the card's TTFT exceeds the leg's 1 s default SLO, so it
 #: would shed instead of contend) and a host tier of 512 MiB (a
-#: Llama-3-8B page of 8 tokens holds 1 MiB of K/V: 512 pages)
+#: Llama-3-8B page of 8 tokens holds 1 MiB of K/V: 512 pages); its
+#: operating-point sweep runs 2 of the default 4 grid points, (1, 1) and
+#: (4, 1) (time)
 BENCH_MIXED = dict(n_requests=12, max_batch=4, prompt_lo=8, prompt_hi=48,
                    max_new_lo=16, max_new_hi=48, page_size=8,
                    pool_fraction=0.35, arrival="burst:2000:0.5:0.1",
                    slo_ttft_ms=None, host_kv_tier_mb=512.0,
-                   max_seconds=180.0)
+                   max_seconds=180.0, grid=[(1, 1), (4, 1)])
+#: the depth of the mixed and spec legs' tree, full width (time)
+BENCH_CUT_LAYERS = 8
 
 
 def phase_bench(torch, model, params, qparams):
     """The benchmark legs of obs/benchmark.py called directly on the
     shared Llama-3-8B weights (not built a second time), sized by request
-    counts and max_seconds, never by width or depth; each leg's JSON on a
-    labelled line with its wall seconds. The decode leg runs once more on
-    the int8 tree `qparams`, and the speculation leg (spec on vs off, the
-    ngram / model / tree rows) on the bf16 weights, then the fleet, chaos
-    and autoscale legs at their defaults (in-process tiny-model fleets on
-    the card; the autoscale leg with 12 requests of 64 tokens a client). Then one `butterfly bench --model tiny --device cuda
-    --serving` (head_dim 16 in f32: the ring kernel's CUDA-core route at
-    the tiny heads). The four kernels' counts
-    are zeroed just before and read just after; each must have launched.
-    Returns ({kernel: launches}, the decode leg's result)."""
+    counts and max_seconds, never by width; each leg's JSON on a
+    labelled line with its wall seconds. The mixed leg (its sweep at 2
+    grid points) and the speculation leg (spec on vs off, the ngram /
+    model / tree rows) run on the tree cut to BENCH_CUT_LAYERS layers at
+    full width, their lines marked `layers=`; the decode leg runs once
+    more on the int8 tree `qparams`; then the fleet, chaos and autoscale
+    legs at their defaults (in-process tiny-model fleets on the card; the
+    autoscale leg with 12 requests of 64 tokens a client). Then one
+    `butterfly bench --model tiny --device cuda --serving` (head_dim 16
+    in f32: the ring kernel's CUDA-core route at the tiny heads). The
+    four kernels' counts are zeroed just before and read just after;
+    each must have launched. Returns ({kernel: launches}, the decode
+    leg's result)."""
     import contextlib
     import io
 
+    from butterfly_tpu_torch.models.common import Model
+    from butterfly_tpu_torch.models.draft import _slice_layers
     from butterfly_tpu_torch.obs import benchmark as bm
     from butterfly_tpu_torch.ops import ring_attention as ra
     from butterfly_tpu_torch.ops.flash_attention import flash_attention
     from butterfly_tpu_torch.ops.paged_attention import paged_attention
     from butterfly_tpu_torch.serve.cli import main as cli_main
     card = torch.cuda.get_device_name(0).replace(" ", "_")
+    # the mixed and spec legs run on the tree cut to BENCH_CUT_LAYERS
+    # layers at full width (views of the shared tree; time)
+    model_c = Model(model.cfg.replace(num_layers=BENCH_CUT_LAYERS),
+                    device="cuda")
+    params_c = dict(params, layers=_slice_layers(params["layers"],
+                                                 BENCH_CUT_LAYERS))
+    cut = {"mixed", "spec"}
     legs = [
         ("decode", lambda: bm.run_decode_benchmark(
             model, params, batch=8, prompt_len=128, max_new=64)),
@@ -2513,12 +2564,12 @@ def phase_bench(torch, model, params, qparams):
         ("warm_prefill", lambda: bm.run_warm_prefill_benchmark(
             model, params, repeats=1)),
         ("longctx", lambda: bm.run_longctx_benchmark(model, params)),
-        ("mixed", lambda: bm.run_mixed_benchmark(model, params,
+        ("mixed", lambda: bm.run_mixed_benchmark(model_c, params_c,
                                                  **BENCH_MIXED)),
         ("decode_int8", lambda: bm.run_decode_benchmark(
             model, qparams, batch=8, prompt_len=128, max_new=64)),
         ("spec", lambda: bm.run_spec_benchmark(
-            model, params, n_requests=8, prompt_len=SPEC_PROMPT_LEN,
+            model_c, params_c, n_requests=8, prompt_len=SPEC_PROMPT_LEN,
             max_new=SPEC_NEW, max_batch=8, gamma=4, draft_layers=1)),
         # the fleet legs at the JAX defaults: tiny-model replicas, since
         # they measure the control plane, not the model
@@ -2541,7 +2592,8 @@ def phase_bench(torch, model, params, qparams):
         t0 = time.monotonic()
         res[name] = run()
         torch.cuda.synchronize()
-        print(f"[bench] leg={name} card={card} "
+        depth = f"layers={BENCH_CUT_LAYERS} " if name in cut else ""
+        print(f"[bench] leg={name} card={card} {depth}"
               f"wall_s={time.monotonic() - t0:.1f} "
               + json.dumps(res[name], sort_keys=True), flush=True)
         torch.cuda.empty_cache()
@@ -3155,6 +3207,7 @@ def phase_ckpt(torch, model, params, tok):
 # -- phase 20: tensor and data parallelism on one card ---------------------------
 
 TP_DP_LAYERS = 4     # the tensor = 4 x data = 2 serving run: 4 layers
+TP_GEN_LAYERS = 8    # tensor = 8 generate and its step check: 8 layers (time)
 TP_NEW = 32          # new tokens of the tensor-parallel requests
 
 
@@ -3496,14 +3549,21 @@ def phase_tp(torch, model, params, qparams, tok, serve_tokens, decode_ref):
     del alt
     gc.collect()
 
-    # (f) tensor = 8 generate (BASELINE configs[1]) and its decode step
+    # (f) tensor = 8 generate (BASELINE configs[1]) and its decode step, at
+    #     TP_GEN_LAYERS layers, full width: depth only repeats the per-layer
+    #     check (the Kv = 1 shard kernel runs in every layer)
+    from butterfly_tpu_torch.models.draft import _slice_layers
+    Lg = TP_GEN_LAYERS
+    cfg_g = cfg.replace(num_layers=Lg)
+    model_g = Model(cfg_g, device="cuda")
+    p_g = dict(params, layers=_slice_layers(params["layers"], Lg))
     mesh8 = _one_card_mesh(tensor=8)
-    sp8, grown8, _ = _shard_on_card(torch, params, cfg, mesh8)
+    sp8, grown8, _ = _shard_on_card(torch, p_g, cfg_g, mesh8)
     assert grown8 == 0, grown8
     gprompts = [tok.encode(_TEXT[:n]) for n in (16, 200, 600, 1000)]
     sp = SamplingParams(max_new_tokens=TP_NEW)
-    want = InferenceEngine(model, params).generate(gprompts, sp).tokens
-    eng8 = InferenceEngine(model, sp8, mesh=mesh8)
+    want = InferenceEngine(model_g, p_g).generate(gprompts, sp).tokens
+    eng8 = InferenceEngine(model_g, sp8, mesh=mesh8)
     eng8.generate(gprompts[:1], SamplingParams(max_new_tokens=2))
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -3511,12 +3571,12 @@ def phase_tp(torch, model, params, qparams, tok, serve_tokens, decode_ref):
     gwall = time.monotonic() - t0
     _check_tokens(res, len(gprompts), TP_NEW, cfg.vocab_size,
                   "tensor = 8 generate")
-    assert n["fresh"] == L * 8, n
+    assert n["fresh"] == Lg * 8, n
     equal8 = sum(int((a == b).all()) for a, b in zip(res.tokens, want))
-    gaps8 = [_teacher_forced_gap(torch, params, cfg, p, list(o))
+    gaps8 = [_teacher_forced_gap(torch, p_g, cfg_g, p, list(o))
              for p, o, w in zip(gprompts, res.tokens, want)
              if not (o == w).all()]
-    log("tp", step="generate", mesh="tensor8_on_cuda:0", layers=L,
+    log("tp", step="generate", mesh="tensor8_on_cuda:0", layers=Lg,
         prompt_tokens=",".join(str(len(p)) for p in gprompts),
         new_tokens=TP_NEW, wall_s=f"{gwall:.3f}",
         tokens_per_s=f"{len(gprompts) * TP_NEW / gwall:.2f}",
@@ -3526,13 +3586,12 @@ def phase_tp(torch, model, params, qparams, tok, serve_tokens, decode_ref):
     if gaps8:
         assert max(gaps8) <= LOGITS_TOL, f"teacher-forced gap {max(gaps8)}"
     del eng8
-    _tp_step_check(torch, params, sp8, cfg, mesh8, "parity_tensor8")
-    del sp8
+    _tp_step_check(torch, p_g, sp8, cfg_g, mesh8, "parity_tensor8")
+    del sp8, p_g
     gc.collect()
     torch.cuda.empty_cache()
 
     # (g) tensor = 4 x data = 2 serving, 4 layers, prefix caching
-    from butterfly_tpu_torch.models.draft import _slice_layers
     cfg4 = cfg.replace(num_layers=TP_DP_LAYERS)
     p4 = dict(params, layers=_slice_layers(params["layers"], TP_DP_LAYERS))
     model4 = Model(cfg4, device="cuda")
@@ -3616,11 +3675,13 @@ def _mem(torch, label, step):
         f"{torch.cuda.memory_allocated() / 2**30:.3f}")
 
 
-def _moe_serve(torch, sched, tok, vocab, news):
-    """8 greedy requests (prompts of 16-1200 bytes) submitted together;
-    returns (prompts, requests, wall seconds)."""
-    prompts = [tok.encode(_TEXT[:n])
-               for n in (16, 64, 200, 400, 600, 800, 1000, 1200)]
+_SERVE_BYTES = (16, 64, 200, 400, 600, 800, 1000, 1200)
+
+
+def _moe_serve(torch, sched, tok, vocab, news, sizes=_SERVE_BYTES):
+    """Greedy requests (default 8, prompts of 16-1200 bytes) submitted
+    together; returns (prompts, requests, wall seconds)."""
+    prompts = [tok.encode(_TEXT[:n]) for n in sizes]
     torch.cuda.synchronize()
     t0 = time.monotonic()
     reqs = [sched.submit(p, max_new_tokens=news) for p in prompts]
@@ -4344,6 +4405,300 @@ def phase_combined_moe(torch, tok, state):
     return counts
 
 
+# -- phase 23: pipeline stages ----------------------------------------------------
+
+PIPE_SERVE_LAYERS = 8   # (b) stage = 2 serving: 8 layers (at full depth
+                        # it took 45.2 s of a 116.4 s phase run alone)
+PIPE_LAYERS = 8         # (d) generate and the combined meshes: 8 layers
+PIPE_NEW = 32           # new tokens of the stage = 2 requests
+PIPE_MESH_BYTES = (16, 64, 200, 400)   # (d) serving: 4 requests, 8 new
+PIPE_MESH_NEW = 8
+
+
+def _stage_pool_bytes(engine):
+    """Bytes of every pool tensor, per stage (data replicas once)."""
+    from butterfly_tpu_torch.parallel.partition import axis_parts
+    from butterfly_tpu_torch.parallel.tensor import group_part
+    c = engine.cache
+    per = None
+    for t in (c.k_pages, c.v_pages, c.k_scale_pages, c.v_scale_pages):
+        if t is None:
+            continue
+        sizes = [_tree_bytes({"p": group_part(p, 0)})
+                 for p in axis_parts(t, "stage")]
+        per = sizes if per is None else [a + b for a, b in zip(per, sizes)]
+    return per
+
+
+def _stage_step_check(torch, tree, staged, cfg, mesh, label):
+    """One decode step with the window off (8 slots at ragged lengths to
+    1300 tokens) on a pool of random K/V, unsharded with the paged kernel
+    and with its plain version at every layer, then through the GPipe
+    schedule over `mesh` with every in-model kernel call of each stage
+    checked against its plain version (LAYER_TOL). Each run writes its
+    token into its own copy of the pool. The pipelined logits must agree
+    with the unsharded kernel step within max(LOGITS_TOL, the unsharded
+    kernel-vs-plain gap of this run). Its launches are checks, not a
+    main path: the caller counts none."""
+    import butterfly_tpu_torch.ops.paged_attention as pa_mod
+    from butterfly_tpu_torch.cache.paged import (init_paged_cache,
+                                                 paged_forward)
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.ops.paged_attention import (paged_attention,
+                                                         paged_attention_ref)
+    from butterfly_tpu_torch.parallel.partition import shard_paged_cache
+    S, page = 8, 16
+    rt = RuntimeConfig(max_batch_size=S, max_seq_len=2048, page_size=page)
+    cache = init_paged_cache(cfg, rt, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for t in (cache.k_pages, cache.v_pages):
+        t.normal_(0.0, 0.5, generator=gen)
+    mp = cache.page_table.shape[1]
+    lengths = [5, 100, 700, 1300, 0, 33, 64, 1000]
+    table = torch.full((S, mp), cache.null_page, dtype=torch.int32,
+                       device="cuda")
+    for s in range(S):
+        n = lengths[s] // page + 1     # a page for the token written too
+        table[s, :n] = torch.arange(s * mp, s * mp + n, dtype=torch.int32)
+    cache = cache._replace(page_table=table, lengths=torch.tensor(
+        lengths, dtype=torch.int32, device="cuda"))
+    active = torch.tensor([n > 0 for n in lengths], device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (S, 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    errs = []
+
+    def checked(q, kp, *args, **kw):
+        out = paged_attention(q, kp, *args, **kw)
+        ref = paged_attention_ref(q, kp, *args, **kw)
+        errs.append((out.float() - ref.float()).abs().max().item())
+        return out
+
+    def step(params, c, attn, m=None):
+        c = c._replace(k_pages=c.k_pages.clone(), v_pages=c.v_pages.clone())
+        if m is not None:
+            c = shard_paged_cache(c, cfg, m)
+        pa_mod.paged_attention = attn
+        try:
+            with mesh_ctx(m):
+                logits, _ = paged_forward(params, cfg, toks, c,
+                                          active=active, use_kernel=True)
+        finally:
+            pa_mod.paged_attention = paged_attention
+        torch.cuda.synchronize()
+        return logits[:, 0][active].float()
+
+    kern = step(tree, cache, paged_attention)
+    plain = step(tree, cache, paged_attention_ref)
+    shard = step(staged, cache, checked, mesh)
+    M = 4   # the default microbatches of 8 slots over 2 stages
+    assert len(errs) == cfg.num_layers * M, (len(errs), M)
+    for x in (kern, plain, shard):
+        assert torch.isfinite(x).all()
+    layer_err = max(errs)
+    spread = (kern - plain).abs().max().item()
+    gap = (shard - kern).abs().max().item()
+    bound = max(LOGITS_TOL, spread)
+    agree = (shard.argmax(-1) == kern.argmax(-1)).float().mean().item()
+    log("pipe", step=label, stages=mesh.shape["stage"], microbatches=M,
+        kernel_calls=len(errs), max_layer_abs_err=f"{layer_err:.3g}",
+        layer_tol=LAYER_TOL, logits_staged_vs_unsharded=f"{gap:.4g}",
+        logits_unsharded_kernel_vs_plain=f"{spread:.4g}",
+        logits_bound=f"{bound:.4g}", argmax_agree=f"{agree:.3f}")
+    assert layer_err <= LAYER_TOL, f"{label}: stage kernel vs plain " \
+        f"{layer_err}"
+    assert gap <= bound, f"{label}: staged logits differ by {gap} > {bound}"
+    del cache
+    torch.cuda.empty_cache()
+
+
+def _serve_against(torch, tag, sched, ref, params, cfg, tok, news,
+                   sizes=_SERVE_BYTES):
+    """Greedy requests through `sched` (`_moe_serve`), held against `ref`
+    (the same requests' tokens on an unsharded engine): equal count,
+    first divergences, the teacher-forced gap of the others within
+    LOGITS_TOL. Returns the log fields."""
+    prompts, reqs, wall = _moe_serve(torch, sched, tok, cfg.vocab_size,
+                                     news, sizes)
+    equal, gaps, first = 0, [], []
+    for p, r, want in zip(prompts, reqs, ref):
+        if r.output == want[:news]:
+            equal += 1
+        else:
+            first.append(_divergence(r.output, want[:news]))
+            gaps.append(_teacher_forced_gap(torch, params, cfg, p,
+                                            r.output))
+    if gaps:
+        assert max(gaps) <= LOGITS_TOL, f"{tag}: teacher-forced gap " \
+            f"{max(gaps)}"
+    ttfts = sorted(r.ttft for r in reqs)
+    return dict(
+        requests=len(reqs), new_tokens=news, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{len(reqs) * news / wall:.2f}",
+        ttft_p50_s=f"{statistics.median(ttfts):.4f}",
+        equal_to_unsharded=f"{equal}/{len(reqs)}",
+        first_divergence=",".join(map(str, first)) or "none",
+        teacher_forced_gap=f"{max(gaps):.4g}" if gaps else "none")
+
+
+def phase_pipe(torch, model, params, tok):
+    """Pipeline stages on one card (module docstring, phase 23), every
+    stage's shards on cuda:0. Returns {kernel: launches} of the phase's
+    main paths."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.models.common import Model
+    from butterfly_tpu_torch.models.draft import _slice_layers
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    from butterfly_tpu_torch.serve.cli import build_parser
+    cfg = model.cfg
+    counts = {"paged": 0, "fresh": 0}
+    t_phase = time.monotonic()
+
+    def main_path(fn):
+        _zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k in counts:
+            counts[k] += _launch_counts()[k]
+        return out, _launch_counts()
+
+    def timed(step, t0):
+        return dict(step=step, seconds=f"{time.monotonic() - t0:.1f}")
+
+    # (a) the placement: each stage's layers are views of the one tree
+    t0 = time.monotonic()
+    mesh = _one_card_mesh(stage=2)
+    sp2, grown, split = _shard_on_card(torch, params, cfg, mesh)
+    log("pipe", **timed("shard_params", t0), mesh="stage2_on_cuda:0",
+        split_leaves=split, weight_bytes_allocated=grown,
+        tree_GB=f"{_tree_bytes(params) / 1e9:.3f}")
+    assert grown == 0, f"the stage = 2 placement allocated {grown} bytes"
+
+    # (b) stage = 2 serving at the serve defaults (M = 4 microbatches of 2
+    #     slots): every program through the GPipe schedule, on the tree
+    #     cut to PIPE_SERVE_LAYERS layers at full width, against the
+    #     unsharded engine at that depth
+    t0 = time.monotonic()
+    Lb = PIPE_SERVE_LAYERS
+    cfg_b = cfg.replace(num_layers=Lb)
+    model_b = Model(cfg_b, device="cuda")
+    tree_b = dict(params, layers=_slice_layers(params["layers"], Lb))
+    args = build_parser().parse_args(["serve", "--model", "llama3-8b"])
+    rt = RuntimeConfig(max_batch_size=args.max_batch,
+                       max_seq_len=args.max_seq, page_size=args.page_size)
+    plain = Scheduler(ServingEngine(model_b, tree_b, rt))
+    ref = [r.output for r in _moe_serve(torch, plain, tok, cfg.vocab_size,
+                                        PIPE_NEW)[1]]
+    plain.engine.cache = plain.engine._kv_window = None
+    del plain
+    t1 = time.monotonic()
+    engine = ServingEngine(model_b, tree_b, rt, mesh=mesh)
+    assert not engine._window_mode
+    pool = _stage_pool_bytes(engine)
+    sched = Scheduler(engine)
+    fields, n = main_path(lambda: _serve_against(
+        torch, "stage2 serve", sched, ref, tree_b, cfg_b, tok, PIPE_NEW))
+    # a decode step launches the kernel once per layer per microbatch
+    assert n["paged"] > 0 and n["paged"] % (Lb * 4) == 0, n
+    log("pipe", **timed("serve", t0), mesh="stage2_on_cuda:0", layers=Lb,
+        reference_s=f"{t1 - t0:.1f}", slots=rt.max_batch_size,
+        microbatches=4, **fields, paged_launches=n["paged"],
+        fresh_launches=n["fresh"],
+        pool_bytes_per_stage="/".join(map(str, pool)),
+        note="smoke run, not a benchmark")
+    engine.cache = None
+    del engine, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one decode step, stage = 2 against unsharded: each stage's
+    #     in-model paged kernel against its plain version
+    t0 = time.monotonic()
+    _stage_step_check(torch, params, sp2, cfg, mesh, "parity_stage2")
+    log("pipe", **timed("parity_stage2_done", t0))
+    del sp2
+
+    # (d) 8 layers, full width: GPipe and interleaved generate, the int8
+    #     pool, stage x tensor and stage x data serving, each against the
+    #     unsharded engine at that depth
+    t0 = time.monotonic()
+    L8 = PIPE_LAYERS
+    cfg8 = cfg.replace(num_layers=L8)
+    model8 = Model(cfg8, device="cuda")
+    p8 = dict(params, layers=_slice_layers(params["layers"], L8))
+    gprompts = [tok.encode(_TEXT[:n]) for n in (16, 200, 600, 1000)]
+    sp = SamplingParams(max_new_tokens=PIPE_NEW)
+    want = InferenceEngine(model8, p8).generate(gprompts, sp).tokens
+    for V in (1, 2):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng = InferenceEngine(model8, p8, mesh=mesh, virtual_stages=V)
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated() - before
+        res, n = main_path(lambda: eng.generate(gprompts, sp))
+        _check_tokens(res, len(gprompts), PIPE_NEW, cfg.vocab_size,
+                      f"stage = 2 generate V={V}")
+        # M = 4 microbatches, each through all L8 layers once
+        assert n["fresh"] == L8 * 4, n
+        equal = sum(int((a == b).all()) for a, b in zip(res.tokens, want))
+        gaps = [_teacher_forced_gap(torch, p8, cfg8, p, list(o))
+                for p, o, w in zip(gprompts, res.tokens, want)
+                if not (o == w).all()]
+        log("pipe", step="generate", schedule="gpipe" if V == 1
+            else "interleaved", mesh="stage2_on_cuda:0", layers=L8,
+            virtual_stages=V, placement_bytes_allocated=placed,
+            fresh_launches=n["fresh"],
+            equal_to_unsharded=f"{equal}/{len(gprompts)}",
+            teacher_forced_gap=f"{max(gaps):.4g}" if gaps else "none")
+        assert placed == 0, f"the V={V} placement allocated {placed} bytes"
+        if gaps:
+            assert max(gaps) <= LOGITS_TOL, f"teacher-forced gap {max(gaps)}"
+        del eng
+    log("pipe", **timed("generate_done", t0))
+
+    t0 = time.monotonic()
+    news, sizes = PIPE_MESH_NEW, PIPE_MESH_BYTES
+    rt8 = RuntimeConfig(max_batch_size=8, max_seq_len=2048, page_size=16)
+    refs = {}
+    for kvq in ("none", "int8"):
+        plain = Scheduler(ServingEngine(model8, p8, rt8.replace(
+            kv_quant=kvq)))
+        refs[kvq] = [r.output for r in _moe_serve(
+            torch, plain, tok, cfg.vocab_size, news, sizes)[1]]
+        plain.engine.cache = plain.engine._kv_window = None
+        del plain
+    log("pipe", **timed("serve_references", t0))
+    for name, axes, kvq in (("serve_int8", dict(stage=2), "int8"),
+                            ("serve_stage2_tensor2",
+                             dict(stage=2, tensor=2), "none"),
+                            ("serve_stage2_data2",
+                             dict(stage=2, data=2), "none")):
+        t0 = time.monotonic()
+        m = _one_card_mesh(**axes)
+        sched = Scheduler(ServingEngine(model8, p8, rt8.replace(
+            kv_quant=kvq), mesh=m))
+        fields, n = main_path(lambda: _serve_against(
+            torch, name, sched, refs[kvq], p8, cfg8, tok, news, sizes))
+        assert n["paged"] > 0 and n["paged"] % L8 == 0, n
+        log("pipe", **timed(name, t0),
+            mesh="_x_".join(f"{a}{k}" for a, k in axes.items())
+            + "_on_cuda:0", layers=L8, kv_quant=kvq, **fields,
+            paged_launches=n["paged"])
+        sched.engine.cache = None
+        del sched
+        gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in counts.items():
+        assert v > 0, f"the {k} kernel never launched in the pipe phase"
+    log("pipe", step="done", seconds=f"{time.monotonic() - t_phase:.1f}",
+        **{f"{k}_launches": v for k, v in counts.items()})
+    return counts
+
+
 def _demangle(names):
     """Kernel names as C++ would print them (c++filt, when the toolkit's
     machine has it), with the namespaces and type spellings shortened."""
@@ -4479,6 +4834,8 @@ def main() -> int:
     clock("tp")
     comb = phase_combined(torch, model, params, tok, seq_last, long_runs)
     clock("combined")
+    pipe = phase_pipe(torch, model, params, tok)
+    clock("pipe")
     # the Llama-3-8B trees go before Mixtral's int8 tree is drawn
     del qparams, params, model
     gc.collect()
@@ -4511,12 +4868,13 @@ def main() -> int:
               serve_launches + alt["paged"] + long_paged + quant["paged"]
               + spec["paged"] + fleet["paged"] + bench["paged"]
               + ck["paged"] + tp["paged"] + moe["paged"] + comb["paged"]
-              + comb_moe["paged"], kres, "bf16_w64"),
+              + comb_moe["paged"] + pipe["paged"], kres, "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
               gen_fresh + alt["fresh"] + quant["fresh"] + spec["fresh"]
               + bench["fresh"] + ck["fresh"] + tp["fresh"] + moe["fresh"]
-              + comb_moe["fresh"], fresh_cases, "fresh_bf16"),
+              + comb_moe["fresh"] + pipe["fresh"], fresh_cases,
+              "fresh_bf16"),
         entry("flash_attention_warm", flash_src,
               "butterfly_tpu/ops/flash_attention.py:97",
               alt["warm"] + spec["warm"] + bench["warm"] + ck["warm"]

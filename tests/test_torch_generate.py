@@ -267,12 +267,21 @@ def test_engine_refuses_what_is_not_ported():
     # generate_long is ported: without a seq axis it refuses as JAX does
     with pytest.raises(ValueError, match="seq axis"):
         eng.generate_long([1, 2, 3])
-    # the stage axis (pipeline parallelism) is not ported
+    # the stage axis (pipeline parallelism) runs: the plain engine's
+    # tokens; stage with seq is not ported and names its ROADMAP item
     devs = np.empty(2, dtype=object)
     devs[:] = [torch.device("cpu")] * 2
+    staged = InferenceEngine(T.Model(tconfig.tiny("llama", **F32),
+                                     device="cpu"), trees()[1],
+                             mesh=Mesh(devs.reshape(1, 2, 1, 1, 1)))
+    sp = SamplingParams(max_new_tokens=4)
+    np.testing.assert_array_equal(staged.generate([[1, 2, 3]], sp).tokens,
+                                  eng.generate([[1, 2, 3]], sp).tokens)
+    devs = np.empty(4, dtype=object)
+    devs[:] = [torch.device("cpu")] * 4
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         InferenceEngine(T.Model(tconfig.tiny("llama", **F32), device="cpu"),
-                        trees()[1], mesh=Mesh(devs.reshape(1, 2, 1, 1, 1)))
+                        trees()[1], mesh=Mesh(devs.reshape(1, 2, 1, 2, 1)))
 
 
 # -- sampling held by its distribution ----------------------------------------------

@@ -246,8 +246,14 @@ def test_cli_refusals(capsys):
     rc, _, err = _cli(capsys, "serve", "--device", "cpu",
                       "--seq-parallel-threshold", "64")
     assert rc == 2 and "needs a seq axis" in err
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        cli.main(["generate", "--device", "cpu", "--stage-parallel", "2"])
+    # stages run; stage with seq is refused naming its ROADMAP item
+    rc, out, _ = _cli(capsys, "generate", "--device", "cpu",
+                      "--stage-parallel", "2", "--max-new", "4")
+    assert rc == 0 and out == _cli(capsys, "generate", "--device", "cpu",
+                                   "--max-new", "4")[1]
+    with pytest.raises(NotImplementedError, match="stage x seq"):
+        cli.main(["generate", "--device", "cpu", "--stage-parallel", "2",
+                  "--seq-parallel", "2"])
     args = cli.build_parser().parse_args(
         ["generate", "--device", "cpu", "--seq-parallel", "3"])
     mesh = cli.build_mesh(args)

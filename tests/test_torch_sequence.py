@@ -70,14 +70,18 @@ def test_mesh_maps_coordinates_to_devices():
 
 @pytest.mark.parametrize("axis", ["tensor", "data", "stage", "expert"])
 def test_mesh_refuses_unported_axes(axis):
-    """The stage axis raises naming its ROADMAP item by title; the
-    expert, tensor and data axes are ported: their mesh builds. With seq,
-    tensor and data build a combined mesh whose seq rings are found by
-    coordinate; expert with seq is still refused, naming its item."""
+    """The stage, expert, tensor and data axes are ported: their mesh
+    builds. With seq, tensor and data build a combined mesh whose seq
+    rings are found by coordinate; expert and stage with seq are still
+    refused, each naming its ROADMAP item by title."""
     if axis == "stage":
+        m = make_mesh(MeshConfig(stage=2), ["cpu"] * 2)
+        require_ported_mesh(m)
+        assert m.shape["stage"] == 2 and seq_degree(m) == 1
+        assert m.stage_mesh(1).devices.shape == (1, 1, 1, 1, 1)
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*Pipeline stages"):
-            make_mesh(MeshConfig(stage=2), ["cpu"] * 2)
+                           match=r"ROADMAP.*\(stage x seq, stage x expert\)"):
+            make_mesh(MeshConfig(stage=2, seq=2), ["cpu"] * 4)
         return
     m = make_mesh(MeshConfig(**{axis: 2}), ["cpu"] * 2)
     assert m.shape[axis] == 2 and seq_degree(m) == 1

@@ -6,8 +6,9 @@ weights equals ByteTokenizer.decode of the JAX Scheduler's greedy tokens;
 /kv/* answer 501 without prefix caching and /debug/profile answers with
 a torch.profiler trace; `serve`'s startup machinery builds on the CPU
 (with --speculate and --quant int8 too, the per-request "speculative"
-field answering), refuses the unported --stage-parallel and reports a
-missing --ckpt / --draft-ckpt directory; `generate --quant int8
+field answering, and with --stage-parallel 2), refuses stage with seq,
+which is not ported, and reports a missing --ckpt / --draft-ckpt
+directory; `generate --quant int8
 --speculate 4` runs."""
 import contextlib
 import json
@@ -166,9 +167,17 @@ def test_serve_machinery_builds_on_cpu():
     assert sched.engine.device.type == "cpu"
     assert rt.mixed_dispatch and rt.kv_write_combine
     assert sched.metrics()["tokens_generated_total"] > 0  # the warm-up ran
+    # pipeline stages build and serve; stage with seq is not ported
+    args = build_parser().parse_args(
+        ["serve", "--model", "tiny", "--device", "cpu", "--max-seq", "128",
+         "--port", "0", "--timeseries-interval", "0", "--stage-parallel",
+         "2"])
+    staged, _, _ = build_serving(args)
+    assert staged.engine.mesh.shape["stage"] == 2
+    assert staged.metrics()["tokens_generated_total"] > 0
     args = build_parser().parse_args(
         ["serve", "--model", "tiny", "--device", "cpu", "--stage-parallel",
-         "2"])
+         "2", "--seq-parallel", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_serving(args)
     # checkpoints are ported: a missing directory is named, as the

@@ -237,7 +237,7 @@ def test_unported_configurations_refused(name):
         if name == "seq_parallel":
             mesh = _cpu_mesh(1, 1, 2, 2, 1)
     elif name == "mesh":
-        mesh = _cpu_mesh(1, 2, 1, 1, 1)   # stage: pipeline parallelism
+        mesh = _cpu_mesh(1, 2, 1, 2, 1)   # stage x seq: not ported
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServingEngine(Model(cfg, device="cpu"), params, rt, mesh=mesh)
 

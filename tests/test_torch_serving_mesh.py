@@ -1,5 +1,6 @@
 """PyTorch port: mesh-aware serving (tests/test_serving_mesh.py's
-counterparts, without the stage tests) against the JAX package, float32.
+counterparts; the stage tests are tests/test_torch_pipeline.py's) against
+the JAX package, float32.
 
 A Scheduler over a ServingEngine on a tensor = 4 x data = 2 mesh (every
 shard on `cpu`) must produce the JAX package's greedy tokens exactly,
@@ -231,10 +232,21 @@ def test_cli_build_mesh_flags(capsys):
     assert line["value"] > 0 and line["n_chips"] == 1
 
 
-def test_stage_parallel_still_refused():
-    with pytest.raises(NotImplementedError, match="pipeline parallelism"):
-        cli.main(["generate", "--model", "tiny", "--device", "cpu",
-                  "--stage-parallel", "2"])
+def test_stage_parallel_still_refused(capsys):
+    """--stage-parallel runs (the text of the unmeshed run, with tensor
+    and data inside the stages too); only stage with seq or expert is
+    still refused, naming its ROADMAP item."""
+    base = ["generate", "--model", "tiny", "--device", "cpu", "--prompt",
+            "hello", "--max-new", "6"]
+    assert cli.main(base) == 0
+    want = capsys.readouterr().out
+    assert cli.main(base + ["--stage-parallel", "2", "--tensor-parallel",
+                            "2", "--data-parallel", "2"]) == 0
+    assert capsys.readouterr().out == want
+    with pytest.raises(NotImplementedError,
+                       match=r"stage x seq, stage x expert"):
+        cli.main(base + ["--stage-parallel", "2", "--expert-parallel",
+                         "2"])
 
 
 def test_prefix_hits_on_data_tensor_mesh():
