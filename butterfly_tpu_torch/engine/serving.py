@@ -1149,22 +1149,25 @@ def _build_model_draft_source(engine: "ServingEngine"):
     own params (the first draft_layers layers, embed/unembed shared:
     already cast or quantized like the target, since the leaves ARE the
     target's). Under a stage mesh the draft runs whole on stage 0's mesh
-    (the JAX package replicates it over the stages), its layers then
-    taken from stage 0's slice: a deeper draft raises ValueError."""
+    (the JAX package replicates it over the stages), its layers taken
+    from the first stages' slices (views where every stage shares one
+    device, parallel/partition.py:leading_layers)."""
     from butterfly_tpu_torch.models.draft import (ModelDraftSource,
                                                   derive_draft_params,
                                                   resolve_draft_layers)
     from butterfly_tpu_torch.parallel.partition import (layers_per_stage,
+                                                        leading_layers,
                                                         stage_part)
     rt = engine.runtime
     mesh, params = engine.mesh, engine.params
     if stage_degree(mesh) > 1:
-        n, Ls = resolve_draft_layers(engine.cfg, rt.draft_layers), \
-            layers_per_stage(engine.cfg, mesh)
-        if n > Ls and not rt.draft_ckpt:
-            raise ValueError(f"a {n}-layer draft does not fit stage 0's "
-                             f"{Ls} layers")
+        staged = params
         mesh, params = mesh.stage_mesh(0), stage_part(params, 0)
+        if not rt.draft_ckpt:
+            n = resolve_draft_layers(engine.cfg, rt.draft_layers)
+            params = {**params, "layers": leading_layers(
+                staged["layers"], n, layers_per_stage(engine.cfg,
+                                                      engine.mesh))}
     if rt.draft_ckpt:
         from butterfly_tpu_torch.ckpt.load import load_draft_checkpoint
         from butterfly_tpu_torch.engine.engine import cast_params

@@ -16,6 +16,13 @@ butterfly_tpu/obs/profile.py.
 * `annotate(name)` names a region in the trace
   (torch.profiler.record_function), and `StepTimer` is a host-side ring
   buffer of step latencies.
+* `device_kernels(prof)`, `op_kernels(prof, name)` and
+  `range_device_us(prof, name)` read a finished capture's device time
+  straight from its raw kineto events. `prof.key_averages()` and
+  `prof.events()` first build a Python event for every op, each linked
+  to its parent and children: over a minute on a long trace, and
+  hundreds of thousands of objects in reference cycles that every full
+  collection scans until one frees them.
 
 CPU ops are recorded for the thread that starts the capture; CUDA
 kernels for the whole process. The serve loop therefore starts its own
@@ -31,7 +38,7 @@ import threading
 import time
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -192,6 +199,108 @@ def annotate(name: str):
     """Named region: shows up in the trace (torch.profiler.record_function)."""
     import torch
     return torch.profiler.record_function(name)
+
+
+class KernelTotal:
+    """One device kernel's totals over a trace: what key_averages() gives
+    for a CUDA row (key, count, self_device_time_total in us)."""
+    __slots__ = ("key", "count", "self_device_time_total")
+
+    def __init__(self, key: str):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+def _raw_events(prof):
+    return prof.profiler.kineto_results.events()
+
+
+def _is_kernel(e) -> bool:
+    """A device activity that key_averages() counts as a CUDA row (not a
+    range annotation mirrored onto the device timeline)."""
+    from torch.autograd import DeviceType
+    return (e.device_type() == DeviceType.CUDA and not e.is_async()
+            and e.start_thread_id() == e.end_thread_id()
+            and not getattr(e, "is_hidden_event", lambda: False)()
+            and not e.is_user_annotation())
+
+
+def _is_host_op(e) -> bool:
+    """A host-side op or range (not a runtime call linked to one)."""
+    from torch.autograd import DeviceType
+    return (e.device_type() == DeviceType.CPU and not e.is_async()
+            and e.linked_correlation_id() == 0)
+
+
+def device_kernels(prof) -> List[KernelTotal]:
+    """The capture's device kernels grouped by name, with the filters
+    key_averages() applies."""
+    by: Dict[str, KernelTotal] = {}
+    for e in _raw_events(prof):
+        if not _is_kernel(e):
+            continue
+        k = by.get(e.name())
+        if k is None:
+            k = by[e.name()] = KernelTotal(e.name())
+        k.count += 1
+        k.self_device_time_total += (e.end_ns() - e.start_ns()) / 1e3
+    return list(by.values())
+
+
+def host_ops(prof) -> List[Tuple[str, int, float]]:
+    """(name, count, inclusive host us) of the capture's host ops and
+    ranges, grouped by name: the report where no kernel ran."""
+    by: Dict[str, List] = {}
+    for e in _raw_events(prof):
+        if _is_host_op(e):
+            row = by.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += (e.end_ns() - e.start_ns()) / 1e3
+    return [(name, n, us) for name, (n, us) in by.items()]
+
+
+def op_kernels(prof, name: str) -> List[Tuple[list, float]]:
+    """(input shapes, device us) of every host op called `name`: the
+    device time of the kernels it launched itself, linked by correlation
+    id (what FunctionEvent.device_time_total gives a leaf op such as
+    aten::copy_). Shapes need a capture with record_shapes."""
+    events = _raw_events(prof)
+    ops = {e.correlation_id(): [e.shapes(), 0.0] for e in events
+           if e.name() == name and _is_host_op(e)}
+    for e in events:
+        if _is_kernel(e):
+            op = ops.get(e.linked_correlation_id())
+            if op is not None:
+                op[1] += (e.end_ns() - e.start_ns()) / 1e3
+    return [(shapes, us) for shapes, us in ops.values()]
+
+
+def range_device_us(prof, name: str) -> float:
+    """Device us of the kernels launched inside host ranges called `name`
+    (`annotate(name)` around a call): a kernel counts when the op that
+    launched it starts inside such a range on the range's thread."""
+    import bisect
+    events = _raw_events(prof)
+    ops, ranges = {}, {}
+    for e in events:
+        if _is_host_op(e):
+            ops[e.correlation_id()] = (e.start_ns(), e.start_thread_id())
+            if e.name() == name:
+                ranges.setdefault(e.start_thread_id(), []).append(
+                    (e.start_ns(), e.end_ns()))
+    for spans in ranges.values():
+        spans.sort()
+    starts = {t: [s for s, _ in spans] for t, spans in ranges.items()}
+    us = 0.0
+    for e in events:
+        if not _is_kernel(e):
+            continue
+        at = ops.get(e.linked_correlation_id())
+        if at is None or at[1] not in ranges:
+            continue
+        i = bisect.bisect_right(starts[at[1]], at[0]) - 1
+        if i >= 0 and at[0] <= ranges[at[1]][i][1]:
+            us += (e.end_ns() - e.start_ns()) / 1e3
+    return us
 
 
 class StepTimer:

@@ -166,6 +166,38 @@ def layer_slice(tree: Any, lo: int, hi: int) -> Any:
     return None if tree is None else tree[lo:hi]
 
 
+def leading_layers(layers: Any, n: int, Ls: int) -> Any:
+    """The first `n` layers of a stage-split layer stack (each leaf a
+    stage Shards of [Ls, ...] slices) as one stack on stage 0's devices,
+    split inside a stage as stage 0's slice is. Where the stages' slices
+    sit back to back in one storage (every stage on one device) the
+    result is a view over them; otherwise the later slices are copied to
+    stage 0's devices."""
+    k = -(-n // Ls)
+    if isinstance(layers, dict):
+        return {key: leading_layers(v, n, Ls) for key, v in layers.items()}
+    return _join_rows(list(layers.parts[:k]), n)
+
+
+def _join_rows(parts: List[Any], n: int) -> Any:
+    """The first n rows along dim 0 of the stage slices `parts`, laid end
+    to end, shaped like parts[0] (a Shards by its parts)."""
+    p0 = parts[0]
+    if isinstance(p0, dict):
+        return {key: _join_rows([p[key] for p in parts], n) for key in p0}
+    if isinstance(p0, Shards):
+        return Shards([_join_rows([p.parts[i] for p in parts], n)
+                       for i in range(len(p0.parts))], p0.axis, p0.split)
+    rows = p0.shape[0]
+    if all(p.untyped_storage().data_ptr() == p0.untyped_storage().data_ptr()
+           and p.stride() == p0.stride() and p.shape == p0.shape
+           and p.storage_offset() == p0.storage_offset()
+           + i * rows * p0.stride(0) for i, p in enumerate(parts)):
+        return p0.as_strided((n,) + tuple(p0.shape[1:]), p0.stride(),
+                             p0.storage_offset())
+    return torch.cat([p.to(p0.device) for p in parts])[:n]
+
+
 def layers_per_stage(cfg: ModelConfig, mesh: Mesh) -> int:
     """L / S, the layers each pipeline stage holds; indivisible layers
     raise ValueError."""

@@ -159,12 +159,14 @@ raises and the script exits non-zero:
              spec-off run, the requests with equal tokens and the first
              divergence of the others (bf16 verify and decode take
              different attention paths, so near-ties may flip).
-17. fleet    `butterfly fleet` at full width and depth: the native
+17. fleet    `butterfly fleet` on the shared tree cut to 8 layers at full
+             width (FLEET_LAYERS; views of the one tree): the native
              allocator is built in phase 2 (the serve phase runs on it;
              fleet replicas run the prefix-caching allocator, whose
              registry KV transfer addresses); fleet/harness.start_fleet(
              "2p2d") on the shared bf16 weights (one tree: the memory
-             rise at start must stay under 8 GiB), page 16, 4 slots of
+             rise at start must stay under 8 GiB; the teacher-forced
+             check runs on the same cut tree), page 16, 4 slots of
              1024 tokens, threshold 64, behind the control plane. 8
              greedy requests of 384 tokens (half share a 256-token head),
              32 new, from 4 client threads: a direct run (threshold
@@ -187,9 +189,10 @@ raises and the script exits non-zero:
              new: tokens/s per card, hbm_util, mfu against the card's
              datasheet row), serving (8 requests, 128 + 32 tokens, 8
              slots, int8 pool; TTFT/ITL; its _alt leg on the flash
-             kernels), warm prefill (6 x 640-token prompts in 256-token
-             chunks, warm flash kernel vs the dense gather, one repeat:
-             the smoke keeps near half its time limit), long context
+             kernels; on the tree cut to 8 layers), warm prefill (6 x
+             640-token prompts in 256-token chunks, warm flash kernel vs
+             the dense gather, one repeat; on the tree cut to 8 layers),
+             long context
              (the ring microbench pair; the serving lane needs 4 cards),
              mixed (12 mixed_chat requests in one burst on a starved pool
              of 8-token pages with prefix caching and a 512 MiB host KV
@@ -205,9 +208,25 @@ raises and the script exits non-zero:
              one replica cannot keep up) legs at their JAX defaults on tiny-model
              fleets; then `butterfly bench --model tiny
              --device cuda --serving`. Each leg's JSON on a labelled line
-             with its wall seconds. Prefix hits, preemptions and tier
-             revivals must be > 0, the ring microbench kernelized, and
-             each of the four kernels must launch.
+             with its wall seconds (`layers=8` on the cut legs' lines).
+             Prefix hits, preemptions and tier revivals must be > 0, the
+             ring microbench kernelized, and each of the four kernels
+             must launch.
+18b. tools   the port's tools (butterfly_tpu_torch/tools/) on the bench
+             phase's tree cut to 8 layers at full width, int8 KV pools:
+             profile_decode's default, serving, pipeline, spec and
+             prefill modes through their functions (batch 8, prompt 128,
+             16 new, 4 steps a block), long context on a seq = 4 mesh of
+             four shards on cuda:0; each prints its trace window's wall,
+             device busy, idle share and top kernel ([tools] mode=...),
+             and its kernel must have run: paged inside the window of
+             the serving and pipeline blocks, ring and paged inside the
+             long-context one, fresh flash (default, prefill) and paged
+             (spec, whose verify attends through the dense gather) by
+             their launch counters over the mode; then tp_scaling's
+             collectives of one decode step at tensor = 2 and 8 (every
+             shard on cuda:0, so copies, not NVLink): 2 reductions of
+             [8, 1, 4096] a layer.
 19. ckpt     checkpoints, snapshots and profiles on the serve phase's
              Llama-3-8B tree cut to 8 layers at full width (5.6 GB; the
              time limit): written as an HF directory under the
@@ -354,13 +373,21 @@ raises and the script exits non-zero:
              schedule (virtual_stages 2, its placement's allocated bytes:
              0), serving (4 requests of 16-400 bytes, 8 new, 8 slots)
              with the int8 pool at stage = 2, at stage 2 x tensor 2 and at
-             stage 2 x data 2.
+             stage 2 x data 2; then speculative serving with a 6-layer
+             draft model at stage = 2 (4 layers a stage: the draft's
+             layers are views of both stages' slices), 4 requests x 8
+             new, against the unsharded speculative run at 8 layers
+             (equal tokens or the teacher-forced gap within 0.5).
 
-Runs cut to make room for phase 23 (PERF.md section 4): the tp phase's
-tensor = 8 generate and its step check run at 8 layers; the bench
-phase's mixed leg sweeps 2 of its 4 operating points; the mixed and
-spec legs run on the tree cut to 8 layers (their [bench] lines say
-layers=8). Every other phase keeps its size.
+Runs cut, with their depth (PERF.md section 4): the tp phase's tensor =
+8 generate and its step check at 8 layers; the bench phase's mixed leg
+sweeps 2 of its 4 operating points; the bench phase's serving,
+warm-prefill, mixed and spec legs on the tree cut to 8 layers (their
+[bench] lines say layers=8); the fleet phase on the tree cut to 8
+layers; the pipe phase's stage = 2 serving and its generate and mesh
+runs at 8 layers; the ckpt phase's tree at 8 layers. Every other phase
+keeps its size. The CUPTI subscription of torch's profiler is torn down
+after each capture (TEARDOWN_CUPTI=1, set before torch loads).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
@@ -1259,35 +1286,6 @@ def phase_parity(torch, engine, label="parity"):
 
 # -- phase 7: where a decode step's time goes --------------------------------
 
-class _Kernel:
-    """One device kernel's totals over a trace: what key_averages() gives
-    for a CUDA row (key, count, self_device_time_total in us)."""
-    __slots__ = ("key", "count", "self_device_time_total")
-
-    def __init__(self, key):
-        self.key, self.count, self.self_device_time_total = key, 0, 0.0
-
-
-def _kernels(prof):
-    """The trace's device events grouped by name, read from the raw
-    kineto results with the filters key_averages() applies. key_averages()
-    would first build a Python event, and the CPU-op tree, for every op of
-    the trace: over a minute for one profiled generate_long."""
-    from torch.autograd import DeviceType
-    by = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA or e.is_async() \
-                or e.start_thread_id() != e.end_thread_id() \
-                or getattr(e, "is_hidden_event", lambda: False)():
-            continue
-        k = by.get(e.name())
-        if k is None:
-            k = by[e.name()] = _Kernel(e.name())
-        k.count += 1
-        k.self_device_time_total += (e.end_ns() - e.start_ns()) / 1e3
-    return list(by.values())
-
-
 def _decode_step_profile(torch, engine, steps=5, record_shapes=False):
     """Decode steps of the real engine path (mixed_block_async, k=1,
     C=1, every slot decoding at the lengths below) timed on the host
@@ -1297,6 +1295,8 @@ def _decode_step_profile(torch, engine, steps=5, record_shapes=False):
     shows none, the profiler, the lengths)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
+
+    from butterfly_tpu_torch.obs.profile import device_kernels
     S = engine.num_slots
     mp = engine.cache.page_table.shape[1]
     page = engine.cache.page_size
@@ -1331,22 +1331,22 @@ def _decode_step_profile(torch, engine, steps=5, record_shapes=False):
         t0 = time.perf_counter()
         run(steps)
         wall = (time.perf_counter() - t0) / steps * 1e3
-    busy = sum(_dev_us(e) for e in _kernels(prof)) / steps / 1e3
+    busy = sum(_dev_us(e) for e in device_kernels(prof)) / steps / 1e3
     return step_ms, wall, busy, prof, lengths
 
 
 def _dev_us(e):
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0.0))
+    return e.self_device_time_total
 
 
 def phase_profile(torch, engine, steps=5):
     """Where one decode step's time goes (_decode_step_profile): device
     busy time per step, the idle share, the paged kernels' share and the
     top kernels."""
+    from butterfly_tpu_torch.obs.profile import device_kernels
     step_ms, wall, busy, prof, lengths = _decode_step_profile(
         torch, engine, steps)
-    ka = _kernels(prof)
+    ka = device_kernels(prof)
     top = sorted(ka, key=_dev_us, reverse=True)[:8]
     paged = [e for e in ka if "paged_" in e.key and "kernel" in e.key]
     paged_ms = sum(_dev_us(e) for e in paged) / steps / 1e3
@@ -1601,6 +1601,8 @@ def _profile(torch, run, warm_up=True):
     torch.profiler: (host wall ms, device kernel averages, device ms of
     one average)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from butterfly_tpu_torch.obs.profile import device_kernels
     if warm_up:
         run()
     torch.cuda.synchronize()
@@ -1610,11 +1612,10 @@ def _profile(torch, run, warm_up=True):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ka = _kernels(prof)
+    ka = device_kernels(prof)
 
     def dev_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        return e.self_device_time_total / 1e3
     return wall, ka, dev_ms
 
 
@@ -2253,6 +2254,16 @@ def phase_spec(torch, model, params, tok):
 #: Llama-3-8B tree, 4 slots of 1024 tokens each in 16-token pages
 FLEET = dict(page_size=16, max_batch=4, max_seq=1024, disagg_threshold=64)
 FLEET_PROMPT, FLEET_SHARED, FLEET_NEW, FLEET_REQUESTS = 384, 256, 32, 8
+FLEET_LAYERS = 8   # the replicas' tree: 8 layers at full width (time)
+
+
+def _cut(torch, model, params, layers):
+    """(model, params) of the shared tree cut to its first `layers`
+    layers at full width: views, nothing copied."""
+    from butterfly_tpu_torch.models.common import Model
+    from butterfly_tpu_torch.models.draft import _slice_layers
+    return (Model(model.cfg.replace(num_layers=layers), device="cuda"),
+            dict(params, layers=_slice_layers(params["layers"], layers)))
 
 
 def _fleet_prompts(vocab):
@@ -2323,8 +2334,9 @@ def _pool_bytes(engine):
 
 def phase_fleet(torch, model, params):
     """`butterfly fleet` on the card: fleet/harness.start_fleet("2p2d")
-    over the shared Llama-3-8B weights (full width and depth, one tree for
-    all four replicas), the control plane in front, on cuda. A direct run
+    over the shared Llama-3-8B weights cut to FLEET_LAYERS layers at full
+    width (views; one tree for all four replicas, and the teacher-forced
+    check's), the control plane in front, on cuda. A direct run
     (disaggregation off) and a disaggregated run of the same 8 requests;
     the page bytes of an export -> import -> export; a drained restart of
     one decode replica under load with nothing dropped; spawn and retire
@@ -2340,6 +2352,7 @@ def phase_fleet(torch, model, params):
     from butterfly_tpu_torch.ops.paged_attention import paged_attention
     from butterfly_tpu_torch.workload import loadgen as lg
     card = torch.cuda.get_device_name(0).replace(" ", "_")
+    model, params = _cut(torch, model, params, FLEET_LAYERS)
     cfg = model.cfg
     paged_attention.launches = 0
     gc.collect()
@@ -2516,7 +2529,9 @@ BENCH_MIXED = dict(n_requests=12, max_batch=4, prompt_lo=8, prompt_hi=48,
                    pool_fraction=0.35, arrival="burst:2000:0.5:0.1",
                    slo_ttft_ms=None, host_kv_tier_mb=512.0,
                    max_seconds=180.0, grid=[(1, 1), (4, 1)])
-#: the depth of the mixed and spec legs' tree, full width (time)
+#: the depth of the serving, warm_prefill, mixed and spec legs' tree,
+#: full width (time); the decode legs keep full depth (the tp phase holds
+#: its tensor = 2 decode leg against the decode leg)
 BENCH_CUT_LAYERS = 8
 
 
@@ -2524,10 +2539,11 @@ def phase_bench(torch, model, params, qparams):
     """The benchmark legs of obs/benchmark.py called directly on the
     shared Llama-3-8B weights (not built a second time), sized by request
     counts and max_seconds, never by width; each leg's JSON on a
-    labelled line with its wall seconds. The mixed leg (its sweep at 2
-    grid points) and the speculation leg (spec on vs off, the ngram /
-    model / tree rows) run on the tree cut to BENCH_CUT_LAYERS layers at
-    full width, their lines marked `layers=`; the decode leg runs once
+    labelled line with its wall seconds. The serving, warm-prefill, mixed
+    (its sweep at 2 grid points) and speculation (spec on vs off, the
+    ngram / model / tree rows) legs run on the tree cut to
+    BENCH_CUT_LAYERS layers at full width, their lines marked `layers=`;
+    the decode leg runs once
     more on the int8 tree `qparams`; then the fleet, chaos and autoscale
     legs at their defaults (in-process tiny-model fleets on the card; the
     autoscale leg with 12 requests of 64 tokens a client). Then one
@@ -2535,34 +2551,30 @@ def phase_bench(torch, model, params, qparams):
     in f32: the ring kernel's CUDA-core route at the tiny heads). The
     four kernels' counts are zeroed just before and read just after;
     each must have launched. Returns ({kernel: launches}, the decode
-    leg's result)."""
+    leg's result, the cut (model, params))."""
     import contextlib
     import io
 
-    from butterfly_tpu_torch.models.common import Model
-    from butterfly_tpu_torch.models.draft import _slice_layers
     from butterfly_tpu_torch.obs import benchmark as bm
     from butterfly_tpu_torch.ops import ring_attention as ra
     from butterfly_tpu_torch.ops.flash_attention import flash_attention
     from butterfly_tpu_torch.ops.paged_attention import paged_attention
     from butterfly_tpu_torch.serve.cli import main as cli_main
     card = torch.cuda.get_device_name(0).replace(" ", "_")
-    # the mixed and spec legs run on the tree cut to BENCH_CUT_LAYERS
-    # layers at full width (views of the shared tree; time)
-    model_c = Model(model.cfg.replace(num_layers=BENCH_CUT_LAYERS),
-                    device="cuda")
-    params_c = dict(params, layers=_slice_layers(params["layers"],
-                                                 BENCH_CUT_LAYERS))
-    cut = {"mixed", "spec"}
+    # the serving, warm-prefill, mixed and spec legs run on the tree cut
+    # to BENCH_CUT_LAYERS layers at full width (views of the shared tree;
+    # time)
+    model_c, params_c = _cut(torch, model, params, BENCH_CUT_LAYERS)
+    cut = {"serving", "warm_prefill", "mixed", "spec"}
     legs = [
         ("decode", lambda: bm.run_decode_benchmark(
             model, params, batch=8, prompt_len=128, max_new=64)),
         # 8 requests keep the whole smoke inside its time limit
         ("serving", lambda: bm.run_serving_benchmark(
-            model, params, n_requests=8, prompt_len=128, max_new=32,
+            model_c, params_c, n_requests=8, prompt_len=128, max_new=32,
             max_batch=8)),
         ("warm_prefill", lambda: bm.run_warm_prefill_benchmark(
-            model, params, repeats=1)),
+            model_c, params_c, repeats=1)),
         ("longctx", lambda: bm.run_longctx_benchmark(model, params)),
         ("mixed", lambda: bm.run_mixed_benchmark(model_c, params_c,
                                                  **BENCH_MIXED)),
@@ -2657,7 +2669,102 @@ def phase_bench(torch, model, params, qparams):
         spec_accept_rate=f"{spec['spec_accept_rate']:.3f}",
         **{f"spec_accept_rate_{k}": f"{spec['spec_accept_rate_' + k]:.3f}"
            for k in ("ngram", "model", "tree")})
-    return counts, dec
+    return counts, dec, (model_c, params_c)
+
+
+# -- the tools step: the port's profiler and tp_scaling -----------------------
+
+#: the profiler's sizes in the smoke (the CLI's card defaults are batch
+#: 128, prompt 128, 128 new, 16 steps a block): the serve phase's 8 slots,
+#: 16 new tokens and 4 steps a block (with 32 and 8 the step took 39.9 s)
+TOOLS = dict(batch=8, prompt_len=128, max_new=16, steps_per_tick=4, top=3)
+TOOLS_TP = (2, 8)   # tp_scaling's tensor sizes, every shard on cuda:0
+
+
+def phase_tools(torch, model, params):
+    """tools/profile_decode.py and tools/tp_scaling.py as a caller runs them
+    (butterfly_tpu_torch/tools/), on the bench phase's tree cut to
+    BENCH_CUT_LAYERS layers at full width, int8 KV pools as the
+    profiler's card branch: each profiler mode through its function
+    (decode, serving, pipeline, spec, prefill; long context on a seq =
+    4 mesh of four shards on cuda:0), its trace window's wall, device
+    busy, idle share and top kernel printed, the kernel its path runs
+    checked inside the window (paged for serving and pipeline; ring
+    and paged for long context) or, where the window holds none of the
+    four, by the mode's launch counter: fresh flash for the default
+    mode (its prefill lies outside the window) and prefill, paged for
+    spec (a verify block attends its gamma + 1 queries through the
+    dense gather, as the reference's paged_layer_body does; its
+    warm-up decodes one token a step through the kernel); then
+    tp_scaling's collectives of one decode step at tensor = 2 and 8,
+    which must be 2 reductions of [B, 1, D] a layer. The traces go
+    under the git-ignored build/ and are removed at the end. Returns
+    {kernel: launches}."""
+    import shutil
+
+    from butterfly_tpu_torch.ops import ring_attention as ra
+    from butterfly_tpu_torch.tools import profile_decode as pd
+    from butterfly_tpu_torch.tools import tp_scaling as ts
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    cfg = model.cfg
+    out = os.path.join(ROOT, "build", "smoke_tools")
+    opts = pd.options(out=out, **TOOLS)
+    counts = {"paged": 0, "fresh": 0, "warm": 0, "ring": 0}
+    # (mode, its function, the kernels its trace window must hold, the
+    # launch counter that must move over the whole mode)
+    modes = (("decode", pd.profile_decode_loop, (), "fresh"),
+             ("serving", pd.profile_serving_block, ("paged_",), "paged"),
+             ("pipeline", pd.profile_pipeline, ("paged_",), "paged"),
+             ("spec", pd.profile_spec_block, (), "paged"),
+             ("prefill", pd.profile_prefill_batch, (), "fresh"),
+             ("long_context", pd.profile_longctx, ("ring_", "paged_"),
+              "ring"))
+    try:
+        for name, fn, in_window, counter in modes:
+            _zero_counts()
+            ra.launches = 0
+            t0 = time.monotonic()
+            r = fn(model, params, "int8", opts)
+            torch.cuda.synchronize()
+            n = {**_launch_counts(), "ring": ra.launches}
+            for k in counts:
+                counts[k] += n[k]
+            top = r["top"][0]
+            log("tools", mode=name, card=card, layers=cfg.num_layers,
+                seconds=f"{time.monotonic() - t0:.1f}",
+                wall_ms=f"{r['wall_ms']:.3f}",
+                device_busy_ms=f"{r['device_busy_ms']:.3f}",
+                idle_share=f"{r['idle_share']:.3f}",
+                top_kernel=top["name"][:60].replace(" ", "_"),
+                top_kernel_ms=f"{top['ms']:.4f}",
+                trace_MB=f"{os.path.getsize(r['trace']) / 1e6:.1f}",
+                **{f"{k}_launches": v for k, v in n.items()})
+            assert n[counter] > 0, f"{name}: the {counter} kernel never " \
+                "launched"
+            for kernel in in_window:
+                assert any(kernel in k for k in r["kernels"]), \
+                    f"{name}: no {kernel}* kernel in the trace window"
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for tp in TOOLS_TP:
+        t0 = time.monotonic()
+        pl = ts.per_layer(ts.measure(model, params, tp, batch=TOOLS["batch"],
+                                     seq=TOOLS["prompt_len"],
+                                     devices=["cuda:0"] * tp))
+        ar = [r for r in pl["layer"] if r["kind"] == "all_reduce"]
+        log("tools", step="tp_scaling", card=card, tensor=tp,
+            layers=pl["layers"], seconds=f"{time.monotonic() - t0:.1f}",
+            reductions_per_layer=len(ar),
+            shapes="/".join("x".join(map(str, r["shape"])) for r in ar),
+            dtype=ar[0]["dtype"] if ar else "-",
+            bytes_per_layer=sum(r["bytes"] for r in ar),
+            outside=",".join(f"{r['kind']}:{'x'.join(map(str, r['shape']))}"
+                             for r in pl["outside"]),
+            note="one card: copies and adds on cuda:0, not NVLink")
+        assert pl["layers"] == cfg.num_layers
+        assert [r["shape"] for r in ar] == \
+            [(TOOLS["batch"], 1, cfg.hidden_size)] * 2, ar
+    return counts
 
 
 # -- phase 19: checkpoints, serving snapshots and profiles -------------------
@@ -3299,16 +3406,18 @@ def _weight_shapes(tree):
 
 def _weight_copies(prof, shapes_of_weights, steps):
     """(count, device ms, source shapes) per step of aten::copy_ calls
-    whose source has the shape of a weight part (`_weight_shapes`)."""
+    whose source has the shape of a weight part (`_weight_shapes`): the
+    input shapes and the device time of the kernels each copy launched,
+    read from the raw kineto events (obs/profile.py:op_kernels)."""
+    from butterfly_tpu_torch.obs.profile import op_kernels
     n, us, shapes = 0, 0.0, {}
-    for e in prof.events():
-        if e.name != "aten::copy_" or len(e.input_shapes) < 2:
+    for in_shapes, dev_us in op_kernels(prof, "aten::copy_"):
+        if len(in_shapes) < 2:
             continue
-        src = tuple(e.input_shapes[1])
+        src = tuple(in_shapes[1])
         if src in shapes_of_weights:
             n += 1
-            us += e.device_time_total if hasattr(e, "device_time_total") \
-                else e.cuda_time_total
+            us += dev_us
             key = "x".join(map(str, src))
             shapes[key] = shapes.get(key, 0) + 1
     return n / steps, us / steps / 1e3, ",".join(
@@ -3427,6 +3536,7 @@ def phase_tp(torch, model, params, qparams, tok, serve_tokens, decode_ref):
     from butterfly_tpu_torch.engine.sampling import SamplingParams
     from butterfly_tpu_torch.engine.serving import ServingEngine
     from butterfly_tpu_torch.models.common import Model
+    from butterfly_tpu_torch.obs.profile import device_kernels
     from butterfly_tpu_torch.obs import benchmark as bm
     from butterfly_tpu_torch.quant.int8 import shard_quantized_params
     from butterfly_tpu_torch.sched.scheduler import Scheduler
@@ -3500,7 +3610,7 @@ def phase_tp(torch, model, params, qparams, tok, serve_tokens, decode_ref):
                       ("unsharded", ServingEngine(model, params, rt))):
         step_ms, wall_ms, busy, prof, _ = _decode_step_profile(
             torch, eng, steps=5, record_shapes=True)
-        top = sorted(_kernels(prof), key=_dev_us, reverse=True)[:6]
+        top = sorted(device_kernels(prof), key=_dev_us, reverse=True)[:6]
         n_copy, copy_ms, copy_shapes = _weight_copies(prof, wshapes, 5)
         log("tp", step="profile", engine=name, host_step_ms=f"{step_ms:.3f}",
             traced_step_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy:.3f}",
@@ -3794,15 +3904,15 @@ def phase_moe(torch, tok):
             torch, engine)
     finally:
         common.moe_block = plain_moe
-    # the kernels' time only: the range's device-side annotation spans
-    # the gaps between its kernels, so it is left out of both sums
-    ka = _kernels(prof)
-    busy = sum(_dev_us(e) for e in ka if e.key != "moe_block") / 5 / 1e3
-    moe_ms = sum(e.device_time_total for e in prof.events()
-                 if e.name == "moe_block"
-                 and e.device_type.name == "CPU") / 5 / 1e3
-    top = sorted((e for e in ka if e.key != "moe_block"), key=_dev_us,
-                 reverse=True)[:6]
+    # the kernels' time only (the range's device-side annotation, which
+    # spans the gaps between its kernels, is no kernel): the MoE blocks'
+    # share is the kernels launched inside a moe_block range
+    from butterfly_tpu_torch.obs.profile import (device_kernels,
+                                                 range_device_us)
+    ka = [e for e in device_kernels(prof) if e.key != "moe_block"]
+    busy = sum(_dev_us(e) for e in ka) / 5 / 1e3
+    moe_ms = range_device_us(prof, "moe_block") / 5 / 1e3
+    top = sorted(ka, key=_dev_us, reverse=True)[:6]
     log("moe", step="profile", card=card, host_wall_ms=f"{step_ms:.3f}",
         traced_wall_ms=f"{wall_ms:.3f}",
         device_busy_ms=f"{busy:.3f}" if busy else "not measured",
@@ -4413,6 +4523,8 @@ PIPE_LAYERS = 8         # (d) generate and the combined meshes: 8 layers
 PIPE_NEW = 32           # new tokens of the stage = 2 requests
 PIPE_MESH_BYTES = (16, 64, 200, 400)   # (d) serving: 4 requests, 8 new
 PIPE_MESH_NEW = 8
+PIPE_DRAFT_LAYERS = 6   # (d) the draft deeper than a stage's 4 layers
+PIPE_DRAFT_GAMMA = 4
 
 
 def _stage_pool_bytes(engine):
@@ -4691,6 +4803,32 @@ def phase_pipe(torch, model, params, tok):
         sched.engine.cache = None
         del sched
         gc.collect()
+
+    # a draft model deeper than one stage: 6 layers over stages of 4, its
+    # layers views of the first two stages' slices
+    t0 = time.monotonic()
+    rt_spec = rt8.replace(speculative_gamma=PIPE_DRAFT_GAMMA,
+                          draft_model="model",
+                          draft_layers=PIPE_DRAFT_LAYERS)
+    plain = Scheduler(ServingEngine(model8, p8, rt_spec))
+    ref = [r.output for r in _moe_serve(torch, plain, tok, cfg.vocab_size,
+                                        news, sizes)[1]]
+    plain.engine.cache = None
+    del plain
+    m = _one_card_mesh(stage=2)
+    sched = Scheduler(ServingEngine(model8, p8, rt_spec, mesh=m))
+    fields, n = main_path(lambda: _serve_against(
+        torch, "spec_draft_deeper_than_stage", sched, ref, p8, cfg8, tok,
+        news, sizes))
+    stats = sched.metrics()
+    log("pipe", **timed("spec_draft_deeper_than_stage", t0),
+        mesh="stage2_on_cuda:0", layers=L8, draft_layers=PIPE_DRAFT_LAYERS,
+        layers_per_stage=L8 // 2, gamma=PIPE_DRAFT_GAMMA, **fields,
+        spec_forwards=int(stats.get("spec_forwards_total", 0)),
+        paged_launches=n["paged"])
+    sched.engine.cache = None
+    del sched
+    gc.collect()
     torch.cuda.empty_cache()
     for k, v in counts.items():
         assert v > 0, f"the {k} kernel never launched in the pipe phase"
@@ -4746,6 +4884,10 @@ def _ptxas_kernels(err):
 
 
 def main() -> int:
+    # kineto tears CUPTI down when a capture stops: left subscribed, it
+    # made every later host launch slower (PERF.md section 5); set before
+    # torch loads kineto
+    os.environ["TEARDOWN_CUPTI"] = "1"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -4825,8 +4967,12 @@ def main() -> int:
     clock("spec")
     fleet = phase_fleet(torch, model, params)
     clock("fleet")
-    bench, decode_leg = phase_bench(torch, model, params, qparams)
+    bench, decode_leg, (model_c, params_c) = phase_bench(torch, model,
+                                                         params, qparams)
     clock("bench")
+    tools = phase_tools(torch, model_c, params_c)
+    del model_c, params_c
+    clock("tools")
     ck = phase_ckpt(torch, model, params, tok)
     clock("ckpt")
     tp = phase_tp(torch, model, params, qparams, tok, serve_tokens,
@@ -4845,6 +4991,10 @@ def main() -> int:
     comb_moe = phase_combined_moe(torch, tok, moe_state)
     clock("combined_moe")
     del moe_state
+    # a torch profiler sits in a reference cycle (its action map holds
+    # its own bound methods): one left for the interpreter's exit is
+    # destroyed after CUPTI's teardown, and the exit hangs; collect them
+    # all here, before the result lines
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4867,24 +5017,25 @@ def main() -> int:
               "butterfly_tpu/ops/paged_attention.py:65",
               serve_launches + alt["paged"] + long_paged + quant["paged"]
               + spec["paged"] + fleet["paged"] + bench["paged"]
-              + ck["paged"] + tp["paged"] + moe["paged"] + comb["paged"]
+              + tools["paged"] + ck["paged"] + tp["paged"] + moe["paged"] + comb["paged"]
               + comb_moe["paged"] + pipe["paged"], kres, "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
               gen_fresh + alt["fresh"] + quant["fresh"] + spec["fresh"]
-              + bench["fresh"] + ck["fresh"] + tp["fresh"] + moe["fresh"]
+              + bench["fresh"] + tools["fresh"] + ck["fresh"] + tp["fresh"] + moe["fresh"]
               + comb_moe["fresh"] + pipe["fresh"], fresh_cases,
               "fresh_bf16"),
         entry("flash_attention_warm", flash_src,
               "butterfly_tpu/ops/flash_attention.py:97",
-              alt["warm"] + spec["warm"] + bench["warm"] + ck["warm"]
-              + tp["warm"],
+              alt["warm"] + spec["warm"] + bench["warm"] + tools["warm"]
+              + ck["warm"] + tp["warm"],
               warm_cases,
               "warm_bf16"),
         entry("ring_attention",
               "butterfly_tpu_torch/ops/csrc/ring_attention.cu",
               "butterfly_tpu/ops/ring_attention.py:158",
-              long_ring + bench["ring"] + comb["ring"], rres, "diag_bf16"),
+              long_ring + bench["ring"] + tools["ring"] + comb["ring"], rres,
+              "diag_bf16"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     assert paged_attention.launches > 0

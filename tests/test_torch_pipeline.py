@@ -543,6 +543,39 @@ def test_ngram_speculation_under_stage(jax_serve_tokens):
         jax_serve_tokens["none"]
 
 
+def test_draft_deeper_than_a_stage_under_stage_mesh():
+    """A 2-layer draft model over 4 stages of 1 layer (the reference's
+    _build_model_draft_source runs any n < L on the stage-split tree):
+    the draft's layers come from the first two stages' slices, views of
+    the one tree, and the greedy tokens equal JAX's stage = 4 run and the
+    port's unmeshed run."""
+    shape = dict(SERVE, num_layers=4)
+    spec = dict(speculative_gamma=2, draft_model="model", draft_layers=2)
+    jp, tp = trees(42, 4, SERVE)
+    jmesh, tmesh = meshes(stage=4)
+    js = JScheduler(JServing(JC.Model(jconfig.tiny("llama", **shape)), jp,
+                             _rt(jconfig, **spec), mesh=jmesh))
+    jreqs = [js.submit(p, max_new_tokens=6) for p in PROMPTS]
+    js.run_until_done()
+    want = [r.output for r in jreqs]
+
+    def port(mesh):
+        return Scheduler(ServingEngine(
+            TC.Model(tconfig.tiny("llama", **shape), device="cpu"), tp,
+            _rt(tconfig, **spec), mesh=mesh))
+    meshed = port(tmesh)
+    dlayers = meshed.engine._draft_src.params["layers"]
+    for leaf, src in ((dlayers["attn"]["wq"], tp["layers"]["attn"]["wq"]),
+                      (dlayers["mlp"]["w_down"],
+                       tp["layers"]["mlp"]["w_down"])):
+        assert leaf.shape[0] == 2
+        assert leaf.untyped_storage().data_ptr() == \
+            src.untyped_storage().data_ptr()
+        assert torch.equal(leaf, src[:2])
+    assert _drive(meshed) == want
+    assert _drive(port(None)) == want
+
+
 def test_scheduler_warns_seq_lane_off_under_stage():
     """sched/scheduler.py (JAX :256): a seq-parallel threshold on an
     engine that cannot run the lane warns and serves on."""
