@@ -14,16 +14,17 @@ run seq=4 on `cpu`, and one card runs seq=2 with both shards on cuda:0.
 Nothing places shards implicitly: with no list, the mesh takes the
 visible cards cuda:0..n-1 and their count must match.
 
-Every axis is ported, alone and combined as the JAX package combines
-them: `seq` with `tensor` and/or `data`, `expert` with `tensor` and/or
-`data`, `stage` with `tensor` and/or `data`, `tensor` with `data`. A
-shard's devices are found by its coordinates (`along`): the tensor
-shards of seq shard i of data group d are
+Every axis is ported, alone and in every combination the JAX package
+builds. A shard's devices are found by its coordinates (`along`): the
+tensor shards of seq shard i of data group d are
 `along("tensor", data=d, seq=i)`. Pipeline stage s runs its layers on
 its own mesh, `stage_mesh(s)`: the devices at stage coordinate s, the
-stage axis of size 1 (parallel/pipeline.py). A mesh that combines `seq`
-with `expert`, or `stage` with `seq` or `expert`, raises
-NotImplementedError naming its ROADMAP item by title.
+stage axis of size 1, every other axis whole (parallel/pipeline.py).
+Seq shard i runs its expert dispatch on `seq_mesh(i)`, the devices at
+seq coordinate i (parallel/sequence.py), as the JAX seq body, manual
+over `seq`, leaves the expert axis automatic inside. Under `stage` the
+seq axis is a replica: the pipeline runs at seq coordinate 0, and
+seq-parallel generation refuses a stage axis as the JAX engine does.
 
 The engines make their mesh the ACTIVE mesh (`mesh_ctx`, the counterpart
 of the JAX package's ambient mesh, core/compat.py:mesh_ctx) around every
@@ -42,14 +43,6 @@ import numpy as np
 import torch
 
 from butterfly_tpu_torch.core.config import MESH_AXES, MeshConfig
-
-#: where a mesh that combines seq and expert waits (ROADMAP.md, PyTorch/CUDA
-#: port queue, by the item's title)
-_COMBINED_AXES = "Meshes that combine axes (seq x expert)"
-
-#: where a mesh that combines stage with seq or expert waits
-_STAGE_AXES = "Meshes that combine axes (stage x seq, stage x expert)"
-
 
 class Mesh:
     """Named device grid: `shape` maps each axis of MESH_AXES to its size;
@@ -81,12 +74,14 @@ class Mesh:
         `tensor_index`, shard order."""
         return self.along("seq", data=data_index, tensor=tensor_index)
 
-    def expert_devices(self, data_index: int = 0,
-                       tensor_index: int = 0) -> List[torch.device]:
+    def expert_devices(self, data_index: int = 0, tensor_index: int = 0,
+                       seq_index: int = 0,
+                       stage_index: int = 0) -> List[torch.device]:
         """The expert shards of data group `data_index` at tensor shard
-        `tensor_index`, shard order: shard i holds experts
-        [i*E/N, (i+1)*E/N)."""
-        return self.along("expert", data=data_index, tensor=tensor_index)
+        `tensor_index`, seq shard `seq_index` and stage `stage_index`,
+        shard order: shard i holds experts [i*E/N, (i+1)*E/N)."""
+        return self.along("expert", data=data_index, tensor=tensor_index,
+                          seq=seq_index, stage=stage_index)
 
     def tensor_devices(self, data_index: int = 0, seq_index: int = 0,
                        expert_index: int = 0) -> List[torch.device]:
@@ -96,11 +91,20 @@ class Mesh:
         return self.along("tensor", data=data_index, seq=seq_index,
                           expert=expert_index)
 
+    def sub_mesh(self, axis: str, i: int) -> "Mesh":
+        """The devices at coordinate i of `axis`, every other axis as it
+        is, `axis` of size 1."""
+        return Mesh(np.take(self.devices, [i],
+                            axis=self.axis_names.index(axis)),
+                    self.axis_names)
+
     def stage_mesh(self, s: int) -> "Mesh":
-        """Pipeline stage s's own mesh: the devices at stage coordinate
-        s, every other axis as it is, the stage axis of size 1."""
-        i = self.axis_names.index("stage")
-        return Mesh(np.take(self.devices, [s], axis=i), self.axis_names)
+        """Pipeline stage s's own mesh (the seq and expert axes whole)."""
+        return self.sub_mesh("stage", s)
+
+    def seq_mesh(self, i: int) -> "Mesh":
+        """Seq shard i's own mesh: where its expert dispatch runs."""
+        return self.sub_mesh("seq", i)
 
     def data_devices(self) -> List[torch.device]:
         """The first device of each data group, group order: group d
@@ -116,22 +120,6 @@ class Mesh:
         return f"Mesh({self.shape}, devices={list(self.devices.reshape(-1))})"
 
 
-def _refuse_unported_axes(cfg: MeshConfig) -> None:
-    if cfg.stage > 1 and (cfg.seq > 1 or cfg.expert > 1):
-        other = "seq" if cfg.seq > 1 else "expert"
-        raise NotImplementedError(
-            f"a mesh with stage={cfg.stage} and {other}="
-            f"{getattr(cfg, other)} is not ported yet (ROADMAP.md, "
-            f"PyTorch/CUDA port queue: {_STAGE_AXES}); stage runs with "
-            "tensor and data")
-    if cfg.seq > 1 and cfg.expert > 1:
-        raise NotImplementedError(
-            f"a mesh with seq={cfg.seq} and expert={cfg.expert} is not "
-            f"ported yet (ROADMAP.md, PyTorch/CUDA port queue: "
-            f"{_COMBINED_AXES}); seq and expert each run with tensor "
-            "and data")
-
-
 def make_mesh(cfg: MeshConfig,
               devices: Optional[Sequence] = None) -> Mesh:
     """Build a Mesh over the canonical axes (data, stage, expert, seq,
@@ -139,7 +127,6 @@ def make_mesh(cfg: MeshConfig,
 
     devices: torch.devices (or names) in mesh order; None takes every
     visible card, cuda:0..n-1. Its length must equal cfg.num_devices."""
-    _refuse_unported_axes(cfg)
     if devices is None:
         devices = [torch.device(f"cuda:{i}")
                    for i in range(torch.cuda.device_count())]
@@ -177,13 +164,6 @@ def mesh_for(n_devices: int, tensor: int = 0, stage: int = 1,
     if devices is None:
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     return make_mesh(cfg, devices=list(devices)[:n_devices])
-
-
-def require_ported_mesh(mesh: Mesh) -> None:
-    """Raise NotImplementedError for a mesh that combines seq and
-    expert, or stage with seq or expert."""
-    _refuse_unported_axes(MeshConfig(**{a: mesh.shape.get(a, 1)
-                                        for a in MESH_AXES}))
 
 
 def seq_degree(mesh: Optional[Mesh]) -> int:

@@ -51,8 +51,8 @@ import torch
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
 from butterfly_tpu_torch.core.mesh import (
-    data_degree, expert_degree, require_ported_mesh, seq_degree,
-    stage_degree, tensor_degree, under_mesh)
+    data_degree, expert_degree, seq_degree, stage_degree, tensor_degree,
+    under_mesh)
 from butterfly_tpu_torch.engine.sampling import (
     SamplingParams, sample, speculative_accept)
 from butterfly_tpu_torch.models.common import (
@@ -118,7 +118,6 @@ def mesh_device(mesh, device, model) -> torch.device:
     if mesh is None:
         return resolve_device(
             device if device is not None else getattr(model, "device", None))
-    require_ported_mesh(mesh)
     first = resolve_device(mesh.first_device)
     if device is not None:
         want = torch.device(device)
@@ -160,10 +159,12 @@ def place_params(params, cfg: ModelConfig, device: torch.device, mesh,
 
 def seq_replicas(params, mesh):
     """The weights on every seq shard of a seq mesh, each data group's
-    replica and each tensor part on its shard's devices, as views where
-    they share a card (a tensor-split tree is not gathered); None
-    without a seq axis."""
-    if seq_degree(mesh) <= 1:
+    replica and each tensor and expert part on its shard's devices, as
+    views where they share a card (a split tree is not gathered); None
+    without a seq axis, and under a stage axis, where seq is a replica
+    that no seq-parallel program runs on (generate_long refuses stages
+    and the serving lane is off)."""
+    if seq_degree(mesh) <= 1 or stage_degree(mesh) > 1:
         return None
     return replicate_params(params, mesh)
 
@@ -350,6 +351,11 @@ class InferenceEngine:
             raise ValueError(
                 "generate_long needs a mesh with a seq axis > 1 "
                 "(CLI: --seq-parallel N)")
+        if stage_degree(self.mesh) > 1:
+            raise NotImplementedError(
+                "seq-parallel generation does not compose with pipeline "
+                "stages (stage > 1): sp_forward runs the whole layer "
+                "stack on every seq shard")
         ids = list(prompt)
         true_len = len(ids)
         total = true_len + sp.max_new_tokens

@@ -29,9 +29,17 @@ row-parallel on down (models/common.py:expert_swiglu).
 
 The mesh comes from the active mesh (core/mesh.py:mesh_ctx), which the
 engines enter around their forwards, as the JAX function reads the
-abstract mesh. The expert weights may be split over the shards
-(parallel/partition.py:shard_params) or plain tensors (each shard then
-takes a view of its experts).
+abstract mesh; the dispatch runs over the devices the expert parts lie
+on. Inside a seq shard (parallel/sequence.py) the active mesh is the
+shard's own, `Mesh.seq_mesh(i)`, and the a2a splits the shard's chunk
+over its expert shards; inside a pipeline stage (parallel/pipeline.py)
+it is the stage's, `Mesh.stage_mesh(s)`, and the a2a splits the stage's
+prefill microbatch. Either way the capacity is pooled per source chunk
+of the tokens the dispatch sees, as JAX's body, manual over `expert`
+inside a body manual over `seq` or `stage`, pools it. The expert
+weights may be split over the shards (parallel/partition.py:
+shard_params) or plain tensors (each shard then takes a view of its
+experts).
 
 Capacity: each expert takes at most C assignments per sequence (einsum
 path) or per source shard (a2a path, pooled over the shard's B
@@ -146,7 +154,10 @@ def dropped_assignments(x: torch.Tensor, router_w: torch.Tensor,
                         cfg: ModelConfig, n_shards: int,
                         capacity: Optional[int] = None) -> torch.Tensor:
     """How many (token, k) assignments of x [B, T, D] the a2a path over
-    `n_shards` drops at this capacity (a device scalar)."""
+    `n_shards` drops at this capacity (a device scalar): each source
+    chunk of T/n_shards tokens over the B rows pooled, as JAX's budget.
+    Under seq x expert the chunks are the seq shards' chunks split again
+    over the expert shards: n_shards = seq * expert."""
     B, T, _ = x.shape
     Tl = T // n_shards
     C = a2a_capacity(cfg, B, Tl, capacity)

@@ -18,16 +18,20 @@ container of per-shard tensors, `Shards`:
   expert x tensor each expert part is again split over F, over the
   tensor devices of its expert shard (a Shards of Shards);
 * seq: the weights replicate (parallel/sequence.py places one tree per
-  seq shard, views where the shards share a card);
+  seq shard, its tensor and expert parts on the shard's devices, views
+  where the shards share a card); under `stage` the seq axis is a
+  replica no program runs on, and the tree is placed at seq coordinate
+  0 alone;
 * data: weights and the page pool are replicated, batch rows and slots
   split (the forwards run each data group on its rows; see
   parallel/tensor.py:data_groups);
 * stage: the layer-stacked leaves, the page pools and the contiguous
   caches split their leading L dim, stage s holding layers
   [s*L/S, (s+1)*L/S) placed over its own mesh (`Mesh.stage_mesh(s)`,
-  tensor and data as above); the embedding, the final norm and the LM
-  head are placed over stage 0's mesh (parallel/pipeline.py runs them
-  there).
+  expert, tensor and data as above: the MoE leaves of a stage's slice
+  split over that stage's expert devices, JAX's P('stage', 'expert',
+  ...)); the embedding, the final norm and the LM head are placed over
+  stage 0's mesh (parallel/pipeline.py runs them there).
 
 Where a shard shares its device with the tree, a weight part is a VIEW of
 the stacked leaf, so one card with N shards still holds one tree, not N
@@ -46,8 +50,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
-from butterfly_tpu_torch.core.mesh import (Mesh, data_degree,
-                                           require_ported_mesh, stage_degree)
+from butterfly_tpu_torch.core.mesh import Mesh, data_degree, stage_degree
 from butterfly_tpu_torch.quant.int8 import is_quantized_leaf, quant_specs_like
 
 Params = Dict[str, Any]
@@ -486,7 +489,6 @@ def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh,
     of its [L/S, ...] slices, slice s placed as above over stage s's
     mesh (views where it shares the tree's device); the other leaves are
     placed over stage 0's mesh."""
-    require_ported_mesh(mesh)
     if stage_degree(mesh) > 1:
         Ls = layers_per_stage(cfg, mesh)
         top = {k: v for k, v in params.items() if k != "layers"}
@@ -534,7 +536,6 @@ def shard_paged_cache(cache, cfg: ModelConfig, mesh: Mesh,
     group reads its slots' rows from there. Under `stage` each pool is a
     Shards over "stage" of its [L/S, ...] slices, each placed so over
     its stage's mesh."""
-    require_ported_mesh(mesh)
     if stage_degree(mesh) > 1:
         Ls = layers_per_stage(cfg, mesh)
         scfg = cfg.replace(num_layers=Ls)

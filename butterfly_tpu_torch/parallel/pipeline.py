@@ -10,8 +10,12 @@ process drives every stage, so the schedule is a host loop:
 * the layer-stacked weights, the page pools and the contiguous caches
   are split over `stage` (parallel/partition.py: a Shards over "stage"
   of [L/S, ...] slices, each placed over its stage's own mesh,
-  core/mesh.py:Mesh.stage_mesh, whose tensor and data axes run inside
-  the stage as they do without a pipeline);
+  core/mesh.py:Mesh.stage_mesh, whose expert, tensor and data axes run
+  inside the stage as they do without a pipeline: each stage body runs
+  with its stage's mesh active, so an MoE takes the a2a path over the
+  stage's expert devices on a prefill microbatch and the einsum path at
+  decode, as the JAX stage body, manual over `stage` alone, does; a seq
+  axis is a replica, not a ring: the stages run at seq coordinate 0);
 * tick t has stage s working on microbatch m = t - s (`_gpipe_schedule`,
   one host loop for the JAX `_gpipe_schedule` and `_interleaved_body`
   scans). Bubble ticks are skipped: only the valid (stage, microbatch)
@@ -54,7 +58,8 @@ from butterfly_tpu_torch.models.common import (
     scan_layers)
 from butterfly_tpu_torch.parallel.partition import (Shards, axis_parts,
                                                     stack_stages)
-from butterfly_tpu_torch.parallel.tensor import cat_groups, group_part
+from butterfly_tpu_torch.parallel.tensor import (cat_groups, group_part,
+                                                 run_groups)
 
 
 def pipeline_forward(params, cfg: ModelConfig, tokens, cache: KVCache,
@@ -319,22 +324,26 @@ def _stage_layers(layers, kv, cfg: ModelConfig, x, row0: int, positions,
     """One stage's layers (`cfg.num_layers` of them) on the microbatch
     whose first batch row is `row0`, against its rows of the stage's
     cache slice `kv` (k, v, k_scale, v_scale), written in place. Under a
-    data axis each data group runs the rows it holds on its own devices.
-    Returns the output on the mesh's first device."""
-    outs = []
+    data axis each data group runs the rows it holds on its own devices,
+    one GroupRun over the microbatch (an expert a2a inside pools its
+    capacity over the microbatch's rows, as the JAX stage body, manual
+    over `stage` alone, does). Returns the output on the mesh's first
+    device."""
     devs = mesh.data_devices()
-    for d, a, b in _row_segments(kv[0], row0, row0 + x.shape[0]):
+
+    def group(seg):
+        d, a, b = seg
         dev = devs[d]
         sl = slice(a - row0, b - row0)
 
         def at(t):
             return t[sl].to(dev, non_blocking=True)
         k, v, ks, vs = (_rows(t, d, a, b) for t in kv)
-        y = scan_layers({"layers": group_part(layers, d)}, cfg, at(x), k, v,
-                        at(positions), at(mask), at(cos), at(sin), fresh,
-                        ks, vs)[0]
-        outs.append(y)
-    return cat_groups(outs)
+        return scan_layers({"layers": group_part(layers, d)}, cfg, at(x), k,
+                           v, at(positions), at(mask), at(cos), at(sin),
+                           fresh, ks, vs)[0]
+    return cat_groups(run_groups(
+        _row_segments(kv[0], row0, row0 + x.shape[0]), group, x.shape[0]))
 
 
 def _paged_pipeline_body(layers, cache, x, positions, mask, cos, sin,

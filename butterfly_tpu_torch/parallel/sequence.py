@@ -38,7 +38,14 @@ shard_map (manual over {"seq"} only):
   Where Kv does not divide the tensor axis the K/V stay replicated and
   each tensor shard reads the kv heads its q heads need (`_kv_for`).
   Ulysses reshards whole heads, so it gathers each seq shard's heads and
-  splits its output back.
+  splits its output back;
+* expert: each seq shard's tree holds the expert parts on its own expert
+  devices (`mesh.expert_devices(d, seq_index=i)`), and its FFN runs with
+  its own mesh active (`Mesh.seq_mesh(i)`), so an MoE takes the a2a path
+  over those devices on the shard's chunk, its capacity pooled over the
+  chunk (and, under data, the whole batch: the data groups run as one
+  GroupRun), as the JAX body does with `expert` automatic inside; the
+  decode steps take the einsum path.
 
 Masking follows ops/ring_attention.py: the one predicate is
 k_pos <= q_pos, invalid keys carry INVALID_POS.
@@ -54,6 +61,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
+from butterfly_tpu_torch.core.mesh import mesh_ctx
 from butterfly_tpu_torch.models.common import (
     KVCache, Params, _cast_layer, _group_cache, _stack, attend, attn_output,
     embed_tokens, ffn_block, final_logits, layer_params, pre_norm, qkv_proj,
@@ -62,7 +70,8 @@ from butterfly_tpu_torch.ops.ring_attention import (
     INVALID_POS, block_stats, finalize_stats, merge_stats, zero_stats)
 from butterfly_tpu_torch.parallel.partition import Shards as TShards
 from butterfly_tpu_torch.parallel.tensor import (
-    DataGroup, cat_groups, data_groups, gather, group_part, group_rows, tmap)
+    DataGroup, cat_groups, data_groups, gather, group_part, group_rows,
+    run_groups, tmap)
 
 Shards = List[Any]
 
@@ -77,20 +86,28 @@ class Replicated:
         self.trees = trees
 
 
-def _place_on(node: Any, devs: Sequence[torch.device]) -> Any:
-    """A (sub)tree on one shard's tensor devices `devs`: part t of a
-    tensor split leaf on devs[t], any other leaf on devs[0]; a leaf that
-    is there already is itself (a view stays a view)."""
+def _place_on(node: Any, devs: Sequence[torch.device],
+              edevs: Optional[Sequence[Sequence[torch.device]]] = None
+              ) -> Any:
+    """A (sub)tree on one seq shard's devices: part t of a tensor split
+    leaf on devs[t]; part e of an expert split leaf on the shard's expert
+    device e (its tensor part t on edevs[e][t]); any other leaf on
+    devs[0]. A leaf that is there already is itself (a view stays a
+    view)."""
     if isinstance(node, dict):
-        return {k: _place_on(v, devs) for k, v in node.items()}
+        return {k: _place_on(v, devs, edevs) for k, v in node.items()}
     if isinstance(node, tuple):
-        return tuple(_place_on(v, devs) for v in node)
+        return tuple(_place_on(v, devs, edevs) for v in node)
     if node is None:
         return None
     if isinstance(node, TShards):
+        if node.axis == "expert" and edevs is not None:
+            return TShards([_place_on(p, edevs[e])
+                            for e, p in enumerate(node.parts)], "expert",
+                           node.split)
         if node.axis != "tensor":
-            raise ValueError(f"{node!r} on a seq shard: only tensor "
-                             "splits ride a seq mesh")
+            raise ValueError(f"{node!r} on a seq shard: only tensor and "
+                             "expert splits ride a seq mesh")
         return TShards([p.to(d, non_blocking=True)
                         for p, d in zip(node.parts, devs)], "tensor",
                        node.split)
@@ -99,10 +116,12 @@ def _place_on(node: Any, devs: Sequence[torch.device]) -> Any:
 
 def replicate_params(params: Params, mesh) -> Replicated:
     """The weight tree on every seq shard of `mesh` (each data group's
-    replica, each tensor part on its shard's tensor device; no copy where
-    it already lives there, as on one card)."""
+    replica, each tensor part on its shard's tensor device, each expert
+    part on its shard's expert device; no copy where it already lives
+    there, as on one card)."""
     D = mesh.shape.get("data", 1)
     N = mesh.shape.get("seq", 1)
+    E = mesh.shape.get("expert", 1)
     by_devs: Dict[tuple, Params] = {}
     trees = []
     for d in range(D):
@@ -110,9 +129,12 @@ def replicate_params(params: Params, mesh) -> Replicated:
         row = []
         for i in range(N):
             devs = tuple(mesh.tensor_devices(d, seq_index=i))
-            key = (id(src),) + devs
+            edevs = tuple(tuple(mesh.tensor_devices(d, seq_index=i,
+                                                    expert_index=e))
+                          for e in range(E))
+            key = (id(src), devs, edevs)
             if key not in by_devs:
-                by_devs[key] = _place_on(src, devs)
+                by_devs[key] = _place_on(src, devs, edevs)
             row.append(by_devs[key])
         trees.append(row)
     return Replicated(trees)
@@ -482,6 +504,16 @@ def _attend_chunk(q, k, v, pos, impl: str, quant: bool, compute,
     return out, kv_out
 
 
+def _shard_ffn(x, lp: Params, cfg: ModelConfig, sub) -> Any:
+    """One seq shard's FFN on its chunk, with the shard's own mesh active:
+    an MoE under an expert axis dispatches over the shard's expert
+    devices (parallel/expert.py), the a2a path on a chunk the expert
+    axis divides, its capacity pooled over the chunk, as the JAX seq
+    body (manual over `seq` alone) runs it."""
+    with mesh_ctx(sub):
+        return ffn_block(pre_norm(x, lp["ln2"], cfg), lp, cfg)
+
+
 def _check_seq_args(T: int, N: int, kv_quant: str, impl: str) -> None:
     if T % N != 0:
         raise ValueError(f"seq len {T} not divisible by seq axis {N}")
@@ -510,9 +542,10 @@ def sp_forward(params, cfg: ModelConfig, tokens: torch.Tensor, mesh,
     _check_seq_args(T, N, kv_quant, impl)
     quant = kv_quant == "int8"
     reps = _replicas(params, mesh)
-    outs = [_sp_forward_group(reps.trees[g.index], cfg, tokens[g.rows],
-                              mesh.seq_devices(g.index), impl, quant, kernel)
-            for g in _groups(mesh, B)]
+    subs = [mesh.seq_mesh(i) for i in range(N)]
+    outs = run_groups(_groups(mesh, B), lambda g: _sp_forward_group(
+        reps.trees[g.index], cfg, tokens[g.rows], mesh.seq_devices(g.index),
+        subs, impl, quant, kernel), B)
     logits = [cat_groups([o[0][i] for o in outs]) for i in range(N)]
     parts = [[_join([o[1][i][j] for o in outs])
               for j in range(len(outs[0][1][0]))] for i in range(N)]
@@ -528,10 +561,11 @@ def sp_forward(params, cfg: ModelConfig, tokens: torch.Tensor, mesh,
 
 
 def _sp_forward_group(trees, cfg: ModelConfig, tokens: torch.Tensor,
-                      devs, impl: str, quant: bool,
+                      devs, subs, impl: str, quant: bool,
                       kernel: Optional[bool]):
-    """sp_forward on one data group's rows over its ring `devs`: (logits
-    per shard, per shard its K/V components stacked over the layers)."""
+    """sp_forward on one data group's rows over its ring `devs`, seq
+    shard i's FFN on its own mesh subs[i]: (logits per shard, per shard
+    its K/V components stacked over the layers)."""
     N = len(devs)
     compute = torch_dtype(cfg.dtype)
     B, T = tokens.shape
@@ -559,7 +593,7 @@ def _sp_forward_group(trees, cfg: ModelConfig, tokens: torch.Tensor,
                                     kernel)
         for i in range(N):
             x = xs[i] + attn_output(out[i], lp[i]["attn"], cfg)
-            xs[i] = x + ffn_block(pre_norm(x, lp[i]["ln2"], cfg), lp[i], cfg)
+            xs[i] = x + _shard_ffn(x, lp[i], cfg, subs[i])
         kv_layers.append(kv_out)
     logits = [final_logits(trees[i], cfg, x) for i, x in enumerate(xs)]
     # per shard: stack its layers' K/V ([L, ...] like the JAX cache)
@@ -746,6 +780,7 @@ def sp_chunk_body(params, cfg: ModelConfig, tokens: torch.Tensor,
     Shards where the pool is split)."""
     devs = mesh.seq_devices(data_index)
     N = len(devs)
+    subs = [mesh.seq_mesh(i) for i in range(N)]
     trees = _replicas(params, mesh).trees[data_index]
     compute = torch_dtype(cfg.dtype)
     quant = len(prefix) == 4
@@ -803,7 +838,7 @@ def sp_chunk_body(params, cfg: ModelConfig, tokens: torch.Tensor,
         for i in range(N):
             out = _finalize(_merge(pres[i], fresh[i]), xs[i].dtype)
             x = xs[i] + attn_output(out, lp[i]["attn"], cfg)
-            xs[i] = x + ffn_block(pre_norm(x, lp[i]["ln2"], cfg), lp[i], cfg)
+            xs[i] = x + _shard_ffn(x, lp[i], cfg, subs[i])
         kv_layers.append(kv_out)
     logits = [final_logits(trees[i], cfg, x) for i, x in enumerate(xs)]
     kv = [tuple(_stack([kv_layers[li][i][j] for li in range(cfg.num_layers)])

@@ -36,10 +36,11 @@ weights and KV split Megatron-style over N shards, slots and batch rows
 over M groups), `--stage-parallel N` a pipeline of N stages (the layer
 stack and the KV split over them, microbatches through the GPipe
 schedule; with tensor and/or data inside each stage): on cuda:0..n-1
-with --device cuda (n cards needed), on the CPU with --device cpu.
-Combinations the port does not carry yet (--seq-parallel with
---expert-parallel, --stage-parallel with either) are accepted and
-refused with NotImplementedError naming the ROADMAP.md item.
+with --device cuda (n cards needed), on the CPU with --device cpu. The
+five flags combine freely, as in the JAX CLI; `generate` with
+--seq-parallel takes generate_long, which refuses --stage-parallel with
+the JAX engine's NotImplementedError (under stages the seq axis is a
+replica, and `serve` warns that its long-prompt lane is off).
 `--ckpt DIR` loads an HF-format checkpoint directory (safetensors or
 pytorch_model*.bin, ckpt/load.py) into the compute dtype, leaf by leaf;
 without it, weights are random (demo mode). `--quant int8` quantizes
@@ -486,11 +487,8 @@ def build_mesh(args):
     """Mesh from the CLI parallelism flags; None when all are 1.
 
     --device cuda takes cards cuda:0..n-1 and refuses n larger than the
-    visible count; --device cpu takes n shards on the CPU. The seq and
-    expert axes each run alone or with tensor and/or data, so does stage,
-    tensor and data alone or together; seq with expert, and stage with
-    seq or expert, raise NotImplementedError naming their ROADMAP item
-    (core/mesh.py)."""
+    visible count; --device cpu takes n shards on the CPU. Every
+    combination of the five axes builds (core/mesh.py)."""
     import torch
 
     from butterfly_tpu_torch.core.config import MeshConfig

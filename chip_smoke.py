@@ -347,7 +347,26 @@ raises and the script exits non-zero:
              step, routing replayed, within max(0.5, the two plain
              versions' gap); a 2 x 256-token prefill at capacity factor
              1.0: the a2a's dropped assignments equal the count of the
-             dense routing over the whole batch, layer by layer.
+             dense routing over the whole batch, layer by layer. Then the
+             meshes that combine seq with expert and stage with expert
+             on that tree: seq = 2 x expert = 2 (the engine's placement
+             allocates nothing): one sp_forward of a 2048-token prompt
+             with every ring block's kernel stats of each seq shard
+             against the plain version (2e-2 and the ring phase's element
+             bound), the same prefill at capacity factor 1.0 (each seq
+             shard's a2a drops, counted, equal to the dense routing's
+             count over its chunk), then generate_long with 16 greedy new
+             tokens (ring launches exact) against the unmeshed generate;
+             stage = 2 x expert = 2 (the placement allocates nothing):
+             GPipe generate of the 4 prompts (16 new; fresh flash 16
+             launches: 4 layers x 4 microbatches), serving of 4 requests
+             of 16-400 bytes with 8 new tokens on 8 slots (paged launches
+             a multiple of 4), one decode step with each stage's in-model
+             paged kernel against its plain version (2e-2), a 2 x
+             256-token pipelined prefill at capacity factor 1.0 (the
+             a2a's drops equal the dense routing's count); tokens equal
+             to the unmeshed runs or their teacher-forced gap within 0.5.
+             The part's seconds go on the [clock] line after it.
 23. pipe     pipeline stages on one card, after the combined phase's
              Llama half (every stage's shards on cuda:0,
              make_mesh(MeshConfig(stage=2), ["cuda:0"] * 2); [pipe]
@@ -377,7 +396,11 @@ raises and the script exits non-zero:
              draft model at stage = 2 (4 layers a stage: the draft's
              layers are views of both stages' slices), 4 requests x 8
              new, against the unsharded speculative run at 8 layers
-             (equal tokens or the teacher-forced gap within 0.5).
+             (equal tokens or the teacher-forced gap within 0.5); then
+             stage = 2 x seq = 2 generate at 8 layers (seq a replica:
+             fresh flash 32 launches, the placement allocates nothing)
+             against the unsharded run, and generate_long there refused
+             with the JAX engine's NotImplementedError.
 
 Runs cut, with their depth (PERF.md section 4): the tp phase's tensor =
 8 generate and its step check at 8 layers; the bench phase's mixed leg
@@ -396,6 +419,7 @@ and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import os
@@ -4509,9 +4533,347 @@ def phase_combined_moe(torch, tok, state):
             note="smoke run, not a benchmark")
         assert gap <= bound, f"{name}: step logits vs dense {gap} > {bound}"
         assert got == want > 0, f"{name}: {got} dropped, dense routing {want}"
+    t_step = time.monotonic()
+    more = _moe_mesh_combos(torch, tok, state, prompts, dense_gen, sp)
+    step_s = time.monotonic() - t_step
+    for k, v in more.items():
+        counts[k] = counts.get(k, 0) + v
     log("combined", part="mixtral",
         phase_s=f"{time.monotonic() - t_phase:.1f}",
-        paged_launches=counts["paged"], fresh_launches=counts["fresh"])
+        mesh_combos_s=f"{step_s:.1f}", paged_launches=counts["paged"],
+        fresh_launches=counts["fresh"], ring_launches=counts["ring"])
+    return counts, step_s
+
+
+COMBOS_LONG = 2048    # the seq = 2 x expert = 2 generate_long prompt
+COMBOS_SERVE_NEW = 8  # stage = 2 x expert = 2 serving: 4 requests x 8 new
+
+
+def _counted_drops(torch, run, drop):
+    """run() with every a2a dispatch's dropped assignments counted as it
+    sorts them and its input recorded: (run's result, dropped, the count
+    of the dense routing over each dispatch's input at its capacity)."""
+    from butterfly_tpu_torch.parallel import expert as expert_mod
+    made, seen = [], []
+    plain_slots, plain_ep = expert_mod.a2a_slots, expert_mod.moe_block_ep
+
+    def counted_slots(idx, E, C, base=None):
+        dest, keep = plain_slots(idx, E, C, base)
+        made.append((~keep).sum())
+        return dest, keep
+
+    def recorded_ep(x, p, c, capacity=None):
+        if expert_mod.takes_a2a(x, c):
+            seen.append((x, p["router"]))
+        return plain_ep(x, p, c, capacity)
+    expert_mod.a2a_slots = counted_slots
+    expert_mod.moe_block_ep = recorded_ep
+    try:
+        out = run()
+    finally:
+        expert_mod.a2a_slots = plain_slots
+        expert_mod.moe_block_ep = plain_ep
+    want = sum(int(expert_mod.dropped_assignments(x, r, drop, 2))
+               for x, r in seen)
+    return out, int(sum(int(m) for m in made)), want, len(seen)
+
+
+def _tf_routing(torch, params, cfg, rows):
+    """One plain dense forward (fresh) over each row's tokens, right-
+    padded: (its logits [B, T, V] f32, per layer its expert choices
+    [B, T, k]): the routing a replayed run takes (_replayed_routing)."""
+    import butterfly_tpu_torch.models.common as common_mod
+    from butterfly_tpu_torch.models.common import forward, init_cache
+    T = max(len(r) for r in rows)
+    seq = torch.zeros((len(rows), T), dtype=torch.long, device="cuda")
+    for b, r in enumerate(rows):
+        seq[b, :len(r)] = torch.tensor(r, device="cuda")
+    table, plain = [], common_mod.route_tokens
+
+    def record(x, w, k):
+        gates, idx = plain(x, w, k)
+        table.append(idx)
+        return gates, idx
+    common_mod.route_tokens = record
+    try:
+        logits, _ = forward(params, cfg, seq, init_cache(
+            cfg, len(rows), T, device="cuda"), fresh=True)
+    finally:
+        common_mod.route_tokens = plain
+    assert len(table) == cfg.num_layers, len(table)
+    return logits.float(), table
+
+
+@contextlib.contextmanager
+def _replayed_routing(torch, table, where):
+    """Every expert-parallel routing call inside the block takes its
+    expert choices from `table` (per layer [B, T, k]): call c routes the
+    rows and positions `where(c)` = (layer, rows [b], positions [b, t]) of
+    it, its gates from this run's own router logits at those choices (as
+    _moe_step_vs_dense replays). Yields (flips, calls): how many choices
+    this run's own routing would have made otherwise, and the calls."""
+    from butterfly_tpu_torch.parallel import expert as expert_mod
+    plain = expert_mod.route_tokens
+    flips, calls = [], []
+
+    def route(x, w, k):
+        layer, rows, pos = where(len(calls))
+        calls.append(1)
+        idx = table[layer][rows[:, None], pos]
+        assert idx.shape[:2] == x.shape[:2], (idx.shape, x.shape)
+        _, own = plain(x, w, k)
+        flips.append((own.sort(-1).values != idx.sort(-1).values)
+                     .any(-1).sum())
+        dt = torch.promote_types(x.dtype, w.dtype)
+        lg = torch.einsum("btd,de->bte", x.to(dt), w.to(dt)).float()
+        return torch.softmax(lg.gather(-1, idx), dim=-1), idx
+    expert_mod.route_tokens = route
+    try:
+        yield flips, calls
+    finally:
+        expert_mod.route_tokens = plain
+
+
+def _replayed_gaps(torch, tf_logits, starts, got, want):
+    """Each row's teacher-forced gap (the largest, over its emitted
+    positions up to and including the first where `got` parts from
+    `want`, of the gap between the position's maximum logit and the
+    emitted token's) under `tf_logits`, the forward whose routing `got`
+    replayed; beyond the first divergence the histories differ."""
+    gaps = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        d = _divergence(list(g), list(w))
+        n = len(g) if d is None else d + 1
+        lg = tf_logits[b, starts[b] - 1:starts[b] - 1 + n]
+        emitted = torch.tensor(list(g)[:n], device="cuda", dtype=torch.long)
+        gaps.append((lg.max(-1).values
+                     - lg.gather(1, emitted[:, None])[:, 0]).max().item())
+    return gaps
+
+
+def _moe_mesh_combos(torch, tok, state, prompts, dense_gen, sp):
+    """seq = 2 x expert = 2 and stage = 2 x expert = 2 on the moe phase's
+    bf16 4-layer Mixtral tree, every shard on cuda:0 (module docstring,
+    phase 22). Greedy tokens are held against the unmeshed run with the
+    routing replayed from one dense forward over its tokens: on random
+    bf16 weights a near-tied top-2 choice flips between any two
+    arithmetics, the unmeshed engine's own included (the moe phase's
+    ep_bf16_serve line), and one flip moves the logits by units. Returns
+    {kernel: launches} of the main paths."""
+    import butterfly_tpu_torch.parallel.sequence as seq_mod
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.models.common import Model, init_cache
+    from butterfly_tpu_torch.ops import ring_attention as ra
+    from butterfly_tpu_torch.parallel.partition import shard_params
+    from butterfly_tpu_torch.parallel.pipeline import pipeline_forward
+    from butterfly_tpu_torch.parallel.sequence import sp_forward
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    cfg, params = state["cfg"], state["params"]
+    L, N, Ne = cfg.num_layers, 2, 2
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    ep = cfg.replace(moe_impl="ep")
+    drop = ep.replace(moe_capacity_factor=1.0)
+    counts = {"paged": 0, "fresh": 0, "ring": 0}
+    new = sp.max_new_tokens
+
+    def one(*xs):
+        return torch.tensor([xs], device="cuda")
+
+    # (a) seq = 2 x expert = 2: generate_long of a 2048-token prompt
+    t0 = time.monotonic()
+    mesh = _one_card_mesh(seq=N, expert=Ne)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng = InferenceEngine(Model(ep, device="cuda"), params,
+                          RuntimeConfig(max_seq_len=4096), mesh=mesh)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    assert grown == 0, f"the seq x expert placement allocated {grown} B"
+    ids = tok.encode(_LONG[:COMBOS_LONG - 1])
+    T = len(ids)
+    assert T == COMBOS_LONG, T
+    tokens = torch.tensor([ids], dtype=torch.int32, device="cuda")
+    errs, ratios = [], []
+
+    def checked(*args, kernel=None):
+        stats = ra.ring_block_stats(*args)
+        ref = ra.ring_block_stats_ref(*args)
+        _, _, err, elem, _ = _ring_check(torch, ra, args, stats, ref, True)
+        errs.append(err)
+        ratios.append(elem)
+        return stats
+    seq_mod.block_stats = checked
+    try:
+        kern, _ = sp_forward(eng._replicas, ep, tokens, mesh)
+    finally:
+        seq_mod.block_stats = ra.block_stats
+    torch.cuda.synchronize()
+    assert len(errs) == L * N * N, len(errs)
+    assert all(torch.isfinite(x).all() for x in kern)
+    del kern
+    # a dropping capacity: each seq shard's a2a over its 1024-token chunk
+    _, dropped, dense_drops, calls = _counted_drops(
+        torch, lambda: sp_forward(eng._replicas, drop, tokens, mesh), drop)
+    assert calls == L * N, calls
+    # the unmeshed run, then generate_long with its routing replayed:
+    # prefill call (layer, seq shard i, source j) routes positions
+    # [i*Tl + j*Tl/Ne, ...), decode step k's layer call position T + k
+    want = InferenceEngine(Model(cfg, device="cuda"), params,
+                           RuntimeConfig(max_seq_len=4096)).generate(
+        [ids], sp).tokens[0]
+    tf_logits, table = _tf_routing(torch, params, cfg,
+                                   [ids + list(want[:-1])])
+    Ts = T // (N * Ne)
+
+    def where(c):
+        if c < L * N * Ne:
+            layer, r = divmod(c, N * Ne)
+            return layer, one(0)[0], torch.arange(
+                r * Ts, (r + 1) * Ts, device="cuda")[None]
+        k, layer = divmod(c - L * N * Ne, L)
+        return layer, one(0)[0], one(T + k)
+    ra.launches = ra.launches_decode = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with _replayed_routing(torch, table, where) as (flips, routed):
+        res = eng.generate_long(ids, sp)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    n, n_dec = ra.launches, ra.launches_decode
+    want_dec = (new - 1) * L * (N + 1)
+    assert n == L * N * N + want_dec and n_dec == want_dec, (n, n_dec)
+    assert len(routed) == L * N * Ne + (new - 1) * L, len(routed)
+    counts["ring"] += n
+    _check_tokens(res, 1, new, cfg.vocab_size, "seq2_expert2")
+    del eng
+    gap = _replayed_gaps(torch, tf_logits, [T], res.tokens, [want])[0]
+    div = _divergence(list(res.tokens[0]), list(want))
+    del tf_logits, table
+    log("combined", step="seq2_expert2_generate_long", card=card,
+        mesh="seq2_x_expert2_on_cuda:0", layers=L,
+        placement_bytes_allocated=grown, prompt_tokens=T, new_tokens=new,
+        ring_blocks_checked=len(errs), max_block_abs_err=f"{max(errs):.3g}",
+        tol=LAYER_TOL, max_err_over_elem_bound=f"{max(ratios):.3g}",
+        a2a_calls=calls, dropped_a2a=dropped,
+        dropped_dense_routing=dense_drops, ring_launches=n,
+        ring_split_launches=n_dec, wall_s=f"{wall:.3f}",
+        routing_replayed_calls=len(routed),
+        routing_flips_replayed=int(sum(int(f) for f in flips)),
+        equal_to_unmeshed=div is None,
+        first_divergence="none" if div is None else div,
+        teacher_forced_gap=f"{gap:.4g}", gap_tol=LOGITS_TOL,
+        seconds=f"{time.monotonic() - t0:.1f}")
+    assert max(errs) <= LAYER_TOL and max(ratios) <= 1.0, \
+        f"ring per seq shard vs plain: {max(errs)}, {max(ratios)} x bound"
+    assert dropped == dense_drops > 0, \
+        f"seq x expert: {dropped} dropped, dense routing {dense_drops}"
+    assert gap <= LOGITS_TOL, f"seq x expert: teacher-forced gap {gap}"
+    torch.cuda.empty_cache()
+
+    # (b) stage = 2 x expert = 2: GPipe generate (M = 4 microbatches of one
+    #     row) with the routing replayed, serving, the step check
+    t0 = time.monotonic()
+    S, M = 2, len(prompts)
+    Ls = L // S
+    mesh = _one_card_mesh(stage=S, expert=Ne)
+    sharded, grown, split = _shard_on_card(torch, params, ep, mesh)
+    assert grown == 0, f"the stage x expert placement allocated {grown} B"
+    geng = InferenceEngine(Model(ep, device="cuda"), sharded, mesh=mesh)
+    lens = [len(p) for p in prompts]
+    Tp = max(lens)
+    tf_logits, table = _tf_routing(torch, params, cfg, [
+        list(p) + list(w[:-1]) for p, w in zip(prompts, dense_gen.tokens)])
+    plan = []      # the GPipe ticks: stage s on microbatch m = t - s
+    for step in range(new):
+        for t in range(M + S - 1):
+            for s_ in range(S):
+                m = t - s_
+                if not 0 <= m < M:
+                    continue
+                for layer in range(s_ * Ls, (s_ + 1) * Ls):
+                    if step == 0 and Tp % Ne == 0:     # a2a: Ne sources
+                        plan += [(layer, m, torch.arange(
+                            j * Tp // Ne, (j + 1) * Tp // Ne,
+                            device="cuda")[None]) for j in range(Ne)]
+                    elif step == 0:
+                        plan.append((layer, m, torch.arange(
+                            Tp, device="cuda")[None]))
+                    else:
+                        plan.append((layer, m, one(lens[m] + step - 1)))
+    _zero_counts()
+    with _replayed_routing(torch, table, lambda c: (
+            plan[c][0], one(plan[c][1])[0], plan[c][2])) as (flips, routed):
+        res = geng.generate(prompts, sp)
+        torch.cuda.synchronize()
+    n_fresh = _launch_counts()["fresh"]
+    assert n_fresh == L * M, f"{n_fresh} fresh flash launches"
+    assert len(routed) == len(plan), (len(routed), len(plan))
+    counts["fresh"] += n_fresh
+    _check_tokens(res, M, new, cfg.vocab_size, "stage2_expert2 generate")
+    gaps = _replayed_gaps(torch, tf_logits, lens, res.tokens,
+                          dense_gen.tokens)
+    gdivs = [_divergence(list(a), list(b))
+             for a, b in zip(res.tokens, dense_gen.tokens)]
+    del geng, tf_logits, table
+    # serving: 4 requests against the moe phase's dense run (reported: the
+    # scheduler's programs cannot be replayed call by call)
+    rt8 = RuntimeConfig(max_batch_size=8, max_seq_len=2048, page_size=16)
+    sched = Scheduler(ServingEngine(Model(ep, device="cuda"), sharded, rt8,
+                                    mesh=mesh))
+    _zero_counts()
+    _, reqs, swall = _moe_serve(torch, sched, tok, cfg.vocab_size,
+                                COMBOS_SERVE_NEW, _SERVE_BYTES[:4])
+    torch.cuda.synchronize()
+    n_paged = _launch_counts()["paged"]
+    assert n_paged > 0 and n_paged % L == 0, n_paged
+    counts["paged"] += n_paged
+    sdivs = [_divergence(r.output, d[:COMBOS_SERVE_NEW])
+             for r, d in zip(reqs, state["dense"])]
+    sched.engine.cache = sched.engine._kv_window = None
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    _stage_step_check(torch, params, sharded, ep, mesh,
+                      "stage2_expert2_parity", phase="combined")
+    # a dropping capacity: each stage's a2a on its prefill microbatch
+    dtree = shard_params(params, drop, mesh)
+    two = torch.tensor([tok.encode(_TEXT[:255]), tok.encode(_TEXT[300:555])],
+                       device="cuda")
+
+    def prefill():
+        with mesh_ctx(mesh):
+            return pipeline_forward(dtree, drop, two, init_cache(
+                drop, 2, 256, device="cuda", mesh=mesh), mesh,
+                num_microbatches=2, fresh=True)[0]
+    lg, dropped, dense_drops, calls = _counted_drops(torch, prefill, drop)
+    assert calls == L * 2, calls
+    assert torch.isfinite(lg).all()
+    del dtree, lg, sharded
+    log("combined", step="stage2_expert2", card=card,
+        mesh="stage2_x_expert2_on_cuda:0", layers=L, microbatches=M,
+        placement_bytes_allocated=grown, split_leaves=split,
+        fresh_launches=n_fresh, routing_replayed_calls=len(routed),
+        routing_flips_replayed=int(sum(int(f) for f in flips)),
+        generate_equal_to_unmeshed=f"{gdivs.count(None)}/{M}",
+        generate_first_divergences=",".join(
+            str(d) for d in gdivs if d is not None) or "none",
+        generate_teacher_forced_gap=f"{max(gaps):.4g}", gap_tol=LOGITS_TOL,
+        serve_requests=len(reqs), serve_new_tokens=COMBOS_SERVE_NEW,
+        serve_wall_s=f"{swall:.3f}",
+        serve_equal_to_dense=f"{sdivs.count(None)}/{len(reqs)}",
+        serve_first_divergences=",".join(
+            str(d) for d in sdivs if d is not None) or "none",
+        paged_launches=n_paged, a2a_calls=calls, dropped_a2a=dropped,
+        dropped_dense_routing=dense_drops,
+        seconds=f"{time.monotonic() - t0:.1f}",
+        note="smoke run, not a benchmark")
+    assert max(gaps) <= LOGITS_TOL, f"stage x expert: gaps {gaps}"
+    assert dropped == dense_drops > 0, \
+        f"stage x expert: {dropped} dropped, dense routing {dense_drops}"
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4542,7 +4904,7 @@ def _stage_pool_bytes(engine):
     return per
 
 
-def _stage_step_check(torch, tree, staged, cfg, mesh, label):
+def _stage_step_check(torch, tree, staged, cfg, mesh, label, phase="pipe"):
     """One decode step with the window off (8 slots at ragged lengths to
     1300 tokens) on a pool of random K/V, unsharded with the paged kernel
     and with its plain version at every layer, then through the GPipe
@@ -4613,7 +4975,7 @@ def _stage_step_check(torch, tree, staged, cfg, mesh, label):
     gap = (shard - kern).abs().max().item()
     bound = max(LOGITS_TOL, spread)
     agree = (shard.argmax(-1) == kern.argmax(-1)).float().mean().item()
-    log("pipe", step=label, stages=mesh.shape["stage"], microbatches=M,
+    log(phase, step=label, stages=mesh.shape["stage"], microbatches=M,
         kernel_calls=len(errs), max_layer_abs_err=f"{layer_err:.3g}",
         layer_tol=LAYER_TOL, logits_staged_vs_unsharded=f"{gap:.4g}",
         logits_unsharded_kernel_vs_plain=f"{spread:.4g}",
@@ -4652,6 +5014,54 @@ def _serve_against(torch, tag, sched, ref, params, cfg, tok, news,
         equal_to_unsharded=f"{equal}/{len(reqs)}",
         first_divergence=",".join(map(str, first)) or "none",
         teacher_forced_gap=f"{max(gaps):.4g}" if gaps else "none")
+
+
+def _stage_seq_generate(torch, model8, p8, gprompts, sp, want):
+    """stage = 2 x seq = 2 on the tree cut to 8 layers: the seq axis a
+    replica (no ring inside a stage), GPipe generate against the
+    unsharded run's tokens `want`; generate_long refused there as the JAX
+    engine refuses it. Returns (fresh flash launches of the generate,
+    seconds)."""
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    cfg8 = model8.cfg
+    L8 = cfg8.num_layers
+    t0 = time.monotonic()
+    m = _one_card_mesh(stage=2, seq=2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng = InferenceEngine(model8, p8, mesh=m)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - before
+    _zero_counts()
+    res = eng.generate(gprompts, sp)
+    torch.cuda.synchronize()
+    n_fresh = _launch_counts()["fresh"]
+    _check_tokens(res, len(gprompts), sp.max_new_tokens, cfg8.vocab_size,
+                  "stage = 2 x seq = 2 generate")
+    assert n_fresh == L8 * 4, n_fresh   # 4 microbatches through 8 layers
+    equal = sum(int((a == b).all()) for a, b in zip(res.tokens, want))
+    gaps = [_teacher_forced_gap(torch, p8, cfg8, p, list(o))
+            for p, o, w in zip(gprompts, res.tokens, want)
+            if not (o == w).all()]
+    try:
+        eng.generate_long(gprompts[0])
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    del eng
+    seconds = time.monotonic() - t0
+    log("pipe", step="generate_stage2_seq2", seconds=f"{seconds:.1f}",
+        mesh="stage2_x_seq2_on_cuda:0", layers=L8,
+        placement_bytes_allocated=placed, fresh_launches=n_fresh,
+        equal_to_unsharded=f"{equal}/{len(gprompts)}",
+        teacher_forced_gap=f"{max(gaps):.4g}" if gaps else "none",
+        generate_long_refused=refused is not None)
+    assert placed == 0, f"the stage x seq placement allocated {placed} B"
+    assert not gaps or max(gaps) <= LOGITS_TOL, f"teacher-forced gap {gaps}"
+    assert refused and "does not compose with pipeline stages" in refused, \
+        refused
+    torch.cuda.empty_cache()
+    return n_fresh, seconds
 
 
 def phase_pipe(torch, model, params, tok):
@@ -4830,11 +5240,15 @@ def phase_pipe(torch, model, params, tok):
     del sched
     gc.collect()
     torch.cuda.empty_cache()
+
+    n_fresh, stage_seq_s = _stage_seq_generate(torch, model8, p8, gprompts,
+                                                sp, want)
+    counts["fresh"] += n_fresh
     for k, v in counts.items():
         assert v > 0, f"the {k} kernel never launched in the pipe phase"
     log("pipe", step="done", seconds=f"{time.monotonic() - t_phase:.1f}",
         **{f"{k}_launches": v for k, v in counts.items()})
-    return counts
+    return counts, stage_seq_s
 
 
 def _demangle(names):
@@ -4901,12 +5315,12 @@ def main() -> int:
 
     t_start = time.monotonic()
 
-    def clock(after):
+    def clock(after, **kv):
         # seconds since the start after each group of phases (where the
         # time limit goes) and the threads still alive (a phase that
         # leaves one running slows every host-bound phase after it)
         log("clock", after=after, t_s=f"{time.monotonic() - t_start:.1f}",
-            threads=threading.active_count())
+            threads=threading.active_count(), **kv)
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -4980,7 +5394,7 @@ def main() -> int:
     clock("tp")
     comb = phase_combined(torch, model, params, tok, seq_last, long_runs)
     clock("combined")
-    pipe = phase_pipe(torch, model, params, tok)
+    pipe, stage_seq_s = phase_pipe(torch, model, params, tok)
     clock("pipe")
     # the Llama-3-8B trees go before Mixtral's int8 tree is drawn
     del qparams, params, model
@@ -4988,8 +5402,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe, moe_state = phase_moe(torch, tok)
     clock("moe")
-    comb_moe = phase_combined_moe(torch, tok, moe_state)
-    clock("combined_moe")
+    comb_moe, combos_s = phase_combined_moe(torch, tok, moe_state)
+    # the step of the meshes that combine seq with expert and stage with
+    # seq or expert: its Mixtral part here, its Llama part in pipe
+    clock("combined_moe", mesh_combos_step_s=f"{combos_s + stage_seq_s:.1f}")
     del moe_state
     # a torch profiler sits in a reference cycle (its action map holds
     # its own bound methods): one left for the interpreter's exit is
@@ -5034,7 +5450,8 @@ def main() -> int:
         entry("ring_attention",
               "butterfly_tpu_torch/ops/csrc/ring_attention.cu",
               "butterfly_tpu/ops/ring_attention.py:158",
-              long_ring + bench["ring"] + tools["ring"] + comb["ring"], rres,
+              long_ring + bench["ring"] + tools["ring"] + comb["ring"]
+              + comb_moe["ring"], rres,
               "diag_bf16"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -556,8 +556,8 @@ def _cli(capsys, *argv):
                          ids=["seq2-tensor2", "expert2-data2"])
 def test_cli_generate_and_serve_print_the_same_text(capsys, flags):
     """`butterfly generate` and `serve` on the CPU with combined flags
-    give the text of the run without a mesh; `--expert-parallel 2
-    --seq-parallel 2` is still refused naming its ROADMAP item."""
+    give the text of the run without a mesh; so does `--expert-parallel
+    2 --seq-parallel 2` (generate_long over seq x expert)."""
     from butterfly_tpu_torch.serve.server import build_serving
     base = ["generate", "--model", "tiny", "--device", "cpu", "--prompt",
             "hello", "--max-new", "6"]
@@ -576,9 +576,9 @@ def test_cli_generate_and_serve_print_the_same_text(capsys, flags):
         texts.append(tok.decode(r.output))
     assert texts[0] == texts[1]
     capsys.readouterr()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md.*Meshes that combine axes"):
-        cli.main(base + ["--expert-parallel", "2", "--seq-parallel", "2"])
+    rc2, got2, _ = _cli(capsys, *base, "--expert-parallel", "2",
+                        "--seq-parallel", "2")
+    assert rc2 == 0 and got2 == want
 
 
 # -- the probe ---------------------------------------------------------------

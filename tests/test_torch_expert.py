@@ -21,8 +21,7 @@ from butterfly_tpu.core.mesh import make_mesh as jmake_mesh
 from butterfly_tpu.models.common import Model as JModel
 from butterfly_tpu.parallel import expert as JE
 from butterfly_tpu_torch.core import config as tconfig
-from butterfly_tpu_torch.core.mesh import (active_mesh, make_mesh, mesh_ctx,
-                                           require_ported_mesh)
+from butterfly_tpu_torch.core.mesh import active_mesh, make_mesh, mesh_ctx
 from butterfly_tpu_torch.engine.engine import InferenceEngine
 from butterfly_tpu_torch.engine.sampling import SamplingParams
 from butterfly_tpu_torch.engine.serving import ServingEngine
@@ -285,15 +284,19 @@ def test_expert_mesh_devices_and_refusals():
     m = make_mesh(tconfig.MeshConfig(expert=4), ["cpu"] * 4)
     assert m.expert_devices() == [torch.device("cpu")] * 4
     assert m.first_device == torch.device("cpu")
-    require_ported_mesh(m)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md.*Meshes that combine axes"):
-        make_mesh(tconfig.MeshConfig(expert=2, seq=2), ["cpu"] * 4)
+    # expert x seq builds as the JAX mesh does, device for device; seq
+    # shard i's own mesh holds its expert shards
+    names = [f"cpu:{i}" for i in range(4)]
+    m = make_mesh(tconfig.MeshConfig(expert=2, seq=2), names)
+    jm = jmake_mesh(JMeshConfig(expert=2, seq=2), devices=jax.devices()[:4])
+    assert np.array_equal(np.vectorize(lambda d: d.index)(m.devices),
+                          np.vectorize(lambda d: d.id)(jm.devices))
+    assert [m.seq_mesh(i).expert_devices() for i in range(2)] == \
+        [[torch.device("cpu:0"), torch.device("cpu:2")],
+         [torch.device("cpu:1"), torch.device("cpu:3")]]
     # expert x tensor builds: expert shard e's tensor devices, and the
     # expert shards at each tensor coordinate
-    names = [f"cpu:{i}" for i in range(4)]
     m = make_mesh(tconfig.MeshConfig(expert=2, tensor=2), names)
-    require_ported_mesh(m)
     assert m.tensor_devices(expert_index=1) == \
         [torch.device("cpu:2"), torch.device("cpu:3")]
     assert m.expert_devices(tensor_index=1) == \
@@ -317,8 +320,10 @@ def test_cli_generate_expert_parallel_prints_the_same_text(capsys):
          "--expert-parallel", "2"])
     assert cli.resolve_model(args).cfg.moe_impl == "ep"
     assert cli.build_mesh(args).shape["expert"] == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(base + ["--expert-parallel", "2", "--seq-parallel", "2"])
+    # with --seq-parallel: generate_long over seq x expert, the same text
+    rc2, got2, err = _cli(capsys, *base, "--expert-parallel", "2",
+                          "--seq-parallel", "2")
+    assert rc2 == 0 and got2 == want and "sequence parallelism" in err
 
 
 def test_cli_quant_draws_int8_without_the_float_tree():

@@ -268,7 +268,8 @@ def test_engine_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="seq axis"):
         eng.generate_long([1, 2, 3])
     # the stage axis (pipeline parallelism) runs: the plain engine's
-    # tokens; stage with seq is not ported and names its ROADMAP item
+    # tokens; stage with seq too (seq a replica), and there generate_long
+    # refuses in the JAX engine's words
     devs = np.empty(2, dtype=object)
     devs[:] = [torch.device("cpu")] * 2
     staged = InferenceEngine(T.Model(tconfig.tiny("llama", **F32),
@@ -279,9 +280,16 @@ def test_engine_refuses_what_is_not_ported():
                                   eng.generate([[1, 2, 3]], sp).tokens)
     devs = np.empty(4, dtype=object)
     devs[:] = [torch.device("cpu")] * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        InferenceEngine(T.Model(tconfig.tiny("llama", **F32), device="cpu"),
-                        trees()[1], mesh=Mesh(devs.reshape(1, 2, 1, 2, 1)))
+    staged_seq = InferenceEngine(T.Model(tconfig.tiny("llama", **F32),
+                                         device="cpu"), trees()[1],
+                                 mesh=Mesh(devs.reshape(1, 2, 1, 2, 1)))
+    np.testing.assert_array_equal(
+        staged_seq.generate([[1, 2, 3]], sp).tokens,
+        eng.generate([[1, 2, 3]], sp).tokens)
+    with pytest.raises(NotImplementedError,
+                       match=r"does not compose with pipeline stages "
+                             r"\(stage > 1\)"):
+        staged_seq.generate_long([1, 2, 3])
 
 
 # -- sampling held by its distribution ----------------------------------------------
@@ -324,8 +332,18 @@ def test_cli_generate_on_cpu(capsys):
 
 @pytest.mark.parametrize("flags,item", [(["--seq-parallel", "2",
                                           "--expert-parallel", "2"],
-                                         "Meshes that combine axes")],
+                                         "does not compose with pipeline "
+                                         "stages")],
                          ids=["seq_parallel"])
-def test_cli_generate_refuses_unported_flags(flags, item):
+def test_cli_generate_refuses_unported_flags(capsys, flags, item):
+    """--seq-parallel with --expert-parallel runs generate_long (the text
+    of the run without flags); the one mesh generate refuses is the JAX
+    CLI's: --seq-parallel with --stage-parallel, in the engine's words."""
+    base = ["generate", "--device", "cpu", "--model", "tiny", "--max-new",
+            "4"]
+    assert cli.main(base) == 0
+    want = capsys.readouterr().out
+    assert cli.main(base + flags) == 0
+    assert capsys.readouterr().out == want
     with pytest.raises(NotImplementedError, match=item):
-        cli.main(["generate", "--device", "cpu", "--model", "tiny", *flags])
+        cli.main(base + ["--seq-parallel", "2", "--stage-parallel", "2"])

@@ -246,12 +246,17 @@ def test_cli_refusals(capsys):
     rc, _, err = _cli(capsys, "serve", "--device", "cpu",
                       "--seq-parallel-threshold", "64")
     assert rc == 2 and "needs a seq axis" in err
-    # stages run; stage with seq is refused naming its ROADMAP item
+    # stages run; generate over stage with seq is refused in the JAX
+    # engine's words (generate_long does not compose with stages)
     rc, out, _ = _cli(capsys, "generate", "--device", "cpu",
                       "--stage-parallel", "2", "--max-new", "4")
     assert rc == 0 and out == _cli(capsys, "generate", "--device", "cpu",
                                    "--max-new", "4")[1]
-    with pytest.raises(NotImplementedError, match="stage x seq"):
+    with pytest.raises(NotImplementedError,
+                       match=r"^seq-parallel generation does not compose "
+                             r"with pipeline stages \(stage > 1\): "
+                             r"sp_forward runs the whole layer stack on "
+                             r"every seq shard$"):
         cli.main(["generate", "--device", "cpu", "--stage-parallel", "2",
                   "--seq-parallel", "2"])
     args = cli.build_parser().parse_args(

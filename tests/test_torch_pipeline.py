@@ -333,11 +333,22 @@ def test_stage_placement_allocates_nothing():
 
 
 def test_mesh_refuses_stage_with_seq_or_expert():
+    """Stage with seq or expert builds (no stage mesh is refused any
+    more): a stage's own mesh keeps the other axis whole, and the
+    prefill through the pipeline on each mesh (seq a replica; the dense
+    model's expert axis idle) gives the JAX pipeline's logits on the
+    same mesh."""
+    jcfg, tcfg = pp_cfg(jconfig), pp_cfg(tconfig)
+    jp, tp = trees(0)
+    tokens = np.random.RandomState(0).randint(0, 256, (4, 10))
     for axes in (dict(stage=2, seq=2), dict(stage=2, expert=2)):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP.*Meshes that combine axes "
-                                 r"\(stage x seq, stage x expert\)"):
-            make_mesh(tconfig.MeshConfig(**axes), ["cpu"] * 4)
+        jmesh, tmesh = meshes(**axes)
+        other = "seq" if "seq" in axes else "expert"
+        sub = tmesh.stage_mesh(1)
+        assert sub.shape["stage"] == 1 and sub.shape[other] == 2
+        jl, _ = jax_pipeline(jcfg, jp, jnp.asarray(tokens), jmesh, 2)
+        tl, _, _ = port_pipeline(tcfg, tp, tokens, tmesh, 2)
+        close(tl, jl)
     m = make_mesh(tconfig.MeshConfig(stage=2, data=2), ["cpu"] * 4)
     sub = m.stage_mesh(1)
     assert sub.shape["stage"] == 1 and sub.shape["data"] == 2

@@ -26,7 +26,7 @@ from butterfly_tpu.parallel import sequence as JS
 from butterfly_tpu_torch.core import config as tconfig
 from butterfly_tpu_torch.core.config import MeshConfig
 from butterfly_tpu_torch.core.mesh import (local_mesh, make_mesh, mesh_for,
-                                           require_ported_mesh, seq_degree)
+                                           seq_degree)
 from butterfly_tpu_torch.models import common as T
 from butterfly_tpu_torch.models.bridge import params_from_numpy
 from butterfly_tpu_torch.ops.ring_attention import INVALID_POS
@@ -63,37 +63,38 @@ def test_mesh_maps_coordinates_to_devices():
     assert seq_degree(m) == 4 and seq_degree(None) == 1
     assert local_mesh("cpu").shape["seq"] == 1
     assert mesh_for(2, tensor=1, seq=2, devices=["cpu"] * 2).shape["seq"] == 2
-    require_ported_mesh(m)
     with pytest.raises(ValueError, match="wants 4 devices"):
         make_mesh(MeshConfig(seq=4), ["cpu"] * 3)
 
 
 @pytest.mark.parametrize("axis", ["tensor", "data", "stage", "expert"])
 def test_mesh_refuses_unported_axes(axis):
-    """The stage, expert, tensor and data axes are ported: their mesh
-    builds. With seq, tensor and data build a combined mesh whose seq
-    rings are found by coordinate; expert and stage with seq are still
-    refused, each naming its ROADMAP item by title."""
-    if axis == "stage":
-        m = make_mesh(MeshConfig(stage=2), ["cpu"] * 2)
-        require_ported_mesh(m)
-        assert m.shape["stage"] == 2 and seq_degree(m) == 1
-        assert m.stage_mesh(1).devices.shape == (1, 1, 1, 1, 1)
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP.*\(stage x seq, stage x expert\)"):
-            make_mesh(MeshConfig(stage=2, seq=2), ["cpu"] * 4)
-        return
-    m = make_mesh(MeshConfig(**{axis: 2}), ["cpu"] * 2)
-    assert m.shape[axis] == 2 and seq_degree(m) == 1
-    if axis == "expert":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*Meshes that combine axes"):
-            make_mesh(MeshConfig(**{axis: 2, "seq": 2}), ["cpu"] * 4)
-        return
+    """Every axis combines with seq as the JAX make_mesh combines it (no
+    mesh is refused any more): the device grid of `axis` x seq is the
+    JAX mesh's, device for device, and the seq rings are found by
+    coordinate; a stage's own mesh keeps the seq axis whole (seq is a
+    replica there), and seq shard i's own mesh keeps the expert axis
+    whole (where its expert dispatch runs)."""
     names = [f"cpu:{i}" for i in range(4)]
     m = make_mesh(MeshConfig(**{axis: 2, "seq": 2}), names)
-    require_ported_mesh(m)
+    jm = jmake_mesh(JMeshConfig(**{axis: 2, "seq": 2}),
+                    devices=jax.devices()[:4])
+    assert m.axis_names == tuple(jm.axis_names)
+    assert np.array_equal(np.vectorize(lambda d: d.index)(m.devices),
+                          np.vectorize(lambda d: d.id)(jm.devices))
     assert seq_degree(m) == 2 and m.shape[axis] == 2
+    if axis == "stage":
+        sub = m.stage_mesh(1)
+        assert sub.shape["stage"] == 1 and sub.shape["seq"] == 2
+        assert sub.seq_devices() == [torch.device("cpu:2"),
+                                     torch.device("cpu:3")]
+        return
+    if axis == "expert":
+        sub = m.seq_mesh(1)
+        assert sub.shape["seq"] == 1 and sub.shape["expert"] == 2
+        assert sub.expert_devices() == m.expert_devices(seq_index=1) == \
+            [torch.device("cpu:1"), torch.device("cpu:3")]
+        return
     # mesh order (data, stage, expert, seq, tensor): seq is the outer of
     # the two axes under tensor, the inner one under data
     stride = 2 if axis == "tensor" else 1

@@ -167,7 +167,8 @@ def test_serve_machinery_builds_on_cpu():
     assert sched.engine.device.type == "cpu"
     assert rt.mixed_dispatch and rt.kv_write_combine
     assert sched.metrics()["tokens_generated_total"] > 0  # the warm-up ran
-    # pipeline stages build and serve; stage with seq is not ported
+    # pipeline stages build and serve; stage with seq too, the seq axis a
+    # replica and the long-prompt lane off, as in JAX
     args = build_parser().parse_args(
         ["serve", "--model", "tiny", "--device", "cpu", "--max-seq", "128",
          "--port", "0", "--timeseries-interval", "0", "--stage-parallel",
@@ -176,10 +177,13 @@ def test_serve_machinery_builds_on_cpu():
     assert staged.engine.mesh.shape["stage"] == 2
     assert staged.metrics()["tokens_generated_total"] > 0
     args = build_parser().parse_args(
-        ["serve", "--model", "tiny", "--device", "cpu", "--stage-parallel",
+        ["serve", "--model", "tiny", "--device", "cpu", "--max-seq", "128",
+         "--port", "0", "--timeseries-interval", "0", "--stage-parallel",
          "2", "--seq-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_serving(args)
+    staged_seq, _, _ = build_serving(args)
+    assert staged_seq.engine.mesh.shape["seq"] == 2
+    assert not staged_seq.engine.supports_seq_parallel
+    assert staged_seq.metrics()["tokens_generated_total"] > 0
     # checkpoints are ported: a missing directory is named, as the
     # reference's loader names it
     for flag in (["--ckpt", "x"],

@@ -1,6 +1,6 @@
 """PyTorch port: the serving engine and the scheduler against the JAX
 package on tiny llama, float32 (greedy: token for token), plus sampling
-held by its distribution and the configurations the port refuses. The
+held by its distribution and the configurations the port once refused. The
 alternating path is held in tests/test_torch_alternating.py.
 
 Greedy parity is exact: both sides take argmax over logits that agree
@@ -202,18 +202,17 @@ def test_sample_batched_greedy_rows_and_seeding():
     assert any(not torch.equal(draw(3), draw(s)) for s in range(4, 12))
 
 
-# -- configurations the port refuses -------------------------------------------
+# -- configurations the port once refused ---------------------------------------
 
 REFUSED = {
-    # the seq-parallel lane is ported, over tensor and data axes too;
-    # over a seq x expert mesh it is not
+    # the seq-parallel lane over a seq x expert mesh (ported with the
+    # seq x expert mesh itself)
     "seq_parallel": dict(seq_parallel_threshold=16),
 }
 
 
 def _cpu_mesh(*shape):
-    """A mesh of `cpu` devices in MESH_AXES order, built without
-    make_mesh (which refuses the unported axes itself)."""
+    """A mesh of `cpu` devices in MESH_AXES order."""
     devs = np.empty(int(np.prod(shape)), dtype=object)
     devs[:] = [torch.device("cpu")] * devs.size
     return Mesh(devs.reshape(shape))
@@ -221,8 +220,11 @@ def _cpu_mesh(*shape):
 
 @pytest.mark.parametrize("name", sorted(REFUSED) + ["mesh", "moe"])
 def test_unported_configurations_refused(name):
-    """The configurations still refused raise naming their ROADMAP item;
-    MoE is ported: a Mixtral engine builds and serves."""
+    """No configuration is refused any more; the ones that were serve the
+    unmeshed JAX scheduler's tokens: the lane on seq 2 x expert 2 (a
+    20-token prompt over threshold 16 through it), stage 2 x seq 2 (seq
+    a replica, the lane off as in JAX). MoE is ported: a Mixtral engine
+    builds and serves."""
     cfg, params, mesh, rt = TCFG, trees()[1], None, _rt(tconfig)
     if name == "moe":
         cfg = tconfig.tiny("mixtral", dtype="float32")
@@ -234,12 +236,19 @@ def test_unported_configurations_refused(name):
         return
     if name in REFUSED:
         rt = _rt(tconfig, **REFUSED[name])
-        if name == "seq_parallel":
-            mesh = _cpu_mesh(1, 1, 2, 2, 1)
+        mesh = _cpu_mesh(1, 1, 2, 2, 1)     # seq x expert
     elif name == "mesh":
-        mesh = _cpu_mesh(1, 2, 1, 2, 1)   # stage x seq: not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingEngine(Model(cfg, device="cpu"), params, rt, mesh=mesh)
+        mesh = _cpu_mesh(1, 2, 1, 2, 1)     # stage x seq
+    prompts = [list(range(3, 23)), [5, 7, 11]]
+    outs = []
+    for sched in (JScheduler(jax_engine()), Scheduler(ServingEngine(
+            Model(cfg, device="cpu"), params, rt, mesh=mesh))):
+        reqs = [sched.submit(p, max_new_tokens=5) for p in prompts]
+        sched.run_until_done()
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+    assert sched.engine.supports_seq_parallel == (name in REFUSED)
+    assert (sched._c_sp_tokens.value > 0) == (name in REFUSED)
 
 
 def test_engine_defaults():

@@ -234,8 +234,8 @@ def test_cli_build_mesh_flags(capsys):
 
 def test_stage_parallel_still_refused(capsys):
     """--stage-parallel runs (the text of the unmeshed run, with tensor
-    and data inside the stages too); only stage with seq or expert is
-    still refused, naming its ROADMAP item."""
+    and data inside the stages too), and with expert inside them: no
+    stage mesh is refused any more."""
     base = ["generate", "--model", "tiny", "--device", "cpu", "--prompt",
             "hello", "--max-new", "6"]
     assert cli.main(base) == 0
@@ -243,10 +243,9 @@ def test_stage_parallel_still_refused(capsys):
     assert cli.main(base + ["--stage-parallel", "2", "--tensor-parallel",
                             "2", "--data-parallel", "2"]) == 0
     assert capsys.readouterr().out == want
-    with pytest.raises(NotImplementedError,
-                       match=r"stage x seq, stage x expert"):
-        cli.main(base + ["--stage-parallel", "2", "--expert-parallel",
-                         "2"])
+    assert cli.main(base + ["--stage-parallel", "2", "--expert-parallel",
+                            "2", "--data-parallel", "2"]) == 0
+    assert capsys.readouterr().out == want
 
 
 def test_prefix_hits_on_data_tensor_mesh():
