@@ -51,7 +51,8 @@ from butterfly_tpu_torch.models.common import (
 from butterfly_tpu_torch.ops.flash_attention import flash_attention_sharded
 from butterfly_tpu_torch.ops.paged_attention import paged_attention_sharded
 from butterfly_tpu_torch.parallel.partition import (
-    Shards, axis_parts, layers_per_stage, same_device, stack_stages)
+    Shards, axis_parts, held_tensor_shards, layers_per_stage, same_device,
+    stack_stages)
 from butterfly_tpu_torch.parallel.tensor import (
     cat_groups, data_groups, group_part, group_rows, over_heads, run_groups,
     tmap)
@@ -152,21 +153,22 @@ def _init_paged_sharded(cfg: ModelConfig, runtime: RuntimeConfig, dtype,
     shard_cfg = cfg.replace(num_kv_heads=cfg.num_kv_heads // T)
 
     def replica(d):
+        devs, lo = held_tensor_shards(mesh, d, T)
         return [init_paged_cache(shard_cfg, runtime, dtype, dev)
-                for dev in mesh.tensor_devices(d)[:T]]
+                for dev in devs], lo
     reps = [replica(0)]
     for d in range(1, data_degree(mesh)):
         if not all(same_device(a, b) for a, b in
                    zip(mesh.tensor_devices(0), mesh.tensor_devices(d))):
             reps.append(replica(d))
-    first = reps[0][0]
+    first = reps[0][0][0]
     pools = {}
     for name in ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages"):
         if getattr(first, name) is None:
             pools[name] = None
             continue
-        per = [Shards([getattr(c, name) for c in r], "tensor", 2)
-               if T > 1 else getattr(r[0], name) for r in reps]
+        per = [Shards([getattr(c, name) for c in r], "tensor", 2, lo, T)
+               if T > 1 else getattr(r[0], name) for r, lo in reps]
         pools[name] = Shards(per, "data", None) if len(per) > 1 else per[0]
     return first._replace(**pools)
 
@@ -337,19 +339,22 @@ def _init_window_sharded(cache: PagedKVCache, width: int,
                          mesh) -> KVWindow:
     pool = group_part(cache.k_pages, 0)
     parts = axis_parts(pool, "tensor") or [pool]
+    T = pool.count if isinstance(pool, Shards) else 1
     S = cache.num_slots
     D = data_degree(mesh)
     D = D if S % D == 0 else 1
+    held = [held_tensor_shards(mesh, d, T) for d in range(D)]
     groups = [[_alloc_window((p.shape[0], S // D, p.shape[2], width,
                               p.shape[4]), p.dtype, cache.quantized, dev)
-               for p, dev in zip(parts, mesh.tensor_devices(d))]
-              for d in range(D)]
+               for p, dev in zip(parts, devs)]
+              for devs, _ in held]
 
     def leaf(j):
         per = [[w[j] for w in g] for g in groups]
         if per[0][0] is None:
             return None
-        per = [Shards(p, "tensor", 2) if len(p) > 1 else p[0] for p in per]
+        per = [Shards(p, "tensor", 2, lo, T) if T > 1 else p[0]
+               for p, (_, lo) in zip(per, held)]
         return Shards(per, "data", 1) if D > 1 else per[0]
     return KVWindow(*(leaf(j) for j in range(4)))
 

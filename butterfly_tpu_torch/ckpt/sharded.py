@@ -52,11 +52,15 @@ def _unflat(flat: Dict[str, Any]) -> Dict:
 
 def _gather(leaf) -> torch.Tensor:
     """A leaf on the host, whole: a mesh-placed leaf's tensor parts
-    concatenated on their split dim, its data replicas taken once."""
+    concatenated on their split dim (another process's gathered from
+    it), its data replicas taken once."""
     from butterfly_tpu_torch.parallel.partition import Shards
     if isinstance(leaf, Shards):
         if leaf.split is None:
             return _gather(leaf.parts[0])
+        if leaf.distributed:    # every process joins the all-gather
+            from butterfly_tpu_torch.parallel.tensor import gather
+            return gather(leaf, leaf.split).detach().to("cpu")
         return torch.cat([_gather(p) for p in leaf.parts], dim=leaf.split)
     return leaf.detach().to("cpu")
 

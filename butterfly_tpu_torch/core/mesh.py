@@ -31,13 +31,29 @@ of the JAX package's ambient mesh, core/compat.py:mesh_ctx) around every
 forward they dispatch; the expert-parallel FFN (parallel/expert.py) reads
 it with `active_mesh()` as the JAX one reads the abstract mesh, so the
 layer functions keep their signatures.
+
+Several processes (the JAX package's multi-host control plane): each
+process calls `init_distributed` (a torch.distributed rendezvous, gloo),
+then builds its mesh over `global_devices()`, every process's devices in
+process order, with `make_hybrid_mesh`. Such a mesh keeps, beside its
+torch.device array, the process index of every device (`processes`),
+and every process runs the same program on its own devices (SPMD, as
+the JAX processes do): it places only its own shards, and the moves
+between shards of different processes are collectives
+(parallel/tensor.py). The tensor axis is the one axis that may cross
+processes; `check_process_mesh` refuses the others.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import contextvars
 import functools
-from typing import Dict, List, Optional, Sequence
+import os
+import socket
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,13 +62,48 @@ from butterfly_tpu_torch.core.config import MESH_AXES, MeshConfig
 
 class Mesh:
     """Named device grid: `shape` maps each axis of MESH_AXES to its size;
-    `devices` is an object array of torch.device in that shape."""
+    `devices` is an object array of torch.device in that shape, each
+    named as its own process names it; `processes` the process index of
+    each (None = every device this process's); `ids` the global device
+    ids where the mesh was built over `global_devices()`, else None."""
 
-    def __init__(self, devices: np.ndarray, axis_names=MESH_AXES):
+    def __init__(self, devices: np.ndarray, axis_names=MESH_AXES,
+                 processes: Optional[np.ndarray] = None,
+                 ids: Optional[np.ndarray] = None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               devices.shape))
+        self.processes = (np.full(devices.shape, process_index())
+                          if processes is None else processes)
+        self.ids = ids
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the mesh's devices belong to more than one process."""
+        return len(np.unique(self.processes)) > 1
+
+    @property
+    def local_devices(self) -> List[torch.device]:
+        """This process's devices, mesh order (JAX Mesh.local_devices)."""
+        me = process_index()
+        return [d for d, p in zip(self.devices.reshape(-1),
+                                  self.processes.reshape(-1)) if p == me]
+
+    def local_range(self, axis: str, **coords: int) -> Tuple[int, int]:
+        """[lo, hi): the shard indices along `axis`, at the coordinates
+        `coords` of the other axes, whose devices are this process's
+        (the whole axis on a mesh of one process). check_process_mesh
+        makes them one run."""
+        for a in coords:
+            if a not in self.axis_names or a == axis:
+                raise ValueError(f"no coordinate {a!r} beside axis {axis!r}")
+        idx = tuple(slice(None) if a == axis else coords.get(a, 0)
+                    for a in self.axis_names)
+        mine = np.flatnonzero(self.processes[idx] == process_index())
+        if len(mine) == 0:
+            return 0, 0
+        return int(mine[0]), int(mine[-1]) + 1
 
     def along(self, axis: str, **coords: int) -> List[torch.device]:
         """The devices along `axis`, in shard order, at the coordinates
@@ -94,9 +145,11 @@ class Mesh:
     def sub_mesh(self, axis: str, i: int) -> "Mesh":
         """The devices at coordinate i of `axis`, every other axis as it
         is, `axis` of size 1."""
-        return Mesh(np.take(self.devices, [i],
-                            axis=self.axis_names.index(axis)),
-                    self.axis_names)
+        dim = self.axis_names.index(axis)
+        return Mesh(np.take(self.devices, [i], axis=dim), self.axis_names,
+                    np.take(self.processes, [i], axis=dim),
+                    None if self.ids is None
+                    else np.take(self.ids, [i], axis=dim))
 
     def stage_mesh(self, s: int) -> "Mesh":
         """Pipeline stage s's own mesh (the seq and expert axes whole)."""
@@ -113,11 +166,21 @@ class Mesh:
 
     @property
     def first_device(self) -> torch.device:
-        """The device every program that is not sharded runs on."""
-        return self.devices.reshape(-1)[0]
+        """The device every program that is not sharded runs on: the
+        first of this process's devices (each process of a mesh over
+        several runs those programs on its own)."""
+        local = self.local_devices
+        if not local:
+            raise ValueError(f"{self!r} holds no device of process "
+                             f"{process_index()}")
+        return local[0]
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={list(self.devices.reshape(-1))})"
+        devs = list(self.devices.reshape(-1))
+        if self.spans_processes:
+            devs = [f"{d}@process{p}" for d, p in
+                    zip(devs, self.processes.reshape(-1))]
+        return f"Mesh({self.shape}, devices={devs})"
 
 
 def make_mesh(cfg: MeshConfig,
@@ -125,25 +188,45 @@ def make_mesh(cfg: MeshConfig,
     """Build a Mesh over the canonical axes (data, stage, expert, seq,
     tensor); axis sizes of 1 are kept.
 
-    devices: torch.devices (or names) in mesh order; None takes every
+    devices: torch.devices (or names) in mesh order, or GlobalDevices
+    (`global_devices()`: a mesh over several processes); None takes every
     visible card, cuda:0..n-1. Its length must equal cfg.num_devices."""
     if devices is None:
         devices = [torch.device(f"cuda:{i}")
                    for i in range(torch.cuda.device_count())]
-    devs = [torch.device(d) for d in devices]
-    for d in devs:
-        if d.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA was requested but torch.cuda.is_available() is False; "
-                "build the mesh over cpu devices to run on the CPU")
-    n = len(devs)
+    n = len(devices)
     if cfg.num_devices != n:
         raise ValueError(
             f"MeshConfig wants {cfg.num_devices} devices "
             f"({dict(zip(MESH_AXES, cfg.axis_sizes))}) but {n} are available")
-    arr = np.empty(n, dtype=object)
-    arr[:] = devs
-    return Mesh(arr.reshape(cfg.axis_sizes), MESH_AXES)
+    return _mesh_of(_object_array(devices).reshape(cfg.axis_sizes))
+
+
+def _object_array(items: Sequence) -> np.ndarray:
+    arr = np.empty(len(items), dtype=object)
+    arr[:] = list(items)
+    return arr
+
+
+def _mesh_of(arr: np.ndarray) -> Mesh:
+    """A Mesh over an object array of torch.devices (or names), or of
+    GlobalDevices; a local CUDA device without a card raises."""
+    flat = list(arr.reshape(-1))
+    me = process_index()
+    if flat and isinstance(flat[0], GlobalDevice):
+        devs = [d.device for d in flat]
+        procs = np.asarray([d.process_index for d in flat]).reshape(arr.shape)
+        ids = np.asarray([d.id for d in flat]).reshape(arr.shape)
+    else:
+        devs = [torch.device(d) for d in flat]
+        procs, ids = np.full(arr.shape, me), None
+    for d, p in zip(devs, procs.reshape(-1)):
+        if p == me and d.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA was requested but torch.cuda.is_available() is False; "
+                "build the mesh over cpu devices to run on the CPU")
+    return Mesh(_object_array(devs).reshape(arr.shape), MESH_AXES, procs,
+                ids)
 
 
 def local_mesh(device=None) -> Mesh:
@@ -164,6 +247,238 @@ def mesh_for(n_devices: int, tensor: int = 0, stage: int = 1,
     if devices is None:
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     return make_mesh(cfg, devices=list(devices)[:n_devices])
+
+
+# ---------------------------------------------------------------------------
+# Several processes (butterfly_tpu/core/mesh.py: init_distributed,
+# slice_groups, make_hybrid_mesh)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GlobalDevice:
+    """One device of the job, as every process sees it: the counterpart
+    of a jax.Device after jax.distributed.initialize. `device` is its name
+    inside its own process; `slice_index` its host (on the card, a host
+    is the NVLink island, the counterpart of a TPU slice)."""
+    id: int
+    device: torch.device
+    process_index: int
+    slice_index: int
+
+
+def _dist():
+    dist = torch.distributed
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def process_index() -> int:
+    """This process's index in the job (0 without torch.distributed)."""
+    dist = _dist()
+    return 0 if dist is None else dist.get_rank()
+
+
+def process_count() -> int:
+    """How many processes the job has (1 without torch.distributed)."""
+    dist = _dist()
+    return 1 if dist is None else dist.get_world_size()
+
+
+def init_distributed(coordinator: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None,
+                     timeout_s: Optional[float] = None) -> None:
+    """Multi-host control-plane bringup: every process calls this before
+    it builds a mesh. A no-op when single-process.
+
+    num_processes defaults to BUTTERFLY_NUM_PROCESSES (as in the JAX
+    package); the coordinator ("host:port") to torchrun's MASTER_ADDR and
+    MASTER_PORT, the process id to RANK. The rendezvous is
+    torch.distributed's TCP store at the coordinator, the backend gloo on
+    the CPU and on the card alike (NCCL refuses two ranks on one card).
+    `timeout_s` bounds every collective (None = torch's default), so a
+    desynchronised job fails instead of hanging."""
+    if num_processes is None:
+        num_processes = int(os.environ.get("BUTTERFLY_NUM_PROCESSES", "1"))
+    if num_processes <= 1:
+        return
+    if _dist() is not None:
+        raise RuntimeError("distributed.initialize should only be called "
+                           "once.")
+    if coordinator is None:
+        addr = os.environ.get("MASTER_ADDR")
+        port = os.environ.get("MASTER_PORT")
+        if not addr or not port:
+            raise ValueError("coordinator_address should be defined.")
+        coordinator = f"{addr}:{port}"
+    if process_id is None:
+        if "RANK" not in os.environ:
+            raise ValueError("The process id of the current process must be "
+                             "defined.")
+        process_id = int(os.environ["RANK"])
+    if not 0 <= process_id < num_processes:
+        raise ValueError("process_id and num_processes must be nonnegative, "
+                         "with process_id < num_processes. Got process_id="
+                         f"{process_id}, num_processes={num_processes}.")
+    kw = {} if timeout_s is None else {"timeout": timedelta(
+        seconds=timeout_s)}
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator}",
+        world_size=num_processes, rank=process_id, **kw)
+    # a gloo group left for the interpreter's teardown aborts the process
+    atexit.register(_shutdown)
+
+
+def _shutdown() -> None:
+    if _dist() is not None:
+        torch.distributed.destroy_process_group()
+
+
+def _local_devices(device: str) -> List[torch.device]:
+    """This process's devices of `device`'s type: one CPU device, or its
+    visible cards (none without a card: a mesh over them then reports
+    too few devices)."""
+    if torch.device(device).type == "cpu":
+        return [torch.device("cpu")]
+    return [torch.device(f"cuda:{i}")
+            for i in range(torch.cuda.device_count())]
+
+
+def global_devices(device: str = "cuda") -> List[GlobalDevice]:
+    """Every process's devices in process order, ids counted through
+    them (jax.devices() after initialize): each process's visible cards,
+    or one CPU device a process with device="cpu", as each JAX CPU
+    process has one. A collective the first time for each device type
+    when the job has several processes: every process calls it at the
+    same point."""
+    key = (torch.device(device).type, process_count(), process_index())
+    if key not in _GLOBAL:
+        _GLOBAL[key] = _gather_devices(device)
+    return list(_GLOBAL[key])
+
+
+_GLOBAL: Dict[tuple, List[GlobalDevice]] = {}
+
+
+def _gather_devices(device: str) -> List[GlobalDevice]:
+    me = (socket.gethostname(), _local_devices(device))
+    everyone = [me]
+    dist = _dist()
+    if dist is not None:
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, me)
+    hosts: List[str] = []
+    out: List[GlobalDevice] = []
+    for p, (host, devs) in enumerate(everyone):
+        if host not in hosts:
+            hosts.append(host)
+        out += [GlobalDevice(len(out), d, p, hosts.index(host))
+                for d in devs]
+    return out
+
+
+def slice_groups(devices: Sequence) -> dict:
+    """Group devices by slice (host). Devices without a slice_index (a
+    plain torch.device) all land in slice 0."""
+    groups: dict = {}
+    for d in devices:
+        groups.setdefault(getattr(d, "slice_index", 0), []).append(d)
+    return groups
+
+
+def make_hybrid_mesh(cfg: MeshConfig, devices: Optional[Sequence] = None,
+                     dcn_axes: Sequence[str] = ("data",)) -> Mesh:
+    """Mesh for jobs over several slices (hosts): `dcn_axes` span slices,
+    every other axis stays inside one slice, so the collectives that run
+    every layer ride the links inside a host. One slice (every process on
+    one host, or plain devices) falls back to the plain mesh, so callers
+    can use this unconditionally. Otherwise the arrangement of
+    jax.experimental.mesh_utils.create_hybrid_device_mesh: along each
+    axis the slice's (dcn) index outer and the index inside the slice
+    inner, each slice's block in make_mesh order. devices: None =
+    global_devices()."""
+    if devices is None:
+        devices = global_devices()
+    groups = slice_groups(devices)
+    if len(groups) == 1:
+        return make_mesh(cfg, devices)
+
+    sizes = dict(zip(MESH_AXES, cfg.axis_sizes))
+    bad = [a for a in dcn_axes if a not in MESH_AXES]
+    if bad:
+        raise ValueError(f"unknown mesh axes {bad}")
+    dcn_shape = [sizes[a] if a in dcn_axes else 1 for a in MESH_AXES]
+    ici_shape = [1 if a in dcn_axes else sizes[a] for a in MESH_AXES]
+    n_dcn = int(np.prod(dcn_shape))
+    per_slice = int(np.prod(ici_shape))
+    if n_dcn != len(groups):
+        raise ValueError(
+            f"dcn axes {tuple(dcn_axes)} have total size {n_dcn} but the "
+            f"job spans {len(groups)} slices")
+    if any(len(g) != per_slice for g in groups.values()):
+        raise ValueError(
+            f"each slice must contribute {per_slice} devices "
+            f"(got {[len(g) for g in groups.values()]})")
+    blocks = np.stack([_object_array(groups[k]).reshape(ici_shape)
+                       for k in sorted(groups)]).reshape(dcn_shape
+                                                         + ici_shape)
+    k = len(MESH_AXES)
+    inter = [j for a in range(k) for j in (a, k + a)]   # (dcn_a, ici_a)
+    arr = blocks.transpose(inter).reshape(
+        [d * i for d, i in zip(dcn_shape, ici_shape)])
+    return _mesh_of(arr)
+
+
+# where each axis waits for its own port across processes (ROADMAP.md,
+# PyTorch/CUDA port Queue 1)
+_ACROSS_ITEMS = {
+    "stage": "ROADMAP.md Queue 1: stage across processes",
+    "expert": "ROADMAP.md Queue 1: expert across processes",
+    "seq": "ROADMAP.md Queue 1: seq across processes",
+    "data": "ROADMAP.md Queue 1: data groups beside a tensor axis across "
+            "processes",
+}
+
+
+def axes_across_processes(mesh: Mesh) -> List[str]:
+    """The axes along which the process index changes."""
+    return [a for i, a in enumerate(mesh.axis_names)
+            if mesh.shape[a] > 1
+            and (np.diff(mesh.processes, axis=i) != 0).any()]
+
+
+def check_process_mesh(mesh: Optional[Mesh]) -> None:
+    """Refuse what a mesh over several processes cannot run yet (a mesh
+    of one process passes). A data axis across processes raises
+    RuntimeError: the JAX package fails there at its first read-back
+    (engine/engine.py:259, sched/scheduler.py:2041, "Fetching value for
+    jax.Array that spans non-addressable devices"). A stage, seq or
+    expert axis raises NotImplementedError naming its ROADMAP item (the
+    JAX package runs them; they are the next slices), and so does a data
+    axis inside the processes. The tensor axis must hold every process,
+    each an equal run of shards in process order (the collectives of
+    parallel/tensor.py go over the whole job)."""
+    if mesh is None or not mesh.spans_processes:
+        return
+    if "data" in axes_across_processes(mesh):
+        raise RuntimeError(
+            "a data axis across processes is refused: the JAX package "
+            "fails there at its first read-back (engine/engine.py:259, "
+            "sched/scheduler.py:2041: 'Fetching value for jax.Array that "
+            "spans non-addressable devices'), so the port does not run it")
+    for a in ("stage", "expert", "seq", "data"):
+        if mesh.shape[a] > 1:
+            raise NotImplementedError(
+                f"a mesh over several processes runs only its tensor axis "
+                f"across them; {a}={mesh.shape[a]} is not ported there yet "
+                f"({_ACROSS_ITEMS[a]})")
+    procs = mesh.processes.reshape(-1)
+    n = process_count()
+    if len(procs) % n or not np.array_equal(
+            procs, np.repeat(np.arange(n), len(procs) // n)):
+        raise ValueError(
+            f"the tensor axis must hold every one of the {n} processes, "
+            f"each an equal run of shards in process order (got process "
+            f"indices {procs.tolist()})")
 
 
 def seq_degree(mesh: Optional[Mesh]) -> int:

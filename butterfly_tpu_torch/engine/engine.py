@@ -51,8 +51,8 @@ import torch
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
 from butterfly_tpu_torch.core.device import resolve_device
 from butterfly_tpu_torch.core.mesh import (
-    data_degree, expert_degree, seq_degree, stage_degree, tensor_degree,
-    under_mesh)
+    check_process_mesh, data_degree, expert_degree, seq_degree, stage_degree,
+    tensor_degree, under_mesh)
 from butterfly_tpu_torch.engine.sampling import (
     SamplingParams, sample, speculative_accept)
 from butterfly_tpu_torch.models.common import (
@@ -112,12 +112,14 @@ def _ngram_draft(history, gamma: int, ngram: int):
 
 def mesh_device(mesh, device, model) -> torch.device:
     """The engine's device: the mesh's first device under a mesh, where
-    every program that is not sharded runs; else
-    `device`, else the model's. A `device` that disagrees with the mesh
-    raises."""
+    every program that is not sharded runs (this process's first on a
+    mesh over several); else `device`, else the model's. A `device` that
+    disagrees with the mesh raises, and so does a mesh over several
+    processes that core/mesh.py:check_process_mesh refuses."""
     if mesh is None:
         return resolve_device(
             device if device is not None else getattr(model, "device", None))
+    check_process_mesh(mesh)
     first = resolve_device(mesh.first_device)
     if device is not None:
         want = torch.device(device)

@@ -82,7 +82,8 @@ from butterfly_tpu_torch.engine.sampling import (
 from butterfly_tpu_torch.models.common import Model
 from butterfly_tpu_torch.parallel.partition import Shards, axis_parts
 from butterfly_tpu_torch.parallel.sequence import sp_chunk_body
-from butterfly_tpu_torch.parallel.tensor import data_groups, group_part, tmap
+from butterfly_tpu_torch.parallel.tensor import (data_groups, gather,
+                                                 group_part, tmap)
 
 
 def bucket_len(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
@@ -651,9 +652,13 @@ class ServingEngine:
             if axis_parts(pool, "stage") is not None:
                 return torch.cat([read(group_part(p, 0)) for p in
                                   axis_parts(pool, "stage")], dim=0)
-            parts = axis_parts(pool, "tensor") or [pool]
-            return torch.cat([p[:, idx.to(p.device)].cpu() for p in parts],
-                             dim=2)
+            parts = axis_parts(pool, "tensor")
+            if parts is None:
+                return pool[:, idx.to(pool.device)].cpu()
+            # every shard's heads, in shard order (across processes, an
+            # all-gather every process joins)
+            return gather(pool.like([p[:, idx.to(p.device)] for p in parts]),
+                          2).cpu()
         return (read(c.k_pages), read(c.v_pages), read(c.k_scale_pages),
                 read(c.v_scale_pages))
 
@@ -677,6 +682,8 @@ class ServingEngine:
             parts = axis_parts(pool, "tensor") or [pool]
             val = torch.as_tensor(val)
             sizes = [p.shape[2] for p in parts]
+            if isinstance(pool, Shards) and pool.distributed:
+                val = val.narrow(2, pool.offset * sizes[0], sum(sizes))
             for p, vp in zip(parts, torch.split(val, sizes, dim=2)):
                 idx = torch.as_tensor(list(pids), dtype=torch.long,
                                       device=p.device)

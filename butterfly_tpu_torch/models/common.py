@@ -47,8 +47,8 @@ from butterfly_tpu_torch.core.mesh import (data_degree, stage_degree,
                                            tensor_degree)
 from butterfly_tpu_torch.ops.flash_attention import flash_attention_sharded
 from butterfly_tpu_torch.parallel.partition import (
-    Shards, expert_parts, layers_per_stage, part_device, shard_count,
-    stack_stages)
+    Shards, expert_parts, held_tensor_shards, layers_per_stage, part_device,
+    shard_count, stack_stages)
 from butterfly_tpu_torch.parallel.tensor import (
     cat_groups, data_groups, embed_lookup, gather, group_part, group_rows,
     over_heads, run_groups, sharded_einsum, tmap)
@@ -148,9 +148,10 @@ def _init_cache_sharded(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     D = D if batch % D == 0 else 1
     shard_cfg = cfg.replace(num_kv_heads=cfg.num_kv_heads // T)
     kv_dim = 2 if quant == "int8" else 3
-    groups = []
+    groups, firsts = [], []
     for d in range(D):
-        devs = mesh.tensor_devices(d)[:T]
+        devs, lo = held_tensor_shards(mesh, d, T)
+        firsts.append(lo)
         groups.append([init_cache(shard_cfg, batch // D, max_seq, dtype,
                                   quant, dev) for dev in devs])
 
@@ -158,7 +159,8 @@ def _init_cache_sharded(cfg: ModelConfig, batch: int, max_seq: int, dtype,
         per = [[getattr(c, name) for c in g] for g in groups]
         if per[0][0] is None:
             return None
-        per = [Shards(p, "tensor", kv_dim) if T > 1 else p[0] for p in per]
+        per = [Shards(p, "tensor", kv_dim, lo, T) if T > 1 else p[0]
+               for p, lo in zip(per, firsts)]
         return Shards(per, "data", 1) if D > 1 else per[0]
     length = torch.zeros((batch,), dtype=torch.int32,
                          device=mesh.first_device)

@@ -19,7 +19,8 @@ doesn't care) as well as raising probes (counted as misses by
 
 Probes: `device_probe` proves the local card completes a program (one
 tiny op and a read-back); `all_hosts_probe` proves every device of the
-single-controller job takes part in a sum over all of them.
+job takes part in a sum over all of them (across processes, an
+all-reduce over the torch.distributed group, so a dead peer stalls it).
 
 Recovery after the latch is deliberately NOT automatic: a chip that
 flapped is not trustworthy; restart serving (checkpoint/resume path).
@@ -37,22 +38,23 @@ def device_probe(device="cuda") -> bool:
 
 
 def all_hosts_probe(devices=None) -> bool:
-    """Prove every device of the job still completes a collective: the
-    single-process counterpart of the JAX psum of 1 over every device.
-    One ones(1) per device (`devices`; None = the visible cards, CPU
-    shards when the caller passes them), summed in device order on the
-    first device, read back and compared with the device count.
+    """Prove every process in the job still participates in collectives.
 
-    Single-controller only: a job of several processes (an initialised
-    torch.distributed group larger than 1) waits for the multi-host port
-    (ROADMAP.md, PyTorch/CUDA port queue: Multi-host)."""
+    In a job of several processes (an initialised torch.distributed
+    group larger than 1) each process all-reduces a ones(1) per local
+    device (`devices`; None = its visible cards) over the group, and the
+    total must equal the global device count. This IS a collective: every
+    process must invoke it at the same point in its program stream, so it
+    belongs in COORDINATED contexts (startup bringup checks, synchronized
+    drain points, test harnesses), never in per-host idle timers, where
+    unsynchronized issue order would desync the job and wedge it (the
+    serving loop uses device_probe per host instead; a dead peer surfaces
+    as the next tick stalling -> staleness latch).
+
+    Single process: one ones(1) per device (None = the visible cards,
+    CPU shards when the caller passes them), summed in device order on
+    the first device, read back and compared with the device count."""
     import torch
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "all_hosts_probe across processes is not ported yet "
-            "(ROADMAP.md, PyTorch/CUDA port queue: Multi-host)")
     if devices is None:
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     devs = [torch.device(d) for d in devices]
@@ -62,6 +64,13 @@ def all_hosts_probe(devices=None) -> bool:
     total = torch.zeros(1, device=devs[0])
     for d in devs:
         total = total + torch.ones(1, device=d).to(devs[0])
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        from butterfly_tpu_torch.core.mesh import global_devices
+        want = len(global_devices(devs[0].type))
+        dist.all_reduce(total)
+        return int(total.item()) == want
     return int(total.item()) == len(devs)
 
 

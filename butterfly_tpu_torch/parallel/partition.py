@@ -42,6 +42,11 @@ A data replica of a weight or of the pool is the same tensor where the
 data groups share a device; elsewhere (or with `copy=True`) each group
 holds its own copy, and every pool write reaches every replica
 (cache/paged.py, engine/serving.py).
+
+On a mesh over several processes (core/mesh.py) each process places only
+the tensor shards on its own devices and its own copy of every other
+leaf: a Shards there holds a run of the shards (`Shards.distributed`),
+and nothing is allocated for another process's.
 """
 from __future__ import annotations
 
@@ -50,7 +55,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
-from butterfly_tpu_torch.core.mesh import Mesh, data_degree, stage_degree
+from butterfly_tpu_torch.core.mesh import (Mesh, check_process_mesh,
+                                           data_degree, stage_degree)
 from butterfly_tpu_torch.quant.int8 import is_quantized_leaf, quant_specs_like
 
 Params = Dict[str, Any]
@@ -68,15 +74,37 @@ class Shards:
 
     Indexing takes the same index of every part (the leading layer axes,
     as `layer_params` and the draft's layer slice do), so a layer's slice
-    is again a Shards, its split dim shifted past the integer indices."""
+    is again a Shards, its split dim shifted past the integer indices.
 
-    __slots__ = ("parts", "axis", "split")
+    On a mesh over several processes (core/mesh.py) a process holds only
+    its own shards: `parts` are shards [offset, offset + len(parts)) of
+    `count`; the others are another process's, hold no tensor here and
+    allocate nothing (`distributed`). Every derived Shards keeps the
+    pair (`like`)."""
+
+    __slots__ = ("parts", "axis", "split", "offset", "count")
 
     def __init__(self, parts: Sequence[Any], axis: str,
-                 split: Optional[int]):
+                 split: Optional[int], offset: int = 0,
+                 count: Optional[int] = None):
         self.parts = tuple(parts)
         self.axis = axis
         self.split = split
+        self.offset = offset
+        self.count = len(self.parts) if count is None else count
+
+    def like(self, parts: Sequence[Any], split: Optional[int] = None
+             ) -> "Shards":
+        """A Shards of `parts` over the same shards (split `split`, None =
+        this one's)."""
+        return Shards(parts, self.axis,
+                      self.split if split is None else split, self.offset,
+                      self.count)
+
+    @property
+    def distributed(self) -> bool:
+        """Whether other processes hold some of the shards."""
+        return len(self.parts) < self.count
 
     def __getitem__(self, idx) -> "Shards":
         split = self.split
@@ -86,12 +114,12 @@ class Shards:
                 raise IndexError(f"an integer index on the split dim "
                                  f"{split} of {self!r}")
             split -= sum(isinstance(i, int) for i in lead[:split])
-        return Shards([p[idx] for p in self.parts], self.axis, split)
+        return Shards([p[idx] for p in self.parts], self.axis, split,
+                      self.offset, self.count)
 
     def to(self, *args, **kw) -> "Shards":
         """Each part converted alike (a dtype cast keeps the placement)."""
-        return Shards([p.to(*args, **kw) for p in self.parts], self.axis,
-                      self.split)
+        return self.like([p.to(*args, **kw) for p in self.parts])
 
     def is_floating_point(self) -> bool:
         return self.parts[0].is_floating_point()
@@ -106,22 +134,29 @@ class Shards:
 
     @property
     def shape(self) -> torch.Size:
-        """The whole leaf's shape."""
+        """The whole leaf's shape (the shards of a distributed leaf are
+        even)."""
         s = list(self.parts[0].shape)
         if self.split is not None:
-            s[self.split] = sum(p.shape[self.split] for p in self.parts)
+            s[self.split] = (s[self.split] * self.count if self.distributed
+                             else sum(p.shape[self.split]
+                                      for p in self.parts))
         return torch.Size(s)
 
     @property
     def nbytes(self) -> int:
+        """The bytes of the parts this process holds."""
         return sum(p.nbytes for p in self.parts)
 
     def numel(self) -> int:
         return sum(p.numel() for p in self.parts)
 
     def __repr__(self) -> str:
-        return (f"Shards({self.axis}, split={self.split}: " + ", ".join(
-            f"{tuple(p.shape)}@{p.device}" for p in self.parts) + ")")
+        held = (f" shards {self.offset}..{self.offset + len(self.parts)} "
+                f"of {self.count}" if self.distributed else "")
+        return (f"Shards({self.axis}, split={self.split}{held}: "
+                + ", ".join(f"{tuple(p.shape)}@{p.device}"
+                            for p in self.parts) + ")")
 
 
 def axis_parts(x: Any, axis: str) -> Optional[List[Any]]:
@@ -407,12 +442,36 @@ def _place(t: torch.Tensor, dev, copy: bool = False) -> torch.Tensor:
                 memory_format=torch.contiguous_format)
 
 
+def group_device(mesh: Mesh, data_index: int = 0) -> torch.device:
+    """Where data group `data_index` keeps what is not split over the
+    tensor axis: the first of its tensor devices this process holds (on
+    a mesh over several processes each keeps its own replica)."""
+    lo, _ = mesh.local_range("tensor", data=data_index)
+    return mesh.tensor_devices(data_index)[lo]
+
+
+def held_tensor_shards(mesh: Mesh, data_index: int, T: int
+                       ) -> Tuple[List[torch.device], int]:
+    """(devices, index of the first) of data group `data_index`'s tensor
+    shards that this process holds, of T (T = 1: the group's one replica,
+    on `group_device`)."""
+    if T == 1:
+        return [group_device(mesh, data_index)], 0
+    lo, hi = mesh.local_range("tensor", data=data_index)
+    return mesh.tensor_devices(data_index)[lo:hi], lo
+
+
 def _split_leaf(leaf: torch.Tensor, axis: str, dim: int,
-                devs: Sequence, copy: bool) -> Shards:
+                devs: Sequence, copy: bool,
+                local: Optional[Tuple[int, int]] = None) -> Shards:
+    """`leaf` split evenly on `dim` over `devs`; with `local` = [lo, hi)
+    (Mesh.local_range) only those shards are placed, the rest being
+    another process's."""
     n = len(devs)
     size = leaf.shape[dim] // n
+    lo, hi = (0, n) if local is None else local
     return Shards([_place(leaf.narrow(dim, i * size, size), devs[i], copy)
-                   for i in range(n)], axis, dim)
+                   for i in range(lo, hi)], axis, dim, lo, n)
 
 
 def _place_tree(node: Any, spec: Any, mesh: Mesh, data_index: int,
@@ -447,8 +506,10 @@ def _place_tree(node: Any, spec: Any, mesh: Mesh, data_index: int,
                     data_index)[e], copy))
         return Shards(parts, "expert", edim)
     if "tensor" in dims:
-        return _split_leaf(node, "tensor", dims["tensor"], tdevs, copy)
-    return _place(node, tdevs[0], copy and data_index > 0)
+        return _split_leaf(node, "tensor", dims["tensor"], tdevs, copy,
+                           mesh.local_range("tensor", data=data_index))
+    return _place(node, group_device(mesh, data_index),
+                  copy and data_index > 0)
 
 
 def _over_data(place_group, mesh: Mesh, copy: bool):
@@ -488,7 +549,13 @@ def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh,
     Under `stage` each layer-stacked leaf becomes a Shards over "stage"
     of its [L/S, ...] slices, slice s placed as above over stage s's
     mesh (views where it shares the tree's device); the other leaves are
-    placed over stage 0's mesh."""
+    placed over stage 0's mesh.
+
+    On a mesh over several processes each process places only its own
+    shards (the counterpart of device_put onto a global sharding, which
+    fills only the addressable ones) and its own replica of the rest;
+    what core/mesh.py:check_process_mesh refuses raises."""
+    check_process_mesh(mesh)
     if stage_degree(mesh) > 1:
         Ls = layers_per_stage(cfg, mesh)
         top = {k: v for k, v in params.items() if k != "layers"}
@@ -522,8 +589,9 @@ def _shard_pool(t: torch.Tensor, axis: Optional[str], mesh: Mesh,
     kernels' operands), or placed whole on the group's first device."""
     tdevs = mesh.tensor_devices(data_index)
     if axis == "tensor":
-        return _split_leaf(t, "tensor", split, tdevs, True)
-    return _place(t, tdevs[0], copy or data_index > 0)
+        return _split_leaf(t, "tensor", split, tdevs, True,
+                           mesh.local_range("tensor", data=data_index))
+    return _place(t, group_device(mesh, data_index), copy or data_index > 0)
 
 
 def shard_paged_cache(cache, cfg: ModelConfig, mesh: Mesh,
@@ -577,9 +645,10 @@ def _split_rows(t: torch.Tensor, mesh: Mesh, dim: int, tsplit: Optional[int],
         part = t.narrow(dim, d * rows, rows)
         if tsplit is not None:
             groups.append(_split_leaf(part, "tensor", tsplit,
-                                      mesh.tensor_devices(d), True))
+                                      mesh.tensor_devices(d), True,
+                                      mesh.local_range("tensor", data=d)))
         else:
-            groups.append(_place(part, mesh.tensor_devices(d)[0], copy))
+            groups.append(_place(part, group_device(mesh, d), copy))
     return groups[0] if D == 1 else Shards(groups, "data", dim)
 
 

@@ -25,6 +25,16 @@ partials are summed as a GEMM accumulates, not in bf16). A relaunch gives
 the same bits. The sum lands on shard 0's device, which is every shard's
 device on one card; each shard reads it from there.
 
+On a mesh over several processes (core/mesh.py) a tensor Shards holds
+only this process's shards (`Shards.distributed`) and every process runs
+the same calls in the same order (SPMD): `tmap` and the matmuls run the
+local shards; `all_reduce` sums the local partials in float32, then
+all-reduces that sum over the job (torch.distributed, in float32), then
+rounds once, so two shards give the single-process sum's bits in every
+process; `gather` all-gathers the local blocks in shard order. Results
+land on the process's first device. Every process then holds the same
+activations and logits, and samples the same tokens.
+
 The data axis splits batch rows and slots into `data_groups`; the
 forwards (models/common.py, cache/paged.py) run each group's rows
 against its parts (`group_part`, `group_rows`) and concatenate the
@@ -49,14 +59,22 @@ def _shards_in(args) -> Optional[Shards]:
     return None
 
 
-def _restack(outs: list, split: Optional[int]):
+def _restack(outs: list, like: Shards, split: Optional[int]):
     o = outs[0]
     if isinstance(o, tuple):
-        return tuple(_restack([x[j] for x in outs], split)
+        return tuple(_restack([x[j] for x in outs], like, split)
                      for j in range(len(o)))
     if o is None or not isinstance(o, torch.Tensor):
         return o
-    return Shards(outs, "tensor", split)
+    return like.like(outs, split)
+
+
+def _across(x: Any):
+    """The process group a tensor Shards' reduction crosses (the whole
+    job) when other processes hold some of its shards, else None."""
+    if isinstance(x, Shards) and x.distributed:
+        return torch.distributed.group.WORLD
+    return None
 
 
 def tmap(fn: Callable, *args, out_split: Optional[int] = None, **kw):
@@ -83,26 +101,42 @@ def tmap(fn: Callable, *args, out_split: Optional[int] = None, **kw):
             return a
         outs.append(fn(*map(pick, args),
                        **{k: pick(v) for k, v in kw.items()}))
-    return _restack(outs, first.split if out_split is None else out_split)
+    return _restack(outs, first, first.split if out_split is None
+                    else out_split)
 
 
-def all_reduce(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+def all_reduce(parts: Sequence[torch.Tensor], across=None) -> torch.Tensor:
     """The sum of per-shard partials, in shard order, in float32, rounded
-    once to the partials' dtype, on shard 0's device."""
+    once to the partials' dtype, on shard 0's device. With `across` (a
+    process group: the partials are this process's, other processes hold
+    the rest) the local float32 sum is all-reduced over it before the
+    rounding."""
     acc = parts[0].float()
     for p in parts[1:]:
         acc = acc + p.to(acc.device, non_blocking=True).float()
+    if across is not None:
+        torch.distributed.all_reduce(acc, group=across)
     return acc.to(parts[0].dtype)
 
 
 def gather(x: Any, dim: int) -> torch.Tensor:
     """A tensor Shards concatenated along `dim` in shard order on shard
-    0's device (a plain tensor as it is)."""
+    0's device (a plain tensor as it is); a distributed one's local block
+    all-gathered over the job, in shard order, on this process's
+    device."""
     parts = axis_parts(x, "tensor")
     if parts is None:
         return x
     dev = parts[0].device
-    return torch.cat([p.to(dev, non_blocking=True) for p in parts], dim=dim)
+    out = torch.cat([p.to(dev, non_blocking=True) for p in parts], dim=dim)
+    group = _across(x)
+    if group is None:
+        return out
+    out = out.contiguous()
+    blocks = [torch.empty_like(out)
+              for _ in range(torch.distributed.get_world_size(group))]
+    torch.distributed.all_gather(blocks, out, group=group)
+    return torch.cat(blocks, dim=dim)
 
 
 def _weight_part(w: Any, i: int):
@@ -159,18 +193,21 @@ def sharded_einsum(spec: str, x: Any, w: Any, dtype=None):
         if isinstance(x, Shards):
             raise ValueError(f"{spec}: a column-parallel input must be "
                              "replicated")
-        return Shards([_part_einsum(spec, x.to(devs[i], non_blocking=True),
-                                    _weight_part(w, i), dtype)
-                       for i in range(n)], "tensor", out.index(letter))
+        return wq.like([_part_einsum(spec, x.to(devs[i], non_blocking=True),
+                                     _weight_part(w, i), dtype)
+                        for i in range(n)], out.index(letter))
     if isinstance(x, Shards):
         xparts = x.parts
     else:
         sizes = [p.shape[wq.split] for p in wq.parts]
-        xparts = torch.split(x, sizes, dim=xs.index(letter))
+        xdim = xs.index(letter)
+        if wq.distributed:     # this process's columns of x
+            x = x.narrow(xdim, wq.offset * sizes[0], sum(sizes))
+        xparts = torch.split(x, sizes, dim=xdim)
     return all_reduce([_part_einsum(spec, xparts[i].to(devs[i],
                                                         non_blocking=True),
                                     _weight_part(w, i), dtype)
-                       for i in range(n)])
+                       for i in range(n)], _across(wq))
 
 
 def over_heads(fn: Callable, q: Any, *rest, **kw):
@@ -188,9 +225,10 @@ def over_heads(fn: Callable, q: Any, *rest, **kw):
     res = fn(gather(q, dim), *rest, **kw)
     out = res[0] if isinstance(res, tuple) else res
     sizes = [p.shape[dim] for p in q.parts]
-    split = Shards([o.to(p.device, non_blocking=True) for o, p in
-                    zip(torch.split(out, sizes, dim=dim), q.parts)],
-                   "tensor", dim)
+    if q.distributed:          # this process's heads
+        out = out.narrow(dim, q.offset * sizes[0], sum(sizes))
+    split = q.like([o.to(p.device, non_blocking=True) for o, p in
+                    zip(torch.split(out, sizes, dim=dim), q.parts)])
     return (split,) + tuple(res[1:]) if isinstance(res, tuple) else split
 
 
@@ -201,7 +239,7 @@ def embed_lookup(tok: Any, tokens: torch.Tensor, dtype) -> torch.Tensor:
     parts = axis_parts(tok, "tensor")
     if parts is None:
         return tok.to(dtype)[tokens]
-    outs, lo = [], 0
+    outs, lo = [], tok.offset * parts[0].shape[0]
     for w in parts:
         n = w.shape[0]
         ids = tokens.to(w.device, non_blocking=True) - lo
@@ -210,7 +248,7 @@ def embed_lookup(tok: Any, tokens: torch.Tensor, dtype) -> torch.Tensor:
         outs.append(torch.where(hit[..., None], e, torch.zeros(
             (), dtype=e.dtype, device=e.device)))
         lo += n
-    return all_reduce(outs)
+    return all_reduce(outs, _across(tok))
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +370,7 @@ def cat_groups(outs: Sequence[Any], dim: int = 0) -> Any:
     if len(outs) == 1:
         return o
     if isinstance(o, Shards):
-        return Shards([cat_groups([x.parts[i] for x in outs], dim)
-                       for i in range(len(o.parts))], o.axis, o.split)
+        return o.like([cat_groups([x.parts[i] for x in outs], dim)
+                       for i in range(len(o.parts))])
     dev = o.device
     return torch.cat([x.to(dev, non_blocking=True) for x in outs], dim=dim)

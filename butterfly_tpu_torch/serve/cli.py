@@ -111,7 +111,10 @@ def build_parser() -> argparse.ArgumentParser:
                         default="ring",
                         help="attention across the seq shards (generate)")
         sp.add_argument("--max-seq", type=int, default=2048)
-        sp.add_argument("--dcn-axes", default="data")
+        sp.add_argument("--dcn-axes", default="data",
+                        help="comma-separated mesh axes that may span "
+                             "hosts in a job of several processes "
+                             "(BUTTERFLY_NUM_PROCESSES)")
         sp.add_argument("--quant", choices=["none", "int8"], default="none",
                         help="weight-only quantization: int8 codes with "
                              "per-output-channel scales for every matmul "
@@ -488,11 +491,17 @@ def build_mesh(args):
 
     --device cuda takes cards cuda:0..n-1 and refuses n larger than the
     visible count; --device cpu takes n shards on the CPU. Every
-    combination of the five axes builds (core/mesh.py)."""
-    import torch
+    combination of the five axes builds (core/mesh.py).
 
-    from butterfly_tpu_torch.core.config import MeshConfig
-    from butterfly_tpu_torch.core.mesh import make_mesh
+    Several processes: with BUTTERFLY_NUM_PROCESSES set (and torchrun's
+    MASTER_ADDR, MASTER_PORT and RANK) init_distributed runs first, and
+    the mesh takes the first n of every process's devices
+    (global_devices: one CPU device a process with --device cpu, each
+    process's visible cards with --device cuda); `--dcn-axes` are the
+    axes that may span hosts (make_hybrid_mesh)."""
+    from butterfly_tpu_torch.core.config import MESH_AXES, MeshConfig
+    from butterfly_tpu_torch.core.mesh import (
+        global_devices, init_distributed, make_hybrid_mesh, process_count)
 
     tp = getattr(args, "tensor_parallel", 1)
     pp = getattr(args, "stage_parallel", 1)
@@ -502,17 +511,30 @@ def build_mesh(args):
     n = tp * pp * ep * dp * sq
     if n == 1:
         return None
+    # the JAX CLI's message, checked before the single-slice fallback
+    # that would never read the axes
+    dcn = tuple(a for a in getattr(args, "dcn_axes", "data").split(",") if a)
+    bad = [a for a in dcn if a not in MESH_AXES]
+    if bad:
+        raise SystemExit(f"error: unknown mesh axes {bad}")
+    init_distributed()
+    device = getattr(args, "device", "cuda")
+    if device == "cpu" and process_count() == 1:
+        devices = ["cpu"] * n
+    else:
+        devices = global_devices(device)
+        if n > len(devices):
+            raise SystemExit(
+                f"error: --tensor-parallel {tp} x --stage-parallel {pp} x "
+                f"--expert-parallel {ep} x --data-parallel {dp} x "
+                f"--seq-parallel {sq} = {n} devices, "
+                f"but only {len(devices)} are available")
+        devices = devices[:n]
     cfg = MeshConfig(data=dp, stage=pp, expert=ep, seq=sq, tensor=tp)
-    if getattr(args, "device", "cuda") == "cpu":
-        return make_mesh(cfg, ["cpu"] * n)
-    ndev = torch.cuda.device_count()
-    if n > ndev:
-        raise SystemExit(
-            f"error: --tensor-parallel {tp} x --stage-parallel {pp} x "
-            f"--expert-parallel {ep} x --data-parallel {dp} x "
-            f"--seq-parallel {sq} = {n} devices, "
-            f"but only {ndev} are available")
-    return make_mesh(cfg, [f"cuda:{i}" for i in range(n)])
+    try:
+        return make_hybrid_mesh(cfg, devices, dcn_axes=dcn)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}")
 
 
 def shard_for_mesh(params, cfg, mesh):

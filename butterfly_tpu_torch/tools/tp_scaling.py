@@ -72,9 +72,9 @@ def counting():
     plain_reduce, plain_gather = tensor.all_reduce, tensor.gather
     plain_body = common._decode_layer_body
 
-    def all_reduce(parts):
+    def all_reduce(parts, across=None):
         records.append(_payload("all_reduce", parts[0], at[0]))
-        return plain_reduce(parts)
+        return plain_reduce(parts, across)
 
     def gather(x, dim):
         out = plain_gather(x, dim)

@@ -401,6 +401,33 @@ raises and the script exits non-zero:
              fresh flash 32 launches, the placement allocates nothing)
              against the unsharded run, and generate_long there refused
              with the JAX engine's NotImplementedError.
+24. multihost a mesh over two processes on one card, after pipe: the
+             script starts itself twice as workers (`--multihost-worker
+             PID PORT DIR`, each on cuda:0; a gloo rendezvous at
+             127.0.0.1 on a free port, a 60 s collective timeout each;
+             the parent waits at most 180 s and kills what is left).
+             Each worker: (a) the JAX worker's sum (pid + 1, all-reduced
+             on the card: 3), all_hosts_probe() across both, a 16 KB
+             all-reduce's ms; (b) Llama-3-8B at full width, 4 layers,
+             bf16, from seed 0, drawn on the card, kept on the host,
+             placed with tensor = 2 across the two processes (global
+             devices, make_hybrid_mesh): the bytes the placement asked
+             the allocator for must equal its half of every split leaf
+             plus the norms, nothing for the other process's part; (c)
+             greedy generate of 4 prompts of 16-1000 bytes (16 new; fresh
+             flash 4 launches: 4 layers x 1 local shard) and the same 4
+             requests through a Scheduler over a ServingEngine at the
+             serve defaults (paged launches a multiple of 4), then one
+             windowed decode step with its local shard's in-model paged
+             kernel against the plain version (2e-2) and the step's
+             logits checksum; a data = 2 mesh across the two processes
+             must be refused at engine construction. The parent then
+             runs the same tree, path and step in one process at
+             tensor = 2 on cuda:0. Both workers' tokens and checksums
+             must be equal, byte for byte, and equal to the one-process
+             run's (or, for a token row that differs, the teacher-forced
+             gap within 0.5). The one-process run's launches are this
+             phase's main-path counts; the workers' are logged.
 
 Runs cut, with their depth (PERF.md section 4): the tp phase's tensor =
 8 generate and its step check at 8 layers; the bench phase's mixed leg
@@ -3448,24 +3475,14 @@ def _weight_copies(prof, shapes_of_weights, steps):
         f"{k}:{v // steps}" for k, v in sorted(shapes.items())) or "none"
 
 
-def _tp_step_check(torch, tree, sharded, cfg, mesh, label):
-    """One windowed decode step (8 slots at ragged lengths to 1300
-    tokens, window entries staged) on a pool of random K/V, unsharded
-    and over `mesh`: the unsharded step with the kernel and with the
-    plain version at every layer, and the sharded step with each shard's
-    kernel checked against its plain version (LAYER_TOL). The sharded
-    logits must agree with the unsharded kernel step within max(
-    LOGITS_TOL, the unsharded kernel-vs-plain gap of this run). Its
-    launches are checks, not a main path: the caller counts none."""
-    import butterfly_tpu_torch.ops.paged_attention as pa_mod
-    from butterfly_tpu_torch.cache.paged import (
-        init_kv_window, init_paged_cache, paged_forward_window)
+def _step_inputs(torch, cfg):
+    """A decode step's inputs on cuda:0, drawn from seed 5: a pool of
+    random K/V for 8 slots at ragged lengths to 1300 tokens, a 64-wide
+    window with entries staged, the active mask and one token a slot.
+    Returns (cache, window, window lengths, active, tokens)."""
+    from butterfly_tpu_torch.cache.paged import (init_kv_window,
+                                                 init_paged_cache)
     from butterfly_tpu_torch.core.config import RuntimeConfig
-    from butterfly_tpu_torch.core.mesh import mesh_ctx
-    from butterfly_tpu_torch.ops.paged_attention import (paged_attention,
-                                                         paged_attention_ref)
-    from butterfly_tpu_torch.parallel.partition import (shard_kv_window,
-                                                        shard_paged_cache)
     S, page = 8, 16
     rt = RuntimeConfig(max_batch_size=S, max_seq_len=2048, page_size=page)
     cache = init_paged_cache(cfg, rt, device="cuda")
@@ -3490,6 +3507,26 @@ def _tp_step_check(torch, tree, sharded, cfg, mesh, label):
     active = torch.tensor([n > 0 for n in lengths], device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (S, 1), generator=gen,
                          device="cuda", dtype=torch.int32)
+    return cache, win, wlen, active, toks
+
+
+def _tp_step_check(torch, tree, sharded, cfg, mesh, label):
+    """One windowed decode step (8 slots at ragged lengths to 1300
+    tokens, window entries staged) on a pool of random K/V, unsharded
+    and over `mesh`: the unsharded step with the kernel and with the
+    plain version at every layer, and the sharded step with each shard's
+    kernel checked against its plain version (LAYER_TOL). The sharded
+    logits must agree with the unsharded kernel step within max(
+    LOGITS_TOL, the unsharded kernel-vs-plain gap of this run). Its
+    launches are checks, not a main path: the caller counts none."""
+    import butterfly_tpu_torch.ops.paged_attention as pa_mod
+    from butterfly_tpu_torch.cache.paged import paged_forward_window
+    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.ops.paged_attention import (paged_attention,
+                                                         paged_attention_ref)
+    from butterfly_tpu_torch.parallel.partition import (shard_kv_window,
+                                                        shard_paged_cache)
+    cache, win, wlen, active, toks = _step_inputs(torch, cfg)
     scache = shard_paged_cache(cache, cfg, mesh)
     swin = shard_kv_window(win, cfg, mesh)
     errs, kv_heads = [], set()
@@ -5297,6 +5334,397 @@ def _ptxas_kernels(err):
     return rows
 
 
+# -- phase 24: a mesh over two processes -------------------------------------
+
+MH_LAYERS = 4          # the tree of the tp phase's tensor = 4 x data = 2 run
+MH_NEW = 16            # new tokens of each generate row and request
+MH_BYTES = (16, 200, 600, 1000)   # prompt bytes, 4 requests
+MH_STEP_S = 60         # the step's budget (ROADMAP Queue 1 item 0)
+MH_WAIT_S = 180        # the parent's bound on its workers: a desync fails
+MH_PG_TIMEOUT_S = 60   # each worker's collective timeout
+
+
+def _mh_tree(torch):
+    """(model, tree) of Llama-3-8B at full width, MH_LAYERS layers, bf16,
+    drawn on cuda:0 from seed 0 (the CLI's draw, core/config presets)."""
+    from butterfly_tpu_torch.core.config import llama3_8b
+    from butterfly_tpu_torch.models.common import Model, init_params
+    cfg = llama3_8b().replace(num_layers=MH_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return (Model(cfg, device="cuda"),
+            init_params(cfg.replace(param_dtype=cfg.dtype), gen, "cuda"))
+
+
+def _mh_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _mh_leaves(v)
+    else:
+        yield tree
+
+
+def _mh_held_bytes(tree, cfg, mesh):
+    """The bytes one process of a tensor = 2 mesh must hold: half of each
+    leaf the specs split over `tensor`, the whole of every other."""
+    from butterfly_tpu_torch.parallel.partition import param_specs
+    specs = param_specs(cfg, mesh)
+
+    def walk(t, sp):
+        if isinstance(t, dict):
+            return sum(walk(t[k], sp[k]) for k in t)
+        return t.nbytes // (2 if "tensor" in sp else 1)
+    return walk(tree, specs)
+
+
+def _requested_bytes(torch) -> int:
+    """The bytes the caching allocator's live blocks were asked for
+    (memory_allocated rounds each block up)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+@contextlib.contextmanager
+def _collective_tally(torch, tally):
+    """Count the torch.distributed all-reduces and all-gathers issued in
+    the block (parallel/tensor.py reads the module attributes at each
+    call): tally["n"], the bytes each process contributes, and the host
+    seconds spent inside them."""
+    dist = torch.distributed
+    saved = dist.all_reduce, dist.all_gather
+
+    def timed(fn, arg):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            tally["s"] += time.perf_counter() - t0
+            tally["n"] += 1
+            tally["bytes"] += a[arg].nbytes
+            return out
+        return wrapped
+    dist.all_reduce = timed(saved[0], 0)
+    dist.all_gather = timed(saved[1], 1)
+    try:
+        yield tally
+    finally:
+        dist.all_reduce, dist.all_gather = saved
+
+
+def _mh_run(torch, model, placed, mesh, prompts):
+    """The step's main path on `mesh`: greedy generate of `prompts`
+    (MH_NEW new, fused), then the same prompts as requests through a
+    Scheduler over a ServingEngine at the serve defaults; then one
+    windowed decode step (_step_inputs) with each local shard's in-model
+    paged kernel checked against its plain version. Returns a dict."""
+    import butterfly_tpu_torch.ops.paged_attention as pa_mod
+    from butterfly_tpu_torch.cache.paged import paged_forward_window
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.ops.paged_attention import (paged_attention,
+                                                         paged_attention_ref)
+    from butterfly_tpu_torch.parallel.partition import (shard_kv_window,
+                                                        shard_paged_cache)
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    from butterfly_tpu_torch.serve.cli import build_parser
+    cfg = model.cfg
+    out = {}
+    _zero_counts()
+    t0 = time.monotonic()
+    with _collective_tally(torch, {"n": 0, "bytes": 0, "s": 0.0}) as tally:
+        gen = InferenceEngine(model, placed, mesh=mesh).generate(
+            prompts, SamplingParams(max_new_tokens=MH_NEW))
+        torch.cuda.synchronize()
+    out["generate_s"] = time.monotonic() - t0
+    out["generate_collectives"] = tally
+    out["generate"] = gen.tokens.tolist()
+    out["generate_launches"] = _launch_counts()
+    args = build_parser().parse_args(["serve", "--model", "llama3-8b"])
+    rt = RuntimeConfig(max_batch_size=args.max_batch,
+                       max_seq_len=args.max_seq, page_size=args.page_size)
+    sched = Scheduler(ServingEngine(model, placed, rt, mesh=mesh))
+    _zero_counts()
+    t0 = time.monotonic()
+    with _collective_tally(torch, {"n": 0, "bytes": 0, "s": 0.0}) as tally:
+        reqs = [sched.submit(p, max_new_tokens=MH_NEW) for p in prompts]
+        sched.run_until_done()
+        torch.cuda.synchronize()
+    out["serve_s"] = time.monotonic() - t0
+    out["serve_collectives"] = tally
+    out["serve_launches"] = _launch_counts()
+    for r in reqs:
+        assert r.state == "finished" and len(r.output) == MH_NEW, r.id
+    out["serve"] = [r.output for r in reqs]
+    sched.engine.cache = sched.engine._kv_window = None
+    del sched
+
+    cache, win, wlen, active, toks = _step_inputs(torch, cfg)
+    scache = shard_paged_cache(cache, cfg, mesh)
+    swin = shard_kv_window(win, cfg, mesh)
+    del cache, win
+    errs = []
+
+    def checked(q, kp, *a, **kw):
+        o = paged_attention(q, kp, *a, **kw)
+        ref = paged_attention_ref(q, kp, *a, **kw)
+        errs.append((o.float() - ref.float()).abs().max().item())
+        return o
+    pa_mod.paged_attention = checked
+    try:
+        with mesh_ctx(mesh):
+            logits, _ = paged_forward_window(placed, cfg, toks, scache, swin,
+                                             wlen, active=active,
+                                             use_kernel=True)
+    finally:
+        pa_mod.paged_attention = paged_attention
+    logits = logits[:, 0][active].float()
+    assert torch.isfinite(logits).all()
+    out["step_logits"] = logits.cpu()
+    out["step_checksum"] = float(logits.double().sum().item())
+    out["step_err"] = max(errs)
+    out["step_calls"] = len(errs)
+    del scache, swin
+    torch.cuda.empty_cache()
+    return out
+
+
+def _multihost_worker(pid: int, port: int, outdir: str) -> int:
+    """One process of the multihost step (run by phase_multihost as
+    `chip_smoke.py --multihost-worker PID PORT DIR`): writes
+    DIR/worker<PID>.json and DIR/worker<PID>_logits.pt."""
+    t_start = time.monotonic()
+    import torch
+    if not torch.cuda.is_available():
+        print("multihost worker: no card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from butterfly_tpu_torch.core.config import MeshConfig
+    from butterfly_tpu_torch.core.mesh import (global_devices,
+                                               init_distributed,
+                                               make_hybrid_mesh)
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.obs.health import all_hosts_probe
+    from butterfly_tpu_torch.parallel.partition import shard_params
+    with open(os.path.join(outdir, "prompts.json")) as f:
+        prompts = json.load(f)
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=2,
+                     process_id=pid, timeout_s=MH_PG_TIMEOUT_S)
+    dist = torch.distributed
+    res = {"pid": pid}
+    # (a) the JAX worker's sum, on the card, and the probe
+    x = torch.full((1,), float(pid + 1), device="cuda:0")
+    dist.all_reduce(x)
+    res["sum"] = x.item()
+    res["probe"] = all_hosts_probe()
+    y = torch.ones(4096, device="cuda:0")
+    dist.all_reduce(y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        dist.all_reduce(y)
+    torch.cuda.synchronize()
+    res["allreduce_16KB_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    y = torch.ones(2 << 20, device="cuda:0")     # 8 MB, a prefill's rows
+    dist.all_reduce(y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dist.all_reduce(y)
+    torch.cuda.synchronize()
+    res["allreduce_8MB_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    del y
+    devs = global_devices("cuda")
+    res["devices"] = [f"{d.id}:{d.device}@process{d.process_index}"
+                      f"/slice{d.slice_index}" for d in devs]
+    # (b) the tree, drawn on the card, kept on the host; each process
+    #     places its own half
+    model, tree = _mh_tree(torch)
+    res["tree_checksum"] = float(tree["embed"]["tok"].float().sum().item())
+    host = {}
+
+    def to_host(t, d):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                d[k] = {}
+                to_host(v, d[k])
+            else:
+                d[k] = v.cpu()
+    to_host(tree, host)
+    del tree
+    torch.cuda.empty_cache()
+    mesh = make_hybrid_mesh(MeshConfig(tensor=2), devs)
+    res["mesh"] = repr(mesh)
+    torch.cuda.synchronize()
+    before = _requested_bytes(torch)
+    placed = shard_params(host, model.cfg, mesh)
+    torch.cuda.synchronize()
+    res["placement_bytes"] = _requested_bytes(torch) - before
+    res["held_bytes"] = _mh_held_bytes(host, model.cfg, mesh)
+    res["tree_bytes"] = sum(t.nbytes for t in _mh_leaves(host))
+    del host
+    # (c) generate and serving, then the step check
+    run = _mh_run(torch, model, placed, mesh, prompts)
+    torch.save(run.pop("step_logits"),
+               os.path.join(outdir, f"worker{pid}_logits.pt"))
+    res.update(run)
+    # a data axis across the two processes: refused at construction
+    dmesh = make_hybrid_mesh(MeshConfig(data=2), devs)
+    try:
+        InferenceEngine(model, placed, mesh=dmesh)
+        res["data_refusal"] = None
+    except RuntimeError as e:
+        res["data_refusal"] = str(e)
+    dist.barrier()
+    res["seconds"] = time.monotonic() - t_start
+    with open(os.path.join(outdir, f"worker{pid}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _rows_text(rows) -> str:
+    """Token rows as one word: ids joined by commas, rows by '|'."""
+    return "|".join(",".join(map(str, r)) for r in rows)
+
+
+def _tally_text(t) -> str:
+    return f"{t['n']}_calls/{t['bytes'] / 1e6:.1f}MB/{t['s']:.3f}s"
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multihost(torch, tok):
+    """A mesh over two processes on one card (module docstring, phase
+    24). Returns ({kernel: launches} of the one-process run's main path,
+    the step's seconds)."""
+    import shutil
+
+    from butterfly_tpu_torch.parallel.partition import shard_params
+    t_phase = time.monotonic()
+    outdir = os.path.join(ROOT, "build", "multihost")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    prompts = [tok.encode(_TEXT[:n]) for n in MH_BYTES]
+    with open(os.path.join(outdir, "prompts.json"), "w") as f:
+        json.dump(prompts, f)
+    port = _free_port()
+    logs = [open(os.path.join(outdir, f"worker{p}.log"), "w")
+            for p in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         str(p), str(port), outdir], stdout=logs[p],
+        stderr=subprocess.STDOUT, cwd=ROOT) for p in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MH_WAIT_S
+                               - (time.monotonic() - t_phase)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    workers_s = time.monotonic() - t_phase
+    rcs = [p.returncode for p in procs]
+    if rcs != [0, 0]:
+        for p in range(2):
+            with open(os.path.join(outdir, f"worker{p}.log")) as f:
+                print(f"[multihost] worker{p} log tail:\n"
+                      + f.read()[-4000:], flush=True)
+        raise AssertionError(f"multihost workers exited {rcs}")
+    res = []
+    for p in range(2):
+        with open(os.path.join(outdir, f"worker{p}.json")) as f:
+            res.append(json.load(f))
+    for r in res:
+        log("multihost", step="worker", pid=r["pid"], sum=r["sum"],
+            probe=r["probe"], devices=",".join(r["devices"]),
+            allreduce_16KB_ms=f"{r['allreduce_16KB_ms']:.3f}",
+            allreduce_8MB_ms=f"{r['allreduce_8MB_ms']:.3f}",
+            placement_bytes=r["placement_bytes"],
+            held_bytes=r["held_bytes"], tree_bytes=r["tree_bytes"],
+            generate_s=f"{r['generate_s']:.3f}",
+            serve_s=f"{r['serve_s']:.3f}",
+            generate_collectives=_tally_text(r["generate_collectives"]),
+            serve_collectives=_tally_text(r["serve_collectives"]),
+            generate_fresh=r["generate_launches"]["fresh"],
+            serve_paged=r["serve_launches"]["paged"],
+            serve_fresh=r["serve_launches"]["fresh"],
+            step_kernel_calls=r["step_calls"],
+            step_max_layer_abs_err=f"{r['step_err']:.3g}",
+            step_logits_checksum=repr(r["step_checksum"]),
+            seconds=f"{r['seconds']:.1f}",
+            generate_tokens=_rows_text(r["generate"]),
+            serve_tokens=_rows_text(r["serve"]))
+        assert r["sum"] == 3.0 and r["probe"] is True, r
+        assert r["placement_bytes"] == r["held_bytes"], \
+            (r["placement_bytes"], r["held_bytes"])
+        assert r["step_err"] <= LAYER_TOL, r["step_err"]
+        assert r["step_calls"] == MH_LAYERS, r["step_calls"]
+        # one local shard a process: a launch per layer per prefill call
+        # (fresh) or decode step (paged)
+        for run, k in (("generate_launches", "fresh"),
+                       ("serve_launches", "paged")):
+            assert r[run][k] > 0 and r[run][k] % MH_LAYERS == 0, r[run]
+        assert r["data_refusal"] and "first read-back" in r["data_refusal"]
+    a, b = res
+    assert a["tree_checksum"] == b["tree_checksum"]
+    assert a["generate"] == b["generate"], "the processes' tokens differ"
+    assert a["serve"] == b["serve"], "the processes' tokens differ"
+    assert a["step_checksum"] == b["step_checksum"]
+
+    # the same tree and path in one process: tensor = 2 on cuda:0
+    model, tree = _mh_tree(torch)
+    assert float(tree["embed"]["tok"].float().sum().item()) \
+        == a["tree_checksum"]
+    mesh = _one_card_mesh(tensor=2)
+    one = _mh_run(torch, model, shard_params(tree, model.cfg, mesh), mesh,
+                  prompts)
+    step_gap = max((torch.load(os.path.join(outdir, f"worker{p}_logits.pt"))
+                    - one["step_logits"]).abs().max().item()
+                   for p in range(2))
+    gaps, first = [], []
+    for kind, n_rows in (("generate", len(prompts)), ("serve", len(prompts))):
+        for i in range(n_rows):
+            got, want = a[kind][i], one[kind][i]
+            if got != want:
+                first.append(f"{kind}{i}@{_divergence(got, want)}")
+                gaps.append(_teacher_forced_gap(torch, tree, model.cfg,
+                                                prompts[i], got))
+    seconds = time.monotonic() - t_phase
+    log("multihost", step="one_process", mesh="tensor2_on_cuda:0",
+        equal_to_workers=f"{2 * len(prompts) - len(first)}/"
+        f"{2 * len(prompts)}", first_divergence=",".join(first) or "none",
+        teacher_forced_gap=f"{max(gaps):.4g}" if gaps else "none",
+        step_logits_vs_workers=f"{step_gap:.4g}",
+        step_logits_checksum=repr(one["step_checksum"]),
+        generate_s=f"{one['generate_s']:.3f}",
+        serve_s=f"{one['serve_s']:.3f}",
+        generate_fresh=one["generate_launches"]["fresh"],
+        serve_paged=one["serve_launches"]["paged"],
+        step_max_layer_abs_err=f"{one['step_err']:.3g}")
+    assert one["step_err"] <= LAYER_TOL, one["step_err"]
+    if gaps:
+        assert max(gaps) <= LOGITS_TOL, f"teacher-forced gap {max(gaps)}"
+    log("multihost", step="done", workers_s=f"{workers_s:.1f}",
+        seconds=f"{seconds:.1f}", budget_s=MH_STEP_S,
+        card_processes=2, backend="gloo")
+    counts = {"paged": one["generate_launches"]["paged"]
+              + one["serve_launches"]["paged"],
+              "fresh": one["generate_launches"]["fresh"]
+              + one["serve_launches"]["fresh"]}
+    del tree, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, seconds
+
+
 def main() -> int:
     # kineto tears CUPTI down when a capture stops: left subscribed, it
     # made every later host launch slower (PERF.md section 5); set before
@@ -5396,6 +5824,8 @@ def main() -> int:
     clock("combined")
     pipe, stage_seq_s = phase_pipe(torch, model, params, tok)
     clock("pipe")
+    mh, mh_s = phase_multihost(torch, tok)
+    clock("multihost", multihost_step_s=f"{mh_s:.1f}")
     # the Llama-3-8B trees go before Mixtral's int8 tree is drawn
     del qparams, params, model
     gc.collect()
@@ -5434,12 +5864,13 @@ def main() -> int:
               serve_launches + alt["paged"] + long_paged + quant["paged"]
               + spec["paged"] + fleet["paged"] + bench["paged"]
               + tools["paged"] + ck["paged"] + tp["paged"] + moe["paged"] + comb["paged"]
-              + comb_moe["paged"] + pipe["paged"], kres, "bf16_w64"),
+              + comb_moe["paged"] + pipe["paged"] + mh["paged"], kres,
+              "bf16_w64"),
         entry("flash_attention_fresh", flash_src,
               "butterfly_tpu/ops/flash_attention.py:66",
               gen_fresh + alt["fresh"] + quant["fresh"] + spec["fresh"]
               + bench["fresh"] + tools["fresh"] + ck["fresh"] + tp["fresh"] + moe["fresh"]
-              + comb_moe["fresh"] + pipe["fresh"], fresh_cases,
+              + comb_moe["fresh"] + pipe["fresh"] + mh["fresh"], fresh_cases,
               "fresh_bf16"),
         entry("flash_attention_warm", flash_src,
               "butterfly_tpu/ops/flash_attention.py:97",
@@ -5463,4 +5894,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(_multihost_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                   sys.argv[4]))
     sys.exit(main())

@@ -585,10 +585,21 @@ def test_cli_generate_and_serve_print_the_same_text(capsys, flags):
 
 def test_all_hosts_probe_in_one_process(monkeypatch):
     """tests/test_health.py:32's counterpart: the sum of one per device
-    over 8 CPU shards equals 8; a job of several processes waits for the
-    multi-host port."""
+    over 8 CPU shards equals 8; in a job of several processes the probe
+    all-reduces that sum over the group (here the other process's 8
+    devices, added by a stand-in all-reduce) and compares it with the
+    global device count (tests/test_torch_distributed.py runs it across
+    two real processes)."""
     assert all_hosts_probe(["cpu"] * 8)
+    from butterfly_tpu_torch.core import mesh as TM
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*Multi-host"):
-        all_hosts_probe(["cpu"] * 8)
+    monkeypatch.setattr(TM, "global_devices", lambda device: [None] * 16)
+    reduced = []
+
+    def other_process(t, *a, **kw):
+        reduced.append(float(t.item()))
+        t += 8
+    monkeypatch.setattr(torch.distributed, "all_reduce", other_process)
+    assert all_hosts_probe(["cpu"] * 8)
+    assert reduced == [8.0]

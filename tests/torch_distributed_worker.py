@@ -1,0 +1,227 @@
+"""Worker for tests/test_torch_distributed.py (run as a subprocess): one
+process of a two-process job, on the CPU, one device a process.
+
+    python torch_distributed_worker.py jax  <pid> <n> <port> <outdir>
+    python torch_distributed_worker.py port <pid> <n> <port> <outdir> <weights.npz>
+
+`jax` runs the JAX package's multi-host path (init_distributed,
+make_hybrid_mesh over jax.devices(), shard_params) on the tiny float32
+Llama from PRNGKey(0): greedy generate and a Scheduler over a
+ServingEngine with the tensor axis across the two processes, then a data
+axis across them, which the JAX package fails at its first read-back.
+`port` runs the same on butterfly_tpu_torch (gloo), with the same weights
+from `weights.npz` (models/bridge.py:params_from_numpy), plus the worker
+sum, all_hosts_probe, the forward's logits and the refusals. Each writes
+`<outdir>/<mode><pid>.json` (and the port `<outdir>/port<pid>.npz`).
+"""
+import json
+import os
+import sys
+
+import numpy as np
+
+GEN_PROMPTS = [[1, 2, 3, 4, 5], [7, 8, 9]]
+GEN_NEW = 6
+SERVE_NEW = 4
+SERVE_RT = dict(max_batch_size=2, max_seq_len=64, page_size=8)
+LOGIT_TOKENS = np.random.RandomState(3).randint(0, 258, (2, 7))
+
+
+def flatten(tree, prefix=""):
+    """A nested dict of arrays as {"a/b/c": array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def unflatten(flat):
+    tree = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def serve(model, params, rt, mesh, prompts=GEN_PROMPTS):
+    """The greedy outputs of `prompts` through a Scheduler over a
+    ServingEngine (SERVE_NEW new tokens each)."""
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    sched = Scheduler(ServingEngine(model, params, rt, mesh=mesh))
+    reqs = [sched.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    sched.run_until_done()
+    return [r.output for r in reqs]
+
+
+def variants(mesh):
+    """Paths beside the main ones, with weights from torch seed 0 on
+    `mesh`: a tiny Llama with one kv head (replicated K/V under tensor =
+    2: each shard's q heads against the whole K/V), greedy generate and
+    serving; tiny GPT-2 (biases, tied embeddings: the LM head is the
+    vocab-split embedding); the Llama's serving with prefix caching (two
+    requests sharing a prompt) and on the alternating path (fresh and
+    warm flash per shard). {name: tokens}."""
+    import torch
+    from butterfly_tpu_torch.core.config import RuntimeConfig, tiny
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.models import common as TC
+    out = {}
+    for name, arch, kw in (("kv1", "llama", dict(num_kv_heads=1)),
+                           ("gpt2", "gpt2", {}), ("llama", "llama", {})):
+        cfg = tiny(arch, dtype="float32", param_dtype="float32", **kw)
+        model = TC.Model(cfg, device="cpu")
+        params = TC.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        if name != "llama":
+            out[f"{name}_generate"] = InferenceEngine(
+                model, params, mesh=mesh).generate(
+                GEN_PROMPTS, SamplingParams(max_new_tokens=GEN_NEW)
+            ).tokens.tolist()
+        out[f"{name}_serve"] = serve(model, params,
+                                     RuntimeConfig(**SERVE_RT), mesh)
+    for name, kw in (("prefix", dict(prefix_caching=True)),
+                     ("alternating", dict(mixed_dispatch=False))):
+        out[name] = serve(model, params, RuntimeConfig(**SERVE_RT, **kw),
+                          mesh, prompts=[GEN_PROMPTS[0] * 4,
+                                         GEN_PROMPTS[0] * 4 + [9]])
+    return out
+
+
+def _error(fn):
+    """(exception type name, message) of fn(), or None when it returns."""
+    try:
+        fn()
+    except Exception as e:   # noqa: BLE001 - recorded for the test
+        return [type(e).__name__, str(e)]
+    return None
+
+
+def run_jax(pid, n, port, outdir):
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from butterfly_tpu.core.config import MeshConfig, RuntimeConfig, tiny
+    from butterfly_tpu.core.mesh import init_distributed, make_hybrid_mesh
+    from butterfly_tpu.engine.engine import InferenceEngine
+    from butterfly_tpu.engine.sampling import SamplingParams
+    from butterfly_tpu.engine.serving import ServingEngine
+    from butterfly_tpu.models.common import Model
+    from butterfly_tpu.parallel.partition import shard_params
+    from butterfly_tpu.sched.scheduler import Scheduler
+
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=n,
+                     process_id=pid)
+    cfg = tiny("llama", dtype="float32", param_dtype="float32")
+    model = Model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    out = {}
+    mesh = make_hybrid_mesh(MeshConfig(tensor=n), jax.devices())
+    sp = shard_params(params, cfg, mesh)
+    eng = InferenceEngine(model, sp, mesh=mesh)
+    out["generate"] = eng.generate(
+        GEN_PROMPTS, SamplingParams(max_new_tokens=GEN_NEW)).tokens.tolist()
+    rt = RuntimeConfig(**SERVE_RT)
+    sched = Scheduler(ServingEngine(model, sp, rt, mesh=mesh))
+    reqs = [sched.submit(p, max_new_tokens=SERVE_NEW) for p in GEN_PROMPTS]
+    sched.run_until_done()
+    out["serve"] = [r.output for r in reqs]
+
+    dmesh = make_hybrid_mesh(MeshConfig(data=n), jax.devices())
+    deng = InferenceEngine(model, shard_params(params, cfg, dmesh),
+                           mesh=dmesh)
+    out["data_error"] = _error(lambda: deng.generate(
+        GEN_PROMPTS, SamplingParams(max_new_tokens=GEN_NEW)))
+    with open(os.path.join(outdir, f"jax{pid}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_port(pid, n, port, outdir, weights):
+    import torch
+    torch.set_num_threads(1)
+    from butterfly_tpu_torch.core.config import (MeshConfig, RuntimeConfig,
+                                                 tiny)
+    from butterfly_tpu_torch.core.mesh import (global_devices,
+                                               init_distributed,
+                                               make_hybrid_mesh, mesh_ctx)
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.models import common as TC
+    from butterfly_tpu_torch.models.bridge import params_from_numpy
+    from butterfly_tpu_torch.obs.health import all_hosts_probe
+    from butterfly_tpu_torch.parallel.partition import Shards, shard_params
+    from butterfly_tpu_torch.quant.int8 import (quantize_int8,
+                                                shard_quantized_params)
+
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=n,
+                     process_id=pid, timeout_s=60)
+    out = {}
+    x = torch.full((1,), float(pid + 1))
+    torch.distributed.all_reduce(x)
+    out["sum"] = x.item()
+    out["probe"] = all_hosts_probe(["cpu"])
+    devs = global_devices("cpu")
+    out["devices"] = [[d.id, d.process_index, d.slice_index, str(d.device)]
+                      for d in devs]
+
+    cfg = tiny("llama", dtype="float32", param_dtype="float32")
+    model = TC.Model(cfg, device="cpu")
+    params = params_from_numpy(unflatten(dict(np.load(weights))),
+                               device="cpu")
+    mesh = make_hybrid_mesh(MeshConfig(tensor=n), devs)
+    placed = shard_params(params, cfg, mesh)
+    wq = placed["layers"]["attn"]["wq"]
+    out["wq"] = [isinstance(wq, Shards), len(wq.parts), wq.offset, wq.count,
+                 list(wq.shape)]
+
+    toks = torch.as_tensor(LOGIT_TOKENS)
+    with mesh_ctx(mesh):
+        cache = TC.init_cache(cfg, toks.shape[0], 32, device="cpu",
+                              mesh=mesh)
+        prefill, cache = TC.forward(placed, cfg, toks, cache)
+        step, cache = TC.forward(placed, cfg, toks[:, :1], cache)
+
+    eng = InferenceEngine(model, placed, mesh=mesh)
+    sp = SamplingParams(max_new_tokens=GEN_NEW)
+    out["generate"] = eng.generate(GEN_PROMPTS, sp).tokens.tolist()
+    out["generate_stepped"] = eng.generate(GEN_PROMPTS, sp,
+                                           fused=False).tokens.tolist()
+    out["generate_t1"] = eng.generate(
+        GEN_PROMPTS, SamplingParams(max_new_tokens=GEN_NEW, temperature=1.0),
+        seed=5).tokens.tolist()
+    out["serve"] = serve(model, placed, RuntimeConfig(**SERVE_RT), mesh)
+    out["serve_kv_int8"] = serve(model, placed, RuntimeConfig(
+        kv_quant="int8", **SERVE_RT), mesh)
+    qeng = InferenceEngine(model, shard_quantized_params(
+        quantize_int8(params, cfg), cfg, mesh), mesh=mesh)
+    out["generate_int8"] = qeng.generate(GEN_PROMPTS, sp).tokens.tolist()
+
+    out["variants"] = variants(mesh)
+
+    refusals = {}
+    for axis in ("data", "stage", "seq", "expert"):
+        m = make_hybrid_mesh(MeshConfig(**{axis: n}), devs)
+        refusals[axis] = _error(lambda: InferenceEngine(model, params,
+                                                        mesh=m))
+    out["refusals"] = refusals
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    np.savez(os.path.join(outdir, f"port{pid}.npz"),
+             prefill=prefill.numpy(), step=step.numpy())
+    with open(os.path.join(outdir, f"port{pid}.json"), "w") as f:
+        json.dump(out, f)
+
+
+if __name__ == "__main__":
+    mode, pid, n, port, outdir = (sys.argv[1], int(sys.argv[2]),
+                                  int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    if mode == "jax":
+        run_jax(pid, n, port, outdir)
+    else:
+        run_port(pid, n, port, outdir, sys.argv[6])
+    print(f"{mode}{pid} done", flush=True)
