@@ -51,8 +51,8 @@ from butterfly_tpu_torch.models.common import (
 from butterfly_tpu_torch.ops.flash_attention import flash_attention_sharded
 from butterfly_tpu_torch.ops.paged_attention import paged_attention_sharded
 from butterfly_tpu_torch.parallel.partition import (
-    Shards, axis_parts, held_tensor_shards, layers_per_stage, same_device,
-    stack_stages)
+    Shards, axis_parts, held_tensor_shards, layers_per_stage, local_stages,
+    same_device, stack_stages)
 from butterfly_tpu_torch.parallel.tensor import (
     cat_groups, data_groups, group_part, group_rows, over_heads, run_groups,
     tmap)
@@ -105,16 +105,19 @@ def init_paged_cache(cfg: ModelConfig, runtime: RuntimeConfig,
     tensor axis divides Kv), one replica per data group on its own
     devices (shared where the groups share them). Under a stage mesh
     each stage's pools hold its [L/S, ...] layers over its own mesh (a
-    Shards over "stage"); the block table and lengths sit on the mesh's
-    first device."""
+    Shards over "stage"; on a mesh whose stage axis crosses processes,
+    this process's stages alone); the block table and lengths sit on the
+    mesh's first device (this process's), host state every process
+    keeps alike."""
     if stage_degree(mesh) > 1:
         Ls = layers_per_stage(cfg, mesh)
+        mine = local_stages(mesh)     # a process allocates its own stages
         per = [init_paged_cache(cfg.replace(num_layers=Ls), runtime, dtype,
                                 sub.first_device, sub)
-               for sub in map(mesh.stage_mesh, range(stage_degree(mesh)))]
-        return per[0]._replace(**{n: stack_stages([getattr(c, n)
-                                                   for c in per])
-                                  for n in _POOLS})
+               for sub in map(mesh.stage_mesh, mine)]
+        return per[0]._replace(**{n: stack_stages(
+            [getattr(c, n) for c in per], mine[0], stage_degree(mesh))
+            for n in _POOLS})
     if tensor_degree(mesh) > 1 or data_degree(mesh) > 1:
         return _init_paged_sharded(cfg, runtime, dtype, mesh)
     dev = resolve_device(device)

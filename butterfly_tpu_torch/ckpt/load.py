@@ -120,10 +120,11 @@ def _load_hf_state_dict(path: Path) -> Mapping[str, torch.Tensor]:
 
 
 def load_checkpoint(path: str, cfg: ModelConfig, device=None,
-                    quantize: bool = False):
+                    quantize: bool = False, experts=None):
     """Load model weights from `path` (HF-format dir) into the port's
     tree on `device` (None = CUDA), in `cfg.dtype`; int8 matmul weights
-    when `quantize`."""
+    when `quantize`. `experts` = [lo, hi) reads only those experts of an
+    MoE checkpoint (models/mixtral.py)."""
     p = Path(path)
     if not p.is_dir():
         raise FileNotFoundError(f"checkpoint dir not found: {path}")
@@ -137,8 +138,9 @@ def load_checkpoint(path: str, cfg: ModelConfig, device=None,
             params_from_hf_state_dict
     else:
         raise ValueError(f"unknown arch {cfg.arch!r}")
+    kw = {} if experts is None else {"experts": experts}
     return params_from_hf_state_dict(sd, cfg, device=device,
-                                     quantize=quantize)
+                                     quantize=quantize, **kw)
 
 
 def load_draft_checkpoint(path: str, target_cfg: ModelConfig, device=None):

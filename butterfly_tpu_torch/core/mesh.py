@@ -40,8 +40,12 @@ torch.device array, the process index of every device (`processes`),
 and every process runs the same program on its own devices (SPMD, as
 the JAX processes do): it places only its own shards, and the moves
 between shards of different processes are collectives
-(parallel/tensor.py). The tensor axis is the one axis that may cross
-processes; `check_process_mesh` refuses the others.
+(parallel/tensor.py). One axis of tensor, stage and expert may cross
+the processes (`check_process_mesh` refuses every other mesh over
+several): the tensor axis's reductions and gathers, the stage axis's
+activation hand-offs (parallel/pipeline.py) and the expert axis's
+all-to-all (parallel/expert.py) are then collectives over the job;
+`owner` names the process of a stage or an expert shard.
 """
 from __future__ import annotations
 
@@ -428,14 +432,13 @@ def make_hybrid_mesh(cfg: MeshConfig, devices: Optional[Sequence] = None,
     return _mesh_of(arr)
 
 
-# where each axis waits for its own port across processes (ROADMAP.md,
-# PyTorch/CUDA port Queue 1)
+# where each refused mesh over several processes waits for its port
+# (ROADMAP.md, PyTorch/CUDA port Queue 1)
 _ACROSS_ITEMS = {
-    "stage": "ROADMAP.md Queue 1: stage across processes",
-    "expert": "ROADMAP.md Queue 1: expert across processes",
     "seq": "ROADMAP.md Queue 1: seq across processes",
-    "data": "ROADMAP.md Queue 1: data groups beside a tensor axis across "
+    "data": "ROADMAP.md Queue 1: data groups beside an axis across "
             "processes",
+    "two": "ROADMAP.md Queue 1: two axes across processes at once",
 }
 
 
@@ -448,37 +451,60 @@ def axes_across_processes(mesh: Mesh) -> List[str]:
 
 def check_process_mesh(mesh: Optional[Mesh]) -> None:
     """Refuse what a mesh over several processes cannot run yet (a mesh
-    of one process passes). A data axis across processes raises
-    RuntimeError: the JAX package fails there at its first read-back
-    (engine/engine.py:259, sched/scheduler.py:2041, "Fetching value for
-    jax.Array that spans non-addressable devices"). A stage, seq or
-    expert axis raises NotImplementedError naming its ROADMAP item (the
-    JAX package runs them; they are the next slices), and so does a data
-    axis inside the processes. The tensor axis must hold every process,
-    each an equal run of shards in process order (the collectives of
-    parallel/tensor.py go over the whole job)."""
+    of one process passes). One axis of tensor, stage and expert may
+    cross the processes, the mesh's only axis larger than 1: it must hold
+    every process, each an equal run of consecutive shards in process
+    order (its collectives go over the whole job: parallel/tensor.py's
+    reductions, parallel/pipeline.py's hand-offs, parallel/expert.py's
+    all-to-all).
+
+    A data axis across processes raises RuntimeError: the JAX package
+    fails there at its first read-back (engine/engine.py:259,
+    sched/scheduler.py:2041, "Fetching value for jax.Array that spans
+    non-addressable devices"). A seq axis (the JAX package runs it; the
+    next slice), a data axis inside the processes, and two axes larger
+    than 1 (two crossing at once, or another beside the one that
+    crosses) raise NotImplementedError naming their ROADMAP items."""
     if mesh is None or not mesh.spans_processes:
         return
-    if "data" in axes_across_processes(mesh):
+    across = axes_across_processes(mesh)
+    if "data" in across:
         raise RuntimeError(
             "a data axis across processes is refused: the JAX package "
             "fails there at its first read-back (engine/engine.py:259, "
             "sched/scheduler.py:2041: 'Fetching value for jax.Array that "
             "spans non-addressable devices'), so the port does not run it")
-    for a in ("stage", "expert", "seq", "data"):
-        if mesh.shape[a] > 1:
-            raise NotImplementedError(
-                f"a mesh over several processes runs only its tensor axis "
-                f"across them; {a}={mesh.shape[a]} is not ported there yet "
-                f"({_ACROSS_ITEMS[a]})")
+    if mesh.shape["seq"] > 1:
+        raise NotImplementedError(
+            f"a mesh over several processes runs no seq axis yet "
+            f"(seq={mesh.shape['seq']}; {_ACROSS_ITEMS['seq']})")
+    if mesh.shape["data"] > 1:
+        raise NotImplementedError(
+            f"a mesh over several processes runs no data axis inside them "
+            f"yet (data={mesh.shape['data']}; {_ACROSS_ITEMS['data']})")
+    big = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    if len(big) > 1:
+        raise NotImplementedError(
+            f"a mesh over several processes runs one axis, across them; "
+            f"{' x '.join(f'{a}={mesh.shape[a]}' for a in big)} (across "
+            f"them: {', '.join(across)}) is not ported there yet "
+            f"({_ACROSS_ITEMS['two']})")
+    axis = big[0]          # tensor, stage or expert
     procs = mesh.processes.reshape(-1)
     n = process_count()
     if len(procs) % n or not np.array_equal(
             procs, np.repeat(np.arange(n), len(procs) // n)):
         raise ValueError(
-            f"the tensor axis must hold every one of the {n} processes, "
+            f"the {axis} axis must hold every one of the {n} processes, "
             f"each an equal run of shards in process order (got process "
             f"indices {procs.tolist()})")
+
+
+def owner(mesh: Mesh, axis: str, i: int) -> int:
+    """The process that holds shard i along `axis` (stage s, expert
+    shard j): on a mesh whose one axis crosses processes, every device of
+    that shard is that process's."""
+    return int(mesh.sub_mesh(axis, i).processes.reshape(-1)[0])
 
 
 def seq_degree(mesh: Optional[Mesh]) -> int:
@@ -506,11 +532,13 @@ def stage_degree(mesh: Optional[Mesh]) -> int:
     return 1 if mesh is None else mesh.shape.get("stage", 1)
 
 
-def stage_devices(mesh: Mesh) -> List[torch.device]:
+def stage_devices(mesh: Mesh) -> List[Optional[torch.device]]:
     """The first device of each pipeline stage, stage order: where a
-    stage's activations arrive and leave."""
-    return [mesh.stage_mesh(s).first_device
-            for s in range(stage_degree(mesh))]
+    stage's activations arrive and leave (None for a stage another
+    process holds)."""
+    me = process_index()
+    return [sub.first_device if (sub.processes == me).any() else None
+            for sub in map(mesh.stage_mesh, range(stage_degree(mesh)))]
 
 
 _ACTIVE: contextvars.ContextVar[Optional[Mesh]] = \

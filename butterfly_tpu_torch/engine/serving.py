@@ -71,8 +71,8 @@ from butterfly_tpu_torch.cache.paged import (
     init_paged_cache, paged_forward, paged_forward_window,
     permute_paged_tail, permute_window_tail, pool_replicas)
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
-from butterfly_tpu_torch.core.mesh import (seq_degree, stage_degree,
-                                           under_mesh)
+from butterfly_tpu_torch.core.mesh import (expert_degree, seq_degree,
+                                           stage_degree, under_mesh)
 from butterfly_tpu_torch.engine.engine import (
     mesh_device, place_params, seq_replicas)
 from butterfly_tpu_torch.engine.sampling import (
@@ -82,7 +82,8 @@ from butterfly_tpu_torch.engine.sampling import (
 from butterfly_tpu_torch.models.common import Model
 from butterfly_tpu_torch.parallel.partition import Shards, axis_parts
 from butterfly_tpu_torch.parallel.sequence import sp_chunk_body
-from butterfly_tpu_torch.parallel.tensor import (data_groups, gather,
+from butterfly_tpu_torch.parallel.tensor import (all_gather_cat,
+                                                 data_groups, gather,
                                                  group_part, tmap)
 
 
@@ -639,8 +640,10 @@ class ServingEngine:
         int8, else None. A pool split over `tensor` reads each shard's
         pages and concatenates the kv heads (and the kv-major scale
         columns) in shard order, one split over `stage` each stage's
-        layers in stage order: the unsharded engine's bytes.
-        Synchronous."""
+        layers in stage order: the unsharded engine's bytes. Where the
+        stage (or tensor) axis crosses processes the other processes'
+        layers (or heads) come through an all-gather: every process
+        calls it at the same point. Synchronous."""
         if self._win_dirty:
             self.flush_kv_window()
         c = pool_replicas(self.cache)[0]
@@ -650,8 +653,10 @@ class ServingEngine:
             if pool is None:
                 return None
             if axis_parts(pool, "stage") is not None:
-                return torch.cat([read(group_part(p, 0)) for p in
-                                  axis_parts(pool, "stage")], dim=0)
+                out = torch.cat([read(group_part(p, 0)) for p in
+                                 axis_parts(pool, "stage")], dim=0)
+                # the other processes' stages, in stage order
+                return all_gather_cat(out, 0) if pool.distributed else out
             parts = axis_parts(pool, "tensor")
             if parts is None:
                 return pool[:, idx.to(pool.device)].cpu()
@@ -672,7 +677,7 @@ class ServingEngine:
             stages = axis_parts(pool, "stage")
             if stages is not None:
                 val = torch.as_tensor(val)
-                lo = 0
+                lo = pool.offset * stages[0].shape[0]   # this process's
                 for p in stages:
                     n = p.shape[0]
                     for rep in axis_parts(p, "data") or [p]:
@@ -1167,6 +1172,13 @@ def _build_model_draft_source(engine: "ServingEngine"):
                                                         stage_part)
     rt = engine.runtime
     mesh, params = engine.mesh, engine.params
+    if mesh is not None and mesh.spans_processes and max(
+            stage_degree(mesh), expert_degree(mesh)) > 1:
+        raise NotImplementedError(
+            "the draft-model source on a mesh whose stage or expert axis "
+            "crosses processes is not ported yet (ROADMAP.md Queue 1: "
+            "draft models across processes); the n-gram source runs "
+            "there")
     if stage_degree(mesh) > 1:
         staged = params
         mesh, params = mesh.stage_mesh(0), stage_part(params, 0)

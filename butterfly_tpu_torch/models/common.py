@@ -47,11 +47,11 @@ from butterfly_tpu_torch.core.mesh import (data_degree, stage_degree,
                                            tensor_degree)
 from butterfly_tpu_torch.ops.flash_attention import flash_attention_sharded
 from butterfly_tpu_torch.parallel.partition import (
-    Shards, expert_parts, held_tensor_shards, layers_per_stage, part_device,
-    shard_count, stack_stages)
+    Shards, expert_parts, held_experts, held_tensor_shards, layers_per_stage,
+    local_stages, part_device, shard_count, stack_stages)
 from butterfly_tpu_torch.parallel.tensor import (
-    cat_groups, data_groups, embed_lookup, gather, group_part, group_rows,
-    over_heads, run_groups, sharded_einsum, tmap)
+    all_gather_cat, cat_groups, data_groups, embed_lookup, gather,
+    group_part, group_rows, over_heads, run_groups, sharded_einsum, tmap)
 
 Params = Dict[str, Any]
 
@@ -108,15 +108,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     [L/S, ...] layers over its own mesh (a Shards over "stage")."""
     if stage_degree(mesh) > 1:
         Ls = layers_per_stage(cfg, mesh)
+        mine = local_stages(mesh)     # a process allocates its own stages
         per = [init_cache(cfg.replace(num_layers=Ls), batch, max_seq, dtype,
                           quant, sub.first_device, sub, split_batch)
-               for sub in map(mesh.stage_mesh, range(stage_degree(mesh)))]
-        return KVCache(*(stack_stages([c[j] for c in per])
-                         for j in (0, 1)),
+               for sub in map(mesh.stage_mesh, mine)]
+
+        def stack(items):
+            return stack_stages(items, mine[0], stage_degree(mesh))
+        return KVCache(*(stack([c[j] for c in per]) for j in (0, 1)),
                        length=torch.zeros((batch,), dtype=torch.int32,
                                           device=mesh.first_device),
-                       k_scale=stack_stages([c.k_scale for c in per]),
-                       v_scale=stack_stages([c.v_scale for c in per]))
+                       k_scale=stack([c.k_scale for c in per]),
+                       v_scale=stack([c.v_scale for c in per]))
     if tensor_degree(mesh) > 1 or data_degree(mesh) > 1:
         return _init_cache_sharded(cfg, batch, max_seq, dtype, quant, mesh,
                                    split_batch)
@@ -368,10 +371,16 @@ def expert_swiglu(x: torch.Tensor, p: Params, cfg: ModelConfig,
     each shard's weights live, their rows of x moved there and the
     output moved back to x's device, then concatenated in expert order;
     a plain leaf is one shard. F split over the tensor axis runs the gate/up
-    column-parallel and the down projection row-parallel."""
+    column-parallel and the down projection row-parallel. On a mesh
+    whose expert axis crosses processes each process runs its own
+    shards' experts on their rows of x, and the outputs are all-gathered
+    in expert order (parallel/tensor.py:all_gather_cat): every process
+    then holds the whole [E, ...] output, bit for bit the one-process
+    run's."""
     act = ACTIVATIONS[cfg.act]
     n = shard_count(p)
-    lo = 0
+    first, held = held_experts(p)
+    lo = first * (x.shape[0] // n)
     ys = []
     for wg, wu, wd in zip(*(expert_parts(p[k], n)
                             for k in ("w_gate", "w_up", "w_down"))):
@@ -383,7 +392,10 @@ def expert_swiglu(x: torch.Tensor, p: Params, cfg: ModelConfig,
         h = tmap(lambda a, b: act(a) * b, g, u)
         ys.append(sharded_einsum(spec_out, h, wd, dtype)
                   .to(x.device, non_blocking=True))
-    return ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
+    if held < n:
+        y = all_gather_cat(y, 0)
+    return y
 
 
 def moe_block(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -931,7 +943,8 @@ def _forward(params: Params, cfg: ModelConfig, tokens, cache: KVCache,
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> Params:
+                device=None, experts: Optional[Tuple[int, int]] = None
+                ) -> Params:
     """Random init (normal, 0.02 std) in cfg.param_dtype, on `device`.
 
     Each stacked [L, ...] leaf is allocated once in the parameter dtype
@@ -939,6 +952,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     holds a float32 copy of the whole tree. `generator` must live on
     `device` (a seed-0 one is made when it is None). Draws differ from
     jax.random's; the JAX tree crosses over through models/bridge.py.
+
+    `experts` = [lo, hi) keeps only those experts of the MoE expert
+    leaves ([L, hi - lo, ...]): every expert is still drawn, one layer at
+    a time, so the kept ones equal the whole tree's (a process of a mesh
+    whose expert axis crosses processes holds only its own).
     """
     dev = resolve_device(device)
     pdt = torch_dtype(cfg.param_dtype)
@@ -949,13 +967,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                               cfg.num_kv_heads, cfg.head_dim,
                               cfg.intermediate_size, cfg.vocab_size)
 
-    def draw(shape, std=0.02):
-        out = torch.empty(shape, dtype=pdt, device=dev)
+    def draw(shape, std=0.02, keep=None):
+        kept = shape if keep is None else \
+            (shape[0], keep[1] - keep[0]) + tuple(shape[2:])
+        out = torch.empty(kept, dtype=pdt, device=dev)
         f32 = torch.float32
         if len(shape) > 1 and shape[0] == L:
             for i in range(L):
-                out[i].copy_(torch.randn(shape[1:], generator=generator,
-                                         dtype=f32, device=dev) * std)
+                w = torch.randn(shape[1:], generator=generator, dtype=f32,
+                                device=dev)
+                out[i].copy_((w if keep is None else w[keep[0]:keep[1]])
+                             * std)
         else:
             out.copy_(torch.randn(shape, generator=generator, dtype=f32,
                                   device=dev) * std)
@@ -985,9 +1007,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if cfg.is_moe:
         E = cfg.num_experts
         layers["moe"] = {"router": draw((L, D, E)),
-                         "w_gate": draw((L, E, D, F_)),
-                         "w_up": draw((L, E, D, F_)),
-                         "w_down": draw((L, E, F_, D))}
+                         "w_gate": draw((L, E, D, F_), keep=experts),
+                         "w_up": draw((L, E, D, F_), keep=experts),
+                         "w_down": draw((L, E, F_, D), keep=experts)}
     elif cfg.arch == "gpt2":
         layers["mlp"] = {"w_up": draw((L, D, F_)), "b_up": zeros(L, F_),
                          "w_down": draw((L, F_, D)), "b_down": zeros(L, D)}

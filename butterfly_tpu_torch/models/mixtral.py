@@ -6,7 +6,7 @@ counterpart of butterfly_tpu/models/mixtral.py, with its HF checkpoint
 converter."""
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -21,7 +21,9 @@ def model(cfg: ModelConfig | None = None, device=None) -> Model:
 
 
 def params_from_hf_state_dict(sd: Mapping, cfg: ModelConfig, device=None,
-                              quantize: bool = False) -> Dict:
+                              quantize: bool = False,
+                              experts: Optional[Tuple[int, int]] = None
+                              ) -> Dict:
     """HF MixtralForCausalLM weights as the port's tree, on `device` in
     cfg.dtype (ckpt/load.py:materialize).
 
@@ -30,13 +32,15 @@ def params_from_hf_state_dict(sd: Mapping, cfg: ModelConfig, device=None,
     w1=gate [F,D], w2=down [D,F], w3=up [F,D]; the router is
     block_sparse_moe.gate.weight [E,D]. The port's layout stacks layers
     AND experts: w_gate/w_up [L,E,D,F], w_down [L,E,F,D], router [L,D,E].
+    `experts` = [lo, hi) reads only those experts ([L, hi - lo, ...]).
     """
     L, E = cfg.num_layers, cfg.num_experts
+    held = range(*experts) if experts is not None else range(E)
     moe = "model.layers.{}.block_sparse_moe."
 
     def experts(which):  # w1|w2|w3 -> [L, E, in, out]
         return HFLeaf([[f"{moe.format(i)}experts.{e}.{which}.weight"
-                        for e in range(E)] for i in range(L)],
+                        for e in held] for i in range(L)],
                       lambda *ws: torch.stack([w.T for w in ws]), True)
 
     layers = attention_plan(cfg)

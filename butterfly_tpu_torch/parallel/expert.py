@@ -41,6 +41,19 @@ weights may be split over the shards (parallel/partition.py:
 shard_params) or plain tensors (each shard then takes a view of its
 experts).
 
+On a mesh whose expert axis crosses processes (core/mesh.py: each
+process a run of consecutive expert shards) the router and every leaf
+outside the experts are replicated in every process, and each process
+holds only its own shards' experts. The a2a path then routes the
+chunks of its own source shards, the exchange and its return are one
+all-to-all each way over the job (parallel/tensor.py:all_to_all_blocks,
+blocks in shard order), its experts run between them, and the output
+chunks are all-gathered in shard order (the layout JAX's `out_specs`
+gives back). The einsum path runs its dispatch whole in every process,
+each process its own experts, and all-gathers their outputs in expert
+order (models/common.py:expert_swiglu), so its combine has the
+one-process run's bits.
+
 Capacity: each expert takes at most C assignments per sequence (einsum
 path) or per source shard (a2a path, pooled over the shard's B
 sequences); overflow assignments are dropped (their FFN contribution is
@@ -62,8 +75,12 @@ from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.core.mesh import active_mesh, expert_degree
 from butterfly_tpu_torch.models.common import (Params, expert_swiglu,
                                                route_tokens)
-from butterfly_tpu_torch.parallel.partition import expert_parts, part_device
-from butterfly_tpu_torch.parallel.tensor import group_run
+from butterfly_tpu_torch.parallel.partition import (expert_parts,
+                                                    held_experts,
+                                                    part_device)
+from butterfly_tpu_torch.parallel.tensor import (all_gather_cat,
+                                                 all_to_all_blocks,
+                                                 group_run)
 
 
 def expert_capacity(cfg: ModelConfig, tokens_per_seq: int) -> int:
@@ -191,22 +208,26 @@ def _moe_ep_a2a(x: torch.Tensor, p: Params, cfg: ModelConfig, N: int,
               zip(*(expert_parts(p[w], N)
                     for w in ("w_gate", "w_up", "w_down")))]
     devs = [part_device(s["w_gate"]) for s in shards]
+    # this process's shards [first, first + held): every one of the N
+    # unless the expert axis crosses processes
+    first, held = held_experts(p) if len(shards) < N else (0, N)
 
     # each source shard routes its chunk and fills its send buffer
     sends: List[torch.Tensor] = []
     metas, counts = [], []
-    for i in range(N):
-        xi = x[:, i * Tl:(i + 1) * Tl].to(devs[i], non_blocking=True)
+    for i in range(first, first + held):
+        dev = devs[i - first]
+        xi = x[:, i * Tl:(i + 1) * Tl].to(dev, non_blocking=True)
         gates, idx = route_tokens(
-            xi, p["router"].to(devs[i], non_blocking=True), k)
-        base = None if prior is None else prior[i].to(devs[i])
+            xi, p["router"].to(dev, non_blocking=True), k)
+        base = None if prior is None else prior[i - first].to(dev)
         dest, keep = a2a_slots(idx, E, C, base)
         if run is not None:
             seen = torch.bincount(idx.reshape(-1), minlength=E)
             counts.append(seen if base is None else seen + base)
         x_rep = xi.reshape(B * Tl, D).repeat_interleave(k, dim=0)   # [A,D]
         # one spare row takes the dropped assignments, then goes
-        send = torch.zeros((E * C + 1, D), dtype=x.dtype, device=devs[i])
+        send = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
         send.index_copy_(0, dest, x_rep)
         sends.append(send[:-1].reshape(N, ne, C, D))
         metas.append((dest, keep, gates))
@@ -215,24 +236,46 @@ def _moe_ep_a2a(x: torch.Tensor, p: Params, cfg: ModelConfig, N: int,
         run.carry[call] = counts
 
     # the all_to_all, then each shard's ne experts over [ne, N*C, D]
+    recvs = _exchange_blocks(sends, devs) if held < N else [
+        torch.stack([sends[i][j].to(devs[j], non_blocking=True)
+                     for i in range(N)]) for j in range(N)]  # [N,ne,C,D]
     ys = []
-    for j in range(N):
-        recv = torch.stack([sends[i][j].to(devs[j], non_blocking=True)
-                            for i in range(N)])              # [N,ne,C,D]
+    for j, recv in enumerate(recvs):
         xin = recv.transpose(0, 1).reshape(ne, N * C, D)
         y = expert_swiglu(xin, shards[j], cfg, "ecd,edf->ecf",
                           "ecf,efd->ecd")
         ys.append(y.reshape(ne, N, C, D).transpose(0, 1))   # block i -> i
 
     # the reverse all_to_all; gather, gate and sum over k at each source
+    backs = _exchange_blocks(ys, devs) if held < N else [
+        torch.stack([ys[j][i].to(devs[i], non_blocking=True)
+                     for j in range(N)]) for i in range(N)]  # [N,ne,C,D]
     outs = []
-    for i in range(N):
-        y_back = torch.stack([ys[j][i].to(devs[i], non_blocking=True)
-                              for j in range(N)]).reshape(E * C, D)
-        dest, keep, gates = metas[i]
+    for il, y_back in enumerate(backs):
+        y_back = y_back.reshape(E * C, D)
+        dest, keep, gates = metas[il]
         y_flat = y_back.index_select(0, dest.clamp(max=E * C - 1))
         y_flat = torch.where(keep[:, None], y_flat,
                              torch.zeros_like(y_flat)).to(x.dtype)
         out = y_flat.reshape(B, Tl, k, D) * gates[..., None].to(x.dtype)
         outs.append(out.sum(dim=2).to(x.device, non_blocking=True))
-    return torch.cat(outs, dim=1)
+    out = torch.cat(outs, dim=1)
+    # every process's chunks, in shard order
+    return all_gather_cat(out, 1) if held < N else out
+
+
+def _exchange_blocks(blocks: List[torch.Tensor], devs) -> List[torch.Tensor]:
+    """The all_to_all across processes: blocks[a][b] ([N, ...] for each
+    of this process's `held` shards a) is shard a's block for shard b, of
+    N in all; returns, for each of this process's shards b, the [N, ...]
+    blocks every shard a sent it, in shard order, on b's device. One
+    all-to-all over the job, each process's run of shards in order."""
+    held, N = len(blocks), blocks[0].shape[0]
+    P = N // held
+    rest = tuple(blocks[0].shape[1:])
+    mine = torch.stack([b.to(devs[0], non_blocking=True) for b in blocks])
+    send = mine.reshape((held, P, held) + rest).transpose(0, 1)
+    got = all_to_all_blocks(send.contiguous())      # [P, held(a), held(b)]
+    return [got[:, :, b].reshape((N,) + rest).to(devs[b],
+                                                 non_blocking=True)
+            for b in range(held)]

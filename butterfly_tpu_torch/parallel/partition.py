@@ -31,7 +31,10 @@ container of per-shard tensors, `Shards`:
   expert, tensor and data as above: the MoE leaves of a stage's slice
   split over that stage's expert devices, JAX's P('stage', 'expert',
   ...)); the embedding, the final norm and the LM head are placed over
-  stage 0's mesh (parallel/pipeline.py runs them there).
+  stage 0's mesh (parallel/pipeline.py runs them there), or, on a mesh
+  whose stage axis crosses processes, over each process's first stage's
+  mesh: every process holds its own replica, as JAX's P() replicates
+  them.
 
 Where a shard shares its device with the tree, a weight part is a VIEW of
 the stacked leaf, so one card with N shards still holds one tree, not N
@@ -44,9 +47,11 @@ holds its own copy, and every pool write reaches every replica
 (cache/paged.py, engine/serving.py).
 
 On a mesh over several processes (core/mesh.py) each process places only
-the tensor shards on its own devices and its own copy of every other
-leaf: a Shards there holds a run of the shards (`Shards.distributed`),
-and nothing is allocated for another process's.
+the shards of the crossing axis that lie on its own devices (tensor
+shards, its stages' layer slices, its expert shards) and its own copy
+of every other leaf: a Shards there holds a run of the shards
+(`Shards.distributed`, `offset` the first), and nothing is allocated
+for another process's.
 """
 from __future__ import annotations
 
@@ -56,7 +61,8 @@ import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.core.mesh import (Mesh, check_process_mesh,
-                                           data_degree, stage_degree)
+                                           data_degree, process_index,
+                                           stage_degree)
 from butterfly_tpu_torch.quant.int8 import is_quantized_leaf, quant_specs_like
 
 Params = Dict[str, Any]
@@ -166,6 +172,16 @@ def axis_parts(x: Any, axis: str) -> Optional[List[Any]]:
     return None
 
 
+def held_part(x: Shards, i: int) -> Any:
+    """Shard i of `x`, which this process must hold (a ValueError names
+    the shard when another process holds it)."""
+    j = i - x.offset
+    if not 0 <= j < len(x.parts):
+        raise ValueError(f"{x.axis} shard {i} of {x!r} is another "
+                         "process's")
+    return x.parts[j]
+
+
 def stage_part(tree: Any, i: int) -> Any:
     """Part i of every stage Shards in a tree or leaf (a pipeline stage's
     layers, pools or cache; with virtual stages, chunk i), anything else
@@ -173,28 +189,37 @@ def stage_part(tree: Any, i: int) -> Any:
     if isinstance(tree, dict):
         return {k: stage_part(v, i) for k, v in tree.items()}
     if isinstance(tree, Shards) and tree.axis == "stage":
-        return tree.parts[i]
+        return held_part(tree, i)
     return tree
 
 
 def stage_count(tree: Any) -> int:
-    """How many parts the stage Shards of a tree or leaf have (1 when it
-    is not split over stages)."""
+    """How many parts the stage Shards of a tree or leaf have, every
+    process's (1 when it is not split over stages)."""
     if isinstance(tree, dict):
         return max([stage_count(v) for v in tree.values()] or [1])
-    parts = axis_parts(tree, "stage")
-    return 1 if parts is None else len(parts)
+    return tree.count if isinstance(tree, Shards) and tree.axis == "stage" \
+        else 1
 
 
-def stack_stages(parts: Sequence[Any]) -> Any:
+def stack_stages(parts: Sequence[Any], offset: int = 0,
+                 count: Optional[int] = None) -> Any:
     """Per-stage trees as one tree of stage Shards split on the layer
-    dim (dicts element-wise, None stays None)."""
+    dim (dicts element-wise, None stays None): stages [offset, offset +
+    len(parts)) of `count` (None = these alone)."""
     p0 = parts[0]
     if isinstance(p0, dict):
-        return {k: stack_stages([p[k] for p in parts]) for k in p0}
+        return {k: stack_stages([p[k] for p in parts], offset, count)
+                for k in p0}
     if p0 is None:
         return None
-    return Shards(parts, "stage", 0)
+    return Shards(parts, "stage", 0, offset, count)
+
+
+def local_stages(mesh: Mesh) -> range:
+    """The stages whose devices are this process's, in stage order (every
+    stage on a mesh of one process)."""
+    return range(*mesh.local_range("stage"))
 
 
 def layer_slice(tree: Any, lo: int, hi: int) -> Any:
@@ -214,6 +239,8 @@ def leading_layers(layers: Any, n: int, Ls: int) -> Any:
     k = -(-n // Ls)
     if isinstance(layers, dict):
         return {key: leading_layers(v, n, Ls) for key, v in layers.items()}
+    if layers.distributed:
+        raise ValueError(f"{layers!r} is split over processes")
     return _join_rows(list(layers.parts[:k]), n)
 
 
@@ -252,18 +279,19 @@ def layers_per_stage(cfg: ModelConfig, mesh: Mesh) -> int:
 
 def expert_parts(w: Any, n: Optional[int] = None) -> List[Any]:
     """One layer's expert leaf ([E, ...], float or {"q8", "s"}) as its
-    per-shard parts: an expert Shards' own parts; anything else (a plain
-    tensor, a tensor-split leaf) as `n` views along the expert axis (one
-    part, the leaf itself, when n is None)."""
+    per-shard parts: an expert Shards' own parts (on a mesh across
+    processes, this process's run of them, from shard `offset`);
+    anything else (a plain tensor, a tensor-split leaf) as `n` views
+    along the expert axis (one part, the leaf itself, when n is None)."""
     if isinstance(w, dict):
         keys = list(w)
         cols = [expert_parts(w[k], n) for k in keys]
         return [dict(zip(keys, vals)) for vals in zip(*cols)]
     parts = axis_parts(w, "expert")
     if parts is not None:
-        if n is not None and n != len(parts):
+        if n is not None and n != w.count:
             raise ValueError(f"the expert leaves are split over "
-                             f"{len(parts)} shards, not {n}")
+                             f"{w.count} shards, not {n}")
         return parts
     if not n or n == 1:
         return [w]
@@ -273,13 +301,61 @@ def expert_parts(w: Any, n: Optional[int] = None) -> List[Any]:
     return list(w.chunk(n, dim=0))
 
 
+def held_expert_range(cfg: ModelConfig, mesh: Optional[Mesh]
+                      ) -> Optional[Tuple[int, int]]:
+    """[lo, hi): the experts this process holds on a mesh whose expert
+    axis crosses processes (None elsewhere: every process holds them
+    all)."""
+    if mesh is None or not cfg.is_moe or not mesh.spans_processes \
+            or mesh.shape["expert"] <= 1:
+        return None
+    lo, hi = mesh.local_range("expert")
+    ne = cfg.num_experts // mesh.shape["expert"]
+    return lo * ne, hi * ne
+
+
+def place_held_experts(params: Params, cfg: ModelConfig, mesh: Mesh
+                       ) -> Params:
+    """A tree whose MoE expert leaves hold only this process's experts
+    (`experts=held_expert_range(...)` to init_params,
+    init_params_quantized or load_checkpoint) with those leaves placed as
+    the expert Shards shard_params makes of the whole leaves (an int8
+    leaf's codes and scales alike): this process's shards on their
+    devices; shard_params keeps them."""
+    lo, hi = mesh.local_range("expert")
+    devs = mesh.expert_devices()
+
+    def split(w):
+        ne = w.shape[1] // (hi - lo)
+        return Shards([_place(w.narrow(1, (e - lo) * ne, ne), devs[e])
+                       for e in range(lo, hi)], "expert", 1, lo,
+                      mesh.shape["expert"])
+    moe = dict(params["layers"]["moe"])
+    for k in ("w_gate", "w_up", "w_down"):
+        w = moe[k]
+        moe[k] = {q: split(v) for q, v in w.items()} \
+            if is_quantized_leaf(w) else split(w)
+    return {**params, "layers": {**params["layers"], "moe": moe}}
+
+
 def shard_count(p_moe: Params) -> int:
-    """How many expert shards one layer's MoE leaves are split over (1
-    when they are not split over experts)."""
+    """How many expert shards one layer's MoE leaves are split over, every
+    process's (1 when they are not split over experts)."""
+    w = _expert_leaf(p_moe)
+    return 1 if w is None else w.count
+
+
+def held_experts(p_moe: Params) -> Tuple[int, int]:
+    """(first, count) of the expert shards of one layer's MoE leaves
+    this process holds ((0, 1) when they are not split over experts)."""
+    w = _expert_leaf(p_moe)
+    return (0, 1) if w is None else (w.offset, len(w.parts))
+
+
+def _expert_leaf(p_moe: Params) -> Optional[Shards]:
     w = p_moe["w_gate"]
     w = w["q8"] if isinstance(w, dict) else w
-    parts = axis_parts(w, "expert")
-    return 1 if parts is None else len(parts)
+    return w if isinstance(w, Shards) and w.axis == "expert" else None
 
 
 def part_device(w: Any) -> torch.device:
@@ -444,10 +520,15 @@ def _place(t: torch.Tensor, dev, copy: bool = False) -> torch.Tensor:
 
 def group_device(mesh: Mesh, data_index: int = 0) -> torch.device:
     """Where data group `data_index` keeps what is not split over the
-    tensor axis: the first of its tensor devices this process holds (on
-    a mesh over several processes each keeps its own replica)."""
-    lo, _ = mesh.local_range("tensor", data=data_index)
-    return mesh.tensor_devices(data_index)[lo]
+    tensor axis: the first of its devices this process holds (on a mesh
+    over several processes each keeps its own replica)."""
+    me = process_index()
+    for dev, p in zip(mesh.devices[data_index].reshape(-1),
+                      mesh.processes[data_index].reshape(-1)):
+        if p == me:
+            return dev
+    raise ValueError(f"data group {data_index} of {mesh!r} holds no device "
+                     f"of process {me}")
 
 
 def held_tensor_shards(mesh: Mesh, data_index: int, T: int
@@ -494,8 +575,9 @@ def _place_tree(node: Any, spec: Any, mesh: Mesh, data_index: int,
     if "expert" in dims:
         edim, N = dims["expert"], mesh.shape["expert"]
         size = node.shape[edim] // N
+        lo, hi = mesh.local_range("expert", data=data_index)
         parts = []
-        for e in range(N):
+        for e in range(lo, hi):
             part = node.narrow(edim, e * size, size)
             if "tensor" in dims:
                 parts.append(_split_leaf(
@@ -504,7 +586,7 @@ def _place_tree(node: Any, spec: Any, mesh: Mesh, data_index: int,
             else:
                 parts.append(_place(part, mesh.expert_devices(
                     data_index)[e], copy))
-        return Shards(parts, "expert", edim)
+        return Shards(parts, "expert", edim, lo, N)
     if "tensor" in dims:
         return _split_leaf(node, "tensor", dims["tensor"], tdevs, copy,
                            mesh.local_range("tensor", data=data_index))
@@ -549,17 +631,20 @@ def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh,
     Under `stage` each layer-stacked leaf becomes a Shards over "stage"
     of its [L/S, ...] slices, slice s placed as above over stage s's
     mesh (views where it shares the tree's device); the other leaves are
-    placed over stage 0's mesh.
+    placed over the mesh of this process's first stage (stage 0 on a
+    mesh of one process).
 
     On a mesh over several processes each process places only its own
     shards (the counterpart of device_put onto a global sharding, which
-    fills only the addressable ones) and its own replica of the rest;
-    what core/mesh.py:check_process_mesh refuses raises."""
+    fills only the addressable ones: its tensor shards, its stages'
+    slices, its expert shards) and its own replica of the rest; what
+    core/mesh.py:check_process_mesh refuses raises."""
     check_process_mesh(mesh)
     if stage_degree(mesh) > 1:
         Ls = layers_per_stage(cfg, mesh)
+        mine = local_stages(mesh)
         top = {k: v for k, v in params.items() if k != "layers"}
-        out = shard_params(top, cfg, mesh.stage_mesh(0), copy)
+        out = shard_params(top, cfg, mesh.stage_mesh(mine[0]), copy)
         if "layers" in params:
             if stage_count(params["layers"]) > 1:
                 out["layers"] = params["layers"]   # placed already
@@ -569,7 +654,7 @@ def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh,
                     {"layers": layer_slice(params["layers"], s * Ls,
                                            (s + 1) * Ls)},
                     scfg, mesh.stage_mesh(s), copy)["layers"]
-                    for s in range(stage_degree(mesh))])
+                    for s in mine], mine[0], stage_degree(mesh))
         return out
     N = mesh.shape.get("expert", 1)
     if cfg.is_moe and N > 1 and cfg.num_experts % N:
@@ -607,14 +692,15 @@ def shard_paged_cache(cache, cfg: ModelConfig, mesh: Mesh,
     if stage_degree(mesh) > 1:
         Ls = layers_per_stage(cfg, mesh)
         scfg = cfg.replace(num_layers=Ls)
+        mine = local_stages(mesh)
         names = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
         per = [shard_paged_cache(cache._replace(**{
             n: layer_slice(getattr(cache, n), s * Ls, (s + 1) * Ls)
             for n in names}), scfg, mesh.stage_mesh(s), copy)
-            for s in range(stage_degree(mesh))]
-        return per[0]._replace(**{n: stack_stages([getattr(c, n)
-                                                   for c in per])
-                                  for n in names})
+            for s in mine]
+        return per[0]._replace(**{n: stack_stages(
+            [getattr(c, n) for c in per], mine[0], stage_degree(mesh))
+            for n in names})
     specs = paged_cache_specs(cfg, mesh, cache.num_slots, cache.quantized)
 
     def group(d):
@@ -673,14 +759,16 @@ def shard_cache(cache, cfg: ModelConfig, mesh: Mesh, copy: bool = False):
     if stage_degree(mesh) > 1:
         Ls = layers_per_stage(cfg, mesh)
         scfg = cfg.replace(num_layers=Ls)
+        mine = local_stages(mesh)
         names = ("k", "v", "k_scale", "v_scale")
         per = [shard_cache(cache._replace(**{
             n: layer_slice(getattr(cache, n), s * Ls, (s + 1) * Ls)
             for n in names}), scfg, mesh.stage_mesh(s), copy)
-            for s in range(stage_degree(mesh))]
+            for s in mine]
         return per[0]._replace(
             length=_place(cache.length, mesh.first_device),
-            **{n: stack_stages([getattr(c, n) for c in per])
+            **{n: stack_stages([getattr(c, n) for c in per], mine[0],
+                               stage_degree(mesh))
                for n in names})
     specs = cache_specs(cfg, mesh, cache.quantized)
     kv_dim = 2 if cache.quantized else 3

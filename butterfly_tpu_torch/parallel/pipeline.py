@@ -42,6 +42,17 @@ Shards over "stage" of S*V chunks in that order
 Bubble fraction (S-1)/(M+S-1), or (S-1)/(V*M+S-1) interleaved: on several
 cards it is idle time; on one card, where every stage shares the device,
 the schedule only orders the work.
+
+On a mesh whose stage axis crosses processes (core/mesh.py: each process
+a run of consecutive stages) every process runs the same tick loop and
+computes only the pairs of its own stages. Where stage s and the stage
+after it (stage s + 1, or stage 0 for the interleaved wrap) are
+different processes' the hand-off is a send and a matching receive,
+each tick's posted together (parallel/tensor.py:exchange), the
+counterpart of the JAX `ppermute`. The last stage's process then
+broadcasts its output (only the `last_index` rows where those are
+taken) to every process, where each runs the LM head on its own replica
+of the top and samples the same tokens.
 """
 from __future__ import annotations
 
@@ -51,14 +62,17 @@ import numpy as np
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
-from butterfly_tpu_torch.core.mesh import (Mesh, mesh_ctx, stage_degree,
+from butterfly_tpu_torch.core.mesh import (Mesh, mesh_ctx, owner,
+                                           process_index, stage_degree,
                                            stage_devices)
 from butterfly_tpu_torch.models.common import (
     KVCache, _take_rows, embed_tokens, final_logits, forward, make_mask,
     scan_layers)
 from butterfly_tpu_torch.parallel.partition import (Shards, axis_parts,
+                                                    held_part, local_stages,
                                                     stack_stages)
-from butterfly_tpu_torch.parallel.tensor import (cat_groups, group_part,
+from butterfly_tpu_torch.parallel.tensor import (broadcast_from, cat_groups,
+                                                 exchange, group_part,
                                                  run_groups)
 
 
@@ -107,9 +121,7 @@ def pipeline_forward(params, cfg: ModelConfig, tokens, cache: KVCache,
                                           cache.v_scale), x, positions,
                        mask, cos, sin, cfg=cfg, mesh=mesh, M=M, V=V,
                        fresh=fresh)
-    y = y.to(tokens.device, non_blocking=True)
-    if last_index is not None:
-        y = _take_rows(y, last_index)
+    y = _last_output(y, x, mesh, tokens.device, last_index)
     logits = final_logits(top, cfg, y)
     return logits, cache._replace(length=(cache.length + T).to(torch.int32))
 
@@ -184,9 +196,7 @@ def paged_pipeline_forward(params, cfg: ModelConfig, tokens, cache,
     y = _paged_pipeline_body(params["layers"], cache, x, positions, mask,
                              cos, sin, active, cfg=cfg, mesh=mesh, M=M,
                              use_kernel=use_kernel, fresh=fresh)
-    y = y.to(dev, non_blocking=True)
-    if last_index is not None:
-        y = _take_rows(y, last_index)
+    y = _last_output(y, x, mesh, dev, last_index)
     logits = final_logits(top, cfg, y)
     new_len = torch.where(active, cache.lengths + T, cache.lengths)
     return logits, cache._replace(lengths=new_len.to(torch.int32))
@@ -194,8 +204,36 @@ def paged_pipeline_forward(params, cfg: ModelConfig, tokens, cache,
 
 def _top(params):
     """The weights outside the layer stack (embedding, final norm, head)
-    as stage 0's mesh holds them: its first data group's replica."""
+    as this process holds them (parallel/partition.py:shard_params places
+    them over the mesh of its first stage: stage 0's on a mesh of one
+    process): the first data group's replica."""
     return group_part({k: v for k, v in params.items() if k != "layers"}, 0)
+
+
+def _last_output(y, x, mesh: Mesh, dev, last_index):
+    """The last stage's output [B,T,D] (its `last_index` rows [B,1,D]
+    where those are taken) on `dev` in this process: moved from the last
+    stage's device, or, where the stage axis crosses processes,
+    broadcast by the last stage's process (`y` None in the others; `x`,
+    the embedding output, gives the shape and dtype)."""
+    owners = _stage_owners(mesh)
+    if y is not None:
+        y = y.to(dev, non_blocking=True)
+        if last_index is not None:
+            y = _take_rows(y, last_index)
+    if owners is None:
+        return y
+    B, T, D = x.shape
+    return broadcast_from(y, owners[-1], (B, 1 if last_index is not None
+                                          else T, D), x.dtype, dev)
+
+
+def _stage_owners(mesh: Mesh) -> Optional[List[int]]:
+    """The process of each stage where the stage axis crosses processes,
+    else None (every stage this process's)."""
+    if not mesh.spans_processes:
+        return None
+    return [owner(mesh, "stage", s) for s in range(stage_degree(mesh))]
 
 
 def _chunk(tree, s: int, v: int, S: int, V: int, L: int):
@@ -208,21 +246,22 @@ def _chunk(tree, s: int, v: int, S: int, V: int, L: int):
     if tree is None:
         return None
     Lc = L // (S * V)
-    parts = axis_parts(tree, "stage")
-    if parts is None:
+    if axis_parts(tree, "stage") is None:
         lo = (s * V + v) * Lc
         return tree[lo:lo + Lc]
-    if len(parts) == S * V:
-        return parts[s * V + v]
-    if len(parts) != S:
-        raise ValueError(f"{tree!r} is split over {len(parts)} stages, "
+    if tree.count == S * V:
+        return held_part(tree, s * V + v)
+    if tree.count != S:
+        raise ValueError(f"{tree!r} is split over {tree.count} stages, "
                          f"not {S} (or {S * V} chunks)")
-    return parts[s] if V == 1 else parts[s][v * Lc:(v + 1) * Lc]
+    part = held_part(tree, s)
+    return part if V == 1 else part[v * Lc:(v + 1) * Lc]
 
 
 def _gpipe_schedule(S: int, M: int, xs: Sequence[Any],
                     step_fn: Callable, devices: Sequence[torch.device],
-                    V: int = 1) -> List[Any]:
+                    V: int = 1, owners: Optional[Sequence[int]] = None
+                    ) -> List[Any]:
     """The tick loop shared by every body: V*M + S - 1 ticks, stage s at
     tick t on work w = t - s (chunk w // M of microbatch w % M), bubble
     pairs skipped. `step_fn(s, v, m, inp) -> y` runs stage s's chunk v
@@ -230,28 +269,61 @@ def _gpipe_schedule(S: int, M: int, xs: Sequence[Any],
     ring wraps: the last stage's chunk-v output waits in stage 0's
     holding buffer for chunk v + 1. An output moves to the next stage's
     device only where it differs. Returns the last stage's final outputs
-    [M] on its device."""
+    [M] on its device.
+
+    `owners` (the process of each stage; None = every stage this
+    process's): only this process's stages compute, and a hand-off
+    between two processes' stages is a send and a receive, a tick's all
+    posted together (`exchange`), tagged with the sending stage, shaped
+    and typed like xs[m]. The final outputs are then the last stage's
+    process's alone (None in the others)."""
+    me = process_index()
+
+    def mine(s):
+        return owners is None or owners[s] == me
     outs: List[Any] = [None] * M
     held = {}          # stage 0's holding buffer: microbatch -> state
     prev = {}          # stage -> its output at the previous tick
     for t in range(V * M + S - 1):
         cur = {}
+        sends, recvs, keys = [], [], []
         for s in range(S):
             w = t - s
             if not 0 <= w < V * M:
                 continue          # a bubble: nothing to compute
             v, m = divmod(w, M)
-            if s > 0:
-                inp = prev.pop(s - 1)
-            else:
-                inp = xs[m] if v == 0 else held.pop(m)
-            y = step_fn(s, v, m, inp.to(devices[s], non_blocking=True))
-            if s < S - 1:
-                cur[s] = y
-            elif v < V - 1:
-                held[m] = y
-            else:
+            y = None
+            if mine(s):
+                if s > 0:
+                    inp = prev.pop(s - 1)
+                else:
+                    inp = xs[m] if v == 0 else held.pop(m)
+                y = step_fn(s, v, m, inp.to(devices[s], non_blocking=True))
+            if s == S - 1 and v == V - 1:
                 outs[m] = y
+                continue
+            dst = s + 1 if s < S - 1 else 0       # 0: the interleaved wrap
+            if mine(s) and mine(dst):
+                if s < S - 1:
+                    cur[s] = y
+                else:
+                    held[m] = y
+            elif mine(s):
+                if y.shape != xs[m].shape or y.dtype != xs[m].dtype:
+                    raise ValueError(
+                        f"stage {s} gave {tuple(y.shape)} {y.dtype}; its "
+                        f"receiver expects {tuple(xs[m].shape)} "
+                        f"{xs[m].dtype}")
+                sends.append((y, owners[dst], s))
+            elif mine(dst):
+                recvs.append((xs[m].shape, xs[m].dtype, devices[dst],
+                              owners[s], s))
+                keys.append((s, m))
+        for (s, m), got in zip(keys, exchange(sends, recvs)):
+            if s < S - 1:
+                cur[s] = got
+            else:
+                held[m] = got
         prev = cur
     return outs
 
@@ -264,6 +336,10 @@ def _microbatch_ops(M: int, *ops):
 
 
 def _cat_out(outs: Sequence[Any]):
+    """The microbatches' final outputs as one batch (None where another
+    process holds the last stage)."""
+    if outs[0] is None:
+        return None
     return outs[0] if len(outs) == 1 else torch.cat(list(outs), dim=0)
 
 
@@ -292,7 +368,8 @@ def _pipeline_body(layers, cache_ops, x, positions, mask, cos, sin, *,
             return _stage_layers(lyr, kv, ccfg, inp, m * mb, pos, msk, c,
                                  sn, fresh, subs[s])
     return _cat_out(_gpipe_schedule(S, M, [o[0] for o in per_mb], step,
-                                    stage_devices(mesh), V))
+                                    stage_devices(mesh), V,
+                                    _stage_owners(mesh)))
 
 
 def _row_segments(leaf, lo: int, hi: int) -> List[Tuple[int, int, int]]:
@@ -374,7 +451,8 @@ def _paged_pipeline_body(layers, cache, x, positions, mask, cos, sin,
                                lengths=lens),
                 pos, msk, c, sn, act, use_kernel, fresh, subs[s])
     return _cat_out(_gpipe_schedule(S, M, [o[0] for o in per_mb], step,
-                                    stage_devices(mesh)))
+                                    stage_devices(mesh),
+                                    owners=_stage_owners(mesh)))
 
 
 def _default_microbatches(B: int, S: int) -> int:
@@ -393,15 +471,19 @@ def stage_layer_views(layers, cfg: ModelConfig, mesh: Mesh, V: int):
     stack's layers [(v*S + s)*Lc, ...) placed over stage s's mesh. From
     the stack in natural order (plain leaves, or the S stage slices of
     parallel/partition.py:shard_params): views where a chunk already
-    sits on its stage's devices, else moved there."""
+    sits on its stage's devices, else moved there. Where the stage axis
+    crosses processes each places its own stages' chunks, from plain
+    leaves or from natural slices it holds itself (another process's
+    slice raises ValueError: pass the plain tree)."""
     from butterfly_tpu_torch.parallel.partition import shard_params
     S = stage_degree(mesh)
     L = cfg.num_layers
     Lc = L // (S * V)
     ccfg = cfg.replace(num_layers=Lc)
     subs = [mesh.stage_mesh(s) for s in range(S)]
+    mine = local_stages(mesh)
     chunks = []
-    for s in range(S):
+    for s in mine:
         for v in range(V):
             g = v * S + s                     # the chunk in natural order
             natural = _chunk(layers, g // V, g % V, S, V, L)
@@ -413,7 +495,7 @@ def stage_layer_views(layers, cfg: ModelConfig, mesh: Mesh, V: int):
             else:
                 chunks.append(shard_params({"layers": natural}, ccfg,
                                            subs[s])["layers"])
-    return stack_stages(chunks)
+    return stack_stages(chunks, mine[0] * V, S * V)
 
 
 def _any_placed(tree) -> bool:

@@ -35,6 +35,19 @@ process; `gather` all-gathers the local blocks in shard order. Results
 land on the process's first device. Every process then holds the same
 activations and logits, and samples the same tokens.
 
+The collectives of the other axes that may cross processes live here
+too, beside `all_reduce`: `exchange` (the pipeline's activation
+hand-offs, point-to-point sends and receives posted together),
+`broadcast_from` (the last stage's output to every process),
+`all_to_all_blocks` (the expert dispatch) and `all_gather_cat` (the
+expert outputs in expert order). Gloo's send and receive take host
+memory only (on an H100 a card tensor fails them: "writev ... Bad
+address"), so `exchange` stages a card tensor through a pinned host
+buffer (`_to_host`), in this one place; gloo's all-reduce, all-gather,
+broadcast and all-to-all take card tensors as they are.
+A collective that fails, or a process out of step, raises (the group's
+timeout bounds every wait): nothing falls back.
+
 The data axis splits batch rows and slots into `data_groups`; the
 forwards (models/common.py, cache/paged.py) run each group's rows
 against its parts (`group_part`, `group_rows`) and concatenate the
@@ -119,6 +132,79 @@ def all_reduce(parts: Sequence[torch.Tensor], across=None) -> torch.Tensor:
     return acc.to(parts[0].dtype)
 
 
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """`t` in host memory, contiguous: a card tensor through a pinned
+    buffer (the copy waits for the card), a host tensor as it is."""
+    t = t.contiguous()
+    if t.device.type == "cpu":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
+
+
+def _host_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
+    """An empty host buffer a receive lands in (pinned when the data goes
+    on to a card)."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
+def exchange(sends: Sequence[tuple], recvs: Sequence[tuple]
+             ) -> List[torch.Tensor]:
+    """One round of point-to-point transfers between processes, every
+    send and receive posted at once (torch.distributed.batch_isend_irecv)
+    and waited for: two processes that send each other in the same round
+    do not deadlock, as blocking sends would. `sends` are (tensor, dst
+    process, tag); `recvs` (shape, dtype, device, src process, tag), each
+    matched by the peer's send of the same tag. Returns the received
+    tensors on their devices, in `recvs` order."""
+    dist = torch.distributed
+    ops, bufs = [], []
+    for t, dst, tag in sends:
+        ops.append(dist.P2POp(dist.isend, _to_host(t), dst, tag=tag))
+    for shape, dtype, dev, src, tag in recvs:
+        buf = _host_buffer(shape, dtype, dev)
+        bufs.append((buf, dev))
+        ops.append(dist.P2POp(dist.irecv, buf, src, tag=tag))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [b.to(dev, non_blocking=True) for b, dev in bufs]
+
+
+def broadcast_from(t: Optional[torch.Tensor], src: int, shape, dtype,
+                   device: torch.device) -> torch.Tensor:
+    """Process `src`'s tensor `t` in every process (`t` None elsewhere:
+    a buffer of `shape` and `dtype` on `device` takes it)."""
+    if t is None:
+        t = torch.empty(shape, dtype=dtype, device=device)
+    else:
+        t = t.contiguous()
+    torch.distributed.broadcast(t, src=src)
+    return t
+
+
+def all_to_all_blocks(send: torch.Tensor) -> torch.Tensor:
+    """The all-to-all over the job: `send` [P, ...] holds block p for
+    process p; the result [P, ...] holds process p's block for this
+    one, in process order."""
+    send = send.contiguous()
+    out = torch.empty_like(send)
+    torch.distributed.all_to_all_single(out, send)
+    return out
+
+
+def all_gather_cat(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every process's `t` (equal shapes) concatenated along `dim` in
+    process order, in every process."""
+    t = t.contiguous()
+    blocks = [torch.empty_like(t)
+              for _ in range(torch.distributed.get_world_size())]
+    torch.distributed.all_gather(blocks, t)
+    return torch.cat(blocks, dim=dim)
+
+
 def gather(x: Any, dim: int) -> torch.Tensor:
     """A tensor Shards concatenated along `dim` in shard order on shard
     0's device (a plain tensor as it is); a distributed one's local block
@@ -129,14 +215,9 @@ def gather(x: Any, dim: int) -> torch.Tensor:
         return x
     dev = parts[0].device
     out = torch.cat([p.to(dev, non_blocking=True) for p in parts], dim=dim)
-    group = _across(x)
-    if group is None:
+    if _across(x) is None:
         return out
-    out = out.contiguous()
-    blocks = [torch.empty_like(out)
-              for _ in range(torch.distributed.get_world_size(group))]
-    torch.distributed.all_gather(blocks, out, group=group)
-    return torch.cat(blocks, dim=dim)
+    return all_gather_cat(out, dim)
 
 
 def _weight_part(w: Any, i: int):

@@ -176,14 +176,19 @@ def _chunk_spans(n: int, size: int):
     return [(lo, min(csize, n - lo)) for lo in range(0, n, csize)]
 
 
-def _init_quant_leaf(gen, shape, axes, dt, device):
+def _init_quant_leaf(gen, shape, axes, dt, device, keep=None):
     """N(0, 0.02) weights drawn chunk by chunk along the largest
     non-contracted axis (per-output-channel scales make the chunks
-    independent) and quantized as they are drawn."""
+    independent) and quantized as they are drawn. `keep` = [lo, hi)
+    keeps only those entries of dim 1 (the experts of an MoE leaf), each
+    chunk still drawn whole."""
     ax = max((d for d in range(len(shape)) if d not in axes),
              key=lambda d: shape[d])
-    sshape = tuple(1 if d in axes else s for d, s in enumerate(shape))
-    q8 = torch.empty(shape, dtype=torch.int8, device=device)
+    assert keep is None or ax != 1, (shape, axes)
+    kept = shape if keep is None else \
+        (shape[0], keep[1] - keep[0]) + tuple(shape[2:])
+    sshape = tuple(1 if d in axes else s for d, s in enumerate(kept))
+    q8 = torch.empty(kept, dtype=torch.int8, device=device)
     s = torch.empty(sshape, dtype=dt, device=device)
     numel = 1
     for n in shape:
@@ -193,6 +198,8 @@ def _init_quant_leaf(gen, shape, axes, dt, device):
         w = torch.randn(cshape, generator=gen, dtype=torch.float32,
                         device=device) * 0.02
         part = _quant(w, axes, dt)
+        if keep is not None:
+            part = {k: v[:, keep[0]:keep[1]] for k, v in part.items()}
         q8.narrow(ax, lo, ln).copy_(part["q8"])
         s.narrow(ax, lo, ln).copy_(part["s"])
     return {"q8": q8, "s": s}
@@ -213,7 +220,8 @@ def _init_plain_leaf(gen, shape, dtype, kind, device):
 
 
 def init_params_quantized(cfg, generator: Optional[torch.Generator] = None,
-                          device=None) -> Params:
+                          device=None, experts: Optional[Tuple[int, int]]
+                          = None) -> Params:
     """Random-init an already-int8-quantized tree without ever holding
     the float tree: each matmul leaf is drawn in float32 chunks and
     quantized chunk by chunk (peak = the int8 tree + one chunk). Leaf
@@ -222,7 +230,8 @@ def init_params_quantized(cfg, generator: Optional[torch.Generator] = None,
     biases zeros, everything else N(0, 0.02) in cfg.param_dtype.
     `generator` must live on `device` (None = CUDA; a seed-0 generator
     when None). Draws differ from jax.random's; keys, shapes and dtypes
-    are the JAX tree's."""
+    are the JAX tree's. `experts` = [lo, hi) keeps only those experts of
+    the MoE expert leaves, as models/common.py:init_params does."""
     from butterfly_tpu_torch.core.device import resolve_device
     dev = resolve_device(device)
     dt = _compute_dtype(cfg)
@@ -240,7 +249,9 @@ def init_params_quantized(cfg, generator: Optional[torch.Generator] = None,
             axes = _axes(parent, name)
             if axes is not None and (parent in ("attn", "mlp", "moe")
                                      or name == "lm_head"):
-                out[name] = _init_quant_leaf(generator, shape, axes, dt, dev)
+                keep = experts if parent == "moe" else None
+                out[name] = _init_quant_leaf(generator, shape, axes, dt, dev,
+                                             keep)
             else:
                 kind = "ones" if name == "scale" else \
                     "zeros" if name.startswith("b") else "normal"

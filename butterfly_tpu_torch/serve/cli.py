@@ -459,7 +459,7 @@ def resolve_model(args):
     return Model(cfg, device=getattr(args, "device", None))
 
 
-def load_params(model, args):
+def load_params(model, args, mesh=None):
     """The weights on the model's device, in the compute dtype: loaded
     from --ckpt (ckpt/load.py:load_checkpoint, leaf by leaf), or random
     (demo mode). Random weights are drawn straight into the COMPUTE
@@ -469,21 +469,33 @@ def load_params(model, args):
     Llama-3-8B). `--quant int8` quantizes every matmul weight as it is
     loaded or drawn, one layer at a time, so the compute-dtype tree is
     never held either (92.9 GB for Mixtral-8x7B, more than one card); the
-    int8 demo weights are other random draws than the float ones."""
+    int8 demo weights are other random draws than the float ones.
+
+    On a `mesh` whose expert axis crosses processes only this process's
+    experts are read or kept (every expert is still drawn: the kept ones
+    equal the whole draw's), placed on their devices
+    (parallel/partition.py:place_held_experts)."""
+    from butterfly_tpu_torch.parallel.partition import (held_expert_range,
+                                                        place_held_experts)
     quant = getattr(args, "quant", "none") == "int8"
+    experts = held_expert_range(model.cfg, mesh)
     if args.ckpt:
         from butterfly_tpu_torch.ckpt import load_checkpoint
-        return load_checkpoint(args.ckpt, model.cfg, model.device,
-                               quantize=quant)
-    import torch
-    cfg = model.cfg.replace(param_dtype=model.cfg.dtype)
-    gen = torch.Generator(device=model.device)
-    gen.manual_seed(0)  # demo mode: identical random weights every run
-    if quant:
-        from butterfly_tpu_torch.quant.int8 import init_params_quantized
-        return init_params_quantized(cfg, gen, model.device)
-    from butterfly_tpu_torch.models.common import init_params
-    return init_params(cfg, gen, model.device)
+        params = load_checkpoint(args.ckpt, model.cfg, model.device,
+                                 quantize=quant, experts=experts)
+    else:
+        import torch
+        cfg = model.cfg.replace(param_dtype=model.cfg.dtype)
+        gen = torch.Generator(device=model.device)
+        gen.manual_seed(0)  # demo mode: identical random weights every run
+        if quant:
+            from butterfly_tpu_torch.quant.int8 import init_params_quantized
+            params = init_params_quantized(cfg, gen, model.device, experts)
+        else:
+            from butterfly_tpu_torch.models.common import init_params
+            params = init_params(cfg, gen, model.device, experts=experts)
+    return params if experts is None else place_held_experts(
+        params, model.cfg, mesh)
 
 
 def build_mesh(args):
@@ -564,7 +576,8 @@ def cmd_generate(args) -> int:
     tok = load_tokenizer(args.tokenizer or args.ckpt)
     mesh = build_mesh(args)
     engine = InferenceEngine(
-        model, shard_for_mesh(load_params(model, args), model.cfg, mesh),
+        model, shard_for_mesh(load_params(model, args, mesh), model.cfg,
+                              mesh),
         runtime=RuntimeConfig(max_seq_len=args.max_seq,
                               kv_quant=args.kv_quant),
         mesh=mesh)

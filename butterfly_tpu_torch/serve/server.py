@@ -1262,7 +1262,7 @@ def build_serving(args):
                            args, "seq_parallel_threshold", 0),
                        seq_parallel_chunk=getattr(
                            args, "seq_parallel_chunk", 0))
-    params = load_params(model, args)
+    params = load_params(model, args, mesh)
     engine = ServingEngine(model, params, rt, mesh=mesh,
                            device=getattr(args, "device", None))
     # Tracing defaults ON for the serve entrypoint (/debug/requests is

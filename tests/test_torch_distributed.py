@@ -13,8 +13,8 @@ over a ServingEngine), and logits within 2e-5 of the port's one-process
 tensor = 2 run (for two shards the float32 all-reduce is the one-process
 sum, so the bits are expected equal). A data axis across processes fails
 in the JAX package at its first read-back and is refused by the port at
-engine construction; stage, seq and expert across processes wait for
-their ROADMAP items. The CLI under BUTTERFLY_NUM_PROCESSES=2 prints, in
+engine construction; seq across processes waits for its ROADMAP item
+(stage and expert across processes: tests/test_torch_distributed_axes.py). The CLI under BUTTERFLY_NUM_PROCESSES=2 prints, in
 both processes, the one-process text.
 """
 import argparse
@@ -373,8 +373,9 @@ def test_tensor_across_processes_other_paths(runs):
 def test_data_across_processes_refused_as_jax_fails(runs):
     """A data axis across the two processes: the JAX worker raises
     RuntimeError at its first read-back; the port refuses at engine
-    construction. Stage, seq and expert across processes wait for their
-    ROADMAP items."""
+    construction. Seq across processes waits for its ROADMAP item (stage
+    and expert across processes run: tests/test_torch_distributed_axes.py
+    holds them to the JAX package's runs)."""
     for r in runs["jax"]:
         kind, msg = r["data_error"]
         assert kind == "RuntimeError" and "non-addressable" in msg
@@ -382,10 +383,10 @@ def test_data_across_processes_refused_as_jax_fails(runs):
         kind, msg = r["refusals"]["data"]
         assert kind == "RuntimeError"
         assert "first read-back" in msg and "engine/engine.py:259" in msg
-        for axis in ("stage", "seq", "expert"):
-            kind, msg = r["refusals"][axis]
-            assert kind == "NotImplementedError"
-            assert f"ROADMAP.md Queue 1: {axis} across processes" in msg
+        assert set(r["refusals"]) == {"data", "seq"}
+        kind, msg = r["refusals"]["seq"]
+        assert kind == "NotImplementedError"
+        assert "ROADMAP.md Queue 1: seq across processes" in msg
 
 
 # -- (5) the CLI -------------------------------------------------------------

@@ -1,8 +1,11 @@
-"""Worker for tests/test_torch_distributed.py (run as a subprocess): one
-process of a two-process job, on the CPU, one device a process.
+"""Worker for tests/test_torch_distributed.py and
+tests/test_torch_distributed_axes.py (run as a subprocess): one process
+of a two-process job, on the CPU, one device a process.
 
     python torch_distributed_worker.py jax  <pid> <n> <port> <outdir>
     python torch_distributed_worker.py port <pid> <n> <port> <outdir> <weights.npz>
+    python torch_distributed_worker.py jax_axes  <pid> <n> <port> <outdir>
+    python torch_distributed_worker.py port_axes <pid> <n> <port> <outdir> <weights_dir>
 
 `jax` runs the JAX package's multi-host path (init_distributed,
 make_hybrid_mesh over jax.devices(), shard_params) on the tiny float32
@@ -13,6 +16,18 @@ axis across them, which the JAX package fails at its first read-back.
 from `weights.npz` (models/bridge.py:params_from_numpy), plus the worker
 sum, all_hosts_probe, the forward's logits and the refusals. Each writes
 `<outdir>/<mode><pid>.json` (and the port `<outdir>/port<pid>.npz`).
+
+`jax_axes` and `port_axes` run the same with the stage axis across the
+two processes (the tiny float32 Llama, one layer a stage) and then the
+expert axis (the tiny float32 Mixtral, moe_impl="ep"), both trees from
+PRNGKey(0) (the port's from `<weights_dir>/llama.npz`, `mixtral.npz`):
+greedy generate (fused; and an expert run whose padded prompt length is
+even, so its prefill takes the a2a path) and the Scheduler's tokens.
+The port adds the stepped loop, temperature 1.0, the int8 KV pool, the
+alternating path, n-gram speculation (generate and serving), the
+interleaved schedule (a 4-layer Llama from torch seed 0, V = 2), the
+int8 tree, the forward's logits, what each process holds, and each axis
+at 4 shards, a run of two a process.
 """
 import json
 import os
@@ -25,6 +40,9 @@ GEN_NEW = 6
 SERVE_NEW = 4
 SERVE_RT = dict(max_batch_size=2, max_seq_len=64, page_size=8)
 LOGIT_TOKENS = np.random.RandomState(3).randint(0, 258, (2, 7))
+# an even padded length: the expert = 2 prefill takes the a2a path
+A2A_PROMPTS = [[1, 2, 3, 4, 5, 6, 7, 8], [7, 8, 9]]
+AXES_LOGIT_TOKENS = np.random.RandomState(4).randint(0, 258, (2, 8))
 
 
 def flatten(tree, prefix=""):
@@ -204,7 +222,7 @@ def run_port(pid, n, port, outdir, weights):
     out["variants"] = variants(mesh)
 
     refusals = {}
-    for axis in ("data", "stage", "seq", "expert"):
+    for axis in ("data", "seq"):
         m = make_hybrid_mesh(MeshConfig(**{axis: n}), devs)
         refusals[axis] = _error(lambda: InferenceEngine(model, params,
                                                         mesh=m))
@@ -217,11 +235,208 @@ def run_port(pid, n, port, outdir, weights):
         json.dump(out, f)
 
 
+def run_jax_axes(pid, n, port, outdir):
+    """The JAX package with stage = n, then expert = n, across the
+    processes."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from butterfly_tpu.core.config import MeshConfig, RuntimeConfig, tiny
+    from butterfly_tpu.core.mesh import init_distributed, make_hybrid_mesh
+    from butterfly_tpu.engine.engine import InferenceEngine
+    from butterfly_tpu.engine.sampling import SamplingParams
+    from butterfly_tpu.engine.serving import ServingEngine
+    from butterfly_tpu.models.common import Model
+    from butterfly_tpu.parallel.partition import shard_params
+    from butterfly_tpu.sched.scheduler import Scheduler
+
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=n,
+                     process_id=pid)
+    out = {}
+    for axis, arch, kw in (("stage", "llama", {}),
+                           ("expert", "mixtral", dict(moe_impl="ep"))):
+        cfg = tiny(arch, dtype="float32", param_dtype="float32", **kw)
+        model = Model(cfg)
+        params = model.init(jax.random.PRNGKey(0))
+        mesh = make_hybrid_mesh(MeshConfig(**{axis: n}), jax.devices())
+        sp = shard_params(params, cfg, mesh)
+        eng = InferenceEngine(model, sp, mesh=mesh)
+        gsp = SamplingParams(max_new_tokens=GEN_NEW)
+        out[f"{axis}_generate"] = eng.generate(GEN_PROMPTS,
+                                               gsp).tokens.tolist()
+        if axis == "expert":
+            out["expert_generate_a2a"] = eng.generate(
+                A2A_PROMPTS, gsp).tokens.tolist()
+        sched = Scheduler(ServingEngine(model, sp, RuntimeConfig(**SERVE_RT),
+                                        mesh=mesh))
+        reqs = [sched.submit(p, max_new_tokens=SERVE_NEW)
+                for p in GEN_PROMPTS]
+        sched.run_until_done()
+        out[f"{axis}_serve"] = [r.output for r in reqs]
+    with open(os.path.join(outdir, f"jax_axes{pid}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _held(tree):
+    """(bytes this process holds, {leaf: [offset, parts, count]} of every
+    leaf split over processes) of a placed tree."""
+    from butterfly_tpu_torch.parallel.partition import Shards
+    held, split = 0, {}
+
+    def walk(t, path):
+        nonlocal held
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}" if path else k)
+        elif isinstance(t, Shards):
+            held += t.nbytes
+            if t.distributed:
+                split[path] = [t.axis, t.offset, len(t.parts), t.count]
+        elif t is not None:
+            held += t.nbytes
+    walk(tree, "")
+    return held, split
+
+
+def axes_runs(mesh, axis, params, cfg, model):
+    """The port's runs on `mesh` (`axis` = stage or expert of 2) with the
+    bridged JAX tree `params`: {name: tokens or logits (lists)}. Run the
+    same in one process (the test's yardstick) and in each worker."""
+    import torch
+    from butterfly_tpu_torch.core.config import RuntimeConfig, tiny
+    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.models import common as TC
+    from butterfly_tpu_torch.parallel.partition import shard_params
+    from butterfly_tpu_torch.parallel.pipeline import pipeline_forward
+    from butterfly_tpu_torch.quant.int8 import (quantize_int8,
+                                                shard_quantized_params)
+    out = {}
+    placed = shard_params(params, cfg, mesh)
+    out["held"] = _held(placed)
+    toks = torch.as_tensor(AXES_LOGIT_TOKENS)
+    fwd = TC.forward if axis == "expert" else (
+        lambda p, c, t, kv: pipeline_forward(p, c, t, kv, mesh))
+    with mesh_ctx(mesh):
+        cache = TC.init_cache(cfg, toks.shape[0], 32, device="cpu",
+                              mesh=mesh)
+        prefill, cache = fwd(placed, cfg, toks, cache)
+        step, cache = fwd(placed, cfg, toks[:, :1], cache)
+    out["prefill"] = prefill.tolist()
+    out["step"] = step.tolist()
+    eng = InferenceEngine(model, placed, mesh=mesh)
+    sp = SamplingParams(max_new_tokens=GEN_NEW)
+    out["generate"] = eng.generate(GEN_PROMPTS, sp).tokens.tolist()
+    out["generate_stepped"] = eng.generate(GEN_PROMPTS, sp,
+                                           fused=False).tokens.tolist()
+    out["generate_t1"] = eng.generate(
+        GEN_PROMPTS, SamplingParams(max_new_tokens=GEN_NEW, temperature=1.0),
+        seed=5).tokens.tolist()
+    out["serve"] = serve(model, placed, RuntimeConfig(**SERVE_RT), mesh)
+    out["alternating"] = serve(model, placed, RuntimeConfig(
+        mixed_dispatch=False, **SERVE_RT), mesh,
+        prompts=[GEN_PROMPTS[0] * 4, GEN_PROMPTS[0] * 4 + [9]])
+    # n-gram speculation: generate_speculative and the serving spec blocks
+    out["speculative"] = eng.generate_speculative(
+        GEN_PROMPTS[0] * 3, sp, gamma=3).tokens.tolist()
+    out["serve_spec"] = serve(model, placed, RuntimeConfig(
+        speculative_gamma=3, **SERVE_RT), mesh,
+        prompts=[GEN_PROMPTS[0] * 3, GEN_PROMPTS[1] * 3])
+    if axis == "expert":
+        out["generate_a2a"] = eng.generate(A2A_PROMPTS, sp).tokens.tolist()
+        q8 = shard_quantized_params(quantize_int8(params, cfg), cfg, mesh)
+        out["generate_int8"] = InferenceEngine(model, q8, mesh=mesh).generate(
+            A2A_PROMPTS, sp).tokens.tolist()
+        return out
+    out["serve_kv_int8"] = serve(model, placed, RuntimeConfig(
+        kv_quant="int8", **SERVE_RT), mesh)
+    # the interleaved schedule: 4 layers, two chunks a stage
+    cfg4 = tiny("llama", dtype="float32", param_dtype="float32",
+                num_layers=4)
+    p4 = TC.init_params(cfg4, torch.Generator().manual_seed(0), "cpu")
+    out["interleaved"] = InferenceEngine(
+        TC.Model(cfg4, device="cpu"), p4, mesh=mesh, num_microbatches=2,
+        virtual_stages=2).generate(GEN_PROMPTS, sp).tokens.tolist()
+    return out
+
+
+def four_shard_runs(mesh, axis):
+    """Greedy generate (under expert also the a2a prompts) and serving
+    with weights from torch seed 0 on a mesh of 4 `axis` shards: the
+    tiny Llama at 4 layers (one a stage), or the tiny Mixtral (one
+    expert a shard). {name: tokens}."""
+    import torch
+    from butterfly_tpu_torch.core.config import RuntimeConfig, tiny
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.models import common as TC
+    cfg = (tiny("llama", dtype="float32", param_dtype="float32",
+                num_layers=4) if axis == "stage" else
+           tiny("mixtral", dtype="float32", param_dtype="float32",
+                moe_impl="ep"))
+    model = TC.Model(cfg, device="cpu")
+    params = TC.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = InferenceEngine(model, params, mesh=mesh)
+    sp = SamplingParams(max_new_tokens=GEN_NEW)
+    out = {"generate": eng.generate(GEN_PROMPTS, sp).tokens.tolist(),
+           "serve": serve(model, params, RuntimeConfig(**SERVE_RT), mesh)}
+    if axis == "expert":
+        out["generate_a2a"] = eng.generate(A2A_PROMPTS, sp).tokens.tolist()
+    return out
+
+
+def run_port_axes(pid, n, port, outdir, wdir):
+    import torch
+    torch.set_num_threads(1)
+    from butterfly_tpu_torch.core.config import MeshConfig, tiny
+    from butterfly_tpu_torch.core.mesh import (GlobalDevice, global_devices,
+                                               init_distributed,
+                                               make_hybrid_mesh, make_mesh)
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.models import common as TC
+    from butterfly_tpu_torch.models.bridge import params_from_numpy
+
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=n,
+                     process_id=pid, timeout_s=60)
+    devs = global_devices("cpu")
+    out = {}
+    for axis, arch, kw in (("stage", "llama", {}),
+                           ("expert", "mixtral", dict(moe_impl="ep"))):
+        cfg = tiny(arch, dtype="float32", param_dtype="float32", **kw)
+        params = params_from_numpy(unflatten(dict(np.load(
+            os.path.join(wdir, f"{arch}.npz")))), device="cpu")
+        mesh = make_hybrid_mesh(MeshConfig(**{axis: n}), devs)
+        out[axis] = axes_runs(mesh, axis, params, cfg,
+                              TC.Model(cfg, device="cpu"))
+        # a run of two shards a process: 4 shards over the two
+        four = [GlobalDevice(i, torch.device("cpu"), i * n // 4, 0)
+                for i in range(4)]
+        out[f"{axis}4"] = four_shard_runs(
+            make_mesh(MeshConfig(**{axis: 4}), four), axis)
+    refusals = {}
+    cfg = tiny("llama", dtype="float32", param_dtype="float32")
+    params = params_from_numpy(unflatten(dict(np.load(
+        os.path.join(wdir, "llama.npz")))), device="cpu")
+    for axis in ("data", "seq"):
+        m = make_hybrid_mesh(MeshConfig(**{axis: n}), devs)
+        refusals[axis] = _error(lambda: InferenceEngine(
+            TC.Model(cfg, device="cpu"), params, mesh=m))
+    out["refusals"] = refusals
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(outdir, f"port_axes{pid}.json"), "w") as f:
+        json.dump(out, f)
+
+
 if __name__ == "__main__":
     mode, pid, n, port, outdir = (sys.argv[1], int(sys.argv[2]),
                                   int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if mode == "jax":
         run_jax(pid, n, port, outdir)
-    else:
+    elif mode == "port":
         run_port(pid, n, port, outdir, sys.argv[6])
+    elif mode == "jax_axes":
+        run_jax_axes(pid, n, port, outdir)
+    else:
+        run_port_axes(pid, n, port, outdir, sys.argv[6])
     print(f"{mode}{pid} done", flush=True)
