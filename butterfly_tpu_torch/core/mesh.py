@@ -40,12 +40,17 @@ torch.device array, the process index of every device (`processes`),
 and every process runs the same program on its own devices (SPMD, as
 the JAX processes do): it places only its own shards, and the moves
 between shards of different processes are collectives
-(parallel/tensor.py). One axis of tensor, stage and expert may cross
-the processes (`check_process_mesh` refuses every other mesh over
-several): the tensor axis's reductions and gathers, the stage axis's
-activation hand-offs (parallel/pipeline.py) and the expert axis's
-all-to-all (parallel/expert.py) are then collectives over the job;
-`owner` names the process of a stage or an expert shard.
+(parallel/tensor.py). One axis of tensor, stage, expert and seq may
+cross the processes, with a data axis inside them or none
+(`check_process_mesh` refuses every other mesh over several): the tensor
+axis's reductions and gathers, the stage axis's activation hand-offs
+(parallel/pipeline.py), the expert axis's all-to-all
+(parallel/expert.py) and the seq axis's ring pass, all-to-alls and
+merges (parallel/sequence.py) are then collectives over the job, every
+process running every data group in group order; `owner` names the
+process of a stage, an expert shard or a seq shard. Where data lies
+inside, each data group holds devices of every process
+(`local_group_devices`, `data_devices`: this process's own).
 """
 from __future__ import annotations
 
@@ -123,6 +128,14 @@ class Mesh:
         """Every device of data group `data_index`, in mesh order."""
         return list(self.devices[data_index].reshape(-1))
 
+    def local_group_devices(self, data_index: int = 0
+                            ) -> List[torch.device]:
+        """This process's devices of data group `data_index`, mesh order
+        (every device of the group on a mesh of one process). On a mesh
+        whose data axis lies inside the processes each process holds
+        some of every group's devices."""
+        return self.sub_mesh("data", data_index).local_devices
+
     def seq_devices(self, data_index: int = 0,
                     tensor_index: int = 0) -> List[torch.device]:
         """The seq ring of data group `data_index` at tensor shard
@@ -164,9 +177,17 @@ class Mesh:
         return self.sub_mesh("seq", i)
 
     def data_devices(self) -> List[torch.device]:
-        """The first device of each data group, group order: group d
-        serves rows [d*B/N, (d+1)*B/N) of every batch and slot dim."""
-        return self.along("data")
+        """The first of this process's devices of each data group, group
+        order: group d serves rows [d*B/N, (d+1)*B/N) of every batch and
+        slot dim (on a mesh of one process, each group's first device)."""
+        out = []
+        for d in range(self.shape["data"]):
+            local = self.local_group_devices(d)
+            if not local:
+                raise ValueError(f"data group {d} of {self!r} holds no "
+                                 f"device of process {process_index()}")
+            out.append(local[0])
+        return out
 
     @property
     def first_device(self) -> torch.device:
@@ -337,34 +358,39 @@ def _shutdown() -> None:
         torch.distributed.destroy_process_group()
 
 
-def _local_devices(device: str) -> List[torch.device]:
-    """This process's devices of `device`'s type: one CPU device, or its
-    visible cards (none without a card: a mesh over them then reports
-    too few devices)."""
+def _local_devices(device: str, per_process: int = 1
+                   ) -> List[torch.device]:
+    """This process's devices of `device`'s type: `per_process` CPU
+    devices (one CPU, named as often as the mesh wants shards of it), or
+    its visible cards (none without a card: a mesh over them then
+    reports too few devices)."""
     if torch.device(device).type == "cpu":
-        return [torch.device("cpu")]
+        return [torch.device("cpu")] * per_process
     return [torch.device(f"cuda:{i}")
             for i in range(torch.cuda.device_count())]
 
 
-def global_devices(device: str = "cuda") -> List[GlobalDevice]:
+def global_devices(device: str = "cuda", per_process: int = 1
+                   ) -> List[GlobalDevice]:
     """Every process's devices in process order, ids counted through
     them (jax.devices() after initialize): each process's visible cards,
-    or one CPU device a process with device="cpu", as each JAX CPU
-    process has one. A collective the first time for each device type
-    when the job has several processes: every process calls it at the
-    same point."""
-    key = (torch.device(device).type, process_count(), process_index())
+    or `per_process` CPU devices a process with device="cpu" (one, as
+    each JAX CPU process has one; two, as a JAX process run with
+    --xla_force_host_platform_device_count=2). A collective the first
+    time for each device type and count when the job has several
+    processes: every process calls it at the same point."""
+    key = (torch.device(device).type, per_process, process_count(),
+           process_index())
     if key not in _GLOBAL:
-        _GLOBAL[key] = _gather_devices(device)
+        _GLOBAL[key] = _gather_devices(device, per_process)
     return list(_GLOBAL[key])
 
 
 _GLOBAL: Dict[tuple, List[GlobalDevice]] = {}
 
 
-def _gather_devices(device: str) -> List[GlobalDevice]:
-    me = (socket.gethostname(), _local_devices(device))
+def _gather_devices(device: str, per_process: int) -> List[GlobalDevice]:
+    me = (socket.gethostname(), _local_devices(device, per_process))
     everyone = [me]
     dist = _dist()
     if dist is not None:
@@ -432,14 +458,9 @@ def make_hybrid_mesh(cfg: MeshConfig, devices: Optional[Sequence] = None,
     return _mesh_of(arr)
 
 
-# where each refused mesh over several processes waits for its port
-# (ROADMAP.md, PyTorch/CUDA port Queue 1)
-_ACROSS_ITEMS = {
-    "seq": "ROADMAP.md Queue 1: seq across processes",
-    "data": "ROADMAP.md Queue 1: data groups beside an axis across "
-            "processes",
-    "two": "ROADMAP.md Queue 1: two axes across processes at once",
-}
+# where the meshes over several processes still refused wait for their
+# port (ROADMAP.md, PyTorch/CUDA port Queue 1)
+_TWO_AXES_ITEM = "ROADMAP.md Queue 1: two axes across processes at once"
 
 
 def axes_across_processes(mesh: Mesh) -> List[str]:
@@ -451,20 +472,21 @@ def axes_across_processes(mesh: Mesh) -> List[str]:
 
 def check_process_mesh(mesh: Optional[Mesh]) -> None:
     """Refuse what a mesh over several processes cannot run yet (a mesh
-    of one process passes). One axis of tensor, stage and expert may
-    cross the processes, the mesh's only axis larger than 1: it must hold
-    every process, each an equal run of consecutive shards in process
-    order (its collectives go over the whole job: parallel/tensor.py's
-    reductions, parallel/pipeline.py's hand-offs, parallel/expert.py's
-    all-to-all).
+    of one process passes). One axis of tensor, stage, expert and seq
+    may cross the processes, beside it at most a data axis inside them:
+    within each data group the crossing axis must hold every process,
+    each an equal run of consecutive shards in process order (its
+    collectives go over the whole job, every process running every data
+    group in group order: parallel/tensor.py's reductions,
+    parallel/pipeline.py's hand-offs, parallel/expert.py's all-to-all,
+    parallel/sequence.py's ring pass, all-to-alls and merges).
 
     A data axis across processes raises RuntimeError: the JAX package
     fails there at its first read-back (engine/engine.py:259,
     sched/scheduler.py:2041, "Fetching value for jax.Array that spans
-    non-addressable devices"). A seq axis (the JAX package runs it; the
-    next slice), a data axis inside the processes, and two axes larger
-    than 1 (two crossing at once, or another beside the one that
-    crosses) raise NotImplementedError naming their ROADMAP items."""
+    non-addressable devices"). Two axes crossing at once, or another
+    axis than data inside the processes beside the one that crosses,
+    raise NotImplementedError naming their ROADMAP item."""
     if mesh is None or not mesh.spans_processes:
         return
     across = axes_across_processes(mesh)
@@ -474,37 +496,38 @@ def check_process_mesh(mesh: Optional[Mesh]) -> None:
             "fails there at its first read-back (engine/engine.py:259, "
             "sched/scheduler.py:2041: 'Fetching value for jax.Array that "
             "spans non-addressable devices'), so the port does not run it")
-    if mesh.shape["seq"] > 1:
-        raise NotImplementedError(
-            f"a mesh over several processes runs no seq axis yet "
-            f"(seq={mesh.shape['seq']}; {_ACROSS_ITEMS['seq']})")
-    if mesh.shape["data"] > 1:
-        raise NotImplementedError(
-            f"a mesh over several processes runs no data axis inside them "
-            f"yet (data={mesh.shape['data']}; {_ACROSS_ITEMS['data']})")
-    big = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    big = [a for a in mesh.axis_names if a != "data" and mesh.shape[a] > 1]
     if len(big) > 1:
         raise NotImplementedError(
-            f"a mesh over several processes runs one axis, across them; "
+            f"a mesh over several processes runs one axis across them, "
+            f"with at most a data axis inside; "
             f"{' x '.join(f'{a}={mesh.shape[a]}' for a in big)} (across "
             f"them: {', '.join(across)}) is not ported there yet "
-            f"({_ACROSS_ITEMS['two']})")
-    axis = big[0]          # tensor, stage or expert
-    procs = mesh.processes.reshape(-1)
+            f"({_TWO_AXES_ITEM})")
+    axis = big[0]          # tensor, stage, expert or seq
     n = process_count()
-    if len(procs) % n or not np.array_equal(
-            procs, np.repeat(np.arange(n), len(procs) // n)):
-        raise ValueError(
-            f"the {axis} axis must hold every one of the {n} processes, "
-            f"each an equal run of shards in process order (got process "
-            f"indices {procs.tolist()})")
+    for d in range(mesh.shape["data"]):
+        procs = mesh.processes[d].reshape(-1)
+        if len(procs) % n or not np.array_equal(
+                procs, np.repeat(np.arange(n), len(procs) // n)):
+            raise ValueError(
+                f"the {axis} axis must hold every one of the {n} processes, "
+                f"each an equal run of shards in process order (got process "
+                f"indices {procs.tolist()}"
+                + (f" in data group {d})" if mesh.shape["data"] > 1
+                   else ")"))
 
 
 def owner(mesh: Mesh, axis: str, i: int) -> int:
     """The process that holds shard i along `axis` (stage s, expert
-    shard j): on a mesh whose one axis crosses processes, every device of
-    that shard is that process's."""
+    shard j, seq shard i): on a mesh whose one axis crosses processes,
+    every device of that shard in every data group is that process's."""
     return int(mesh.sub_mesh(axis, i).processes.reshape(-1)[0])
+
+
+def owners(mesh: Mesh, axis: str) -> List[int]:
+    """The process of each shard along `axis`, shard order."""
+    return [owner(mesh, axis, i) for i in range(mesh.shape[axis])]
 
 
 def seq_degree(mesh: Optional[Mesh]) -> int:

@@ -13,7 +13,9 @@ path of parallel/sequence.py: a sequence-parallel prefill through the ring
 kernel (or Ulysses) that leaves the prompt's K/V sharded where it was
 computed, then decode steps that merge per-shard partial attention; with
 a tensor axis each seq shard runs its layer math and its ring per tensor
-shard, with a data axis each data group runs its own ring. Under an
+shard, with a data axis each data group runs its own ring; where the seq
+axis crosses processes each process runs its own shards, and every
+process samples the same tokens from the same logits. Under an
 expert mesh the MoE expert leaves are split over its shards
 (parallel/partition.py:shard_params; over F too under expert x tensor)
 and every forward runs with the mesh active, so the expert-parallel FFN
@@ -63,7 +65,7 @@ from butterfly_tpu_torch.parallel.partition import (Shards, shard_params,
 from butterfly_tpu_torch.parallel.pipeline import (pipeline_forward,
                                                    stage_layer_views)
 from butterfly_tpu_torch.parallel.sequence import (
-    replicate_params, sp_decode_step, sp_forward)
+    replicate_params, shard_row, sp_decode_step, sp_forward)
 
 @dataclass
 class GenerateResult:
@@ -377,7 +379,8 @@ class InferenceEngine:
                                     torch.as_tensor(tokens).to(dev),
                                     self.mesh, impl=impl, kv_quant=kvq)
         shard, row = divmod(true_len - 1, pad // N)
-        cur = sample(logits[shard][:, row, :].to(dev), gen, sp)
+        # across processes the holder of that shard broadcasts the row
+        cur = sample(shard_row(logits, self.mesh, shard, row, dev), gen, sp)
         del logits
         plen = torch.full((1,), true_len, dtype=torch.int32, device=dev)
         # replicated suffix cache sized for the whole decode run (in the

@@ -22,7 +22,9 @@ long-prompt lane (`sp_prefill_chunk`): one chunk of a long prompt
 sharded over `seq` on the ring of the slot's data group (per tensor
 shard under a tensor axis), its fresh K/V attended through the ring
 kernel, landing in the ordinary page pool, in every data replica of it;
-the slot then decodes like any other. Under an expert mesh the MoE
+the slot then decodes like any other. Where the seq axis crosses
+processes each process runs its own shards of the chunk and every
+process lands every shard's K/V in its own whole pool. Under an expert mesh the MoE
 expert leaves are split over its shards (parallel/partition.py:
 shard_params) and every dispatch runs with the mesh active, so the
 expert-parallel FFN (cfg.moe_impl="ep", parallel/expert.py) dispatches
@@ -81,7 +83,8 @@ from butterfly_tpu_torch.engine.sampling import (
     tree_node_index)
 from butterfly_tpu_torch.models.common import Model
 from butterfly_tpu_torch.parallel.partition import Shards, axis_parts
-from butterfly_tpu_torch.parallel.sequence import sp_chunk_body
+from butterfly_tpu_torch.parallel.sequence import (gather_local, shard_row,
+                                                   sp_chunk_body)
 from butterfly_tpu_torch.parallel.tensor import (all_gather_cat,
                                                  data_groups, gather,
                                                  group_part, tmap)
@@ -846,7 +849,10 @@ def _sp_chunk(cfg: ModelConfig, replicas, mesh, tokens,
     then scatter its K/V IN PLACE into EVERY pool replica (a slot may
     later decode in any replica's reads), with one all-layer write per
     pool tensor and tensor shard, pad rows (>= clen) routed to the null
-    page. Returns the chunk's last real token's logits [V]."""
+    page. Returns the chunk's last real token's logits [V]. Where the seq
+    axis crosses processes every process holds the whole pool, so each
+    shard's K/V is all-gathered to every process before the scatter, and
+    the holder of the last real token broadcasts its logits."""
     reps = pool_replicas(cache)
     src = reps[data_index if len(reps) > 1 else 0]
     first = (axis_parts(src.k_pages, "tensor") or [src.k_pages])[0]
@@ -882,6 +888,10 @@ def _sp_chunk(cfg: ModelConfig, replicas, mesh, tokens,
     del prefix
     C = tokens.shape[1]
     Cl = C // len(logits)
+    if any(c is None for c in kv):      # other processes' shards
+        kv = list(zip(*(gather_local([None if c is None else c[j]
+                                      for c in kv])
+                        for j in range(len(next(c for c in kv if c))))))
 
     def part(x, t):
         return x.parts[t] if isinstance(x, Shards) else x
@@ -922,7 +932,7 @@ def _sp_chunk(cfg: ModelConfig, replicas, mesh, tokens,
                 vp[:, page_idx, :, off] = \
                     cv[:, 0].transpose(0, 1).to(vp.dtype)
     shard, r = divmod(clen - 1, Cl)
-    return logits[shard][0, r].to(tokens.device)
+    return shard_row(logits, mesh, shard, r, tokens.device)[0]
 
 
 def _decode_all(cfg: ModelConfig, params, tokens, cache: PagedKVCache,

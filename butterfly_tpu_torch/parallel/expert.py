@@ -52,7 +52,9 @@ chunks are all-gathered in shard order (the layout JAX's `out_specs`
 gives back). The einsum path runs its dispatch whole in every process,
 each process its own experts, and all-gathers their outputs in expert
 order (models/common.py:expert_swiglu), so its combine has the
-one-process run's bits.
+one-process run's bits. With a data axis inside the processes each data
+group's expert shards lie on the processes alike, and every process runs
+every group's exchanges in group order.
 
 Capacity: each expert takes at most C assignments per sequence (einsum
 path) or per source shard (a2a path, pooled over the shard's B

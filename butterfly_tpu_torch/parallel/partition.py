@@ -61,8 +61,7 @@ import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.core.mesh import (Mesh, check_process_mesh,
-                                           data_degree, process_index,
-                                           stage_degree)
+                                           data_degree, stage_degree)
 from butterfly_tpu_torch.quant.int8 import is_quantized_leaf, quant_specs_like
 
 Params = Dict[str, Any]
@@ -522,13 +521,7 @@ def group_device(mesh: Mesh, data_index: int = 0) -> torch.device:
     """Where data group `data_index` keeps what is not split over the
     tensor axis: the first of its devices this process holds (on a mesh
     over several processes each keeps its own replica)."""
-    me = process_index()
-    for dev, p in zip(mesh.devices[data_index].reshape(-1),
-                      mesh.processes[data_index].reshape(-1)):
-        if p == me:
-            return dev
-    raise ValueError(f"data group {data_index} of {mesh!r} holds no device "
-                     f"of process {me}")
+    return mesh.data_devices()[data_index]
 
 
 def held_tensor_shards(mesh: Mesh, data_index: int, T: int

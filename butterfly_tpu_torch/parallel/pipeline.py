@@ -52,7 +52,10 @@ each tick's posted together (parallel/tensor.py:exchange), the
 counterpart of the JAX `ppermute`. The last stage's process then
 broadcasts its output (only the `last_index` rows where those are
 taken) to every process, where each runs the LM head on its own replica
-of the top and samples the same tokens.
+of the top and samples the same tokens. With a data axis inside the
+processes a stage's process is the same in every data group, and each
+stage body runs every group's rows on this process's devices of it
+(`Mesh.data_devices`).
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ import numpy as np
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
-from butterfly_tpu_torch.core.mesh import (Mesh, mesh_ctx, owner,
+from butterfly_tpu_torch.core.mesh import (Mesh, mesh_ctx, owners,
                                            process_index, stage_degree,
                                            stage_devices)
 from butterfly_tpu_torch.models.common import (
@@ -229,11 +232,12 @@ def _last_output(y, x, mesh: Mesh, dev, last_index):
 
 
 def _stage_owners(mesh: Mesh) -> Optional[List[int]]:
-    """The process of each stage where the stage axis crosses processes,
-    else None (every stage this process's)."""
+    """The process of each stage where the stage axis crosses processes
+    (in every data group alike: core/mesh.py:check_process_mesh), else
+    None (every stage this process's)."""
     if not mesh.spans_processes:
         return None
-    return [owner(mesh, "stage", s) for s in range(stage_degree(mesh))]
+    return owners(mesh, "stage")
 
 
 def _chunk(tree, s: int, v: int, S: int, V: int, L: int):

@@ -47,6 +47,20 @@ shard_map (manual over {"seq"} only):
   GroupRun), as the JAX body does with `expert` automatic inside; the
   decode steps take the einsum path.
 
+Where the seq axis crosses processes (core/mesh.py: each process a run
+of consecutive seq shards, in every data group alike) every process runs
+the same layer loop on its own shards, the others' entries None in every
+per-shard list (`seq_owners`, `_mine`); the weights are every process's
+whole tree, as the JAX specs put nothing on `seq`. The collectives become
+those of parallel/tensor.py: a ring rotation across processes is a send
+and a receive of the block (K, V, key positions, the int8 scales; a
+step's posted together: `_rotate`), Ulysses' reshards all-to-alls
+and its positions an all-gather (`_all_to_all_shards`, `gather_local`),
+the decode merges an all-gather of each shard's [B, Nq, 1(, H)] partials
+combined in shard order (an all-reduce would reorder the sums), and a
+logits row the broadcast of its shard's holder (`shard_row`). The bytes
+that move are exact, so every process computes the one-process bits.
+
 Masking follows ops/ring_attention.py: the one predicate is
 k_pos <= q_pos, invalid keys carry INVALID_POS.
 
@@ -61,7 +75,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
-from butterfly_tpu_torch.core.mesh import mesh_ctx
+from butterfly_tpu_torch.core.mesh import mesh_ctx, owners, process_index
 from butterfly_tpu_torch.models.common import (
     KVCache, Params, _cast_layer, _group_cache, _stack, attend, attn_output,
     embed_tokens, ffn_block, final_logits, layer_params, pre_norm, qkv_proj,
@@ -70,7 +84,8 @@ from butterfly_tpu_torch.ops.ring_attention import (
     INVALID_POS, block_stats, finalize_stats, merge_stats, zero_stats)
 from butterfly_tpu_torch.parallel.partition import Shards as TShards
 from butterfly_tpu_torch.parallel.tensor import (
-    DataGroup, cat_groups, data_groups, gather, group_part, group_rows,
+    DataGroup, all_gather_cat, all_to_all_blocks, broadcast_from,
+    cat_groups, data_groups, exchange, gather, group_part, group_rows,
     run_groups, tmap)
 
 Shards = List[Any]
@@ -79,8 +94,9 @@ Shards = List[Any]
 class Replicated:
     """The weight tree of every seq shard: `trees[d][i]` is seq shard i
     of data group d's tree, its leaves on that shard's devices (a tensor
-    split leaf's part t on the shard's tensor device t). Shards whose
-    devices are the same share one tree."""
+    split leaf's part t on the shard's tensor device t); None for a
+    shard another process holds. Shards whose devices are the same share
+    one tree."""
 
     def __init__(self, trees: List[List[Params]]):
         self.trees = trees
@@ -118,16 +134,21 @@ def replicate_params(params: Params, mesh) -> Replicated:
     """The weight tree on every seq shard of `mesh` (each data group's
     replica, each tensor part on its shard's tensor device, each expert
     part on its shard's expert device; no copy where it already lives
-    there, as on one card)."""
+    there, as on one card). Where the seq axis crosses processes only
+    this process's shards get a tree (None for another's)."""
     D = mesh.shape.get("data", 1)
     N = mesh.shape.get("seq", 1)
     E = mesh.shape.get("expert", 1)
+    mine = _mine(seq_owners(mesh), N)
     by_devs: Dict[tuple, Params] = {}
     trees = []
     for d in range(D):
         src = group_part(params, d)
         row = []
         for i in range(N):
+            if not mine[i]:
+                row.append(None)
+                continue
             devs = tuple(mesh.tensor_devices(d, seq_index=i))
             edevs = tuple(tuple(mesh.tensor_devices(d, seq_index=i,
                                                     expert_index=e))
@@ -138,6 +159,35 @@ def replicate_params(params: Params, mesh) -> Replicated:
             row.append(by_devs[key])
         trees.append(row)
     return Replicated(trees)
+
+
+def seq_owners(mesh) -> Optional[List[int]]:
+    """The process of each seq shard where the seq axis crosses
+    processes (core/mesh.py:check_process_mesh: then in every data group
+    alike), else None (every shard this process's)."""
+    if mesh is None or mesh.shape.get("seq", 1) <= 1 \
+            or not mesh.spans_processes:
+        return None
+    return owners(mesh, "seq")
+
+
+def _mine(own: Optional[Sequence[int]], N: int) -> List[bool]:
+    """Whether each of N seq shards is this process's."""
+    if own is None:
+        return [True] * N
+    me = process_index()
+    return [p == me for p in own]
+
+
+def _each(fn, *lists) -> list:
+    """fn over the shards of per-shard lists, None where the first list's
+    entry is None (another process's shard)."""
+    return [None if xs[0] is None else fn(*xs) for xs in zip(*lists)]
+
+
+def _first(xs: Sequence[Any]) -> Any:
+    """The first entry of a per-shard list this process holds."""
+    return next(x for x in xs if x is not None)
 
 
 def _replicas(params, mesh) -> Replicated:
@@ -151,6 +201,9 @@ def _layer_params(trees: Sequence[Params], i: int, dtype) -> list:
     done: Dict[int, Dict] = {}
     out = []
     for t in trees:
+        if t is None:
+            out.append(None)
+            continue
         if id(t) not in done:
             done[id(t)] = _cast_layer(layer_params(t, i), dtype)
         out.append(done[id(t)])
@@ -192,19 +245,82 @@ def _whole(x: Any, kv_dim: int, device=None) -> torch.Tensor:
     return x if device is None else x.to(device)
 
 
-def _rotate(xs: Sequence[Optional[torch.Tensor]],
-            devs: Sequence[torch.device]) -> list:
-    """ppermute i -> i+1: shard i receives shard i-1's value."""
-    N = len(xs)
-    return [None if xs[i - 1] is None
-            else xs[i - 1].to(devs[i], non_blocking=True) for i in range(N)]
+def _rotate(cur: list, devs: Sequence[Optional[torch.device]],
+            own: Optional[Sequence[int]]) -> list:
+    """One ring step's ppermute i -> i+1 of every component list in `cur`
+    (K, V, key positions, the int8 scales; a component that is absent is
+    a list of None): shard i receives shard i-1's block, moved to its
+    device. Where the seq axis crosses processes (`own`, the process of
+    each shard) a block whose next shard is another process's is sent
+    there and the block of a shard whose previous one is another
+    process's received, the step's sends and receives posted together
+    (parallel/tensor.py:exchange): the bytes are exact."""
+    N = len(devs)
+    me = process_index()
+    own = own or [me] * N
+    sends, recvs, keys = [], [], []
+    for c, xs in enumerate(cur):
+        for i in range(N):
+            j = (i + 1) % N
+            if own[i] == own[j]:
+                continue
+            tag = i * len(cur) + c
+            if own[i] == me and xs[i] is not None:
+                sends.append((xs[i], own[j], tag))
+            elif own[j] == me and xs[j] is not None:
+                recvs.append((xs[j].shape, xs[j].dtype, devs[j], own[i], tag))
+                keys.append((c, j))
+    got = dict(zip(keys, exchange(sends, recvs)))
+    out = []
+    for c, xs in enumerate(cur):
+        row = []
+        for j in range(N):
+            i = (j - 1) % N
+            if own[j] != me or xs[j] is None:
+                row.append(None)
+            elif own[i] == me:
+                row.append(xs[i].to(devs[j], non_blocking=True))
+            else:
+                row.append(got[(c, j)])
+        out.append(row)
+    return out
 
 
-def _split(x: torch.Tensor, devs: Sequence[torch.device], dim: int = 1
-           ) -> Shards:
-    """x split into len(devs) equal chunks along `dim`, chunk i on devs[i]."""
-    return [c.to(d, non_blocking=True)
-            for c, d in zip(x.chunk(len(devs), dim=dim), devs)]
+def _split(x: torch.Tensor, devs: Sequence[torch.device], dim: int = 1,
+           mine: Optional[Sequence[bool]] = None) -> Shards:
+    """x split into len(devs) equal chunks along `dim`, chunk i on devs[i]
+    (None for a shard another process holds: `mine[i]` False)."""
+    mine = mine or [True] * len(devs)
+    return [c.to(d, non_blocking=True) if m else None
+            for c, d, m in zip(x.chunk(len(devs), dim=dim), devs, mine)]
+
+
+def shard_row(logits: Shards, mesh, shard: int, row: int,
+              device: torch.device) -> torch.Tensor:
+    """Row `row` of seq shard `shard`'s logits [B, T/N, V] as [B, V] on
+    `device`, in every process: where the seq axis crosses processes the
+    process holding that shard broadcasts it (parallel/tensor.py:
+    broadcast_from), so every process samples the same token."""
+    own = seq_owners(mesh)
+    x = logits[shard]
+    t = None if x is None else x[:, row, :].to(device)
+    if own is None:
+        return t
+    ref = _first(logits)
+    return broadcast_from(t, own[shard], (ref.shape[0], ref.shape[2]),
+                          ref.dtype, device)
+
+
+def gather_local(xs: list) -> list:
+    """Every shard's tensor in every process, shard order: this process's
+    run of shards (the non-None entries, equal shapes) all-gathered over
+    the job. A list with no None is itself."""
+    if all(x is not None for x in xs):
+        return list(xs)
+    local = [x for x in xs if x is not None]
+    dev = local[0].device
+    got = all_gather_cat(torch.stack([x.to(dev) for x in local]), 0)
+    return list(got.unbind(0))
 
 
 def gather_shards(xs: Shards, dim: int = 1, device=None) -> torch.Tensor:
@@ -222,7 +338,9 @@ class ShardedKVCache(NamedTuple):
     under a tensor axis a tensor Shards over the kv heads (or one
     replicated tensor where Kv does not divide it), under a data axis a
     data Shards over the batch rows (each group's part on its devices);
-    `length` [B] on the first shard's device."""
+    `length` [B] on the first shard's device. Where the seq axis crosses
+    processes each process keeps its own shards' K/V, None for
+    another's."""
 
     k: Shards
     v: Shards
@@ -236,16 +354,19 @@ class ShardedKVCache(NamedTuple):
 
     @property
     def local_len(self) -> int:
-        return self.k[0].shape[3] if self.quantized else self.k[0].shape[2]
+        k = _first(self.k)
+        return k.shape[3] if self.quantized else k.shape[2]
 
     def gather(self, device=None) -> KVCache:
         """The whole cache as one contiguous KVCache (the JAX global
-        array's layout) on `device` (None = the first shard's)."""
+        array's layout) on `device` (None = the first shard's); across
+        processes an all-gather every process joins."""
         q = self.quantized
         sd = 3 if q else 2
 
         def whole(xs, kv_dim):
-            parts = [_whole(x, kv_dim, device) for x in xs]
+            parts = gather_local([None if x is None else
+                                   _whole(x, kv_dim, device) for x in xs])
             return gather_shards(parts, sd, device)
         k = whole(self.k, 2 if q else 3)
         v = whole(self.v, 2 if q else 3)
@@ -348,79 +469,122 @@ def _split_heads(x: torch.Tensor, like: TShards, dim: int) -> TShards:
 def ring_stats(q: Shards, k: Shards, v: Shards, q_pos: Shards,
                k_pos: Shards, k_scale: Optional[Shards] = None,
                v_scale: Optional[Shards] = None,
-               kernel: Optional[bool] = None) -> list:
+               kernel: Optional[bool] = None,
+               own: Optional[Sequence[int]] = None) -> list:
     """Merged (unfinalised) flash stats of every shard over all N ring
     blocks, one (m, l, acc) per shard on its device.
 
     At ring step s shard i holds the K/V (+ positions, + int8 scales) of
     shard (i - s) mod N and folds its block's stats into its running
-    stats with merge_stats, seeded from zero_stats: the JAX scan's order."""
+    stats with merge_stats, seeded from zero_stats: the JAX scan's order.
+    Where the seq axis crosses processes (`own`: the process of each
+    shard) each process holds and folds its own shards (None entries for
+    the others') and a rotation across processes is a send and a receive
+    (`_rotate`)."""
     N = len(q)
-    devs = [x.device for x in q]
-    B, T, Nq, H = q[0].shape
+    devs = [None if x is None else x.device for x in q]
+    B, T, Nq, H = _first(q).shape
     ks = list(k_scale) if k_scale is not None else [None] * N
     vs = list(v_scale) if v_scale is not None else [None] * N
     cur = [list(k), list(v), list(k_pos), ks, vs]
-    stats = [zero_stats(B, Nq, T, H, device=d) for d in devs]
+    stats = [None if d is None else zero_stats(B, Nq, T, H, device=d)
+             for d in devs]
     for step in range(N):
         ck, cv, ckp, cks, cvs = cur
         for i in range(N):
+            if q[i] is None:
+                continue
             blk = block_stats(q[i], ck[i], cv[i], q_pos[i], ckp[i], cks[i],
                               cvs[i], kernel=kernel)
             stats[i] = merge_stats(stats[i], blk)
         if step < N - 1:  # the last rotation would be discarded
-            cur = [_rotate(x, devs) for x in cur]
+            cur = _rotate(cur, devs, own)
     return stats
 
 
 def ring_attention(q: Shards, k: Shards, v: Shards, q_pos: Shards,
                    k_pos: Shards, k_scale: Optional[Shards] = None,
                    v_scale: Optional[Shards] = None,
-                   kernel: Optional[bool] = None) -> Shards:
+                   kernel: Optional[bool] = None,
+                   own: Optional[Sequence[int]] = None) -> Shards:
     """Causal GQA over the sequence ring. Per shard: q [B, Tq, Nq, H];
     float k/v [B, Tk, Kv, H]; int8 k/v codes [B, Kv, Tk, H] with
     k_scale/v_scale [B, Kv, Tk]; q_pos/k_pos [B, T*] absolute positions,
     invalid keys sanitised to INVALID_POS. Returns [B, Tq, Nq, H] per
-    shard."""
-    return [finalize_stats(s, x.dtype) for s, x in
-            zip(ring_stats(q, k, v, q_pos, k_pos, k_scale, v_scale,
-                           kernel=kernel), q)]
+    shard (None for another process's, `own` as in ring_stats)."""
+    return _each(lambda s, x: finalize_stats(s, x.dtype),
+                 ring_stats(q, k, v, q_pos, k_pos, k_scale, v_scale,
+                            kernel=kernel, own=own), q)
+
+
+def _all_to_all_shards(xs: Shards, split: int, cat: int, N: int) -> Shards:
+    """all_to_all(split_axis=split, concat_axis=cat) over seq shards that
+    cross processes: local shard a's chunk b of N along `split` goes to
+    shard b, which concatenates what every shard sent it along `cat` in
+    shard order. One all-to-all over the job (each process's run of
+    shards in process order)."""
+    local = [i for i, x in enumerate(xs) if x is not None]
+    n = len(local)
+    P = N // n
+    dev = xs[local[0]].device
+    chunks = [xs[i].to(dev).chunk(N, dim=split) for i in local]
+    send = torch.stack([torch.stack([torch.stack(
+        [chunks[a][p * n + b] for b in range(n)]) for a in range(n)])
+        for p in range(P)])                      # [P, n(src), n(dst), ...]
+    got = all_to_all_blocks(send)                # [P, n(src), n(mine), ...]
+    out: list = [None] * N
+    for b, i in enumerate(local):
+        out[i] = torch.cat([got[p, a, b] for p in range(P)
+                            for a in range(n)], dim=cat).to(xs[i].device)
+    return out
 
 
 def ulysses_attention(q: Shards, k: Shards, v: Shards,
-                      q_pos: Shards) -> Shards:
+                      q_pos: Shards,
+                      own: Optional[Sequence[int]] = None) -> Shards:
     """All-to-all head <-> sequence reshard, then full causal attention on
     the whole sequence for each shard's head group, and back.
 
     Per shard q [B, T/N, Nq, H], k/v [B, T/N, Kv, H]. Needs Kv % N == 0,
     or N % Kv == 0 and Nq % N == 0: then each kv head is REPLICATED
     r = N / Kv times first, so shard d receives the kv head (d // r) its
-    q-head block contracts with. Returns [B, T/N, Nq, H] per shard."""
+    q-head block contracts with. Returns [B, T/N, Nq, H] per shard.
+    Where the seq axis crosses processes (`own`: the process of each
+    shard; None entries for another's shards) the reshards are
+    all-to-alls over the job and the positions an all-gather."""
     N = len(q)
-    devs = [x.device for x in q]
-    B, Tl, Nq, H = q[0].shape
-    Kv = k[0].shape[2]
+    devs = [None if x is None else x.device for x in q]
+    B, Tl, Nq, H = _first(q).shape
+    Kv = _first(k).shape[2]
     if Kv % N != 0:
         if N % Kv != 0 or Nq % N != 0:
             raise ValueError(
                 f"ulysses needs Kv % N == 0 or (N % Kv == 0 and "
                 f"Nq % N == 0); got Nq={Nq}, Kv={Kv}, N={N}")
         r = N // Kv
-        k = [x.repeat_interleave(r, dim=2) for x in k]
-        v = [x.repeat_interleave(r, dim=2) for x in v]
+        k = _each(lambda x: x.repeat_interleave(r, dim=2), k)
+        v = _each(lambda x: x.repeat_interleave(r, dim=2), v)
 
     def heads_to_seq(xs):  # all_to_all(split_axis=2, concat_axis=1)
+        if own is not None:
+            return _all_to_all_shards(xs, 2, 1, N)
         w = xs[0].shape[2] // N
         return [torch.cat([x[:, :, d * w:(d + 1) * w].to(devs[d])
                            for x in xs], dim=1) for d in range(N)]
 
     qq, kk, vv = heads_to_seq(q), heads_to_seq(k), heads_to_seq(v)
-    outs = []
+    if own is not None:                                          # all_gather
+        q_pos = gather_local(q_pos)
+    outs: list = [None] * N
     for d in range(N):
-        pos = torch.cat([p.to(devs[d]) for p in q_pos], dim=1)  # all_gather
+        if devs[d] is None:
+            continue
+        pos = torch.cat([p.to(devs[d]) for p in q_pos], dim=1)
         mask = pos[:, None, :] <= pos[:, :, None]                # [B,T,T]
-        outs.append(attend(qq[d], kk[d], vv[d], mask, None))
+        outs[d] = attend(qq[d], kk[d], vv[d], mask, None)
     # back: all_to_all(split_axis=1, concat_axis=2)
+    if own is not None:
+        return _all_to_all_shards(outs, 1, 2, N)
     return [torch.cat([o[:, i * Tl:(i + 1) * Tl].to(devs[i]) for o in outs],
                       dim=2) for i in range(N)]
 
@@ -428,15 +592,17 @@ def ulysses_attention(q: Shards, k: Shards, v: Shards,
 def ring_heads(q: Shards, k: Shards, v: Shards, q_pos: Shards,
                k_pos: Shards, k_scale: Optional[Shards] = None,
                v_scale: Optional[Shards] = None, quant: bool = False,
-               kernel: Optional[bool] = None) -> list:
+               kernel: Optional[bool] = None,
+               own: Optional[Sequence[int]] = None) -> list:
     """ring_stats over the seq shards, once per tensor shard on its heads
     where the shards' q are tensor Shards (the ring of tensor shard t
     runs over the seq shards' devices at tensor coordinate t); else one
-    ring. Returns per seq shard (m, l, acc), tensor Shards over the heads
-    when split."""
-    if not isinstance(q[0], TShards):
+    ring (across processes where `own` names the shards' processes: the
+    seq axis then crosses them alone). Returns per seq shard (m, l,
+    acc), tensor Shards over the heads when split."""
+    if not isinstance(_first(q), TShards):
         return ring_stats(q, k, v, q_pos, k_pos, k_scale, v_scale,
-                          kernel=kernel)
+                          kernel=kernel, own=own)
     kd = 1 if quant else 2
     per = []
     for t in range(len(q[0].parts)):
@@ -458,8 +624,8 @@ def ring_heads(q: Shards, k: Shards, v: Shards, q_pos: Shards,
 
 def _gathered(xs: Shards, dim: int) -> list:
     """Each seq shard's value with its tensor shards concatenated on
-    `dim` (a replicated value as it is)."""
-    return [gather(x, dim) for x in xs]
+    `dim` (a replicated value as it is; None stays None)."""
+    return [None if x is None else gather(x, dim) for x in xs]
 
 
 # ---------------------------------------------------------------------------
@@ -467,38 +633,43 @@ def _gathered(xs: Shards, dim: int) -> list:
 # ---------------------------------------------------------------------------
 
 def _attend_chunk(q, k, v, pos, impl: str, quant: bool, compute,
-                  kernel: Optional[bool]):
+                  kernel: Optional[bool], own=None):
     """One layer's attention over the shards' fresh chunks (sp_forward).
     Returns (out per shard, the chunk's K/V per shard in the cache's
-    representation). Under a tensor axis the ring runs per tensor shard
-    on its heads; Ulysses reshards whole heads, so it gathers each seq
-    shard's heads first and splits its output back (the JAX body sees
-    every head: the tensor axis is automatic inside it)."""
-    split = isinstance(q[0], TShards)
+    representation; None for another process's shard, `own` the
+    process of each where the seq axis crosses them). Under a tensor
+    axis the ring runs per tensor shard on its heads; Ulysses reshards
+    whole heads, so it gathers each seq shard's heads first and splits
+    its output back (the JAX body sees every head: the tensor axis is
+    automatic inside it)."""
+    split = isinstance(_first(q), TShards)
     if quant:
-        qk = [_quantize(x) for x in k]                      # [B,Kv,Tl,H]
-        qv = [_quantize(x) for x in v]
-        kq, ksc = [a for a, _ in qk], [b for _, b in qk]
-        vq, vsc = [a for a, _ in qv], [b for _, b in qv]
-        kv_out = list(zip(kq, vq, ksc, vsc))
+        qk = _each(_quantize, k)                            # [B,Kv,Tl,H]
+        qv = _each(_quantize, v)
+        kq, ksc = _each(lambda x: x[0], qk), _each(lambda x: x[1], qk)
+        vq, vsc = _each(lambda x: x[0], qv), _each(lambda x: x[1], qv)
+        kv_out = _each(lambda *x: x, kq, vq, ksc, vsc)
         if impl == "ring":
             stats = ring_heads(q, kq, vq, pos, pos, ksc, vsc, quant=True,
-                               kernel=kernel)
-            return [_finalize(s, x.dtype) for s, x in zip(stats, q)], kv_out
+                               kernel=kernel, own=own)
+            return _each(lambda x, s: _finalize(s, x.dtype), q,
+                         stats), kv_out
         # Ulysses gathers whole sequences for a dense attend: it reads
         # the dequantised values (same operands, no scale plumbing)
-        kf = [(a.float() * s[..., None]).movedim(1, 2).to(compute)
-              for a, s in zip(_gathered(kq, 1), _gathered(ksc, 1))]
-        vf = [(a.float() * s[..., None]).movedim(1, 2).to(compute)
-              for a, s in zip(_gathered(vq, 1), _gathered(vsc, 1))]
+
+        def deq(a, s):
+            return (a.float() * s[..., None]).movedim(1, 2).to(compute)
+        kf = _each(deq, _gathered(kq, 1), _gathered(ksc, 1))
+        vf = _each(deq, _gathered(vq, 1), _gathered(vsc, 1))
     else:
-        kv_out = [(tmap(lambda a: a.to(compute), a),
-                   tmap(lambda b: b.to(compute), b)) for a, b in zip(k, v)]
+        kv_out = _each(lambda a, b: (tmap(lambda x: x.to(compute), a),
+                                     tmap(lambda x: x.to(compute), b)), k, v)
         if impl == "ring":
-            stats = ring_heads(q, k, v, pos, pos, kernel=kernel)
-            return [_finalize(s, x.dtype) for s, x in zip(stats, q)], kv_out
+            stats = ring_heads(q, k, v, pos, pos, kernel=kernel, own=own)
+            return _each(lambda x, s: _finalize(s, x.dtype), q,
+                         stats), kv_out
         kf, vf = _gathered(k, 2), _gathered(v, 2)
-    out = ulysses_attention(_gathered(q, 2), kf, vf, pos)
+    out = ulysses_attention(_gathered(q, 2), kf, vf, pos, own=own)
     if split:
         out = [_split_heads(o, x, 2) for o, x in zip(out, q)]
     return out, kv_out
@@ -536,22 +707,31 @@ def sp_forward(params, cfg: ModelConfig, tokens: torch.Tensor, mesh,
     tensor shard and the ring once per tensor shard. Returns (logits per
     shard [B, T/N, V] f32 on the shard's first device of data group 0,
     ShardedKVCache with S = T: int8 codes + scales when
-    kv_quant="int8")."""
+    kv_quant="int8").
+
+    Where the seq axis crosses processes each process runs its own
+    shards (the ring's blocks pass between processes, Ulysses' reshards
+    are all-to-alls): its logits and K/V entries are None for another
+    process's shard (`shard_row` reads a row in every process)."""
     N = mesh.shape.get("seq", 1)
     B, T = tokens.shape
     _check_seq_args(T, N, kv_quant, impl)
     quant = kv_quant == "int8"
     reps = _replicas(params, mesh)
+    own = seq_owners(mesh)
     subs = [mesh.seq_mesh(i) for i in range(N)]
     outs = run_groups(_groups(mesh, B), lambda g: _sp_forward_group(
         reps.trees[g.index], cfg, tokens[g.rows], mesh.seq_devices(g.index),
-        subs, impl, quant, kernel), B)
+        subs, impl, quant, kernel, own), B)
     logits = [cat_groups([o[0][i] for o in outs]) for i in range(N)]
-    parts = [[_join([o[1][i][j] for o in outs])
-              for j in range(len(outs[0][1][0]))] for i in range(N)]
+    width = len(_first(outs[0][1]))
+    parts = [None if outs[0][1][i] is None else
+             [_join([o[1][i][j] for o in outs]) for j in range(width)]
+             for i in range(N)]
     length = torch.full((B,), T, dtype=torch.int32,
-                        device=mesh.seq_devices(0)[0])
-    cols = [[p[j] for p in parts] for j in range(len(parts[0]))]
+                        device=mesh.first_device)
+    cols = [[None if p is None else p[j] for p in parts]
+            for j in range(width)]
     if quant:
         cache = ShardedKVCache(k=cols[0], v=cols[1], length=length,
                                k_scale=cols[2], v_scale=cols[3])
@@ -560,45 +740,55 @@ def sp_forward(params, cfg: ModelConfig, tokens: torch.Tensor, mesh,
     return logits, cache
 
 
-def _sp_forward_group(trees, cfg: ModelConfig, tokens: torch.Tensor,
-                      devs, subs, impl: str, quant: bool,
-                      kernel: Optional[bool]):
-    """sp_forward on one data group's rows over its ring `devs`, seq
-    shard i's FFN on its own mesh subs[i]: (logits per shard, per shard
-    its K/V components stacked over the layers)."""
+def _shard_inputs(trees, cfg: ModelConfig, tokens: torch.Tensor, start: int,
+                  devs, mine) -> tuple:
+    """Each of this process's seq shards' tokens' positions (its chunk of
+    `tokens` [B, T] starting at absolute position `start`) and embedding
+    with the rotary tables: (pos, xs, cos, sin) per shard, None for
+    another process's."""
     N = len(devs)
-    compute = torch_dtype(cfg.dtype)
     B, T = tokens.shape
     Tl = T // N
-    toks = _split(tokens, devs)
-    pos = [(i * Tl + torch.arange(Tl, device=d))[None, :].expand(B, Tl)
-           .to(torch.int32) for i, d in enumerate(devs)]
-    xs, cs, ss = [], [], []
-    for i in range(N):
-        x, cos, sin = embed_tokens(trees[i], cfg, toks[i], pos[i])
-        xs.append(x)
-        cs.append(cos)
-        ss.append(sin)
+    toks = _split(tokens, devs, mine=mine)
+    pos = [(start + i * Tl + torch.arange(Tl, device=d))[None, :]
+           .expand(B, Tl).to(torch.int32) if m else None
+           for i, (d, m) in enumerate(zip(devs, mine))]
+    emb = _each(lambda t, tk, p: embed_tokens(t, cfg, tk, p), trees, toks,
+                pos)
+    return (pos,) + tuple(_each(lambda e: e[j], emb) for j in range(3))
+
+
+def _sp_forward_group(trees, cfg: ModelConfig, tokens: torch.Tensor,
+                      devs, subs, impl: str, quant: bool,
+                      kernel: Optional[bool], own=None):
+    """sp_forward on one data group's rows over its ring `devs`, seq
+    shard i's FFN on its own mesh subs[i]: (logits per shard, per shard
+    its K/V components stacked over the layers; None for another
+    process's shard, `own` the process of each)."""
+    N = len(devs)
+    mine = _mine(own, N)
+    compute = torch_dtype(cfg.dtype)
+    pos, xs, cs, ss = _shard_inputs(trees, cfg, tokens, 0, devs, mine)
     kv_layers = []
     for li in range(cfg.num_layers):
         lp = _layer_params(trees, li, compute)
-        qs, ks, vs = [], [], []
-        for i in range(N):
-            h = pre_norm(xs[i], lp[i]["ln1"], cfg)
-            q, k, v = qkv_proj(h, lp[i]["attn"], cfg, cs[i], ss[i])
-            qs.append(q)
-            ks.append(k)
-            vs.append(v)
+        qkv = _each(lambda x, p, c, s_: qkv_proj(pre_norm(x, p["ln1"], cfg),
+                                                p["attn"], cfg, c, s_),
+                    xs, lp, cs, ss)
+        qs, ks, vs = (_each(lambda t: t[j], qkv) for j in range(3))
         out, kv_out = _attend_chunk(qs, ks, vs, pos, impl, quant, compute,
-                                    kernel)
+                                    kernel, own)
         for i in range(N):
+            if not mine[i]:
+                continue
             x = xs[i] + attn_output(out[i], lp[i]["attn"], cfg)
             xs[i] = x + _shard_ffn(x, lp[i], cfg, subs[i])
         kv_layers.append(kv_out)
-    logits = [final_logits(trees[i], cfg, x) for i, x in enumerate(xs)]
+    logits = _each(lambda t, x: final_logits(t, cfg, x), trees, xs)
     # per shard: stack its layers' K/V ([L, ...] like the JAX cache)
+    width = len(_first(kv_layers[0]))
     parts = [[_stack([kv_layers[li][i][j] for li in range(cfg.num_layers)])
-              for j in range(len(kv_layers[0][0]))] for i in range(N)]
+              for j in range(width)] if mine[i] else None for i in range(N)]
     return logits, parts
 
 
@@ -622,9 +812,17 @@ def _combine(parts: list, dev) -> tuple:
     return m_g, l_g, acc_g
 
 
-def _combine_heads(parts: list, q: Any) -> tuple:
+def _combine_heads(parts: list, q: Any, own=None) -> tuple:
     """_combine per tensor shard (on q's part device) where the stats are
-    tensor Shards, else once on q's device."""
+    tensor Shards, else once on q's device. Where the seq axis crosses
+    processes (`own`; `parts` None for another process's shard) every
+    shard's partials, [B, Nq, 1(, H)] each, are all-gathered first and
+    combined in shard order in every process: the one-process sums'
+    bits (an all-reduce would reorder them)."""
+    if own is not None:
+        parts = list(zip(*(gather_local([None if p is None else p[j]
+                                          for p in parts])
+                           for j in range(3))))
     if not isinstance(q, TShards):
         return _combine(parts, q.device)
     return _stats_shards([
@@ -648,7 +846,10 @@ def sp_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     the suffix block folds in with merge_stats before one finalize. Per
     layer that is N prefix launches plus ONE suffix launch (JAX runs the
     replicated suffix block once per device), per tensor shard under a
-    tensor axis; each data group runs its rows.
+    tensor axis; each data group runs its rows. Where the seq axis
+    crosses processes each process attends its own shards' prefix and
+    the partials are all-gathered (`_combine_heads`): every process then
+    holds the same logits and the same suffix.
 
     tokens/positions: [B, 1] on the first device (positions = prefix
     length + step). prefix_len [B]: real prefix tokens per row (slots at
@@ -671,12 +872,13 @@ def sp_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     if prefix.quantized != suffix.quantized:
         raise ValueError("prefix and suffix caches must agree on kv_quant")
     reps = _replicas(params, mesh)
+    own = seq_owners(mesh)
     B = tokens.shape[0]
     groups = data_groups(B, mesh)
     if groups is None:
         logits = _sp_decode_group(reps.trees[0], cfg, tokens, positions,
                                   prefix, suffix, prefix_len,
-                                  mesh.seq_devices(0))
+                                  mesh.seq_devices(0), own)
     else:
         logits = cat_groups([_sp_decode_group(
             reps.trees[g.index], cfg, group_rows(tokens, g),
@@ -685,17 +887,20 @@ def sp_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                                [_rows(x, g) for x in getattr(prefix, n)]
                                for n in ("k", "v", "k_scale", "v_scale")}),
             _group_cache(suffix, g), group_rows(prefix_len, g),
-            mesh.seq_devices(g.index)) for g in groups])
+            mesh.seq_devices(g.index), own) for g in groups])
     return logits, suffix._replace(
         length=(suffix.length + 1).to(torch.int32))
 
 
 def _sp_decode_group(trees, cfg: ModelConfig, tokens, positions,
                      prefix: ShardedKVCache, suffix: KVCache, prefix_len,
-                     devs) -> torch.Tensor:
-    """sp_decode_step on one data group's rows over its ring `devs`."""
+                     devs, own=None) -> torch.Tensor:
+    """sp_decode_step on one data group's rows over its ring `devs` (this
+    process's shards of it where `own` names each shard's process)."""
     quant = prefix.quantized
-    dev0 = devs[0]
+    mine = _mine(own, len(devs))
+    dev0 = devs[mine.index(True)]
+    top = _first(trees)
     compute = torch_dtype(cfg.dtype)
     B = tokens.shape[0]
     Smax = suffix.max_seq
@@ -703,7 +908,7 @@ def _sp_decode_group(trees, cfg: ModelConfig, tokens, positions,
     slen = suffix.length.to(dev0)
     plen = prefix_len.to(dev0)
     tokens, positions = tokens.to(dev0), positions.to(dev0)
-    x, cos, sin = embed_tokens(trees[0], cfg, tokens, positions)
+    x, cos, sin = embed_tokens(top, cfg, tokens, positions)
     # sanitised key positions, built ONCE outside the layer loop: suffix
     # slot j holds the token at position plen + j, visible up to this
     # step's own write (j <= slen); prefix slots at or past plen (the
@@ -715,6 +920,10 @@ def _sp_decode_group(trees, cfg: ModelConfig, tokens, positions,
                                      dtype=torch.int64)).to(torch.int32)
     pre_pos, q_pos = [], []
     for i, d in enumerate(devs):
+        if not mine[i]:
+            pre_pos.append(None)
+            q_pos.append(None)
+            continue
         gpos = i * Tl + torch.arange(Tl, device=d)
         pl = plen.to(d)
         pre_pos.append(torch.where(gpos[None, :] < pl[:, None], gpos[None, :],
@@ -724,7 +933,7 @@ def _sp_decode_group(trees, cfg: ModelConfig, tokens, positions,
         q_pos.append(positions.to(d).to(torch.int32))
     suf_qpos = positions.to(torch.int32)
     for li in range(cfg.num_layers):
-        lp = _cast_layer(layer_params(trees[0], li), compute)
+        lp = _cast_layer(layer_params(top, li), compute)
         h = pre_norm(x, lp["ln1"], cfg)
         q, k, v = qkv_proj(h, lp["attn"], cfg, cos, sin)
         if quant:
@@ -737,6 +946,9 @@ def _sp_decode_group(trees, cfg: ModelConfig, tokens, positions,
             cks = cvs = None
         parts = []
         for i, d in enumerate(devs):
+            if not mine[i]:
+                parts.append(None)
+                continue
             qi = q if isinstance(q, TShards) else q.to(d, non_blocking=True)
             parts.append(_block_heads(
                 qi, prefix.k[i][li], prefix.v[i][li], q_pos[i], pre_pos[i],
@@ -744,10 +956,10 @@ def _sp_decode_group(trees, cfg: ModelConfig, tokens, positions,
                 prefix.v_scale[i][li] if quant else None, quant=quant))
         suf = _block_heads(q, ck, cv, suf_qpos, suf_pos, cks, cvs,
                            quant=quant)
-        out = _finalize(_merge(_combine_heads(parts, q), suf), x.dtype)
+        out = _finalize(_merge(_combine_heads(parts, q, own), suf), x.dtype)
         x = x + attn_output(out, lp["attn"], cfg)
         x = x + ffn_block(pre_norm(x, lp["ln2"], cfg), lp, cfg)
-    logits = final_logits(trees[0], cfg, x)
+    logits = final_logits(top, cfg, x)
     return logits[:, -1, :]
 
 
@@ -777,19 +989,25 @@ def sp_chunk_body(params, cfg: ModelConfig, tokens: torch.Tensor,
     Returns (logits per shard [B, C/N, V], per shard the chunk's K/V for
     every layer in the pool's representation: (k, v) [L, B, C/N, Kv, H]
     in the compute dtype, or codes [L, B, Kv, C/N, H] + scales; tensor
-    Shards where the pool is split)."""
+    Shards where the pool is split). Where the seq axis crosses
+    processes each process runs its own shards, None for another's."""
     devs = mesh.seq_devices(data_index)
     N = len(devs)
+    own = seq_owners(mesh)
+    mine = _mine(own, N)
     subs = [mesh.seq_mesh(i) for i in range(N)]
     trees = _replicas(params, mesh).trees[data_index]
     compute = torch_dtype(cfg.dtype)
     quant = len(prefix) == 4
-    B, C = tokens.shape
-    Cl = C // N
     S = prefix[0].shape[3] if quant else prefix[0].shape[2]
     pre, pre_pos = [], []
     placed: Dict[tuple, tuple] = {}
+    B = tokens.shape[0]
     for i, d in enumerate(devs):
+        if not mine[i]:
+            pre.append(None)
+            pre_pos.append(None)
+            continue
         key = tuple(mesh.tensor_devices(data_index, seq_index=i))
         if key not in placed:
             # exactly the flushed tokens (< start) are attendable
@@ -799,48 +1017,41 @@ def sp_chunk_body(params, cfg: ModelConfig, tokens: torch.Tensor,
                 .expand(B, S).to(torch.int32))
         pre.append(placed[key][0])
         pre_pos.append(placed[key][1])
-    toks = _split(tokens, devs)
-    pos = [(start + i * Cl + torch.arange(Cl, device=d))[None, :]
-           .expand(B, Cl).to(torch.int32) for i, d in enumerate(devs)]
-    xs, cs, ss = [], [], []
-    for i in range(N):
-        x, cos, sin = embed_tokens(trees[i], cfg, toks[i], pos[i])
-        xs.append(x)
-        cs.append(cos)
-        ss.append(sin)
+    pos, xs, cs, ss = _shard_inputs(trees, cfg, tokens, start, devs, mine)
     kv_layers = []
     for li in range(cfg.num_layers):
         lp = _layer_params(trees, li, compute)
-        qs, ks, vs, pres = [], [], [], []
-        for i in range(N):
-            h = pre_norm(xs[i], lp[i]["ln1"], cfg)
-            q, k, v = qkv_proj(h, lp[i]["attn"], cfg, cs[i], ss[i])
-            p = pre[i]
-            pres.append(_block_heads(
-                q, p[0][li], p[1][li], pos[i], pre_pos[i],
-                p[2][li] if quant else None, p[3][li] if quant else None,
-                quant=quant))
-            qs.append(q)
-            ks.append(k)
-            vs.append(v)
+        qkv = _each(lambda x, p, c, s_: qkv_proj(pre_norm(x, p["ln1"], cfg),
+                                                p["attn"], cfg, c, s_),
+                    xs, lp, cs, ss)
+        qs, ks, vs = (_each(lambda t: t[j], qkv) for j in range(3))
+        pres = _each(lambda q, p, qp, pp: _block_heads(
+            q, p[0][li], p[1][li], qp, pp, p[2][li] if quant else None,
+            p[3][li] if quant else None, quant=quant), qs, pre, pos, pre_pos)
         if quant:
-            qk = [_quantize(x) for x in ks]                 # [B,Kv,Cl,H]
-            qv = [_quantize(x) for x in vs]
-            fresh = ring_heads(qs, [a for a, _ in qk], [a for a, _ in qv],
-                               pos, pos, [s for _, s in qk],
-                               [s for _, s in qv], quant=True)
-            kv_out = [(a, b, s, t) for (a, s), (b, t) in zip(qk, qv)]
+            qk = _each(_quantize, ks)                       # [B,Kv,Cl,H]
+            qv = _each(_quantize, vs)
+            fresh = ring_heads(qs, _each(lambda x: x[0], qk),
+                               _each(lambda x: x[0], qv), pos, pos,
+                               _each(lambda x: x[1], qk),
+                               _each(lambda x: x[1], qv), quant=True,
+                               own=own)
+            kv_out = _each(lambda a, b: (a[0], b[0], a[1], b[1]), qk, qv)
         else:
-            fresh = ring_heads(qs, ks, vs, pos, pos)
-            kv_out = [(tmap(lambda a: a.to(compute), a),
-                       tmap(lambda b: b.to(compute), b))
-                      for a, b in zip(ks, vs)]
+            fresh = ring_heads(qs, ks, vs, pos, pos, own=own)
+            kv_out = _each(lambda a, b: (tmap(lambda x: x.to(compute), a),
+                                         tmap(lambda x: x.to(compute), b)),
+                           ks, vs)
         for i in range(N):
+            if not mine[i]:
+                continue
             out = _finalize(_merge(pres[i], fresh[i]), xs[i].dtype)
             x = xs[i] + attn_output(out, lp[i]["attn"], cfg)
             xs[i] = x + _shard_ffn(x, lp[i], cfg, subs[i])
         kv_layers.append(kv_out)
-    logits = [final_logits(trees[i], cfg, x) for i, x in enumerate(xs)]
+    logits = _each(lambda t, x: final_logits(t, cfg, x), trees, xs)
+    width = len(_first(kv_layers[0]))
     kv = [tuple(_stack([kv_layers[li][i][j] for li in range(cfg.num_layers)])
-                for j in range(len(kv_layers[0][0]))) for i in range(N)]
+                for j in range(width)) if mine[i] else None
+          for i in range(N)]
     return logits, kv

@@ -50,6 +50,7 @@ held. `lint` runs the repo's tools/staticcheck.py from a source checkout.
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 import time
 
@@ -508,9 +509,15 @@ def build_mesh(args):
     Several processes: with BUTTERFLY_NUM_PROCESSES set (and torchrun's
     MASTER_ADDR, MASTER_PORT and RANK) init_distributed runs first, and
     the mesh takes the first n of every process's devices
-    (global_devices: one CPU device a process with --device cpu, each
-    process's visible cards with --device cuda); `--dcn-axes` are the
-    axes that may span hosts (make_hybrid_mesh)."""
+    (global_devices: n / P CPU devices a process of P with --device cpu,
+    each process's visible cards with --device cuda); `--dcn-axes` are
+    the axes that may span hosts (make_hybrid_mesh). Where they multiply
+    to the process count each process counts as one slice, so those
+    axes cross the processes and the others stay inside them (`--seq-
+    parallel 2 --data-parallel 2 --dcn-axes seq`: data groups inside,
+    seq across); otherwise the devices keep their hosts' slices."""
+    import dataclasses
+
     from butterfly_tpu_torch.core.config import MESH_AXES, MeshConfig
     from butterfly_tpu_torch.core.mesh import (
         global_devices, init_distributed, make_hybrid_mesh, process_count)
@@ -531,10 +538,12 @@ def build_mesh(args):
         raise SystemExit(f"error: unknown mesh axes {bad}")
     init_distributed()
     device = getattr(args, "device", "cuda")
-    if device == "cpu" and process_count() == 1:
+    P = process_count()
+    cfg = MeshConfig(data=dp, stage=pp, expert=ep, seq=sq, tensor=tp)
+    if device == "cpu" and P == 1:
         devices = ["cpu"] * n
     else:
-        devices = global_devices(device)
+        devices = global_devices(device, per_process=max(1, n // P))
         if n > len(devices):
             raise SystemExit(
                 f"error: --tensor-parallel {tp} x --stage-parallel {pp} x "
@@ -542,7 +551,10 @@ def build_mesh(args):
                 f"--seq-parallel {sq} = {n} devices, "
                 f"but only {len(devices)} are available")
         devices = devices[:n]
-    cfg = MeshConfig(data=dp, stage=pp, expert=ep, seq=sq, tensor=tp)
+        sizes = dict(zip(MESH_AXES, cfg.axis_sizes))
+        if P > 1 and math.prod(sizes[a] for a in dcn) == P:
+            devices = [dataclasses.replace(d, slice_index=d.process_index)
+                       for d in devices]
     try:
         return make_hybrid_mesh(cfg, devices, dcn_axes=dcn)
     except ValueError as e:

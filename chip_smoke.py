@@ -266,8 +266,9 @@ raises and the script exits non-zero:
              cuda:0, make_mesh(MeshConfig(...), ["cuda:0"] * n)) on the
              shared Llama-3-8B trees: shard_params at tensor = 2 (the
              parts must be views: nothing allocated); tensor = 2 serving
-             at full width and depth, the serve defaults, 8 greedy
-             requests of 16-1200 bytes with 32 new tokens (tok/s, TTFT
+             at full width and depth, the serve defaults, 4 greedy
+             requests of 16-1000 bytes (every other serve-phase size)
+             with 32 new tokens (tok/s, TTFT
              p50, requests equal to the serve phase's and the
              teacher-forced gap of the others, pool bytes per shard);
              one windowed decode step on a pool of random K/V, tensor = 2
@@ -410,17 +411,22 @@ raises and the script exits non-zero:
              on the card: 3), all_hosts_probe() across both, the ms of a
              16 KB and an 8 MB all-reduce, an 8 MB send/receive each way
              at once (the pipeline's hand-off, staged through the host)
-             and an 8 MB all-to-all; then three meshes across the two
-             processes, in turn: tensor = 2 and stage = 2 on Llama-3-8B
-             at full width, 4 layers, and expert = 2 on Mixtral-8x7B at
-             full width, 2 layers (the expert dispatch), each bf16 from
-             seed 0, drawn on the card and kept on the host. On each:
+             and an 8 MB all-to-all; then five meshes across the two
+             processes, in turn: tensor = 2, data = 2 inside each
+             process beside tensor = 2 across (data2_tensor2: two
+             shards a worker on its card, each worker its own slice of
+             make_hybrid_mesh with dcn_axes=("tensor",)), stage = 2
+             and seq = 2 on Llama-3-8B at full width, 4 layers, and
+             expert = 2 on Mixtral-8x7B at full width, 2 layers (the
+             expert dispatch), each bf16 from seed 0, drawn on the card
+             and kept on the host. On each:
              (b) placed across the two processes (global devices,
              make_hybrid_mesh): the bytes the placement asked the
              allocator for must equal its share (half of every leaf
              split over the axis, the whole of the rest), nothing for
              the other process's part; (c) greedy generate of 4 prompts
-             of 16-1000 bytes (16 new; under expert the longest cut by a
+             of 16-1000 bytes (16 new, 8 on data2_tensor2; under
+             expert the longest cut by a
              token so the padded length is even and the prefill takes
              the a2a path) and the same 4 requests through a Scheduler
              over a ServingEngine at the serve defaults, collectives
@@ -429,11 +435,20 @@ raises and the script exits non-zero:
              against the plain version (2e-2; under stage the window
              off, through the GPipe schedule) and the step's logits
              checksum; on tensor = 2 a data = 2 mesh across the two
-             processes must be refused at engine construction. The
+             processes must be refused at engine construction. On seq
+             = 2 (c) is generate_long of the 4096-token prompt (16
+             new): ring, Ulysses and ring over the int8 KV, the ring
+             launches exact (a worker its own shard's blocks), then the
+             4 prompts through the Scheduler with the long-prompt lane
+             at threshold 512 (its token count > 0 and equal in all
+             three runs), then every ring block of a short
+             generate_long (bt_ring_stats at the prefill, bt_ring_decode
+             at the decode step) against the plain version within the
+             ringpar element bound, and the step check. The
              parent then runs the same trees, paths and steps in one
              process on cuda:0. Both workers' tokens and checksums must
              be equal, byte for byte, and equal to the one-process run's
-             (tensor = 2: or, for a token row that differs, the
+             (tensor across: or, for a token row that differs, the
              teacher-forced gap within 0.5). The one-process runs'
              launches are this phase's main-path counts; the workers'
              are logged.
@@ -448,7 +463,11 @@ runs at 8 layers; the ckpt phase's tree at 8 layers; the pipe phase's
 stage = 2 serving and generate and the moe phase's int8 serving,
 generate, CLI generate and bench decode leg at 16 new tokens (32, and
 64 for the bench leg, until the multihost phase took stage = 2 and
-expert = 2). Every other phase
+expert = 2); the tp phase's tensor = 2 serving on 4 of the serve
+phase's 8 requests (every other size; 8 until the multihost phase took
+seq = 2 and data2_tensor2); the multihost phase's data2_tensor2
+generate and serving at 8 new tokens (the other meshes 16). Every other
+phase
 keeps its size. The CUPTI subscription of torch's profiler is torn down
 after each capture (TEARDOWN_CUPTI=1, set before torch loads).
 
@@ -3380,6 +3399,9 @@ def phase_ckpt(torch, model, params, tok):
 TP_DP_LAYERS = 4     # the tensor = 4 x data = 2 serving run: 4 layers
 TP_GEN_LAYERS = 8    # tensor = 8 generate and its step check: 8 layers (time)
 TP_NEW = 32          # new tokens of the tensor-parallel requests
+# the tensor = 2 serving run's requests: every other serve-phase size
+# (cut: PERF.md section 4; its prefill, not its decode, takes the time)
+TP_SERVE = slice(0, None, 2)
 
 
 def _one_card_mesh(**axes):
@@ -3649,10 +3671,11 @@ def phase_tp(torch, model, params, qparams, tok, serve_tokens, decode_ref):
     pk = engine.cache.k_pages
     unsharded_pool = 2 * pk.numel() * pk.dtype.itemsize   # k and v
     (prompts, reqs, wall), n = main_path(
-        lambda: _moe_serve(torch, sched, tok, cfg.vocab_size, TP_NEW))
+        lambda: _moe_serve(torch, sched, tok, cfg.vocab_size, TP_NEW,
+                           _SERVE_BYTES[TP_SERVE]))
     assert n["paged"] > 0 and n["paged"] % (L * 2) == 0, n
     equal, gaps, first = 0, [], []
-    for p, r, ref in zip(prompts, reqs, serve_tokens):
+    for p, r, ref in zip(prompts, reqs, serve_tokens[TP_SERVE]):
         if r.output == ref[:TP_NEW]:
             equal += 1
         else:
@@ -3662,9 +3685,10 @@ def phase_tp(torch, model, params, qparams, tok, serve_tokens, decode_ref):
     ttfts = sorted(r.ttft for r in reqs)
     log("tp", step="serve", mesh="tensor2_on_cuda:0", layers=L,
         slots=rt.max_batch_size, setup_s=f"{setup:.1f}",
-        wall_s=f"{wall:.3f}", tokens_per_s=f"{8 * TP_NEW / wall:.2f}",
+        wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{len(reqs) * TP_NEW / wall:.2f}",
         ttft_p50_s=f"{statistics.median(ttfts):.4f}",
-        equal_to_serve_phase=f"{equal}/8",
+        equal_to_serve_phase=f"{equal}/{len(reqs)}",
         first_divergence=",".join(map(str, first)) or "none",
         teacher_forced_gap=f"{max(gaps):.4g}" if gaps else "none",
         paged_launches=n["paged"],
@@ -5356,12 +5380,18 @@ def _ptxas_kernels(err):
 MH_LAYERS = 4          # the tree of the tp phase's tensor = 4 x data = 2 run
 MH_MOE_LAYERS = 2      # the Mixtral tree of the expert = 2 run
 MH_NEW = 16            # new tokens of each generate row and request
+MH_DATA_NEW = 8        # data2_tensor2's (cut: PERF.md section 4)
 MH_BYTES = (16, 200, 600, 1000)   # prompt bytes, 4 requests
 MH_STEP_S = 100        # the step's budget (PERF.md section 4)
 MH_WAIT_S = 300        # the parent's bound on its workers: a desync fails
 MH_PG_TIMEOUT_S = 60   # each worker's collective timeout
+MH_SEQ_THRESHOLD = 512  # seq2 serving: the longest prompt takes the lane
 # the meshes across the two processes, in the order the workers run them
-MH_MESHES = (("tensor2", dict(tensor=2)), ("stage2", dict(stage=2)),
+# (the Llama-3-8B tree drawn once for the first four); data2_tensor2
+# holds a data axis of 2 inside each process beside tensor across them
+MH_MESHES = (("tensor2", dict(tensor=2)),
+             ("data2_tensor2", dict(data=2, tensor=2)),
+             ("stage2", dict(stage=2)), ("seq2", dict(seq=2)),
              ("expert2", dict(expert=2)))
 
 
@@ -5398,9 +5428,30 @@ def _mh_leaves(tree):
 
 
 def _mh_axis(mesh) -> str:
-    """The one axis of a multihost mesh, the one that crosses."""
-    return next(a for a in ("tensor", "stage", "expert")
+    """The axis of a multihost mesh that crosses the processes (beside
+    it at most a data axis inside them)."""
+    return next(a for a in ("tensor", "stage", "expert", "seq")
                 if mesh.shape[a] > 1)
+
+
+def _mh_mesh(devs, axes):
+    """The mesh of `axes` over the two workers' global devices `devs`
+    (one card a worker): one axis across them; with a data axis, two
+    shards a worker on its card, each worker its own slice, so that
+    make_hybrid_mesh lays the other axis across the workers and data
+    inside each (the JAX runs' arrangement)."""
+    import dataclasses
+
+    from butterfly_tpu_torch.core.config import MeshConfig
+    from butterfly_tpu_torch.core.mesh import make_hybrid_mesh
+    cfg = MeshConfig(**axes)
+    if cfg.data == 1:
+        return make_hybrid_mesh(cfg, devs)
+    inside = [dataclasses.replace(d, id=cfg.data * i + j,
+                                  slice_index=d.process_index)
+              for i, d in enumerate(devs) for j in range(cfg.data)]
+    cross = next(a for a, n in axes.items() if a != "data" and n > 1)
+    return make_hybrid_mesh(cfg, inside, dcn_axes=(cross,))
 
 
 def _mh_held_bytes(tree, cfg, mesh):
@@ -5408,7 +5459,9 @@ def _mh_held_bytes(tree, cfg, mesh):
     each leaf split over the axis that crosses (tensor and expert: as
     the specs split them; stage: every layer-stacked leaf), the whole of
     every other (the embedding, the final norm and the head are every
-    process's under stage; attention, norms and router under expert)."""
+    process's under stage; attention, norms and router under expert;
+    the whole tree under seq, which splits no weight; data groups on
+    one card share their replica)."""
     from butterfly_tpu_torch.parallel.partition import param_specs
     axis = _mh_axis(mesh)
     specs = param_specs(cfg, mesh)
@@ -5468,26 +5521,15 @@ def _collective_tally(torch, tally):
             setattr(dist, k, fn)
 
 
-def _mh_run(torch, model, placed, mesh, prompts):
+def _mh_run(torch, model, placed, mesh, prompts, new=MH_NEW):
     """The step's main path on `mesh`: greedy generate of `prompts`
-    (MH_NEW new, fused), then the same prompts as requests through a
-    Scheduler over a ServingEngine at the serve defaults; then one decode
-    step (_step_inputs) with each local shard's or stage's in-model paged
-    kernel checked against its plain version: windowed, or under stage
-    with the window off through the GPipe schedule (a page for the token
-    written). Returns a dict."""
-    import butterfly_tpu_torch.ops.paged_attention as pa_mod
-    from butterfly_tpu_torch.cache.paged import (paged_forward,
-                                                 paged_forward_window)
+    (`new` new tokens, fused), then the same prompts as requests through a
+    Scheduler over a ServingEngine at the serve defaults; then the step
+    check (_mh_step). Returns a dict."""
     from butterfly_tpu_torch.core.config import RuntimeConfig
-    from butterfly_tpu_torch.core.mesh import mesh_ctx
     from butterfly_tpu_torch.engine.engine import InferenceEngine
     from butterfly_tpu_torch.engine.sampling import SamplingParams
     from butterfly_tpu_torch.engine.serving import ServingEngine
-    from butterfly_tpu_torch.ops.paged_attention import (paged_attention,
-                                                         paged_attention_ref)
-    from butterfly_tpu_torch.parallel.partition import (shard_kv_window,
-                                                        shard_paged_cache)
     from butterfly_tpu_torch.sched.scheduler import Scheduler
     from butterfly_tpu_torch.serve.cli import build_parser
     cfg = model.cfg
@@ -5496,7 +5538,7 @@ def _mh_run(torch, model, placed, mesh, prompts):
     t0 = time.monotonic()
     with _collective_tally(torch, {"n": 0, "bytes": 0, "s": 0.0}) as tally:
         gen = InferenceEngine(model, placed, mesh=mesh).generate(
-            prompts, SamplingParams(max_new_tokens=MH_NEW))
+            prompts, SamplingParams(max_new_tokens=new))
         torch.cuda.synchronize()
     out["generate_s"] = time.monotonic() - t0
     out["generate_collectives"] = tally
@@ -5509,18 +5551,35 @@ def _mh_run(torch, model, placed, mesh, prompts):
     _zero_counts()
     t0 = time.monotonic()
     with _collective_tally(torch, {"n": 0, "bytes": 0, "s": 0.0}) as tally:
-        reqs = [sched.submit(p, max_new_tokens=MH_NEW) for p in prompts]
+        reqs = [sched.submit(p, max_new_tokens=new) for p in prompts]
         sched.run_until_done()
         torch.cuda.synchronize()
     out["serve_s"] = time.monotonic() - t0
     out["serve_collectives"] = tally
     out["serve_launches"] = _launch_counts()
     for r in reqs:
-        assert r.state == "finished" and len(r.output) == MH_NEW, r.id
+        assert r.state == "finished" and len(r.output) == new, r.id
     out["serve"] = [r.output for r in reqs]
     sched.engine.cache = sched.engine._kv_window = None
     del sched
+    out.update(_mh_step(torch, cfg, placed, mesh))
+    return out
 
+
+def _mh_step(torch, cfg, placed, mesh):
+    """One decode step (_step_inputs) on `mesh` with each local shard's
+    or stage's in-model paged kernel checked against its plain version:
+    windowed, or under stage with the window off through the GPipe
+    schedule (a page for the token written). Returns a dict."""
+    import butterfly_tpu_torch.ops.paged_attention as pa_mod
+    from butterfly_tpu_torch.cache.paged import (paged_forward,
+                                                 paged_forward_window)
+    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.ops.paged_attention import (paged_attention,
+                                                         paged_attention_ref)
+    from butterfly_tpu_torch.parallel.partition import (shard_kv_window,
+                                                        shard_paged_cache)
+    out = {}
     stage = _mh_axis(mesh) == "stage"
     cache, win, wlen, active, toks = _step_inputs(torch, cfg)
     if stage:
@@ -5566,11 +5625,116 @@ def _mh_run(torch, model, placed, mesh, prompts):
 def _mh_step_calls(name: str, one: bool) -> int:
     """The in-model paged kernel calls of the step on mesh `name`, in a
     worker or (`one`) in the one-process run: a call per local shard and
-    layer; under stage per local layer and microbatch (M = 4 for 8
-    slots over 2 stages), the window off."""
-    per = {"tensor2": MH_LAYERS, "stage2": MH_LAYERS // 2 * 4,
+    layer (and data group); under stage per local layer and microbatch
+    (M = 4 for 8 slots over 2 stages), the window off; under expert and
+    seq one a layer (the decode step does not split)."""
+    per = {"tensor2": MH_LAYERS, "data2_tensor2": 2 * MH_LAYERS,
+           "stage2": MH_LAYERS // 2 * 4, "seq2": MH_LAYERS,
            "expert2": MH_MOE_LAYERS}[name]
-    return per * 2 if one and name != "expert2" else per
+    return per * 2 if one and name not in ("expert2", "seq2") else per
+
+
+def _mh_ring_launches(one: bool) -> tuple:
+    """(ring launches, of them T = 1) of the seq2 run's three
+    generate_long calls (ring, Ulysses, ring over int8 KV; MH_NEW new):
+    a worker runs its own shard, one of N = 2: at the ring prefill its N
+    blocks a layer, at each decode step its prefix block and the
+    replicated suffix block a layer; one process N * N and N + 1."""
+    L, N, steps = MH_LAYERS, 2, MH_NEW - 1
+    dec = 3 * steps * L * ((N + 1) if one else 2)
+    return 2 * L * (N * N if one else N) + dec, dec
+
+
+def _mh_seq_run(torch, model, placed, mesh, prompts, long_ids):
+    """The seq = 2 step's main path on `mesh`: generate_long of the
+    4096-token prompt (MH_NEW new; ring, Ulysses, ring over the int8
+    KV), then the step's prompts through a Scheduler over a
+    ServingEngine at the serve defaults whose long-prompt lane
+    (threshold MH_SEQ_THRESHOLD) takes the longest, collectives
+    counted; then one generate_long of 2 new tokens with every ring
+    block this process runs (bt_ring_stats at the prefill, its shard's
+    T = 1 prefix block and the suffix block, bt_ring_decode, at the
+    decode step) held to the plain version by the ringpar phase's
+    element bound, and the paged step check. Returns a dict."""
+    import butterfly_tpu_torch.parallel.sequence as seq_mod
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.ops import ring_attention as ra
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    from butterfly_tpu_torch.serve.cli import build_parser
+    cfg = model.cfg
+    sp = SamplingParams(max_new_tokens=MH_NEW)
+    out = {"generate": []}
+    _zero_counts()
+    ra.launches = ra.launches_decode = 0
+    t0 = time.monotonic()
+    with _collective_tally(torch, {"n": 0, "bytes": 0, "s": 0.0}) as tally:
+        for kvq, impl in (("none", "ring"), ("none", "ulysses"),
+                          ("int8", "ring")):
+            eng = InferenceEngine(model, placed, RuntimeConfig(
+                kv_quant=kvq, max_seq_len=4096), mesh=mesh)
+            res = eng.generate_long(long_ids, sp, impl=impl)
+            _check_tokens(res, 1, MH_NEW, cfg.vocab_size, f"seq2 {impl}")
+            out["generate"].append(res.tokens[0].tolist())
+        torch.cuda.synchronize()
+    out["generate_s"] = time.monotonic() - t0
+    out["generate_collectives"] = tally
+    out["generate_launches"] = {**_launch_counts(), "ring": ra.launches,
+                                "ring_t1": ra.launches_decode}
+    args = build_parser().parse_args(["serve", "--model", "llama3-8b"])
+    rt = RuntimeConfig(max_batch_size=args.max_batch,
+                       max_seq_len=args.max_seq, page_size=args.page_size,
+                       seq_parallel_threshold=MH_SEQ_THRESHOLD)
+    sched = Scheduler(ServingEngine(model, placed, rt, mesh=mesh))
+    _zero_counts()
+    ra.launches = ra.launches_decode = 0
+    t0 = time.monotonic()
+    with _collective_tally(torch, {"n": 0, "bytes": 0, "s": 0.0}) as tally:
+        reqs = [sched.submit(p, max_new_tokens=MH_NEW) for p in prompts]
+        sched.run_until_done()
+        torch.cuda.synchronize()
+    out["serve_s"] = time.monotonic() - t0
+    out["serve_collectives"] = tally
+    out["serve_launches"] = {**_launch_counts(), "ring": ra.launches,
+                             "ring_t1": ra.launches_decode}
+    for r in reqs:
+        assert r.state == "finished" and len(r.output) == MH_NEW, r.id
+    out["serve"] = [r.output for r in reqs]
+    out["lane_tokens"] = int(
+        sched.metrics()["seq_parallel_prefill_tokens_total"])
+    sched.engine.cache = sched.engine._kv_window = None
+    del sched
+    # every ring block of one short run, kernel against plain
+    checks = {True: [], False: []}          # T = 1 or not: ratio, abs err
+
+    def checked(*a, kernel=None):
+        stats = ra.ring_block_stats(*a)
+        ref = ra.ring_block_stats_ref(*a)
+        _, _, err, elem, _ = _ring_check(torch, ra, a, stats, ref, True)
+        checks[a[0].shape[1] == 1].append((elem, err))
+        return stats
+    seq_mod.block_stats = checked
+    try:
+        InferenceEngine(model, placed, RuntimeConfig(max_seq_len=4096),
+                        mesh=mesh).generate_long(
+            long_ids, SamplingParams(max_new_tokens=2))
+    finally:
+        seq_mod.block_stats = ra.block_stats
+    torch.cuda.synchronize()
+    for t1, name in ((False, "ring_stats"), (True, "ring_decode")):
+        out[f"{name}_checks"] = len(checks[t1])
+        out[f"{name}_ratio"] = max(c[0] for c in checks[t1])
+        out[f"{name}_err"] = max(c[1] for c in checks[t1])
+    torch.cuda.empty_cache()
+    out.update(_mh_step(torch, cfg, placed, mesh))
+    return out
+
+
+def _mh_new(name: str) -> int:
+    """New tokens of mesh `name`'s generate rows and requests."""
+    return MH_DATA_NEW if name == "data2_tensor2" else MH_NEW
 
 
 def _mh_prompts(prompts, name):
@@ -5603,7 +5767,8 @@ def _multihost_worker(pid: int, port: int, outdir: str) -> int:
     from butterfly_tpu_torch.parallel.tensor import (all_to_all_blocks,
                                                      exchange)
     with open(os.path.join(outdir, "prompts.json")) as f:
-        prompts = json.load(f)
+        both = json.load(f)
+    prompts, long_ids = both["prompts"], both["long"]
     init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=2,
                      process_id=pid, timeout_s=MH_PG_TIMEOUT_S)
     dist = torch.distributed
@@ -5661,7 +5826,7 @@ def _multihost_worker(pid: int, port: int, outdir: str) -> int:
             to_host(tree, host)
             del tree
             torch.cuda.empty_cache()
-        mesh = make_hybrid_mesh(MeshConfig(**axes), devs)
+        mesh = _mh_mesh(devs, axes)
         run = {"tree_checksum": checksum, "mesh": repr(mesh)}
         torch.cuda.synchronize()
         before = _requested_bytes(torch)
@@ -5671,8 +5836,10 @@ def _multihost_worker(pid: int, port: int, outdir: str) -> int:
         run["held_bytes"] = _mh_held_bytes(host, model.cfg, mesh)
         run["tree_bytes"] = sum(t.nbytes for t in _mh_leaves(host))
         # (c) generate and serving, then the step check
-        out = _mh_run(torch, model, placed, mesh,
-                      _mh_prompts(prompts, name))
+        out = (_mh_seq_run(torch, model, placed, mesh, prompts, long_ids)
+               if name == "seq2" else _mh_run(torch, model, placed, mesh,
+                                              _mh_prompts(prompts, name),
+                                              _mh_new(name)))
         torch.save(out.pop("step_logits"),
                    os.path.join(outdir, f"worker{pid}_{name}_logits.pt"))
         run.update(out)
@@ -5727,8 +5894,9 @@ def phase_multihost(torch, tok):
     shutil.rmtree(outdir, ignore_errors=True)
     os.makedirs(outdir)
     prompts = [tok.encode(_TEXT[:n]) for n in MH_BYTES]
+    long_ids = tok.encode(_LONG)
     with open(os.path.join(outdir, "prompts.json"), "w") as f:
-        json.dump(prompts, f)
+        json.dump({"prompts": prompts, "long": long_ids}, f)
     port = _free_port()
     logs = [open(os.path.join(outdir, f"worker{p}.log"), "w")
             for p in range(2)]
@@ -5778,10 +5946,9 @@ def phase_multihost(torch, tok):
                 serve_s=f"{w['serve_s']:.3f}",
                 generate_collectives=_tally_text(w["generate_collectives"]),
                 serve_collectives=_tally_text(w["serve_collectives"]),
-                generate_fresh=w["generate_launches"]["fresh"],
-                generate_paged=w["generate_launches"]["paged"],
-                serve_paged=w["serve_launches"]["paged"],
-                serve_fresh=w["serve_launches"]["fresh"],
+                generate_launches=_counts_text(w["generate_launches"]),
+                serve_launches=_counts_text(w["serve_launches"]),
+                **_mh_seq_fields(w),
                 step_kernel_calls=w["step_calls"],
                 step_max_layer_abs_err=f"{w['step_err']:.3g}",
                 step_logits_checksum=repr(w["step_checksum"]),
@@ -5792,9 +5959,13 @@ def phase_multihost(torch, tok):
             assert w["step_err"] <= LAYER_TOL, (name, w["step_err"])
             assert w["step_calls"] == _mh_step_calls(name, False), \
                 (name, w["step_calls"])
+            if name == "seq2":
+                _mh_check_seq(w, False)
+                continue
             # a launch per local layer (per microbatch under stage) for
             # each prefill call (fresh) or decode step (paged)
-            local = {"tensor2": MH_LAYERS, "stage2": MH_LAYERS // 2,
+            local = {"tensor2": MH_LAYERS, "data2_tensor2": MH_LAYERS,
+                     "stage2": MH_LAYERS // 2,
                      "expert2": MH_MOE_LAYERS}[name]
             for run, k in (("generate_launches", "fresh"),
                            ("serve_launches", "paged")):
@@ -5811,9 +5982,10 @@ def phase_multihost(torch, tok):
         assert wa["serve"] == wb["serve"], \
             f"{name}: the processes' tokens differ"
         assert wa["step_checksum"] == wb["step_checksum"], name
+        assert wa.get("lane_tokens") == wb.get("lane_tokens"), name
 
     # the same trees and paths in one process, every shard on cuda:0
-    counts = {"paged": 0, "fresh": 0}
+    counts = {"paged": 0, "fresh": 0, "ring": 0}
     model = tree = None
     for name, axes in MH_MESHES:
         t_mesh = time.monotonic()
@@ -5827,53 +5999,65 @@ def phase_multihost(torch, tok):
         assert float(tree["embed"]["tok"].float().sum().item()) \
             == w["tree_checksum"], name
         mesh = _one_card_mesh(**axes)
-        mprompts = _mh_prompts(prompts, name)
-        one = _mh_run(torch, model, shard_params(tree, model.cfg, mesh),
-                      mesh, mprompts)
+        placed = shard_params(tree, model.cfg, mesh)
+        if name == "seq2":
+            # the three generate_long rows are the long prompt's
+            one = _mh_seq_run(torch, model, placed, mesh, prompts, long_ids)
+            asked = {"generate": [long_ids] * 3, "serve": prompts}
+        else:
+            mprompts = _mh_prompts(prompts, name)
+            one = _mh_run(torch, model, placed, mesh, mprompts,
+                          _mh_new(name))
+            asked = {"generate": mprompts, "serve": mprompts}
+        del placed
         step_gap = max((torch.load(os.path.join(
             outdir, f"worker{p}_{name}_logits.pt")) - one["step_logits"]
         ).abs().max().item() for p in range(2))
         gaps, first = [], []
-        for kind in ("generate", "serve"):
-            for i in range(len(mprompts)):
+        for kind, ps in asked.items():
+            for i, prompt in enumerate(ps):
                 got, want = w[kind][i], one[kind][i]
                 if got != want:
                     first.append(f"{kind}{i}@{_divergence(got, want)}")
                     gaps.append(_teacher_forced_gap(torch, tree, model.cfg,
-                                                    mprompts[i], got))
+                                                    prompt, got))
+        rows = sum(map(len, asked.values()))
         log("multihost", step="one_process", mesh=f"{name}_on_cuda:0",
             seconds=f"{time.monotonic() - t_mesh:.1f}",
-            equal_to_workers=f"{2 * len(mprompts) - len(first)}/"
-            f"{2 * len(mprompts)}", first_divergence=",".join(first)
-            or "none",
+            equal_to_workers=f"{rows - len(first)}/{rows}",
+            first_divergence=",".join(first) or "none",
             teacher_forced_gap=f"{max(gaps):.4g}" if gaps else "none",
             step_logits_vs_workers=f"{step_gap:.4g}",
             step_logits_checksum=repr(one["step_checksum"]),
             generate_s=f"{one['generate_s']:.3f}",
             serve_s=f"{one['serve_s']:.3f}",
-            generate_fresh=one["generate_launches"]["fresh"],
-            generate_paged=one["generate_launches"]["paged"],
-            serve_paged=one["serve_launches"]["paged"],
-            serve_fresh=one["serve_launches"]["fresh"],
+            generate_launches=_counts_text(one["generate_launches"]),
+            serve_launches=_counts_text(one["serve_launches"]),
+            **_mh_seq_fields(one),
             step_kernel_calls=one["step_calls"],
             step_max_layer_abs_err=f"{one['step_err']:.3g}")
         assert one["step_err"] <= LAYER_TOL, (name, one["step_err"])
         assert one["step_calls"] == _mh_step_calls(name, True), \
             (name, one["step_calls"])
-        if name == "tensor2":
+        if name == "seq2":
+            _mh_check_seq(one, True)
+            assert one["lane_tokens"] == w["lane_tokens"], \
+                (one["lane_tokens"], w["lane_tokens"])
+        if _mh_axis(mesh) == "tensor":
             # two f32 partials sum alike on host and card; a differing
             # row is held by its teacher-forced gap
             if gaps:
                 assert max(gaps) <= LOGITS_TOL, \
                     f"teacher-forced gap {max(gaps)}"
         else:
-            # the hand-offs and the expert exchanges move exact bytes and
-            # every process computes what the one process computes
+            # the hand-offs, the expert exchanges and the ring's blocks
+            # move exact bytes, the decode merges gather every shard's
+            # partials: every process computes what the one process does
             assert not first, f"{name}: {first}"
             assert w["step_checksum"] == one["step_checksum"], name
         for k in counts:
-            counts[k] += one["generate_launches"][k] \
-                + one["serve_launches"][k]
+            counts[k] += one["generate_launches"].get(k, 0) \
+                + one["serve_launches"].get(k, 0)
         del one
     seconds = time.monotonic() - t_phase
     log("multihost", step="done", workers_s=f"{workers_s:.1f}",
@@ -5884,6 +6068,40 @@ def phase_multihost(torch, tok):
     gc.collect()
     torch.cuda.empty_cache()
     return counts, seconds
+
+
+def _counts_text(c) -> str:
+    """Kernel launches as one word: kind:count joined by '+'."""
+    return "+".join(f"{k}:{n}" for k, n in sorted(c.items()))
+
+
+def _mh_seq_fields(w) -> dict:
+    """The seq2 run's extra log fields (none on the other meshes)."""
+    if "lane_tokens" not in w:
+        return {}
+    return {"lane_tokens": w["lane_tokens"],
+            **{f"{k}_{f}": (w[f"{k}_{f}"] if f == "checks"
+                            else f"{w[f'{k}_{f}']:.3g}")
+               for k in ("ring_stats", "ring_decode")
+               for f in ("checks", "ratio", "err")}}
+
+
+def _mh_check_seq(w, one: bool) -> None:
+    """The seq2 run's checks in a worker or (`one`) in one process: the
+    ring launches of its generate_long calls exact, the lane taken,
+    every ring block within the element bound (a worker checks its own
+    shard's blocks: N a layer at the prefill, its prefix block and the
+    suffix block at the decode step; one process N * N and N + 1)."""
+    want, want_t1 = _mh_ring_launches(one)
+    g = w["generate_launches"]
+    assert (g["ring"], g["ring_t1"]) == (want, want_t1), (g, want, want_t1)
+    assert w["serve_launches"]["ring"] > 0, w["serve_launches"]
+    assert w["lane_tokens"] > 0, w["lane_tokens"]
+    L, N = MH_LAYERS, 2
+    assert w["ring_stats_checks"] == L * (N * N if one else N), w
+    assert w["ring_decode_checks"] == L * ((N + 1) if one else 2), w
+    for k in ("ring_stats", "ring_decode"):
+        assert w[f"{k}_ratio"] <= 1.0, (k, w[f"{k}_ratio"])
 
 
 def main() -> int:
@@ -6043,7 +6261,7 @@ def main() -> int:
               "butterfly_tpu_torch/ops/csrc/ring_attention.cu",
               "butterfly_tpu/ops/ring_attention.py:158",
               long_ring + bench["ring"] + tools["ring"] + comb["ring"]
-              + comb_moe["ring"], rres,
+              + comb_moe["ring"] + mh["ring"], rres,
               "diag_bf16"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,9 +13,11 @@ over a ServingEngine), and logits within 2e-5 of the port's one-process
 tensor = 2 run (for two shards the float32 all-reduce is the one-process
 sum, so the bits are expected equal). A data axis across processes fails
 in the JAX package at its first read-back and is refused by the port at
-engine construction; seq across processes waits for its ROADMAP item
-(stage and expert across processes: tests/test_torch_distributed_axes.py). The CLI under BUTTERFLY_NUM_PROCESSES=2 prints, in
-both processes, the one-process text.
+engine construction; the seq axis across them runs generate_long
+(stage and expert across processes: tests/test_torch_distributed_axes.py;
+seq and data inside: tests/test_torch_distributed_seq.py). The CLI under
+BUTTERFLY_NUM_PROCESSES=2 prints, in both processes, the one-process
+text.
 """
 import argparse
 import json
@@ -370,23 +372,28 @@ def test_tensor_across_processes_other_paths(runs):
 
 # -- (4) the refusals --------------------------------------------------------
 
-def test_data_across_processes_refused_as_jax_fails(runs):
+def test_data_across_processes_refused_as_jax_fails(runs, weights):
     """A data axis across the two processes: the JAX worker raises
     RuntimeError at its first read-back; the port refuses at engine
-    construction. Seq across processes waits for its ROADMAP item (stage
-    and expert across processes run: tests/test_torch_distributed_axes.py
-    holds them to the JAX package's runs)."""
+    construction, and that is its only refusal here. The seq axis across
+    the processes runs: generate_long on the 37-token prompt gives in
+    both processes the one-process seq = 2 run's tokens (stage and
+    expert across processes: tests/test_torch_distributed_axes.py; seq
+    and data inside: tests/test_torch_distributed_seq.py)."""
     for r in runs["jax"]:
         kind, msg = r["data_error"]
         assert kind == "RuntimeError" and "non-addressable" in msg
+    model = TC.Model(_cfg(), device="cpu")
+    want = InferenceEngine(model, weights[1], mesh=TM.make_mesh(
+        MeshConfig(seq=2), ["cpu"] * 2)).generate_long(
+        W.LONG_PROMPT, SamplingParams(max_new_tokens=W.GEN_NEW)
+    ).tokens.tolist()
     for r in runs["port"]:
         kind, msg = r["refusals"]["data"]
         assert kind == "RuntimeError"
         assert "first read-back" in msg and "engine/engine.py:259" in msg
-        assert set(r["refusals"]) == {"data", "seq"}
-        kind, msg = r["refusals"]["seq"]
-        assert kind == "NotImplementedError"
-        assert "ROADMAP.md Queue 1: seq across processes" in msg
+        assert set(r["refusals"]) == {"data"}
+        assert r["seq_long"] == want
 
 
 # -- (5) the CLI -------------------------------------------------------------

@@ -16,7 +16,8 @@ the alternating path, n-gram speculation, the interleaved schedule, the
 int8 tree) the port's one-process run on the same mesh; the forward's
 logits within 2e-5 of it. Each process holds only its own stages' or
 expert shards' parts plus the replicated rest. Meshes that still span
-processes only with a refusal raise it; the CLI under
+processes only with a refusal raise it, and a data axis inside them
+beside the one that crosses runs; the CLI under
 BUTTERFLY_NUM_PROCESSES=2 prints the one-process text in both processes.
 """
 import argparse
@@ -222,30 +223,58 @@ def _fake_mesh(monkeypatch, axes, procs):
     (dict(stage=2, expert=2), [0, 1, 2, 3], "stage, expert"),
     (dict(expert=2, tensor=2), [0, 1, 2, 3], "expert, tensor"),
     (dict(stage=2, tensor=2), [0, 0, 1, 1], "stage"),
+    (dict(data=2, seq=2), [0, 1, 0, 1], "seq"),
 ])
 def test_two_axes_across_processes_refused(monkeypatch, axes, procs,
                                            crossing):
-    """Two axes crossing the processes at once, or another axis inside
-    them beside the one that crosses, raise NotImplementedError naming
-    their ROADMAP item."""
+    """Two axes crossing the processes at once, or another axis than
+    data inside them beside the one that crosses, raise
+    NotImplementedError naming their ROADMAP item; a data axis inside
+    the processes beside the one that crosses (data = 2 beside seq
+    across) passes."""
     mesh = _fake_mesh(monkeypatch, axes, procs)
     assert ", ".join(TM.axes_across_processes(mesh)) == crossing
+    if axes.get("data", 1) > 1:
+        TM.check_process_mesh(mesh)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: two "
                        "axes across processes at once"):
         TM.check_process_mesh(mesh)
 
 
-def test_data_inside_processes_refused(monkeypatch):
-    """A data axis inside the processes beside an axis across them
-    raises NotImplementedError naming its item; a mesh whose axis does
-    not run in process order raises ValueError."""
-    mesh = _fake_mesh(monkeypatch, dict(data=2, stage=2), [0, 1, 0, 1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: data "
-                       "groups beside an axis across processes"):
+def test_data_inside_processes_refused(monkeypatch, runs):
+    """A data axis inside the processes beside an axis across them runs:
+    the mesh check passes for each of tensor, stage, expert and seq
+    across, each process's devices of each data group are its own
+    (`data_devices`, `local_group_devices`), and the worker's greedy
+    generate with data = 2 inside beside stage across gives the JAX
+    pair's stage tokens. What stays refused: a data axis across the
+    processes (RuntimeError in the worker, the JAX package's failure),
+    and a crossing axis that does not run in process order
+    (ValueError, in a data group too); seq across the processes runs
+    generate_long alike in both workers."""
+    for axis in ("tensor", "stage", "expert", "seq"):
+        mesh = _fake_mesh(monkeypatch, {"data": 2, axis: 2}, [0, 1, 0, 1])
         TM.check_process_mesh(mesh)
+        assert TM.axes_across_processes(mesh) == [axis]
+        assert [TM.owner(mesh, axis, i) for i in range(2)] == [0, 1]
+        assert mesh.local_group_devices(1) == [torch.device("cpu")]
     mesh = _fake_mesh(monkeypatch, dict(expert=4), [0, 1, 0, 1])
     with pytest.raises(ValueError, match="expert axis must hold every one"):
         TM.check_process_mesh(mesh)
+    mesh = _fake_mesh(monkeypatch, dict(data=2, expert=2), [1, 0, 1, 0])
+    with pytest.raises(ValueError, match="in data group 0"):
+        TM.check_process_mesh(mesh)
+    mesh = _fake_mesh(monkeypatch, dict(data=2, tensor=2), [0, 0, 1, 1])
+    with pytest.raises(RuntimeError, match="first read-back"):
+        TM.check_process_mesh(mesh)
+    j0 = runs["jax_axes"][0]
+    a, b = runs["port_axes"]
+    for r in (a, b):
+        kind, msg = r["refusals"]["data"]
+        assert kind == "RuntimeError" and "first read-back" in msg
+        assert r["data2_stage_generate"] == j0["stage_generate"]
+    assert a["seq_long"] == b["seq_long"]
 
 
 def test_owner_and_local_stages(monkeypatch):

@@ -6,6 +6,8 @@ of a two-process job, on the CPU, one device a process.
     python torch_distributed_worker.py port <pid> <n> <port> <outdir> <weights.npz>
     python torch_distributed_worker.py jax_axes  <pid> <n> <port> <outdir>
     python torch_distributed_worker.py port_axes <pid> <n> <port> <outdir> <weights_dir>
+    python torch_distributed_worker.py jax_seq   <pid> <n> <port> <outdir>
+    python torch_distributed_worker.py port_seq  <pid> <n> <port> <outdir> <weights_dir>
 
 `jax` runs the JAX package's multi-host path (init_distributed,
 make_hybrid_mesh over jax.devices(), shard_params) on the tiny float32
@@ -14,7 +16,8 @@ ServingEngine with the tensor axis across the two processes, then a data
 axis across them, which the JAX package fails at its first read-back.
 `port` runs the same on butterfly_tpu_torch (gloo), with the same weights
 from `weights.npz` (models/bridge.py:params_from_numpy), plus the worker
-sum, all_hosts_probe, the forward's logits and the refusals. Each writes
+sum, all_hosts_probe, the forward's logits, the data axis's refusal and
+generate_long with the seq axis across the processes. Each writes
 `<outdir>/<mode><pid>.json` (and the port `<outdir>/port<pid>.npz`).
 
 `jax_axes` and `port_axes` run the same with the stage axis across the
@@ -27,7 +30,17 @@ The port adds the stepped loop, temperature 1.0, the int8 KV pool, the
 alternating path, n-gram speculation (generate and serving), the
 interleaved schedule (a 4-layer Llama from torch seed 0, V = 2), the
 int8 tree, the forward's logits, what each process holds, and each axis
-at 4 shards, a run of two a process.
+at 4 shards, a run of two a process; then the data axis's refusal,
+generate_long with seq across and generate with data = 2 inside beside
+stage across.
+
+`jax_seq` and `port_seq` run the seq axis across the two processes (the
+tiny float32 Llama: generate_long, ring and Ulysses, on a 37-token
+prompt; a Scheduler whose long-prompt lane takes it), then data = 2
+inside each process beside each of tensor, stage, expert (the tiny
+Mixtral) and seq across them (two CPU devices a process). The port adds
+the int8 KV, temperature 1.0, the forward's and a decode step's logits
+and which seq shards each process holds.
 """
 import json
 import os
@@ -43,6 +56,13 @@ LOGIT_TOKENS = np.random.RandomState(3).randint(0, 258, (2, 7))
 # an even padded length: the expert = 2 prefill takes the a2a path
 A2A_PROMPTS = [[1, 2, 3, 4, 5, 6, 7, 8], [7, 8, 9]]
 AXES_LOGIT_TOKENS = np.random.RandomState(4).randint(0, 258, (2, 8))
+# the seq axis across the processes: a 37-token prompt, the long-prompt
+# lane's threshold below it
+LONG_PROMPT = np.random.RandomState(7).randint(1, 258, 37).tolist()
+SEQ_THRESHOLD = 16
+# data = 2 inside each process beside each axis across them
+INSIDE = (("tensor", "llama", {}), ("stage", "llama", {}),
+          ("expert", "mixtral", dict(moe_impl="ep")), ("seq", "llama", {}))
 
 
 def flatten(tree, prefix=""):
@@ -221,12 +241,14 @@ def run_port(pid, n, port, outdir, weights):
 
     out["variants"] = variants(mesh)
 
-    refusals = {}
-    for axis in ("data", "seq"):
-        m = make_hybrid_mesh(MeshConfig(**{axis: n}), devs)
-        refusals[axis] = _error(lambda: InferenceEngine(model, params,
-                                                        mesh=m))
-    out["refusals"] = refusals
+    # a data axis across the processes is refused (the JAX package fails
+    # there); seq across them runs generate_long
+    dmesh = make_hybrid_mesh(MeshConfig(data=n), devs)
+    out["refusals"] = {"data": _error(lambda: InferenceEngine(
+        model, params, mesh=dmesh))}
+    out["seq_long"] = InferenceEngine(
+        model, params, mesh=make_hybrid_mesh(MeshConfig(seq=n), devs)
+    ).generate_long(LONG_PROMPT, sp).tokens.tolist()
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     np.savez(os.path.join(outdir, f"port{pid}.npz"),
@@ -393,6 +415,7 @@ def run_port_axes(pid, n, port, outdir, wdir):
                                                init_distributed,
                                                make_hybrid_mesh, make_mesh)
     from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
     from butterfly_tpu_torch.models import common as TC
     from butterfly_tpu_torch.models.bridge import params_from_numpy
 
@@ -413,18 +436,216 @@ def run_port_axes(pid, n, port, outdir, wdir):
                 for i in range(4)]
         out[f"{axis}4"] = four_shard_runs(
             make_mesh(MeshConfig(**{axis: 4}), four), axis)
-    refusals = {}
+    # a data axis across the processes is refused; seq across them and
+    # data inside them beside the stage axis run
     cfg = tiny("llama", dtype="float32", param_dtype="float32")
     params = params_from_numpy(unflatten(dict(np.load(
         os.path.join(wdir, "llama.npz")))), device="cpu")
-    for axis in ("data", "seq"):
-        m = make_hybrid_mesh(MeshConfig(**{axis: n}), devs)
-        refusals[axis] = _error(lambda: InferenceEngine(
-            TC.Model(cfg, device="cpu"), params, mesh=m))
-    out["refusals"] = refusals
+    model = TC.Model(cfg, device="cpu")
+    dmesh = make_hybrid_mesh(MeshConfig(data=n), devs)
+    out["refusals"] = {"data": _error(lambda: InferenceEngine(
+        model, params, mesh=dmesh))}
+    sp = SamplingParams(max_new_tokens=GEN_NEW)
+    out["seq_long"] = InferenceEngine(
+        model, params, mesh=make_hybrid_mesh(MeshConfig(seq=n), devs)
+    ).generate_long(LONG_PROMPT, sp).tokens.tolist()
+    out["data2_stage_generate"] = InferenceEngine(
+        model, params, mesh=make_hybrid_mesh(
+            MeshConfig(data=2, stage=n), inside_devices(n),
+            dcn_axes=("stage",))).generate(GEN_PROMPTS, sp).tokens.tolist()
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     with open(os.path.join(outdir, f"port_axes{pid}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _jax_serve(model, params, rt, mesh, prompts):
+    from butterfly_tpu.engine.serving import ServingEngine
+    from butterfly_tpu.sched.scheduler import Scheduler
+    sched = Scheduler(ServingEngine(model, params, rt, mesh=mesh))
+    reqs = [sched.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    sched.run_until_done()
+    return [r.output for r in reqs], sched
+
+
+def run_jax_seq(pid, n, port, outdir):
+    """The JAX package with seq = n across the processes (one device a
+    process: generate_long ring and Ulysses, the Scheduler's long-prompt
+    lane), then data = 2 inside each process beside each of tensor,
+    stage, expert and seq across them (two CPU devices a process, the
+    mesh over jax.devices() in the order [d0, d2, d1, d3])."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from butterfly_tpu.core.config import MeshConfig, RuntimeConfig, tiny
+    from butterfly_tpu.core.mesh import (init_distributed, make_hybrid_mesh,
+                                         make_mesh)
+    from butterfly_tpu.engine.engine import InferenceEngine
+    from butterfly_tpu.engine.sampling import SamplingParams
+    from butterfly_tpu.models.common import Model
+    from butterfly_tpu.parallel.partition import shard_params
+
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=n,
+                     process_id=pid)
+    devs = jax.devices()
+    out = {}
+    gsp = SamplingParams(max_new_tokens=GEN_NEW)
+    trees = {}
+    for arch, kw in (("llama", {}), ("mixtral", dict(moe_impl="ep"))):
+        cfg = tiny(arch, dtype="float32", param_dtype="float32", **kw)
+        model = Model(cfg)
+        trees[arch] = (cfg, model, model.init(jax.random.PRNGKey(0)))
+    cfg, model, params = trees["llama"]
+    # seq across: one device of each process
+    smesh = make_hybrid_mesh(MeshConfig(seq=n), devs[::len(devs) // n])
+    eng = InferenceEngine(model, shard_params(params, cfg, smesh),
+                          mesh=smesh)
+    for impl in ("ring", "ulysses"):
+        out[f"seq_long_{impl}"] = eng.generate_long(
+            LONG_PROMPT, gsp, impl=impl).tokens.tolist()
+    out["seq_serve"], sched = _jax_serve(
+        model, shard_params(params, cfg, smesh), RuntimeConfig(
+            seq_parallel_threshold=SEQ_THRESHOLD, **SERVE_RT), smesh,
+        [LONG_PROMPT, GEN_PROMPTS[0]])
+    out["seq_lane_tokens"] = int(
+        sched.metrics()["seq_parallel_prefill_tokens_total"])
+    # data = 2 inside the processes: each group one device of each
+    order = [d for i in range(len(devs) // n) for d in devs[i::len(devs) // n]]
+    for axis, arch, _ in INSIDE:
+        cfg, model, params = trees[arch]
+        mesh = make_mesh(MeshConfig(data=2, **{axis: n}), order)
+        sp = shard_params(params, cfg, mesh)
+        key = f"data2_{axis}"
+        out[f"{key}_generate"] = InferenceEngine(
+            model, sp, mesh=mesh).generate(GEN_PROMPTS, gsp).tokens.tolist()
+        if axis == "seq":
+            out[f"{key}_serve"], _ = _jax_serve(model, sp, RuntimeConfig(
+                seq_parallel_threshold=SEQ_THRESHOLD, **SERVE_RT), mesh,
+                [LONG_PROMPT, GEN_PROMPTS[0]])
+        else:
+            out[f"{key}_serve"], _ = _jax_serve(
+                model, sp, RuntimeConfig(**SERVE_RT), mesh, GEN_PROMPTS)
+    with open(os.path.join(outdir, f"jax_seq{pid}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def seq_runs(mesh, params, cfg, model):
+    """The port's runs on a seq = 2 `mesh`: generate_long (ring and
+    Ulysses; float and int8 KV; temperature 1.0), the Scheduler's
+    long-prompt lane, the forward's and one decode step's logits, and
+    which shards this process holds. Run in one process (the test's
+    yardstick) and in each worker. {name: lists}."""
+    import torch
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.models import common as TC
+    from butterfly_tpu_torch.parallel.sequence import (
+        gather_local, replicate_params, sp_decode_step, sp_forward)
+    out = {}
+    sp = SamplingParams(max_new_tokens=GEN_NEW)
+    t1 = SamplingParams(max_new_tokens=GEN_NEW, temperature=1.0)
+    for kvq in ("none", "int8"):
+        eng = InferenceEngine(model, params, RuntimeConfig(kv_quant=kvq),
+                              mesh=mesh)
+        for impl in ("ring", "ulysses"):
+            out[f"long_{impl}_{kvq}"] = eng.generate_long(
+                LONG_PROMPT, sp, impl=impl).tokens.tolist()
+        out[f"long_t1_{kvq}"] = eng.generate_long(
+            LONG_PROMPT, t1, seed=5).tokens.tolist()
+    rt = RuntimeConfig(seq_parallel_threshold=SEQ_THRESHOLD, **SERVE_RT)
+    out["serve"], out["lane_tokens"] = lane_serve(model, params, rt, mesh)
+    out["serve_int8"], _ = lane_serve(model, params, RuntimeConfig(
+        kv_quant="int8", seq_parallel_threshold=SEQ_THRESHOLD, **SERVE_RT),
+        mesh)
+    # the forward's logits (every shard's, gathered) and one decode step
+    reps = replicate_params(params, mesh)
+    out["trees"] = [t is None for t in reps.trees[0]]
+    toks = torch.as_tensor([LONG_PROMPT + [0]], dtype=torch.int32)
+    with mesh_ctx(mesh):
+        logits, prefix = sp_forward(reps, cfg, toks, mesh)
+        out["prefix_remote"] = [k is None for k in prefix.k]
+        out["prefill"] = torch.cat(gather_local(logits), dim=1).tolist()
+        suffix = TC.init_cache(cfg, 1, 4, device="cpu", mesh=mesh)
+        plen = torch.full((1,), len(LONG_PROMPT), dtype=torch.int32)
+        step, _ = sp_decode_step(reps, cfg, toks[:, :1], plen[:, None],
+                                 prefix, suffix, mesh, prefix_len=plen)
+    out["step"] = step.tolist()
+    return out
+
+
+def lane_serve(model, params, rt, mesh):
+    """(tokens, seq_parallel_prefill_tokens_total) of the long prompt and
+    GEN_PROMPTS[0] through a Scheduler over a ServingEngine."""
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    sched = Scheduler(ServingEngine(model, params, rt, mesh=mesh))
+    reqs = [sched.submit(p, max_new_tokens=SERVE_NEW)
+            for p in (LONG_PROMPT, GEN_PROMPTS[0])]
+    sched.run_until_done()
+    return ([r.output for r in reqs],
+            int(sched.metrics()["seq_parallel_prefill_tokens_total"]))
+
+
+def inside_runs(mesh, axis, params, cfg, model):
+    """Greedy generate and serving on a mesh of data = 2 beside `axis`
+    (under seq also generate_long, and serving through the lane)."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    eng = InferenceEngine(model, params, mesh=mesh)
+    sp = SamplingParams(max_new_tokens=GEN_NEW)
+    out = {"generate": eng.generate(GEN_PROMPTS, sp).tokens.tolist()}
+    if axis == "seq":
+        out["long"] = eng.generate_long(LONG_PROMPT, sp).tokens.tolist()
+        out["serve"], out["lane_tokens"] = lane_serve(
+            model, params, RuntimeConfig(
+                seq_parallel_threshold=SEQ_THRESHOLD, **SERVE_RT), mesh)
+    else:
+        out["serve"] = serve(model, params, RuntimeConfig(**SERVE_RT), mesh)
+    return out
+
+
+def inside_devices(n):
+    """Two CPU devices a process, each process its own slice, so that
+    make_hybrid_mesh lays its dcn axis across the processes."""
+    import torch
+    from butterfly_tpu_torch.core.mesh import GlobalDevice
+    return [GlobalDevice(i, torch.device("cpu"), i // 2, i // 2)
+            for i in range(2 * n)]
+
+
+def run_port_seq(pid, n, port, outdir, wdir):
+    import torch
+    torch.set_num_threads(1)
+    from butterfly_tpu_torch.core.config import MeshConfig, tiny
+    from butterfly_tpu_torch.core.mesh import (global_devices,
+                                               init_distributed,
+                                               make_hybrid_mesh)
+    from butterfly_tpu_torch.models import common as TC
+    from butterfly_tpu_torch.models.bridge import params_from_numpy
+
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=n,
+                     process_id=pid, timeout_s=60)
+    trees = {}
+    for arch, kw in (("llama", {}), ("mixtral", dict(moe_impl="ep"))):
+        cfg = tiny(arch, dtype="float32", param_dtype="float32", **kw)
+        trees[arch] = (cfg, TC.Model(cfg, device="cpu"), params_from_numpy(
+            unflatten(dict(np.load(os.path.join(wdir, f"{arch}.npz")))),
+            device="cpu"))
+    cfg, model, params = trees["llama"]
+    out = {"seq": seq_runs(make_hybrid_mesh(
+        MeshConfig(seq=n), global_devices("cpu")), params, cfg, model)}
+    for axis, arch, _ in INSIDE:
+        cfg, model, params = trees[arch]
+        mesh = make_hybrid_mesh(MeshConfig(data=2, **{axis: n}),
+                                inside_devices(n), dcn_axes=(axis,))
+        out[f"data2_{axis}"] = inside_runs(mesh, axis, params, cfg, model)
+        out[f"data2_{axis}"]["processes"] = mesh.processes.reshape(
+            -1).tolist()
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(outdir, f"port_seq{pid}.json"), "w") as f:
         json.dump(out, f)
 
 
@@ -437,6 +658,10 @@ if __name__ == "__main__":
         run_port(pid, n, port, outdir, sys.argv[6])
     elif mode == "jax_axes":
         run_jax_axes(pid, n, port, outdir)
+    elif mode == "jax_seq":
+        run_jax_seq(pid, n, port, outdir)
+    elif mode == "port_seq":
+        run_port_seq(pid, n, port, outdir, sys.argv[6])
     else:
         run_port_axes(pid, n, port, outdir, sys.argv[6])
     print(f"{mode}{pid} done", flush=True)
