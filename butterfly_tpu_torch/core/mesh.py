@@ -23,8 +23,9 @@ stage axis of size 1, every other axis whole (parallel/pipeline.py).
 Seq shard i runs its expert dispatch on `seq_mesh(i)`, the devices at
 seq coordinate i (parallel/sequence.py), as the JAX seq body, manual
 over `seq`, leaves the expert axis automatic inside. Under `stage` the
-seq axis is a replica: the pipeline runs at seq coordinate 0, and
-seq-parallel generation refuses a stage axis as the JAX engine does.
+seq axis is a replica: the pipeline runs at the seq coordinate of this
+process's devices (0 on a mesh of one process), and seq-parallel
+generation refuses a stage axis as the JAX engine does.
 
 The engines make their mesh the ACTIVE mesh (`mesh_ctx`, the counterpart
 of the JAX package's ambient mesh, core/compat.py:mesh_ctx) around every
@@ -40,16 +41,24 @@ torch.device array, the process index of every device (`processes`),
 and every process runs the same program on its own devices (SPMD, as
 the JAX processes do): it places only its own shards, and the moves
 between shards of different processes are collectives
-(parallel/tensor.py). One axis of tensor, stage, expert and seq may
-cross the processes, with a data axis inside them or none
-(`check_process_mesh` refuses every other mesh over several): the tensor
-axis's reductions and gathers, the stage axis's activation hand-offs
+(parallel/tensor.py). Each process holds one block of the mesh, a run
+of consecutive shards along each axis, in process order
+(`check_process_mesh`): any of tensor, stage, expert and seq may cross
+the processes, two at once or one beside another inside them, with a
+data axis inside or none. The helpers that take coordinates read an
+axis not named at this process's own coordinates (`home`), so a process
+runs the replicas of an axis it does not split (seq under stage, say)
+on its own devices. Every axis that crosses gets one process group per
+coordinate of the other axes, built when the mesh is made, in every
+process alike (`axis_group`: the group at this process's coordinates):
+the tensor axis's reductions and gathers, the stage axis's broadcast
 (parallel/pipeline.py), the expert axis's all-to-all
-(parallel/expert.py) and the seq axis's ring pass, all-to-alls and
-merges (parallel/sequence.py) are then collectives over the job, every
-process running every data group in group order; `owner` names the
-process of a stage, an expert shard or a seq shard. Where data lies
-inside, each data group holds devices of every process
+(parallel/expert.py) and the seq axis's all-to-alls, gathers and
+broadcasts (parallel/sequence.py) go over the group of their own axis,
+every process running every data group in group order; `owner` names
+the process of a stage, an expert shard or a seq shard at this
+process's coordinates, the peer of a point-to-point hand-off. Where
+data lies inside, each data group holds devices of every process
 (`local_group_devices`, `data_devices`: this process's own).
 """
 from __future__ import annotations
@@ -74,11 +83,14 @@ class Mesh:
     `devices` is an object array of torch.device in that shape, each
     named as its own process names it; `processes` the process index of
     each (None = every device this process's); `ids` the global device
-    ids where the mesh was built over `global_devices()`, else None."""
+    ids where the mesh was built over `global_devices()`, else None;
+    `groups` the process groups of its axes by their members
+    (`_build_groups`; a sub-mesh shares its parent's)."""
 
     def __init__(self, devices: np.ndarray, axis_names=MESH_AXES,
                  processes: Optional[np.ndarray] = None,
-                 ids: Optional[np.ndarray] = None):
+                 ids: Optional[np.ndarray] = None,
+                 groups: Optional[Dict[tuple, object]] = None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
@@ -86,6 +98,15 @@ class Mesh:
         self.processes = (np.full(devices.shape, process_index())
                           if processes is None else processes)
         self.ids = ids
+        self.groups: Dict[tuple, object] = {} if groups is None else groups
+        # this process's coordinates: those of its first device (every
+        # axis 0 on a mesh of one process, and where the mesh holds none
+        # of this process's devices); along an axis that crosses the
+        # processes the first shard of its run, along one inside them 0
+        mine = np.argwhere(self.processes == process_index())
+        first = mine[0] if len(mine) else [0] * len(self.axis_names)
+        self.home: Dict[str, int] = dict(zip(self.axis_names,
+                                             map(int, first)))
 
     @property
     def spans_processes(self) -> bool:
@@ -99,30 +120,48 @@ class Mesh:
         return [d for d, p in zip(self.devices.reshape(-1),
                                   self.processes.reshape(-1)) if p == me]
 
-    def local_range(self, axis: str, **coords: int) -> Tuple[int, int]:
-        """[lo, hi): the shard indices along `axis`, at the coordinates
-        `coords` of the other axes, whose devices are this process's
-        (the whole axis on a mesh of one process). check_process_mesh
-        makes them one run."""
+    def _index(self, axis: str, coords: Dict[str, int]) -> tuple:
+        """The array index of the line along `axis` at `coords`, an axis
+        not named at this process's coordinates (`home`)."""
         for a in coords:
             if a not in self.axis_names or a == axis:
                 raise ValueError(f"no coordinate {a!r} beside axis {axis!r}")
-        idx = tuple(slice(None) if a == axis else coords.get(a, 0)
-                    for a in self.axis_names)
-        mine = np.flatnonzero(self.processes[idx] == process_index())
+        home = self.home
+        return tuple(slice(None) if a == axis else coords.get(a, home[a])
+                     for a in self.axis_names)
+
+    def local_range(self, axis: str, **coords: int) -> Tuple[int, int]:
+        """[lo, hi): the shard indices along `axis`, at the coordinates
+        `coords` of the other axes (this process's own where not named),
+        whose devices are this process's (the whole axis on a mesh of one
+        process). check_process_mesh makes them one run."""
+        mine = np.flatnonzero(self.processes[self._index(axis, coords)]
+                              == process_index())
         if len(mine) == 0:
             return 0, 0
         return int(mine[0]), int(mine[-1]) + 1
 
     def along(self, axis: str, **coords: int) -> List[torch.device]:
         """The devices along `axis`, in shard order, at the coordinates
-        `coords` of the other axes (0 for an axis not named)."""
-        for a in coords:
-            if a not in self.axis_names or a == axis:
-                raise ValueError(f"no coordinate {a!r} beside axis {axis!r}")
-        idx = tuple(slice(None) if a == axis else coords.get(a, 0)
-                    for a in self.axis_names)
-        return list(self.devices[idx])
+        `coords` of the other axes (this process's own, `home`, for an
+        axis not named: 0 on a mesh of one process)."""
+        return list(self.devices[self._index(axis, coords)])
+
+    def axis_group(self, axis: str):
+        """The process group of `axis` at this process's coordinates: the
+        processes along it, in shard order (the whole job's group where
+        they are every process); None where the axis stays inside this
+        process. Built with the mesh (`_build_groups`)."""
+        line = self.processes[self._index(axis, {})]
+        members = tuple(int(p) for p in np.unique(line))
+        if len(members) <= 1:
+            return None
+        if members not in self.groups:
+            raise RuntimeError(
+                f"no process group for the {axis} axis over processes "
+                f"{list(members)}: build the mesh with make_mesh or "
+                "make_hybrid_mesh in every process")
+        return self.groups[members]
 
     def group_devices(self, data_index: int = 0) -> List[torch.device]:
         """Every device of data group `data_index`, in mesh order."""
@@ -136,28 +175,39 @@ class Mesh:
         some of every group's devices."""
         return self.sub_mesh("data", data_index).local_devices
 
+    def _named(self, **coords: Optional[int]) -> Dict[str, int]:
+        return {a: i for a, i in coords.items() if i is not None}
+
     def seq_devices(self, data_index: int = 0,
-                    tensor_index: int = 0) -> List[torch.device]:
+                    tensor_index: Optional[int] = None) -> List[torch.device]:
         """The seq ring of data group `data_index` at tensor shard
-        `tensor_index`, shard order."""
-        return self.along("seq", data=data_index, tensor=tensor_index)
+        `tensor_index` (None: this process's), shard order."""
+        return self.along("seq", **self._named(data=data_index,
+                                               tensor=tensor_index))
 
-    def expert_devices(self, data_index: int = 0, tensor_index: int = 0,
-                       seq_index: int = 0,
-                       stage_index: int = 0) -> List[torch.device]:
+    def expert_devices(self, data_index: int = 0,
+                       tensor_index: Optional[int] = None,
+                       seq_index: Optional[int] = None,
+                       stage_index: Optional[int] = None
+                       ) -> List[torch.device]:
         """The expert shards of data group `data_index` at tensor shard
-        `tensor_index`, seq shard `seq_index` and stage `stage_index`,
-        shard order: shard i holds experts [i*E/N, (i+1)*E/N)."""
-        return self.along("expert", data=data_index, tensor=tensor_index,
-                          seq=seq_index, stage=stage_index)
+        `tensor_index`, seq shard `seq_index` and stage `stage_index`
+        (None: this process's), shard order: shard i holds experts
+        [i*E/N, (i+1)*E/N)."""
+        return self.along("expert", **self._named(
+            data=data_index, tensor=tensor_index, seq=seq_index,
+            stage=stage_index))
 
-    def tensor_devices(self, data_index: int = 0, seq_index: int = 0,
-                       expert_index: int = 0) -> List[torch.device]:
+    def tensor_devices(self, data_index: int = 0,
+                       seq_index: Optional[int] = None,
+                       expert_index: Optional[int] = None
+                       ) -> List[torch.device]:
         """The tensor shards of data group `data_index` at seq shard
-        `seq_index` and expert shard `expert_index`, shard order: shard i
-        holds the i-th slice of every split head, hidden and vocab dim."""
-        return self.along("tensor", data=data_index, seq=seq_index,
-                          expert=expert_index)
+        `seq_index` and expert shard `expert_index` (None: this
+        process's), shard order: shard i holds the i-th slice of every
+        split head, hidden and vocab dim."""
+        return self.along("tensor", **self._named(
+            data=data_index, seq=seq_index, expert=expert_index))
 
     def sub_mesh(self, axis: str, i: int) -> "Mesh":
         """The devices at coordinate i of `axis`, every other axis as it
@@ -166,7 +216,7 @@ class Mesh:
         return Mesh(np.take(self.devices, [i], axis=dim), self.axis_names,
                     np.take(self.processes, [i], axis=dim),
                     None if self.ids is None
-                    else np.take(self.ids, [i], axis=dim))
+                    else np.take(self.ids, [i], axis=dim), self.groups)
 
     def stage_mesh(self, s: int) -> "Mesh":
         """Pipeline stage s's own mesh (the seq and expert axes whole)."""
@@ -250,8 +300,10 @@ def _mesh_of(arr: np.ndarray) -> Mesh:
             raise RuntimeError(
                 "CUDA was requested but torch.cuda.is_available() is False; "
                 "build the mesh over cpu devices to run on the CPU")
-    return Mesh(_object_array(devs).reshape(arr.shape), MESH_AXES, procs,
+    mesh = Mesh(_object_array(devs).reshape(arr.shape), MESH_AXES, procs,
                 ids)
+    _build_groups(mesh)
+    return mesh
 
 
 def local_mesh(device=None) -> Mesh:
@@ -358,6 +410,32 @@ def _shutdown() -> None:
         torch.distributed.destroy_process_group()
 
 
+def _build_groups(mesh: Mesh) -> None:
+    """`mesh.groups`: one process group for each line of processes
+    along each axis but data (in MESH_AXES order, then the other axes'
+    coordinates in row-major order) that holds two processes or more,
+    by its members (global ranks, ascending): a collective over the
+    job, so every process builds every group, its own or not, at the
+    same point (`make_mesh` / `make_hybrid_mesh`, which every process
+    calls alike). A line that is the whole job takes its group, WORLD.
+    Without torch.distributed, nothing."""
+    dist = _dist()
+    if dist is None or not mesh.spans_processes:
+        return
+    world = tuple(range(dist.get_world_size()))
+    for i, axis in enumerate(mesh.axis_names):
+        if axis == "data" or mesh.shape[axis] <= 1:
+            continue
+        lines = np.moveaxis(mesh.processes, i, -1).reshape(
+            -1, mesh.shape[axis])
+        for line in lines:
+            members = tuple(int(p) for p in np.unique(line))
+            if len(members) <= 1 or members in mesh.groups:
+                continue
+            mesh.groups[members] = (dist.group.WORLD if members == world
+                                    else dist.new_group(list(members)))
+
+
 def _local_devices(device: str, per_process: int = 1
                    ) -> List[torch.device]:
     """This process's devices of `device`'s type: `per_process` CPU
@@ -458,11 +536,6 @@ def make_hybrid_mesh(cfg: MeshConfig, devices: Optional[Sequence] = None,
     return _mesh_of(arr)
 
 
-# where the meshes over several processes still refused wait for their
-# port (ROADMAP.md, PyTorch/CUDA port Queue 1)
-_TWO_AXES_ITEM = "ROADMAP.md Queue 1: two axes across processes at once"
-
-
 def axes_across_processes(mesh: Mesh) -> List[str]:
     """The axes along which the process index changes."""
     return [a for i, a in enumerate(mesh.axis_names)
@@ -470,23 +543,35 @@ def axes_across_processes(mesh: Mesh) -> List[str]:
             and (np.diff(mesh.processes, axis=i) != 0).any()]
 
 
+def _in_runs(line: np.ndarray) -> bool:
+    """Whether a line of process indices is equal runs in ascending
+    process order ([0, 0, 1, 1] is; [0, 1, 0, 1] and [1, 0] are not)."""
+    runs = np.split(line, np.flatnonzero(np.diff(line)) + 1)
+    firsts = [int(r[0]) for r in runs]
+    return len({len(r) for r in runs}) == 1 and firsts == sorted(set(firsts))
+
+
 def check_process_mesh(mesh: Optional[Mesh]) -> None:
-    """Refuse what a mesh over several processes cannot run yet (a mesh
-    of one process passes). One axis of tensor, stage, expert and seq
-    may cross the processes, beside it at most a data axis inside them:
-    within each data group the crossing axis must hold every process,
-    each an equal run of consecutive shards in process order (its
-    collectives go over the whole job, every process running every data
-    group in group order: parallel/tensor.py's reductions,
-    parallel/pipeline.py's hand-offs, parallel/expert.py's all-to-all,
-    parallel/sequence.py's ring pass, all-to-alls and merges).
+    """Refuse what a mesh over several processes cannot run (a mesh of
+    one process passes). Each process must hold one block of the mesh,
+    the product of a run of consecutive shards along every axis, every
+    block the same shape, and along every axis the runs must follow
+    process order (what make_hybrid_mesh builds with the processes as
+    its slices): then the processes along an axis at a process's
+    coordinates are that axis's process group (Mesh.axis_group), whose
+    rank order is shard order. Any of tensor, stage, expert and seq may
+    cross the processes, two at once or one beside another inside them;
+    a data axis lies inside them or is 1. A layout that is not such a
+    product raises ValueError.
 
     A data axis across processes raises RuntimeError: the JAX package
     fails there at its first read-back (engine/engine.py:259,
     sched/scheduler.py:2041, "Fetching value for jax.Array that spans
-    non-addressable devices"). Two axes crossing at once, or another
-    axis than data inside the processes beside the one that crosses,
-    raise NotImplementedError naming their ROADMAP item."""
+    non-addressable devices"). So does a stage axis across processes
+    beside a tensor axis > 1, inside them or across: the JAX package
+    fails there with the same error at the same two places (a stage
+    axis across beside expert or seq, and a tensor axis across beside a
+    stage axis inside, run)."""
     if mesh is None or not mesh.spans_processes:
         return
     across = axes_across_processes(mesh)
@@ -496,38 +581,77 @@ def check_process_mesh(mesh: Optional[Mesh]) -> None:
             "fails there at its first read-back (engine/engine.py:259, "
             "sched/scheduler.py:2041: 'Fetching value for jax.Array that "
             "spans non-addressable devices'), so the port does not run it")
-    big = [a for a in mesh.axis_names if a != "data" and mesh.shape[a] > 1]
-    if len(big) > 1:
-        raise NotImplementedError(
-            f"a mesh over several processes runs one axis across them, "
-            f"with at most a data axis inside; "
-            f"{' x '.join(f'{a}={mesh.shape[a]}' for a in big)} (across "
-            f"them: {', '.join(across)}) is not ported there yet "
-            f"({_TWO_AXES_ITEM})")
-    axis = big[0]          # tensor, stage, expert or seq
-    n = process_count()
-    for d in range(mesh.shape["data"]):
-        procs = mesh.processes[d].reshape(-1)
-        if len(procs) % n or not np.array_equal(
-                procs, np.repeat(np.arange(n), len(procs) // n)):
+    if "stage" in across and mesh.shape["tensor"] > 1:
+        raise RuntimeError(
+            f"a stage axis across processes beside a tensor axis of "
+            f"{mesh.shape['tensor']} is refused: the JAX package fails "
+            "there at its first read-back (engine/engine.py:259 in "
+            "generate, sched/scheduler.py:2041 _drain_blocks in serving: "
+            "'Fetching value for jax.Array that spans non-addressable "
+            "devices'), so the port does not run it")
+    procs = mesh.processes
+    D = mesh.shape["data"]
+    for i, axis in enumerate(mesh.axis_names[1:], 1):    # data is inside
+        lines = np.moveaxis(procs, i, -1).reshape(-1, mesh.shape[axis])
+        for j, line in enumerate(lines):
+            if not _in_runs(line):
+                raise ValueError(
+                    f"the {axis} axis must hold every one of its "
+                    f"{len(np.unique(line))} processes, each an equal run "
+                    f"of shards in process order (got process indices "
+                    f"{line.tolist()}"
+                    + (f" in data group {j // (len(lines) // D)})" if D > 1
+                       else ")"))
+    blocks = set()
+    for p in np.unique(procs):
+        at = np.argwhere(procs == p)
+        lo, hi = at.min(0), at.max(0) + 1
+        if int(np.prod(hi - lo)) != len(at):
             raise ValueError(
-                f"the {axis} axis must hold every one of the {n} processes, "
-                f"each an equal run of shards in process order (got process "
-                f"indices {procs.tolist()}"
-                + (f" in data group {d})" if mesh.shape["data"] > 1
-                   else ")"))
+                f"process {p} must hold one block of the mesh, a run of "
+                f"shards along every axis (got process indices "
+                f"{procs.reshape(-1).tolist()} over {mesh.shape})")
+        blocks.add(tuple(hi - lo))
+    if len(blocks) > 1:
+        raise ValueError(f"the processes' blocks of the mesh differ in "
+                         f"shape: {sorted(blocks)}")
 
 
 def owner(mesh: Mesh, axis: str, i: int) -> int:
     """The process that holds shard i along `axis` (stage s, expert
-    shard j, seq shard i): on a mesh whose one axis crosses processes,
-    every device of that shard in every data group is that process's."""
-    return int(mesh.sub_mesh(axis, i).processes.reshape(-1)[0])
+    shard j, seq shard i) at this process's coordinates of the other
+    axes (Mesh.home): the peer this process hands that shard's work to
+    or takes it from."""
+    return int(mesh.processes[mesh._index(axis, {})][i])
 
 
 def owners(mesh: Mesh, axis: str) -> List[int]:
-    """The process of each shard along `axis`, shard order."""
+    """The process of each shard along `axis`, shard order, at this
+    process's coordinates of the other axes."""
     return [owner(mesh, axis, i) for i in range(mesh.shape[axis])]
+
+
+def crossing_owners(mesh: Optional[Mesh], axis: str) -> Optional[List[int]]:
+    """`owners(mesh, axis)` where that axis crosses processes at this
+    process's coordinates, else None (every shard along it this
+    process's)."""
+    if mesh is None or mesh.shape.get(axis, 1) <= 1 \
+            or not mesh.spans_processes:
+        return None
+    own = owners(mesh, axis)
+    return None if len(set(own)) == 1 else own
+
+
+def axis_group(axis: str):
+    """The process group of `axis` at this process's coordinates on the
+    active mesh (`mesh_ctx`): Mesh.axis_group. A collective over
+    processes needs a mesh to name its group: with none active this
+    raises."""
+    mesh = active_mesh()
+    if mesh is None:
+        raise RuntimeError(f"a collective over the {axis} axis outside "
+                           "mesh_ctx: no mesh names its process group")
+    return mesh.axis_group(axis)
 
 
 def seq_degree(mesh: Optional[Mesh]) -> int:

@@ -73,8 +73,9 @@ from butterfly_tpu_torch.cache.paged import (
     init_paged_cache, paged_forward, paged_forward_window,
     permute_paged_tail, permute_window_tail, pool_replicas)
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
-from butterfly_tpu_torch.core.mesh import (expert_degree, seq_degree,
-                                           stage_degree, under_mesh)
+from butterfly_tpu_torch.core.mesh import (axis_group, expert_degree,
+                                           seq_degree, stage_degree,
+                                           under_mesh)
 from butterfly_tpu_torch.engine.engine import (
     mesh_device, place_params, seq_replicas)
 from butterfly_tpu_torch.engine.sampling import (
@@ -659,7 +660,8 @@ class ServingEngine:
                 out = torch.cat([read(group_part(p, 0)) for p in
                                  axis_parts(pool, "stage")], dim=0)
                 # the other processes' stages, in stage order
-                return all_gather_cat(out, 0) if pool.distributed else out
+                return all_gather_cat(out, 0, axis_group("stage")) \
+                    if pool.distributed else out
             parts = axis_parts(pool, "tensor")
             if parts is None:
                 return pool[:, idx.to(pool.device)].cpu()
@@ -850,9 +852,10 @@ def _sp_chunk(cfg: ModelConfig, replicas, mesh, tokens,
     later decode in any replica's reads), with one all-layer write per
     pool tensor and tensor shard, pad rows (>= clen) routed to the null
     page. Returns the chunk's last real token's logits [V]. Where the seq
-    axis crosses processes every process holds the whole pool, so each
-    shard's K/V is all-gathered to every process before the scatter, and
-    the holder of the last real token broadcasts its logits."""
+    axis crosses processes every process of a seq group holds the whole
+    pool (its tensor shards of it), so each shard's K/V is all-gathered
+    over the seq group before the scatter, and the holder of the last
+    real token broadcasts its logits."""
     reps = pool_replicas(cache)
     src = reps[data_index if len(reps) > 1 else 0]
     first = (axis_parts(src.k_pages, "tensor") or [src.k_pages])[0]
@@ -890,7 +893,7 @@ def _sp_chunk(cfg: ModelConfig, replicas, mesh, tokens,
     Cl = C // len(logits)
     if any(c is None for c in kv):      # other processes' shards
         kv = list(zip(*(gather_local([None if c is None else c[j]
-                                      for c in kv])
+                                      for c in kv], mesh.axis_group("seq"))
                         for j in range(len(next(c for c in kv if c))))))
 
     def part(x, t):

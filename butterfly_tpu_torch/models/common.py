@@ -43,8 +43,8 @@ import torch.nn.functional as F
 
 from butterfly_tpu_torch.core.config import ModelConfig
 from butterfly_tpu_torch.core.device import resolve_device
-from butterfly_tpu_torch.core.mesh import (data_degree, stage_degree,
-                                           tensor_degree)
+from butterfly_tpu_torch.core.mesh import (axis_group, data_degree,
+                                           stage_degree, tensor_degree)
 from butterfly_tpu_torch.ops.flash_attention import flash_attention_sharded
 from butterfly_tpu_torch.parallel.partition import (
     Shards, expert_parts, held_experts, held_tensor_shards, layers_per_stage,
@@ -374,9 +374,9 @@ def expert_swiglu(x: torch.Tensor, p: Params, cfg: ModelConfig,
     column-parallel and the down projection row-parallel. On a mesh
     whose expert axis crosses processes each process runs its own
     shards' experts on their rows of x, and the outputs are all-gathered
-    in expert order (parallel/tensor.py:all_gather_cat): every process
-    then holds the whole [E, ...] output, bit for bit the one-process
-    run's."""
+    over the expert group in expert order (parallel/tensor.py:
+    all_gather_cat): every process then holds the whole [E, ...] output,
+    bit for bit the one-process run's."""
     act = ACTIVATIONS[cfg.act]
     n = shard_count(p)
     first, held = held_experts(p)
@@ -394,7 +394,7 @@ def expert_swiglu(x: torch.Tensor, p: Params, cfg: ModelConfig,
                   .to(x.device, non_blocking=True))
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
     if held < n:
-        y = all_gather_cat(y, 0)
+        y = all_gather_cat(y, 0, axis_group("expert"))
     return y
 
 

@@ -42,19 +42,25 @@ shard_params) or plain tensors (each shard then takes a view of its
 experts).
 
 On a mesh whose expert axis crosses processes (core/mesh.py: each
-process a run of consecutive expert shards) the router and every leaf
-outside the experts are replicated in every process, and each process
-holds only its own shards' experts. The a2a path then routes the
-chunks of its own source shards, the exchange and its return are one
-all-to-all each way over the job (parallel/tensor.py:all_to_all_blocks,
-blocks in shard order), its experts run between them, and the output
-chunks are all-gathered in shard order (the layout JAX's `out_specs`
-gives back). The einsum path runs its dispatch whole in every process,
-each process its own experts, and all-gathers their outputs in expert
-order (models/common.py:expert_swiglu), so its combine has the
-one-process run's bits. With a data axis inside the processes each data
-group's expert shards lie on the processes alike, and every process runs
-every group's exchanges in group order.
+process a run of consecutive expert shards at its coordinates of the
+other axes) the router and every leaf outside the experts are
+replicated in every process of an expert group, and each process holds
+only its own shards' experts. The a2a path then routes the chunks of
+its own source shards, the exchange and its return are one all-to-all
+each way over the expert axis's process group at this process's
+coordinates (core/mesh.py:axis_group; parallel/tensor.py:
+all_to_all_blocks, blocks in shard order), its experts run between
+them, and the output chunks are all-gathered over that group in shard
+order (the layout JAX's `out_specs` gives back). The einsum path runs
+its dispatch whole in every process, each process its own experts, and
+all-gathers their outputs in expert order (models/common.py:
+expert_swiglu), so its combine has the one-process run's bits. Where
+each expert shard is split again over `tensor` (inside the process or
+across it) its SwiGLU's row-parallel partials reduce over the tensor
+shards, over the tensor group where that crosses. With a data axis
+inside the processes each data group's expert shards lie on the
+processes alike, and every process runs every group's exchanges in
+group order.
 
 Capacity: each expert takes at most C assignments per sequence (einsum
 path) or per source shard (a2a path, pooled over the shard's B
@@ -74,7 +80,8 @@ import torch
 import torch.nn.functional as F
 
 from butterfly_tpu_torch.core.config import ModelConfig
-from butterfly_tpu_torch.core.mesh import active_mesh, expert_degree
+from butterfly_tpu_torch.core.mesh import (active_mesh, axis_group,
+                                           expert_degree)
 from butterfly_tpu_torch.models.common import (Params, expert_swiglu,
                                                route_tokens)
 from butterfly_tpu_torch.parallel.partition import (expert_parts,
@@ -263,7 +270,7 @@ def _moe_ep_a2a(x: torch.Tensor, p: Params, cfg: ModelConfig, N: int,
         outs.append(out.sum(dim=2).to(x.device, non_blocking=True))
     out = torch.cat(outs, dim=1)
     # every process's chunks, in shard order
-    return all_gather_cat(out, 1) if held < N else out
+    return all_gather_cat(out, 1, axis_group("expert")) if held < N else out
 
 
 def _exchange_blocks(blocks: List[torch.Tensor], devs) -> List[torch.Tensor]:
@@ -271,13 +278,15 @@ def _exchange_blocks(blocks: List[torch.Tensor], devs) -> List[torch.Tensor]:
     of this process's `held` shards a) is shard a's block for shard b, of
     N in all; returns, for each of this process's shards b, the [N, ...]
     blocks every shard a sent it, in shard order, on b's device. One
-    all-to-all over the job, each process's run of shards in order."""
+    all-to-all over the expert group, each process's run of shards in
+    order."""
     held, N = len(blocks), blocks[0].shape[0]
     P = N // held
     rest = tuple(blocks[0].shape[1:])
     mine = torch.stack([b.to(devs[0], non_blocking=True) for b in blocks])
     send = mine.reshape((held, P, held) + rest).transpose(0, 1)
-    got = all_to_all_blocks(send.contiguous())      # [P, held(a), held(b)]
+    got = all_to_all_blocks(send.contiguous(),       # [P, held(a), held(b)]
+                            axis_group("expert"))
     return [got[:, :, b].reshape((N,) + rest).to(devs[b],
                                                  non_blocking=True)
             for b in range(held)]

@@ -20,8 +20,8 @@ container of per-shard tensors, `Shards`:
 * seq: the weights replicate (parallel/sequence.py places one tree per
   seq shard, its tensor and expert parts on the shard's devices, views
   where the shards share a card); under `stage` the seq axis is a
-  replica no program runs on, and the tree is placed at seq coordinate
-  0 alone;
+  replica no program runs on, and the tree is placed at one seq
+  coordinate alone (this process's; 0 on a mesh of one process);
 * data: weights and the page pool are replicated, batch rows and slots
   split (the forwards run each data group on its rows; see
   parallel/tensor.py:data_groups);
@@ -47,9 +47,11 @@ holds its own copy, and every pool write reaches every replica
 (cache/paged.py, engine/serving.py).
 
 On a mesh over several processes (core/mesh.py) each process places only
-the shards of the crossing axis that lie on its own devices (tensor
-shards, its stages' layer slices, its expert shards) and its own copy
-of every other leaf: a Shards there holds a run of the shards
+its own block of every leaf: the shards of each axis that crosses at its
+coordinates (tensor shards, its stages' layer slices, its expert shards;
+under two crossing axes the product of the two splits, an expert part's
+tensor shards, a stage slice's expert or tensor shards) and its own
+copy of every other leaf: a Shards there holds a run of the shards
 (`Shards.distributed`, `offset` the first), and nothing is allocated
 for another process's.
 """
@@ -554,16 +556,29 @@ def _place_tree(node: Any, spec: Any, mesh: Mesh, data_index: int,
     split over the group's expert shards, then (an MoE leaf under
     expert x tensor) each expert part's tensor dim over that expert
     shard's tensor devices; a tensor dim over the group's tensor
-    devices; every other leaf on the group's first device."""
+    devices; every other leaf on the group's first device. On a mesh
+    over several processes only this process's shards of each (its
+    expert shards, and of each its tensor shards) are placed. A leaf
+    already split stays as it is, but for the expert parts
+    place_held_experts leaves whole, which a tensor axis splits."""
     if isinstance(node, dict):
         if is_quantized_leaf(node) and not isinstance(spec, dict):
             spec = quant_specs_like(node, spec)
         return {k: _place_tree(v, spec[k], mesh, data_index, copy)
                 for k, v in node.items()}
-    if isinstance(node, Shards):
-        return node
     dims = {ax: dim for dim, ax in enumerate(spec)
             if ax in ("tensor", "expert")}
+    if isinstance(node, Shards):
+        if node.axis == "expert" and "tensor" in dims and not isinstance(
+                node.parts[0], Shards):
+            # this process's experts alone (place_held_experts): each
+            # part split over its expert shard's tensor devices
+            return node.like([_split_leaf(
+                part, "tensor", dims["tensor"],
+                mesh.tensor_devices(data_index, expert_index=e), copy,
+                mesh.local_range("tensor", data=data_index, expert=e))
+                for e, part in enumerate(node.parts, node.offset)])
+        return node
     tdevs = mesh.tensor_devices(data_index)
     if "expert" in dims:
         edim, N = dims["expert"], mesh.shape["expert"]
@@ -575,7 +590,8 @@ def _place_tree(node: Any, spec: Any, mesh: Mesh, data_index: int,
             if "tensor" in dims:
                 parts.append(_split_leaf(
                     part, "tensor", dims["tensor"],
-                    mesh.tensor_devices(data_index, expert_index=e), copy))
+                    mesh.tensor_devices(data_index, expert_index=e), copy,
+                    mesh.local_range("tensor", data=data_index, expert=e)))
             else:
                 parts.append(_place(part, mesh.expert_devices(
                     data_index)[e], copy))

@@ -15,7 +15,8 @@ process drives every stage, so the schedule is a host loop:
   with its stage's mesh active, so an MoE takes the a2a path over the
   stage's expert devices on a prefill microbatch and the einsum path at
   decode, as the JAX stage body, manual over `stage` alone, does; a seq
-  axis is a replica, not a ring: the stages run at seq coordinate 0);
+  axis is a replica, not a ring: the stages run at this process's seq
+  coordinate, 0 on a mesh of one process);
 * tick t has stage s working on microbatch m = t - s (`_gpipe_schedule`,
   one host loop for the JAX `_gpipe_schedule` and `_interleaved_body`
   scans). Bubble ticks are skipped: only the valid (stage, microbatch)
@@ -44,18 +45,24 @@ cards it is idle time; on one card, where every stage shares the device,
 the schedule only orders the work.
 
 On a mesh whose stage axis crosses processes (core/mesh.py: each process
-a run of consecutive stages) every process runs the same tick loop and
-computes only the pairs of its own stages. Where stage s and the stage
-after it (stage s + 1, or stage 0 for the interleaved wrap) are
-different processes' the hand-off is a send and a matching receive,
-each tick's posted together (parallel/tensor.py:exchange), the
-counterpart of the JAX `ppermute`. The last stage's process then
-broadcasts its output (only the `last_index` rows where those are
-taken) to every process, where each runs the LM head on its own replica
-of the top and samples the same tokens. With a data axis inside the
-processes a stage's process is the same in every data group, and each
-stage body runs every group's rows on this process's devices of it
-(`Mesh.data_devices`).
+a run of consecutive stages at its coordinates of the other axes) every
+process runs the same tick loop and computes only the pairs of its own
+stages. Where stage s and the stage after it (stage s + 1, or stage 0
+for the interleaved wrap) are different processes' the hand-off is a
+send and a matching receive, each tick's posted together
+(parallel/tensor.py:exchange), the counterpart of the JAX `ppermute`;
+the peer is the process of that stage at this process's coordinates of
+the other axes (`_stage_owners`: under stage x expert the same expert
+shard's process, under stage x seq the same seq replica's). The last
+stage's process then broadcasts its output (only the `last_index` rows
+where those are taken) over the stage axis's process group, where each
+process runs the LM head on its own replica of the top and samples the
+same tokens. An axis that crosses beside stage (expert, seq) runs in
+each stage body as it runs without a pipeline; where stage lies inside
+the processes beside one that crosses, every stage is this process's.
+With a data axis inside the processes a stage's process is the same in
+every data group, and each stage body runs every group's rows on this
+process's devices of it (`Mesh.data_devices`).
 """
 from __future__ import annotations
 
@@ -65,7 +72,7 @@ import numpy as np
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
-from butterfly_tpu_torch.core.mesh import (Mesh, mesh_ctx, owners,
+from butterfly_tpu_torch.core.mesh import (Mesh, crossing_owners, mesh_ctx,
                                            process_index, stage_degree,
                                            stage_devices)
 from butterfly_tpu_torch.models.common import (
@@ -217,8 +224,9 @@ def _last_output(y, x, mesh: Mesh, dev, last_index):
     """The last stage's output [B,T,D] (its `last_index` rows [B,1,D]
     where those are taken) on `dev` in this process: moved from the last
     stage's device, or, where the stage axis crosses processes,
-    broadcast by the last stage's process (`y` None in the others; `x`,
-    the embedding output, gives the shape and dtype)."""
+    broadcast over the stage group by the last stage's process (`y` None
+    in the others; `x`, the embedding output, gives the shape and
+    dtype)."""
     owners = _stage_owners(mesh)
     if y is not None:
         y = y.to(dev, non_blocking=True)
@@ -228,16 +236,16 @@ def _last_output(y, x, mesh: Mesh, dev, last_index):
         return y
     B, T, D = x.shape
     return broadcast_from(y, owners[-1], (B, 1 if last_index is not None
-                                          else T, D), x.dtype, dev)
+                                          else T, D), x.dtype, dev,
+                          mesh.axis_group("stage"))
 
 
 def _stage_owners(mesh: Mesh) -> Optional[List[int]]:
-    """The process of each stage where the stage axis crosses processes
-    (in every data group alike: core/mesh.py:check_process_mesh), else
+    """The process of each stage at this process's coordinates of the
+    other axes (the same in every data group: core/mesh.py:
+    check_process_mesh) where the stage axis crosses processes, else
     None (every stage this process's)."""
-    if not mesh.spans_processes:
-        return None
-    return owners(mesh, "stage")
+    return crossing_owners(mesh, "stage")
 
 
 def _chunk(tree, s: int, v: int, S: int, V: int, L: int):

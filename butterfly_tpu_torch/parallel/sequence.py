@@ -48,18 +48,25 @@ shard_map (manual over {"seq"} only):
   decode steps take the einsum path.
 
 Where the seq axis crosses processes (core/mesh.py: each process a run
-of consecutive seq shards, in every data group alike) every process runs
-the same layer loop on its own shards, the others' entries None in every
-per-shard list (`seq_owners`, `_mine`); the weights are every process's
-whole tree, as the JAX specs put nothing on `seq`. The collectives become
-those of parallel/tensor.py: a ring rotation across processes is a send
-and a receive of the block (K, V, key positions, the int8 scales; a
-step's posted together: `_rotate`), Ulysses' reshards all-to-alls
-and its positions an all-gather (`_all_to_all_shards`, `gather_local`),
-the decode merges an all-gather of each shard's [B, Nq, 1(, H)] partials
-combined in shard order (an all-reduce would reorder the sums), and a
-logits row the broadcast of its shard's holder (`shard_row`). The bytes
-that move are exact, so every process computes the one-process bits.
+of consecutive seq shards at its coordinates of the other axes, in every
+data group alike) every process runs the same layer loop on its own
+shards, the others' entries None in every per-shard list (`seq_owners`,
+the shards' processes at this process's coordinates, and `_mine`); the
+weights are every process's tree, as the JAX specs put nothing on
+`seq`, split over a tensor or expert axis that crosses beside it as
+that axis splits them. The collectives become those of
+parallel/tensor.py, over the seq axis's process group (core/mesh.py:
+axis_group): a ring rotation across processes is a send and a receive
+of the block (K, V, key positions, the int8 scales; a step's posted
+together: `_rotate`) to the peer at this process's tensor and expert
+coordinates, so each tensor shard's ring passes between the processes
+that hold that tensor shard; Ulysses' reshards all-to-alls and its
+positions an all-gather (`_all_to_all_shards`, `gather_local`), the
+decode merges an all-gather of each shard's [B, Nq, 1(, H)] partials
+(per tensor shard) combined in shard order (an all-reduce would reorder
+the sums), and a logits row the broadcast of its shard's holder
+(`shard_row`). The bytes that move are exact, so every process computes
+the one-process bits.
 
 Masking follows ops/ring_attention.py: the one predicate is
 k_pos <= q_pos, invalid keys carry INVALID_POS.
@@ -75,7 +82,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from butterfly_tpu_torch.core.config import ModelConfig
-from butterfly_tpu_torch.core.mesh import mesh_ctx, owners, process_index
+from butterfly_tpu_torch.core.mesh import (axis_group, crossing_owners,
+                                           mesh_ctx, process_index)
 from butterfly_tpu_torch.models.common import (
     KVCache, Params, _cast_layer, _group_cache, _stack, attend, attn_output,
     embed_tokens, ffn_block, final_logits, layer_params, pre_norm, qkv_proj,
@@ -108,8 +116,9 @@ def _place_on(node: Any, devs: Sequence[torch.device],
     """A (sub)tree on one seq shard's devices: part t of a tensor split
     leaf on devs[t]; part e of an expert split leaf on the shard's expert
     device e (its tensor part t on edevs[e][t]); any other leaf on
-    devs[0]. A leaf that is there already is itself (a view stays a
-    view)."""
+    devs[0]; a leaf split over processes keeps its shards' indices (its
+    first part is shard `offset`). A leaf that is there already is
+    itself (a view stays a view)."""
     if isinstance(node, dict):
         return {k: _place_on(v, devs, edevs) for k, v in node.items()}
     if isinstance(node, tuple):
@@ -117,16 +126,16 @@ def _place_on(node: Any, devs: Sequence[torch.device],
     if node is None:
         return None
     if isinstance(node, TShards):
+        # a split over processes holds shards [offset, ...) of its axis
+        lo = node.offset
         if node.axis == "expert" and edevs is not None:
-            return TShards([_place_on(p, edevs[e])
-                            for e, p in enumerate(node.parts)], "expert",
-                           node.split)
+            return node.like([_place_on(p, edevs[lo + e])
+                              for e, p in enumerate(node.parts)])
         if node.axis != "tensor":
             raise ValueError(f"{node!r} on a seq shard: only tensor and "
                              "expert splits ride a seq mesh")
-        return TShards([p.to(d, non_blocking=True)
-                        for p, d in zip(node.parts, devs)], "tensor",
-                       node.split)
+        return node.like([p.to(d, non_blocking=True)
+                          for p, d in zip(node.parts, devs[lo:])])
     return node.to(devs[0], non_blocking=True)
 
 
@@ -162,13 +171,12 @@ def replicate_params(params: Params, mesh) -> Replicated:
 
 
 def seq_owners(mesh) -> Optional[List[int]]:
-    """The process of each seq shard where the seq axis crosses
-    processes (core/mesh.py:check_process_mesh: then in every data group
-    alike), else None (every shard this process's)."""
-    if mesh is None or mesh.shape.get("seq", 1) <= 1 \
-            or not mesh.spans_processes:
-        return None
-    return owners(mesh, "seq")
+    """The process of each seq shard at this process's coordinates of
+    the other axes (the same in every data group: core/mesh.py:
+    check_process_mesh) where the seq axis crosses processes, else None
+    (every shard this process's). Its peers of the ring pass; the seq
+    group (core/mesh.py:axis_group) holds them."""
+    return crossing_owners(mesh, "seq")
 
 
 def _mine(own: Optional[Sequence[int]], N: int) -> List[bool]:
@@ -239,9 +247,9 @@ def _whole(x: Any, kv_dim: int, device=None) -> torch.Tensor:
     `kv_dim`."""
     if isinstance(x, TShards) and x.axis == "data":
         return torch.cat([_whole(p, kv_dim, device) for p in x.parts], dim=1)
-    if isinstance(x, TShards):
-        return torch.cat([_whole(p, kv_dim, device) for p in x.parts],
-                         dim=kv_dim)
+    if isinstance(x, TShards):    # across processes, over the tensor group
+        return gather(x.like([_whole(p, kv_dim, device) for p in x.parts]),
+                      kv_dim)
     return x if device is None else x.to(device)
 
 
@@ -299,8 +307,9 @@ def shard_row(logits: Shards, mesh, shard: int, row: int,
               device: torch.device) -> torch.Tensor:
     """Row `row` of seq shard `shard`'s logits [B, T/N, V] as [B, V] on
     `device`, in every process: where the seq axis crosses processes the
-    process holding that shard broadcasts it (parallel/tensor.py:
-    broadcast_from), so every process samples the same token."""
+    process holding that shard broadcasts it over the seq group
+    (parallel/tensor.py:broadcast_from), so every process samples the
+    same token."""
     own = seq_owners(mesh)
     x = logits[shard]
     t = None if x is None else x[:, row, :].to(device)
@@ -308,18 +317,24 @@ def shard_row(logits: Shards, mesh, shard: int, row: int,
         return t
     ref = _first(logits)
     return broadcast_from(t, own[shard], (ref.shape[0], ref.shape[2]),
-                          ref.dtype, device)
+                          ref.dtype, device, mesh.axis_group("seq"))
 
 
-def gather_local(xs: list) -> list:
-    """Every shard's tensor in every process, shard order: this process's
-    run of shards (the non-None entries, equal shapes) all-gathered over
-    the job. A list with no None is itself."""
+def gather_local(xs: list, group) -> list:
+    """Every seq shard's value in every process of the seq `group`, shard
+    order: this process's run of shards (the non-None entries, equal
+    shapes) all-gathered over the group, a tensor Shards part by part
+    (each process of the group holds the same tensor shards). A list
+    with no None is itself."""
     if all(x is not None for x in xs):
         return list(xs)
     local = [x for x in xs if x is not None]
+    if isinstance(local[0], TShards):
+        cols = [gather_local([None if x is None else x.parts[t] for x in xs],
+                             group) for t in range(len(local[0].parts))]
+        return [local[0].like([c[i] for c in cols]) for i in range(len(xs))]
     dev = local[0].device
-    got = all_gather_cat(torch.stack([x.to(dev) for x in local]), 0)
+    got = all_gather_cat(torch.stack([x.to(dev) for x in local]), 0, group)
     return list(got.unbind(0))
 
 
@@ -360,13 +375,16 @@ class ShardedKVCache(NamedTuple):
     def gather(self, device=None) -> KVCache:
         """The whole cache as one contiguous KVCache (the JAX global
         array's layout) on `device` (None = the first shard's); across
-        processes an all-gather every process joins."""
+        processes all-gathers over the seq and tensor groups of the
+        active mesh, which every process joins."""
         q = self.quantized
         sd = 3 if q else 2
 
         def whole(xs, kv_dim):
-            parts = gather_local([None if x is None else
-                                   _whole(x, kv_dim, device) for x in xs])
+            parts = [None if x is None else _whole(x, kv_dim, device)
+                     for x in xs]
+            if any(p is None for p in parts):   # other processes' shards
+                parts = gather_local(parts, axis_group("seq"))
             return gather_shards(parts, sd, device)
         k = whole(self.k, 2 if q else 3)
         v = whole(self.v, 2 if q else 3)
@@ -391,9 +409,9 @@ def _kv_for(k: Any, q: TShards, t: int, dim: int) -> Any:
     if k is None or isinstance(k, TShards):
         return None if k is None else k.parts[t]
     sizes = [p.shape[2] for p in q.parts]
-    lo = sum(sizes[:t])
+    lo = q.offset * sizes[0] + sum(sizes[:t])    # q's part t, whole heads
     hi = lo + sizes[t]
-    G = sum(sizes) // k.shape[dim]
+    G = q.shape[2] // k.shape[dim]
     if lo // G == (hi - 1) // G:
         return k.narrow(dim, lo // G, 1)
     if lo % G == 0 and hi % G == 0:
@@ -402,10 +420,10 @@ def _kv_for(k: Any, q: TShards, t: int, dim: int) -> Any:
     return k.index_select(dim, idx)
 
 
-def _stats_shards(per: list) -> tuple:
+def _stats_shards(per: list, q: TShards) -> tuple:
     """Per-tensor-shard (m, l, acc) as one tuple of tensor Shards over
-    the heads (dim 1)."""
-    return tuple(TShards([p[j] for p in per], "tensor", 1) for j in range(3))
+    the heads (dim 1), over q's shards."""
+    return tuple(q.like([p[j] for p in per], 1) for j in range(3))
 
 
 def _block_heads(q, k, v, q_pos, k_pos, k_scale=None, v_scale=None,
@@ -428,7 +446,7 @@ def _block_heads(q, k, v, q_pos, k_pos, k_scale=None, v_scale=None,
             None if k_scale is None else _kv_for(k_scale, q, t, 1).to(d),
             None if v_scale is None else _kv_for(v_scale, q, t, 1).to(d),
             kernel=kernel))
-    return _stats_shards(per)
+    return _stats_shards(per, q)
 
 
 def _merge(a: tuple, b: tuple) -> tuple:
@@ -455,11 +473,13 @@ def _quantize(k: Any) -> Tuple[Any, Any]:
 
 def _split_heads(x: torch.Tensor, like: TShards, dim: int) -> TShards:
     """A whole-head value as a tensor Shards split on `dim` like `like`'s
-    heads (dim 2 of [B, T, Nq, H]), part t on like's part t device."""
+    heads (dim 2 of [B, T, Nq, H]), part t on like's part t device (of
+    a split over processes, this process's heads alone)."""
     sizes = [p.shape[2] for p in like.parts]
-    return TShards([c.to(p.device, non_blocking=True) for c, p in
-                    zip(torch.split(x, sizes, dim=dim), like.parts)],
-                   "tensor", dim)
+    if like.distributed:
+        x = x.narrow(dim, like.offset * sizes[0], sum(sizes))
+    return like.like([c.to(p.device, non_blocking=True) for c, p in
+                      zip(torch.split(x, sizes, dim=dim), like.parts)], dim)
 
 
 # ---------------------------------------------------------------------------
@@ -521,8 +541,8 @@ def _all_to_all_shards(xs: Shards, split: int, cat: int, N: int) -> Shards:
     """all_to_all(split_axis=split, concat_axis=cat) over seq shards that
     cross processes: local shard a's chunk b of N along `split` goes to
     shard b, which concatenates what every shard sent it along `cat` in
-    shard order. One all-to-all over the job (each process's run of
-    shards in process order)."""
+    shard order. One all-to-all over the seq group of the active mesh
+    (each process's run of shards in process order)."""
     local = [i for i, x in enumerate(xs) if x is not None]
     n = len(local)
     P = N // n
@@ -531,7 +551,8 @@ def _all_to_all_shards(xs: Shards, split: int, cat: int, N: int) -> Shards:
     send = torch.stack([torch.stack([torch.stack(
         [chunks[a][p * n + b] for b in range(n)]) for a in range(n)])
         for p in range(P)])                      # [P, n(src), n(dst), ...]
-    got = all_to_all_blocks(send)                # [P, n(src), n(mine), ...]
+    got = all_to_all_blocks(send,                # [P, n(src), n(mine), ...]
+                            axis_group("seq"))
     out: list = [None] * N
     for b, i in enumerate(local):
         out[i] = torch.cat([got[p, a, b] for p in range(P)
@@ -551,7 +572,7 @@ def ulysses_attention(q: Shards, k: Shards, v: Shards,
     q-head block contracts with. Returns [B, T/N, Nq, H] per shard.
     Where the seq axis crosses processes (`own`: the process of each
     shard; None entries for another's shards) the reshards are
-    all-to-alls over the job and the positions an all-gather."""
+    all-to-alls over the seq group and the positions an all-gather."""
     N = len(q)
     devs = [None if x is None else x.device for x in q]
     B, Tl, Nq, H = _first(q).shape
@@ -574,7 +595,7 @@ def ulysses_attention(q: Shards, k: Shards, v: Shards,
 
     qq, kk, vv = heads_to_seq(q), heads_to_seq(k), heads_to_seq(v)
     if own is not None:                                          # all_gather
-        q_pos = gather_local(q_pos)
+        q_pos = gather_local(q_pos, axis_group("seq"))
     outs: list = [None] * N
     for d in range(N):
         if devs[d] is None:
@@ -597,29 +618,32 @@ def ring_heads(q: Shards, k: Shards, v: Shards, q_pos: Shards,
     """ring_stats over the seq shards, once per tensor shard on its heads
     where the shards' q are tensor Shards (the ring of tensor shard t
     runs over the seq shards' devices at tensor coordinate t); else one
-    ring (across processes where `own` names the shards' processes: the
-    seq axis then crosses them alone). Returns per seq shard (m, l,
-    acc), tensor Shards over the heads when split."""
+    ring. Where the seq axis crosses processes (`own` names the shards'
+    processes, None entries in the lists for another's) each ring passes
+    its blocks between them; the peers, at this process's tensor
+    coordinate, hold the same tensor shards. Returns per seq shard (m,
+    l, acc), tensor Shards over the heads when split."""
     if not isinstance(_first(q), TShards):
         return ring_stats(q, k, v, q_pos, k_pos, k_scale, v_scale,
                           kernel=kernel, own=own)
     kd = 1 if quant else 2
     per = []
-    for t in range(len(q[0].parts)):
-        qt = [x.parts[t] for x in q]
-        devs = [x.device for x in qt]
+    for t in range(len(_first(q).parts)):
+        qt = [None if x is None else x.parts[t] for x in q]
+        devs = [None if x is None else x.device for x in qt]
 
-        def pick(xs, dim):
+        def at(xs, dim=None):
             if xs is None:
                 return None
-            return [_kv_for(x, qi, t, dim).to(d, non_blocking=True)
+            return [None if d is None else
+                    (x if dim is None else _kv_for(x, qi, t, dim))
+                    .to(d, non_blocking=True)
                     for x, qi, d in zip(xs, q, devs)]
         per.append(ring_stats(
-            qt, pick(k, kd), pick(v, kd),
-            [p.to(d, non_blocking=True) for p, d in zip(q_pos, devs)],
-            [p.to(d, non_blocking=True) for p, d in zip(k_pos, devs)],
-            pick(k_scale, 1), pick(v_scale, 1), kernel=kernel))
-    return [_stats_shards([p[i] for p in per]) for i in range(len(q))]
+            qt, at(k, kd), at(v, kd), at(q_pos), at(k_pos), at(k_scale, 1),
+            at(v_scale, 1), kernel=kernel, own=own))
+    return [None if x is None else _stats_shards([p[i] for p in per], x)
+            for i, x in enumerate(q)]
 
 
 def _gathered(xs: Shards, dim: int) -> list:
@@ -816,18 +840,19 @@ def _combine_heads(parts: list, q: Any, own=None) -> tuple:
     """_combine per tensor shard (on q's part device) where the stats are
     tensor Shards, else once on q's device. Where the seq axis crosses
     processes (`own`; `parts` None for another process's shard) every
-    shard's partials, [B, Nq, 1(, H)] each, are all-gathered first and
-    combined in shard order in every process: the one-process sums'
-    bits (an all-reduce would reorder them)."""
+    shard's partials, [B, Nq, 1(, H)] each, are all-gathered over the
+    seq group first and combined in shard order in every process: the
+    one-process sums' bits (an all-reduce would reorder them)."""
     if own is not None:
+        group = axis_group("seq")
         parts = list(zip(*(gather_local([None if p is None else p[j]
-                                          for p in parts])
+                                         for p in parts], group)
                            for j in range(3))))
     if not isinstance(q, TShards):
         return _combine(parts, q.device)
     return _stats_shards([
         _combine([tuple(s.parts[t] for s in p) for p in parts], qt.device)
-        for t, qt in enumerate(q.parts)])
+        for t, qt in enumerate(q.parts)], q)
 
 
 def sp_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,

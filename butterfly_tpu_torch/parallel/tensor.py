@@ -29,22 +29,27 @@ On a mesh over several processes (core/mesh.py) a tensor Shards holds
 only this process's shards (`Shards.distributed`) and every process runs
 the same calls in the same order (SPMD): `tmap` and the matmuls run the
 local shards; `all_reduce` sums the local partials in float32, then
-all-reduces that sum over the job (torch.distributed, in float32), then
-rounds once, so two shards give the single-process sum's bits in every
-process; `gather` all-gathers the local blocks in shard order. Results
-land on the process's first device. Every process then holds the same
-activations and logits, and samples the same tokens.
+all-reduces that sum over the tensor axis's process group at this
+process's coordinates (core/mesh.py:axis_group, read off the active
+mesh), in float32, then rounds once, so two shards give the
+single-process sum's bits in every process; `gather` all-gathers the
+local blocks over that group, in shard order. Results land on the
+process's first device. Every process of a tensor group then holds the
+same activations and logits, and samples the same tokens.
 
 The collectives of the other axes that may cross processes live here
-too, beside `all_reduce`: `exchange` (the pipeline's activation
-hand-offs, point-to-point sends and receives posted together),
-`broadcast_from` (the last stage's output to every process),
-`all_to_all_blocks` (the expert dispatch) and `all_gather_cat` (the
-expert outputs in expert order). Gloo's send and receive take host
-memory only (on an H100 a card tensor fails them: "writev ... Bad
-address"), so `exchange` stages a card tensor through a pinned host
-buffer (`_to_host`), in this one place; gloo's all-reduce, all-gather,
-broadcast and all-to-all take card tensors as they are.
+too, beside `all_reduce`, each over the group its caller names (the
+group of its own axis): `exchange` (point-to-point sends and receives
+posted together, between global ranks: the pipeline's activation
+hand-offs and the seq ring's K/V pass, each to the peer at its own
+coordinates, core/mesh.py:owner), `broadcast_from` (the last stage's
+output, a seq shard's logits row), `all_to_all_blocks` (the expert
+dispatch, Ulysses' reshards) and `all_gather_cat` (the expert outputs
+in expert order, the seq shards' decode partials). Gloo's send and
+receive take host memory only (on an H100 a card tensor fails them:
+"writev ... Bad address"), so `exchange` stages a card tensor through a
+pinned host buffer (`_to_host`), in this one place; gloo's all-reduce,
+all-gather, broadcast and all-to-all take card tensors as they are.
 A collective that fails, or a process out of step, raises (the group's
 timeout bounds every wait): nothing falls back.
 
@@ -60,7 +65,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
-from butterfly_tpu_torch.core.mesh import active_mesh, data_degree
+from butterfly_tpu_torch.core.mesh import active_mesh, axis_group, data_degree
 from butterfly_tpu_torch.parallel.partition import Shards, axis_parts
 from butterfly_tpu_torch.quant.int8 import is_quantized_leaf, qeinsum
 
@@ -83,10 +88,11 @@ def _restack(outs: list, like: Shards, split: Optional[int]):
 
 
 def _across(x: Any):
-    """The process group a tensor Shards' reduction crosses (the whole
-    job) when other processes hold some of its shards, else None."""
+    """The process group a tensor Shards' reduction crosses when other
+    processes hold some of its shards (the tensor axis's group at this
+    process's coordinates on the active mesh), else None."""
     if isinstance(x, Shards) and x.distributed:
-        return torch.distributed.group.WORLD
+        return axis_group("tensor")
     return None
 
 
@@ -174,50 +180,53 @@ def exchange(sends: Sequence[tuple], recvs: Sequence[tuple]
 
 
 def broadcast_from(t: Optional[torch.Tensor], src: int, shape, dtype,
-                   device: torch.device) -> torch.Tensor:
-    """Process `src`'s tensor `t` in every process (`t` None elsewhere:
-    a buffer of `shape` and `dtype` on `device` takes it)."""
+                   device: torch.device, group) -> torch.Tensor:
+    """Process `src`'s tensor `t` (a global rank, a member of `group`)
+    in every process of `group` (`t` None elsewhere: a buffer of `shape`
+    and `dtype` on `device` takes it)."""
     if t is None:
         t = torch.empty(shape, dtype=dtype, device=device)
     else:
         t = t.contiguous()
-    torch.distributed.broadcast(t, src=src)
+    torch.distributed.broadcast(t, src=src, group=group)
     return t
 
 
-def all_to_all_blocks(send: torch.Tensor) -> torch.Tensor:
-    """The all-to-all over the job: `send` [P, ...] holds block p for
-    process p; the result [P, ...] holds process p's block for this
-    one, in process order."""
+def all_to_all_blocks(send: torch.Tensor, group) -> torch.Tensor:
+    """The all-to-all over `group`: `send` [P, ...] holds block p for
+    the group's p-th process; the result [P, ...] holds that process's
+    block for this one, in group order (ascending rank: the axis's shard
+    order, core/mesh.py:check_process_mesh)."""
     send = send.contiguous()
     out = torch.empty_like(send)
-    torch.distributed.all_to_all_single(out, send)
+    torch.distributed.all_to_all_single(out, send, group=group)
     return out
 
 
-def all_gather_cat(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """Every process's `t` (equal shapes) concatenated along `dim` in
-    process order, in every process."""
+def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every `group` process's `t` (equal shapes) concatenated along
+    `dim` in group order, in each of them."""
     t = t.contiguous()
-    blocks = [torch.empty_like(t)
-              for _ in range(torch.distributed.get_world_size())]
-    torch.distributed.all_gather(blocks, t)
+    blocks = [torch.empty_like(t) for _ in range(
+        torch.distributed.get_world_size(group=group))]
+    torch.distributed.all_gather(blocks, t, group=group)
     return torch.cat(blocks, dim=dim)
 
 
 def gather(x: Any, dim: int) -> torch.Tensor:
     """A tensor Shards concatenated along `dim` in shard order on shard
     0's device (a plain tensor as it is); a distributed one's local block
-    all-gathered over the job, in shard order, on this process's
-    device."""
+    all-gathered over the tensor group, in shard order, on this
+    process's device."""
     parts = axis_parts(x, "tensor")
     if parts is None:
         return x
     dev = parts[0].device
     out = torch.cat([p.to(dev, non_blocking=True) for p in parts], dim=dim)
-    if _across(x) is None:
+    group = _across(x)
+    if group is None:
         return out
-    return all_gather_cat(out, dim)
+    return all_gather_cat(out, dim, group)
 
 
 def _weight_part(w: Any, i: int):

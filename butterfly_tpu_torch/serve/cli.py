@@ -515,12 +515,18 @@ def build_mesh(args):
     to the process count each process counts as one slice, so those
     axes cross the processes and the others stay inside them (`--seq-
     parallel 2 --data-parallel 2 --dcn-axes seq`: data groups inside,
-    seq across); otherwise the devices keep their hosts' slices."""
+    seq across; `--expert-parallel 2 --tensor-parallel 2 --dcn-axes
+    expert,tensor` over four processes: both across); otherwise the
+    devices keep their hosts' slices. A mesh over several processes
+    that core/mesh.py:check_process_mesh refuses (a data axis across
+    them, a stage axis across beside tensor: the JAX package fails
+    there) exits with its message."""
     import dataclasses
 
     from butterfly_tpu_torch.core.config import MESH_AXES, MeshConfig
     from butterfly_tpu_torch.core.mesh import (
-        global_devices, init_distributed, make_hybrid_mesh, process_count)
+        check_process_mesh, global_devices, init_distributed,
+        make_hybrid_mesh, process_count)
 
     tp = getattr(args, "tensor_parallel", 1)
     pp = getattr(args, "stage_parallel", 1)
@@ -556,9 +562,11 @@ def build_mesh(args):
             devices = [dataclasses.replace(d, slice_index=d.process_index)
                        for d in devices]
     try:
-        return make_hybrid_mesh(cfg, devices, dcn_axes=dcn)
-    except ValueError as e:
+        mesh = make_hybrid_mesh(cfg, devices, dcn_axes=dcn)
+        check_process_mesh(mesh)
+    except (ValueError, RuntimeError) as e:
         raise SystemExit(f"error: {e}")
+    return mesh
 
 
 def shard_for_mesh(params, cfg, mesh):

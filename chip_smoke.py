@@ -411,20 +411,26 @@ raises and the script exits non-zero:
              on the card: 3), all_hosts_probe() across both, the ms of a
              16 KB and an 8 MB all-reduce, an 8 MB send/receive each way
              at once (the pipeline's hand-off, staged through the host)
-             and an 8 MB all-to-all; then five meshes across the two
+             and an 8 MB all-to-all; then six meshes across the two
              processes, in turn: tensor = 2, data = 2 inside each
              process beside tensor = 2 across (data2_tensor2: two
              shards a worker on its card, each worker its own slice of
              make_hybrid_mesh with dcn_axes=("tensor",)), stage = 2
-             and seq = 2 on Llama-3-8B at full width, 4 layers, and
-             expert = 2 on Mixtral-8x7B at full width, 2 layers (the
-             expert dispatch), each bf16 from seed 0, drawn on the card
-             and kept on the host. On each:
+             and seq = 2 on Llama-3-8B at full width, 4 layers, then
+             expert = 2 and expert = 2 across beside tensor = 2 inside
+             each process (expert2_tensor2: two tensor shards a worker
+             on its card, dcn_axes=("expert",), the expert all-to-all
+             over the expert axis's process group) on Mixtral-8x7B at
+             full width, 2 layers (the expert dispatch), each bf16 from
+             seed 0, drawn on the card and kept on the host (the
+             Mixtral tree once for both). On each:
              (b) placed across the two processes (global devices,
              make_hybrid_mesh): the bytes the placement asked the
              allocator for must equal its share (half of every leaf
-             split over the axis, the whole of the rest), nothing for
-             the other process's part; (c) greedy generate of 4 prompts
+             split over the crossing axis, the whole of the rest; on
+             expert2_tensor2 the expert2 share, over the worker's two
+             tensor shards), nothing for the other process's part;
+             (c) greedy generate of 4 prompts
              of 16-1000 bytes (16 new, 8 on data2_tensor2; under
              expert the longest cut by a
              token so the padded length is even and the prefill takes
@@ -448,7 +454,7 @@ raises and the script exits non-zero:
              parent then runs the same trees, paths and steps in one
              process on cuda:0. Both workers' tokens and checksums must
              be equal, byte for byte, and equal to the one-process run's
-             (tensor across: or, for a token row that differs, the
+             (under a tensor axis: or, for a token row that differs, the
              teacher-forced gap within 0.5). The one-process runs'
              launches are this phase's main-path counts; the workers'
              are logged.
@@ -5387,12 +5393,19 @@ MH_WAIT_S = 300        # the parent's bound on its workers: a desync fails
 MH_PG_TIMEOUT_S = 60   # each worker's collective timeout
 MH_SEQ_THRESHOLD = 512  # seq2 serving: the longest prompt takes the lane
 # the meshes across the two processes, in the order the workers run them
-# (the Llama-3-8B tree drawn once for the first four); data2_tensor2
-# holds a data axis of 2 inside each process beside tensor across them
+# (the Llama-3-8B tree drawn once for the first four, the Mixtral tree
+# once for the last two); data2_tensor2 holds a data axis of 2 inside
+# each process beside tensor across them, expert2_tensor2 a tensor axis
+# of 2 inside each beside expert across them
 MH_MESHES = (("tensor2", dict(tensor=2)),
              ("data2_tensor2", dict(data=2, tensor=2)),
              ("stage2", dict(stage=2)), ("seq2", dict(seq=2)),
-             ("expert2", dict(expert=2)))
+             ("expert2", dict(expert=2)),
+             ("expert2_tensor2", dict(expert=2, tensor=2)))
+# the axis each mesh lays across the two processes (the others inside)
+MH_ACROSS = {"tensor2": "tensor", "data2_tensor2": "tensor",
+             "stage2": "stage", "seq2": "seq", "expert2": "expert",
+             "expert2_tensor2": "expert"}
 
 
 def _mh_tree(torch):
@@ -5427,51 +5440,56 @@ def _mh_leaves(tree):
         yield tree
 
 
-def _mh_axis(mesh) -> str:
-    """The axis of a multihost mesh that crosses the processes (beside
-    it at most a data axis inside them)."""
-    return next(a for a in ("tensor", "stage", "expert", "seq")
-                if mesh.shape[a] > 1)
+def _mh_moe(name: str) -> bool:
+    """Whether mesh `name` runs the Mixtral tree."""
+    return name.startswith("expert2")
 
 
-def _mh_mesh(devs, axes):
-    """The mesh of `axes` over the two workers' global devices `devs`
-    (one card a worker): one axis across them; with a data axis, two
-    shards a worker on its card, each worker its own slice, so that
-    make_hybrid_mesh lays the other axis across the workers and data
-    inside each (the JAX runs' arrangement)."""
+def _mh_mesh(devs, name):
+    """Mesh `name` over the two workers' global devices `devs` (one card
+    a worker): its MH_ACROSS axis across them; where it has more shards
+    than workers (a data or a tensor axis inside) the rest lie on each
+    worker's card, each worker its own slice, so that make_hybrid_mesh
+    lays the crossing axis across the workers and the others inside
+    each (the JAX runs' arrangement)."""
     import dataclasses
 
     from butterfly_tpu_torch.core.config import MeshConfig
     from butterfly_tpu_torch.core.mesh import make_hybrid_mesh
-    cfg = MeshConfig(**axes)
-    if cfg.data == 1:
+    cfg = MeshConfig(**dict(MH_MESHES)[name])
+    per = cfg.num_devices // len(devs)
+    if per == 1:
         return make_hybrid_mesh(cfg, devs)
-    inside = [dataclasses.replace(d, id=cfg.data * i + j,
+    inside = [dataclasses.replace(d, id=per * i + j,
                                   slice_index=d.process_index)
-              for i, d in enumerate(devs) for j in range(cfg.data)]
-    cross = next(a for a, n in axes.items() if a != "data" and n > 1)
-    return make_hybrid_mesh(cfg, inside, dcn_axes=(cross,))
+              for i, d in enumerate(devs) for j in range(per)]
+    return make_hybrid_mesh(cfg, inside, dcn_axes=(MH_ACROSS[name],))
 
 
 def _mh_held_bytes(tree, cfg, mesh):
-    """The bytes one process of a two-process mesh must hold: half of
-    each leaf split over the axis that crosses (tensor and expert: as
-    the specs split them; stage: every layer-stacked leaf), the whole of
-    every other (the embedding, the final norm and the head are every
-    process's under stage; attention, norms and router under expert;
-    the whole tree under seq, which splits no weight; data groups on
-    one card share their replica)."""
+    """The bytes one process of a two-process mesh must hold: each leaf
+    over the product of the sizes of the axes that cross the processes
+    and split it (tensor and expert: as the specs split them; stage:
+    every layer-stacked leaf), the whole of every other (the embedding,
+    the final norm and the head are every process's under stage;
+    attention, norms and router under expert; the whole tree under seq,
+    which splits no weight; data groups on one card share their
+    replica; an axis inside splits a leaf over the process's shards on
+    its card, which together hold the process's block)."""
+    from butterfly_tpu_torch.core.mesh import axes_across_processes
     from butterfly_tpu_torch.parallel.partition import param_specs
-    axis = _mh_axis(mesh)
+    across = axes_across_processes(mesh)
     specs = param_specs(cfg, mesh)
 
     def walk(t, sp, stacked):
         if isinstance(t, dict):
             return sum(walk(t[k], sp[k], stacked or k == "layers")
                        for k in t)
-        split = stacked if axis == "stage" else axis in sp
-        return t.nbytes // (2 if split else 1)
+        f = 1
+        for a in across:
+            if (stacked if a == "stage" else a in sp):
+                f *= mesh.shape[a]
+        return t.nbytes // f
     return walk(tree, specs, False)
 
 
@@ -5580,7 +5598,7 @@ def _mh_step(torch, cfg, placed, mesh):
     from butterfly_tpu_torch.parallel.partition import (shard_kv_window,
                                                         shard_paged_cache)
     out = {}
-    stage = _mh_axis(mesh) == "stage"
+    stage = mesh.shape["stage"] > 1
     cache, win, wlen, active, toks = _step_inputs(torch, cfg)
     if stage:
         table = cache.page_table.clone()
@@ -5627,11 +5645,16 @@ def _mh_step_calls(name: str, one: bool) -> int:
     worker or (`one`) in the one-process run: a call per local shard and
     layer (and data group); under stage per local layer and microbatch
     (M = 4 for 8 slots over 2 stages), the window off; under expert and
-    seq one a layer (the decode step does not split)."""
+    seq one a layer (the decode step does not split); under expert x
+    tensor a call per tensor shard and layer, in a worker (its two on
+    its card) as in one process (the attention does not split over
+    expert)."""
     per = {"tensor2": MH_LAYERS, "data2_tensor2": 2 * MH_LAYERS,
            "stage2": MH_LAYERS // 2 * 4, "seq2": MH_LAYERS,
-           "expert2": MH_MOE_LAYERS}[name]
-    return per * 2 if one and name not in ("expert2", "seq2") else per
+           "expert2": MH_MOE_LAYERS,
+           "expert2_tensor2": 2 * MH_MOE_LAYERS}[name]
+    return per * 2 if one and name not in ("expert2", "expert2_tensor2",
+                                           "seq2") else per
 
 
 def _mh_ring_launches(one: bool) -> tuple:
@@ -5741,7 +5764,7 @@ def _mh_prompts(prompts, name):
     """The prompts of mesh `name`: under expert the longest is cut by one
     token where the padded length is odd, so the prefill takes the a2a
     path (parallel/expert.py:takes_a2a: T divides by the expert axis)."""
-    if name != "expert2" or max(map(len, prompts)) % 2 == 0:
+    if not _mh_moe(name) or max(map(len, prompts)) % 2 == 0:
         return prompts
     n = max(map(len, prompts))
     return [p[:-1] if len(p) == n else p for p in prompts]
@@ -5799,19 +5822,19 @@ def _multihost_worker(pid: int, port: int, outdir: str) -> int:
     res["sendrecv_8MB_ms"] = timed_ms(lambda: exchange(
         [(blk, peer, 0)], [(blk.shape, blk.dtype, blk.device, peer, 0)]), 5)
     res["all_to_all_8MB_ms"] = timed_ms(
-        lambda: all_to_all_blocks(blk.view(2, -1)), 5)
+        lambda: all_to_all_blocks(blk.view(2, -1), dist.group.WORLD), 5)
     del x, y, blk
     devs = global_devices("cuda")
     res["devices"] = [f"{d.id}:{d.device}@process{d.process_index}"
                       f"/slice{d.slice_index}" for d in devs]
     res["runs"] = {}
     host = None
-    for name, axes in MH_MESHES:
+    for name, _ in MH_MESHES:
         t_mesh = time.monotonic()
         # (b) the tree, drawn on the card, kept on the host; each
         #     process places its own part
-        if host is None or name == "expert2":
-            model, tree = (_mh_moe_tree if name == "expert2"
+        if host is None or _mh_moe(name) != model.cfg.is_moe:
+            model, tree = (_mh_moe_tree if _mh_moe(name)
                            else _mh_tree)(torch)
             checksum = float(tree["embed"]["tok"].float().sum().item())
             host = {}
@@ -5826,7 +5849,7 @@ def _multihost_worker(pid: int, port: int, outdir: str) -> int:
             to_host(tree, host)
             del tree
             torch.cuda.empty_cache()
-        mesh = _mh_mesh(devs, axes)
+        mesh = _mh_mesh(devs, name)
         run = {"tree_checksum": checksum, "mesh": repr(mesh)}
         torch.cuda.synchronize()
         before = _requested_bytes(torch)
@@ -5965,8 +5988,8 @@ def phase_multihost(torch, tok):
             # a launch per local layer (per microbatch under stage) for
             # each prefill call (fresh) or decode step (paged)
             local = {"tensor2": MH_LAYERS, "data2_tensor2": MH_LAYERS,
-                     "stage2": MH_LAYERS // 2,
-                     "expert2": MH_MOE_LAYERS}[name]
+                     "stage2": MH_LAYERS // 2, "expert2": MH_MOE_LAYERS,
+                     "expert2_tensor2": 2 * MH_MOE_LAYERS}[name]
             for run, k in (("generate_launches", "fresh"),
                            ("serve_launches", "paged")):
                 assert w[run][k] > 0 and w[run][k] % local == 0, \
@@ -5989,11 +6012,11 @@ def phase_multihost(torch, tok):
     model = tree = None
     for name, axes in MH_MESHES:
         t_mesh = time.monotonic()
-        if tree is None or name == "expert2":
+        if tree is None or _mh_moe(name) != model.cfg.is_moe:
             model = tree = None      # the yardstick's tree goes first
             gc.collect()
             torch.cuda.empty_cache()
-            model, tree = (_mh_moe_tree if name == "expert2"
+            model, tree = (_mh_moe_tree if _mh_moe(name)
                            else _mh_tree)(torch)
         w = a["runs"][name]
         assert float(tree["embed"]["tok"].float().sum().item()) \
@@ -6043,7 +6066,7 @@ def phase_multihost(torch, tok):
             _mh_check_seq(one, True)
             assert one["lane_tokens"] == w["lane_tokens"], \
                 (one["lane_tokens"], w["lane_tokens"])
-        if _mh_axis(mesh) == "tensor":
+        if mesh.shape["tensor"] > 1:
             # two f32 partials sum alike on host and card; a differing
             # row is held by its teacher-forced gap
             if gaps:

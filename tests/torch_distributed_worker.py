@@ -1,6 +1,5 @@
-"""Worker for tests/test_torch_distributed.py and
-tests/test_torch_distributed_axes.py (run as a subprocess): one process
-of a two-process job, on the CPU, one device a process.
+"""Worker for tests/test_torch_distributed*.py (run as a subprocess): one
+process of a job of two (or four) processes, on the CPU.
 
     python torch_distributed_worker.py jax  <pid> <n> <port> <outdir>
     python torch_distributed_worker.py port <pid> <n> <port> <outdir> <weights.npz>
@@ -8,6 +7,8 @@ of a two-process job, on the CPU, one device a process.
     python torch_distributed_worker.py port_axes <pid> <n> <port> <outdir> <weights_dir>
     python torch_distributed_worker.py jax_seq   <pid> <n> <port> <outdir>
     python torch_distributed_worker.py port_seq  <pid> <n> <port> <outdir> <weights_dir>
+    python torch_distributed_worker.py jax_two   <pid> <n> <port> <outdir> <layout>
+    python torch_distributed_worker.py port_two  <pid> <n> <port> <outdir> <weights_dir> <layouts>
 
 `jax` runs the JAX package's multi-host path (init_distributed,
 make_hybrid_mesh over jax.devices(), shard_params) on the tiny float32
@@ -41,10 +42,21 @@ inside each process beside each of tensor, stage, expert (the tiny
 Mixtral) and seq across them (two CPU devices a process). The port adds
 the int8 KV, temperature 1.0, the forward's and a decode step's logits
 and which seq shards each process holds.
+
+`jax_two` and `port_two` run two mesh axes at once (tests/
+test_torch_distributed_two.py): each pair of stage, expert, seq and
+tensor (`PAIRS`) in layout A (the outer axis across two processes of two
+devices, the inner inside), B (the inner across) or C (both across four
+processes of one device), or data = 2 inside two processes of four
+devices beside an axis across and one inside (`DATA_INSIDE`, layout D):
+greedy generate, the Scheduler, and under seq generate_long and the
+Scheduler through the long-prompt lane. The port adds the stepped loop,
+temperature 1.0, the logits (`two_logits`) and what each process holds.
 """
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -536,7 +548,7 @@ def seq_runs(mesh, params, cfg, model):
     yardstick) and in each worker. {name: lists}."""
     import torch
     from butterfly_tpu_torch.core.config import RuntimeConfig
-    from butterfly_tpu_torch.core.mesh import mesh_ctx
+    from butterfly_tpu_torch.core.mesh import axis_group, mesh_ctx
     from butterfly_tpu_torch.engine.engine import InferenceEngine
     from butterfly_tpu_torch.engine.sampling import SamplingParams
     from butterfly_tpu_torch.models import common as TC
@@ -565,7 +577,8 @@ def seq_runs(mesh, params, cfg, model):
     with mesh_ctx(mesh):
         logits, prefix = sp_forward(reps, cfg, toks, mesh)
         out["prefix_remote"] = [k is None for k in prefix.k]
-        out["prefill"] = torch.cat(gather_local(logits), dim=1).tolist()
+        out["prefill"] = torch.cat(gather_local(
+            logits, axis_group("seq")), dim=1).tolist()
         suffix = TC.init_cache(cfg, 1, 4, device="cpu", mesh=mesh)
         plen = torch.full((1,), len(LONG_PROMPT), dtype=torch.int32)
         step, _ = sp_decode_step(reps, cfg, toks[:, :1], plen[:, None],
@@ -584,7 +597,7 @@ def lane_serve(model, params, rt, mesh):
             for p in (LONG_PROMPT, GEN_PROMPTS[0])]
     sched.run_until_done()
     return ([r.output for r in reqs],
-            int(sched.metrics()["seq_parallel_prefill_tokens_total"]))
+            int(sched.metrics().get("seq_parallel_prefill_tokens_total", 0)))
 
 
 def inside_runs(mesh, axis, params, cfg, model):
@@ -649,6 +662,269 @@ def run_port_seq(pid, n, port, outdir, wdir):
         json.dump(out, f)
 
 
+# two mesh axes at once: (outer, inner) in MESH_AXES order and the tiny
+# tree each pair serves (Mixtral where the pair holds expert)
+PAIRS = (("stage", "tensor", "llama"), ("stage", "expert", "mixtral"),
+         ("stage", "seq", "llama"), ("expert", "tensor", "mixtral"),
+         ("expert", "seq", "mixtral"), ("seq", "tensor", "llama"))
+# the layouts: A the outer axis across two processes and the inner inside
+# them (two devices a process), B the inner across and the outer inside,
+# C both across four processes (one device each)
+LAYOUTS = {"A": lambda o, i: (o,), "B": lambda o, i: (i,),
+           "C": lambda o, i: (o, i)}
+# data = 2 inside two processes (four devices each) beside an axis
+# across them and another inside: (across, inside, tree)
+DATA_INSIDE = (("expert", "tensor", "mixtral"), ("seq", "tensor", "llama"),
+               ("stage", "expert", "mixtral"))
+
+
+def two_cases(layouts):
+    """[(key, axes, dcn axes, tree)] of the meshes of `layouts` (a
+    string of A, B, C and D: D the data-inside meshes), in the order
+    every worker runs them."""
+    out = []
+    for lay in layouts:
+        if lay == "D":
+            out += [(f"data2_{a}_{i}", {"data": 2, a: 2, i: 2}, (a,), arch)
+                    for a, i, arch in DATA_INSIDE]
+            continue
+        out += [(f"{o}_{i}_{lay}", {o: 2, i: 2}, LAYOUTS[lay](o, i), arch)
+                for o, i, arch in PAIRS]
+    return out
+
+
+def _jax_two_order(devs, axes, dcn):
+    """jax.devices() (process-major) arranged in mesh order so that the
+    axes `dcn` index the processes and the others a process's own
+    devices (make_hybrid_mesh's arrangement, processes as slices)."""
+    from butterfly_tpu.core.config import MESH_AXES, MeshConfig
+    shape = dict(zip(MESH_AXES, MeshConfig(**axes).axis_sizes))
+    procs = [shape[a] if a in dcn else 1 for a in MESH_AXES]
+    local = [1 if a in dcn else shape[a] for a in MESH_AXES]
+    per = int(np.prod(local))
+    order = []
+    for idx in np.ndindex(*[shape[a] for a in MESH_AXES]):
+        p = np.ravel_multi_index([i // l for i, l in zip(idx, local)], procs)
+        j = np.ravel_multi_index([i % l for i, l in zip(idx, local)], local)
+        order.append(devs[p * per + j])
+    return order
+
+
+def run_jax_two(pid, n, port, outdir, layouts):
+    """The JAX package on the meshes of `layouts` (two_cases): greedy
+    generate and the Scheduler's tokens, under seq also generate_long
+    (ring) and the Scheduler with the long-prompt lane; an error is
+    recorded as (type, message). Ends with os._exit after the
+    coordination service's shutdown: a JAX process that failed a
+    read-back does not exit on its own."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from butterfly_tpu.core.config import MeshConfig, RuntimeConfig, tiny
+    from butterfly_tpu.core.mesh import init_distributed, make_mesh
+    from butterfly_tpu.engine.engine import InferenceEngine
+    from butterfly_tpu.engine.sampling import SamplingParams
+    from butterfly_tpu.models.common import Model
+    from butterfly_tpu.parallel.partition import shard_params
+
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=n,
+                     process_id=pid)
+    devs = jax.devices()
+    trees = {}
+    for arch, kw in (("llama", {}), ("mixtral", dict(moe_impl="ep"))):
+        cfg = tiny(arch, dtype="float32", param_dtype="float32", **kw)
+        model = Model(cfg)
+        trees[arch] = (cfg, model, model.init(jax.random.PRNGKey(0)))
+    gsp = SamplingParams(max_new_tokens=GEN_NEW)
+    out = {}
+    # the meshes the JAX package fails on run last
+    cases = sorted(two_cases(layouts), key=lambda c: "stage" in c[2]
+                   and c[1].get("tensor", 1) > 1)
+    for key, axes, dcn, arch in cases:
+        cfg, model, params = trees[arch]
+        mesh = make_mesh(MeshConfig(**axes), _jax_two_order(devs, axes, dcn))
+        sp = shard_params(params, cfg, mesh)
+        eng = InferenceEngine(model, sp, mesh=mesh)
+        run = {}
+        t = [time.monotonic()]
+
+        def tick():
+            t.append(time.monotonic())
+            return round(t[-1] - t[-2], 2)
+        try:
+            run["generate"] = eng.generate(GEN_PROMPTS,
+                                           gsp).tokens.tolist()
+            run["s_generate"] = tick()
+            if "seq" not in axes:
+                run["serve"], _ = _jax_serve(model, sp, RuntimeConfig(
+                    **SERVE_RT), mesh, GEN_PROMPTS)
+                run["s_serve"] = tick()
+        except Exception as e:   # noqa: BLE001 - recorded for the test
+            run["error"] = [type(e).__name__, str(e)]
+        if "seq" in axes and "error" not in run:
+            try:
+                run["long"] = eng.generate_long(LONG_PROMPT,
+                                                gsp).tokens.tolist()
+            except NotImplementedError as e:
+                run["long"] = ["NotImplementedError", str(e)]
+            run["s_long"] = tick()
+            # the Scheduler under seq: its long-prompt lane
+            run["lane"], sched = _jax_serve(model, sp, RuntimeConfig(
+                seq_parallel_threshold=SEQ_THRESHOLD, **SERVE_RT), mesh,
+                [LONG_PROMPT, GEN_PROMPTS[0]])
+            run["lane_tokens"] = int(sched.metrics().get(
+                "seq_parallel_prefill_tokens_total", 0))
+            run["s_lane"] = tick()
+        out[key] = run
+    with open(os.path.join(outdir, f"jax_two_{layouts}{pid}.json"),
+              "w") as f:
+        json.dump(out, f)
+    print(f"jax_two{pid} done", flush=True)
+    # every process leaves the coordination service together (the first
+    # hosts it: leaving alone, it takes the others down)
+    jax.distributed.shutdown()
+    os._exit(0)
+
+
+def _held_leaves(tree, path=""):
+    """{leaf path: bytes this process holds} of a placed tree (a split
+    leaf's parts, nested ones too)."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{path}/{k}" if path else k
+        if isinstance(v, dict):
+            out.update(_held_leaves(v, key))
+        elif v is not None:
+            out[key] = _nbytes(v)
+    return out
+
+
+def _nbytes(x):
+    from butterfly_tpu_torch.parallel.partition import Shards
+    if isinstance(x, Shards):
+        return sum(_nbytes(p) for p in x.parts)
+    return x.nbytes
+
+
+def two_logits(mesh, axes, params, cfg):
+    """The port's logits on `mesh`: an 8-token prefill and a decode step
+    (the pipeline's under stage); under seq (without stage) also the
+    seq-parallel prefill of the long prompt and a decode step over its
+    sharded cache. {name: lists}. Run in one process (the yardstick)
+    and in each worker."""
+    import torch
+    from butterfly_tpu_torch.core.mesh import axis_group, mesh_ctx
+    from butterfly_tpu_torch.models import common as TC
+    from butterfly_tpu_torch.parallel.partition import shard_params
+    from butterfly_tpu_torch.parallel.pipeline import pipeline_forward
+    from butterfly_tpu_torch.parallel.sequence import (
+        gather_local, replicate_params, sp_decode_step, sp_forward)
+    out = {}
+    placed = shard_params(params, cfg, mesh)
+    toks = torch.as_tensor(AXES_LOGIT_TOKENS)
+    fwd = TC.forward if "stage" not in axes else (
+        lambda p, c, t, kv: pipeline_forward(p, c, t, kv, mesh))
+    with mesh_ctx(mesh):
+        cache = TC.init_cache(cfg, toks.shape[0], 32, device="cpu",
+                              mesh=mesh)
+        prefill, cache = fwd(placed, cfg, toks, cache)
+        step, cache = fwd(placed, cfg, toks[:, :1], cache)
+        out["prefill"], out["step"] = prefill.tolist(), step.tolist()
+        if "seq" in axes and "stage" not in axes:
+            reps = replicate_params(placed, mesh)
+            ltoks = torch.as_tensor([LONG_PROMPT + [0]], dtype=torch.int32)
+            logits, prefix = sp_forward(reps, cfg, ltoks, mesh)
+            out["long_prefill"] = torch.cat(gather_local(
+                logits, axis_group("seq")), dim=1).tolist()
+            suffix = TC.init_cache(cfg, 1, 4, device="cpu", mesh=mesh)
+            plen = torch.full((1,), len(LONG_PROMPT), dtype=torch.int32)
+            lstep, _ = sp_decode_step(reps, cfg, ltoks[:, :1], plen[:, None],
+                                      prefix, suffix, mesh, prefix_len=plen)
+            out["long_step"] = lstep.tolist()
+    return out
+
+
+def two_runs(mesh, axes, params, cfg, model):
+    """The port's runs on `mesh`: what each process holds, the logits
+    (two_logits), greedy generate (fused and stepped), temperature 1.0
+    and the Scheduler's tokens; under seq also generate_long (ring) and
+    the Scheduler with the long-prompt lane. A refusal is recorded as
+    {"error": (type, message)}."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.sampling import SamplingParams
+    from butterfly_tpu_torch.parallel.partition import shard_params
+    try:
+        placed = shard_params(params, cfg, mesh)
+    except Exception as e:   # noqa: BLE001 - recorded for the test
+        return {"error": [type(e).__name__, str(e)]}
+    out = {"held": _held_leaves(placed)}
+    out.update(two_logits(mesh, axes, params, cfg))
+    eng = InferenceEngine(model, placed, mesh=mesh)
+    sp = SamplingParams(max_new_tokens=GEN_NEW)
+    out["generate"] = eng.generate(GEN_PROMPTS, sp).tokens.tolist()
+    out["generate_stepped"] = eng.generate(GEN_PROMPTS, sp,
+                                           fused=False).tokens.tolist()
+    out["generate_t1"] = eng.generate(
+        GEN_PROMPTS, SamplingParams(max_new_tokens=GEN_NEW, temperature=1.0),
+        seed=5).tokens.tolist()
+    if "seq" not in axes:
+        out["serve"] = serve(model, placed, RuntimeConfig(**SERVE_RT), mesh)
+    else:
+        try:
+            out["long"] = eng.generate_long(LONG_PROMPT,
+                                            sp).tokens.tolist()
+        except NotImplementedError as e:    # stage x seq, as in JAX
+            out["long"] = [type(e).__name__, str(e)]
+        out["lane"], out["lane_tokens"] = lane_serve(
+            model, placed, RuntimeConfig(
+                seq_parallel_threshold=SEQ_THRESHOLD, **SERVE_RT), mesh)
+    return out
+
+
+def two_devices(n, layouts):
+    """The GlobalDevices of a layout's job: each process its own slice,
+    one CPU device a process for C, two for A and B, four for D."""
+    import torch
+    from butterfly_tpu_torch.core.mesh import GlobalDevice
+    per = {"C": 1, "A": 2, "B": 2, "D": 4}[layouts[0]]
+    return [GlobalDevice(i, torch.device("cpu"), i // per, i // per)
+            for i in range(per * n)]
+
+
+def run_port_two(pid, n, port, outdir, wdir, layouts):
+    """The port on the meshes of `layouts` (two_cases), the same weights
+    as the JAX workers (`<wdir>/llama.npz`, `mixtral.npz`): two_runs
+    of each, plus the mesh's process layout."""
+    import torch
+    torch.set_num_threads(1)
+    from butterfly_tpu_torch.core.config import MeshConfig, tiny
+    from butterfly_tpu_torch.core.mesh import init_distributed, make_hybrid_mesh
+    from butterfly_tpu_torch.models import common as TC
+    from butterfly_tpu_torch.models.bridge import params_from_numpy
+
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=n,
+                     process_id=pid, timeout_s=60)
+    trees = {}
+    for arch, kw in (("llama", {}), ("mixtral", dict(moe_impl="ep"))):
+        cfg = tiny(arch, dtype="float32", param_dtype="float32", **kw)
+        trees[arch] = (cfg, TC.Model(cfg, device="cpu"), params_from_numpy(
+            unflatten(dict(np.load(os.path.join(wdir, f"{arch}.npz")))),
+            device="cpu"))
+    out = {}
+    for lay in layouts:
+        devs = two_devices(n, lay)
+        for key, axes, dcn, arch in two_cases(lay):
+            cfg, model, params = trees[arch]
+            mesh = make_hybrid_mesh(MeshConfig(**axes), devs, dcn_axes=dcn)
+            out[key] = two_runs(mesh, axes, params, cfg, model)
+            out[key]["processes"] = mesh.processes.reshape(-1).tolist()
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(outdir, f"port_two_{layouts}{pid}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
 if __name__ == "__main__":
     mode, pid, n, port, outdir = (sys.argv[1], int(sys.argv[2]),
                                   int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -662,6 +938,10 @@ if __name__ == "__main__":
         run_jax_seq(pid, n, port, outdir)
     elif mode == "port_seq":
         run_port_seq(pid, n, port, outdir, sys.argv[6])
+    elif mode == "jax_two":
+        run_jax_two(pid, n, port, outdir, sys.argv[6])
+    elif mode == "port_two":
+        run_port_two(pid, n, port, outdir, sys.argv[6], sys.argv[7])
     else:
         run_port_axes(pid, n, port, outdir, sys.argv[6])
     print(f"{mode}{pid} done", flush=True)
