@@ -19,37 +19,26 @@ bench.py: the tiny f32 config with int8 weights and a float pool, at the
 CPU sizes, and the long-context lane on eight CPU shards (the eight fake
 devices the JAX bench.py forces).
 
-Before anything runs, the tree is linted with tools/staticcheck.py over
-its default trees (as `butterfly lint` loads it): a finding makes it
-print the finding and exit 2, running no leg.
+Before anything runs, the port is linted with its own checker
+(butterfly_tpu_torch/tools/staticcheck.py over butterfly_tpu_torch/, as
+`butterfly lint` runs it): a finding makes it print the finding and exit
+2, running no leg.
 """
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import sys
 import time
-from pathlib import Path
-
-REPO = Path(__file__).resolve().parent.parent
 
 
 def lint_preflight():
-    """The unsuppressed findings of tools/staticcheck.py over its default
-    trees (the repo's tier-1 gate): a number published from a tree that
-    breaks the donation, lock, host-sync or determinism contracts is not
-    one the serving path can be trusted to have produced."""
-    tools = REPO / "tools"
-    if not (tools / "staticcheck.py").exists():
-        raise FileNotFoundError("bench needs the repo's tools/ directory "
-                                "(run from a source checkout)")
-    # staticcheck imports its sibling staticrules by name
-    sys.path.insert(0, str(tools))
-    try:
-        staticcheck = importlib.import_module("staticcheck")
-    finally:
-        sys.path.remove(str(tools))
+    """The unsuppressed findings of the port's checker over
+    butterfly_tpu_torch/ (the port's tier-1 gate): a number published
+    from a tree that breaks the lock, host-sync, determinism or
+    generator contracts is not one the serving path can be trusted to
+    have produced."""
+    from butterfly_tpu_torch.tools import staticcheck
     return staticcheck.run_default()
 
 

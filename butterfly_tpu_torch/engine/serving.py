@@ -73,9 +73,8 @@ from butterfly_tpu_torch.cache.paged import (
     init_paged_cache, paged_forward, paged_forward_window,
     permute_paged_tail, permute_window_tail, pool_replicas)
 from butterfly_tpu_torch.core.config import ModelConfig, RuntimeConfig
-from butterfly_tpu_torch.core.mesh import (axis_group, expert_degree,
-                                           seq_degree, stage_degree,
-                                           under_mesh)
+from butterfly_tpu_torch.core.mesh import (axis_group, seq_degree,
+                                           stage_degree, under_mesh)
 from butterfly_tpu_torch.engine.engine import (
     mesh_device, place_params, seq_replicas)
 from butterfly_tpu_torch.engine.sampling import (
@@ -1176,7 +1175,11 @@ def _build_model_draft_source(engine: "ServingEngine"):
     target's). Under a stage mesh the draft runs whole on stage 0's mesh
     (the JAX package replicates it over the stages), its layers taken
     from the first stages' slices (views where every stage shares one
-    device, parallel/partition.py:leading_layers)."""
+    device, parallel/partition.py:leading_layers). On a mesh over several
+    processes it runs where only the seq axis (and a data axis inside)
+    crosses them, each process drafting on its own whole tree; a tensor,
+    stage or expert axis across them raises RuntimeError at engine build,
+    where the JAX package fails at its first spec block."""
     from butterfly_tpu_torch.models.draft import (ModelDraftSource,
                                                   derive_draft_params,
                                                   resolve_draft_layers)
@@ -1185,13 +1188,19 @@ def _build_model_draft_source(engine: "ServingEngine"):
                                                         stage_part)
     rt = engine.runtime
     mesh, params = engine.mesh, engine.params
-    if mesh is not None and mesh.spans_processes and max(
-            stage_degree(mesh), expert_degree(mesh)) > 1:
-        raise NotImplementedError(
-            "the draft-model source on a mesh whose stage or expert axis "
-            "crosses processes is not ported yet (ROADMAP.md Queue 1: "
-            "draft models across processes); the n-gram source runs "
-            "there")
+    crossing = [] if mesh is None else [
+        a for a in ("tensor", "stage", "expert")
+        if mesh.axis_group(a) is not None]
+    if crossing:
+        raise RuntimeError(
+            f"the draft-model source on a mesh whose {crossing[0]} axis "
+            "crosses processes is refused: the JAX package fails there at "
+            "its first spec block (sched/scheduler.py:1818 spec_block_async "
+            "-> engine/serving.py:1183/1201: 'Closing over jax.Array that "
+            "spans non-addressable devices', the draft closing over the "
+            "target's leaves), so the port does not run it; the n-gram "
+            "source runs there, and the draft model runs where only the "
+            "seq axis crosses processes")
     if stage_degree(mesh) > 1:
         staged = params
         mesh, params = mesh.stage_mesh(0), stage_part(params, 0)

@@ -292,9 +292,8 @@ def start_fleet(topology: str = "2p2d", *, page_size: int = 8,
         dev = resolve_device(device)
         model = Model(tiny("llama", dtype="float32", param_dtype="float32"),
                       device=dev)
-        # replicas must share one identical param tree (KV bytes
-        # interchangeable): seed 0, as serve/cli.py:load_params draws
         gen = torch.Generator(device=dev)
+        # btf: disable=BTF006 replicas must share one identical param tree (KV bytes interchangeable)
         gen.manual_seed(0)
         params = init_params(model.cfg, gen, dev)
     replica_kw = dict(page_size=page_size, max_batch=max_batch,

@@ -236,12 +236,11 @@ def leading_layers(layers: Any, n: int, Ls: int) -> Any:
     split inside a stage as stage 0's slice is. Where the stages' slices
     sit back to back in one storage (every stage on one device) the
     result is a view over them; otherwise the later slices are copied to
-    stage 0's devices."""
+    stage 0's devices. Every stage lies in this process: the draft model
+    (its one caller) is refused where the stage axis crosses processes."""
     k = -(-n // Ls)
     if isinstance(layers, dict):
         return {key: leading_layers(v, n, Ls) for key, v in layers.items()}
-    if layers.distributed:
-        raise ValueError(f"{layers!r} is split over processes")
     return _join_rows(list(layers.parts[:k]), n)
 
 

@@ -45,7 +45,8 @@ replica, and `serve` warns that its long-prompt lane is off).
 pytorch_model*.bin, ckpt/load.py) into the compute dtype, leaf by leaf;
 without it, weights are random (demo mode). `--quant int8` quantizes
 either one layer at a time as it arrives, so the float tree is never
-held. `lint` runs the repo's tools/staticcheck.py from a source checkout.
+held. `lint` runs the port's own checker (tools/staticcheck.py of this
+package) over butterfly_tpu_torch/.
 """
 from __future__ import annotations
 
@@ -408,17 +409,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="arm SLO-aware admission shedding during the "
                          "sweep (sheds are counted per point)")
 
-    # project-native static analysis (tools/staticcheck.py): the
-    # donation/lock/host-sync/determinism contracts as AST rules — the
-    # same walk the tier-1 test runs. Loads no model, touches no device.
+    # the port's static analysis (butterfly_tpu_torch/tools/staticcheck.py):
+    # the lock/host-sync/determinism/generator contracts as AST rules —
+    # the same walk the tier-1 test runs. Loads no model, touches no
+    # device.
     li = sub.add_parser("lint",
-                        help="AST lint for the serving contracts "
-                             "(donation, locks, host-sync, HTTP "
-                             "timeouts, determinism, PRNG hygiene); "
+                        help="AST lint for the port's serving contracts "
+                             "(locks, host-sync, HTTP timeouts, "
+                             "determinism, generator discipline); "
                              "exit 1 on any unsuppressed finding")
     li.add_argument("paths", nargs="*",
-                    help="files/trees to lint (default: butterfly_tpu "
-                         "tools tests, fixture snippets excluded)")
+                    help="files/trees to lint (default: "
+                         "butterfly_tpu_torch)")
     li.add_argument("--list-rules", action="store_true",
                     help="print the rule catalog (id, slug, scope, "
                          "invariant) and exit")
@@ -488,7 +490,8 @@ def load_params(model, args, mesh=None):
         import torch
         cfg = model.cfg.replace(param_dtype=model.cfg.dtype)
         gen = torch.Generator(device=model.device)
-        gen.manual_seed(0)  # demo mode: identical random weights every run
+        # btf: disable=BTF006 demo mode: no-ckpt random-init weights are deliberately identical across runs
+        gen.manual_seed(0)
         if quant:
             from butterfly_tpu_torch.quant.int8 import init_params_quantized
             params = init_params_quantized(cfg, gen, model.device, experts)
@@ -875,24 +878,10 @@ def cmd_workload(args) -> int:
 
 
 def cmd_lint(args) -> int:
-    """`butterfly lint`: the project-native static analyzer
-    (tools/staticcheck.py) from the package entrypoint. The analyzer
-    lives with the repo's tooling, not inside either package: a source
-    checkout is where the contracts it enforces exist."""
-    import importlib
-    from pathlib import Path
-
-    tools = Path(__file__).resolve().parents[2] / "tools"
-    if not (tools / "staticcheck.py").exists():
-        print("error: butterfly lint needs the repo's tools/ directory "
-              "(run from a source checkout)", file=sys.stderr)
-        return 2
-    # staticcheck imports its sibling staticrules by name
-    sys.path.insert(0, str(tools))
-    try:
-        staticcheck = importlib.import_module("staticcheck")
-    finally:
-        sys.path.remove(str(tools))
+    """`butterfly lint`: the port's static analyzer
+    (butterfly_tpu_torch/tools/staticcheck.py) over butterfly_tpu_torch/
+    by default, with the port's rules."""
+    from butterfly_tpu_torch.tools import staticcheck
     argv = list(args.paths)
     if args.list_rules:
         argv.append("--list-rules")

@@ -11,7 +11,10 @@ raises and the script exits non-zero:
              one nvcc per source, all started together; prints ptxas'
              registers, spills and static shared memory for every kernel
              instantiation, by name; then the native page allocator
-             (native/allocator.cc, g++), which must load.
+             (native/allocator.cc, g++), which must load; then the lint
+             step: the port's static analyzer over butterfly_tpu_torch/
+             (butterfly_tpu_torch/tools/staticcheck.py, `butterfly
+             lint`), any unsuppressed finding failing the smoke.
 3. kernel    the paged-attention kernel (split-KV + merge) against its
              plain PyTorch version and the plain version of its split
              decomposition at Llama-3-8B main-path shapes (S=8, Nq=32, Kv=8,
@@ -441,13 +444,20 @@ raises and the script exits non-zero:
              against the plain version (2e-2; under stage the window
              off, through the GPipe schedule) and the step's logits
              checksum; on tensor = 2 a data = 2 mesh across the two
-             processes must be refused at engine construction. On seq
+             processes must be refused at engine construction, and on
+             expert2_tensor2 a ServingEngine with the draft model (the
+             JAX package fails at its first spec block where tensor,
+             stage or expert crosses the processes). On seq
              = 2 (c) is generate_long of the 4096-token prompt (16
              new): ring, Ulysses and ring over the int8 KV, the ring
              launches exact (a worker its own shard's blocks), then the
              4 prompts through the Scheduler with the long-prompt lane
              at threshold 512 (its token count > 0 and equal in all
-             three runs), then every ring block of a short
+             three runs), then the 4 prompts once more through a
+             Scheduler whose ServingEngine drafts with the draft model
+             (draft_model="model", 1 layer, gamma 3, 4 new tokens; each
+             process drafts on its own whole tree, as the JAX package
+             does under seq across), then every ring block of a short
              generate_long (bt_ring_stats at the prefill, bt_ring_decode
              at the decode step) against the plain version within the
              ringpar element bound, and the step check. The
@@ -5392,6 +5402,11 @@ MH_STEP_S = 100        # the step's budget (PERF.md section 4)
 MH_WAIT_S = 300        # the parent's bound on its workers: a desync fails
 MH_PG_TIMEOUT_S = 60   # each worker's collective timeout
 MH_SEQ_THRESHOLD = 512  # seq2 serving: the longest prompt takes the lane
+# seq2 serves its prompts once more with the draft model (the JAX
+# package's draft runs where only seq crosses the processes; tensor,
+# stage or expert across is refused at build, checked on expert2_tensor2)
+MH_DRAFT = dict(speculative_gamma=3, draft_model="model", draft_layers=1)
+MH_DRAFT_NEW = 4
 # the meshes across the two processes, in the order the workers run them
 # (the Llama-3-8B tree drawn once for the first four, the Mixtral tree
 # once for the last two); data2_tensor2 holds a data axis of 2 inside
@@ -5729,6 +5744,23 @@ def _mh_seq_run(torch, model, placed, mesh, prompts, long_ids):
         sched.metrics()["seq_parallel_prefill_tokens_total"])
     sched.engine.cache = sched.engine._kv_window = None
     del sched
+    # the prompts once more through the draft model (each process drafts
+    # on its own whole tree)
+    rt = RuntimeConfig(max_batch_size=args.max_batch,
+                       max_seq_len=args.max_seq, page_size=args.page_size,
+                       **MH_DRAFT)
+    t0 = time.monotonic()
+    sched = Scheduler(ServingEngine(model, placed, rt, mesh=mesh))
+    reqs = [sched.submit(p, max_new_tokens=MH_DRAFT_NEW) for p in prompts]
+    sched.run_until_done()
+    torch.cuda.synchronize()
+    out["draft_s"] = time.monotonic() - t0
+    for r in reqs:
+        assert r.state == "finished" and len(r.output) == MH_DRAFT_NEW, r.id
+    out["draft"] = [r.output for r in reqs]
+    out["draft_forwards"] = int(sched.metrics()["spec_forwards_total"])
+    sched.engine.cache = sched.engine._kv_window = None
+    del sched
     # every ring block of one short run, kernel against plain
     checks = {True: [], False: []}          # T = 1 or not: ratio, abs err
 
@@ -5780,11 +5812,12 @@ def _multihost_worker(pid: int, port: int, outdir: str) -> int:
         print("multihost worker: no card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from butterfly_tpu_torch.core.config import MeshConfig
+    from butterfly_tpu_torch.core.config import MeshConfig, RuntimeConfig
     from butterfly_tpu_torch.core.mesh import (global_devices,
                                                init_distributed,
                                                make_hybrid_mesh)
     from butterfly_tpu_torch.engine.engine import InferenceEngine
+    from butterfly_tpu_torch.engine.serving import ServingEngine
     from butterfly_tpu_torch.obs.health import all_hosts_probe
     from butterfly_tpu_torch.parallel.partition import shard_params
     from butterfly_tpu_torch.parallel.tensor import (all_to_all_blocks,
@@ -5866,6 +5899,18 @@ def _multihost_worker(pid: int, port: int, outdir: str) -> int:
         torch.save(out.pop("step_logits"),
                    os.path.join(outdir, f"worker{pid}_{name}_logits.pt"))
         run.update(out)
+        if name == "expert2_tensor2":
+            # the draft model with expert across the processes: refused
+            # at engine build (the JAX package fails at its first spec
+            # block)
+            t0 = time.monotonic()
+            try:
+                ServingEngine(model, placed, RuntimeConfig(
+                    max_batch_size=1, max_seq_len=64, **MH_DRAFT), mesh=mesh)
+                run["draft_refusal"] = None
+            except RuntimeError as e:
+                run["draft_refusal"] = str(e)
+            run["draft_refusal_s"] = time.monotonic() - t0
         if name == "tensor2":
             # a data axis across the two processes: refused at
             # construction
@@ -5996,6 +6041,12 @@ def phase_multihost(torch, tok):
                     (name, w[run])
         assert r["runs"]["tensor2"]["data_refusal"] and "first read-back" \
             in r["runs"]["tensor2"]["data_refusal"]
+        w = r["runs"]["expert2_tensor2"]
+        log("multihost", step="worker_expert2_tensor2_draft_refusal",
+            pid=r["pid"], seconds=f"{w['draft_refusal_s']:.3f}",
+            refused=w["draft_refusal"] is not None)
+        assert w["draft_refusal"] and "expert axis crosses processes" \
+            in w["draft_refusal"], w["draft_refusal"]
     a, b = res
     for name, _ in MH_MESHES:
         wa, wb = a["runs"][name], b["runs"][name]
@@ -6006,6 +6057,7 @@ def phase_multihost(torch, tok):
             f"{name}: the processes' tokens differ"
         assert wa["step_checksum"] == wb["step_checksum"], name
         assert wa.get("lane_tokens") == wb.get("lane_tokens"), name
+        assert wa.get("draft") == wb.get("draft"), name
 
     # the same trees and paths in one process, every shard on cuda:0
     counts = {"paged": 0, "fresh": 0, "ring": 0}
@@ -6026,7 +6078,8 @@ def phase_multihost(torch, tok):
         if name == "seq2":
             # the three generate_long rows are the long prompt's
             one = _mh_seq_run(torch, model, placed, mesh, prompts, long_ids)
-            asked = {"generate": [long_ids] * 3, "serve": prompts}
+            asked = {"generate": [long_ids] * 3, "serve": prompts,
+                     "draft": prompts}
         else:
             mprompts = _mh_prompts(prompts, name)
             one = _mh_run(torch, model, placed, mesh, mprompts,
@@ -6103,6 +6156,9 @@ def _mh_seq_fields(w) -> dict:
     if "lane_tokens" not in w:
         return {}
     return {"lane_tokens": w["lane_tokens"],
+            "draft_s": f"{w['draft_s']:.3f}",
+            "draft_forwards": w["draft_forwards"],
+            "draft_tokens": _rows_text(w["draft"]),
             **{f"{k}_{f}": (w[f"{k}_{f}"] if f == "checks"
                             else f"{w[f'{k}_{f}']:.3g}")
                for k in ("ring_stats", "ring_decode")
@@ -6125,6 +6181,20 @@ def _mh_check_seq(w, one: bool) -> None:
     assert w["ring_decode_checks"] == L * ((N + 1) if one else 2), w
     for k in ("ring_stats", "ring_decode"):
         assert w[f"{k}_ratio"] <= 1.0, (k, w[f"{k}_ratio"])
+
+
+def phase_lint() -> None:
+    """The port's static analyzer over butterfly_tpu_torch/ (its
+    tier-1 gate, `butterfly lint`): any unsuppressed finding fails the
+    smoke. Needs no card."""
+    from butterfly_tpu_torch.tools import staticcheck
+    t0 = time.monotonic()
+    found = staticcheck.run_default()
+    for f in found:
+        print(f"[lint] {f.render()}", flush=True)
+    log("lint", tree="butterfly_tpu_torch", findings=len(found),
+        seconds=f"{time.monotonic() - t0:.2f}")
+    assert not found, f"{len(found)} lint finding(s)"
 
 
 def main() -> int:
@@ -6178,7 +6248,8 @@ def main() -> int:
             print(f"[build] {k}: {kern}: {regs} registers, spill {spill}, "
                   f"static smem {smem} bytes", flush=True)
 
-    clock("build")
+    phase_lint()
+    clock("build,lint")
     kres = phase_kernel(torch, name)
     fres = phase_flash_kernel(torch, name)
     rres = phase_ring(torch, name)

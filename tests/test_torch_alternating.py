@@ -134,3 +134,34 @@ def test_alternating_prefills_route_through_the_flash_wrapper(monkeypatch):
     L = TCFG.num_layers
     # 19 tokens in chunks of 8: fresh [0, 8), warm at 8, warm at 16
     assert calls == [None] * L + [[8]] * L + [[16]] * L
+
+
+def _recording_prefills(engine):
+    """Wrap engine.prefill_batch to record each gang dispatch as
+    [(slot, chunk length, start) per member]."""
+    calls, inner = [], engine.prefill_batch
+
+    def record(slots, chunks, starts):
+        calls.append([(int(s), len(c), int(p))
+                      for s, c, p in zip(slots, chunks, starts)])
+        return inner(slots, chunks, starts)
+    engine.prefill_batch = record
+    return calls
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["chunk8", "static"])
+def test_alternating_gang_prefill_chunks_match_jax(static):
+    """The alternating path's gang prefills dispatch the same chunks as
+    the JAX package's: each member's chunk runs from its prefilled count
+    to the end of its prompt or as far as the tick's budget (8 tokens)
+    lets it, never shorter; the static scheduler (no budget) prefills
+    each prompt whole, in one chunk from position 0."""
+    kw = dict(mixed_dispatch=False, prefill_chunk=8)
+    if static:
+        kw["scheduler"] = "static"
+    je, te = jax_engine(**kw), port_engine(**kw)
+    want, got = _recording_prefills(je), _recording_prefills(te)
+    assert _trace(Scheduler(te)) == _trace(JScheduler(je))
+    assert got == want and got
+    if static:
+        assert all(p == 0 for call in got for _, _, p in call)

@@ -13,7 +13,9 @@ over a ServingEngine), and logits within 2e-5 of the port's one-process
 tensor = 2 run (for two shards the float32 all-reduce is the one-process
 sum, so the bits are expected equal). A data axis across processes fails
 in the JAX package at its first read-back and is refused by the port at
-engine construction; the seq axis across them runs generate_long
+engine construction; the draft model with the tensor axis across them
+fails in the JAX package at its first spec block and is refused by the
+port at ServingEngine build; the seq axis across them runs generate_long
 (stage and expert across processes: tests/test_torch_distributed_axes.py;
 seq and data inside: tests/test_torch_distributed_seq.py). The CLI under
 BUTTERFLY_NUM_PROCESSES=2 prints, in both processes, the one-process
@@ -394,6 +396,24 @@ def test_data_across_processes_refused_as_jax_fails(runs, weights):
         assert "first read-back" in msg and "engine/engine.py:259" in msg
         assert set(r["refusals"]) == {"data"}
         assert r["seq_long"] == want
+
+
+def test_draft_model_tensor_across_refused_as_jax_fails(runs):
+    """The draft model (RuntimeConfig.draft_model="model") with the
+    tensor axis across the two processes: the JAX package fails at its
+    first spec block with RuntimeError (its draft closes over the
+    target's leaves, which span the other process's device); the port
+    refuses at ServingEngine build with RuntimeError naming that
+    failure."""
+    for r in runs["jax"]:
+        kind, msg = r["draft"]
+        assert kind == "RuntimeError"
+        assert "Closing over jax.Array" in msg and "non-addressable" in msg
+    for r in runs["port"]:
+        kind, msg = r["draft"]
+        assert kind == "RuntimeError"
+        assert "tensor axis crosses processes" in msg
+        assert "sched/scheduler.py:1818" in msg and "non-addressable" in msg
 
 
 # -- (5) the CLI -------------------------------------------------------------

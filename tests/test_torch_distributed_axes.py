@@ -15,7 +15,9 @@ ServingEngine), and every other run (temperature 1.0, the int8 KV pool,
 the alternating path, n-gram speculation, the interleaved schedule, the
 int8 tree) the port's one-process run on the same mesh; the forward's
 logits within 2e-5 of it. Each process holds only its own stages' or
-expert shards' parts plus the replicated rest. Meshes that still span
+expert shards' parts plus the replicated rest. The draft model with
+either axis across fails in the JAX package at its first spec block and
+is refused by the port at ServingEngine build. Meshes that still span
 processes with a refusal raise it, and a data axis inside them
 beside the one that crosses runs; the CLI under
 BUTTERFLY_NUM_PROCESSES=2 prints the one-process text in both processes.
@@ -216,6 +218,25 @@ def _fake_mesh(monkeypatch, axes, procs):
     return TM.make_mesh(MeshConfig(**axes), [
         TM.GlobalDevice(i, torch.device("cpu"), p, 0)
         for i, p in enumerate(procs)])
+
+
+@pytest.mark.parametrize("axis", ["stage", "expert"])
+def test_draft_model_axis_across_refused_as_jax_fails(runs, axis):
+    """The draft model (RuntimeConfig.draft_model="model") with the stage
+    axis (the tiny Llama) or the expert axis (the tiny Mixtral) across
+    the two processes: the JAX package fails at its first spec block
+    with RuntimeError (its draft closes over target leaves that span the
+    other process's devices); the port refuses at ServingEngine build
+    with RuntimeError naming that failure."""
+    for r in runs["jax_axes"]:
+        kind, msg = r[f"{axis}_draft"]
+        assert kind == "RuntimeError"
+        assert "Closing over jax.Array" in msg and "non-addressable" in msg
+    for r in runs["port_axes"]:
+        kind, msg = r[f"{axis}_draft"]
+        assert kind == "RuntimeError"
+        assert f"{axis} axis crosses processes" in msg
+        assert "sched/scheduler.py:1818" in msg and "non-addressable" in msg
 
 
 @pytest.mark.parametrize("axes,procs,crossing", [

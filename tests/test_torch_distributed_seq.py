@@ -11,11 +11,14 @@ float32 Llama from PRNGKey(0) runs generate_long on a 37-token prompt
 (ring and Ulysses) and a Scheduler over a ServingEngine whose long-prompt
 lane takes that prompt: both port processes must give the JAX
 processes' tokens and lane count, and every other run (the int8 KV,
-temperature 1.0) the port's one-process seq = 2 run's; the forward's and
+temperature 1.0) the port's one-process seq = 2 run's; the draft model
+(linear and a token tree) gives the JAX pair's tokens, and the draft's
+own cache after the run equals the one-process run's; the forward's and
 a decode step's logits within 2e-5 of it; each process holds its own
 seq shard alone. Then data = 2 inside each process (two CPU devices a
 process) beside each of tensor, stage, expert (the tiny Mixtral) and seq
-across them: greedy generate and serving equal the JAX pair's. The CLI
+across them: greedy generate and serving equal the JAX pair's, and
+beside seq across the draft model too, as with tensor = 2 inside. The CLI
 under BUTTERFLY_NUM_PROCESSES=2 prints the one-process text in both
 processes, seq across alone and with data inside.
 """
@@ -64,23 +67,28 @@ def trees(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def runs(trees, tmp_path_factory):
-    """The JAX pair's and the port pair's results, both pairs run at
-    once: {"jax_seq": [proc0, proc1], "port_seq": [...]}."""
+    """The JAX pairs' and the port pair's results, every pair run at
+    once: {"jax_seq": [proc0, proc1], "jax_seq_draft": [...], "port_seq":
+    [...]}."""
     out = tmp_path_factory.mktemp("runs")
     worker = str(HERE / "torch_distributed_worker.py")
-    jport, tport = _free_port(), _free_port()
+    jport, dport, tport = _free_port(), _free_port(), _free_port()
     jenv = _child_env()
     # two CPU devices a JAX process, for the data-inside meshes
     jenv["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=2 "
                          + jenv["XLA_FLAGS"])
     cmds = [([sys.executable, worker, "jax_seq", str(p), "2", str(jport),
               str(out)], jenv) for p in range(2)]
+    # the draft model's JAX run, a job of its own beside the main one
+    cmds += [([sys.executable, worker, "jax_seq", str(p), "2", str(dport),
+               str(out), "draft"], jenv) for p in range(2)]
     cmds += [([sys.executable, worker, "port_seq", str(p), "2", str(tport),
                str(out), str(trees[0])], _child_env()) for p in range(2)]
     for rc, log in _run_pairs(cmds):
         assert rc == 0, f"worker failed:\n{log}"
     return {m: [json.loads((out / f"{m}{p}.json").read_text())
-                for p in range(2)] for m in ("jax_seq", "port_seq")}
+                for p in range(2)]
+            for m in ("jax_seq", "jax_seq_draft", "port_seq")}
 
 
 @pytest.fixture(scope="module")
@@ -148,6 +156,55 @@ def test_seq_across_processes_holds_own_shards(runs, one_process):
         other = [i != p for i in range(2)]
         assert r["seq"]["trees"] == other
         assert r["seq"]["prefix_remote"] == other
+
+
+# the JAX package's one-process draft-model tokens: its two-process run
+# under seq = 2 across gives them too (checked live below); its token
+# tree and its runs beside tensor = 2 or data = 2 inside the processes,
+# recorded in ROADMAP.md Queue 1 item 2, give the same tokens
+DRAFT_TOKENS = [[140, 109, 49, 49, 49, 49], [39, 42, 200, 34, 192, 27]]
+
+
+@pytest.mark.parametrize("key", ["draft", "draft_tree"])
+def test_draft_model_seq_across_processes_matches_jax(runs, key):
+    """The draft model (RuntimeConfig.draft_model="model", one layer,
+    gamma 3; and a token tree of width 2) with the seq axis across the
+    processes: the Scheduler's tokens in each port process equal the
+    JAX pair's linear run in the same process (its one-process tokens;
+    its recorded tree run gives them too)."""
+    for j in runs["jax_seq_draft"]:
+        assert j["seq_draft"] == DRAFT_TOKENS
+    for j, r in zip(runs["jax_seq_draft"], runs["port_seq"]):
+        assert r["seq"][key]["tokens"] == j["seq_draft"]
+
+
+@pytest.mark.parametrize("key", ["draft", "draft_tree"])
+def test_draft_model_seq_across_processes_state(runs, one_process, key):
+    """The draft's own cache after the run (every admission's prefill
+    from host truth, every round's rollback to the accepted count): its
+    lengths equal, and its K within 2e-5 of, the one-process seq = 2
+    run's in both processes."""
+    want = one_process[key]
+    for r in runs["port_seq"]:
+        got = r["seq"][key]
+        assert got["draft_len"] == want["draft_len"]
+        diff = np.abs(np.asarray(got["draft_k"]) - np.asarray(want["draft_k"]))
+        assert diff.max() <= TOL
+
+
+@pytest.mark.parametrize("key", ["data2_seq", "seq_tensor2"])
+def test_draft_model_seq_across_beside_inside_axis_matches_jax(runs, key):
+    """The draft model with seq across the processes beside data = 2
+    inside them, or beside tensor = 2 inside them: the port's tokens in
+    each process equal the JAX pair's seq = 2 draft run in the same
+    process (the JAX package's recorded runs on these two layouts give
+    those tokens too)."""
+    for j, r in zip(runs["jax_seq_draft"], runs["port_seq"]):
+        if key == "data2_seq":
+            assert r[key]["draft"] == j["seq_draft"]
+        else:
+            assert r["seq_tensor2_draft"]["tokens"] == j["seq_draft"]
+            assert r["seq_tensor2_draft"]["processes"] == [0, 0, 1, 1]
 
 
 # -- (2) data inside the processes -------------------------------------------

@@ -18,7 +18,9 @@ processes' own run of the same mesh; the logits within 2e-5 of the
 port's one-process run of that mesh; temperature 1.0 alike in every
 process; each process holds exactly its block of every leaf. A stage
 axis across beside tensor, where the JAX package fails at its first
-read-back, raises RuntimeError before any weight is placed.
+read-back, raises RuntimeError before any weight is placed; a
+ServingEngine with the draft model builds where only seq crosses the
+processes and raises RuntimeError where tensor, stage or expert does.
 """
 import argparse
 import json
@@ -296,6 +298,25 @@ def _leaf_items(tree, prefix=""):
 
 
 # -- (3) what stays refused --------------------------------------------------
+
+@pytest.mark.parametrize("key", RUNS)
+def test_two_axes_draft_model_refused_where_jax_fails(runs, key):
+    """A ServingEngine with the draft model (RuntimeConfig.draft_model=
+    "model") builds where neither tensor, stage nor expert crosses the
+    processes (seq across, alone or beside an axis inside them), and is
+    refused at build with RuntimeError in every process where one of
+    them crosses: the JAX package fails there at its first spec block
+    (tests/test_torch_distributed.py, test_torch_distributed_axes.py),
+    and runs under seq across (test_torch_distributed_seq.py)."""
+    _, dcn, _ = CASES[key]
+    crossing = [a for a in ("tensor", "stage", "expert") if a in dcn]
+    for r in runs["port"][key]:
+        if crossing:
+            kind, msg = r["draft"]
+            assert kind == "RuntimeError"
+            assert f"{crossing[0]} axis crosses processes" in msg
+        else:
+            assert r["draft"] is None
 
 @pytest.mark.parametrize("key", REFUSED)
 def test_stage_across_beside_tensor_refused(runs, key):

@@ -165,11 +165,26 @@ def test_decode_window_and_flush_match_jax(quant, uniform):
     12-long buffer: uniform rows at 9 land flush against its end; ragged
     row 0 at 11 would run past it, so the write clamps back to 9 as
     dynamic_update_slice clamps it."""
+    lens = np.array([9, 9], np.int32) if uniform else np.array([11, 6],
+                                                                np.int32)
+    _window_flush_case(quant, lens, uniform)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_uniform_flush_inside_the_buffer_matches_jax(quant):
+    """The uniform flush (one offset for every row) of rows at 6 in a
+    12-long buffer: the three steps land at 6..8, short of its end, so
+    no clamp hides an offset that is off by one."""
+    _window_flush_case(quant, np.array([6, 6], np.int32), True)
+
+
+def _window_flush_case(quant, lens, uniform):
+    """Three window steps over a cache prefilled with 9 tokens whose
+    lengths are then set to `lens`, one flush (`uniform`) into the
+    12-long buffer: the port's cache bytes equal the JAX package's."""
     jp, tp = trees()
     cfg, tcfg, jc, _ = _pair(quant, S=12)
     toks = _prompt(4, 2, 9)
-    lens = np.array([9, 9], np.int32) if uniform else np.array([11, 6],
-                                                                np.int32)
     pos = np.broadcast_to(np.arange(9)[None], (2, 9)).astype(np.int32)
     _, jc = J.forward(jp, cfg, jnp.asarray(toks), jc, jnp.asarray(pos),
                       fresh=True)

@@ -232,3 +232,27 @@ def test_cli_generate_quant_int8_speculate(capsys):
     out, err = capsys.readouterr()
     assert rc == 0 and len(out) > 1
     assert "tok/forward" in err and "drafts accepted" in err
+
+
+@pytest.mark.parametrize("stops,pieces", [
+    (["END"], ["hello ", "E", "x", "EN", "D ignored"]),
+    (["ab", "b"], ["xa", "b"]),
+    (["zz"], ["az"]),
+    (["\n\n", "STOP"], ["one\n", "\ntwo", "ST", "OPx"]),
+])
+def test_stop_text_matches_jax(stops, pieces):
+    """The stop-sequence matcher (serve/server.py:StopSequenceMatcher)
+    releases the same text piece by piece as the JAX package's: the
+    holdback of a possible stop's prefix, the earliest match winning,
+    nothing past a stop leaking, the holdback flushed without a hit."""
+    from butterfly_tpu.serve.server import StopSequenceMatcher as JMatcher
+    from butterfly_tpu_torch.serve.server import StopSequenceMatcher
+
+    def run(cls):
+        m = cls(stops)
+        out = [m.feed(p) for p in pieces]
+        return out, m.hit, m.text[:m.released], m.flush()
+    got = run(StopSequenceMatcher)
+    assert got == run(JMatcher)
+    if got[1]:
+        assert not any(s in "".join(got[0]) for s in stops)

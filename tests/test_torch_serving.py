@@ -258,3 +258,34 @@ def test_engine_defaults():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Model(TCFG)  # no device given means CUDA, which is absent
+
+
+def _prefill_lanes(sched, prompts, ticks=60):
+    """Submit `prompts` (4 new tokens each), tick to the end and return
+    the number of prefill-phase slots after each tick, and the outputs."""
+    reqs = [sched.submit(p, max_new_tokens=4) for p in prompts]
+    lanes = []
+    for _ in range(ticks):
+        if not sched.has_work:
+            break
+        sched.tick()
+        lanes.append(len(sched._prefill_group))
+    return lanes, [r.output for r in reqs]
+
+
+@pytest.mark.parametrize("budget", [8, 32])
+def test_inline_budget_caps_prefill_lanes(budget):
+    """prefill_inline_budget bounds the CONCURRENT prefill lanes of a
+    mixed block (budget // prefill_chunk): budget 8 at chunk 8 lets one
+    slot chew prompt chunks at a time however many slots are free, 32
+    lets four. The port's scheduler admits the same lanes tick for tick
+    as the JAX package's, and the tokens match."""
+    prompts = [list(range(1 + 20 * i, 19 + 20 * i)) for i in range(4)]
+    kw = dict(max_batch_size=4, prefill_inline_budget=budget)
+    tsched = Scheduler(port_engine(**kw))
+    jsched = JScheduler(jax_engine(**kw))
+    assert tsched._mixed_max_pf == jsched._mixed_max_pf == budget // 8
+    got, want = _prefill_lanes(tsched, prompts), _prefill_lanes(jsched,
+                                                                prompts)
+    assert got == want
+    assert max(got[0]) == min(budget // 8, len(prompts))

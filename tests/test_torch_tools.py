@@ -310,8 +310,8 @@ _SMALL = {
 
 
 def test_bench_preflight_clean():
-    """tests/test_staticcheck.py:186 for the port's bench.py: the same
-    default walk, clean on this tree."""
+    """tests/test_staticcheck.py:186 for the port's bench.py: the port's
+    own checker over butterfly_tpu_torch/, clean on this tree."""
     assert bench.lint_preflight() == []
 
 

@@ -5,7 +5,7 @@ process of a job of two (or four) processes, on the CPU.
     python torch_distributed_worker.py port <pid> <n> <port> <outdir> <weights.npz>
     python torch_distributed_worker.py jax_axes  <pid> <n> <port> <outdir>
     python torch_distributed_worker.py port_axes <pid> <n> <port> <outdir> <weights_dir>
-    python torch_distributed_worker.py jax_seq   <pid> <n> <port> <outdir>
+    python torch_distributed_worker.py jax_seq   <pid> <n> <port> <outdir> [draft]
     python torch_distributed_worker.py port_seq  <pid> <n> <port> <outdir> <weights_dir>
     python torch_distributed_worker.py jax_two   <pid> <n> <port> <outdir> <layout>
     python torch_distributed_worker.py port_two  <pid> <n> <port> <outdir> <weights_dir> <layouts>
@@ -13,12 +13,16 @@ process of a job of two (or four) processes, on the CPU.
 `jax` runs the JAX package's multi-host path (init_distributed,
 make_hybrid_mesh over jax.devices(), shard_params) on the tiny float32
 Llama from PRNGKey(0): greedy generate and a Scheduler over a
-ServingEngine with the tensor axis across the two processes, then a data
-axis across them, which the JAX package fails at its first read-back.
+ServingEngine with the tensor axis across the two processes, the
+Scheduler with the draft model there (DRAFT_RT), which the JAX package
+fails at its first spec block, then a data axis across them, which it
+fails at its first read-back. Every JAX mode ends with the coordination
+service's shutdown and os._exit (`_jax_exit`).
 `port` runs the same on butterfly_tpu_torch (gloo), with the same weights
 from `weights.npz` (models/bridge.py:params_from_numpy), plus the worker
-sum, all_hosts_probe, the forward's logits, the data axis's refusal and
-generate_long with the seq axis across the processes. Each writes
+sum, all_hosts_probe, the forward's logits, the data axis's refusal, the
+draft model's refusal at engine build and generate_long with the seq
+axis across the processes. Each writes
 `<outdir>/<mode><pid>.json` (and the port `<outdir>/port<pid>.npz`).
 
 `jax_axes` and `port_axes` run the same with the stage axis across the
@@ -26,7 +30,9 @@ two processes (the tiny float32 Llama, one layer a stage) and then the
 expert axis (the tiny float32 Mixtral, moe_impl="ep"), both trees from
 PRNGKey(0) (the port's from `<weights_dir>/llama.npz`, `mixtral.npz`):
 greedy generate (fused; and an expert run whose padded prompt length is
-even, so its prefill takes the a2a path) and the Scheduler's tokens.
+even, so its prefill takes the a2a path) and the Scheduler's tokens; the
+Scheduler with the draft model, which the JAX package fails (the port
+refuses it at engine build).
 The port adds the stepped loop, temperature 1.0, the int8 KV pool, the
 alternating path, n-gram speculation (generate and serving), the
 interleaved schedule (a 4-layer Llama from torch seed 0, V = 2), the
@@ -37,11 +43,15 @@ stage across.
 
 `jax_seq` and `port_seq` run the seq axis across the two processes (the
 tiny float32 Llama: generate_long, ring and Ulysses, on a 37-token
-prompt; a Scheduler whose long-prompt lane takes it), then data = 2
-inside each process beside each of tensor, stage, expert (the tiny
-Mixtral) and seq across them (two CPU devices a process). The port adds
-the int8 KV, temperature 1.0, the forward's and a decode step's logits
-and which seq shards each process holds.
+prompt; a Scheduler whose long-prompt lane takes it; with `draft` a job
+of its own runs the Scheduler with the draft model), then data = 2
+inside each process beside each of
+tensor, stage, expert (the tiny Mixtral) and seq across them (two CPU
+devices a process). The port adds the int8 KV, temperature 1.0, the
+forward's and a decode step's logits, which seq shards each process
+holds, the draft model's token tree and the draft's cache after its
+runs, and the draft model beside data = 2 and beside tensor = 2 inside
+the processes.
 
 `jax_two` and `port_two` run two mesh axes at once (tests/
 test_torch_distributed_two.py): each pair of stage, expert, seq and
@@ -51,7 +61,8 @@ processes of one device), or data = 2 inside two processes of four
 devices beside an axis across and one inside (`DATA_INSIDE`, layout D):
 greedy generate, the Scheduler, and under seq generate_long and the
 Scheduler through the long-prompt lane. The port adds the stepped loop,
-temperature 1.0, the logits (`two_logits`) and what each process holds.
+temperature 1.0, the logits (`two_logits`), what each process holds and
+whether a ServingEngine with the draft model builds.
 """
 import json
 import os
@@ -75,6 +86,12 @@ SEQ_THRESHOLD = 16
 # data = 2 inside each process beside each axis across them
 INSIDE = (("tensor", "llama", {}), ("stage", "llama", {}),
           ("expert", "mixtral", dict(moe_impl="ep")), ("seq", "llama", {}))
+# the draft model (RuntimeConfig.draft_model="model"): the first layer of
+# the two-layer target, gamma 3, GEN_NEW new tokens a request; a token
+# tree of width 2 and 7 nodes
+DRAFT_RT = dict(speculative_gamma=3, draft_model="model", draft_layers=1,
+                **SERVE_RT)
+DRAFT_TREE = dict(spec_tree_width=2, spec_tree_nodes=7)
 
 
 def flatten(tree, prefix=""):
@@ -108,6 +125,38 @@ def serve(model, params, rt, mesh, prompts=GEN_PROMPTS):
     reqs = [sched.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
     sched.run_until_done()
     return [r.output for r in reqs]
+
+
+def draft_serve(model, params, mesh, tree=False):
+    """GEN_PROMPTS (GEN_NEW new tokens each) through a Scheduler whose
+    ServingEngine drafts with the draft model (DRAFT_RT; a token tree
+    with `tree`): {"tokens", and where the draft cache is one tensor
+    "draft_len": its lengths and "draft_k": its K summed over kv heads
+    and head dims [L, S, W] after the run (the admissions' prefills and
+    every round's rollback)}."""
+    import torch
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    from butterfly_tpu_torch.sched.scheduler import Scheduler
+    rt = RuntimeConfig(**DRAFT_RT, **(DRAFT_TREE if tree else {}))
+    sched = Scheduler(ServingEngine(model, params, rt, mesh=mesh))
+    reqs = [sched.submit(p, max_new_tokens=GEN_NEW) for p in GEN_PROMPTS]
+    sched.run_until_done()
+    out = {"tokens": [r.output for r in reqs]}
+    state = sched.engine._draft_state
+    if torch.is_tensor(state.k):
+        out["draft_len"] = state.length.tolist()
+        out["draft_k"] = state.k.sum(dim=(-2, -1)).tolist()
+    return out
+
+
+def draft_refusal(model, params, mesh):
+    """(type, message) of building a ServingEngine with the draft model
+    on `mesh`, or None where it builds."""
+    from butterfly_tpu_torch.core.config import RuntimeConfig
+    from butterfly_tpu_torch.engine.serving import ServingEngine
+    return _error(lambda: ServingEngine(model, params,
+                                        RuntimeConfig(**DRAFT_RT), mesh=mesh))
 
 
 def variants(mesh):
@@ -181,6 +230,9 @@ def run_jax(pid, n, port, outdir):
     reqs = [sched.submit(p, max_new_tokens=SERVE_NEW) for p in GEN_PROMPTS]
     sched.run_until_done()
     out["serve"] = [r.output for r in reqs]
+    # the draft model with the tensor axis across: fails at its first
+    # spec block
+    out["draft"] = _jax_draft(model, sp, mesh)
 
     dmesh = make_hybrid_mesh(MeshConfig(data=n), jax.devices())
     deng = InferenceEngine(model, shard_params(params, cfg, dmesh),
@@ -189,6 +241,7 @@ def run_jax(pid, n, port, outdir):
         GEN_PROMPTS, SamplingParams(max_new_tokens=GEN_NEW)))
     with open(os.path.join(outdir, f"jax{pid}.json"), "w") as f:
         json.dump(out, f)
+    _jax_exit(jax)
 
 
 def run_port(pid, n, port, outdir, weights):
@@ -258,6 +311,8 @@ def run_port(pid, n, port, outdir, weights):
     dmesh = make_hybrid_mesh(MeshConfig(data=n), devs)
     out["refusals"] = {"data": _error(lambda: InferenceEngine(
         model, params, mesh=dmesh))}
+    # the draft model with the tensor axis across: refused at build
+    out["draft"] = draft_refusal(model, placed, mesh)
     out["seq_long"] = InferenceEngine(
         model, params, mesh=make_hybrid_mesh(MeshConfig(seq=n), devs)
     ).generate_long(LONG_PROMPT, sp).tokens.tolist()
@@ -306,8 +361,12 @@ def run_jax_axes(pid, n, port, outdir):
                 for p in GEN_PROMPTS]
         sched.run_until_done()
         out[f"{axis}_serve"] = [r.output for r in reqs]
+        # the draft model with this axis across: fails at its first spec
+        # block
+        out[f"{axis}_draft"] = _jax_draft(model, sp, mesh)
     with open(os.path.join(outdir, f"jax_axes{pid}.json"), "w") as f:
         json.dump(out, f)
+    _jax_exit(jax)
 
 
 def _held(tree):
@@ -443,6 +502,8 @@ def run_port_axes(pid, n, port, outdir, wdir):
         mesh = make_hybrid_mesh(MeshConfig(**{axis: n}), devs)
         out[axis] = axes_runs(mesh, axis, params, cfg,
                               TC.Model(cfg, device="cpu"))
+        out[f"{axis}_draft"] = draft_refusal(TC.Model(cfg, device="cpu"),
+                                             params, mesh)
         # a run of two shards a process: 4 shards over the two
         four = [GlobalDevice(i, torch.device("cpu"), i * n // 4, 0)
                 for i in range(4)]
@@ -471,21 +532,45 @@ def run_port_axes(pid, n, port, outdir, wdir):
         json.dump(out, f)
 
 
-def _jax_serve(model, params, rt, mesh, prompts):
+def _jax_serve(model, params, rt, mesh, prompts, new=SERVE_NEW):
     from butterfly_tpu.engine.serving import ServingEngine
     from butterfly_tpu.sched.scheduler import Scheduler
     sched = Scheduler(ServingEngine(model, params, rt, mesh=mesh))
-    reqs = [sched.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    reqs = [sched.submit(p, max_new_tokens=new) for p in prompts]
     sched.run_until_done()
     return [r.output for r in reqs], sched
 
 
-def run_jax_seq(pid, n, port, outdir):
+def _jax_draft(model, params, mesh, tree=False):
+    """The JAX package's Scheduler with the draft model (DRAFT_RT; a
+    token tree with `tree`) on GEN_PROMPTS, GEN_NEW new tokens each: its
+    tokens, or (type, message) of its failure."""
+    from butterfly_tpu.core.config import RuntimeConfig
+    rt = RuntimeConfig(**DRAFT_RT, **(DRAFT_TREE if tree else {}))
+    got = []
+    err = _error(lambda: got.append(_jax_serve(
+        model, params, rt, mesh, GEN_PROMPTS, new=GEN_NEW)[0]))
+    return err or got[0]
+
+
+def _jax_exit(jax):
+    """Leave the coordination service together (the first process hosts
+    it: leaving alone, it takes the others down), then exit: a JAX
+    process that failed a read-back or a spec block does not exit on its
+    own."""
+    jax.distributed.shutdown()
+    os._exit(0)
+
+
+def run_jax_seq(pid, n, port, outdir, part="main"):
     """The JAX package with seq = n across the processes (one device a
     process: generate_long ring and Ulysses, the Scheduler's long-prompt
     lane), then data = 2 inside each process beside each of tensor,
     stage, expert and seq across them (two CPU devices a process, the
-    mesh over jax.devices() in the order [d0, d2, d1, d3])."""
+    mesh over jax.devices() in the order [d0, d2, d1, d3]). With part
+    "draft" a job of its own runs only the Scheduler with the draft
+    model on the seq mesh, beside the main job (`jax_seq_draft<pid>.json`),
+    so that neither outlasts its time bound."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     from butterfly_tpu.core.config import MeshConfig, RuntimeConfig, tiny
@@ -509,6 +594,15 @@ def run_jax_seq(pid, n, port, outdir):
     cfg, model, params = trees["llama"]
     # seq across: one device of each process
     smesh = make_hybrid_mesh(MeshConfig(seq=n), devs[::len(devs) // n])
+    if part == "draft":
+        # the draft model with the seq axis across (its token tree and the
+        # meshes with tensor or data inside give the same tokens: ROADMAP.md
+        # Queue 1 item 2 records those runs)
+        out["seq_draft"] = _jax_draft(model, shard_params(params, cfg, smesh),
+                                      smesh)
+        with open(os.path.join(outdir, f"jax_seq_draft{pid}.json"), "w") as f:
+            json.dump(out, f)
+        _jax_exit(jax)
     eng = InferenceEngine(model, shard_params(params, cfg, smesh),
                           mesh=smesh)
     for impl in ("ring", "ulysses"):
@@ -538,6 +632,7 @@ def run_jax_seq(pid, n, port, outdir):
                 model, sp, RuntimeConfig(**SERVE_RT), mesh, GEN_PROMPTS)
     with open(os.path.join(outdir, f"jax_seq{pid}.json"), "w") as f:
         json.dump(out, f)
+    _jax_exit(jax)
 
 
 def seq_runs(mesh, params, cfg, model):
@@ -570,6 +665,8 @@ def seq_runs(mesh, params, cfg, model):
     out["serve_int8"], _ = lane_serve(model, params, RuntimeConfig(
         kv_quant="int8", seq_parallel_threshold=SEQ_THRESHOLD, **SERVE_RT),
         mesh)
+    out["draft"] = draft_serve(model, params, mesh)
+    out["draft_tree"] = draft_serve(model, params, mesh, tree=True)
     # the forward's logits (every shard's, gathered) and one decode step
     reps = replicate_params(params, mesh)
     out["trees"] = [t is None for t in reps.trees[0]]
@@ -614,6 +711,7 @@ def inside_runs(mesh, axis, params, cfg, model):
         out["serve"], out["lane_tokens"] = lane_serve(
             model, params, RuntimeConfig(
                 seq_parallel_threshold=SEQ_THRESHOLD, **SERVE_RT), mesh)
+        out["draft"] = draft_serve(model, params, mesh)["tokens"]
     else:
         out["serve"] = serve(model, params, RuntimeConfig(**SERVE_RT), mesh)
     return out
@@ -656,6 +754,13 @@ def run_port_seq(pid, n, port, outdir, wdir):
         out[f"data2_{axis}"] = inside_runs(mesh, axis, params, cfg, model)
         out[f"data2_{axis}"]["processes"] = mesh.processes.reshape(
             -1).tolist()
+    # the draft model with seq across beside tensor = 2 inside
+    cfg, model, params = trees["llama"]
+    mesh = make_hybrid_mesh(MeshConfig(seq=n, tensor=2), inside_devices(n),
+                            dcn_axes=("seq",))
+    out["seq_tensor2_draft"] = {
+        "tokens": draft_serve(model, params, mesh)["tokens"],
+        "processes": mesh.processes.reshape(-1).tolist()}
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     with open(os.path.join(outdir, f"port_seq{pid}.json"), "w") as f:
@@ -779,10 +884,7 @@ def run_jax_two(pid, n, port, outdir, layouts):
               "w") as f:
         json.dump(out, f)
     print(f"jax_two{pid} done", flush=True)
-    # every process leaves the coordination service together (the first
-    # hosts it: leaving alone, it takes the others down)
-    jax.distributed.shutdown()
-    os._exit(0)
+    _jax_exit(jax)
 
 
 def _held_leaves(tree, path=""):
@@ -847,8 +949,9 @@ def two_runs(mesh, axes, params, cfg, model):
     """The port's runs on `mesh`: what each process holds, the logits
     (two_logits), greedy generate (fused and stepped), temperature 1.0
     and the Scheduler's tokens; under seq also generate_long (ring) and
-    the Scheduler with the long-prompt lane. A refusal is recorded as
-    {"error": (type, message)}."""
+    the Scheduler with the long-prompt lane; whether a ServingEngine with
+    the draft model builds ("draft": None, or its refusal). A refusal of
+    the mesh is recorded as {"error": (type, message)}."""
     from butterfly_tpu_torch.core.config import RuntimeConfig
     from butterfly_tpu_torch.engine.engine import InferenceEngine
     from butterfly_tpu_torch.engine.sampling import SamplingParams
@@ -857,7 +960,8 @@ def two_runs(mesh, axes, params, cfg, model):
         placed = shard_params(params, cfg, mesh)
     except Exception as e:   # noqa: BLE001 - recorded for the test
         return {"error": [type(e).__name__, str(e)]}
-    out = {"held": _held_leaves(placed)}
+    out = {"held": _held_leaves(placed),
+           "draft": draft_refusal(model, placed, mesh)}
     out.update(two_logits(mesh, axes, params, cfg))
     eng = InferenceEngine(model, placed, mesh=mesh)
     sp = SamplingParams(max_new_tokens=GEN_NEW)
@@ -935,7 +1039,7 @@ if __name__ == "__main__":
     elif mode == "jax_axes":
         run_jax_axes(pid, n, port, outdir)
     elif mode == "jax_seq":
-        run_jax_seq(pid, n, port, outdir)
+        run_jax_seq(pid, n, port, outdir, *sys.argv[6:7])
     elif mode == "port_seq":
         run_port_seq(pid, n, port, outdir, sys.argv[6])
     elif mode == "jax_two":
